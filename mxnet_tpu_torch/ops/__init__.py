@@ -1,0 +1,3 @@
+"""Operator implementations on torch tensors; importing registers them."""
+from . import registry
+from . import elemwise, matrix, indexing, nn, init_ops, attention  # noqa: F401

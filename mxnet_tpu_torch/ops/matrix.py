@@ -1,0 +1,83 @@
+"""Shape-manipulation ops (subset).
+
+PyTorch counterpart of the part of ``mxnet_tpu/ops/matrix.py`` the
+transformer graph uses: ``Reshape`` with MXNet's special codes,
+``transpose``, ``expand_dims``, ``slice_axis`` and ``Concat``.  Reshape,
+transpose and slicing return views where torch can; ops that need
+contiguous memory (the attention kernel) make it themselves.
+"""
+from __future__ import annotations
+
+import torch
+
+from .registry import register
+
+
+def reshape_target(src_shape, shape=(), reverse=False):
+    """Target shape of MXNet reshape with special codes 0 (copy dim),
+    -1 (infer), -2 (copy rest), -3 (merge two dims), -4 (split dim) —
+    reference matrix_op.cc."""
+    shape = tuple(int(s) for s in shape)
+    src = list(src_shape)
+    if reverse:
+        src = src[::-1]
+        shape = tuple(reversed(shape))
+    out = []
+    i = 0  # index into src
+    j = 0
+    while j < len(shape):
+        s = shape[j]
+        if s == 0:
+            out.append(src[i]); i += 1
+        elif s == -1:
+            out.append(-1); i += 1
+        elif s == -2:
+            out.extend(src[i:]); i = len(src)
+        elif s == -3:
+            out.append(src[i] * src[i + 1]); i += 2
+        elif s == -4:
+            d1, d2 = shape[j + 1], shape[j + 2]
+            if d1 == -1:
+                d1 = src[i] // d2
+            if d2 == -1:
+                d2 = src[i] // d1
+            out.extend([d1, d2]); i += 1; j += 2
+        else:
+            out.append(s); i += 1
+        j += 1
+    if reverse:
+        out = out[::-1]
+    return tuple(out)
+
+
+@register("Reshape", arg_names=["data"], aliases=("reshape",),
+          attr_defaults={"shape": (), "reverse": False})
+def _reshape(data, shape=(), reverse=False, **kw):
+    """MXNet reshape with special codes (see :func:`reshape_target`)."""
+    return data.reshape(reshape_target(data.shape, shape, reverse))
+
+
+@register("transpose", arg_names=["data"], attr_defaults={"axes": ()})
+def _transpose(data, axes=(), **kw):
+    axes = tuple(axes) or tuple(reversed(range(data.dim())))
+    return data.permute(axes)
+
+
+@register("expand_dims", arg_names=["data"], attr_defaults={"axis": 0})
+def _expand_dims(data, axis=0, **kw):
+    return data.unsqueeze(int(axis))
+
+
+@register("slice_axis", arg_names=["data"],
+          attr_defaults={"axis": 0, "begin": 0, "end": None})
+def _slice_axis(data, axis=0, begin=0, end=None, **kw):
+    idx = [slice(None)] * data.dim()
+    idx[int(axis)] = slice(begin, end)
+    return data[tuple(idx)]
+
+
+@register("Concat", variadic=True, aliases=("concat",),
+          attr_defaults={"dim": 1, "num_args": 0})
+def _concat(*args, dim=1, num_args=0, **kw):
+    """reference: src/operator/concat.cc"""
+    return torch.cat(args, dim=int(dim))

@@ -1,0 +1,456 @@
+"""Symbol: the declarative graph frontend.
+
+PyTorch counterpart of ``mxnet_tpu/symbol/symbol.py``.  A Symbol is a list
+of (node, output-index) heads over a DAG of ``Node`` objects; binding it
+builds a plain function on tensors (:func:`mxnet_tpu_torch.executor.
+build_interpreter`).  Graph JSON save/load keeps the nnvm layout of the
+JAX package (nodes / arg_nodes / heads), so a graph saved by either
+package loads in the other.
+
+Shape inference runs forward over the graph: parameter shapes are filled
+from the data shapes by per-op rules (FullyConnected, LayerNorm,
+Embedding), and every op's shape comes from running its torch function on
+``device="meta"`` tensors, which carry shapes and no data.  The JAX
+package's bidirectional pre-pass, which resolves unknown (0) dims from
+constraints elsewhere in the graph, is not ported yet.
+"""
+from __future__ import annotations
+
+import json
+import numbers
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+from .. import name as _name
+from ..ops import registry as _reg
+
+
+class Node:
+    """One graph node: an op application or (op=None) a variable."""
+    __slots__ = ("op", "name", "attrs", "inputs", "_user_attrs")
+
+    def __init__(self, op: Optional[str], name: str, attrs: dict,
+                 inputs: List[Tuple["Node", int]], user_attrs=None):
+        self.op = op
+        self.name = name
+        self.attrs = attrs
+        self.inputs = inputs
+        self._user_attrs = dict(user_attrs or {})
+
+    @property
+    def is_variable(self):
+        return self.op is None
+
+
+def node_num_outputs(node: Node) -> int:
+    if node.op is None:
+        return 1
+    opdef = _reg.get(node.op)
+    n = opdef.num_visible if opdef.num_visible is not None \
+        else opdef.num_outputs
+    return 1 if n == -1 else n
+
+
+def _topo_sort(heads: Sequence[Tuple[Node, int]]) -> List[Node]:
+    order: List[Node] = []
+    visited = set()
+    for head, _ in heads:
+        stack = [(head, False)]
+        while stack:
+            n, processed = stack.pop()
+            if processed:
+                order.append(n)
+                continue
+            if id(n) in visited:
+                continue
+            visited.add(id(n))
+            stack.append((n, True))
+            for inp, _ in reversed(n.inputs):
+                if id(inp) not in visited:
+                    stack.append((inp, False))
+    return order
+
+
+# ---------------------------------------------------------------------------
+# parameter-shape inference hooks (reference: per-op InferShape filling
+# unknown arg shapes, e.g. FullyConnectedProp::InferShape)
+# ---------------------------------------------------------------------------
+def _fc_param_shapes(attrs, in_shapes):
+    data = in_shapes.get("data")
+    if data is None:
+        return {}
+    nh = int(attrs.get("num_hidden", 0))
+    flatten = attrs.get("flatten", True)
+    in_dim = int(np.prod(data[1:])) if flatten else data[-1]
+    out = {"weight": (nh, in_dim)}
+    if not attrs.get("no_bias", False):
+        out["bias"] = (nh,)
+    return out
+
+
+def _ln_param_shapes(attrs, in_shapes):
+    data = in_shapes.get("data")
+    if data is None:
+        return {}
+    ax = int(attrs.get("axis", -1)) % len(data)
+    return {"gamma": (data[ax],), "beta": (data[ax],)}
+
+
+def _embedding_param_shapes(attrs, in_shapes):
+    return {"weight": (int(attrs["input_dim"]), int(attrs["output_dim"]))}
+
+
+PARAM_SHAPE_INFER = {
+    "FullyConnected": _fc_param_shapes,
+    "LayerNorm": _ln_param_shapes,
+    "Embedding": _embedding_param_shapes,
+}
+
+
+def _skip_args(op: str, attrs: dict) -> set:
+    """Args an op drops depending on its attrs (reference: each op's
+    ListArguments respects flags like no_bias)."""
+    opdef = _reg.find(op)
+    no_bias_default = (opdef.attr_defaults.get("no_bias", False)
+                       if opdef else False)
+    if attrs.get("no_bias", no_bias_default) in (True, "True", "true", 1):
+        return {"bias"}
+    return set()
+
+
+class Symbol:
+    """A list of output heads over the op DAG (reference Symbol semantics)."""
+    __slots__ = ("_heads",)
+
+    def __init__(self, heads: List[Tuple[Node, int]]):
+        self._heads = list(heads)
+
+    # -- identity -----------------------------------------------------------
+    @property
+    def name(self):
+        if len(self._heads) == 1:
+            return self._heads[0][0].name
+        return None
+
+    def __repr__(self):
+        names = ", ".join(n.name for n, _ in self._heads)
+        return f"<Symbol {names}>"
+
+    def __len__(self):
+        return len(self._expanded_heads())
+
+    def _expanded_heads(self) -> List[Tuple[Node, int]]:
+        out = []
+        for node, idx in self._heads:
+            if idx is None:
+                out.extend((node, i) for i in range(node_num_outputs(node)))
+            else:
+                out.append((node, idx))
+        return out
+
+    @property
+    def heads(self):
+        return self._expanded_heads()
+
+    # -- graph introspection ------------------------------------------------
+    def nodes(self) -> List[Node]:
+        return _topo_sort(self._expanded_heads())
+
+    def list_arguments(self) -> List[str]:
+        return [n.name for n in self.nodes()
+                if n.is_variable and not n._user_attrs.get("__is_aux__")]
+
+    def list_outputs(self) -> List[str]:
+        names = []
+        for node, idx in self._expanded_heads():
+            if node.is_variable:
+                names.append(node.name)
+            elif node_num_outputs(node) == 1:
+                names.append(node.name + "_output")
+            else:
+                names.append(f"{node.name}_output{idx}")
+        return names
+
+    def list_auxiliary_states(self) -> List[str]:
+        return [n.name for n in self.nodes()
+                if n.is_variable and n._user_attrs.get("__is_aux__")]
+
+    # -- shape inference ----------------------------------------------------
+    def infer_shape(self, *args, **kwargs):
+        """(arg_shapes, out_shapes, aux_shapes) from the given input
+        shapes, positional in ``list_arguments`` order or by name."""
+        try:
+            return self._infer_shape_impl(*args, **kwargs)
+        except MXNetError:
+            raise
+        except Exception as e:
+            raise MXNetError(f"infer_shape error: {e}")
+
+    def _infer_shape_impl(self, *args, **kwargs):
+        arg_names = self.list_arguments()
+        known: Dict[str, tuple] = {}
+        for n, s in zip(arg_names, args):
+            if s is not None:
+                known[n] = tuple(s)
+        known.update({k: tuple(v) for k, v in kwargs.items()
+                      if v is not None})
+        shapes = _infer_graph_shapes(self, known)
+        arg_shapes = [shapes.get(n) for n in arg_names]
+        aux_shapes = [shapes.get(n) for n in self.list_auxiliary_states()]
+        missing = [n for n, s in zip(arg_names, arg_shapes) if s is None]
+        if missing:
+            raise MXNetError(f"infer_shape: cannot infer shapes for {missing}")
+        return arg_shapes, shapes["__outputs__"], aux_shapes
+
+    # -- save/load ----------------------------------------------------------
+    def tojson(self):
+        nodes = self.nodes()
+        node_index = {id(n): i for i, n in enumerate(nodes)}
+        jnodes = []
+        for n in nodes:
+            jn = {
+                "op": n.op if n.op else "null",
+                "name": n.name,
+                "inputs": [[node_index[id(src)], idx, 0]
+                           for src, idx in n.inputs],
+            }
+            attrs = {k: _attr_to_str(v) for k, v in n.attrs.items()}
+            attrs.update({k: str(v) for k, v in n._user_attrs.items()})
+            if attrs:
+                jn["attrs"] = attrs
+            jnodes.append(jn)
+        heads = [[node_index[id(n)], i, 0] for n, i in self._expanded_heads()]
+        arg_nodes = [i for i, n in enumerate(nodes) if n.is_variable]
+        return json.dumps({
+            "nodes": jnodes,
+            "arg_nodes": arg_nodes,
+            "node_row_ptr": list(range(len(nodes) + 1)),
+            "heads": heads,
+            "attrs": {"mxnet_version": ["int", 1200]},
+        }, indent=2)
+
+    # -- arithmetic (reference symbol.py operator overloads) ----------------
+    def _binop(self, other, op, scalar_op, rop=False):
+        if isinstance(other, Symbol):
+            a, b = (other, self) if rop else (self, other)
+            return _compose(op, [a, b], {}, None)
+        if isinstance(other, numbers.Number):
+            return _compose(scalar_op, [self], {"scalar": float(other)}, None)
+        return NotImplemented
+
+    def __add__(self, o): return self._binop(o, "broadcast_add", "_plus_scalar")
+    __radd__ = __add__
+    def __sub__(self, o): return self._binop(o, "broadcast_sub", "_minus_scalar")
+    def __rsub__(self, o): return self._binop(o, "broadcast_sub", "_rminus_scalar", rop=True)
+    def __mul__(self, o): return self._binop(o, "broadcast_mul", "_mul_scalar")
+    __rmul__ = __mul__
+    def __truediv__(self, o): return self._binop(o, "broadcast_div", "_div_scalar")
+
+    def __hash__(self):
+        return id(self)
+
+
+def _attr_to_str(v):
+    if isinstance(v, bool):
+        return str(v)
+    if isinstance(v, (tuple, list)):
+        return "(" + ", ".join(str(x) for x in v) + ")"
+    return str(v)
+
+
+# ---------------------------------------------------------------------------
+# composition (reference: MXSymbolCreateAtomicSymbol + Compose)
+# ---------------------------------------------------------------------------
+def _compose(op_name: str, inputs: List[Symbol], attrs: dict,
+             name: Optional[str], user_attr: Optional[dict] = None) -> Symbol:
+    opdef = _reg.get(op_name)
+    attrs = {k: v for k, v in attrs.items() if v is not None}
+    hint = op_name.lower().lstrip("_")
+    name = _name.current().get(name, hint)
+    user_attrs = dict(user_attr or {})
+
+    heads: List[Tuple[Node, int]] = []
+    for s in inputs:
+        heads.extend(s._expanded_heads())
+
+    if not opdef.variadic:
+        # auto-create missing parameter/aux variables, named
+        # {node}_{arg} as in the reference's Compose
+        arg_names = list(opdef.arg_names or [])
+        aux_names = list(opdef.aux_names or [])
+        skip = _skip_args(op_name, attrs)
+        wanted = [a for a in arg_names + aux_names if a not in skip]
+        for extra in wanted[len(heads):]:
+            is_aux = extra in aux_names
+            v = Variable(f"{name}_{extra}", attr=user_attr,
+                         __is_aux__="1" if is_aux else None)
+            heads.extend(v._expanded_heads())
+
+    node = Node(op_name, name, attrs, heads, user_attrs)
+    return Symbol([(node, None)])
+
+
+def var(name, attr=None, shape=None, dtype=None, **kwargs) -> Symbol:
+    """Create a variable symbol (reference: symbol.py var/Variable)."""
+    if not isinstance(name, str):
+        raise TypeError("Expect a string for variable name")
+    user_attrs = dict(attr or {})
+    if shape is not None:
+        user_attrs["__shape__"] = str(tuple(shape))
+    if dtype is not None:
+        user_attrs["__dtype__"] = np.dtype(dtype).name
+    for k, v in kwargs.items():
+        if v is not None:
+            user_attrs[k] = str(v)
+    user_attrs = {k: v for k, v in user_attrs.items() if v is not None}
+    return Symbol([(Node(None, name, {}, [], user_attrs), None)])
+
+
+Variable = var
+
+
+def Group(symbols) -> Symbol:
+    heads = []
+    for s in symbols:
+        if not isinstance(s, Symbol):
+            raise TypeError("Group expects Symbols")
+        heads.extend(s._expanded_heads())
+    return Symbol(heads)
+
+
+def load_json(json_str: str) -> Symbol:
+    """Rebuild a Symbol from nnvm-layout JSON (as ``tojson`` of either
+    package writes it)."""
+    g = json.loads(json_str)
+    nodes: List[Node] = []
+    for jn in g["nodes"]:
+        attrs = dict(jn.get("attrs", jn.get("param", {})) or {})
+        user_attrs = {k: v for k, v in attrs.items()
+                      if k.startswith("__") or k in ("ctx_group",)}
+        op = jn["op"]
+        if op == "null":
+            node = Node(None, jn["name"], {}, [], user_attrs)
+        else:
+            opdef = _reg.find(op)
+            if opdef is None:
+                raise MXNetError(f"cannot load graph: unknown op {op!r}")
+            op_attrs = {k: _parse_attr(v)
+                        for k, v in attrs.items() if not k.startswith("__")}
+            inputs = [(nodes[e[0]], e[1]) for e in jn["inputs"]]
+            node = Node(op, jn["name"], op_attrs, inputs, user_attrs)
+        nodes.append(node)
+    return Symbol([(nodes[e[0]], e[1]) for e in g["heads"]])
+
+
+def _parse_attr(v):
+    """Parse a stringified attr back to python (tuples, bools, numbers)."""
+    if not isinstance(v, str):
+        return v
+    s = v.strip()
+    if s in ("True", "true"):
+        return True
+    if s in ("False", "false"):
+        return False
+    if s in ("None", ""):
+        return None
+    if s.startswith("(") or s.startswith("["):
+        parts = [p.strip() for p in s[1:-1].split(",") if p.strip()]
+        return tuple(_parse_attr(p) for p in parts)
+    try:
+        return int(s)
+    except ValueError:
+        pass
+    try:
+        return float(s)
+    except ValueError:
+        pass
+    return v
+
+
+# ---------------------------------------------------------------------------
+# forward shape inference on meta tensors
+# ---------------------------------------------------------------------------
+_META = torch.device("meta")
+
+
+def _infer_graph_shapes(sym: Symbol, known_shapes: Dict[str, tuple]):
+    """Forward abstract interpretation with parameter-shape back-fill.
+    Returns a dict keyed by variable name, plus ``"__outputs__"`` listing
+    per-head shapes."""
+    nodes = _topo_sort(sym._expanded_heads())
+    var_shape: Dict[int, Optional[tuple]] = {}
+    val: Dict[Tuple[int, int], torch.Tensor] = {}
+
+    def meta(shape):
+        return torch.empty(tuple(shape), dtype=torch.float32, device=_META)
+
+    for n in nodes:
+        if n.is_variable:
+            shp = known_shapes.get(n.name)
+            if shp is None and "__shape__" in n._user_attrs:
+                shp = _parse_attr(n._user_attrs["__shape__"])
+            var_shape[id(n)] = tuple(shp) if shp else None
+            if shp:
+                val[(id(n), 0)] = meta(shp)
+            continue
+        opdef = _reg.get(n.op)
+        infer_hook = PARAM_SHAPE_INFER.get(n.op)
+        if infer_hook:
+            names = [a for a in (opdef.arg_names or [])
+                     + (opdef.aux_names or [])
+                     if a not in _skip_args(n.op, n.attrs)]
+            argmap = dict(zip(names, n.inputs))
+            in_shapes = {an: tuple(val[(id(src), idx)].shape)
+                         for an, (src, idx) in argmap.items()
+                         if (id(src), idx) in val}
+            for an, shp in infer_hook(n.attrs, in_shapes).items():
+                src, idx = argmap.get(an, (None, None))
+                if src is not None and src.is_variable \
+                        and var_shape.get(id(src)) is None:
+                    var_shape[id(src)] = tuple(shp)
+                    val[(id(src), 0)] = meta(shp)
+        missing = [(src, idx) for src, idx in n.inputs
+                   if (id(src), idx) not in val]
+        if missing:
+            # same-shape mirroring: an unknown variable input takes the
+            # shape of the first known one (labels of loss heads)
+            knowns = [val[(id(s), i)] for s, i in n.inputs
+                      if (id(s), i) in val]
+            if not knowns or not all(s.is_variable for s, _ in missing):
+                raise MXNetError(
+                    f"infer_shape: insufficient information at node "
+                    f"{n.name!r} ({n.op})")
+            for src, idx in missing:
+                val[(id(src), idx)] = knowns[0]
+                var_shape[id(src)] = tuple(knowns[0].shape)
+        outs = _eval_node_meta(n, opdef,
+                               [val[(id(s), i)] for s, i in n.inputs])
+        for i, t in enumerate(outs):
+            val[(id(n), i)] = t
+
+    shapes = {"__outputs__": [
+        tuple(val[(id(hn), hi)].shape) for hn, hi in sym._expanded_heads()]}
+    for n in nodes:
+        if n.is_variable:
+            shapes[n.name] = var_shape.get(id(n))
+    return shapes
+
+
+def _eval_node_meta(n: Node, opdef: _reg.OpDef, ins):
+    kwargs = dict(n.attrs)
+    if opdef.takes_is_train:
+        kwargs["is_train"] = False
+    if not n.inputs:
+        kwargs["device"] = _META
+    out = opdef.fn(*ins, **kwargs)
+    out = out if isinstance(out, (tuple, list)) else (out,)
+    return list(out)[:node_num_outputs(n)]
+
+
+def arange(start, stop=None, step=1.0, repeat=1, name=None, dtype="float32"):
+    return _compose("_arange", [], {"start": start, "stop": stop,
+                                    "step": step, "repeat": repeat,
+                                    "dtype": np.dtype(dtype).name}, name)

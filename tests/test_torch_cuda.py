@@ -1,0 +1,112 @@
+"""Card-only tests of the PyTorch port: the hand-written CUDA kernels
+against their plain versions, and the serving slice on ``cuda:0``.  They
+need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip without one.
+This file imports neither JAX nor the JAX package, so it runs on a
+machine that has only PyTorch:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
+"""
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu_torch as mt
+from mxnet_tpu_torch.ops import attention as att
+from mxnet_tpu_torch.serving import BucketedPredictor
+
+pytestmark = pytest.mark.cuda
+
+# kernel vs plain version on the same inputs; both compute in f32, and a
+# bf16 output may differ by the rounding of a near-tie (2**-8 relative)
+TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+# B, H, Hk, Sq, Sk, D, causal
+CASES = [
+    (2, 2, 2, 48, 48, 32, False),
+    (2, 2, 2, 48, 48, 32, True),
+    (1, 4, 2, 37, 37, 64, True),
+    (1, 4, 1, 40, 40, 64, True),
+    (1, 2, 2, 20, 130, 64, True),
+    (1, 2, 2, 130, 20, 32, True),
+    (2, 4, 2, 70, 200, 128, False),
+    (2, 4, 4, 130, 130, 128, True),
+]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _qkv(dev, dtype, B, H, Hk, Sq, Sk, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                 .to(dev, dtype)
+                 for s in ((B, H, Sq, D), (B, Hk, Sk, D), (B, Hk, Sk, D)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_version(dev, dtype):
+    before = att.flash_fwd_cuda.launches
+    for case in CASES:
+        *shape, causal = case
+        q, k, v = _qkv(dev, dtype, *shape)
+        out, lse = att.flash_attention(q, k, v, causal, None,
+                                       return_lse=True)
+        ref, ref_lse = att._attn_reference(q, k, v, causal, None,
+                                           return_lse=True)
+        assert out.dtype == dtype and lse.dtype == torch.float32
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    assert att.flash_fwd_cuda.launches == before + len(CASES)
+
+
+def test_kernel_refuses_what_it_does_not_take(dev):
+    q, k, v = _qkv(dev, torch.float32, 1, 2, 2, 16, 16, 48)
+    with pytest.raises(mt.MXNetError, match="head dim"):
+        att.flash_fwd_cuda(q, k, v)
+    q, k, v = _qkv(dev, torch.float16, 1, 2, 2, 16, 16, 64)
+    with pytest.raises(mt.MXNetError, match="dtype"):
+        att.flash_fwd_cuda(q, k, v)
+    q, k, v = _qkv(dev, torch.float32, 1, 2, 2, 16, 16, 64)
+    with pytest.raises(mt.MXNetError, match="contiguous"):
+        att.flash_fwd_cuda(q.transpose(1, 2), k, v)
+    # the op makes strided views contiguous itself
+    strided = q.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not strided.is_contiguous()
+    out = mt.ops.registry.get("_contrib_FlashAttention")(
+        strided, k, v, causal=True)
+    torch.testing.assert_close(out, att._attn_reference(q, k, v, True, None),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_small_lm_served_on_card_matches_cpu(dev):
+    """fp32 on the card (kernel) against the CPU (plain path), in
+    log-probability within 1e-4; every dispatch launches the kernel once
+    per layer."""
+    V, S, L = 50, 64, 2
+    net = mt.models.transformer_lm(V, S, num_layers=L, d_model=128,
+                                   num_heads=4, num_kv_heads=2)
+    shapes = dict(zip(net.list_arguments(),
+                      net.infer_shape(data=(1, S), softmax_label=(1, S))[0]))
+    rng = np.random.default_rng(1)
+    params = {n: (rng.standard_normal(s, dtype=np.float32) * 0.1)
+              for n, s in shapes.items()
+              if n not in ("data", "softmax_label")}
+    req = {"data": rng.integers(0, V, (3, S), dtype=np.int32),
+           "softmax_label": np.zeros((3, S), np.float32)}
+    outs = {}
+    for name, ctx in (("card", mt.gpu(0)), ("cpu", mt.cpu())):
+        pred = BucketedPredictor(net, {"data": (S,), "softmax_label": (S,)},
+                                 params, buckets=[2, 4], ctx=ctx,
+                                 data_dtypes={"data": np.int32})
+        before = att.flash_fwd_cuda.launches
+        outs[name] = pred.predict(req)[1][0]
+        assert att.flash_fwd_cuda.launches - before == (
+            L if name == "card" else 0)
+    diff = np.abs(np.log(outs["card"]) - np.log(outs["cpu"])).max()
+    assert diff <= 1e-4, diff

@@ -1,0 +1,73 @@
+"""The PyTorch port stands alone: importing ``mxnet_tpu_torch`` pulls in
+neither JAX nor the JAX package, builds no kernel and starts no CUDA
+context, and no file of the port (nor ``chip_smoke.py``) imports them."""
+import ast
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")
+
+
+def _forbidden(mod):
+    return any(mod == f or mod.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_import_loads_no_jax_and_no_cuda_context():
+    code = (
+        "import json, sys, torch\n"
+        "import mxnet_tpu_torch\n"
+        "print(json.dumps({'mods': sorted(sys.modules),\n"
+        "  'cuda_init': torch.cuda.is_initialized(),\n"
+        "  'libs': sorted(mxnet_tpu_torch.cuda_lib._libs)}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    bad = [m for m in out["mods"] if _forbidden(m)]
+    assert bad == [], bad
+    assert out["cuda_init"] is False
+    assert "mxnet_tpu_torch" in out["mods"]
+    assert out["libs"] == []       # no kernel library loaded or built
+
+
+def _sources():
+    pkg = os.path.join(ROOT, "mxnet_tpu_torch")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(pkg):
+        files += [os.path.join(dirpath, n) for n in names
+                  if n.endswith(".py")]
+    return files
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    offenders = []
+    files = _sources()
+    assert len(files) > 15
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                mods = [node.module or ""]
+            else:
+                continue
+            offenders += [(os.path.relpath(path, ROOT), m)
+                          for m in mods if _forbidden(m)]
+    assert offenders == []
+
+
+def test_kernel_sources_are_cuda_for_sm90a():
+    from mxnet_tpu_torch import cuda_lib
+    assert "arch=compute_90a,code=sm_90a" in cuda_lib.NVCC_FLAGS
+    for src in cuda_lib.SOURCES:
+        path = os.path.join(cuda_lib.CSRC_DIR, src)
+        with open(path) as f:
+            text = f.read()
+        assert "__global__" in text and 'extern "C"' in text
+        assert "scaled_dot_product_attention" not in text
