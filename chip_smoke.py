@@ -6,14 +6,18 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the hand-written kernels from ``mxnet_tpu_torch/csrc`` (into
-``build/``), holds each against its plain PyTorch version on the card,
-serves a GPT-2-small-width transformer LM (random weights from a seed)
-through ``DynamicBatcher`` -> ``BucketedPredictor`` on ``cuda:0``, checks
-the replies, and checks one full-width request in float32 against the
-same request served on the CPU.  Every phase prints one JSON line; any
-failed phase exits non-zero.  The last line is
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
-beside it, it exits non-zero and prints no result.
+``build/``), holds each against its plain PyTorch version on the card
+(flash-attention forward K1, backward dQ K2 and dK/dV K3), serves a
+GPT-2-small-width transformer LM (random weights from a seed) through
+``DynamicBatcher`` -> ``BucketedPredictor`` on ``cuda:0``, checks the
+replies and one full-width request in float32 against the CPU, then
+trains the same LM through ``Module`` + ``NDArrayIter`` on ``cuda:0``
+(bf16 compute, fp32 masters) and checks one float32 training step
+against the same step on the CPU.  Every phase prints one JSON line;
+any failed phase exits non-zero.  The line before the last lists the
+kernels with their launches on each path, times and bounds; the last
+line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+package beside it, it exits non-zero and prints no result.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -51,6 +55,33 @@ LSE_TOL = dict(atol=1e-4, rtol=1e-5)
 REPLY_LOGP_TOL = 0.1
 # card (kernel, TF32 off) vs CPU (plain path), fp32, log-probability
 FP32_LOGP_TOL = 1e-3
+# backward kernels vs their plain version: both accumulate in f32 in
+# another order; dK/dV sum up to Sq (x G) products of order 1, so f32
+# gets 1e-3 on gradients of order 1-10, and a bf16 output one bf16
+# rounding (2**-8 relative) after a near-tie on top
+BWD_TOL = {"float32": dict(atol=1e-3, rtol=1e-3),
+           "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+
+# training: the bench's initializer (benchmark/transformer_bench.py:91,
+# Xavier gaussian, magnitude 2) with Adam, which at full width (4 layers,
+# batch 1, fp32 on a CPU) falls smoothly over 15 steps where the bench's
+# SGD + momentum 0.9 spikes; TRAIN_STEPS steps on one fixed seeded batch
+# whose labels follow next = (3 * tok + 1) % V; the last loss must beat
+# the first by TRAIN_MARGIN nats (fixed in advance, not fitted to a run)
+TRAIN_BATCH = 8
+TRAIN_STEPS = 15
+TRAIN_LR = 3e-4
+TRAIN_MARGIN = 2.0
+# one fp32 Module step, card (kernels, TF32 off) vs CPU (plain path), at
+# full width with 2 layers and batch 1 (cut so that the CPU side takes
+# seconds): the loss within 1e-4 nats (a mean of 1024 f32 terms near
+# 10.8), and each parameter's update within 1e-3 of that update's
+# largest element (SGD lr 0.1: the update is the gradient, an f32 sum
+# over up to 1024 tokens taken in another order on each side)
+FP32_TRAIN_LAYERS = 2
+FP32_TRAIN_LR = 0.1
+FP32_LOSS_TOL = 1e-4
+FP32_UPDATE_RTOL = 1e-3
 
 
 T0 = time.monotonic()
@@ -77,18 +108,26 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(B, H, Hk, Sq, Sk, D, causal, dtype):
-    """Least time for one attention forward on an H100 SXM: q/k/v read
-    once and o written once over the memory rate, against the products
-    these inputs need (causal: only the k <= q pairs) over the peak rate
-    for the inputs' type."""
+def attention_bound_ms(B, H, Hk, Sq, Sk, D, causal, dtype, kind="fwd"):
+    """Least time for one attention kernel on an H100 SXM: each input
+    read once and each output written once over the memory rate, against
+    the products these inputs need (causal: only the k <= q pairs) over
+    the peak rate for the inputs' type.  ``kind``: ``fwd`` (K1: q, k, v
+    in, o out; s and P.V), ``dq`` (K2: q, k, v, dO, lse, delta in, dQ
+    out; s, dP and dS.K) or ``dkv`` (K3: q, k, v, dO, lse, delta in,
+    dK, dV out; s, dP, P^T.dO and dS^T.Q)."""
     esize = 2 if dtype == "bfloat16" else 4
-    nbytes = esize * (B * H * Sq * D * 2 + B * Hk * Sk * D * 2)
+    q_el, kv_el, rows = B * H * Sq * D, B * Hk * Sk * D, B * H * Sq
+    nbytes, products = {
+        "fwd": (esize * (2 * q_el + 2 * kv_el), 2),
+        "dq": (esize * (3 * q_el + 2 * kv_el) + 4 * 2 * rows, 3),
+        "dkv": (esize * (2 * q_el + 4 * kv_el) + 4 * 2 * rows, 4),
+    }[kind]
     if causal:
         pairs = sum(min(q + 1, Sk) for q in range(Sq))
     else:
         pairs = Sq * Sk
-    flops = 4.0 * B * H * D * pairs
+    flops = 2.0 * products * B * H * D * pairs
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -184,6 +223,85 @@ def phase_kernels(torch, mt):
     return results
 
 
+def phase_bwd_kernels(torch, mt):
+    """K2 and K3 against their plain version at the listed shapes (K1
+    with lse gives out and lse); time the main-path shape: each kernel
+    alone, the plain backward, and SDPA's backward (torch.autograd.grad
+    of its output, the yardstick; the port never calls it)."""
+    from mxnet_tpu_torch.ops import attention as att
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 10)
+    cases = [
+        # name, B, H, Hk, Sq, Sk, D, causal, dtype
+        ("main_bf16", 8, 12, 12, 1024, 1024, 64, True, "bfloat16"),
+        ("main_fp32", 8, 12, 12, 1024, 1024, 64, True, "float32"),
+        ("gqa_8to2_s300", 2, 8, 2, 300, 300, 64, True, "bfloat16"),
+        ("causal_sq100_sk300", 2, 4, 4, 100, 300, 64, True, "float32"),
+        ("causal_sq300_sk100", 2, 4, 4, 300, 100, 64, True, "float32"),
+        ("noncausal_d128", 2, 4, 4, 200, 200, 128, False, "bfloat16"),
+        ("mqa_d32", 2, 4, 1, 130, 130, 32, True, "float32"),
+    ]
+    results, failures = {}, []
+    for name, B, H, Hk, Sq, Sk, D, causal, dt in cases:
+        tdt = getattr(torch, dt)
+
+        def mk(*shape):
+            return torch.from_numpy(
+                rng.standard_normal(shape, dtype=np.float32)).to(dev, tdt)
+        q, k, v = mk(B, H, Sq, D), mk(B, Hk, Sk, D), mk(B, Hk, Sk, D)
+        g = mk(B, H, Sq, D)
+        out, lse = att.flash_fwd_cuda(q, k, v, causal, None,
+                                      return_lse=True)
+        got = att.flash_bwd_cuda(q, k, v, out, lse, g, causal)
+        ref = att._flash_bwd_reference(q, k, v, out, lse, g, causal, None)
+        torch.cuda.synchronize()
+        row = dict(shape=[B, H, Hk, Sq, Sk, D], causal=causal, dtype=dt,
+                   tol=BWD_TOL[dt])
+        for gname, a, b in zip(("dq", "dk", "dv"), got, ref):
+            a, b = a.float(), b.float()
+            err = (a - b).abs().max().item()
+            row[f"{gname}_max_abs_err"] = err
+            # the size of what is compared: an error of 0 (the kernels
+            # and cuBLAS's f32 products may sum in the same order) is
+            # not a comparison of zeros
+            row[f"{gname}_max_abs"] = b.abs().max().item()
+            if a.shape != b.shape or not torch.isfinite(a).all() \
+                    or not torch.allclose(a, b, **BWD_TOL[dt]):
+                failures.append(f"{name} {gname}: max |kernel - plain| "
+                                f"{err} beyond {BWD_TOL[dt]} (or shape / "
+                                "non-finite)")
+        del got, ref
+        if name.startswith("main"):
+            scale = 1.0 / D ** 0.5
+            delta = (g.float() * out.float()).sum(-1)
+            qr, kr, vr = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            sdpa = torch.nn.functional.scaled_dot_product_attention(
+                qr, kr, vr, is_causal=causal)
+            row.update(
+                dq_kernel_ms=time_ms(lambda: att.flash_bwd_dq_cuda(
+                    q, k, v, g, lse, delta, causal, scale)),
+                dkv_kernel_ms=time_ms(lambda: att.flash_bwd_dkv_cuda(
+                    q, k, v, g, lse, delta, causal, scale)),
+                plain_ms=time_ms(lambda: att._flash_bwd_reference(
+                    q, k, v, out, lse, g, causal, None), iters=3),
+                library_ms=time_ms(lambda: torch.autograd.grad(
+                    sdpa, (qr, kr, vr), g, retain_graph=True)))
+            del sdpa, qr, kr, vr
+            for kind in ("dq", "dkv"):
+                bound, by, flops, nbytes = attention_bound_ms(
+                    B, H, Hk, Sq, Sk, D, causal, dt, kind)
+                row.update({f"{kind}_bound_ms": bound, f"{kind}_bound_by": by,
+                            f"{kind}_flops": flops, f"{kind}_bytes": nbytes})
+        results[name] = row
+        emit("kernel_check_bwd", name=name, **row)
+    torch.cuda.empty_cache()
+    if failures:
+        raise RuntimeError("backward kernel checks failed: "
+                           + "; ".join(failures))
+    return results
+
+
 def gpt2_params(sym, seed):
     """Seeded random GPT-2-style weights (N(0, 0.02) matrices and
     biases, LayerNorm gamma near 1, beta near 0), as numpy."""
@@ -243,16 +361,17 @@ def phase_serve(torch, mt, sym, params_np):
 
         threads = [threading.Thread(target=client, args=(i,))
                    for i in range(len(reqs))]
-        # the main path: counts start at 0 here and are read right after
-        att.flash_fwd_cuda.launches = 0
-        mt.profiler.reset_dispatch_counts()
+        # the serving path: counts start at 0 here and are read right
+        # after
+        reset_counts(mt)
         t_start = time.monotonic()
         for th in threads:
             th.start()
         for th in threads:
             th.join(900)
         wall = time.monotonic() - t_start
-        launches = att.flash_fwd_cuda.launches
+        counts = read_counts(mt)
+        launches = counts["flash_fwd"]
         dispatches = mt.profiler.dispatch_counts().get("serving.predict", 0)
         batches = batcher.batches
     finally:
@@ -260,9 +379,12 @@ def phase_serve(torch, mt, sym, params_np):
     if any(r is None for r in replies):
         raise RuntimeError("a request got no reply")
     layers = GPT2_SMALL["num_layers"]
-    if launches != layers * dispatches or dispatches == 0:
-        raise RuntimeError(f"flash_fwd launches {launches} != {layers} x "
-                           f"{dispatches} predict dispatches")
+    if launches != layers * dispatches or dispatches == 0 \
+            or counts["flash_fwd_lse"] or counts["flash_bwd_dq"] \
+            or counts["flash_bwd_dkv"]:
+        raise RuntimeError(f"serving launches {counts} != {layers} x "
+                           f"{dispatches} predict dispatches of the "
+                           "lse-free forward and nothing else")
     worst, bit_equal = 0.0, 0
     for i, (req, reply) in enumerate(zip(reqs, replies)):
         status, payload = reply
@@ -286,11 +408,44 @@ def phase_serve(torch, mt, sym, params_np):
          setup_s=setup_s, wall_s=wall, tokens=tokens,
          tokens_per_s=tokens / wall, latency_ms=[x * 1e3 for x in lat],
          batches=batches, predict_dispatches=dispatches,
-         flash_fwd_launches=launches,
+         launches=counts,
          reply_vs_direct_max_logp_diff=worst,
          reply_vs_direct_tol=REPLY_LOGP_TOL,
          replies_bit_equal=bit_equal)
-    return launches, pred
+    return counts, pred
+
+
+def reset_counts(mt):
+    """Every kernel's launch count and the dispatch counters to 0."""
+    from mxnet_tpu_torch.ops import attention as att
+    att.flash_fwd_cuda.launches = 0
+    att.flash_fwd_cuda.lse_launches = 0
+    att.flash_bwd_cuda.dq_launches = 0
+    att.flash_bwd_cuda.dkv_launches = 0
+    mt.profiler.reset_dispatch_counts()
+
+
+def read_counts(mt):
+    from mxnet_tpu_torch.ops import attention as att
+    return {"flash_fwd": att.flash_fwd_cuda.launches,
+            "flash_fwd_lse": att.flash_fwd_cuda.lse_launches,
+            "flash_bwd_dq": att.flash_bwd_cuda.dq_launches,
+            "flash_bwd_dkv": att.flash_bwd_cuda.dkv_launches}
+
+
+def device_kernels(prof):
+    """[(ms, count, name)] of the kernels the card ran, by name, largest
+    first (torch.profiler's key_averages)."""
+    kernels = []
+    for e in prof.key_averages():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        ms = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0)) / 1e3
+        if ms > 0:
+            kernels.append((ms, e.count, e.key[:90]))
+    kernels.sort(reverse=True)
+    return kernels
 
 
 def phase_profile(torch, pred):
@@ -320,15 +475,7 @@ def phase_profile(torch, pred):
         _, outs = pred.forward_chunk(datas, n)
         torch.cuda.synchronize()
     del outs
-    kernels = []
-    for e in prof.key_averages():
-        if "cuda" not in str(getattr(e, "device_type", "")).lower():
-            continue
-        ms = (getattr(e, "self_device_time_total", None)
-              or getattr(e, "self_cuda_time_total", 0)) / 1e3
-        if ms > 0:
-            kernels.append((ms, e.count, e.key[:90]))
-    kernels.sort(reverse=True)
+    kernels = device_kernels(prof)
     busy = sum(k[0] for k in kernels)
     flash = sum(k[0] for k in kernels if "flash_fwd_kernel" in k[2])
     emit("profile", rows=n, tokens=n * S, predict_ms=predict_s * 1e3,
@@ -369,6 +516,173 @@ def phase_fp32(torch, mt, sym, params_np):
          gpu_s=outs["gpu"][1], cpu_s=outs["cpu"][1])
 
 
+def lm_batch(rng, B, S, V):
+    """(data, label) int32 (B, S): a random first token per row, then
+    next = (3 * tok + 1) % V — a rule a model can learn."""
+    toks = np.empty((B, S + 1), np.int64)
+    toks[:, 0] = rng.integers(0, V, B)
+    for t in range(S):
+        toks[:, t + 1] = (3 * toks[:, t] + 1) % V
+    return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
+
+
+def train_step(mod, batch):
+    mod.forward(batch, is_train=True)
+    mod.backward()
+    mod.update()
+
+
+def phase_train(torch, mt, sym):
+    """GPT-2-small width, all layers, through mt.mod.Module +
+    mt.io.NDArrayIter on cuda:0 in bf16 with fp32 masters: TRAIN_STEPS
+    steps on one seeded batch, launch counts reset just before and read
+    just after, the loss of every step from the CrossEntropy metric (one
+    readback per step), then one more step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    S, V, L = (GPT2_SMALL[k] for k in ("seq_len", "vocab_size",
+                                       "num_layers"))
+    B, D = TRAIN_BATCH, GPT2_SMALL["d_model"]
+    x, y = lm_batch(np.random.default_rng(SEED + 4), B, S, V)
+    t0 = time.monotonic()
+    it = mt.io.NDArrayIter({"data": x}, {"softmax_label": y}, batch_size=B)
+    mod = mt.mod.Module(sym, context=mt.gpu(0), compute_dtype="bfloat16")
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mt.random.seed(SEED)
+    mod.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                          magnitude=2.0))
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": TRAIN_LR})
+    batch = next(it)
+    args, _ = mod.get_params()
+    n_params = sum(int(np.prod(a.shape)) for a in args.values())
+    metric = mt.metric.CrossEntropy()
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+
+    # the training path: counts start at 0 here and are read right after
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mt)
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.monotonic()
+        train_step(mod, batch)
+        metric.reset()
+        mod.update_metric(metric, batch.label)
+        losses.append(metric.get()[1])
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t) * 1e3)
+    counts = read_counts(mt)
+    dispatch = mt.profiler.dispatch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = TRAIN_STEPS
+    want = {"flash_fwd": L * n, "flash_fwd_lse": L * n,
+            "flash_bwd_dq": L * n, "flash_bwd_dkv": L * n}
+    if counts != want or dispatch.get("module.update") != n \
+            or dispatch.get("module.backward") != n:
+        raise RuntimeError(f"train: launches {counts} / dispatches "
+                           f"{dispatch} over {n} steps, want {want} and "
+                           f"{n} updates and backwards")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"train: non-finite loss in {losses}")
+    if not losses[-1] < losses[0] - TRAIN_MARGIN:
+        raise RuntimeError(f"train: last loss {losses[-1]} does not beat "
+                           f"the first {losses[0]} by {TRAIN_MARGIN}")
+    out = mod.get_outputs()[0]
+    if out.shape != (B * S, V):
+        raise RuntimeError(f"train: output shape {out.shape}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        train_step(mod, batch)
+        torch.cuda.synchronize()
+        prof_step_ms = (time.monotonic() - t) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+
+    def kernel_ms(stem):
+        return sum(k[0] for k in kernels if stem in k[2])
+    tokens = B * S
+    # analytic fwd+bwd FLOPs, the formula of
+    # benchmark/transformer_bench.py:136-143 (copied): 6 N per token over
+    # the matmul parameters (all but the input embedding, a gather) plus
+    # the attention score/value term
+    flops = 6.0 * (n_params - V * D) * tokens + 12.0 * L * B * S * S * D
+    med = float(np.median(step_ms))
+    emit("train", model="gpt2-small-width", layers=L, batch=B, seq=S,
+         vocab=V, compute_dtype="bfloat16", masters="float32",
+         optimizer=f"adam lr {TRAIN_LR}",
+         initializer="xavier gaussian magnitude 2", setup_s=setup_s,
+         steps=n, losses=losses, margin=TRAIN_MARGIN, step_ms=step_ms,
+         median_step_ms=med, tokens_per_s=tokens / (med / 1e3),
+         n_params=n_params, flops_per_step=flops,
+         achieved_tflops=flops / (med / 1e3) / 1e12,
+         peak_mem_bytes=peak, launches=counts, dispatches=dispatch)
+    # the profiler slows the host, so the idle share is given against
+    # the profiled step and against the unprofiled median step
+    emit("train_profile", step_ms=prof_step_ms, device_busy_ms=busy,
+         device_idle_share_of_step=max(0.0, 1 - busy / prof_step_ms),
+         device_idle_share_of_median_step=max(0.0, 1 - busy / med),
+         flash_fwd_ms=kernel_ms("flash_fwd_kernel"),
+         flash_bwd_dq_ms=kernel_ms("flash_bwd_dq_kernel"),
+         flash_bwd_dkv_ms=kernel_ms("flash_bwd_dkv_kernel"),
+         top_kernels=[dict(ms=ms, count=c, name=k)
+                      for ms, c, k in kernels[:12]])
+    del mod, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_fp32(torch, mt):
+    """One fp32 Module step (SGD) at full width, FP32_TRAIN_LAYERS layers,
+    batch 1: the card (kernels, TF32 off) against the CPU (plain path),
+    from the same numpy weights on the same batch."""
+    cfg = dict(GPT2_SMALL, num_layers=FP32_TRAIN_LAYERS)
+    S, V = cfg["seq_len"], cfg["vocab_size"]
+    sym = mt.models.transformer_lm(**cfg)
+    params = gpt2_params(sym, SEED + 6)
+    x, y = lm_batch(np.random.default_rng(SEED + 5), 1, S, V)
+    res = {}
+    for name, ctx in (("gpu", mt.gpu(0)), ("cpu", mt.cpu())):
+        mod = mt.mod.Module(sym, context=ctx)
+        mod.bind([mt.io.DataDesc("data", (1, S), np.int32)],
+                 [mt.io.DataDesc("softmax_label", (1, S), np.int32)])
+        mod.init_params(arg_params=params)
+        mod.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": FP32_TRAIN_LR})
+        batch = mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                                [mt.nd.array(y, ctx=mt.cpu())])
+        t0 = time.monotonic()
+        train_step(mod, batch)
+        metric = mt.metric.CrossEntropy()
+        mod.update_metric(metric, batch.label)
+        loss = metric.get()[1]
+        secs = time.monotonic() - t0
+        new = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+        res[name] = (loss, new, secs)
+        del mod
+    (gl, gnew, gs), (cl, cnew, cs) = res["gpu"], res["cpu"]
+    worst, worst_name = 0.0, None
+    for n, w in params.items():
+        dg, dc = gnew[n] - w, cnew[n] - w
+        rel = float(np.abs(dg - dc).max() / max(np.abs(dc).max(), 1e-30))
+        if not np.isfinite(gnew[n]).all() or rel > FP32_UPDATE_RTOL:
+            raise RuntimeError(f"train fp32: {n} update differs by {rel} "
+                               f"of its largest element (> "
+                               f"{FP32_UPDATE_RTOL})")
+        if rel >= worst:
+            worst, worst_name = rel, n
+    if not np.isfinite(gl) or abs(gl - cl) > FP32_LOSS_TOL:
+        raise RuntimeError(f"train fp32: loss {gl} on the card, {cl} on "
+                           f"the CPU (tol {FP32_LOSS_TOL})")
+    emit("train_fp32_card_vs_cpu", layers=FP32_TRAIN_LAYERS, batch=1,
+         loss_gpu=gl, loss_cpu=cl, loss_tol=FP32_LOSS_TOL,
+         worst_update_rel_diff=worst, worst_param=worst_name,
+         update_rtol=FP32_UPDATE_RTOL, gpu_s=gs, cpu_s=cs)
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -391,25 +705,51 @@ def main():
     smi = phase_device(torch)
     phase_build(mt)
     checks = phase_kernels(torch, mt)
+    bwd = phase_bwd_kernels(torch, mt)
 
     sym = mt.models.transformer_lm(**GPT2_SMALL)
     params_np = gpt2_params(sym, SEED)
-    launches, pred = phase_serve(torch, mt, sym, params_np)
+    serve_counts, pred = phase_serve(torch, mt, sym, params_np)
     phase_profile(torch, pred)
     del pred
+    torch.cuda.empty_cache()
     phase_fp32(torch, mt, sym, params_np)
+    train_counts = phase_train(torch, mt, sym)
+    phase_train_fp32(torch, mt)
 
-    main_row = checks["main_bf16"]
-    print(json.dumps({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "mxnet_tpu/ops/attention.py:73",
-        "launches": launches,
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "card": smi}]}), flush=True)
+    def by_path(key):
+        return {"serve": serve_counts[key], "train": train_counts[key]}
+    fwd, b = checks["main_bf16"], bwd["main_bf16"]
+    rows = [
+        dict(name="flash_fwd", source="mxnet_tpu_torch/csrc/flash_fwd.cu",
+             replaces="mxnet_tpu/ops/attention.py:73", key="flash_fwd",
+             max_abs_err=fwd["max_abs_err"], ms=fwd["kernel_ms"],
+             plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
+             bound_by=fwd["bound_by"], library_ms=fwd["library_ms"]),
+        dict(name="flash_bwd_dq", source="mxnet_tpu_torch/csrc/flash_bwd.cu",
+             replaces="mxnet_tpu/ops/attention.py:222", key="flash_bwd_dq",
+             max_abs_err=b["dq_max_abs_err"], ms=b["dq_kernel_ms"],
+             plain_ms=b["plain_ms"], bound_ms=b["dq_bound_ms"],
+             bound_by=b["dq_bound_by"], library_ms=b["library_ms"]),
+        dict(name="flash_bwd_dkv",
+             source="mxnet_tpu_torch/csrc/flash_bwd.cu",
+             replaces="mxnet_tpu/ops/attention.py:273",
+             key="flash_bwd_dkv",
+             max_abs_err=max(b["dk_max_abs_err"], b["dv_max_abs_err"]),
+             ms=b["dkv_kernel_ms"], plain_ms=b["plain_ms"],
+             bound_ms=b["dkv_bound_ms"], bound_by=b["dkv_bound_by"],
+             library_ms=b["library_ms"]),
+    ]
+    kernels = []
+    for r in rows:
+        paths = by_path(r.pop("key"))
+        kernels.append(dict(name=r.pop("name"), route="cuda",
+                            launches=sum(paths.values()),
+                            launches_by_path=paths, card=smi, **r))
+    # plain_ms and library_ms of the two backward kernels are each of the
+    # whole backward (dQ, dK and dV together): the plain version and
+    # SDPA's backward compute all three in one call
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

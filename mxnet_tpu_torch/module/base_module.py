@@ -1,0 +1,208 @@
+"""BaseModule: the high-level train / score interface.
+
+PyTorch counterpart of ``mxnet_tpu/module/base_module.py`` (reference:
+python/mxnet/module/base_module.py): ``fit``, ``score``,
+``forward_backward``, ``set_params`` and the input-description helpers.
+``run_steps``, ``predict`` / ``iter_predict`` and parameter files are not
+ported yet.
+"""
+from __future__ import annotations
+
+import logging
+import time
+
+from .. import io as io_mod
+from .. import metric as metric_mod
+from ..initializer import Uniform
+from ..model import BatchEndParam
+
+
+def _check_input_names(symbol, names, typename, throw):
+    """reference: base_module.py _check_input_names."""
+    args = symbol.list_arguments()
+    for name in names:
+        if name in args:
+            continue
+        candidates = [arg for arg in args if not arg.endswith(
+            ("_weight", "_bias", "_gamma", "_beta"))]
+        msg = (f"You created Module with Module(..., {typename}_names="
+               f"{names}) but input with name '{name}' is not found in "
+               "symbol.list_arguments(). Did you mean one of:\n\t"
+               + "\n\t".join(candidates))
+        if throw:
+            raise ValueError(msg)
+        logging.warning(msg)
+
+
+def _check_names_match(data_names, data_shapes, name, throw):
+    actual = [x[0] for x in data_shapes]
+    if sorted(data_names) != sorted(actual):
+        msg = (f"Data provided by {name}_shapes don't match names specified "
+               f"by {name}_names ({data_shapes} vs. {data_names})")
+        if throw:
+            raise ValueError(msg)
+        logging.warning(msg)
+
+
+def _parse_data_desc(data_names, label_names, data_shapes, label_shapes):
+    """reference: base_module.py _parse_data_desc."""
+    data_shapes = [x if isinstance(x, io_mod.DataDesc)
+                   else io_mod.DataDesc(*x) for x in data_shapes]
+    _check_names_match(data_names, data_shapes, "data", True)
+    if label_shapes is not None:
+        label_shapes = [x if isinstance(x, io_mod.DataDesc)
+                        else io_mod.DataDesc(*x) for x in label_shapes]
+        _check_names_match(label_names, label_shapes, "label", False)
+    else:
+        _check_names_match(label_names, [], "label", False)
+    return data_shapes, label_shapes
+
+
+def _as_list(obj):
+    return obj if isinstance(obj, (list, tuple)) else [obj]
+
+
+class BaseModule:
+    """reference: base_module.py BaseModule."""
+
+    def __init__(self, logger=logging):
+        self.logger = logger
+        self.binded = False
+        self.for_training = False
+        self.inputs_need_grad = False
+        self.params_initialized = False
+        self.optimizer_initialized = False
+        self._symbol = None
+
+    # -- high level ------------------------------------------------------------
+    def forward_backward(self, data_batch):
+        self.forward(data_batch, is_train=True)
+        self.backward()
+
+    def score(self, eval_data, eval_metric, num_batch=None,
+              batch_end_callback=None, score_end_callback=None, reset=True,
+              epoch=0):
+        """Run inference forwards over ``eval_data`` and fold the outputs
+        into ``eval_metric`` (reference: base_module.py score)."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+        eval_metric.reset()
+        actual_num_batch = 0
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            self.update_metric(eval_metric, eval_batch.label)
+            if batch_end_callback is not None:
+                params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                       eval_metric=eval_metric,
+                                       locals=locals())
+                for callback in _as_list(batch_end_callback):
+                    callback(params)
+            actual_num_batch += 1
+        if score_end_callback:
+            params = BatchEndParam(epoch=epoch, nbatch=actual_num_batch,
+                                   eval_metric=eval_metric, locals=locals())
+            for callback in _as_list(score_end_callback):
+                callback(params)
+        return eval_metric.get_name_value()
+
+    def fit(self, train_data, eval_data=None, eval_metric="acc",
+            epoch_end_callback=None, batch_end_callback=None,
+            kvstore="local", optimizer="sgd",
+            optimizer_params=(("learning_rate", 0.01),),
+            eval_end_callback=None, eval_batch_end_callback=None,
+            initializer=Uniform(0.01), arg_params=None, aux_params=None,
+            allow_missing=False, force_rebind=False, force_init=False,
+            begin_epoch=0, num_epoch=None, validation_metric=None):
+        """The training loop: bind, init params and optimizer, then per
+        epoch forward / backward / update over ``train_data`` with the
+        metric folded in (reference: base_module.py fit)."""
+        assert num_epoch is not None, "please specify number of epochs"
+        self.bind(data_shapes=train_data.provide_data,
+                  label_shapes=train_data.provide_label,
+                  for_training=True, force_rebind=force_rebind)
+        self.init_params(initializer=initializer, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init)
+        self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
+                            optimizer_params=optimizer_params)
+        if validation_metric is None:
+            validation_metric = eval_metric
+        if not isinstance(eval_metric, metric_mod.EvalMetric):
+            eval_metric = metric_mod.create(eval_metric)
+
+        for epoch in range(begin_epoch, num_epoch):
+            tic = time.time()
+            eval_metric.reset()
+            for nbatch, data_batch in enumerate(train_data):
+                self.forward_backward(data_batch)
+                self.update()
+                self.update_metric(eval_metric, data_batch.label)
+                if batch_end_callback is not None:
+                    params = BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                           eval_metric=eval_metric,
+                                           locals=locals())
+                    for callback in _as_list(batch_end_callback):
+                        callback(params)
+            for name, val in eval_metric.get_name_value():
+                self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
+            self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
+                             time.time() - tic)
+            arg_params_, aux_params_ = self.get_params()
+            if epoch_end_callback is not None:
+                for callback in _as_list(epoch_end_callback):
+                    callback(epoch, self.symbol, arg_params_, aux_params_)
+            if eval_data:
+                res = self.score(eval_data, validation_metric,
+                                 score_end_callback=eval_end_callback,
+                                 batch_end_callback=eval_batch_end_callback,
+                                 epoch=epoch)
+                for name, val in res:
+                    self.logger.info("Epoch[%d] Validation-%s=%f", epoch,
+                                     name, val)
+            train_data.reset()
+
+    # -- interface ---------------------------------------------------------------
+    @property
+    def symbol(self):
+        return self._symbol
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True, allow_extra=False):
+        self.init_params(initializer=None, arg_params=arg_params,
+                         aux_params=aux_params, allow_missing=allow_missing,
+                         force_init=force_init, allow_extra=allow_extra)
+
+    def forward(self, data_batch, is_train=None):
+        raise NotImplementedError()
+
+    def backward(self, out_grads=None):
+        raise NotImplementedError()
+
+    def update(self):
+        raise NotImplementedError()
+
+    def update_metric(self, eval_metric, labels):
+        raise NotImplementedError()
+
+    def get_params(self):
+        raise NotImplementedError()
+
+    def init_params(self, initializer=Uniform(0.01), arg_params=None,
+                    aux_params=None, allow_missing=False, force_init=False,
+                    allow_extra=False):
+        raise NotImplementedError()
+
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        raise NotImplementedError()
+
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        raise NotImplementedError()

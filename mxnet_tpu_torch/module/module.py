@@ -1,0 +1,287 @@
+"""Module: symbol + executor + optimizer on one device.
+
+PyTorch counterpart of ``mxnet_tpu/module/module.py`` (reference:
+python/mxnet/module/module.py).  ``bind`` allocates one Executor on the
+module's context (``gpu(0)`` unless given): fp32 master parameters, and
+gradients only for parameters (data, labels and fixed parameters get
+none).  ``compute_dtype`` (e.g. ``"bfloat16"``) runs the graph in that
+type under the executor's cast policy while the masters stay fp32.
+
+``forward(is_train=True)`` records autograd's graph, ``backward`` turns
+it into gradients and ``update`` applies the optimizer to every
+parameter.  ``update`` after a training ``forward`` without ``backward``
+computes the gradients itself, once, as the JAX package's fused step
+does; ``forward(is_train=False)`` records no graph.  The JAX package's
+fused jit step, ``run_steps``, meshes, ZeRO, checkpoints and
+``BucketingModule``, state inputs, fixed parameters and rebinding to new
+shapes are not ported yet.
+"""
+from __future__ import annotations
+
+import json
+import logging
+
+import numpy as np
+
+from ..base import MXNetError
+from ..context import current_context
+from ..executor import Executor, _as_tensor
+from ..initializer import InitDesc, Uniform
+from .. import initializer as init_mod
+from ..model import _create_kvstore, _update_params
+from .. import optimizer as opt_mod
+from .. import profiler as _prof
+from .base_module import BaseModule, _check_input_names, _parse_data_desc
+
+
+class Module(BaseModule):
+    """reference: module.py Module."""
+
+    def __init__(self, symbol, data_names=("data",),
+                 label_names=("softmax_label",), logger=logging,
+                 context=None, compute_dtype=None):
+        super().__init__(logger=logger)
+        if context is None:
+            context = current_context()
+        if isinstance(context, (list, tuple)):
+            if len(context) != 1:
+                raise MXNetError("Module over several devices is not "
+                                 "ported yet (ROADMAP D1)")
+            context = context[0]
+        self._context = context
+        self._compute_dtype = compute_dtype
+        self._symbol = symbol
+        data_names = list(data_names) if data_names is not None else []
+        label_names = list(label_names) if label_names is not None else []
+        _check_input_names(symbol, data_names, "data", True)
+        _check_input_names(symbol, label_names, "label", False)
+        input_names = data_names + label_names
+        self._param_names = [x for x in symbol.list_arguments()
+                             if x not in input_names]
+        self._aux_names = symbol.list_auxiliary_states()
+        self._data_names = data_names
+        self._label_names = label_names
+        self._output_names = symbol.list_outputs()
+        self._arg_params = None
+        self._aux_params = None
+        self._optimizer = None
+        self._updater = None
+        self._kvstore = None
+        self._grad_req = None
+        self._exec = None
+        self._data_shapes = self._label_shapes = None
+        # gradients of the last forward are in grad_dict
+        self._grads_fresh = False
+
+    # -- properties ------------------------------------------------------------
+    @property
+    def data_names(self):
+        return self._data_names
+
+    @property
+    def label_names(self):
+        return self._label_names
+
+    @property
+    def output_names(self):
+        return self._output_names
+
+    @property
+    def data_shapes(self):
+        assert self.binded
+        return self._data_shapes
+
+    @property
+    def label_shapes(self):
+        assert self.binded
+        return self._label_shapes
+
+    @property
+    def output_shapes(self):
+        assert self.binded
+        return [(n, o.shape) for n, o in
+                zip(self._output_names, self._exec.outputs)]
+
+    # -- params ----------------------------------------------------------------
+    def get_params(self):
+        """(arg_params, aux_params): the bound NDArrays by name (they
+        follow later updates)."""
+        assert self.binded and self.params_initialized
+        return ({n: self._exec.arg_dict[n] for n in self._param_names},
+                dict(self._exec.aux_dict))
+
+    def init_params(self, initializer=Uniform(0.01), arg_params=None,
+                    aux_params=None, allow_missing=False, force_init=False,
+                    allow_extra=False):
+        """Fill the parameters from ``arg_params``/``aux_params`` (numpy
+        arrays, tensors or NDArrays, e.g. the output of
+        ``params_from_numpy``; copied in the master dtype) and
+        ``initializer`` for the rest (reference: module.py
+        init_params)."""
+        if self.params_initialized and not force_init:
+            return
+        assert self.binded, "call bind before initializing the parameters"
+        attrs = self._symbol.attr_dict()
+
+        def _impl(name, arr, cache):
+            if cache is not None and name in cache:
+                arr._set_data(_as_tensor(cache[name], arr._data.device,
+                                         arr._data.dtype))
+                return
+            if not allow_missing and cache is not None:
+                raise RuntimeError(f"{name} is not presented")
+            if initializer is not None:
+                init = initializer
+                if name in attrs and "__init__" in attrs[name]:
+                    klass, kw = json.loads(attrs[name]["__init__"])
+                    init = init_mod.create(klass, **kw)
+                init(InitDesc(name, global_init=initializer), arr)
+
+        cache_arg = arg_params if arg_params is not None else \
+            (self._arg_params or None)
+        cache_aux = aux_params if aux_params is not None else \
+            (self._aux_params or None)
+        if not allow_extra:
+            known = set(self._symbol.list_arguments()) | set(self._aux_names)
+            for cache in (cache_arg, cache_aux):
+                unknown = [n for n in (cache or {}) if n not in known]
+                if unknown:
+                    raise ValueError("extra parameters not in the symbol "
+                                     "(pass allow_extra=True to ignore): "
+                                     f"{sorted(unknown)!r}")
+        for name in self._param_names:
+            _impl(name, self._exec.arg_dict[name], cache_arg)
+        for name in self._aux_names:
+            _impl(name, self._exec.aux_dict[name], cache_aux)
+        self.params_initialized = True
+
+    # -- bind ------------------------------------------------------------------
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        """Allocate the executor from the input descriptions (reference:
+        module.py bind).  Inputs keep the dtype their ``DataDesc``
+        gives (int32 token ids stay int32); parameters are float32."""
+        if force_rebind:
+            self.binded = False
+            self._exec = None
+        if self.binded:
+            self.logger.warning("Already bound, ignoring bind()")
+            return
+        self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        self._data_shapes, self._label_shapes = _parse_data_desc(
+            self._data_names, self._label_names, data_shapes, label_shapes)
+        descs = list(self._data_shapes) + list(self._label_shapes or [])
+        shapes = {d.name: d.shape for d in descs}
+        type_dict = {d.name: getattr(d, "dtype", np.float32) for d in descs}
+        req = {}
+        for name in self._symbol.list_arguments():
+            if name in self._data_names:
+                req[name] = "write" if inputs_need_grad else "null"
+            elif name in self._label_names:
+                req[name] = "null"
+            else:
+                req[name] = grad_req if for_training else "null"
+        self._grad_req = req
+        self._exec = Executor.simple_bind(
+            self._symbol, self._context, grad_req=req, type_dict=type_dict,
+            shapes=shapes, compute_dtype=self._compute_dtype)
+        self.binded = True
+        if self.params_initialized and self._arg_params:
+            self._exec.copy_params_from(self._arg_params, self._aux_params,
+                                        allow_extra_params=True)
+        if shared_module is not None and shared_module.params_initialized:
+            arg, aux = shared_module.get_params()
+            self._exec.copy_params_from(arg, aux, allow_extra_params=True)
+            self.params_initialized = True
+
+    # -- optimizer -------------------------------------------------------------
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        """reference: module.py init_optimizer.  A named optimizer gets
+        ``rescale_grad = 1 / batch_size`` unless given: the loss head's
+        gradient is a sum over the batch."""
+        assert self.binded and self.params_initialized
+        if self.optimizer_initialized and not force_init:
+            self.logger.warning("optimizer already initialized, "
+                                "ignoring...")
+            return
+        arg_params = {n: self._exec.arg_dict[n] for n in self._param_names}
+        self._kvstore, _ = _create_kvstore(kvstore, 1, arg_params)
+        if isinstance(optimizer, str):
+            optimizer_params = dict(optimizer_params)
+            if "rescale_grad" not in optimizer_params:
+                optimizer_params["rescale_grad"] = \
+                    1.0 / self._data_shapes[0].shape[0]
+            optimizer = opt_mod.create(
+                optimizer, sym=self._symbol,
+                param_idx2name={n: n for n in self._param_names},
+                **optimizer_params)
+        elif not isinstance(optimizer, opt_mod.Optimizer):
+            raise TypeError("optimizer must be a name or an Optimizer")
+        self._optimizer = optimizer
+        self._updater = opt_mod.get_updater(optimizer)
+        self.optimizer_initialized = True
+
+    def _update_names(self):
+        return [n for n in self._param_names
+                if self._grad_req.get(n, "null") != "null"]
+
+    # -- compute ---------------------------------------------------------------
+    def forward(self, data_batch, is_train=None):
+        """Run the graph on ``data_batch`` (its NDArrays are copied to the
+        module's device).  The inputs keep the bound shapes (an
+        ``NDArrayIter`` pads or drops its last batch); rebinding to other
+        shapes is not ported yet."""
+        assert self.binded and self.params_initialized
+        if is_train is None:
+            is_train = self.for_training
+        kwargs = dict(zip(self._data_names, data_batch.data))
+        if data_batch.label is not None and self._label_names:
+            kwargs.update(zip(self._label_names, data_batch.label))
+        for name, value in kwargs.items():
+            if tuple(value.shape) != self._exec.arg_dict[name].shape:
+                raise MXNetError(f"forward: {name} has shape "
+                                 f"{tuple(value.shape)}, the module is bound "
+                                 f"to {self._exec.arg_dict[name].shape}")
+        self._exec.forward(is_train=is_train, **kwargs)
+        self._grads_fresh = False
+
+    def backward(self, out_grads=None):
+        """Gradients of the last forward into ``grad_dict``."""
+        assert self.binded and self.params_initialized
+        _prof.record_dispatch("module.backward")
+        self._exec.backward(out_grads=out_grads)
+        self._grads_fresh = True
+
+    def update(self):
+        """Apply the optimizer to every parameter with a gradient.  After a
+        training forward without ``backward``, the gradients are computed
+        here first (once)."""
+        assert self.binded and self.params_initialized \
+            and self.optimizer_initialized
+        if not self._grads_fresh:
+            self.backward()
+        names = self._update_names()
+        _prof.record_dispatch("module.update")
+        _update_params([self._exec.arg_dict[n] for n in names],
+                       [self._exec.grad_dict[n] for n in names],
+                       updater=self._updater, num_device=1,
+                       kvstore=self._kvstore, param_names=names)
+        self._grads_fresh = False
+
+    def get_outputs(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized
+        return self._exec.outputs
+
+    def get_input_grads(self, merge_multi_context=True):
+        assert self.binded and self.params_initialized \
+            and self.inputs_need_grad
+        return [self._exec.grad_dict[n] for n in self._data_names]
+
+    def update_metric(self, eval_metric, labels):
+        eval_metric.update_dict(
+            dict(zip(self._label_names, labels or [])),
+            dict(zip(self._output_names, self.get_outputs())))

@@ -1,0 +1,115 @@
+"""NDArray: a tensor on a device.
+
+PyTorch counterpart of the part of ``mxnet_tpu/ndarray/ndarray.py`` that
+``Module``, the executor and ``io.NDArrayIter`` hand to users.  An
+``NDArray`` wraps one ``torch.Tensor``; ``_set_data`` swaps the tensor
+(the executor and optimizers update through it).  PyTorch runs eagerly,
+so there is no lazy payload; ``wait_to_read`` synchronises the device.
+Slicing, operator overloads, autograd recording and the sparse types are
+not ported yet.
+"""
+from __future__ import annotations
+
+import numbers
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+from ..context import Context, as_device, cpu, gpu
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """numpy dtype / name / torch dtype -> torch dtype (``bfloat16`` by
+    name, since numpy has none)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    dt = getattr(torch, name, None)
+    if not isinstance(dt, torch.dtype):
+        raise MXNetError(f"unknown dtype {dtype!r}")
+    return dt
+
+
+def numpy_dtype(dtype: torch.dtype):
+    """torch dtype -> numpy dtype; bfloat16 has none and maps to the
+    name ``"bfloat16"``."""
+    if dtype == torch.bfloat16:
+        return "bfloat16"
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+class NDArray:
+    """A tensor on a device (reference: python/mxnet/ndarray/ndarray.py)."""
+    __slots__ = ("_data",)
+    __array_priority__ = 1000.0
+
+    def __init__(self, data, ctx=None, dtype=None):
+        if isinstance(data, NDArray):
+            data = data._data
+        if not isinstance(data, torch.Tensor):
+            arr = np.asarray(data)
+            if dtype is None and arr.dtype == np.float64:
+                dtype = np.float32
+            data = torch.from_numpy(np.ascontiguousarray(arr))
+        if dtype is not None:
+            data = data.to(torch_dtype(dtype))
+        if ctx is not None:
+            data = data.to(as_device(ctx))
+        self._data = data
+
+    def _set_data(self, value: torch.Tensor):
+        self._data = value
+
+    def as_torch(self) -> torch.Tensor:
+        """The wrapped tensor (no copy)."""
+        return self._data
+
+    @property
+    def shape(self):
+        return tuple(self._data.shape)
+
+    @property
+    def dtype(self):
+        return numpy_dtype(self._data.dtype)
+
+    @property
+    def context(self) -> Context:
+        dev = self._data.device
+        return gpu(dev.index or 0) if dev.type == "cuda" else cpu()
+
+    def asnumpy(self) -> np.ndarray:
+        """A host copy (bf16 comes back as float32: numpy has no bf16)."""
+        t = self._data.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+
+    def wait_to_read(self):
+        if self._data.is_cuda:
+            torch.cuda.synchronize(self._data.device)
+
+    def __repr__(self):
+        return (f"<NDArray {'x'.join(map(str, self.shape))} "
+                f"@{self.context} {self.dtype}>")
+
+
+def array(source_array, ctx=None, dtype=None) -> NDArray:
+    """An NDArray on ``ctx`` (default: the current context, ``gpu(0)``).
+    Python lists and scalars default to float32; arrays keep their dtype
+    (float64 becomes float32), as in the JAX package."""
+    if dtype is None and not hasattr(source_array, "dtype"):
+        dtype = np.float32
+    if ctx is None:
+        from ..context import current_context
+        ctx = current_context()
+    return NDArray(source_array, ctx=ctx, dtype=dtype)
+
+
+def zeros(shape, ctx=None, dtype=None, **kw) -> NDArray:
+    if isinstance(shape, numbers.Integral):
+        shape = (shape,)
+    return NDArray(torch.zeros(tuple(shape),
+                               dtype=torch_dtype(dtype or np.float32),
+                               device=as_device(ctx)))
+

@@ -178,6 +178,28 @@ class Symbol:
         return [n.name for n in self.nodes()
                 if n.is_variable and n._user_attrs.get("__is_aux__")]
 
+    def attr_dict(self):
+        """{node name: {attr: str}} of the nodes that carry attributes:
+        user attributes (``__init__``, ``__lr_mult__``, ...) and op
+        attributes, as the JAX package's ``attr_dict``."""
+        out = {}
+        for n in self.nodes():
+            attrs = {k: v for k, v in n._user_attrs.items()
+                     if not k.startswith("__is_aux")}
+            attrs.update({k: str(v) for k, v in n.attrs.items()})
+            if attrs:
+                out[n.name] = attrs
+        return out
+
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    compute_dtype=None, **shapes):
+        """Bind with arrays allocated from the given input shapes
+        (:meth:`mxnet_tpu_torch.executor.Executor.simple_bind`)."""
+        from ..executor import Executor
+        return Executor.simple_bind(self, ctx, grad_req=grad_req,
+                                    type_dict=type_dict, shapes=shapes,
+                                    compute_dtype=compute_dtype)
+
     # -- shape inference ----------------------------------------------------
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the given input

@@ -110,3 +110,62 @@ def test_small_lm_served_on_card_matches_cpu(dev):
             L if name == "card" else 0)
     diff = np.abs(np.log(outs["card"]) - np.log(outs["cpu"])).max()
     assert diff <= 1e-4, diff
+
+
+# backward kernels against their plain version: both accumulate in f32;
+# dK/dV sum up to Sq terms (times G under GQA), so float32 gets 1e-3 on
+# gradients of order 1-10, and a bf16 output one bf16 rounding (2**-8
+# relative) on top
+BWD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_match_plain_version(dev, dtype):
+    before = (att.flash_bwd_cuda.dq_launches, att.flash_bwd_cuda.dkv_launches)
+    for i, case in enumerate(CASES):
+        *shape, causal = case
+        q, k, v = _qkv(dev, dtype, *shape, seed=i)
+        out, lse = att.flash_fwd_cuda(q, k, v, causal, None,
+                                      return_lse=True)
+        g = torch.from_numpy(np.random.default_rng(100 + i).standard_normal(
+            tuple(q.shape), dtype=np.float32)).to(dev, dtype)
+        got = att.flash_bwd_cuda(q, k, v, out, lse, g, causal)
+        ref = att._flash_bwd_reference(q, k, v, out, lse, g, causal, None)
+        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+            assert a.dtype == b.dtype == dtype, name
+            torch.testing.assert_close(a.float(), b.float(),
+                                       rtol=BWD_TOL[dtype],
+                                       atol=BWD_TOL[dtype], msg=name)
+    assert (att.flash_bwd_cuda.dq_launches,
+            att.flash_bwd_cuda.dkv_launches) == (before[0] + len(CASES),
+                                                 before[1] + len(CASES))
+
+
+def test_autograd_function_launches_backward_kernels(dev):
+    """The registry op over strided views with requires_grad: gradients
+    through K1 (with lse), K2 and K3 against autograd of the plain
+    attention, in float32."""
+    q, k, v = _qkv(dev, torch.float32, 2, 4, 2, 70, 70, 64)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             .requires_grad_() for t in (q, k, v)]
+    before = att.flash_bwd_cuda.dq_launches
+    out = mt.ops.registry.get("_contrib_FlashAttention")(*views,
+                                                         causal=True)
+    g = torch.ones_like(out).transpose(1, 2).contiguous().transpose(1, 2)
+    out.backward(g)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    att._attn_reference(*leaves, True, None).backward(g)
+    for a, b in zip(views, leaves):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-3, atol=1e-3)
+    assert att.flash_bwd_cuda.dq_launches == before + 1
+
+
+def test_backward_refuses_what_it_does_not_take(dev):
+    q, k, v = _qkv(dev, torch.float32, 1, 2, 2, 16, 16, 64)
+    out, lse = att.flash_fwd_cuda(q, k, v, True, None, return_lse=True)
+    with pytest.raises(mt.MXNetError, match="contiguous"):
+        att.flash_bwd_cuda(q, k, v, out, lse, out.transpose(2, 3), True)
+    with pytest.raises(mt.MXNetError, match="lse"):
+        att.flash_bwd_cuda(q, k, v, out, lse.double(), out, True)
+    with pytest.raises(mt.MXNetError, match="dtype"):
+        att.flash_bwd_cuda(q, k, v, out, lse, out.bfloat16(), True)
