@@ -150,14 +150,65 @@ def phase_device(torch):
     return line
 
 
+# the kernels on the tensor cores (the bf16 instances of K1 and K3): each
+# instance must hold HMMA instructions, and the D=64 ones (the main
+# paths') must not spill
+MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel")
+
+
+def demangle(names, nvcc_dir):
+    """Readable kernel names (``cu++filt`` beside nvcc), e.g.
+    ``flash_fwd_mma_kernel<64>``; the mangled names where it is missing."""
+    names = list(names)
+    tool = os.path.join(nvcc_dir, "cu++filt")
+    if not names or not os.access(tool, os.X_OK):
+        return dict(zip(names, names))
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60)
+    # "void <unnamed>::flash_fwd_mma_kernel<(int)64>(...)", or with
+    # "(anonymous namespace)::"
+    short = [d.replace("(int)", "").replace("(anonymous namespace)", "")
+             .split("(")[0].split("::")[-1] for d in res.stdout.splitlines()]
+    if res.returncode != 0 or len(set(short)) != len(names):
+        return dict(zip(names, names))
+    return dict(zip(names, short))
+
+
 def phase_build(mt):
+    """Build every source at once; per kernel, the registers and spills
+    that ``-Xptxas -v`` reports and the HMMA (tensor-core product) count
+    of its machine code (``cuobjdump -sass``)."""
+    cl = mt.cuda_lib
     t0 = time.monotonic()
-    built = mt.cuda_lib.build_all()
+    built = cl.build_all()
     secs = time.monotonic() - t0
-    ptxas = {src: [ln.strip() for ln in info["log"].splitlines()
-                   if "registers" in ln or "spill" in ln]
-             for src, info in built.items()}
-    emit("build", seconds=secs, sources=sorted(built), ptxas=ptxas)
+    kernels, failures = {}, []
+    for src, info in built.items():
+        log = info["log"]
+        if not log and os.path.exists(info["path"] + ".log"):
+            with open(info["path"] + ".log") as f:
+                log = f.read()
+        report = cl.ptxas_report(log)
+        hmma = cl.hmma_counts(cl.disassemble(info["path"]))
+        names = demangle(sorted(set(report) | set(hmma)),
+                         os.path.dirname(cl.find_nvcc()))
+        for mangled, name in names.items():
+            row = dict(report.get(mangled, {}), hmma=hmma.get(mangled, 0),
+                       source=src)
+            kernels[name] = row
+            if not any(stem in mangled for stem in MMA_KERNELS):
+                continue
+            if row["hmma"] == 0:
+                failures.append(f"{name}: no HMMA instruction")
+            if "ILi64E" in mangled and (row.get("spill_stores", 1)
+                                        or row.get("spill_loads", 1)):
+                failures.append(f"{name}: spills {row}")
+    for stem in MMA_KERNELS:
+        if sum(stem in n for n in kernels) != 3:  # D = 32, 64, 128
+            failures.append(f"{stem}: not 3 instances in {sorted(kernels)}")
+    emit("build", seconds=secs, sources=sorted(built), kernels=kernels)
+    if failures:
+        raise RuntimeError("build checks failed: " + "; ".join(failures))
 
 
 def phase_kernels(torch, mt):
@@ -176,6 +227,18 @@ def phase_kernels(torch, mt):
         ("noncausal_d128", 2, 4, 4, 200, 200, 128, False, "bfloat16",
          False),
         ("lse_gqa_d32", 2, 4, 1, 130, 130, 32, True, "float32", True),
+        # the bf16 (tensor-core) design at its edges: D 32 and 128, lse,
+        # Sq != Sk both ways, one row, lengths off the 16-row fragments
+        ("lse_mqa_d32_bf16", 2, 4, 1, 130, 130, 32, True, "bfloat16", True),
+        ("causal_sq100_sk300_bf16", 2, 4, 4, 100, 300, 64, True, "bfloat16",
+         True),
+        ("causal_sq300_sk100_bf16", 2, 4, 4, 300, 100, 64, True, "bfloat16",
+         True),
+        ("sq1_sk1_bf16", 2, 4, 2, 1, 1, 64, True, "bfloat16", True),
+        ("ragged_sq77_sk130_bf16", 2, 4, 2, 77, 130, 64, False, "bfloat16",
+         True),
+        ("causal_sq130_sk77_d128_bf16", 2, 4, 2, 130, 77, 128, True,
+         "bfloat16", True),
     ]
     results, failures = {}, []
     for name, B, H, Hk, Sq, Sk, D, causal, dt, want_lse in cases:
@@ -188,9 +251,14 @@ def phase_kernels(torch, mt):
         got = att.flash_fwd_cuda(q, k, v, causal, None, return_lse=want_lse)
         ref = att._attn_reference(q, k, v, causal, None,
                                   return_lse=want_lse)
+        again = att.flash_fwd_cuda(q, k, v, causal, None,
+                                   return_lse=want_lse)
         torch.cuda.synchronize()
         if not want_lse:
-            got, ref = (got,), (ref,)
+            got, ref, again = (got,), (ref,), (again,)
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not deterministic:
+            failures.append(f"{name}: two launches differ")
         errs = []
         for g, r, tol in zip(got, ref, (TOL[dt], LSE_TOL)):
             g, r = g.float(), r.float()
@@ -200,7 +268,8 @@ def phase_kernels(torch, mt):
                                 f"beyond {tol} (or non-finite)")
             errs.append(err)
         row = dict(shape=[B, H, Hk, Sq, Sk, D], causal=causal, dtype=dt,
-                   max_abs_err=errs[0], tol=TOL[dt])
+                   max_abs_err=errs[0], tol=TOL[dt],
+                   bit_identical_relaunch=deterministic)
         if want_lse:
             row.update(lse_max_abs_err=errs[1], lse_tol=LSE_TOL)
         if name.startswith("main"):
@@ -240,6 +309,14 @@ def phase_bwd_kernels(torch, mt):
         ("causal_sq300_sk100", 2, 4, 4, 300, 100, 64, True, "float32"),
         ("noncausal_d128", 2, 4, 4, 200, 200, 128, False, "bfloat16"),
         ("mqa_d32", 2, 4, 1, 130, 130, 32, True, "float32"),
+        # the bf16 (tensor-core) dK/dV design at its edges
+        ("mqa_d32_bf16", 2, 4, 1, 130, 130, 32, True, "bfloat16"),
+        ("causal_sq100_sk300_bf16", 2, 4, 4, 100, 300, 64, True, "bfloat16"),
+        ("causal_sq300_sk100_bf16", 2, 4, 4, 300, 100, 64, True, "bfloat16"),
+        ("sq1_sk1_bf16", 2, 4, 2, 1, 1, 64, True, "bfloat16"),
+        ("ragged_sq77_sk130_bf16", 2, 4, 2, 77, 130, 64, False, "bfloat16"),
+        ("causal_sq130_sk77_d128_bf16", 2, 4, 2, 130, 77, 128, True,
+         "bfloat16"),
     ]
     results, failures = {}, []
     for name, B, H, Hk, Sq, Sk, D, causal, dt in cases:
@@ -254,9 +331,14 @@ def phase_bwd_kernels(torch, mt):
                                       return_lse=True)
         got = att.flash_bwd_cuda(q, k, v, out, lse, g, causal)
         ref = att._flash_bwd_reference(q, k, v, out, lse, g, causal, None)
+        again = att.flash_bwd_cuda(q, k, v, out, lse, g, causal)
         torch.cuda.synchronize()
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+        if not deterministic:
+            failures.append(f"{name}: two launches differ")
+        del again
         row = dict(shape=[B, H, Hk, Sq, Sk, D], causal=causal, dtype=dt,
-                   tol=BWD_TOL[dt])
+                   tol=BWD_TOL[dt], bit_identical_relaunch=deterministic)
         for gname, a, b in zip(("dq", "dk", "dv"), got, ref):
             a, b = a.float(), b.float()
             err = (a - b).abs().max().item()
@@ -477,7 +559,10 @@ def phase_profile(torch, pred):
     del outs
     kernels = device_kernels(prof)
     busy = sum(k[0] for k in kernels)
-    flash = sum(k[0] for k in kernels if "flash_fwd_kernel" in k[2])
+    flash = sum(k[0] for k in kernels if "flash_fwd" in k[2])
+    if flash <= 0:
+        raise RuntimeError("profile: the forward launched K1 12 times but "
+                           f"the profile shows no time for it: {kernels}")
     emit("profile", rows=n, tokens=n * S, predict_ms=predict_s * 1e3,
          forward_ms=forward_s * 1e3, readback_ms=readback_s * 1e3,
          readback_bytes=n * S * V * 4, device_busy_ms=busy,
@@ -601,8 +686,13 @@ def phase_train(torch, mt, sym):
     kernels = device_kernels(prof)
     busy = sum(k[0] for k in kernels)
 
-    def kernel_ms(stem):
-        return sum(k[0] for k in kernels if stem in k[2])
+    # kernel names hold these stems in either design (flash_fwd_kernel,
+    # flash_fwd_mma_kernel, ...)
+    attn_ms = {stem: sum(k[0] for k in kernels if stem in k[2])
+               for stem in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    if not all(attn_ms.values()):
+        raise RuntimeError("train_profile: a step launches every attention "
+                           f"kernel but the profile shows {attn_ms}")
     tokens = B * S
     # analytic fwd+bwd FLOPs, the formula of
     # benchmark/transformer_bench.py:136-143 (copied): 6 N per token over
@@ -624,9 +714,9 @@ def phase_train(torch, mt, sym):
     emit("train_profile", step_ms=prof_step_ms, device_busy_ms=busy,
          device_idle_share_of_step=max(0.0, 1 - busy / prof_step_ms),
          device_idle_share_of_median_step=max(0.0, 1 - busy / med),
-         flash_fwd_ms=kernel_ms("flash_fwd_kernel"),
-         flash_bwd_dq_ms=kernel_ms("flash_bwd_dq_kernel"),
-         flash_bwd_dkv_ms=kernel_ms("flash_bwd_dkv_kernel"),
+         flash_fwd_ms=attn_ms["flash_fwd"],
+         flash_bwd_dq_ms=attn_ms["flash_bwd_dq"],
+         flash_bwd_dkv_ms=attn_ms["flash_bwd_dkv"],
          top_kernels=[dict(ms=ms, count=c, name=k)
                       for ms, c, k in kernels[:12]])
     del mod, out
@@ -722,17 +812,20 @@ def main():
     fwd, b = checks["main_bf16"], bwd["main_bf16"]
     rows = [
         dict(name="flash_fwd", source="mxnet_tpu_torch/csrc/flash_fwd.cu",
+             design="mma.sync (bf16)",
              replaces="mxnet_tpu/ops/attention.py:73", key="flash_fwd",
              max_abs_err=fwd["max_abs_err"], ms=fwd["kernel_ms"],
              plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
              bound_by=fwd["bound_by"], library_ms=fwd["library_ms"]),
         dict(name="flash_bwd_dq", source="mxnet_tpu_torch/csrc/flash_bwd.cu",
+             design="CUDA cores",
              replaces="mxnet_tpu/ops/attention.py:222", key="flash_bwd_dq",
              max_abs_err=b["dq_max_abs_err"], ms=b["dq_kernel_ms"],
              plain_ms=b["plain_ms"], bound_ms=b["dq_bound_ms"],
              bound_by=b["dq_bound_by"], library_ms=b["library_ms"]),
         dict(name="flash_bwd_dkv",
              source="mxnet_tpu_torch/csrc/flash_bwd.cu",
+             design="mma.sync (bf16)",
              replaces="mxnet_tpu/ops/attention.py:273",
              key="flash_bwd_dkv",
              max_abs_err=max(b["dk_max_abs_err"], b["dv_max_abs_err"]),

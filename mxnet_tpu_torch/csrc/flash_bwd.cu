@@ -35,24 +35,49 @@
 // * K3 (dK, dV): one block per (b, KV head, 64-row k tile).  It stages
 //   its K and V tiles once, then loops over the G = H / Hk query heads of
 //   its group and, for each, over the q tiles from the causal start
-//   (q tile of k0, since earlier q rows see none of these keys).  The
-//   transposed tiles P^T and dS^T go to shared memory, and dV += P^T . dO,
-//   dK += dS^T . Q accumulate in registers in f32.  The GQA group sum is
-//   thus taken inside the block, in f32, before the one cast to k's dtype
-//   (the TPU package writes f32 per query head and sums outside,
-//   attention.py:339-343); the outputs are (B, Hk, Sk, D) directly.
+//   (q tile of k0, since earlier q rows see none of these keys).  dV +=
+//   P^T . dO and dK += dS^T . Q accumulate in registers in f32, so the
+//   GQA group sum is taken inside the block, in f32, before the one cast
+//   to k's dtype (the TPU package writes f32 per query head and sums
+//   outside, attention.py:339-343); the outputs are (B, Hk, Sk, D)
+//   directly.  Two designs on that frame, chosen by dtype in launch_d
+//   (never as a fallback):
+//   - bf16 -> flash_bwd_dkv_mma_kernel, on the tensor cores: 4 warps (128
+//     threads), each owning 16 of the 64 k rows.  K and V are staged once
+//     in bf16 (at D <= 64 their A fragments are then kept in registers;
+//     at D=128 they are read by ldmatrix at each use, for registers).  Q
+//     and dO tiles go through a two-stage cp.async ring with the q tile's
+//     lse and delta beside them, so the next tile's copy overlaps this
+//     one's work; rows past Sq are zero-filled by the copy.  S^T = K.Q^T
+//     and dP^T = V.dO^T run as mma.sync m16n8k16 (bf16 in, f32
+//     accumulators; Q and dO fragments by ldmatrix); P^T = exp(S^T scale
+//     - lse) and dS^T = P^T (dP^T - delta) scale are formed in the
+//     accumulator registers (masked to 0 only in tiles that meet the
+//     diagonal or a ragged edge) and rounded to bf16 straight into the A
+//     fragments of dV += P^T.dO and dK += dS^T.Q (dO and Q fragments by
+//     ldmatrix.trans): nothing goes back through shared memory.  q tiles
+//     are 64 rows at D = 32 and 64, 32 at D = 128, where the two 16 x 128
+//     f32 accumulators per warp already take 128 registers a thread.
+//     Shared memory, bf16 rows padded to D + 8 values (ldmatrix without
+//     bank conflicts): K, V 64 rows each, Q, dO 2 stages each, lse and
+//     delta 2 stages: 55 KB at D=64, 69 KB at D=128.
+//   - float32 -> flash_bwd_dkv_kernel, the first design, on the f32 CUDA
+//     cores: 256 threads, each owning a 4x4 patch; the transposed tiles
+//     P^T and dS^T go through shared memory.  It stays: on the tensor
+//     cores f32 would mean TF32, about three decimal digits, and the f32
+//     path is what holds the card to the CPU at 1e-3 in chip_smoke.py.
 //
 // What bounds it.  At the training shape (B=8, H=Hk=12, S=1024, D=64,
-// causal, bf16) K2 does three products over the causal half, about 19
-// GFLOP, against about 64 MB of traffic; K3 does four, about 26 GFLOP,
-// against about 76 MB.  On an H100 SXM both floors are near 0.02 ms (bf16
-// tensor cores at 989 TFLOP/s, HBM at 3.35 TB/s).  This design does the
-// products on the f32 CUDA cores from shared memory, as the forward kernel
-// does, and so sits far above both: it is the simple, correct first
-// version; mma.sync / wgmma with TMA staging is later work (PERF.md).
+// causal, bf16) K2 does three products over the causal half, 19.4 GFLOP,
+// against 64 MB of traffic; K3 does four, 25.8 GFLOP, against 76 MB.  On
+// an H100 SXM (bf16 tensor cores at 989 TFLOP/s, HBM at 3.35 TB/s) the
+// operations bound both: 0.020 ms for K2, 0.026 ms for K3.  On an NVIDIA
+// H100 80GB HBM3 at 700.00 W the CUDA-core designs took 0.83 ms (K2) and
+// 0.97 ms (K3) there, and the tensor-core K3 takes 0.13 ms, 5x its bound
+// (PERF.md §6).  K2 keeps the CUDA-core design for now.
 //
-// Shared memory, f32, rows padded to D+1 and 65 floats so that the column
-// reads are free of bank conflicts:
+// Shared memory of the CUDA-core designs, f32, rows padded to D+1 and 65
+// floats so that the column reads are free of bank conflicts:
 //   K2: Q, dO, K, V tiles 64 x (D+1), dS tile 64 x 65       (149 KB at D=128)
 //   K3: K, V, Q, dO tiles 64 x (D+1), P^T and dS^T 64 x 65,
 //       lse and delta of the q tile                         (162 KB at D=128)
@@ -62,6 +87,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -344,6 +371,195 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- K3 in bf16: tensor cores ----
+
+using mma::bf16;
+
+constexpr int MT = 128;  // threads of the bf16 dK/dV kernel: 4 warps
+constexpr float LOG2E = 1.4426950408889634f;
+
+// q rows per tile of the bf16 dK/dV kernel
+template <int D>
+__host__ __device__ constexpr int mma_bq() {
+  return D == 128 ? 32 : 64;
+}
+
+template <int D>
+__global__ void __launch_bounds__(MT)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                         int Hk, int Sq, int Sk, int causal, float scale) {
+  constexpr int LD = mma::row_stride<D>();
+  constexpr int MQ = mma_bq<D>();
+  constexpr int KS = D / 16;  // k-steps of S^T = K.Q^T
+  constexpr int NS = MQ / 8;  // n-blocks of S^T
+  constexpr int ND = D / 8;   // n-blocks of dK, dV
+  constexpr bool HOIST = D <= 64;  // K, V fragments kept in registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // BK x LD
+  bf16* sV = sK + BK * LD;                       // BK x LD
+  bf16* sQ = sV + BK * LD;                       // 2 stages of MQ x LD
+  bf16* sO = sQ + 2 * MQ * LD;                   // dO, 2 stages of MQ x LD
+  float* sL = reinterpret_cast<float*>(sO + 2 * MQ * LD);  // lse, 2 x MQ
+  float* sD = sL + 2 * MQ;                                 // delta, 2 x MQ
+
+  const int bkh = blockIdx.x;  // b * Hk + kv head
+  const int k0 = blockIdx.y * BK;
+  const int b = bkh / Hk, kh = bkh % Hk;
+  const int G = H / Hk;
+
+  const int lane = threadIdx.x & 31;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first k row
+  const int g = lane >> 2, t = lane & 3;
+
+  mma::load_rows<D, BK, MT>(sK, k + (int64_t)bkh * Sk * D, k0, Sk);
+  mma::load_rows<D, BK, MT>(sV, v + (int64_t)bkh * Sk * D, k0, Sk);
+  mma::cp_async_commit();
+
+  // iterations walk (query head of the group, q tile from the causal
+  // start); `stage` issues the copies of iteration `it` into stage `st`
+  const int nq = (Sq + MQ - 1) / MQ;
+  const int lo = causal ? min(k0 / MQ, nq) : 0;
+  const int nqt = nq - lo;
+  const int n_it = G * nqt;
+  auto stage = [&](int it, int st) {
+    const int bh = b * H + kh * G + it / nqt;
+    const int q0 = (lo + it % nqt) * MQ;
+    mma::load_rows<D, MQ, MT>(sQ + st * MQ * LD, q + (int64_t)bh * Sq * D,
+                              q0, Sq);
+    mma::load_rows<D, MQ, MT>(sO + st * MQ * LD,
+                              dout + (int64_t)bh * Sq * D, q0, Sq);
+    const int i = threadIdx.x % MQ;
+    const bool ok = q0 + i < Sq;
+    const int64_t off = ok ? (int64_t)bh * Sq + q0 + i : 0;
+    if (threadIdx.x < MQ)
+      mma::cp_async4(sL + st * MQ + i, lse + off, ok);
+    else if (threadIdx.x < 2 * MQ)
+      mma::cp_async4(sD + st * MQ + i, delta + off, ok);
+  };
+  if (n_it > 0) stage(0, 0);
+  mma::cp_async_commit();
+
+  float gk[ND][4], gv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gk[j][e] = gv[j][e] = 0.f;
+  uint32_t kf[HOIST ? KS : 1][4], vf[HOIST ? KS : 1][4];
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_it) {  // the next tile's copy overlaps this tile's work
+      stage(it + 1, st ^ 1);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (HOIST && it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < (HOIST ? KS : 0); ++kk) {
+        mma::load_a<LD>(kf[kk], sK, wr, kk * 16, lane);
+        mma::load_a<LD>(vf[kk], sV, wr, kk * 16, lane);
+      }
+    }
+    const int q0 = (lo + it % nqt) * MQ;
+    const bf16* cQ = sQ + st * MQ * LD;
+    const bf16* cO = sO + st * MQ * LD;
+    const float* cL = sL + st * MQ;
+    const float* cD = sD + st * MQ;
+
+    // S^T = K.Q^T and dP^T = V.dO^T for the warp's 16 k rows
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ka[4], va[4];
+      if constexpr (HOIST) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ka[e] = kf[kk][e];
+          va[e] = vf[kk][e];
+        }
+      } else {
+        mma::load_a<LD>(ka, sK, wr, kk * 16, lane);
+        mma::load_a<LD>(va, sV, wr, kk * 16, lane);
+      }
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bf[4];
+        mma::load_b_nk<LD>(bf, cQ, np * 16, kk * 16, lane);
+        mma::mma_bf16(s[2 * np], ka, bf[0], bf[1]);
+        mma::mma_bf16(s[2 * np + 1], ka, bf[2], bf[3]);
+        mma::load_b_nk<LD>(bf, cO, np * 16, kk * 16, lane);
+        mma::mma_bf16(dp[2 * np], va, bf[0], bf[1]);
+        mma::mma_bf16(dp[2 * np + 1], va, bf[2], bf[3]);
+      }
+    }
+
+    // P^T and dS^T in the accumulators; masked to 0 only where this
+    // warp's rows meet the diagonal or the tile meets a ragged edge
+    const bool edge = (causal && k0 + wr + 15 > q0) || q0 + MQ > Sq ||
+                      k0 + wr + 16 > Sk;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = j * 8 + 2 * t + (e & 1);
+        float p = exp2f(fmaf(s[j][e], scale, -cL[qc]) * LOG2E);
+        if (edge) {
+          const int qr = q0 + qc, kr = k0 + wr + g + (e >> 1) * 8;
+          if (qr >= Sq || kr >= Sk || (causal && kr > qr)) p = 0.f;
+        }
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - cD[qc]) * scale;
+      }
+
+    // dV += P^T.dO and dK += dS^T.Q, P^T and dS^T rounded to bf16 in
+    // registers
+#pragma unroll
+    for (int kk = 0; kk < MQ / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      mma::pack_a(pa, s[2 * kk], s[2 * kk + 1]);
+      mma::pack_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t bf[4];
+        mma::load_b_kn<LD>(bf, cO, kk * 16, dn * 16, lane);
+        mma::mma_bf16(gv[2 * dn], pa, bf[0], bf[1]);
+        mma::mma_bf16(gv[2 * dn + 1], pa, bf[2], bf[3]);
+        mma::load_b_kn<LD>(bf, cQ, kk * 16, dn * 16, lane);
+        mma::mma_bf16(gk[2 * dn], da, bf[0], bf[1]);
+        mma::mma_bf16(gk[2 * dn + 1], da, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before its refill
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kr = k0 + wr + g + i * 8;
+    if (kr >= Sk) continue;
+    const int64_t off = ((int64_t)bkh * Sk + kr) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      mma::store_bf16x2(dk + off + j * 8 + 2 * t, gk[j][2 * i],
+                        gk[j][2 * i + 1]);
+      mma::store_bf16x2(dv + off + j * 8 + 2 * t, gv[j][2 * i],
+                        gv[j][2 * i + 1]);
+    }
+  }
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *dq, *dk, *dv;
@@ -383,16 +599,44 @@ int launch_dkv(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// which: 0 = dQ (K2), 1 = dK/dV (K3)
-template <typename T>
-int launch_d(int which, int D, const Args& a) {
+template <int D>
+int launch_dkv_mma(const Args& a) {
+  constexpr int MQ = mma_bq<D>();
+  const size_t smem =
+      sizeof(bf16) * (size_t)(2 * BK + 4 * MQ) * mma::row_stride<D>() +
+      sizeof(float) * 4 * MQ;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_mma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.B * a.Hk, (a.Sk + BK - 1) / BK);
+  flash_bwd_dkv_mma_kernel<D><<<grid, MT, smem, a.stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+      (const bf16*)a.dout, (const float*)a.lse, (const float*)a.delta,
+      (bf16*)a.dk, (bf16*)a.dv, a.H, a.Hk, a.Sq, a.Sk, a.causal, a.scale);
+  return (int)cudaGetLastError();
+}
+
+// which: 0 = dQ (K2), 1 = dK/dV (K3).  The design follows the dtype: K3
+// in bf16 (1) runs on the tensor cores; K2, and K3 in float32 (0), on the
+// CUDA cores.
+template <int D>
+int launch_dtype(int which, int dtype, const Args& a) {
+  if (dtype == 0)
+    return which ? launch_dkv<float, D>(a) : launch_dq<float, D>(a);
+  if (dtype == 1)
+    return which ? launch_dkv_mma<D>(a) : launch_dq<bf16, D>(a);
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_d(int which, int D, int dtype, const Args& a) {
   switch (D) {
     case 32:
-      return which ? launch_dkv<T, 32>(a) : launch_dq<T, 32>(a);
+      return launch_dtype<32>(which, dtype, a);
     case 64:
-      return which ? launch_dkv<T, 64>(a) : launch_dq<T, 64>(a);
+      return launch_dtype<64>(which, dtype, a);
     case 128:
-      return which ? launch_dkv<T, 128>(a) : launch_dq<T, 128>(a);
+      return launch_dtype<128>(which, dtype, a);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -402,9 +646,7 @@ int launch(int which, const Args& a, int D, int dtype, int device) {
   if (a.Hk <= 0 || a.H % a.Hk != 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (dtype == 0) return launch_d<float>(which, D, a);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(which, D, a);
-  return (int)cudaErrorInvalidValue;
+  return launch_d(which, D, dtype, a);
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a), plain C interface.
 //
-// Replaces mxnet_tpu/ops/attention.py::_flash_fwd.kernel, the Pallas TPU
-// kernel (launched there with and without the logsumexp output).  It
+// Replaces mxnet_tpu/ops/attention.py::_flash_fwd.kernel (:73), the Pallas
+// TPU kernel (launched there with the logsumexp output at :131 and without
+// it at :147).  It
 // computes the same function, not the same blocks:
 //
 //   s = q . k^T * scale             (scale defaults to 1/sqrt(D) in Python)
@@ -15,32 +16,49 @@
 // never repeated.  Ragged Sq/Sk are masked in the kernel; nothing is
 // padded in memory.
 //
-// Design.  One block of 256 threads per (b*H + h, 64-row q tile).  The
-// block stages its Q tile once and walks 64-row K/V tiles through shared
-// memory, converted to f32; under causal the walk stops after the
-// diagonal tile.  Each thread owns a 4x4 patch of the 64x64 score tile
-// (rows ty*4..ty*4+3, columns tx + 16*j) and the same 4 rows of the output
-// accumulator (columns tx + 16*j, j < D/16), so the row statistics it
-// needs for the rescale stay in its registers; row max and sum reduce
-// over the 16 lanes of a half-warp with shuffles.  Row strides of D+1 and
-// 65 floats keep the column reads free of bank conflicts.
+// Two designs, chosen by dtype in launch_d (never as a fallback):
 //
-// What bounds it.  At the serving shape (B=8, H=12, S=1024, D=64, causal,
-// bf16) the causal products are about 12.9 GFLOP and q/k/v/o about 50 MB:
-// on an H100 SXM that is about 13 us of bf16 tensor-core work against
-// about 15 us of HBM traffic, so the two floors are close.  This design
-// does the products on the f32 CUDA cores from shared memory instead of
-// wgmma/TMA, and so sits far above both (0.58 ms measured on an H100 SXM
-// at 700 W, see PERF.md): it is the simple, correct first version; the
-// tensor-core version is later work.
+// * bf16 -> flash_fwd_mma_kernel, on the tensor cores (FlashAttention-2's
+//   forward).  One block of 4 warps (128 threads) per (b*H + h, 64-row q
+//   tile); each warp owns 16 query rows.  Under causal the heaviest q tiles
+//   (the last ones) get the lowest block indices, so the ragged tail of
+//   the grid is the cheap tiles.  Shared memory holds bf16 only, rows
+//   padded to D + 8 values so that ldmatrix is free of bank conflicts: the
+//   Q tile, staged once, and K and V tiles of 64 rows in a two-stage
+//   cp.async ring (tile j + 1 is in flight while tile j is computed; rows
+//   past Sk are zero-filled by the copy).  That is 9 + 36 = 45 KB at
+//   D=64, 85 KB at D=128.  S = Q.K^T runs as mma.sync m16n8k16 (bf16 in,
+//   f32 accumulators; Q's fragments are loaded once by ldmatrix and kept
+//   in registers, K's by ldmatrix); the online softmax stays in registers
+//   in the accumulator layout (each thread 2 rows, row max and sum over
+//   the 4 lanes of a quad), in base 2 (scores times scale * log2 e);
+//   only the diagonal and the ragged last tile mask per element.  P is
+//   rounded to bf16 straight from the accumulators into the A fragments
+//   of O += P.V (V's fragments by ldmatrix.trans); O stays f32 in
+//   registers until the epilogue divides by l and stores bf16.
+// * float32 -> flash_fwd_kernel, the first design, on the f32 CUDA cores:
+//   one block of 256 threads per (b*H + h, 64-row q tile), Q staged once
+//   and K/V tiles walked through shared memory in f32; each thread owns a
+//   4x4 patch of the score tile and the same 4 rows of the output, row
+//   max and sum reduce over a half-warp; row strides of D+1 and 65 floats
+//   keep the column reads free of bank conflicts.  Q, K, V and P tiles
+//   take 115 KB at D=128.  It stays: on the tensor cores f32 would mean
+//   TF32, about three decimal digits, and the f32 path is what holds the
+//   card to the CPU at 1e-3 in chip_smoke.py.
 //
-// Shared memory: Q and K tiles 64 x (D+1), V tile 64 x D, P tile 64 x 65,
-// all f32: 115 KB at D=128, above the 48 KB static limit, hence the
-// cudaFuncAttributeMaxDynamicSharedMemorySize call before each launch.
+// What bounds it.  At the main shape (B=8, H=12, S=1024, D=64, causal,
+// bf16) the causal products are 12.9 GFLOP and q/k/v/o 50 MB: 13 us of
+// bf16 tensor-core work at 989 TFLOP/s against 15 us of HBM traffic at
+// 3.35 TB/s, so bytes bound it at 0.015 ms.  On an NVIDIA H100 80GB
+// HBM3 at 700.00 W the CUDA-core design took 0.58 ms there and the
+// tensor-core design takes 0.093 ms, 6x the bound and 1.9x SDPA's
+// forward (PERF.md §6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -51,13 +69,7 @@ constexpr int PS = BK + 1;
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 // Copy rows [r0, r0 + 64) of a (rows, D) matrix into a 64 x stride f32
 // tile, zero-filling rows past `rows`.
@@ -219,20 +231,215 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int D, const void* q, const void* k, const void* v, void* o,
-             void* lse, int B, int H, int Hk, int Sq, int Sk, int causal,
-             float scale, cudaStream_t stream) {
+// ---- bf16: tensor cores ----
+
+using mma::bf16;
+
+constexpr int MQ = 64;   // query rows per block: 4 warps of 16
+constexpr int MK = 64;   // key rows per tile
+constexpr int MT = 128;  // threads per block
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+template <int D>
+__global__ void __launch_bounds__(MT)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o,
+                     float* __restrict__ lse, int H, int Hk, int Sq, int Sk,
+                     int causal, float scale) {
+  constexpr int LD = mma::row_stride<D>();
+  constexpr int KS = D / 16;  // k-steps of S = Q.K^T
+  constexpr int NS = MK / 8;  // n-blocks of S
+  constexpr int NO = D / 8;   // n-blocks of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // MQ x LD
+  bf16* sK = sQ + MQ * LD;                       // 2 stages of MK x LD
+  bf16* sV = sK + 2 * MK * LD;                   // 2 stages of MK x LD
+
+  const int nq = (Sq + MQ - 1) / MQ;
+  const int q0 = (causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y) * MQ;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = b * Hk + h / (H / Hk);
+  const bf16* kp = k + (int64_t)kvh * Sk * D;
+  const bf16* vp = v + (int64_t)kvh * Sk * D;
+
+  const int lane = threadIdx.x & 31;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first row
+  const int g = lane >> 2, t = lane & 3;
+
+  const int nk = (Sk + MK - 1) / MK;
+  const int hi = causal ? min(nk, (q0 + MQ + MK - 1) / MK) : nk;
+
+  mma::load_rows<D, MQ, MT>(sQ, q + (int64_t)bh * Sq * D, q0, Sq);
+  mma::cp_async_commit();
+  if (hi > 0) {
+    mma::load_rows<D, MK, MT>(sK, kp, 0, Sk);
+    mma::load_rows<D, MK, MT>(sV, vp, 0, Sk);
+  }
+  mma::cp_async_commit();
+
+  // rows g and g + 8 of the warp: running max (base 2), sum, output
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  uint32_t qf[KS][4];
+  const float sl2 = scale * LOG2E;
+
+  for (int kb = 0; kb < hi; ++kb) {
+    const int k0 = kb * MK;
+    const bf16* cK = sK + (kb & 1) * MK * LD;
+    const bf16* cV = sV + (kb & 1) * MK * LD;
+    if (kb + 1 < hi) {  // the next tile's copy overlaps this tile's work
+      mma::load_rows<D, MK, MT>(sK + ((kb + 1) & 1) * MK * LD, kp, k0 + MK,
+                                Sk);
+      mma::load_rows<D, MK, MT>(sV + ((kb + 1) & 1) * MK * LD, vp, k0 + MK,
+                                Sk);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kb == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        mma::load_a<LD>(qf[kk], sQ, wr, kk * 16, lane);
+    }
+
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t kf[4];
+        mma::load_b_nk<LD>(kf, cK, np * 16, kk * 16, lane);
+        mma::mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
+        mma::mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
+      }
+
+    // scale into base 2, mask (only where this warp's rows meet the
+    // diagonal or the tile runs past Sk), running max
+    const bool edge = k0 + MK > Sk || (causal && k0 + MK - 1 > q0 + wr);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * sl2;
+        if (edge) {
+          const int kc = k0 + j * 8 + 2 * t + (e & 1);
+          const int qr = q0 + wr + g + (e >> 1) * 8;
+          if (kc >= Sk || (causal && kc > qr)) x = NEG;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = mma::quad_max(mx[i]);
+      alpha[i] = exp2f(m[i] - mx[i]);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        rs[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + mma::quad_sum(rs[i]);
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+
+    // O += P.V, P rounded to bf16 in registers
+#pragma unroll
+    for (int kk = 0; kk < MK / 16; ++kk) {
+      uint32_t pa[4];
+      mma::pack_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vf[4];
+        mma::load_b_kn<LD>(vf, cV, kk * 16, dp * 16, lane);
+        mma::mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
+        mma::mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before its refill
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = q0 + wr + g + i * 8;
+    if (qr >= Sq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    bf16* orow = o + ((int64_t)bh * Sq + qr) * D;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      mma::store_bf16x2(orow + j * 8 + 2 * t, acc[j][2 * i] / den,
+                        acc[j][2 * i + 1] / den);
+    if (lse != nullptr && t == 0)
+      lse[(int64_t)bh * Sq + qr] = m[i] * LN2 + logf(den);
+  }
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int H, int Hk, int Sq, int Sk, int causal,
+               float scale, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(bf16) * (size_t)(MQ + 4 * MK) * mma::row_stride<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (Sq + MQ - 1) / MQ);
+  flash_fwd_mma_kernel<D><<<grid, MT, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
+      H, Hk, Sq, Sk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// The design follows the dtype: bf16 (1) on the tensor cores, float32 (0)
+// on the CUDA cores.
+template <int D>
+int launch_dtype(int dtype, const void* q, const void* k, const void* v,
+                 void* o, void* lse, int B, int H, int Hk, int Sq, int Sk,
+                 int causal, float scale, cudaStream_t stream) {
+  if (dtype == 1)
+    return launch_mma<D>(q, k, v, o, lse, B, H, Hk, Sq, Sk, causal, scale,
+                         stream);
+  if (dtype == 0)
+    return launch<float, D>(q, k, v, o, lse, B, H, Hk, Sq, Sk, causal,
+                            scale, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_d(int D, int dtype, const void* q, const void* k, const void* v,
+             void* o, void* lse, int B, int H, int Hk, int Sq, int Sk,
+             int causal, float scale, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, H, Hk, Sq, Sk, causal, scale,
-                           stream);
+      return launch_dtype<32>(dtype, q, k, v, o, lse, B, H, Hk, Sq, Sk,
+                              causal, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, H, Hk, Sq, Sk, causal, scale,
-                           stream);
+      return launch_dtype<64>(dtype, q, k, v, o, lse, B, H, Hk, Sq, Sk,
+                              causal, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, H, Hk, Sq, Sk, causal, scale,
-                            stream);
+      return launch_dtype<128>(dtype, q, k, v, o, lse, B, H, Hk, Sq, Sk,
+                               causal, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -252,14 +459,8 @@ int mxtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (Hk <= 0 || H % Hk != 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, lse, B, H, Hk, Sq, Sk, causal,
-                           scale, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, lse, B, H, Hk, Sq, Sk,
-                                   causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_d(D, dtype, q, k, v, o, lse, B, H, Hk, Sq, Sk, causal, scale,
+                  (cudaStream_t)stream);
 }
 
 const char* mxtt_error_string(int err) {

@@ -4,17 +4,23 @@ Each source under ``csrc/`` is compiled by ``nvcc`` into its own shared
 library with a plain C interface and loaded with ``ctypes``.  The build
 happens at first use, from the sources in the checkout, into
 ``build/kernels/<stem>-<hash>/`` beside the package; the hash covers the
-source text and the compiler flags, so an edited source rebuilds.
+source text, every header under ``csrc/`` (``*.cuh``) and the compiler
+flags, so an edited source or header rebuilds.
 Importing this module builds nothing and creates no CUDA context.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all
 of them, so the build takes as long as the slowest source.
+``ptxas_report`` and ``hmma_counts`` read what was built: registers and
+spills per kernel from the ``-Xptxas -v`` log, and how many ``HMMA``
+instructions (tensor-core products) each kernel's machine code holds
+(``cuobjdump -sass``).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -56,11 +62,16 @@ def find_nvcc() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC_DIR, source), "rb") as f:
-        text = f.read()
-    h = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where ``source``'s library goes: keyed by the source, every header
+    of ``csrc/`` (a source may include any of them) and the flags."""
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in (source, *headers):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(b"\0" + name.encode() + b"\0" + f.read())
     stem = os.path.splitext(source)[0]
-    return os.path.join(BUILD_DIR, f"{stem}-{h[:16]}", f"lib{stem}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}",
+                        f"lib{stem}.so")
 
 
 def build_all(sources=SOURCES) -> Dict[str, dict]:
@@ -107,3 +118,52 @@ def library(source: str) -> ctypes.CDLL:
             path = build_all((source,))[source]["path"]
             lib = _libs[source] = ctypes.CDLL(path)
         return lib
+
+
+def ptxas_report(log: str) -> Dict[str, dict]:
+    """``{kernel: {"registers", "spill_stores", "spill_loads"}}`` from
+    nvcc's ``-Xptxas -v`` output (mangled kernel names)."""
+    out: Dict[str, dict] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def hmma_counts(sass: str) -> Dict[str, int]:
+    """``{kernel: n}``: how many HMMA instructions (tensor-core products)
+    each function of a ``cuobjdump -sass`` listing holds (mangled
+    names)."""
+    out: Dict[str, int] = {}
+    cur = None
+    pat = re.compile(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?HMMA\b")
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, 0)
+        elif cur is not None and pat.match(line):
+            out[cur] += 1
+    return out
+
+
+def disassemble(path: str) -> str:
+    """``cuobjdump -sass`` of a built library (the tool beside nvcc)."""
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", path], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        raise MXNetError(f"cuobjdump failed on {path}: {res.stderr}")
+    return res.stdout

@@ -5,8 +5,11 @@ Pallas kernels become CUDA kernels built at first use and launched through
 ``ctypes``: the forward (``_flash_fwd``) is ``csrc/flash_fwd.cu``
 (:func:`flash_fwd_cuda`), the FlashAttention-2 backward (``_flash_bwd``:
 the dQ kernel and the dK/dV kernel) is ``csrc/flash_bwd.cu``
-(:func:`flash_bwd_cuda`).  Beside each sits the plain PyTorch version of
-the same function (:func:`_attn_reference`, :func:`_flash_bwd_reference`),
+(:func:`flash_bwd_cuda`).  In bf16 the forward and the dK/dV kernel run
+on the tensor cores (``mma.sync``), the dQ kernel on the CUDA cores; in
+float32 all three run on the CUDA cores.  Beside each sits the plain
+PyTorch version of the same function (:func:`_attn_reference`,
+:func:`_flash_bwd_reference`),
 which a CPU or meta tensor takes and against which the kernels are checked
 on the card.  A CUDA tensor always launches the kernel, or the wrapper
 raises: nothing falls back.
@@ -52,6 +55,16 @@ def _check_heads(q, k, v):
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
 
 
+def _check_aligned(who, named):
+    """The bf16 kernels stage rows with 16-byte ``cp.async`` copies, so
+    every bf16 input must start on a 16-byte boundary (a fresh tensor
+    does; a view with an odd storage offset may not)."""
+    for name, t in named:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise MXNetError(f"{who}: {name} does not start on a 16-byte "
+                             "boundary (bf16 kernels copy 16-byte chunks)")
+
+
 def _attn_reference(q, k, v, causal, scale, return_lse=False):
     """Plain attention in f32 (the kernel's plain version; counterpart of
     the JAX package's ``_attn_reference``, which it extends with the
@@ -82,9 +95,9 @@ def flash_fwd_cuda(q, k, v, causal=False, scale=None, return_lse=False):
     """Launch the Hopper flash-attention forward on CUDA tensors.
 
     Checks device, dtype (float32 or bfloat16, all three alike), head dim
-    (32, 64 or 128), shapes and contiguity, and raises on anything the
-    kernel does not take.  Outputs are allocated here; the kernel runs
-    on the current stream and is not synchronised.
+    (32, 64 or 128), shapes, contiguity and (bf16) 16-byte alignment, and
+    raises on anything the kernel does not take.  Outputs are allocated
+    here; the kernel runs on the current stream and is not synchronised.
     ``flash_fwd_cuda.launches`` counts successful launches, and
     ``flash_fwd_cuda.lse_launches`` those of them with the lse output."""
     _check_heads(q, k, v)
@@ -105,6 +118,7 @@ def flash_fwd_cuda(q, k, v, causal=False, scale=None, return_lse=False):
     if D not in KERNEL_HEAD_DIMS:
         raise MXNetError(f"flash_fwd_cuda: head dim {D} not supported "
                          f"({KERNEL_HEAD_DIMS})")
+    _check_aligned("flash_fwd_cuda", (("q", q), ("k", k), ("v", v)))
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     from .. import cuda_lib
@@ -211,6 +225,8 @@ def _check_bwd_inputs(q, k, v, out, lse, dout):
     if q.shape[3] not in KERNEL_HEAD_DIMS:
         raise MXNetError(f"flash_bwd_cuda: head dim {q.shape[3]} not "
                          f"supported ({KERNEL_HEAD_DIMS})")
+    _check_aligned("flash_bwd_cuda", (("q", q), ("k", k), ("v", v),
+                                      ("dout", dout)))
     _check_row_stat("lse", lse, q)
 
 

@@ -30,7 +30,19 @@ CASES = [
     (1, 2, 2, 130, 20, 32, True),
     (2, 4, 2, 70, 200, 128, False),
     (2, 4, 4, 130, 130, 128, True),
+    # the edges of the bf16 tensor-core kernels, as in chip_smoke.py: MQA
+    # at D 32, Sq != Sk both ways, one row, lengths off the 16-row
+    # fragments, D 128 (32-row q tiles in dK/dV), GQA 8 -> 2
+    (2, 4, 1, 130, 130, 32, True),
+    (2, 4, 4, 100, 300, 64, True),
+    (2, 4, 4, 300, 100, 64, True),
+    (2, 4, 2, 1, 1, 64, True),
+    (2, 4, 2, 77, 130, 64, False),
+    (2, 4, 2, 130, 77, 128, True),
+    (2, 8, 2, 300, 300, 64, True),
 ]
+CASE_IDS = ["B{}H{}Hk{}_Sq{}Sk{}_D{}_{}".format(
+    *c[:6], "causal" if c[6] else "full") for c in CASES]
 
 
 @pytest.fixture
@@ -48,21 +60,20 @@ def _qkv(dev, dtype, B, H, Hk, Sq, Sk, D, seed=0):
                  for s in ((B, H, Sq, D), (B, Hk, Sk, D), (B, Hk, Sk, D)))
 
 
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain_version(dev, dtype):
+def test_kernel_matches_plain_version(dev, dtype, case):
     before = att.flash_fwd_cuda.launches
-    for case in CASES:
-        *shape, causal = case
-        q, k, v = _qkv(dev, dtype, *shape)
-        out, lse = att.flash_attention(q, k, v, causal, None,
+    *shape, causal = case
+    q, k, v = _qkv(dev, dtype, *shape)
+    out, lse = att.flash_attention(q, k, v, causal, None, return_lse=True)
+    ref, ref_lse = att._attn_reference(q, k, v, causal, None,
                                        return_lse=True)
-        ref, ref_lse = att._attn_reference(q, k, v, causal, None,
-                                           return_lse=True)
-        assert out.dtype == dtype and lse.dtype == torch.float32
-        torch.testing.assert_close(out.float(), ref.float(),
-                                   rtol=TOL[dtype], atol=TOL[dtype])
-        torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
-    assert att.flash_fwd_cuda.launches == before + len(CASES)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref.float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    assert att.flash_fwd_cuda.launches == before + 1
 
 
 def test_kernel_refuses_what_it_does_not_take(dev):
@@ -82,6 +93,13 @@ def test_kernel_refuses_what_it_does_not_take(dev):
         strided, k, v, causal=True)
     torch.testing.assert_close(out, att._attn_reference(q, k, v, True, None),
                                rtol=1e-4, atol=1e-4)
+    # bf16 rows are copied in 16-byte chunks: a contiguous view that
+    # starts 2 bytes into its storage is refused
+    flat = torch.zeros(2 * 16 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    q = flat[1:].view(1, 2, 16, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(mt.MXNetError, match="16-byte"):
+        att.flash_fwd_cuda(q, q, q)
 
 
 def test_small_lm_served_on_card_matches_cpu(dev):
@@ -119,26 +137,43 @@ def test_small_lm_served_on_card_matches_cpu(dev):
 BWD_TOL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 
 
+def _bwd_inputs(dev, dtype, case, seed):
+    *shape, causal = case
+    q, k, v = _qkv(dev, dtype, *shape, seed=seed)
+    out, lse = att.flash_fwd_cuda(q, k, v, causal, None, return_lse=True)
+    g = torch.from_numpy(np.random.default_rng(100 + seed).standard_normal(
+        tuple(q.shape), dtype=np.float32)).to(dev, dtype)
+    return q, k, v, out, lse, g, causal
+
+
+@pytest.mark.parametrize("case", CASES, ids=CASE_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_kernels_match_plain_version(dev, dtype):
+def test_backward_kernels_match_plain_version(dev, dtype, case):
     before = (att.flash_bwd_cuda.dq_launches, att.flash_bwd_cuda.dkv_launches)
-    for i, case in enumerate(CASES):
-        *shape, causal = case
-        q, k, v = _qkv(dev, dtype, *shape, seed=i)
-        out, lse = att.flash_fwd_cuda(q, k, v, causal, None,
-                                      return_lse=True)
-        g = torch.from_numpy(np.random.default_rng(100 + i).standard_normal(
-            tuple(q.shape), dtype=np.float32)).to(dev, dtype)
-        got = att.flash_bwd_cuda(q, k, v, out, lse, g, causal)
-        ref = att._flash_bwd_reference(q, k, v, out, lse, g, causal, None)
-        for name, a, b in zip(("dq", "dk", "dv"), got, ref):
-            assert a.dtype == b.dtype == dtype, name
-            torch.testing.assert_close(a.float(), b.float(),
-                                       rtol=BWD_TOL[dtype],
-                                       atol=BWD_TOL[dtype], msg=name)
+    args = _bwd_inputs(dev, dtype, case, CASES.index(case))
+    got = att.flash_bwd_cuda(*args)
+    ref = att._flash_bwd_reference(*args, None)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == b.dtype == dtype, name
+        torch.testing.assert_close(a.float(), b.float(),
+                                   rtol=BWD_TOL[dtype],
+                                   atol=BWD_TOL[dtype], msg=name)
     assert (att.flash_bwd_cuda.dq_launches,
-            att.flash_bwd_cuda.dkv_launches) == (before[0] + len(CASES),
-                                                 before[1] + len(CASES))
+            att.flash_bwd_cuda.dkv_launches) == (before[0] + 1,
+                                                 before[1] + 1)
+
+
+@pytest.mark.parametrize("case", [CASES[2], CASES[-3], CASES[-1]],
+                         ids=[CASE_IDS[2], CASE_IDS[-3], CASE_IDS[-1]])
+def test_bf16_kernels_are_deterministic(dev, case):
+    """No atomics: two launches of K1 (with lse) and of the backward on
+    the same inputs give the same bits."""
+    q, k, v, out, lse, g, causal = _bwd_inputs(dev, torch.bfloat16, case, 0)
+    out2, lse2 = att.flash_fwd_cuda(q, k, v, causal, None, return_lse=True)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    first = att.flash_bwd_cuda(q, k, v, out, lse, g, causal)
+    second = att.flash_bwd_cuda(q, k, v, out, lse, g, causal)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_autograd_function_launches_backward_kernels(dev):
