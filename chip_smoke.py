@@ -92,20 +92,31 @@ def emit(phase, **kw):
           flush=True)
 
 
-def time_ms(fn, iters=20, warmup=3):
-    """Mean ms per call over ``iters`` calls, by CUDA events."""
+def time_ms(fn, iters=20, repeats=5, warmup=3):
+    """(median, min, max) over ``repeats`` timed loops of the mean ms per
+    call of ``iters`` calls, by CUDA events."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(repeats):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times)), min(times), max(times)
+
+
+def timed(row, key, fn, **kw):
+    """``row[key]``: the median ms of ``fn`` (:func:`time_ms`), with its
+    min and max under ``key_min`` and ``key_max``."""
+    med, lo, hi = time_ms(fn, **kw)
+    row.update({key: med, f"{key}_min": lo, f"{key}_max": hi})
 
 
 def attention_bound_ms(B, H, Hk, Sq, Sk, D, causal, dtype, kind="fwd"):
@@ -150,10 +161,11 @@ def phase_device(torch):
     return line
 
 
-# the kernels on the tensor cores (the bf16 instances of K1 and K3): each
-# instance must hold HMMA instructions, and the D=64 ones (the main
+# the kernels on the tensor cores (the bf16 instances of K1, K2 and K3):
+# each instance must hold HMMA instructions, and the D=64 ones (the main
 # paths') must not spill
-MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dkv_mma_kernel")
+MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+               "flash_bwd_dkv_mma_kernel")
 
 
 def demangle(names, nvcc_dir):
@@ -275,16 +287,16 @@ def phase_kernels(torch, mt):
         if name.startswith("main"):
             bound, by, flops, nbytes = attention_bound_ms(
                 B, H, Hk, Sq, Sk, D, causal, dt)
-            row.update(
-                kernel_ms=time_ms(
-                    lambda: att.flash_fwd_cuda(q, k, v, causal, None)),
-                plain_ms=time_ms(
-                    lambda: att._attn_reference(q, k, v, causal, None),
-                    iters=5),
-                library_ms=time_ms(
-                    lambda: torch.nn.functional.scaled_dot_product_attention(
-                        q, k, v, is_causal=causal)),
-                bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes)
+            timed(row, "kernel_ms",
+                  lambda: att.flash_fwd_cuda(q, k, v, causal, None))
+            timed(row, "plain_ms",
+                  lambda: att._attn_reference(q, k, v, causal, None),
+                  iters=5)
+            timed(row, "library_ms",
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      q, k, v, is_causal=causal))
+            row.update(bound_ms=bound, bound_by=by, flops=flops,
+                       bytes=nbytes)
         results[name] = row
         emit("kernel_check", name=name, **row)
     if failures:
@@ -309,7 +321,8 @@ def phase_bwd_kernels(torch, mt):
         ("causal_sq300_sk100", 2, 4, 4, 300, 100, 64, True, "float32"),
         ("noncausal_d128", 2, 4, 4, 200, 200, 128, False, "bfloat16"),
         ("mqa_d32", 2, 4, 1, 130, 130, 32, True, "float32"),
-        # the bf16 (tensor-core) dK/dV design at its edges
+        # the bf16 (tensor-core) K2 and K3 designs at their edges; Sq 80
+        # ends a q tile after one warp's 16 rows
         ("mqa_d32_bf16", 2, 4, 1, 130, 130, 32, True, "bfloat16"),
         ("causal_sq100_sk300_bf16", 2, 4, 4, 100, 300, 64, True, "bfloat16"),
         ("causal_sq300_sk100_bf16", 2, 4, 4, 300, 100, 64, True, "bfloat16"),
@@ -317,6 +330,7 @@ def phase_bwd_kernels(torch, mt):
         ("ragged_sq77_sk130_bf16", 2, 4, 2, 77, 130, 64, False, "bfloat16"),
         ("causal_sq130_sk77_d128_bf16", 2, 4, 2, 130, 77, 128, True,
          "bfloat16"),
+        ("causal_sq80_sk80_bf16", 2, 4, 2, 80, 80, 64, True, "bfloat16"),
     ]
     results, failures = {}, []
     for name, B, H, Hk, Sq, Sk, D, causal, dt in cases:
@@ -360,15 +374,14 @@ def phase_bwd_kernels(torch, mt):
                           for t in (q, k, v))
             sdpa = torch.nn.functional.scaled_dot_product_attention(
                 qr, kr, vr, is_causal=causal)
-            row.update(
-                dq_kernel_ms=time_ms(lambda: att.flash_bwd_dq_cuda(
-                    q, k, v, g, lse, delta, causal, scale)),
-                dkv_kernel_ms=time_ms(lambda: att.flash_bwd_dkv_cuda(
-                    q, k, v, g, lse, delta, causal, scale)),
-                plain_ms=time_ms(lambda: att._flash_bwd_reference(
-                    q, k, v, out, lse, g, causal, None), iters=3),
-                library_ms=time_ms(lambda: torch.autograd.grad(
-                    sdpa, (qr, kr, vr), g, retain_graph=True)))
+            timed(row, "dq_kernel_ms", lambda: att.flash_bwd_dq_cuda(
+                q, k, v, g, lse, delta, causal, scale))
+            timed(row, "dkv_kernel_ms", lambda: att.flash_bwd_dkv_cuda(
+                q, k, v, g, lse, delta, causal, scale))
+            timed(row, "plain_ms", lambda: att._flash_bwd_reference(
+                q, k, v, out, lse, g, causal, None), iters=3)
+            timed(row, "library_ms", lambda: torch.autograd.grad(
+                sdpa, (qr, kr, vr), g, retain_graph=True))
             del sdpa, qr, kr, vr
             for kind in ("dq", "dkv"):
                 bound, by, flops, nbytes = attention_bound_ms(
@@ -809,18 +822,22 @@ def main():
 
     def by_path(key):
         return {"serve": serve_counts[key], "train": train_counts[key]}
+
+    def ms_of(row, key):  # the median with its min and max
+        return dict(ms=row[key], ms_min=row[f"{key}_min"],
+                    ms_max=row[f"{key}_max"])
     fwd, b = checks["main_bf16"], bwd["main_bf16"]
     rows = [
         dict(name="flash_fwd", source="mxnet_tpu_torch/csrc/flash_fwd.cu",
              design="mma.sync (bf16)",
              replaces="mxnet_tpu/ops/attention.py:73", key="flash_fwd",
-             max_abs_err=fwd["max_abs_err"], ms=fwd["kernel_ms"],
+             max_abs_err=fwd["max_abs_err"], **ms_of(fwd, "kernel_ms"),
              plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
              bound_by=fwd["bound_by"], library_ms=fwd["library_ms"]),
         dict(name="flash_bwd_dq", source="mxnet_tpu_torch/csrc/flash_bwd.cu",
-             design="CUDA cores",
+             design="mma.sync (bf16)",
              replaces="mxnet_tpu/ops/attention.py:222", key="flash_bwd_dq",
-             max_abs_err=b["dq_max_abs_err"], ms=b["dq_kernel_ms"],
+             max_abs_err=b["dq_max_abs_err"], **ms_of(b, "dq_kernel_ms"),
              plain_ms=b["plain_ms"], bound_ms=b["dq_bound_ms"],
              bound_by=b["dq_bound_by"], library_ms=b["library_ms"]),
         dict(name="flash_bwd_dkv",
@@ -829,7 +846,7 @@ def main():
              replaces="mxnet_tpu/ops/attention.py:273",
              key="flash_bwd_dkv",
              max_abs_err=max(b["dk_max_abs_err"], b["dv_max_abs_err"]),
-             ms=b["dkv_kernel_ms"], plain_ms=b["plain_ms"],
+             **ms_of(b, "dkv_kernel_ms"), plain_ms=b["plain_ms"],
              bound_ms=b["dkv_bound_ms"], bound_by=b["dkv_bound_by"],
              library_ms=b["library_ms"]),
     ]

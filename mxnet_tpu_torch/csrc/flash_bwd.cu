@@ -24,14 +24,39 @@
 // Design.  Blocks run in parallel in no order, so nothing is carried
 // across them and no atomics are used: both kernels are deterministic.
 //
-// * K2 (dQ): one block of 256 threads per (b*H + h, 64-row q tile).  It
-//   stages its Q and dO tiles once, then walks 64-row K/V tiles (under
-//   causal up to the diagonal tile, a bound that depends only on the
-//   positions, not on the TPU's 128-row blocks) and keeps the dQ tile in
-//   registers.  Each thread owns 4 rows x 4 columns of the 64x64 score
-//   tile, computes s and dP for them in one pass over D, writes dS to
-//   shared memory, and then adds dS . K into its 4 rows of dQ (columns
-//   tx + 16*j).
+// * K2 (dQ): one block per (b*H + h, 64-row q tile).  It stages its Q
+//   and dO tiles once, then walks 64-row K/V tiles (under causal up to
+//   the diagonal tile, a bound that depends only on the positions, not
+//   on the TPU's 128-row blocks) and keeps the dQ tile in registers in
+//   f32.  Two designs on that frame, chosen by dtype in launch_dtype
+//   (never as a fallback):
+//   - bf16 -> flash_bwd_dq_mma_kernel, on the tensor cores: 4 warps (128
+//     threads), each owning 16 of the 64 q rows; under causal the
+//     heaviest q tiles (the last ones) get the lowest block indices, as
+//     in the forward.  Q and dO are staged once in bf16 with the
+//     warp's lse and delta rows in registers; their A fragments are
+//     read by ldmatrix at each use, not kept in registers: at D=64
+//     keeping them took 199 registers a thread (2 blocks per SM) and
+//     0.123 ms at the training shape, reading them 168 (3 blocks per
+//     SM) and 0.093 ms (PERF.md §6).  K and V tiles go through a
+//     two-stage cp.async ring, so the next tile's copy overlaps this
+//     one's work; rows past Sq or Sk are zero-filled by the copy.
+//     S = Q.K^T and dP = dO.V^T run as mma.sync m16n8k16 (bf16 in, f32
+//     accumulators; K and V fragments by ldmatrix); P = exp(S scale -
+//     lse) and dS = P (dP - delta) scale are formed in the accumulator
+//     registers (masked to 0 only in tiles that meet the diagonal or a
+//     ragged edge, decided per warp) and dS is rounded to bf16 straight
+//     into the A fragments of dQ += dS.K (K fragments by
+//     ldmatrix.trans): dS never goes to shared memory.  Shared memory,
+//     bf16 rows padded to D + 8 values (ldmatrix without bank
+//     conflicts): Q, dO 64 rows each, K, V 2 stages each: 54 KB at
+//     D=64, 102 KB at D=128.
+//   - float32 -> flash_bwd_dq_kernel, the first design, on the f32 CUDA
+//     cores: 256 threads, each owning 4 rows x 4 columns of the 64x64
+//     score tile; it computes s and dP for them in one pass over D,
+//     writes dS to shared memory, and then adds dS . K into its 4 rows
+//     of dQ (columns tx + 16*j).  It stays for the reason given for K3
+//     below.
 // * K3 (dK, dV): one block per (b, KV head, 64-row k tile).  It stages
 //   its K and V tiles once, then loops over the G = H / Hk query heads of
 //   its group and, for each, over the q tiles from the causal start
@@ -40,8 +65,8 @@
 //   GQA group sum is taken inside the block, in f32, before the one cast
 //   to k's dtype (the TPU package writes f32 per query head and sums
 //   outside, attention.py:339-343); the outputs are (B, Hk, Sk, D)
-//   directly.  Two designs on that frame, chosen by dtype in launch_d
-//   (never as a fallback):
+//   directly.  Two designs on that frame, chosen by dtype in
+//   launch_dtype (never as a fallback):
 //   - bf16 -> flash_bwd_dkv_mma_kernel, on the tensor cores: 4 warps (128
 //     threads), each owning 16 of the 64 k rows.  K and V are staged once
 //     in bf16 (at D <= 64 their A fragments are then kept in registers;
@@ -71,13 +96,18 @@
 // causal, bf16) K2 does three products over the causal half, 19.4 GFLOP,
 // against 64 MB of traffic; K3 does four, 25.8 GFLOP, against 76 MB.  On
 // an H100 SXM (bf16 tensor cores at 989 TFLOP/s, HBM at 3.35 TB/s) the
-// operations bound both: 0.020 ms for K2, 0.026 ms for K3.  On an NVIDIA
-// H100 80GB HBM3 at 700.00 W the CUDA-core designs took 0.83 ms (K2) and
-// 0.97 ms (K3) there, and the tensor-core K3 takes 0.13 ms, 5x its bound
-// (PERF.md §6).  K2 keeps the CUDA-core design for now.
+// operations bound both: 0.020 ms for K2, 0.026 ms for K3.  So both run
+// their products on the tensor cores in bf16, keep P and dS in
+// registers between the products, and overlap the next tile's copy with
+// this tile's products; what is left above the bound (the mma.sync issue
+// rate, the per-tile __syncthreads, 2-3 blocks per SM) is for wgmma and
+// TMA.  On an NVIDIA H100 80GB HBM3 at 700.00 W the CUDA-core designs
+// took 0.83 ms (K2) and 0.97 ms (K3) there in bf16, and the tensor-core
+// designs take 0.093 ms (K2) and 0.13 ms (K3), about 5x their bounds
+// (PERF.md §6).
 //
-// Shared memory of the CUDA-core designs, f32, rows padded to D+1 and 65
-// floats so that the column reads are free of bank conflicts:
+// Shared memory of the CUDA-core (float32) designs, rows padded to D+1
+// and 65 floats so that the column reads are free of bank conflicts:
 //   K2: Q, dO, K, V tiles 64 x (D+1), dS tile 64 x 65       (149 KB at D=128)
 //   K3: K, V, Q, dO tiles 64 x (D+1), P^T and dS^T 64 x 65,
 //       lse and delta of the q tile                         (162 KB at D=128)
@@ -97,35 +127,28 @@ constexpr int BK = 64;    // key rows per tile
 constexpr int NT = 256;   // threads per block: 16 (tx) x 16 (ty)
 constexpr int PS = 65;    // row stride of the 64 x 64 P / dS tiles
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 // Copy rows [r0, r0 + 64) of a (rows, D) matrix into a 64 x stride f32
 // tile, zero-filling rows past `rows`.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void load_tile(float* dst, int stride,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int r0, int rows) {
   for (int i = threadIdx.x; i < 64 * D; i += NT) {
     const int r = i / D, c = i % D;
     dst[r * stride + c] =
-        (r0 + r < rows) ? to_f32(src[(int64_t)(r0 + r) * D + c]) : 0.f;
+        (r0 + r < rows) ? src[(int64_t)(r0 + r) * D + c] : 0.f;
   }
 }
 
-// K2: dQ for one (b*H + h, 64-row q tile).
-template <typename T, int D>
+// K2 in float32: dQ for one (b*H + h, 64-row q tile).
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int Hk, int Sq, int Sk, int causal, float scale) {
   constexpr int DS = D + 1;
   constexpr int DJ = D / 16;  // dQ columns per thread
@@ -140,13 +163,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.y * BQ;
   const int b = bh / H, h = bh % H;
   const int kvh = b * Hk + h / (H / Hk);
-  const T* kp = k + (int64_t)kvh * Sk * D;
-  const T* vp = v + (int64_t)kvh * Sk * D;
+  const float* kp = k + (int64_t)kvh * Sk * D;
+  const float* vp = v + (int64_t)kvh * Sk * D;
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<T, D>(sQ, DS, q + (int64_t)bh * Sq * D, q0, Sq);
-  load_tile<T, D>(sO, DS, dout + (int64_t)bh * Sq * D, q0, Sq);
+  load_tile<D>(sQ, DS, q + (int64_t)bh * Sq * D, q0, Sq);
+  load_tile<D>(sO, DS, dout + (int64_t)bh * Sq * D, q0, Sq);
 
   float lr[4], dr[4];
   bool rok[4];
@@ -166,8 +189,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kb = 0; kb < hi; ++kb) {
     const int k0 = kb * BK;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(sK, DS, kp, k0, Sk);
-    load_tile<T, D>(sV, DS, vp, k0, Sk);
+    load_tile<D>(sK, DS, kp, k0, Sk);
+    load_tile<D>(sV, DS, vp, k0, Sk);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -227,21 +250,23 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if (!rok[i]) continue;
-    T* row = dq + ((int64_t)bh * Sq + q0 + ty * 4 + i) * D;
+    float* row = dq + ((int64_t)bh * Sq + q0 + ty * 4 + i) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) store(row + tx + 16 * j, acc[i][j]);
+    for (int j = 0; j < DJ; ++j) row[tx + 16 * j] = acc[i][j];
   }
 }
 
-// K3: dK and dV for one (b*Hk + kv head, 64-row k tile), summed over the
-// G query heads of the group.
-template <typename T, int D>
+// K3 in float32: dK and dV for one (b*Hk + kv head, 64-row k tile),
+// summed over the G query heads of the group.
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Hk, int Sq, int Sk,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int Hk, int Sq, int Sk,
                      int causal, float scale) {
   constexpr int DS = D + 1;
   constexpr int DJ = D / 16;  // dK / dV columns per thread
@@ -262,8 +287,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 
-  load_tile<T, D>(sK, DS, k + (int64_t)bkh * Sk * D, k0, Sk);
-  load_tile<T, D>(sV, DS, v + (int64_t)bkh * Sk * D, k0, Sk);
+  load_tile<D>(sK, DS, k + (int64_t)bkh * Sk * D, k0, Sk);
+  load_tile<D>(sV, DS, v + (int64_t)bkh * Sk * D, k0, Sk);
 
   bool kok[4];
   float gk[4][DJ], gv[4][DJ];
@@ -278,15 +303,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lo = causal ? k0 / BQ : 0;
   for (int g = 0; g < G; ++g) {
     const int bh = b * H + kh * G + g;
-    const T* qp = q + (int64_t)bh * Sq * D;
-    const T* op = dout + (int64_t)bh * Sq * D;
+    const float* qp = q + (int64_t)bh * Sq * D;
+    const float* op = dout + (int64_t)bh * Sq * D;
     const float* lp = lse + (int64_t)bh * Sq;
     const float* dlp = delta + (int64_t)bh * Sq;
     for (int qb = lo; qb < nq; ++qb) {
       const int q0 = qb * BQ;
       __syncthreads();  // the previous tile's readers are done
-      load_tile<T, D>(sQ, DS, qp, q0, Sq);
-      load_tile<T, D>(sO, DS, op, q0, Sq);
+      load_tile<D>(sQ, DS, qp, q0, Sq);
+      load_tile<D>(sO, DS, op, q0, Sq);
       if (threadIdx.x < BQ) {
         const int r = q0 + threadIdx.x;
         sL[threadIdx.x] = r < Sq ? lp[r] : 0.f;
@@ -365,18 +390,163 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t off = ((int64_t)bkh * Sk + k0 + ty * 4 + i) * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      store(dk + off + tx + 16 * j, gk[i][j]);
-      store(dv + off + tx + 16 * j, gv[i][j]);
+      dk[off + tx + 16 * j] = gk[i][j];
+      dv[off + tx + 16 * j] = gv[i][j];
     }
   }
 }
 
-// ---- K3 in bf16: tensor cores ----
+// ---- bf16: tensor cores ----
 
 using mma::bf16;
 
-constexpr int MT = 128;  // threads of the bf16 dK/dV kernel: 4 warps
+constexpr int MT = 128;  // threads of the bf16 kernels: 4 warps
 constexpr float LOG2E = 1.4426950408889634f;
+
+// K2 in bf16: dQ for one (b*H + h, 64-row q tile).
+template <int D>
+__global__ void __launch_bounds__(MT)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int H, int Hk, int Sq, int Sk,
+                        int causal, float scale) {
+  constexpr int LD = mma::row_stride<D>();
+  constexpr int KS = D / 16;  // k-steps of S = Q.K^T
+  constexpr int NS = BK / 8;  // n-blocks of S
+  constexpr int ND = D / 8;   // n-blocks of dQ
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD
+  bf16* sO = sQ + BQ * LD;                       // dO, BQ x LD
+  bf16* sK = sO + BQ * LD;                       // 2 stages of BK x LD
+  bf16* sV = sK + 2 * BK * LD;                   // 2 stages of BK x LD
+
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int q0 = (causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y) * BQ;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int kvh = b * Hk + h / (H / Hk);
+  const bf16* kp = k + (int64_t)kvh * Sk * D;
+  const bf16* vp = v + (int64_t)kvh * Sk * D;
+
+  const int lane = threadIdx.x & 31;
+  const int wr = (threadIdx.x >> 5) * 16;  // the warp's first q row
+  const int g = lane >> 2, t = lane & 3;
+
+  const int nk = (Sk + BK - 1) / BK;
+  const int hi = causal ? min(nk, (q0 + BQ + BK - 1) / BK) : nk;
+
+  mma::load_rows<D, BQ, MT>(sQ, q + (int64_t)bh * Sq * D, q0, Sq);
+  mma::load_rows<D, BQ, MT>(sO, dout + (int64_t)bh * Sq * D, q0, Sq);
+  mma::cp_async_commit();
+  if (hi > 0) {
+    mma::load_rows<D, BK, MT>(sK, kp, 0, Sk);
+    mma::load_rows<D, BK, MT>(sV, vp, 0, Sk);
+  }
+  mma::cp_async_commit();
+
+  // rows g and g + 8 of the warp: lse, delta (0 past Sq), dQ
+  float lr[2], dr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = q0 + wr + g + i * 8;
+    const int64_t off = (int64_t)bh * Sq + qr;
+    lr[i] = qr < Sq ? lse[off] : 0.f;
+    dr[i] = qr < Sq ? delta[off] : 0.f;
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int kb = 0; kb < hi; ++kb) {
+    const int k0 = kb * BK;
+    const bf16* cK = sK + (kb & 1) * BK * LD;
+    const bf16* cV = sV + (kb & 1) * BK * LD;
+    if (kb + 1 < hi) {  // the next tile's copy overlaps this tile's work
+      mma::load_rows<D, BK, MT>(sK + ((kb + 1) & 1) * BK * LD, kp, k0 + BK,
+                                Sk);
+      mma::load_rows<D, BK, MT>(sV + ((kb + 1) & 1) * BK * LD, vp, k0 + BK,
+                                Sk);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // S = Q.K^T and dP = dO.V^T for the warp's 16 q rows
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4], oa[4];
+      mma::load_a<LD>(qa, sQ, wr, kk * 16, lane);
+      mma::load_a<LD>(oa, sO, wr, kk * 16, lane);
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        uint32_t bf[4];
+        mma::load_b_nk<LD>(bf, cK, np * 16, kk * 16, lane);
+        mma::mma_bf16(s[2 * np], qa, bf[0], bf[1]);
+        mma::mma_bf16(s[2 * np + 1], qa, bf[2], bf[3]);
+        mma::load_b_nk<LD>(bf, cV, np * 16, kk * 16, lane);
+        mma::mma_bf16(dp[2 * np], oa, bf[0], bf[1]);
+        mma::mma_bf16(dp[2 * np + 1], oa, bf[2], bf[3]);
+      }
+    }
+
+    // dS = P (dP - delta) scale in the accumulators; masked to 0 only
+    // where this warp's rows meet the diagonal or a ragged edge
+    const bool edge = (causal && k0 + BK - 1 > q0 + wr) || k0 + BK > Sk ||
+                      q0 + wr + 16 > Sq;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = exp2f(fmaf(s[j][e], scale, -lr[i]) * LOG2E);
+        if (edge) {
+          const int kc = k0 + j * 8 + 2 * t + (e & 1);
+          const int qr = q0 + wr + g + i * 8;
+          if (qr >= Sq || kc >= Sk || (causal && kc > qr)) p = 0.f;
+        }
+        dp[j][e] = p * (dp[j][e] - dr[i]) * scale;
+      }
+
+    // dQ += dS.K, dS rounded to bf16 in registers
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t da[4];
+      mma::pack_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        uint32_t bf[4];
+        mma::load_b_kn<LD>(bf, cK, kk * 16, dn * 16, lane);
+        mma::mma_bf16(acc[2 * dn], da, bf[0], bf[1]);
+        mma::mma_bf16(acc[2 * dn + 1], da, bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before its refill
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qr = q0 + wr + g + i * 8;
+    if (qr >= Sq) continue;
+    bf16* row = dq + ((int64_t)bh * Sq + qr) * D;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      mma::store_bf16x2(row + j * 8 + 2 * t, acc[j][2 * i],
+                        acc[j][2 * i + 1]);
+  }
+}
 
 // q rows per tile of the bf16 dK/dV kernel
 template <int D>
@@ -384,6 +554,8 @@ __host__ __device__ constexpr int mma_bq() {
   return D == 128 ? 32 : 64;
 }
 
+// K3 in bf16: dK and dV for one (b*Hk + kv head, 64-row k tile), summed
+// over the G query heads of the group.
 template <int D>
 __global__ void __launch_bounds__(MT)
 flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
@@ -568,34 +740,50 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <int D>
 int launch_dq(const Args& a) {
   const size_t smem = sizeof(float) * (size_t)(4 * 64 * (D + 1) + BQ * PS);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.B * a.H, (a.Sq + BQ - 1) / BQ);
-  flash_bwd_dq_kernel<T, D><<<grid, NT, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
-      (const float*)a.lse, (const float*)a.delta, (T*)a.dq, a.H, a.Hk, a.Sq,
-      a.Sk, a.causal, a.scale);
+  flash_bwd_dq_kernel<D><<<grid, NT, smem, a.stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.dout, (const float*)a.lse, (const float*)a.delta,
+      (float*)a.dq, a.H, a.Hk, a.Sq, a.Sk, a.causal, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
+int launch_dq_mma(const Args& a) {
+  const size_t smem =
+      sizeof(bf16) * (size_t)(2 * BQ + 4 * BK) * mma::row_stride<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.B * a.H, (a.Sq + BQ - 1) / BQ);
+  flash_bwd_dq_mma_kernel<D><<<grid, MT, smem, a.stream>>>(
+      (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+      (const bf16*)a.dout, (const float*)a.lse, (const float*)a.delta,
+      (bf16*)a.dq, a.H, a.Hk, a.Sq, a.Sk, a.causal, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int launch_dkv(const Args& a) {
   const size_t smem = sizeof(float) *
                       (size_t)(4 * 64 * (D + 1) + 2 * BK * PS + 2 * BQ);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
+      flash_bwd_dkv_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(a.B * a.Hk, (a.Sk + BK - 1) / BK);
-  flash_bwd_dkv_kernel<T, D><<<grid, NT, smem, a.stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
-      (const float*)a.lse, (const float*)a.delta, (T*)a.dk, (T*)a.dv, a.H,
-      a.Hk, a.Sq, a.Sk, a.causal, a.scale);
+  flash_bwd_dkv_kernel<D><<<grid, NT, smem, a.stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const float*)a.dout, (const float*)a.lse, (const float*)a.delta,
+      (float*)a.dk, (float*)a.dv, a.H, a.Hk, a.Sq, a.Sk, a.causal, a.scale);
   return (int)cudaGetLastError();
 }
 
@@ -617,15 +805,15 @@ int launch_dkv_mma(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// which: 0 = dQ (K2), 1 = dK/dV (K3).  The design follows the dtype: K3
-// in bf16 (1) runs on the tensor cores; K2, and K3 in float32 (0), on the
-// CUDA cores.
+// which: 0 = dQ (K2), 1 = dK/dV (K3).  The design follows the dtype,
+// for both kernels alike: bf16 (1) runs on the tensor cores, float32 (0)
+// on the CUDA cores.
 template <int D>
 int launch_dtype(int which, int dtype, const Args& a) {
   if (dtype == 0)
-    return which ? launch_dkv<float, D>(a) : launch_dq<float, D>(a);
+    return which ? launch_dkv<D>(a) : launch_dq<D>(a);
   if (dtype == 1)
-    return which ? launch_dkv_mma<D>(a) : launch_dq<bf16, D>(a);
+    return which ? launch_dkv_mma<D>(a) : launch_dq_mma<D>(a);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -5,10 +5,10 @@ Pallas kernels become CUDA kernels built at first use and launched through
 ``ctypes``: the forward (``_flash_fwd``) is ``csrc/flash_fwd.cu``
 (:func:`flash_fwd_cuda`), the FlashAttention-2 backward (``_flash_bwd``:
 the dQ kernel and the dK/dV kernel) is ``csrc/flash_bwd.cu``
-(:func:`flash_bwd_cuda`).  In bf16 the forward and the dK/dV kernel run
-on the tensor cores (``mma.sync``), the dQ kernel on the CUDA cores; in
-float32 all three run on the CUDA cores.  Beside each sits the plain
-PyTorch version of the same function (:func:`_attn_reference`,
+(:func:`flash_bwd_cuda`).  In bf16 all three kernels run on the tensor
+cores (``mma.sync``); in float32 all three run on the CUDA cores.  Beside
+each sits the plain PyTorch version of the same function
+(:func:`_attn_reference`,
 :func:`_flash_bwd_reference`),
 which a CPU or meta tensor takes and against which the kernels are checked
 on the card.  A CUDA tensor always launches the kernel, or the wrapper

@@ -79,6 +79,7 @@ def test_sources_include_the_tensor_core_header():
                   "cp.async.cg.shared.global", "cp.async.wait_group"):
         assert instr in header, instr
     for src, kernel in (("flash_fwd.cu", "flash_fwd_mma_kernel"),
+                        ("flash_bwd.cu", "flash_bwd_dq_mma_kernel"),
                         ("flash_bwd.cu", "flash_bwd_dkv_mma_kernel")):
         with open(os.path.join(cuda_lib.CSRC_DIR, src)) as f:
             text = f.read()
