@@ -13,7 +13,12 @@ GPT-2-small-width transformer LM (random weights from a seed) through
 replies and one full-width request in float32 against the CPU, then
 trains the same LM through ``Module`` + ``NDArrayIter`` on ``cuda:0``
 (bf16 compute, fp32 masters) and checks one float32 training step
-against the same step on the CPU.  Every phase prints one JSON line;
+against the same step on the CPU.  Then it trains ResNet-50 at ImageNet
+width through ``Module`` with the JAX package's ``bench.py`` recipe
+(batch 256, bf16 compute, SGD with momentum), profiles a step, checks
+one float32 step at full depth and width against the CPU, and runs
+``Module.fit`` with a checkpoint that must reload bit for bit.  Every
+phase prints one JSON line;
 any failed phase exits non-zero.  The line before the last lists the
 kernels with their launches on each path, times and bounds; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -25,6 +30,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -82,6 +88,55 @@ FP32_TRAIN_LAYERS = 2
 FP32_TRAIN_LR = 0.1
 FP32_LOSS_TOL = 1e-4
 FP32_UPDATE_RTOL = 1e-3
+
+# ResNet-50 training, the JAX package's bench.py recipe (bench.py:82-99,
+# 353-371): ResNet-50 v2, 224x224x3, 1000 classes, stem conv7, NCHW,
+# batch 256, bf16 compute over fp32 masters, Xavier gaussian magnitude 2,
+# SGD lr 0.1 momentum 0.9 wd 1e-4, two synthetic batches made on the card
+# and taken in turn (bench.py:379-389), 5 warm-up steps (bench.py:115)
+RESNET = dict(num_layers=50, num_classes=1000, image_shape="3,224,224")
+RESNET_BATCH = 256
+RESNET_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+RESNET_WARMUP = 5
+RESNET_STEPS = 20
+# the mean loss of the last 5 of the 25 steps must beat the mean of the
+# first 5 by this many nats, fixed before the first run on the card from
+# a CPU rehearsal of the same loop (ResNet-50 at full depth and width,
+# batch 32 of 64x64 or batch 16 of 112x112, fp32 and bf16, two seeds):
+# there the first 5 averaged 5.4-5.9 and the last 5 under 0.01, a drop
+# of 5.3 nats or more.  At batch 256 each batch holds 8-16x more random
+# labels to fit in the same 12 passes, so the margin is a fifth of the
+# smallest rehearsed drop
+RESNET_MARGIN = 1.0
+# analytic FLOPs of one step, bench.py:495 (copied): ResNet-50 is about
+# 4.1e9 multiply-adds a 224x224 image forward, training about 3x that
+RESNET_FWD_MACS = 4.1e9
+# one fp32 SGD-momentum step at full depth and width, card (TF32 off)
+# against the CPU from the same numpy weights; cut: batch 4 of 128x128
+# images (the last stage still normalises over 4 x 4 x 4 = 64 values a
+# channel), so that the CPU side takes seconds.  The forward is held
+# tightly: the loss within 1e-4 nats, each moving statistic within 1e-4
+# of its largest element.  The backward of this network at this point is
+# ill-conditioned: on the CPU, fp32 against float64 moves the gradient by
+# 1.0e-2 of its norm and single parameters by up to 14% of their largest
+# element (tests/torch_resnet_numerics.py prints it,
+# tests/test_torch_resnet.py::test_resnet50_fp32_gradient_against_float64
+# bounds it), so no fp32 pair can meet
+# 1e-3 per parameter.  So: fc1's update (its gradient passes no
+# BatchNorm) within 1e-3 of its largest element, and the whole update
+# within 5e-2 of its norm (two fp32 errors of 1e-2 each, 3x margin; a
+# wrong backward moves it by O(1))
+RESNET_FP32_BATCH = 4
+RESNET_FP32_IMAGE = (3, 128, 128)
+RESNET_FP32_LOSS_TOL = 1e-4
+RESNET_FP32_AUX_RTOL = 1e-4
+RESNET_FP32_HEAD_RTOL = 1e-3
+RESNET_FP32_UPDATE_NORM_RTOL = 5e-2
+# Module.fit for one epoch of a few synthetic batches (as
+# examples/image_classification/train_imagenet.py's SyntheticIter), then
+# a checkpoint that must reload bit for bit
+FIT_BATCH = 32
+FIT_BATCHES = 4
 
 
 T0 = time.monotonic()
@@ -786,6 +841,336 @@ def phase_train_fp32(torch, mt):
     torch.cuda.empty_cache()
 
 
+def resnet_batches(torch, mt, device, batch, image_shape, seed):
+    """The two synthetic batches of bench.py:379-389, made on ``device``:
+    uniform(-1, 1) images and float32 labels in [0, 1000)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for _ in range(2):
+        x = torch.rand((batch,) + tuple(image_shape), generator=gen,
+                       device=device) * 2 - 1
+        y = torch.randint(0, 1000, (batch,), generator=gen,
+                          device=device).float()
+        out.append(mt.io.DataBatch([mt.nd.NDArray(x)], [mt.nd.NDArray(y)]))
+    return out
+
+
+def resnet_module(mt, ctx, batch, image_shape, compute_dtype, seed):
+    """ResNet-50 through Module as bench.py:353-371 builds it."""
+    sym = mt.models.get_symbol("resnet",
+                               **dict(RESNET, image_shape=image_shape))
+    mod = mt.mod.Module(sym, context=ctx, compute_dtype=compute_dtype)
+    mod.bind(data_shapes=[("data", (batch,) + tuple(image_shape))],
+             label_shapes=[("softmax_label", (batch,))])
+    mt.random.seed(seed)
+    mod.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                          magnitude=2.0))
+    mod.init_optimizer(optimizer="sgd", optimizer_params=RESNET_OPT)
+    return mod
+
+
+def resnet_steps(mt, mod, batches, n, sync):
+    """``n`` steps of ``forward(is_train=True)`` + ``update()`` over the
+    batches in turn (bench.py:461-464), each ended by ``sync``: the ms of
+    each step on the host clock, and the loss of each (the mean
+    cross-entropy of the softmax output, read after the step's time)."""
+    metric = mt.metric.CrossEntropy()
+    step_ms, losses = [], []
+    for i in range(n):
+        b = batches[i % len(batches)]
+        t = time.monotonic()
+        mod.forward(b, is_train=True)
+        mod.update()
+        sync()
+        step_ms.append((time.monotonic() - t) * 1e3)
+        metric.reset()
+        mod.update_metric(metric, b.label)
+        losses.append(metric.get()[1])
+    return step_ms, losses
+
+
+def phase_resnet_train(torch, mt, peak_flops):
+    """ResNet-50 at ImageNet width through Module on cuda:0, bench.py's
+    recipe: RESNET_WARMUP + RESNET_STEPS steps, launch and dispatch
+    counts reset just before and read just after; setup, first step,
+    steady steps, images/s, TFLOP/s, MFU, peak memory, every loss."""
+    dev = torch.device("cuda", 0)
+    B, shape = RESNET_BATCH, (3, 224, 224)
+    t0 = time.monotonic()
+    mod = resnet_module(mt, mt.gpu(0), B, shape, "bfloat16", SEED)
+    batches = resnet_batches(torch, mt, dev, B, shape, SEED)
+    args, aux = mod.get_params()
+    n_params = sum(int(np.prod(a.shape)) for a in args.values())
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+
+    # the ResNet path: counts start at 0 here and are read right after
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mt)
+    n = RESNET_WARMUP + RESNET_STEPS
+    step_ms, losses = resnet_steps(mt, mod, batches, n,
+                                   torch.cuda.synchronize)
+    counts = read_counts(mt)
+    dispatch = mt.profiler.dispatch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if dispatch.get("module.update") != n \
+            or dispatch.get("module.backward") != n or any(counts.values()):
+        raise RuntimeError(f"resnet_train: dispatches {dispatch} over {n} "
+                           f"steps (want {n} updates and backwards) and "
+                           f"attention launches {counts} (want none)")
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"resnet_train: non-finite loss in {losses}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last5 < first5 - RESNET_MARGIN:
+        raise RuntimeError(f"resnet_train: mean of the last 5 losses "
+                           f"{last5} does not beat the first 5's {first5} "
+                           f"by {RESNET_MARGIN}: {losses}")
+    out = mod.get_outputs()[0]
+    if out.shape != (B, 1000):
+        raise RuntimeError(f"resnet_train: output shape {out.shape}")
+    timed_ms = step_ms[RESNET_WARMUP:]
+    med = float(np.median(timed_ms))
+    flops = 2 * RESNET_FWD_MACS * 3 * B
+    tflops = flops / (med / 1e3) / 1e12
+    emit("resnet_train", model="resnet-50 v2", batch=B, image=list(shape),
+         classes=1000, stem="conv7", layout="NCHW",
+         compute_dtype="bfloat16", masters="float32",
+         optimizer="sgd lr 0.1 momentum 0.9 wd 1e-4",
+         initializer="xavier gaussian magnitude 2", n_params=n_params,
+         cudnn_benchmark=torch.backends.cudnn.benchmark, setup_s=setup_s,
+         first_step_ms=step_ms[0], warmup_ms=step_ms[:RESNET_WARMUP],
+         steps=len(timed_ms), step_ms=timed_ms, median_step_ms=med,
+         min_step_ms=min(timed_ms), max_step_ms=max(timed_ms),
+         images_per_s=B / (med / 1e3), flops_per_step=flops,
+         flops_source="analytic, bench.py:495: 2 x 4.1e9 x 3 x batch",
+         achieved_tflops=tflops, mfu=tflops * 1e12 / peak_flops,
+         mfu_peak_tflops=peak_flops / 1e12, peak_mem_bytes=peak,
+         dispatches=dispatch, attention_launches=counts, losses=losses,
+         loss_first5_mean=first5, loss_last5_mean=last5,
+         margin=RESNET_MARGIN)
+    return mod, batches, med
+
+
+def phase_resnet_profile(torch, mod, batches, median_ms):
+    """One more ResNet-50 step under torch.profiler: the card's busy time,
+    its idle share of the profiled step and of the median step, and the
+    largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        mod.forward(batches[0], is_train=True)
+        mod.update()
+        torch.cuda.synchronize()
+        prof_step_ms = (time.monotonic() - t) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+    if busy <= 0:
+        raise RuntimeError("resnet_profile: the profile shows no device "
+                           "time for a training step")
+    emit("resnet_profile", step_ms=prof_step_ms, device_busy_ms=busy,
+         device_idle_share_of_step=max(0.0, 1 - busy / prof_step_ms),
+         device_idle_share_of_median_step=max(0.0, 1 - busy / median_ms),
+         kernel_launches=sum(k[1] for k in kernels),
+         top_kernels=[dict(ms=ms, count=c, name=k)
+                      for ms, c, k in kernels[:12]])
+
+
+def resnet_numpy_params(mt, batch, image_shape, seed):
+    """Seeded He-scaled ResNet-50 weights, gamma near 1, small beta and
+    moving statistics near (0, 1), as numpy."""
+    sym = mt.models.get_symbol("resnet",
+                               **dict(RESNET, image_shape=image_shape))
+    arg_shapes, _, aux_shapes = sym.infer_shape(
+        data=(batch,) + tuple(image_shape), softmax_label=(batch,))
+    rng = np.random.default_rng(seed)
+    args, aux = {}, {}
+    for name, shape in zip(sym.list_arguments(), arg_shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        x = rng.standard_normal(shape, dtype=np.float32)
+        if name.endswith("_weight"):
+            x *= np.float32(np.sqrt(2.0 / np.prod(shape[1:])))
+        elif name.endswith("_gamma"):
+            x = np.float32(1) + np.float32(0.1) * x
+        else:
+            x *= np.float32(0.1)
+        args[name] = x
+    for name, shape in zip(sym.list_auxiliary_states(), aux_shapes):
+        x = rng.uniform(0.5, 1.5, shape) if name.endswith("_var") \
+            else rng.standard_normal(shape) * 0.1
+        aux[name] = x.astype(np.float32)
+    return sym, args, aux
+
+
+def resnet_fp32_step(mt, ctx, sym, args, aux, x, y):
+    """One fp32 SGD-momentum step on ``ctx``: (loss, new params, new
+    moving statistics, seconds)."""
+    mod = mt.mod.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", x.shape)],
+             label_shapes=[("softmax_label", y.shape)])
+    mod.init_params(arg_params=args, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=RESNET_OPT)
+    batch = mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                            [mt.nd.array(y, ctx=mt.cpu())])
+    t0 = time.monotonic()
+    mod.forward(batch, is_train=True)
+    mod.backward()
+    mod.update()
+    metric = mt.metric.CrossEntropy()
+    mod.update_metric(metric, batch.label)
+    loss = metric.get()[1]
+    secs = time.monotonic() - t0
+    new_args, new_aux = mod.get_params()
+    return (loss, {n: a.asnumpy() for n, a in new_args.items()},
+            {n: a.asnumpy() for n, a in new_aux.items()}, secs)
+
+
+def phase_resnet_fp32(torch, mt):
+    """One fp32 step of ResNet-50 at full depth and width, reduced image
+    and batch: the card (TF32 off) against the CPU, from the same numpy
+    weights on the same batch."""
+    B, shape = RESNET_FP32_BATCH, RESNET_FP32_IMAGE
+    sym, args, aux = resnet_numpy_params(mt, B, shape, SEED + 7)
+    rng = np.random.default_rng(SEED + 8)
+    x = rng.uniform(-1, 1, (B,) + shape).astype(np.float32)
+    y = rng.integers(0, 1000, B).astype(np.float32)
+    res = {name: resnet_fp32_step(mt, ctx, sym, args, aux, x, y)
+           for name, ctx in (("gpu", mt.gpu(0)), ("cpu", mt.cpu()))}
+    (gl, gargs, gaux, gs), (cl, cargs, caux, cs) = res["gpu"], res["cpu"]
+    if not all(np.isfinite(v).all() for v in (*gargs.values(),
+                                               *gaux.values())):
+        raise RuntimeError("resnet fp32: non-finite parameters on the card")
+
+    def rel(got, want):
+        return float(np.abs(got - want).max()
+                     / max(np.abs(want).max(), 1e-30))
+    upd = {n: (gargs[n] - args[n], cargs[n] - args[n]) for n in args}
+    per_param = {n: rel(g, c) for n, (g, c) in upd.items()}
+    aux_rel = {n: rel(gaux[n], caux[n]) for n in caux}
+    head = max(per_param[n] for n in ("fc1_weight", "fc1_bias"))
+    norm = float(np.sqrt(sum(((g - c) ** 2).sum() for g, c in upd.values()))
+                 / np.sqrt(sum((c ** 2).sum() for _, c in upd.values())))
+    worst_p = max(per_param, key=per_param.get)
+    worst_a = max(aux_rel, key=aux_rel.get)
+    fails = []
+    if not np.isfinite(gl) or abs(gl - cl) > RESNET_FP32_LOSS_TOL:
+        fails.append(f"loss {gl} on the card, {cl} on the CPU")
+    if aux_rel[worst_a] > RESNET_FP32_AUX_RTOL:
+        fails.append(f"{worst_a} differs by {aux_rel[worst_a]}")
+    if head > RESNET_FP32_HEAD_RTOL:
+        fails.append(f"fc1's update differs by {head}")
+    if norm > RESNET_FP32_UPDATE_NORM_RTOL:
+        fails.append(f"the update differs by {norm} of its norm")
+    emit("resnet_fp32_card_vs_cpu", model="resnet-50 v2 full depth and "
+         "width", cut=f"batch {B}, image {list(shape)} (not 256, 224)",
+         loss_gpu=gl, loss_cpu=cl, loss_tol=RESNET_FP32_LOSS_TOL,
+         worst_aux_rel_diff=aux_rel[worst_a], worst_aux=worst_a,
+         aux_rtol=RESNET_FP32_AUX_RTOL, head_update_rel_diff=head,
+         head_rtol=RESNET_FP32_HEAD_RTOL, update_norm_rel_diff=norm,
+         update_norm_rtol=RESNET_FP32_UPDATE_NORM_RTOL,
+         worst_update_rel_diff=per_param[worst_p], worst_param=worst_p,
+         gpu_s=gs, cpu_s=cs, failures=fails)
+    if fails:
+        raise RuntimeError("resnet fp32: " + "; ".join(fails))
+    torch.cuda.empty_cache()
+
+
+class SyntheticIter:
+    """A DataIter of ``batches`` copies of one seeded synthetic batch, as
+    examples/image_classification/train_imagenet.py's SyntheticIter."""
+
+    def __init__(self, mt, batch_size, image_shape, batches, seed):
+        rng = np.random.RandomState(seed)
+        self._x = mt.nd.array(rng.uniform(-1, 1, (batch_size,)
+                                          + image_shape).astype("float32"),
+                              ctx=mt.cpu())
+        self._y = mt.nd.array(rng.randint(0, 1000, (batch_size,))
+                              .astype("float32"), ctx=mt.cpu())
+        self._mt, self._n, self._i = mt, batches, 0
+        self.provide_data = [mt.io.DataDesc("data",
+                                            (batch_size,) + image_shape)]
+        self.provide_label = [mt.io.DataDesc("softmax_label",
+                                             (batch_size,))]
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        self._i = 0
+
+    def __next__(self):
+        if self._i >= self._n:
+            raise StopIteration
+        self._i += 1
+        return self._mt.io.DataBatch([self._x], [self._y])
+
+
+def phase_resnet_fit_checkpoint(torch, mt, workdir):
+    """Module.fit for one epoch (examples/common.py:63-100's recipe:
+    MultiFactorScheduler, Speedometer, do_checkpoint, eval_metric acc),
+    then Module.load of the checkpoint with its optimizer states: every
+    arg, aux and momentum, and one inference forward, bit for bit."""
+    shape = (3, 224, 224)
+    it = SyntheticIter(mt, FIT_BATCH, shape, FIT_BATCHES, SEED + 9)
+    prefix = os.path.join(workdir, "resnet50")
+    mod = mt.mod.Module(mt.models.get_symbol("resnet", **RESNET),
+                        context=mt.gpu(0), compute_dtype="bfloat16")
+    mt.random.seed(SEED)
+    sched = mt.lr_scheduler.MultiFactorScheduler(step=[2, 3], factor=0.1)
+    t0 = time.monotonic()
+    mod.fit(it, num_epoch=1, optimizer="sgd",
+            optimizer_params=dict(RESNET_OPT, lr_scheduler=sched),
+            initializer=mt.initializer.Xavier(rnd_type="gaussian",
+                                              factor_type="in",
+                                              magnitude=2),
+            batch_end_callback=mt.callback.Speedometer(FIT_BATCH, 2),
+            epoch_end_callback=[mt.callback.do_checkpoint(prefix),
+                                mt.callback.module_checkpoint(
+                                    mod, prefix + "-full", 1, True)],
+            eval_metric="acc")
+    torch.cuda.synchronize()
+    fit_s = time.monotonic() - t0
+    files = sorted(os.listdir(workdir))
+    want = ["resnet50-0001.params", "resnet50-full-0001.params",
+            "resnet50-full-0001.states", "resnet50-full-symbol.json",
+            "resnet50-symbol.json"]
+    if files != want:
+        raise RuntimeError(f"fit checkpoint: files {files}, want {want}")
+    loaded = mt.mod.Module.load(prefix + "-full", 1,
+                                load_optimizer_states=True,
+                                context=mt.gpu(0), compute_dtype="bfloat16")
+    loaded.bind(data_shapes=it.provide_data,
+                label_shapes=it.provide_label)
+    loaded.init_optimizer(optimizer="sgd",
+                          optimizer_params=dict(RESNET_OPT,
+                                                lr_scheduler=sched))
+    (a1, x1), (a2, x2) = mod.get_params(), loaded.get_params()
+    s1, s2 = mod._updater.states, loaded._updater.states
+    mism = [n for n in a1 if not torch.equal(a1[n]._data, a2[n]._data)]
+    mism += [n for n in x1 if not torch.equal(x1[n]._data, x2[n]._data)]
+    mism += [n for n in s1 if len(s1[n]) != len(s2[n]) or not all(
+        torch.equal(p._data, q._data) for p, q in zip(s1[n], s2[n]))]
+    if mism or set(a1) != set(a2) or set(s1) != set(s2):
+        raise RuntimeError(f"fit checkpoint: reload differs in {mism[:5]}")
+    it.reset()
+    batch = next(it)
+    mod.forward(batch, is_train=False)
+    loaded.forward(batch, is_train=False)
+    o1, o2 = mod.get_outputs()[0]._data, loaded.get_outputs()[0]._data
+    if o1.shape != (FIT_BATCH, 1000) or not torch.isfinite(o1).all() \
+            or not torch.equal(o1, o2):
+        raise RuntimeError("fit checkpoint: the reloaded module's "
+                           "inference output differs from the trained one")
+    emit("resnet_fit_checkpoint", batch=FIT_BATCH, batches=FIT_BATCHES,
+         image=list(shape), fit_s=fit_s, files=files,
+         params=len(a1), aux=len(x1), optimizer_states=len(s1),
+         bytes=sum(os.path.getsize(os.path.join(workdir, f))
+                   for f in files),
+         bit_identical_reload=True, bit_identical_inference=True)
+
+
 def main():
     try:
         import torch
@@ -819,6 +1204,18 @@ def main():
     phase_fp32(torch, mt, sym, params_np)
     train_counts = phase_train(torch, mt, sym)
     phase_train_fp32(torch, mt)
+
+    # ResNet-50 (bench.py's path); cuDNN picks its algorithms by timing
+    # them, as a user's training script would have it
+    torch.backends.cudnn.benchmark = True
+    mod, batches, med = phase_resnet_train(torch, mt, PEAK_FLOPS["bfloat16"])
+    phase_resnet_profile(torch, mod, batches, med)
+    del mod, batches
+    torch.cuda.empty_cache()
+    phase_resnet_fp32(torch, mt)
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_resnet_fit_checkpoint(torch, mt, workdir)
+    torch.cuda.empty_cache()
 
     def by_path(key):
         return {"serve": serve_counts[key], "train": train_counts[key]}
@@ -858,7 +1255,9 @@ def main():
                             launches_by_path=paths, card=smi, **r))
     # plain_ms and library_ms of the two backward kernels are each of the
     # whole backward (dQ, dK and dV together): the plain version and
-    # SDPA's backward compute all three in one call
+    # SDPA's backward compute all three in one call; the ResNet path
+    # launches none of them
+    emit("total", seconds=time.monotonic() - T0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,50 @@
 """Training callbacks (subset; PyTorch counterpart of
-``mxnet_tpu/callback.py``)."""
+``mxnet_tpu/callback.py``): checkpoints at the end of an epoch, metric
+logging and ``Speedometer``.  The JAX package's sharded asynchronous
+checkpoint (``do_checkpoint(sharded_async=True)``) is not ported yet
+(ROADMAP C4)."""
 from __future__ import annotations
 
 import logging
 import time
+
+from .model import save_checkpoint
+
+
+def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
+    """Epoch-end callback: ``mod.save_checkpoint`` every ``period``
+    epochs (reference: callback.py:27)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym=None, arg=None, aux=None):
+        if (iter_no + 1) % period == 0:
+            mod.save_checkpoint(prefix, iter_no + 1, save_optimizer_states)
+    return _callback
+
+
+def do_checkpoint(prefix, period=1):
+    """Epoch-end callback: ``model.save_checkpoint`` of the symbol and
+    parameters every ``period`` epochs (reference: callback.py:55)."""
+    period = int(max(1, period))
+
+    def _callback(iter_no, sym, arg, aux):
+        if (iter_no + 1) % period == 0:
+            save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+    return _callback
+
+
+def log_train_metric(period, auto_reset=False):
+    """Batch-end callback: log the training metric every ``period``
+    batches (reference: callback.py log_train_metric).  Reading the
+    metric is a device readback."""
+    def _callback(param):
+        if param.nbatch % period == 0 and param.eval_metric is not None:
+            for name, value in param.eval_metric.get_name_value():
+                logging.info("Iter[%d] Batch[%d] Train-%s=%f",
+                             param.epoch, param.nbatch, name, value)
+            if auto_reset:
+                param.eval_metric.reset()
+    return _callback
 
 
 class Speedometer:

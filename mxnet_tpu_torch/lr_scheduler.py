@@ -1,9 +1,11 @@
-"""Learning-rate schedulers (subset; PyTorch counterpart of
+"""Learning-rate schedulers (PyTorch counterpart of
 ``mxnet_tpu/lr_scheduler.py``, itself the reference's
-python/mxnet/lr_scheduler.py).  Pure host arithmetic."""
+python/mxnet/lr_scheduler.py): factor, multi-factor, polynomial and
+cosine decay.  Pure host arithmetic."""
 from __future__ import annotations
 
 import logging
+import math
 
 
 class LRScheduler:
@@ -41,4 +43,84 @@ class FactorScheduler(LRScheduler):
             else:
                 logging.info("Update[%d]: Change learning rate to %0.5e",
                              num_update, self.base_lr)
+        return self.base_lr
+
+
+class MultiFactorScheduler(LRScheduler):
+    """lr *= factor at each update count in the increasing list
+    ``step``."""
+
+    def __init__(self, step, factor=1.0):
+        super().__init__()
+        assert isinstance(step, list) and len(step) >= 1
+        for i, _step in enumerate(step):
+            if i != 0 and step[i] <= step[i - 1]:
+                raise ValueError("Schedule step must be an increasing list")
+            if _step < 1:
+                raise ValueError("Schedule step must be greater or equal "
+                                 "than 1")
+        if factor > 1.0:
+            raise ValueError("Factor must be no more than 1 to make lr reduce")
+        self.step = step
+        self.cur_step_ind = 0
+        self.factor = factor
+        self.count = 0
+
+    def __call__(self, num_update):
+        while self.cur_step_ind <= len(self.step) - 1:
+            if num_update > self.step[self.cur_step_ind]:
+                self.count = self.step[self.cur_step_ind]
+                self.cur_step_ind += 1
+                self.base_lr *= self.factor
+                logging.info("Update[%d]: Change learning rate to %0.5e",
+                             num_update, self.base_lr)
+            else:
+                return self.base_lr
+        return self.base_lr
+
+
+class PolyScheduler(LRScheduler):
+    """Polynomial decay from base_lr to zero over ``max_update`` updates."""
+
+    def __init__(self, max_update, base_lr=0.01, pwr=2):
+        super().__init__(base_lr)
+        assert isinstance(max_update, int)
+        if max_update < 1:
+            raise ValueError("maximum number of updates must be strictly "
+                             "positive")
+        self.base_lr_orig = self.base_lr
+        self.max_update = max_update
+        self.power = pwr
+
+    def __call__(self, num_update):
+        if num_update <= self.max_update:
+            self.base_lr = self.base_lr_orig * pow(
+                1.0 - float(num_update) / float(self.max_update), self.power)
+        return self.base_lr
+
+
+class CosineScheduler(LRScheduler):
+    """Linear warm-up from ``warmup_begin_lr`` over ``warmup_steps``, then
+    cosine decay to ``final_lr`` at ``max_update``."""
+
+    def __init__(self, max_update, base_lr=0.01, final_lr=0.0,
+                 warmup_steps=0, warmup_begin_lr=0.0):
+        super().__init__(base_lr)
+        self.max_update = max_update
+        self.final_lr = final_lr
+        self.warmup_steps = warmup_steps
+        self.warmup_begin_lr = warmup_begin_lr
+        self.base_lr_orig = base_lr
+
+    def __call__(self, num_update):
+        if num_update < self.warmup_steps:
+            self.base_lr = self.warmup_begin_lr + \
+                (self.base_lr_orig - self.warmup_begin_lr) * \
+                num_update / max(self.warmup_steps, 1)
+        elif num_update <= self.max_update:
+            frac = (num_update - self.warmup_steps) / \
+                max(self.max_update - self.warmup_steps, 1)
+            self.base_lr = self.final_lr + \
+                (self.base_lr_orig - self.final_lr) * \
+                (1 + math.cos(math.pi * frac)) / 2
         return self.base_lr

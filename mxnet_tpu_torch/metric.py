@@ -1,13 +1,13 @@
 """Evaluation metrics (subset).
 
 PyTorch counterpart of ``mxnet_tpu/metric.py``: ``EvalMetric``,
-``Accuracy``, ``Perplexity``, ``CrossEntropy``, ``Loss``,
-``CompositeEvalMetric`` and ``create``.  A metric computes with torch ops
-on the device its predictions live on and keeps its running sums there,
-so a training step does not read the (B*S, vocab) softmax back to the
-host; the host sees the sums only at ``get()`` (one readback), as the
-JAX package's device-resident path does.  Labels and predictions may be
-NDArrays, tensors or numpy arrays.
+``Accuracy``, ``TopKAccuracy``, ``Perplexity``, ``CrossEntropy``,
+``Loss``, ``CompositeEvalMetric`` and ``create``. A metric computes with
+torch ops on the device its predictions live on and keeps its running
+sums there, so a training step does not read the (B*S, vocab) softmax
+back to the host; the host sees the sums only at ``get()`` (one
+readback), as the JAX package's device-resident path does. Labels and
+predictions may be NDArrays, tensors or numpy arrays.
 """
 from __future__ import annotations
 
@@ -185,6 +185,39 @@ class Accuracy(EvalMetric):
 
 
 @register
+class TopKAccuracy(EvalMetric):
+    """Share of rows whose label is among the ``top_k`` largest scores
+    (reference: metric.py TopKAccuracy).  Ties at the k-th place go to
+    the lower index (a stable descending sort, the rule of the JAX
+    package's ``lax.top_k``), and NaN ranks as the largest score.  A 1-d
+    prediction holds class ids."""
+
+    def __init__(self, top_k=1, name="top_k_accuracy", output_names=None,
+                 label_names=None):
+        super().__init__(name, top_k=top_k, output_names=output_names,
+                         label_names=label_names)
+        self.top_k = top_k
+        assert self.top_k > 1, "Please use Accuracy if top_k is no more than 1"
+        self.name += "_%d" % self.top_k
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            pred = _t(pred)
+            assert pred.dim() <= 2, "Predictions should be no more than 2 dims"
+            label = _t(label).to(pred.device).to(torch.int32).reshape(-1)
+            if pred.dim() == 1:
+                hits = (pred.to(torch.int32) == label).sum()
+            else:
+                key = pred.float()
+                key = torch.where(torch.isnan(key), math.inf, key)
+                k = min(pred.shape[1], self.top_k)
+                top = key.sort(dim=1, descending=True, stable=True)[1][:, :k]
+                hits = (top == label[:, None]).any(dim=1).sum()
+            self._accumulate(hits, pred.shape[0])
+
+
+@register
 class Perplexity(EvalMetric):
     """exp of the mean negative log-probability of the labels, rows whose
     label is ``ignore_label`` left out (reference: metric.py Perplexity;
@@ -262,5 +295,7 @@ class Loss(EvalMetric):
 
 
 _METRIC_REGISTRY["acc"] = Accuracy
+_METRIC_REGISTRY["top_k_acc"] = TopKAccuracy
+_METRIC_REGISTRY["top_k_accuracy"] = TopKAccuracy
 _METRIC_REGISTRY["ce"] = CrossEntropy
 _METRIC_REGISTRY["cross-entropy"] = CrossEntropy

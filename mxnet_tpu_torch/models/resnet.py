@@ -1,0 +1,207 @@
+"""ResNet v2 family, 18-269 layers.
+
+PyTorch counterpart of ``mxnet_tpu/models/resnet.py`` (reference:
+example/image-classification/symbols/resnet.py, the pre-activation v2
+"tornadomeet" implementation): the same graph, node names and depth
+table, so parameters and checkpoints carry across the two packages.
+``bottle_neck`` units for depth >= 50, basic units below; the cifar stem
+for images of height <= 32 (three stages), else the 7x7/2 ``conv7`` stem
+or its space-to-depth equivalent ``s2d``; ``layout`` NCHW or NHWC.
+"""
+import numpy as np
+
+from .. import symbol as sym
+
+BN_MOM = 0.9
+BN_EPS = 2e-5
+
+
+def residual_unit_v2(data, num_filter, stride, dim_match, name,
+                     bottle_neck=True, layout="NCHW"):
+    """Pre-activation residual unit (v2), symbols/resnet.py residual_unit."""
+    bn_ax = 3 if layout == "NHWC" else 1
+
+    def _bn(x, nm):
+        return sym.BatchNorm(data=x, fix_gamma=False, eps=BN_EPS,
+                             momentum=BN_MOM, axis=bn_ax, name=nm)
+
+    def _conv(x, nf, k, s, p, nm):
+        return sym.Convolution(data=x, num_filter=nf, kernel=k, stride=s,
+                               pad=p, no_bias=True, layout=layout, name=nm)
+
+    if bottle_neck:
+        bn1 = _bn(data, name + "_bn1")
+        act1 = sym.Activation(data=bn1, act_type="relu", name=name + "_relu1")
+        conv1 = _conv(act1, num_filter // 4, (1, 1), (1, 1), (0, 0),
+                      name + "_conv1")
+        bn2 = _bn(conv1, name + "_bn2")
+        act2 = sym.Activation(data=bn2, act_type="relu", name=name + "_relu2")
+        conv2 = _conv(act2, num_filter // 4, (3, 3), stride, (1, 1),
+                      name + "_conv2")
+        bn3 = _bn(conv2, name + "_bn3")
+        act3 = sym.Activation(data=bn3, act_type="relu", name=name + "_relu3")
+        conv3 = _conv(act3, num_filter, (1, 1), (1, 1), (0, 0),
+                      name + "_conv3")
+        if dim_match:
+            shortcut = data
+        else:
+            shortcut = _conv(act1, num_filter, (1, 1), stride, (0, 0),
+                             name + "_sc")
+        return conv3 + shortcut
+    else:
+        bn1 = _bn(data, name + "_bn1")
+        act1 = sym.Activation(data=bn1, act_type="relu", name=name + "_relu1")
+        conv1 = _conv(act1, num_filter, (3, 3), stride, (1, 1),
+                      name + "_conv1")
+        bn2 = _bn(conv1, name + "_bn2")
+        act2 = sym.Activation(data=bn2, act_type="relu", name=name + "_relu2")
+        conv2 = _conv(act2, num_filter, (3, 3), (1, 1), (1, 1),
+                      name + "_conv2")
+        if dim_match:
+            shortcut = data
+        else:
+            shortcut = _conv(act1, num_filter, (1, 1), stride, (0, 0),
+                             name + "_sc")
+        return conv2 + shortcut
+
+
+def space_to_depth_stem_weight(w7):
+    """Convert a (C_out, C_in, 7, 7) stem weight into the (C_out, 4*C_in,
+    4, 4) weight the ``stem='s2d'`` graph uses.  Zero-pads 7x7 -> 8x8 at the
+    top-left, then folds each 2x2 spatial phase into channels — the exact
+    inverse of the input space-to-depth rearrangement, so the composed op is
+    mathematically identical to the original stride-2 conv (the padded
+    tap multiplies only zeros)."""
+    w7 = np.asarray(w7)
+    co, ci = w7.shape[:2]
+    w8 = np.zeros((co, ci, 8, 8), w7.dtype)
+    w8[:, :, 1:, 1:] = w7
+    # w8[o, c, 2*di+a, 2*dj+b] -> w_sd[o, c*4 + 2*a + b, di, dj]
+    w = w8.reshape(co, ci, 4, 2, 4, 2)          # (o, c, di, a, dj, b)
+    w = w.transpose(0, 1, 3, 5, 2, 4)           # (o, c, a, b, di, dj)
+    return w.reshape(co, ci * 4, 4, 4)
+
+
+def resnet(units, num_stages, filter_list, num_classes, image_shape,
+           bottle_neck=True, stem="conv7", layout="NCHW"):
+    """``layout="NHWC"`` runs the whole activation path channels-last:
+    the NCHW ``data`` input is transposed once at the graph entry, every
+    conv/pool/BatchNorm runs NHWC, and weights keep their NCHW shapes, so
+    checkpoints swap between layouts freely."""
+    num_unit = len(units)
+    assert num_unit == num_stages
+    layout = (layout or "NCHW").upper()
+    if layout not in ("NCHW", "NHWC"):
+        raise ValueError(f"resnet layout must be NCHW or NHWC, got "
+                         f"{layout!r}")
+    data = sym.Variable(name="data")
+    data = sym.identity(data=data, name="id")
+    (nchannel, height, width) = image_shape
+    nhwc = layout == "NHWC"
+    bn_ax = 3 if nhwc else 1
+    if nhwc:
+        data = sym.transpose(data, axes=(0, 2, 3, 1), name="to_nhwc")
+    data = sym.BatchNorm(data=data, fix_gamma=True, eps=BN_EPS,
+                         momentum=BN_MOM, axis=bn_ax, name="bn_data")
+    if height <= 32:  # cifar-style stem
+        body = sym.Convolution(data=data, num_filter=filter_list[0],
+                               kernel=(3, 3), stride=(1, 1), pad=(1, 1),
+                               no_bias=True, layout=layout, name="conv0")
+    else:  # imagenet stem
+        if stem == "s2d":
+            # space-to-depth stem (the MLPerf ResNet trick): fold 2x2
+            # spatial phases into channels, so the first conv sees 12
+            # input channels instead of 3.  The same function as the
+            # 7x7/s2 conv, with weights related by
+            # space_to_depth_stem_weight; conv0's weight is (64, 12, 4, 4)
+            n_, h_, w_ = nchannel, height // 2, width // 2
+            if nhwc:
+                # (N,H,W,C) -> (N,h,w,C*4) with channel index c*4+2a+b —
+                # IDENTICAL phase order to the NCHW path, so one stem
+                # weight serves both layouts
+                x = sym.Reshape(data, shape=(-1, h_, 2, w_, 2, n_))
+                x = sym.transpose(x, axes=(0, 1, 3, 5, 2, 4))
+                x = sym.Reshape(x, shape=(-1, h_, w_, n_ * 4))
+            else:
+                x = sym.Reshape(data, shape=(-1, n_, h_, 2, w_, 2))
+                x = sym.transpose(x, axes=(0, 1, 3, 5, 2, 4))
+                x = sym.Reshape(x, shape=(-1, n_ * 4, h_, w_))
+            body = sym.Convolution(data=x, num_filter=filter_list[0],
+                                   kernel=(4, 4), stride=(1, 1), pad=(2, 2),
+                                   no_bias=True, layout=layout, name="conv0")
+            # symmetric pad 2 yields one extra row/col vs the original's
+            # effective (4,3) asymmetric padding — drop the trailing edge
+            h_ax, w_ax = (1, 2) if nhwc else (2, 3)
+            body = sym.slice_axis(body, axis=h_ax, begin=0, end=h_)
+            body = sym.slice_axis(body, axis=w_ax, begin=0, end=w_)
+        else:
+            body = sym.Convolution(data=data, num_filter=filter_list[0],
+                                   kernel=(7, 7), stride=(2, 2), pad=(3, 3),
+                                   no_bias=True, layout=layout, name="conv0")
+        body = sym.BatchNorm(data=body, fix_gamma=False, eps=BN_EPS,
+                             momentum=BN_MOM, axis=bn_ax, name="bn0")
+        body = sym.Activation(data=body, act_type="relu", name="relu0")
+        body = sym.Pooling(data=body, kernel=(3, 3), stride=(2, 2),
+                           pad=(1, 1), pool_type="max", layout=layout)
+
+    for i in range(num_stages):
+        stride = (1, 1) if i == 0 else (2, 2)
+        body = residual_unit_v2(body, filter_list[i + 1], stride, False,
+                                name="stage%d_unit%d" % (i + 1, 1),
+                                bottle_neck=bottle_neck, layout=layout)
+        for j in range(units[i] - 1):
+            body = residual_unit_v2(body, filter_list[i + 1], (1, 1), True,
+                                    name="stage%d_unit%d" % (i + 1, j + 2),
+                                    bottle_neck=bottle_neck, layout=layout)
+    bn1 = sym.BatchNorm(data=body, fix_gamma=False, eps=BN_EPS,
+                        momentum=BN_MOM, axis=bn_ax, name="bn1")
+    relu1 = sym.Activation(data=bn1, act_type="relu", name="relu1")
+    pool1 = sym.Pooling(data=relu1, global_pool=True, kernel=(7, 7),
+                        pool_type="avg", layout=layout, name="pool1")
+    flat = sym.Flatten(data=pool1)
+    fc1 = sym.FullyConnected(data=flat, num_hidden=num_classes, name="fc1")
+    return sym.SoftmaxOutput(data=fc1, name="softmax")
+
+
+def get_symbol(num_classes=1000, num_layers=50, image_shape="3,224,224",
+               stem="conv7", layout="NCHW", **kwargs):
+    """Depth → unit table from symbols/resnet.py get_symbol."""
+    if isinstance(image_shape, str):
+        image_shape = tuple(int(x) for x in image_shape.split(","))
+    (nchannel, height, width) = image_shape
+    if height <= 28:
+        num_stages = 3
+        if (num_layers - 2) % 9 == 0 and num_layers >= 164:
+            per_unit = [(num_layers - 2) // 9]
+            filter_list = [16, 64, 128, 256]
+            bottle_neck = True
+        elif (num_layers - 2) % 6 == 0 and num_layers < 164:
+            per_unit = [(num_layers - 2) // 6]
+            filter_list = [16, 16, 32, 64]
+            bottle_neck = False
+        else:
+            raise ValueError("no experiments done on num_layers %d"
+                             % num_layers)
+        units = per_unit * num_stages
+    else:
+        if num_layers >= 50:
+            filter_list = [64, 256, 512, 1024, 2048]
+            bottle_neck = True
+        else:
+            filter_list = [64, 64, 128, 256, 512]
+            bottle_neck = False
+        num_stages = 4
+        units_table = {
+            18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
+            101: [3, 4, 23, 3], 152: [3, 8, 36, 3], 200: [3, 24, 36, 3],
+            269: [3, 30, 48, 8],
+        }
+        if num_layers not in units_table:
+            raise ValueError("no experiments done on num_layers %d"
+                             % num_layers)
+        units = units_table[num_layers]
+
+    return resnet(units=units, num_stages=num_stages,
+                  filter_list=filter_list, num_classes=num_classes,
+                  image_shape=image_shape, bottle_neck=bottle_neck,
+                  stem=stem, layout=layout)

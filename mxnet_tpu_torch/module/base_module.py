@@ -2,19 +2,25 @@
 
 PyTorch counterpart of ``mxnet_tpu/module/base_module.py`` (reference:
 python/mxnet/module/base_module.py): ``fit``, ``score``,
-``forward_backward``, ``set_params`` and the input-description helpers.
-``run_steps``, ``predict`` / ``iter_predict`` and parameter files are not
-ported yet.
+``forward_backward``, ``run_steps`` (the plain loop of K steps),
+``set_params``, parameter files and the input-description helpers.
+``predict`` / ``iter_predict`` are not ported yet.
 """
 from __future__ import annotations
 
 import logging
 import time
 
+import numpy as np
+import torch
+
 from .. import io as io_mod
 from .. import metric as metric_mod
+from ..base import MXNetError
 from ..initializer import Uniform
 from ..model import BatchEndParam
+from ..ndarray import NDArray
+from ..serialization import load_ndarrays, save_ndarrays
 
 
 def _check_input_names(symbol, names, typename, throw):
@@ -58,6 +64,56 @@ def _parse_data_desc(data_names, label_names, data_shapes, label_shapes):
     return data_shapes, label_shapes
 
 
+def _canon_step_inputs(names, value, what, k=None):
+    """``run_steps`` inputs as a list of tensors aligned with ``names``,
+    each ``(k,) + per_step_shape``, and k.  Takes a dict name -> array, a
+    list aligned with ``names``, one array (one input) or, for one input,
+    a list of K per-step batches (stacked here); arrays are NDArrays,
+    tensors or array-likes (reference: base_module.py
+    _canon_step_inputs)."""
+    def _as_val(v):
+        if isinstance(v, NDArray):
+            return v._data
+        if isinstance(v, torch.Tensor):
+            return v
+        return torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
+
+    if value is None:
+        if names:
+            raise MXNetError(f"run_steps: {what} is required "
+                             f"(names: {names})")
+        return [], k
+    if isinstance(value, dict):
+        missing = [n for n in names if n not in value]
+        if missing:
+            raise MXNetError(f"run_steps: missing {what}: {missing}")
+        arrays = [_as_val(value[n]) for n in names]
+    elif isinstance(value, (list, tuple)):
+        if len(value) == len(names):
+            arrays = [_as_val(v) for v in value]
+        elif len(names) == 1:
+            arrays = [torch.stack([_as_val(v) for v in value])]
+        else:
+            raise MXNetError(f"run_steps: expected {len(names)} {what} "
+                             f"arrays, got {len(value)}")
+    else:
+        if len(names) != 1:
+            raise MXNetError(f"run_steps: {what} must be a dict/list "
+                             f"covering {names}")
+        arrays = [_as_val(value)]
+    ks = {int(a.shape[0]) for a in arrays if a.dim()}
+    if len(ks) != 1:
+        raise MXNetError(f"run_steps: inconsistent leading (step) dims "
+                         f"for {what}: {sorted(ks)}")
+    inferred = ks.pop()
+    if inferred == 0:
+        raise MXNetError(f"run_steps: {what} stacks zero steps")
+    if k is not None and k != inferred:
+        raise MXNetError(f"run_steps: k={k} but {what} arrays stack "
+                         f"{inferred} steps (leading dim)")
+    return arrays, inferred
+
+
 def _as_list(obj):
     return obj if isinstance(obj, (list, tuple)) else [obj]
 
@@ -75,6 +131,32 @@ class BaseModule:
         self._symbol = None
 
     # -- high level ------------------------------------------------------------
+    def run_steps(self, data, label=None, k=None, eval_metric=None):
+        """K training steps (forward, backward, optimizer update) over K
+        stacked batches: ``data`` / ``label`` carry a leading step axis
+        (see :func:`_canon_step_inputs`).  The result equals K single
+        steps; with ``eval_metric``, each step's outputs are folded into
+        it.  Returns each output of every step stacked on a leading K
+        axis, one NDArray per output (reference: base_module.py
+        run_steps; the JAX package's scan of K steps in one program has
+        no counterpart yet)."""
+        data_arrays, k = _canon_step_inputs(self.data_names, data, "data", k)
+        label_arrays, k = _canon_step_inputs(
+            getattr(self, "label_names", []), label, "label", k)
+        outs_steps = []
+        for j in range(k):
+            batch = io_mod.DataBatch(
+                data=[NDArray(a[j]) for a in data_arrays],
+                label=[NDArray(a[j]) for a in label_arrays]
+                if label_arrays else None)
+            self.forward(batch, is_train=True)
+            self.update()
+            if eval_metric is not None:
+                self.update_metric(eval_metric, batch.label)
+            outs_steps.append([o._data for o in self.get_outputs()])
+        return [NDArray(torch.stack([s[i] for s in outs_steps]))
+                for i in range(len(outs_steps[0]))]
+
     def forward_backward(self, data_batch):
         self.forward(data_batch, is_train=True)
         self.backward()
@@ -176,6 +258,28 @@ class BaseModule:
         self.init_params(initializer=None, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init, allow_extra=allow_extra)
+
+    def save_params(self, fname):
+        """Write the parameters as ``arg:name`` / ``aux:name`` arrays
+        (reference: base_module.py save_params)."""
+        arg_params, aux_params = self.get_params()
+        save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
+        save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
+        save_ndarrays(fname, save_dict)
+
+    def load_params(self, fname):
+        """Set the parameters from a file of :meth:`save_params` or
+        ``model.save_checkpoint`` of either package."""
+        arg_params, aux_params = {}, {}
+        for k, value in load_ndarrays(fname).items():
+            arg_type, name = k.split(":", 1)
+            if arg_type == "arg":
+                arg_params[name] = value
+            elif arg_type == "aux":
+                aux_params[name] = value
+            else:
+                raise ValueError("Invalid param file " + fname)
+        self.set_params(arg_params, aux_params)
 
     def forward(self, data_batch, is_train=None):
         raise NotImplementedError()

@@ -11,24 +11,28 @@ type under the executor's cast policy while the masters stay fp32.
 it into gradients and ``update`` applies the optimizer to every
 parameter.  ``update`` after a training ``forward`` without ``backward``
 computes the gradients itself, once, as the JAX package's fused step
-does; ``forward(is_train=False)`` records no graph.  The JAX package's
-fused jit step, ``run_steps``, meshes, ZeRO, checkpoints and
-``BucketingModule``, state inputs, fixed parameters and rebinding to new
-shapes are not ported yet.
+does; ``forward(is_train=False)`` records no graph.  ``run_steps`` is
+the plain loop of K steps.  Checkpoints (``save_checkpoint``, ``load``,
+optimizer states) use the JAX package's files, so either package resumes
+from the other's.  The JAX package's fused jit step and its scan over K
+steps, meshes, ZeRO, ``BucketingModule``, state inputs, fixed parameters
+and rebinding to new shapes are not ported yet.
 """
 from __future__ import annotations
 
 import json
 import logging
+import pickle
 
 import numpy as np
+import torch
 
 from ..base import MXNetError
 from ..context import current_context
 from ..executor import Executor, _as_tensor
 from ..initializer import InitDesc, Uniform
 from .. import initializer as init_mod
-from ..model import _create_kvstore, _update_params
+from ..model import _create_kvstore, _update_params, load_checkpoint
 from .. import optimizer as opt_mod
 from .. import profiler as _prof
 from .base_module import BaseModule, _check_input_names, _parse_data_desc
@@ -66,12 +70,42 @@ class Module(BaseModule):
         self._aux_params = None
         self._optimizer = None
         self._updater = None
+        self._preload_opt_states = None
         self._kvstore = None
         self._grad_req = None
         self._exec = None
         self._data_shapes = self._label_shapes = None
         # gradients of the last forward are in grad_dict
         self._grads_fresh = False
+
+    @staticmethod
+    def load(prefix, epoch, load_optimizer_states=False, **kwargs):
+        """A Module over the checkpoint ``prefix``/``epoch`` (symbol and
+        parameters; ``kwargs`` go to the constructor).  Its parameters are
+        set at ``bind``; with ``load_optimizer_states`` the optimizer
+        states of ``prefix-%04d.states`` are set at ``init_optimizer``
+        (reference: module.py load)."""
+        sym, args, auxs = load_checkpoint(prefix, epoch)
+        mod = Module(symbol=sym, **kwargs)
+        mod._arg_params = args
+        mod._aux_params = auxs
+        mod.params_initialized = True
+        if load_optimizer_states:
+            mod._preload_opt_states = "%s-%04d.states" % (prefix, epoch)
+        return mod
+
+    def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
+        """Write ``prefix-symbol.json``, ``prefix-%04d.params`` and, with
+        ``save_optimizer_states``, ``prefix-%04d.states`` (reference:
+        module.py save_checkpoint)."""
+        self._symbol.save("%s-symbol.json" % prefix)
+        param_name = "%s-%04d.params" % (prefix, epoch)
+        self.save_params(param_name)
+        logging.info('Saved checkpoint to "%s"', param_name)
+        if save_optimizer_states:
+            state_name = "%s-%04d.states" % (prefix, epoch)
+            self.save_optimizer_states(state_name)
+            logging.info('Saved optimizer state to "%s"', state_name)
 
     # -- properties ------------------------------------------------------------
     @property
@@ -223,7 +257,42 @@ class Module(BaseModule):
             raise TypeError("optimizer must be a name or an Optimizer")
         self._optimizer = optimizer
         self._updater = opt_mod.get_updater(optimizer)
+        # every state now, so that a checkpoint before the first update
+        # holds them all (multi-precision prepends an fp32 master copy)
+        self._updater.states = {
+            n: optimizer.create_state_multi_precision(
+                n, self._exec.arg_dict[n])
+            for n in self._update_names()}
         self.optimizer_initialized = True
+        if self._preload_opt_states is not None:
+            self.load_optimizer_states(self._preload_opt_states)
+            self._preload_opt_states = None
+
+    def save_optimizer_states(self, fname):
+        """Pickle ``{name: tuple of numpy arrays}`` of the optimizer
+        states, as the JAX package writes them (bf16 states, which numpy
+        lacks, are written as float32)."""
+        assert self.optimizer_initialized
+        states = {n: tuple(s.asnumpy() for s in st)
+                  for n, st in self._updater.states.items()}
+        _prof.record_host_sync("module.save_optimizer_states")
+        with open(fname, "wb") as fout:
+            pickle.dump(states, fout)
+
+    def load_optimizer_states(self, fname):
+        """Set the optimizer states from a file of
+        :meth:`save_optimizer_states` of either package, each in its
+        state's dtype and on its device.  The file is unpickled: load
+        only files this program or the JAX package wrote."""
+        assert self.optimizer_initialized
+        with open(fname, "rb") as fin:
+            states = pickle.load(fin)
+        for n, st in states.items():
+            for s, v in zip(self._updater.states.get(n, ()), st):
+                v = np.asarray(v)
+                t = (torch.from_numpy(v.view(np.int16)).view(torch.bfloat16)
+                     if v.dtype.name == "bfloat16" else torch.from_numpy(v))
+                s._set_data(t.to(device=s._data.device, dtype=s._data.dtype))
 
     def _update_names(self):
         return [n for n in self._param_names

@@ -1,7 +1,8 @@
 """NDArray: a tensor on a device.
 
 PyTorch counterpart of the part of ``mxnet_tpu/ndarray/ndarray.py`` that
-``Module``, the executor and ``io.NDArrayIter`` hand to users.  An
+``Module``, the executor and ``io.NDArrayIter`` hand to users, with
+``save`` / ``load`` of NDArray files.  An
 ``NDArray`` wraps one ``torch.Tensor``; ``_set_data`` swaps the tensor
 (the executor and optimizers update through it).  PyTorch runs eagerly,
 so there is no lazy payload; ``wait_to_read`` synchronises the device.
@@ -113,3 +114,16 @@ def zeros(shape, ctx=None, dtype=None, **kw) -> NDArray:
                                dtype=torch_dtype(dtype or np.float32),
                                device=as_device(ctx)))
 
+
+
+def save(fname, data):
+    """Write an NDArray, a list or a dict of NDArrays to ``fname`` in the
+    format both packages read (:mod:`mxnet_tpu_torch.serialization`)."""
+    from ..serialization import save_ndarrays
+    save_ndarrays(fname, data)
+
+
+def load(fname):
+    """The list or dict of NDArrays in ``fname``, on the CPU."""
+    from ..serialization import load_ndarrays
+    return load_ndarrays(fname)

@@ -1,9 +1,10 @@
 """Elementwise binary, scalar and unary ops (subset).
 
-PyTorch counterpart of the part of ``mxnet_tpu/ops/elemwise.py`` that the
-transformer graph emits: the ``elemwise_*``/``broadcast_*`` arithmetic
-family, ``broadcast_greater_equal``, the scalar ops behind the symbol's
-``+ - * /`` overloads, and the unaries the gelu and rope paths use.
+PyTorch counterpart of the part of ``mxnet_tpu/ops/elemwise.py`` that
+the transformer and ResNet graphs emit: the ``elemwise_*`` /
+``broadcast_*`` arithmetic family, ``broadcast_greater_equal``, the
+scalar ops behind the symbol's ``+ - * /`` overloads, the unaries the
+gelu and rope paths use, and ``_copy`` (alias ``identity``).
 """
 from __future__ import annotations
 
@@ -54,3 +55,8 @@ _UNARY = {
 for _n, _f in _UNARY.items():
     register(_n, arg_names=["data"])(
         lambda data, _f=_f, **kw: _f(data))
+
+# reference: _copy; tensors are never written in place here, so the
+# identity need not copy
+register("_copy", arg_names=["data"], aliases=("identity",))(
+    lambda data, **kw: data)

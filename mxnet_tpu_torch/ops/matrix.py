@@ -1,8 +1,9 @@
 """Shape-manipulation ops (subset).
 
 PyTorch counterpart of the part of ``mxnet_tpu/ops/matrix.py`` the
-transformer graph uses: ``Reshape`` with MXNet's special codes,
-``transpose``, ``expand_dims``, ``slice_axis`` and ``Concat``.  Reshape,
+transformer and ResNet graphs use: ``Reshape`` with MXNet's special
+codes, ``Flatten``, ``transpose``, ``expand_dims``, ``slice_axis`` and
+``Concat``.  Reshape,
 transpose and slicing return views where torch can; ops that need
 contiguous memory (the attention kernel) make it themselves.
 """
@@ -55,6 +56,12 @@ def reshape_target(src_shape, shape=(), reverse=False):
 def _reshape(data, shape=(), reverse=False, **kw):
     """MXNet reshape with special codes (see :func:`reshape_target`)."""
     return data.reshape(reshape_target(data.shape, shape, reverse))
+
+
+@register("Flatten", arg_names=["data"], aliases=("flatten",))
+def _flatten(data, **kw):
+    """(N, ...) -> (N, prod(...))."""
+    return data.reshape(data.shape[0], -1)
 
 
 @register("transpose", arg_names=["data"], attr_defaults={"axes": ()})

@@ -1,18 +1,36 @@
 """Neural-network layer ops (subset).
 
-PyTorch counterpart of the part of ``mxnet_tpu/ops/nn.py`` the transformer
-LM runs: ``FullyConnected``, ``LayerNorm``, ``softmax`` and
-``SoftmaxOutput`` with its gradient.  The large matrix products go to
-``torch.nn.functional.linear`` (cuBLAS on the card), as the JAX package
-leaves them to XLA.  Every op but ``SoftmaxOutput`` gets its gradient from
-autograd; none of them writes in place to a tensor autograd saved.
+PyTorch counterpart of the part of ``mxnet_tpu/ops/nn.py`` that the
+transformer LM and the ResNet family run: ``FullyConnected``,
+``Convolution``, ``Pooling``, ``BatchNorm``, ``LayerNorm``,
+``Activation``, ``softmax`` and ``SoftmaxOutput`` with its gradient.  The
+large matrix products go to ``torch.nn.functional.linear`` and the
+convolutions to ``torch.nn.functional.conv{1,2,3}d`` (cuBLAS and cuDNN on
+the card), as the JAX package leaves them to XLA.  ``layout="NHWC"``
+keeps the weight in OIHW: an (N, H, W, C) tensor permuted to
+(0, 3, 1, 2) is the same memory seen as a channels-last NCHW tensor, so
+the NCHW functions run on it without a copy.  Every op but
+``SoftmaxOutput`` gets its gradient from autograd; none of them writes in
+place to a tensor autograd saved.
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .registry import register
+
+
+def _pair(v, n=2):
+    """An int or a sequence as an n-tuple (the JAX package's rule: a
+    sequence of another length is repeated n times)."""
+    if isinstance(v, (int, float)):
+        return (int(v),) * n
+    t = tuple(int(x) for x in v)
+    return t if len(t) == n else t * n
 
 
 @register("FullyConnected", arg_names=["data", "weight", "bias"],
@@ -23,6 +41,177 @@ def _fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
     if flatten and data.dim() > 2:
         data = data.reshape(data.shape[0], -1)
     return F.linear(data, weight, None if no_bias else bias)
+
+
+# accepted layout attr values per spatial rank; anything else fails
+# loudly rather than run channels-first under a channels-last name
+_LAYOUTS = {1: {None, "NCW"}, 2: {None, "NCHW", "NHWC"}, 3: {None, "NCDHW"}}
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _check_layout(layout, rank):
+    """Validate ``layout``; True for the channels-last (NHWC) path."""
+    if layout not in _LAYOUTS.get(rank, {None}):
+        raise ValueError(
+            f"unsupported layout {layout!r} for {rank}d conv/pool "
+            f"(allowed: {sorted(x for x in _LAYOUTS[rank] if x)})")
+    return layout == "NHWC"
+
+
+def _to_nchw(x):
+    """(N, H, W, C) -> the same memory as a channels-last (N, C, H, W)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def _to_nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+@register("Convolution", arg_names=["data", "weight", "bias"],
+          attr_defaults={"kernel": (), "stride": (), "dilate": (), "pad": (),
+                         "num_filter": 0, "num_group": 1, "no_bias": False,
+                         "layout": None, "workspace": 1024,
+                         "cudnn_tune": None, "cudnn_off": False})
+def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                 pad=(), num_filter=0, num_group=1, no_bias=False,
+                 layout=None, **kw):
+    """reference: src/operator/convolution.cc — 1-D/2-D/3-D, symmetric
+    padding, dilation, groups; the weight is (out, in / group, *kernel)
+    in every layout."""
+    rank = data.dim() - 2
+    stride = _pair(stride, rank) if stride else (1,) * rank
+    dilate = _pair(dilate, rank) if dilate else (1,) * rank
+    pad = _pair(pad, rank) if pad else (0,) * rank
+    nhwc = _check_layout(layout, rank)
+    x = _to_nchw(data) if nhwc else data
+    out = _CONV[rank](x, weight, None if no_bias else bias, stride, pad,
+                      dilate, int(num_group))
+    return _to_nhwc(out) if nhwc else out
+
+
+def _full_pads(in_shape, kernel, stride, pad):
+    """Right-edge padding of ``pooling_convention="full"``: enough for
+    ceil((in + 2p - k) / s) + 1 windows, and at least ``pad``.  Every
+    window is kept, also one that starts in the padding (torch's
+    ``ceil_mode`` drops that one)."""
+    hi = []
+    for n, k, s, p in zip(in_shape, kernel, stride, pad):
+        out = int(np.ceil((n + 2 * p - k) / s)) + 1
+        hi.append(max((out - 1) * s + k - n - p, p))
+    return hi
+
+
+def _window_reduce(x, pool_type, kernel, stride, lo, hi):
+    """Max or sum over each window of an (N, C, *spatial) tensor padded
+    by ``lo`` before and ``hi`` after each spatial dim with the
+    reduction's identity (-inf, or the dtype's least integer, for max; 0
+    for sum and avg); avg divides every window by prod(kernel), padding
+    included.  Torch's own implicit padding is taken where it computes
+    the same (symmetric, at most half the kernel); otherwise the tensor
+    is padded first."""
+    rank = len(kernel)
+    if rank == 1:
+        out = _window_reduce(x.unsqueeze(2), pool_type, (1,) + kernel,
+                             (1,) + stride, (0,) + tuple(lo),
+                             (0,) + tuple(hi))
+        return out.squeeze(2)
+    padding = tuple(lo)
+    if list(lo) != list(hi) or any(p > k // 2 for p, k in zip(lo, kernel)):
+        if pool_type != "max":
+            fill = 0.0
+        elif x.is_floating_point():
+            fill = -math.inf
+        else:
+            fill = torch.iinfo(x.dtype).min
+        pads = []
+        for a, b in zip(reversed(lo), reversed(hi)):
+            pads += [a, b]
+        x = F.pad(x, pads, value=fill)
+        padding = 0
+    if pool_type == "max":
+        fn = F.max_pool2d if rank == 2 else F.max_pool3d
+        return fn(x, kernel, stride, padding)
+    fn = F.avg_pool2d if rank == 2 else F.avg_pool3d
+    return fn(x, kernel, stride, padding, count_include_pad=True,
+              divisor_override=1 if pool_type == "sum" else None)
+
+
+@register("Pooling", arg_names=["data"],
+          attr_defaults={"kernel": (), "stride": (), "pad": (),
+                         "pool_type": "max", "global_pool": False,
+                         "pooling_convention": "valid", "cudnn_off": False,
+                         "layout": None})
+def _pooling(data, kernel=(), stride=(), pad=(), pool_type="max",
+             global_pool=False, pooling_convention="valid", layout=None,
+             **kw):
+    """reference: src/operator/pooling.cc, with the JAX package's rules:
+    ``global_pool`` ignores ``kernel`` and takes the max, or the mean for
+    both avg and sum; avg counts the padding (count_include_pad)."""
+    rank = data.dim() - 2
+    nhwc = _check_layout(layout, rank)
+    if pool_type not in ("max", "avg", "sum"):
+        raise ValueError(pool_type)
+    x = _to_nchw(data) if nhwc else data
+    if global_pool:
+        ax = tuple(range(2, 2 + rank))
+        out = (x.amax(dim=ax, keepdim=True) if pool_type == "max"
+               else x.mean(dim=ax, keepdim=True))
+    else:
+        kernel = _pair(kernel, rank)
+        stride = _pair(stride, rank) if stride else (1,) * rank
+        pad = _pair(pad, rank) if pad else (0,) * rank
+        hi = (_full_pads(x.shape[2:], kernel, stride, pad)
+              if pooling_convention == "full" else pad)
+        out = _window_reduce(x, pool_type, kernel, stride, pad, hi)
+    return _to_nhwc(out) if nhwc else out
+
+
+@register("BatchNorm", arg_names=["data", "gamma", "beta"],
+          aux_names=["moving_mean", "moving_var"], num_aux=2, num_outputs=3,
+          num_visible=1, takes_is_train=True,
+          attr_defaults={"eps": 1e-3, "momentum": 0.9, "fix_gamma": True,
+                         "use_global_stats": False, "output_mean_var": False,
+                         "axis": 1, "cudnn_off": False})
+def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                momentum=0.9, fix_gamma=True, use_global_stats=False,
+                output_mean_var=False, axis=1, is_train=True, **kw):
+    """reference: src/operator/batch_norm.cc.
+
+    Training returns (out, batch_mean, batch_var, new_moving_mean,
+    new_moving_var); the executor writes the last two back into the aux
+    arrays.  The moving statistics follow the JAX package:
+    ``new = old * momentum + batch * (1 - momentum)`` with the biased
+    batch variance (torch's ``running_var`` would take the new value's
+    weight as momentum and the unbiased variance).  ``fix_gamma`` takes
+    gamma as ones, so gamma gets no gradient from the loss.
+
+    Mixed precision: only ``data`` is in the compute dtype; gamma, beta
+    and the moving statistics stay fp32.  Training runs
+    ``aten.native_batch_norm``, which accumulates the statistics in fp32
+    from the low-precision input and keeps only the input (in its own
+    dtype) and the fp32 per-channel mean and invstd for the backward, so
+    no fp32 copy of the activation is made or kept.  Inference folds the
+    moving statistics into an fp32 per-channel scale and offset and casts
+    only those to the data's dtype.  Integer input is promoted to fp32."""
+    ax = int(axis) % data.dim()
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if not data.is_floating_point():
+        data = data.float()
+    if is_train and not use_global_stats:
+        out, mean, invstd = torch.ops.aten.native_batch_norm(
+            data.movedim(ax, 1), g, beta, None, None, True, 0.0, eps)
+        mean, invstd = mean.detach(), invstd.detach()
+        var = invstd.pow(-2) - eps
+        new_mm = moving_mean * momentum + mean * (1 - momentum)
+        new_mv = moving_var * momentum + var * (1 - momentum)
+        return out.movedim(1, ax), mean, var, new_mm, new_mv
+    scale = g * torch.rsqrt(moving_var + eps)
+    offset = beta - moving_mean * scale
+    bshape = tuple(data.shape[ax] if i == ax else 1
+                   for i in range(data.dim()))
+    out = (data * scale.reshape(bshape).to(data.dtype)
+           + offset.reshape(bshape).to(data.dtype))
+    return out, moving_mean, moving_var
 
 
 @register("LayerNorm", arg_names=["data", "gamma", "beta"], num_outputs=3,
@@ -40,6 +229,25 @@ def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
                    for i in range(data.dim()))
     out = out * gamma.reshape(bshape) + beta.reshape(bshape)
     return out, mean.squeeze(ax), var.squeeze(ax)
+
+
+_ACTIVATIONS = {
+    "relu": F.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "softrelu": F.softplus,
+    "softsign": F.softsign,
+}
+
+
+@register("Activation", arg_names=["data"], attr_defaults={"act_type": "relu"})
+def _activation(data, act_type="relu", **kw):
+    """reference: src/operator/activation.cc (softrelu is softplus)."""
+    try:
+        fn = _ACTIVATIONS[act_type]
+    except KeyError:
+        raise ValueError(act_type) from None
+    return fn(data)
 
 
 @register("softmax", arg_names=["data"],

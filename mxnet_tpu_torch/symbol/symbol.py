@@ -1,18 +1,19 @@
 """Symbol: the declarative graph frontend.
 
-PyTorch counterpart of ``mxnet_tpu/symbol/symbol.py``.  A Symbol is a list
-of (node, output-index) heads over a DAG of ``Node`` objects; binding it
-builds a plain function on tensors (:func:`mxnet_tpu_torch.executor.
-build_interpreter`).  Graph JSON save/load keeps the nnvm layout of the
-JAX package (nodes / arg_nodes / heads), so a graph saved by either
-package loads in the other.
+PyTorch counterpart of ``mxnet_tpu/symbol/symbol.py``. A Symbol is a
+list of (node, output-index) heads over a DAG of ``Node`` objects;
+binding it builds a plain function on tensors
+(:func:`mxnet_tpu_torch.executor.build_interpreter`). Graph JSON
+save/load keeps the nnvm layout of the JAX package (nodes / arg_nodes /
+heads), so a graph saved by either package loads in the other.
 
 Shape inference runs forward over the graph: parameter shapes are filled
-from the data shapes by per-op rules (FullyConnected, LayerNorm,
-Embedding), and every op's shape comes from running its torch function on
-``device="meta"`` tensors, which carry shapes and no data.  The JAX
-package's bidirectional pre-pass, which resolves unknown (0) dims from
-constraints elsewhere in the graph, is not ported yet.
+from the data shapes by per-op rules (FullyConnected, Convolution,
+BatchNorm, LayerNorm, Embedding), and every op's shape comes from
+running its torch function on ``device="meta"`` tensors, which carry
+shapes and no data. The JAX package's bidirectional pre-pass, which
+resolves unknown (0) dims from constraints elsewhere in the graph, is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -91,6 +92,30 @@ def _fc_param_shapes(attrs, in_shapes):
     return out
 
 
+def _conv_param_shapes(attrs, in_shapes):
+    data = in_shapes.get("data")
+    if data is None:
+        return {}
+    kernel = tuple(int(k) for k in attrs.get("kernel", ()))
+    nf = int(attrs.get("num_filter", 0))
+    ng = int(attrs.get("num_group", 1))
+    # NHWC activations keep channels last; the weight stays OIHW either way
+    cin = data[-1] if attrs.get("layout") == "NHWC" else data[1]
+    out = {"weight": (nf, cin // ng) + kernel}
+    if not attrs.get("no_bias", False):
+        out["bias"] = (nf,)
+    return out
+
+
+def _bn_param_shapes(attrs, in_shapes):
+    data = in_shapes.get("data")
+    if data is None:
+        return {}
+    c = data[int(attrs.get("axis", 1)) % len(data)]
+    return {"gamma": (c,), "beta": (c,),
+            "moving_mean": (c,), "moving_var": (c,)}
+
+
 def _ln_param_shapes(attrs, in_shapes):
     data = in_shapes.get("data")
     if data is None:
@@ -105,6 +130,8 @@ def _embedding_param_shapes(attrs, in_shapes):
 
 PARAM_SHAPE_INFER = {
     "FullyConnected": _fc_param_shapes,
+    "Convolution": _conv_param_shapes,
+    "BatchNorm": _bn_param_shapes,
     "LayerNorm": _ln_param_shapes,
     "Embedding": _embedding_param_shapes,
 }
@@ -254,6 +281,11 @@ class Symbol:
             "attrs": {"mxnet_version": ["int", 1200]},
         }, indent=2)
 
+    def save(self, fname):
+        """Write :meth:`tojson` to ``fname`` (``prefix-symbol.json``)."""
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
     # -- arithmetic (reference symbol.py operator overloads) ----------------
     def _binop(self, other, op, scalar_op, rop=False):
         if isinstance(other, Symbol):
@@ -365,6 +397,12 @@ def load_json(json_str: str) -> Symbol:
             node = Node(op, jn["name"], op_attrs, inputs, user_attrs)
         nodes.append(node)
     return Symbol([(nodes[e[0]], e[1]) for e in g["heads"]])
+
+
+def load(fname: str) -> Symbol:
+    """The Symbol saved in ``fname`` by either package."""
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 def _parse_attr(v):
