@@ -17,8 +17,14 @@ against the same step on the CPU.  Then it trains ResNet-50 at ImageNet
 width through ``Module`` with the JAX package's ``bench.py`` recipe
 (batch 256, bf16 compute, SGD with momentum), profiles a step, checks
 one float32 step at full depth and width against the CPU, and runs
-``Module.fit`` with a checkpoint that must reload bit for bit.  Every
-phase prints one JSON line;
+``Module.fit`` with a checkpoint that must reload bit for bit.  Then it
+decodes GPT-2 small token by token through ``Module(state_names=...)``
+at batch 1 and 32 (float32, as ``benchmark/decode_bench.py``), holds the
+decode against the teacher-forced LM and ``beam_search`` against greedy
+decoding and a re-scoring, trains ViT-S/16 through ``Module`` on the
+flash kernels (non-causal, bf16), and holds ``Module.predict`` of every
+zoo network on the card against the CPU.  Every phase prints one JSON
+line;
 any failed phase exits non-zero.  The line before the last lists the
 kernels with their launches on each path, times and bounds; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -119,7 +125,7 @@ RESNET_FWD_MACS = 4.1e9
 # of its largest element.  The backward of this network at this point is
 # ill-conditioned: on the CPU, fp32 against float64 moves the gradient by
 # 1.0e-2 of its norm and single parameters by up to 14% of their largest
-# element (tests/torch_resnet_numerics.py prints it,
+# element (tests/torch_numerics.py resnet prints it,
 # tests/test_torch_resnet.py::test_resnet50_fp32_gradient_against_float64
 # bounds it), so no fp32 pair can meet
 # 1e-3 per parameter.  So: fc1's update (its gradient passes no
@@ -137,6 +143,88 @@ RESNET_FP32_UPDATE_NORM_RTOL = 5e-2
 # a checkpoint that must reload bit for bit
 FIT_BATCH = 32
 FIT_BATCHES = 4
+
+# KV-cache decode, benchmark/decode_bench.py's configuration: GPT-2 small
+# (the weights of GPT2_SMALL), max_len 1024, float32 with TF32 off, one
+# token a row a step through Module(state_names=...), batch 1 and 32,
+# DECODE_WARMUP steps, then DECODE_STEPS timed with one readback at the end
+DECODE_BATCHES = (1, 32)
+DECODE_WARMUP = 3
+DECODE_STEPS = 64
+# the decode's log-softmax against the teacher-forced LM's (seq 1024, K1's
+# fp32 kernel) at each of the first DECODE_STEPS positions: the CPU
+# rehearsal at full width and 2 layers (tests/torch_numerics.py
+# decode_vs_lm) gave 3.2e-6; the card runs 6x the depth and K1 sums in
+# another order than the decode's batch_dot + softmax, so 30x that
+DECODE_LOGP_TOL = 1e-4
+# beam search: 4 prompts x beam 4 (batch 16), 32 tokens; each returned
+# score (sum of 32 log-probabilities / 32) against the teacher-forced LM's
+# re-scoring of its sequence: the CPU rehearsal (2 layers) gave 9.5e-7;
+# 100x that for depth and the card's reduction orders
+BEAM_PROMPTS = (11, 2024, 31337, 50000)
+BEAM_SIZE = 4
+BEAM_GEN = 32
+BEAM_SCORE_TOL = 1e-4
+
+# ViT-S/16 training: models.vit(1000)'s defaults are DeiT-S's widths
+# (Touvron et al. 2021, Table 1: d 384, 6 heads, 12 layers, patch 16,
+# 224x224, 196 tokens) with an average-pool head in place of the class
+# token; through Module, bf16 over fp32 masters, batch 128 (DeiT's 1024
+# over 8 GPUs), Adam lr 5e-4, Xavier gaussian magnitude 2, two synthetic
+# batches made on the card taken in turn
+VIT_BATCH = 128
+VIT_LR = 5e-4
+VIT_WARMUP = 5
+VIT_STEPS = 20
+VIT_LAYERS = 12
+# analytic FLOPs of one image's forward: the patch embedding, and per
+# layer the qkv, proj, fc1 and fc2 products plus the scores and P.V over
+# 196 tokens, 2 FLOPs a multiply-add (9.14 GFLOP; DeiT-S's 4.6 G
+# multiply-adds); a training step is 3x the forward
+VIT_FWD_FLOPS = 2.0 * (196 * 768 * 384 + VIT_LAYERS * (
+    196 * 384 * (3 * 384 + 384 + 2 * 4 * 384) + 2 * 196 * 196 * 384)
+    + 384 * 1000)
+# the mean loss of the last 5 of the 25 steps must beat the first 5's by
+# this many nats, fixed before the first card run from the CPU rehearsal
+# (tests/torch_numerics.py vit: full depth and width, batch 16, the
+# same recipe): there the first 5 averaged 4.53 and the last 5 0.008 in
+# fp32 (bf16 followed the same losses for the 12 steps run), a drop of
+# 4.52 nats (5.05 with this phase's own two batches, rehearsed again
+# later).  At batch 128 each batch holds 8x more random labels to fit in
+# the same 12 passes, so the margin is a fifth of the first drop, as
+# RESNET_MARGIN's
+VIT_MARGIN = 0.9
+
+# Module.predict of every zoo network at its published input (mlp and
+# lenet 1x28x28, inception-v3 299x299, the rest 224x224), batch 2 over 3
+# images (the last batch padded by one), fp32 with the seeded He-scaled
+# weights: the card (cuDNN, TF32 off) against the CPU, in probability
+ZOO = (("mlp", dict(num_classes=10), (1, 28, 28)),
+       ("lenet", dict(num_classes=10), (1, 28, 28)),
+       ("resnet", dict(num_layers=50, image_shape="3,224,224"),
+        (3, 224, 224)),
+       ("resnext", dict(num_layers=50), (3, 224, 224)),
+       ("inception-bn", {}, (3, 224, 224)),
+       ("inception-v3", {}, (3, 299, 299)),
+       ("mobilenet", {}, (3, 224, 224)),
+       ("densenet", dict(num_layers=121), (3, 224, 224)),
+       ("alexnet", {}, (3, 224, 224)),
+       ("vgg", dict(num_layers=16), (3, 224, 224)),
+       ("squeezenet", {}, (3, 224, 224)),
+       ("vit", {}, (3, 224, 224)))
+ZOO_DROPOUT = ("alexnet", "vgg", "squeezenet")
+# the logits (the SoftmaxOutput's input) are compared, relative to
+# their spread (largest minus smallest): random He-scaled weights
+# saturate resnet's and resnext's softmax, where probabilities would
+# hide the logits.  The CPU rehearsal (tests/torch_numerics.py zoo) put
+# each f32 order (oneDNN's convolutions, the plain ones) at most 5.6e-7
+# of the spread from a float64 run (vgg); the card's cuDNN is a third
+# order and the check sees two, so 1e-5 is 9x their sum
+ZOO_LOGIT_TOL = 1e-5
+# the network's probabilities on the card against numpy's softmax of the
+# card's logits: the same logits, the softmax evaluated in two places in
+# f32, a few ulps of 1.0
+ZOO_SOFTMAX_TOL = 1e-6
 
 
 T0 = time.monotonic()
@@ -174,18 +262,20 @@ def timed(row, key, fn, **kw):
     row.update({key: med, f"{key}_min": lo, f"{key}_max": hi})
 
 
-def attention_bound_ms(B, H, Hk, Sq, Sk, D, causal, dtype, kind="fwd"):
+def attention_bound_ms(B, H, Hk, Sq, Sk, D, causal, dtype, kind="fwd",
+                       lse=False):
     """Least time for one attention kernel on an H100 SXM: each input
     read once and each output written once over the memory rate, against
     the products these inputs need (causal: only the k <= q pairs) over
     the peak rate for the inputs' type.  ``kind``: ``fwd`` (K1: q, k, v
-    in, o out; s and P.V), ``dq`` (K2: q, k, v, dO, lse, delta in, dQ
-    out; s, dP and dS.K) or ``dkv`` (K3: q, k, v, dO, lse, delta in,
-    dK, dV out; s, dP, P^T.dO and dS^T.Q)."""
+    in, o out, and the f32 lse with ``lse``; s and P.V), ``dq`` (K2: q,
+    k, v, dO, lse, delta in, dQ out; s, dP and dS.K) or ``dkv`` (K3: q,
+    k, v, dO, lse, delta in, dK, dV out; s, dP, P^T.dO and dS^T.Q)."""
     esize = 2 if dtype == "bfloat16" else 4
     q_el, kv_el, rows = B * H * Sq * D, B * Hk * Sk * D, B * H * Sq
     nbytes, products = {
-        "fwd": (esize * (2 * q_el + 2 * kv_el), 2),
+        "fwd": (esize * (2 * q_el + 2 * kv_el) + (4 * rows if lse else 0),
+                2),
         "dq": (esize * (3 * q_el + 2 * kv_el) + 4 * 2 * rows, 3),
         "dkv": (esize * (2 * q_el + 4 * kv_el) + 4 * 2 * rows, 4),
     }[kind]
@@ -215,6 +305,9 @@ def phase_device(torch):
          count=torch.cuda.device_count())
     return line
 
+
+# the kernel-check rows that are timed: the main paths' shapes
+TIMED_CASES = ("main_bf16", "main_fp32", "vit_bf16", "vit_fp32")
 
 # the kernels on the tensor cores (the bf16 instances of K1, K2 and K3):
 # each instance must hold HMMA instructions, and the D=64 ones (the main
@@ -306,6 +399,13 @@ def phase_kernels(torch, mt):
          True),
         ("causal_sq130_sk77_d128_bf16", 2, 4, 2, 130, 77, 128, True,
          "bfloat16", True),
+        # ViT-S/16's training shape: 196 tokens (not a multiple of the
+        # 64-row tiles), non-causal, with lse
+        ("vit_bf16", VIT_BATCH, 6, 6, 196, 196, 64, False, "bfloat16",
+         True),
+        # ViT-S/16's fp32 predict in the zoo phase (batch 2, no lse): the
+        # CUDA-core kernel, the last 64-row tile ragged
+        ("vit_fp32", 2, 6, 6, 196, 196, 64, False, "float32", False),
     ]
     results, failures = {}, []
     for name, B, H, Hk, Sq, Sk, D, causal, dt, want_lse in cases:
@@ -339,11 +439,12 @@ def phase_kernels(torch, mt):
                    bit_identical_relaunch=deterministic)
         if want_lse:
             row.update(lse_max_abs_err=errs[1], lse_tol=LSE_TOL)
-        if name.startswith("main"):
+        if name in TIMED_CASES:
             bound, by, flops, nbytes = attention_bound_ms(
-                B, H, Hk, Sq, Sk, D, causal, dt)
+                B, H, Hk, Sq, Sk, D, causal, dt, lse=want_lse)
             timed(row, "kernel_ms",
-                  lambda: att.flash_fwd_cuda(q, k, v, causal, None))
+                  lambda: att.flash_fwd_cuda(q, k, v, causal, None,
+                                             return_lse=want_lse))
             timed(row, "plain_ms",
                   lambda: att._attn_reference(q, k, v, causal, None),
                   iters=5)
@@ -386,6 +487,7 @@ def phase_bwd_kernels(torch, mt):
         ("causal_sq130_sk77_d128_bf16", 2, 4, 2, 130, 77, 128, True,
          "bfloat16"),
         ("causal_sq80_sk80_bf16", 2, 4, 2, 80, 80, 64, True, "bfloat16"),
+        ("vit_bf16", VIT_BATCH, 6, 6, 196, 196, 64, False, "bfloat16"),
     ]
     results, failures = {}, []
     for name, B, H, Hk, Sq, Sk, D, causal, dt in cases:
@@ -422,7 +524,7 @@ def phase_bwd_kernels(torch, mt):
                                 f"{err} beyond {BWD_TOL[dt]} (or shape / "
                                 "non-finite)")
         del got, ref
-        if name.startswith("main"):
+        if name in TIMED_CASES:
             scale = 1.0 / D ** 0.5
             delta = (g.float() * out.float()).sum(-1)
             qr, kr, vr = (t.detach().clone().requires_grad_()
@@ -1171,6 +1273,439 @@ def phase_resnet_fit_checkpoint(torch, mt, workdir):
          bit_identical_reload=True, bit_identical_inference=True)
 
 
+def decode_state_names(layers):
+    return [f"layer{i}_{kv}_cache" for i in range(layers)
+            for kv in ("k", "v")] + ["cur_pos"]
+
+
+def decode_module(mt, params_np, batch, ctx):
+    """transformer_decode_step at GPT-2 small through Module(state_names)
+    with the LM's weights, states zeroed (decode_bench.py:50-66)."""
+    cfg = {k: v for k, v in GPT2_SMALL.items()
+           if k not in ("vocab_size", "seq_len")}
+    dec = mt.models.transformer_decode_step(
+        GPT2_SMALL["vocab_size"], GPT2_SMALL["seq_len"], batch, **cfg)
+    mod = mt.mod.Module(dec, context=ctx, data_names=("data",),
+                        label_names=None,
+                        state_names=decode_state_names(cfg["num_layers"]))
+    mod.bind(data_shapes=[("data", (batch,))], for_training=False)
+    mod.init_params(arg_params=params_np)
+    mod.set_states(value=0)
+    return mod
+
+
+def decode_step(mt, mod, tok):
+    """One step of decode_bench.py's loop: forward, outputs, the new
+    caches and position back in as states."""
+    mod.forward(mt.io.DataBatch([tok], []), is_train=False)
+    outs = mod.get_outputs()
+    mod.set_states(states=outs[1:])
+    return outs[0]
+
+
+def phase_decode(torch, mt, params_np):
+    """decode_bench.py on the card: per batch, DECODE_WARMUP steps, then
+    DECODE_STEPS timed with one readback at the end; launch counts reset
+    just before and read just after; then one step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    L, D, H = (GPT2_SMALL[k] for k in ("num_layers", "d_model",
+                                       "num_heads"))
+    rows = {}
+    for B in DECODE_BATCHES:
+        t0 = time.monotonic()
+        mod = decode_module(mt, params_np, B, mt.gpu(0))
+        tok = mt.nd.zeros((B,), ctx=mt.gpu(0))
+        torch.cuda.synchronize()
+        setup_s = time.monotonic() - t0
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(mt)
+        for _ in range(DECODE_WARMUP):
+            decode_step(mt, mod, tok)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(DECODE_STEPS):
+            out = decode_step(mt, mod, tok)
+        logits = out.asnumpy()
+        secs = time.monotonic() - t0
+        counts = read_counts(mt)
+        peak = torch.cuda.max_memory_allocated()
+        pos = mod.get_states()[-1].asnumpy()
+        want_pos = DECODE_WARMUP + DECODE_STEPS
+        if any(counts.values()) or not np.all(pos == want_pos) \
+                or logits.shape != (B, GPT2_SMALL["vocab_size"]) \
+                or not np.isfinite(logits).all():
+            raise RuntimeError(f"decode batch {B}: attention launches "
+                               f"{counts} (want none), cur_pos {pos} (want "
+                               f"{want_pos}), logits {logits.shape} or "
+                               "non-finite")
+        step_ms = secs / DECODE_STEPS * 1e3
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.monotonic()
+            decode_step(mt, mod, tok)
+            torch.cuda.synchronize()
+            prof_ms = (time.monotonic() - t) * 1e3
+        kernels = device_kernels(prof)
+        busy = sum(k[0] for k in kernels)
+        cache_bytes = 2 * L * B * H * GPT2_SMALL["seq_len"] * (D // H) * 4
+        rows[B] = dict(batch=B, step_ms=step_ms,
+                       tokens_per_s=B * DECODE_STEPS / secs,
+                       tokens_per_s_per_stream=DECODE_STEPS / secs,
+                       setup_s=setup_s, peak_mem_bytes=peak,
+                       cache_bytes=cache_bytes, final_cur_pos=float(pos[0]),
+                       launches=counts, profiled_step_ms=prof_ms,
+                       device_busy_ms=busy,
+                       device_idle_share_of_step=max(0.0, 1 - busy / step_ms),
+                       device_idle_share_of_profiled_step=max(
+                           0.0, 1 - busy / prof_ms),
+                       kernel_launches=sum(k[1] for k in kernels),
+                       top_kernels=[dict(ms=ms, count=c, name=k)
+                                    for ms, c, k in kernels[:8]])
+        emit("decode", model="gpt2-small decode step", dtype="float32",
+             tf32=False, max_len=GPT2_SMALL["seq_len"],
+             warmup=DECODE_WARMUP, steps=DECODE_STEPS, **rows[B])
+        del mod, tok, out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def log_softmax_np(x):
+    x = x.astype(np.float64)
+    m = x.max(-1, keepdims=True)
+    return x - m - np.log(np.exp(x - m).sum(-1, keepdims=True))
+
+
+def lm_logprobs(mt, params_np, toks, ctx):
+    """log of the teacher-forced LM's softmax (B, S, V), fp32, through
+    Module; the LM's pos_embed_weight stays (1024, d), sliced to S."""
+    B, S = toks.shape
+    net = mt.models.transformer_lm(**dict(GPT2_SMALL, seq_len=S,
+                                          max_len=GPT2_SMALL["seq_len"]))
+    mod = mt.mod.Module(net, context=ctx)
+    mod.bind([mt.io.DataDesc("data", (B, S), np.int32)],
+             [mt.io.DataDesc("softmax_label", (B, S), np.int32)],
+             for_training=False)
+    mod.init_params(arg_params=params_np)
+    mod.forward(mt.io.DataBatch([mt.nd.array(toks, ctx=mt.cpu())],
+                                [mt.nd.array(np.zeros_like(toks),
+                                             ctx=mt.cpu())]),
+                is_train=False)
+    probs = mod.get_outputs()[0].asnumpy().reshape(B, S, -1)
+    return log_probs(probs)
+
+
+def phase_decode_vs_lm(torch, mt, params_np):
+    """One 1024-token sequence through the LM (seq 1024, K1's fp32 kernel)
+    and its first DECODE_STEPS tokens one by one through the decode step,
+    fp32 on the card: the log-softmax must agree at every position."""
+    S, V, L = (GPT2_SMALL[k] for k in ("seq_len", "vocab_size",
+                                       "num_layers"))
+    toks = np.random.default_rng(SEED + 11).integers(0, V, (1, S),
+                                                     dtype=np.int32)
+    reset_counts(mt)
+    ref = lm_logprobs(mt, params_np, toks, mt.gpu(0))[0]
+    lm_counts = read_counts(mt)
+    mod = decode_module(mt, params_np, 1, mt.gpu(0))
+    diffs = []
+    for t in range(DECODE_STEPS):
+        tok = mt.nd.array(toks[:, t].astype(np.float32), ctx=mt.cpu())
+        logits = decode_step(mt, mod, tok).asnumpy()[0]
+        diffs.append(float(np.abs(log_softmax_np(logits) - ref[t]).max()))
+    worst = max(diffs)
+    emit("decode_vs_lm", positions=DECODE_STEPS, seq=S, dtype="float32",
+         max_abs_logp_diff=worst, tol=DECODE_LOGP_TOL,
+         worst_position=int(np.argmax(diffs)), lm_launches=lm_counts,
+         logp_range=[float(ref[:DECODE_STEPS].min()),
+                     float(ref[:DECODE_STEPS].max())])
+    if lm_counts["flash_fwd"] != L or not np.isfinite(worst) \
+            or worst > DECODE_LOGP_TOL:
+        raise RuntimeError(f"decode_vs_lm: max log-prob diff {worst} "
+                           f"(tol {DECODE_LOGP_TOL}), LM launches "
+                           f"{lm_counts} (want {L} of K1)")
+    del mod
+    torch.cuda.empty_cache()
+
+
+def phase_beam(torch, mt, params_np):
+    """beam_search on the card: beam 1 equals the card's greedy argmax
+    rollout; beam BEAM_SIZE's scores equal the teacher-forced LM's
+    re-scoring of the returned sequences, beams come best-first, and the
+    search itself launches no attention kernel."""
+    prompts = np.array(BEAM_PROMPTS)
+    P, K, G = len(prompts), BEAM_SIZE, BEAM_GEN
+    mod = decode_module(mt, params_np, P, mt.gpu(0))
+    tok, greedy = prompts.astype(np.float32), [prompts.copy()]
+    for _ in range(G):
+        logits = decode_step(mt, mod, mt.nd.array(tok, ctx=mt.cpu()))
+        tok = logits.asnumpy().argmax(1).astype(np.float32)
+        greedy.append(tok.astype(np.int64))
+    greedy = np.stack(greedy, 1)
+    seqs1, _ = mt.models.beam_search(mod, prompts, beam_size=1, gen_len=G)
+    del mod
+    mod = decode_module(mt, params_np, P * K, mt.gpu(0))
+    torch.cuda.synchronize()
+    reset_counts(mt)
+    t0 = time.monotonic()
+    seqs, scores = mt.models.beam_search(mod, prompts, beam_size=K,
+                                         gen_len=G)
+    beam_s = time.monotonic() - t0
+    counts = read_counts(mt)
+    del mod
+    flat = seqs.reshape(P * K, G + 1)
+    lp = lm_logprobs(mt, params_np, flat.astype(np.int32), mt.gpu(0))
+    rescored = np.array([lp[i, np.arange(G), flat[i, 1:]].sum()
+                         for i in range(P * K)]).reshape(P, K) / G
+    diff = float(np.abs(rescored - scores).max())
+    beam1_is_greedy = bool(np.array_equal(seqs1[:, 0, :], greedy))
+    fails = []
+    if not beam1_is_greedy:
+        fails.append("beam 1 differs from the greedy rollout")
+    if not np.isfinite(scores).all() or diff > BEAM_SCORE_TOL:
+        fails.append(f"scores differ from the re-scoring by {diff}")
+    if not np.all(np.diff(scores, axis=1) <= 0):
+        fails.append("beams are not sorted best-first")
+    if any(counts.values()):
+        fails.append(f"the search launched attention kernels {counts}")
+    emit("beam", prompts=P, beam=K, batch=P * K, gen_len=G,
+         max_len=GPT2_SMALL["seq_len"], dtype="float32", search_s=beam_s,
+         tokens_per_s=P * K * G / beam_s, beam1_equals_greedy=beam1_is_greedy,
+         max_abs_score_diff=diff, tol=BEAM_SCORE_TOL,
+         scores=scores.tolist(), launches=counts, failures=fails)
+    if fails:
+        raise RuntimeError("beam: " + "; ".join(fails))
+    torch.cuda.empty_cache()
+
+
+def phase_vit_train(torch, mt):
+    """ViT-S/16 at ImageNet width through Module on cuda:0, bf16 over
+    fp32 masters: VIT_WARMUP + VIT_STEPS steps with the launch counts
+    reset just before and read just after (each of K1 with lse, K2 and K3
+    exactly VIT_LAYERS times a step), every loss, then one step under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = mt.gpu(0).torch_device()
+    B, shape = VIT_BATCH, (3, 224, 224)
+    t0 = time.monotonic()
+    mod = mt.mod.Module(mt.models.vit(1000), context=mt.gpu(0),
+                        compute_dtype="bfloat16")
+    mod.bind(data_shapes=[("data", (B,) + shape)],
+             label_shapes=[("softmax_label", (B,))])
+    mt.random.seed(SEED)
+    mod.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                          magnitude=2.0))
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": VIT_LR})
+    batches = resnet_batches(torch, mt, dev, B, shape, SEED + 12)
+    args, _ = mod.get_params()
+    n_params = sum(int(np.prod(a.shape)) for a in args.values())
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+
+    # the ViT path: counts start at 0 here and are read right after
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mt)
+    n = VIT_WARMUP + VIT_STEPS
+    step_ms, losses = resnet_steps(mt, mod, batches, n,
+                                   torch.cuda.synchronize)
+    counts = read_counts(mt)
+    dispatch = mt.profiler.dispatch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: VIT_LAYERS * n for k in ("flash_fwd", "flash_fwd_lse",
+                                         "flash_bwd_dq", "flash_bwd_dkv")}
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    fails = []
+    if counts != want or dispatch.get("module.update") != n:
+        fails.append(f"launches {counts} / dispatches {dispatch}, want "
+                     f"{want} and {n} updates")
+    if not all(np.isfinite(losses)):
+        fails.append(f"non-finite loss in {losses}")
+    if not last5 < first5 - VIT_MARGIN:
+        fails.append(f"mean of the last 5 losses {last5} does not beat the "
+                     f"first 5's {first5} by {VIT_MARGIN}")
+    if mod.get_outputs()[0].shape != (B, 1000):
+        fails.append(f"output shape {mod.get_outputs()[0].shape}")
+    timed_ms = step_ms[VIT_WARMUP:]
+    med = float(np.median(timed_ms))
+    flops = 3 * VIT_FWD_FLOPS * B
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        mod.forward(batches[0], is_train=True)
+        mod.update()
+        torch.cuda.synchronize()
+        prof_ms = (time.monotonic() - t) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+    attn_ms = {stem: sum(k[0] for k in kernels if stem in k[2])
+               for stem in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    if not all(attn_ms.values()):
+        fails.append(f"the profile shows no time for an attention kernel: "
+                     f"{attn_ms}")
+    emit("vit_train", model="vit-s/16 (deit-s widths, gap head)", batch=B,
+         image=list(shape), tokens=196, layers=VIT_LAYERS, d_model=384,
+         heads=6, classes=1000, compute_dtype="bfloat16",
+         masters="float32", optimizer=f"adam lr {VIT_LR}",
+         initializer="xavier gaussian magnitude 2", n_params=n_params,
+         setup_s=setup_s, first_step_ms=step_ms[0],
+         warmup_ms=step_ms[:VIT_WARMUP], steps=len(timed_ms),
+         step_ms=timed_ms, median_step_ms=med, min_step_ms=min(timed_ms),
+         max_step_ms=max(timed_ms), images_per_s=B / (med / 1e3),
+         flops_per_step=flops, flops_source="analytic, VIT_FWD_FLOPS x 3",
+         achieved_tflops=flops / (med / 1e3) / 1e12,
+         mfu=flops / (med / 1e3) / PEAK_FLOPS["bfloat16"],
+         peak_mem_bytes=peak, launches=counts, dispatches=dispatch,
+         losses=losses, loss_first5_mean=first5, loss_last5_mean=last5,
+         margin=VIT_MARGIN, profiled_step_ms=prof_ms, device_busy_ms=busy,
+         device_idle_share_of_median_step=max(0.0, 1 - busy / med),
+         device_idle_share_of_profiled_step=max(0.0, 1 - busy / prof_ms),
+         flash_fwd_ms=attn_ms["flash_fwd"],
+         flash_bwd_dq_ms=attn_ms["flash_bwd_dq"],
+         flash_bwd_dkv_ms=attn_ms["flash_bwd_dkv"],
+         top_kernels=[dict(ms=ms, count=c, name=k)
+                      for ms, c, k in kernels[:12]], failures=fails)
+    if fails:
+        raise RuntimeError("vit_train: " + "; ".join(fails))
+    del mod, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def zoo_params(net, shape, seed):
+    """He-scaled weights, gamma near 1, small biases, moving statistics
+    near (0, 1), as numpy."""
+    arg_shapes, _, aux_shapes = net.infer_shape(
+        data=(2,) + shape, softmax_label=(2,))
+    rng = np.random.default_rng(seed)
+    args, aux = {}, {}
+    for n, s in zip(net.list_arguments(), arg_shapes):
+        if n in ("data", "softmax_label"):
+            continue
+        x = rng.standard_normal(s, dtype=np.float32)
+        if n.endswith("_weight") and len(s) > 1:
+            x *= np.float32(np.sqrt(2.0 / np.prod(s[1:])))
+        elif n.endswith("_gamma"):
+            x = np.float32(1) + np.float32(0.1) * x
+        else:
+            x *= np.float32(0.1)
+        args[n] = x
+    for n, s in zip(net.list_auxiliary_states(), aux_shapes):
+        x = rng.uniform(0.5, 1.5, s) if n.endswith("_var") \
+            else rng.standard_normal(s) * 0.1
+        aux[n] = x.astype(np.float32)
+    return args, aux
+
+
+def zoo_case(mt, i):
+    """ZOO's i-th network at its published input: (name, classes, net,
+    args, aux, three images)."""
+    name, kwargs, shape = ZOO[i]
+    kwargs = dict(kwargs)
+    classes = kwargs.pop("num_classes", 1000)
+    net = mt.models.get_symbol(name, num_classes=classes, **kwargs)
+    args, aux = zoo_params(net, shape, SEED + 20 + i)
+    x = np.random.default_rng(SEED + 40 + i).uniform(
+        -1, 1, (3,) + shape).astype(np.float32)
+    return name, classes, net, args, aux, x
+
+
+def edit_graph(mt, net, fn):
+    """``net`` rebuilt from its JSON after ``fn(graph)`` edits it."""
+    graph = json.loads(net.tojson())
+    fn(graph)
+    return mt.sym.load_json(json.dumps(graph))
+
+
+def without_dropout(mt, net):
+    """``net`` with every Dropout's p set to 0."""
+    def edit(graph):
+        for node in graph["nodes"]:
+            if node["op"] == "Dropout":
+                node.setdefault("attrs", {})["p"] = "0.0"
+    return edit_graph(mt, net, edit)
+
+
+def logits_graph(mt, net):
+    """``net`` cut at its SoftmaxOutput's input: it outputs the logits
+    and takes no label."""
+    def edit(graph):
+        head = [n for n in graph["nodes"] if n["op"] == "SoftmaxOutput"]
+        graph["heads"] = [head[0]["inputs"][0]]
+    return edit_graph(mt, net, edit)
+
+
+def zoo_predict(mt, net, args, aux, x, ctx):
+    """``Module.predict`` of ``net`` over ``x`` in batches of 2 (the last
+    one padded)."""
+    label = "softmax_label" in net.list_arguments()
+    it = mt.io.NDArrayIter(
+        x, np.zeros(len(x), np.float32) if label else None, batch_size=2)
+    mod = mt.mod.Module(net, context=ctx,
+                        label_names=("softmax_label",) if label else None)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label,
+             for_training=False)
+    mod.init_params(arg_params=args, aux_params=aux)
+    return mod.predict(it).asnumpy()
+
+
+def phase_zoo_predict(torch, mt):
+    """Module.predict of every zoo network, fp32, on a padded iterator:
+    its logits on the card against the CPU's, relative to their range;
+    its probabilities on the card against the softmax of the card's
+    logits; the flash forward's launches (12 a batch for ViT, none
+    elsewhere); a Dropout network's card predict must equal its predict
+    with every Dropout removed (inference is the identity)."""
+    rows, fails, vit_counts = {}, [], None
+    batches = 2    # 3 images in batches of 2
+    for i in range(len(ZOO)):
+        name, classes, net, args, aux, x = zoo_case(mt, i)
+        reset_counts(mt)
+        t0 = time.monotonic()
+        probs = zoo_predict(mt, net, args, aux, x, mt.gpu(0))
+        gpu_s = time.monotonic() - t0
+        counts = read_counts(mt)
+        want = {k: 0 for k in counts}
+        if name == "vit":
+            want["flash_fwd"] = VIT_LAYERS * batches
+            vit_counts = counts
+        if counts != want:
+            fails.append(f"{name}: attention launches {counts}, want {want}")
+        lnet = logits_graph(mt, net)
+        gpu = zoo_predict(mt, lnet, args, aux, x, mt.gpu(0))
+        t0 = time.monotonic()
+        cpu = zoo_predict(mt, lnet, args, aux, x, mt.cpu())
+        cpu_s = time.monotonic() - t0
+        spread = float(cpu.max() - cpu.min())
+        rel = float(np.abs(gpu - cpu).max()) / spread
+        z = np.exp(gpu - gpu.max(1, keepdims=True))
+        soft = float(np.abs(probs - z / z.sum(1, keepdims=True)).max())
+        row = dict(shape=list(probs.shape), logit_spread=spread,
+                   max_abs_logit_diff_rel=rel, probs_vs_softmax=soft,
+                   max_prob=float(probs.max()), launches=counts,
+                   gpu_s=gpu_s, cpu_s=cpu_s)
+        if probs.shape != (3, classes) or not np.isfinite(probs).all() \
+                or not np.isfinite(gpu).all() or rel > ZOO_LOGIT_TOL \
+                or soft > ZOO_SOFTMAX_TOL:
+            fails.append(f"{name}: shape {probs.shape}, card vs CPU logits "
+                         f"{rel} of their spread, probabilities vs the "
+                         f"softmax of the logits {soft}")
+        if name in ZOO_DROPOUT:
+            plain = zoo_predict(mt, without_dropout(mt, net), args, aux, x,
+                                mt.gpu(0))
+            row["inference_is_identity"] = bool(np.array_equal(probs, plain))
+            if not row["inference_is_identity"]:
+                fails.append(f"{name}: Dropout changed an inference")
+        rows[name] = row
+        torch.cuda.empty_cache()
+    emit("zoo_predict", batch=2, images=3, dtype="float32", tf32=False,
+         logit_tol=ZOO_LOGIT_TOL, softmax_tol=ZOO_SOFTMAX_TOL,
+         networks=rows, failures=fails)
+    if fails:
+        raise RuntimeError("zoo_predict: " + "; ".join(fails))
+    return vit_counts
+
+
 def main():
     try:
         import torch
@@ -1217,26 +1752,49 @@ def main():
         phase_resnet_fit_checkpoint(torch, mt, workdir)
     torch.cuda.empty_cache()
 
+    # KV-cache decode (decode_bench.py's path) and beam search, fp32
+    phase_decode(torch, mt, params_np)
+    phase_decode_vs_lm(torch, mt, params_np)
+    phase_beam(torch, mt, params_np)
+    # ViT-S/16 training on the flash kernels, then the zoo's predict
+    vit_counts = phase_vit_train(torch, mt)
+    zoo_counts = phase_zoo_predict(torch, mt)
+
     def by_path(key):
-        return {"serve": serve_counts[key], "train": train_counts[key]}
+        return {"serve": serve_counts[key], "train": train_counts[key],
+                "vit_train": vit_counts[key]}
 
     def ms_of(row, key):  # the median with its min and max
         return dict(ms=row[key], ms_min=row[f"{key}_min"],
                     ms_max=row[f"{key}_max"])
     fwd, b = checks["main_bf16"], bwd["main_bf16"]
+    vf, vb = checks["vit_bf16"], bwd["vit_bf16"]
+    f32 = checks["vit_fp32"]
+
+    def at_vit(kind, err, ms_key, bound_key, by_key, row):
+        """The kernel's numbers at ViT-S/16's shape (B 128, H 6, S 196,
+        D 64, non-causal, bf16, with lse)."""
+        return dict(shape=row["shape"], causal=False, max_abs_err=err,
+                    **ms_of(row, ms_key), plain_ms=row["plain_ms"],
+                    bound_ms=row[bound_key], bound_by=row[by_key],
+                    library_ms=row["library_ms"], kind=kind)
     rows = [
         dict(name="flash_fwd", source="mxnet_tpu_torch/csrc/flash_fwd.cu",
              design="mma.sync (bf16)",
              replaces="mxnet_tpu/ops/attention.py:73", key="flash_fwd",
              max_abs_err=fwd["max_abs_err"], **ms_of(fwd, "kernel_ms"),
              plain_ms=fwd["plain_ms"], bound_ms=fwd["bound_ms"],
-             bound_by=fwd["bound_by"], library_ms=fwd["library_ms"]),
+             bound_by=fwd["bound_by"], library_ms=fwd["library_ms"],
+             at_vit_shape=at_vit("fwd with lse", vf["max_abs_err"],
+                                 "kernel_ms", "bound_ms", "bound_by", vf)),
         dict(name="flash_bwd_dq", source="mxnet_tpu_torch/csrc/flash_bwd.cu",
              design="mma.sync (bf16)",
              replaces="mxnet_tpu/ops/attention.py:222", key="flash_bwd_dq",
              max_abs_err=b["dq_max_abs_err"], **ms_of(b, "dq_kernel_ms"),
              plain_ms=b["plain_ms"], bound_ms=b["dq_bound_ms"],
-             bound_by=b["dq_bound_by"], library_ms=b["library_ms"]),
+             bound_by=b["dq_bound_by"], library_ms=b["library_ms"],
+             at_vit_shape=at_vit("dq", vb["dq_max_abs_err"], "dq_kernel_ms",
+                                 "dq_bound_ms", "dq_bound_by", vb)),
         dict(name="flash_bwd_dkv",
              source="mxnet_tpu_torch/csrc/flash_bwd.cu",
              design="mma.sync (bf16)",
@@ -1245,18 +1803,35 @@ def main():
              max_abs_err=max(b["dk_max_abs_err"], b["dv_max_abs_err"]),
              **ms_of(b, "dkv_kernel_ms"), plain_ms=b["plain_ms"],
              bound_ms=b["dkv_bound_ms"], bound_by=b["dkv_bound_by"],
-             library_ms=b["library_ms"]),
+             library_ms=b["library_ms"],
+             at_vit_shape=at_vit("dkv", max(vb["dk_max_abs_err"],
+                                            vb["dv_max_abs_err"]),
+                                 "dkv_kernel_ms", "dkv_bound_ms",
+                                 "dkv_bound_by", vb)),
+        # the fp32 instance of K1 (CUDA cores), at ViT-S/16's predict
+        # shape in the zoo phase, the one path whose K1 launches are all
+        # fp32
+        dict(name="flash_fwd_fp32",
+             source="mxnet_tpu_torch/csrc/flash_fwd.cu",
+             design="CUDA cores (fp32)",
+             replaces="mxnet_tpu/ops/attention.py:73",
+             paths={"zoo_predict": zoo_counts["flash_fwd"]},
+             max_abs_err=f32["max_abs_err"], **ms_of(f32, "kernel_ms"),
+             plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+             bound_by=f32["bound_by"], library_ms=f32["library_ms"],
+             shape=f32["shape"], causal=False),
     ]
     kernels = []
     for r in rows:
-        paths = by_path(r.pop("key"))
+        paths = r.pop("paths") if "paths" in r else by_path(r.pop("key"))
         kernels.append(dict(name=r.pop("name"), route="cuda",
                             launches=sum(paths.values()),
                             launches_by_path=paths, card=smi, **r))
     # plain_ms and library_ms of the two backward kernels are each of the
     # whole backward (dQ, dK and dV together): the plain version and
-    # SDPA's backward compute all three in one call; the ResNet path
-    # launches none of them
+    # SDPA's backward compute all three in one call; the ResNet, decode
+    # and beam-search paths launch none of them; the zoo phase launches
+    # only the fp32 forward (ViT), 12 times a batch
     emit("total", seconds=time.monotonic() - T0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

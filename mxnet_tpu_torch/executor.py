@@ -13,8 +13,11 @@ records the graph; an inference run records nothing.
 given cotangents) and writes the parameter gradients per ``grad_req``.
 The JAX package's fused forward+backward jit and the multi-step drivers
 have no counterpart here: autograd keeps the forward's graph until the
-backward.  No op that draws random numbers is on this path: building an
-interpreter over one raises.
+backward.  Ops that draw random numbers (``needs_rng``, e.g. Dropout)
+get the executor's ``torch.Generator`` as ``generator=``: one per
+executor, on its device, seeded at bind from
+:func:`mxnet_tpu_torch.random.generator`, so the same ``random.seed``
+gives the same draws.  The draws are not the JAX package's.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from .ndarray.ndarray import NDArray, torch_dtype
 from .ops import registry as _reg
 from .symbol.symbol import Symbol, _topo_sort
 from . import profiler as _prof
+from . import random as _random
 
 
 # Ops kept in float32 under mixed precision: normalization statistics and
@@ -58,12 +62,14 @@ def as_torch_dtype(dtype):
 
 
 def build_interpreter(sym: Symbol, compute_dtype=None):
-    """Build ``run(arg_vals, aux_vals, is_train=False, device=None) ->
-    (outs, new_aux)``.
+    """Build ``run(arg_vals, aux_vals, is_train=False, device=None,
+    generator=None) -> (outs, new_aux)``.
 
     ``arg_vals``/``aux_vals`` follow ``list_arguments()`` /
     ``list_auxiliary_states()``.  ``device`` (default: the first argument's
-    device) is handed to ops that create a tensor from no input.
+    device) is handed to ops that create a tensor from no input, and
+    ``generator`` to ops that draw random numbers (``run.needs_rng`` says
+    whether the graph has one; it then raises without a generator).
 
     ``compute_dtype`` (e.g. ``"bfloat16"``) enables mixed precision: all
     floating-point op inputs are cast to it except ops in
@@ -75,11 +81,6 @@ def build_interpreter(sym: Symbol, compute_dtype=None):
     arg_pos = {n: i for i, n in enumerate(arg_names)}
     aux_pos = {n: i for i, n in enumerate(aux_names)}
     heads = sym.heads
-    rng_ops = sorted({n.op for n in nodes
-                      if not n.is_variable and _reg.get(n.op).needs_rng})
-    if rng_ops:
-        raise MXNetError(f"build_interpreter: ops {rng_ops} draw random "
-                         "numbers, which this package does not port yet")
     cd = as_torch_dtype(compute_dtype)
 
     def _amp_cast(ins, op):
@@ -92,11 +93,12 @@ def build_interpreter(sym: Symbol, compute_dtype=None):
         return [v.to(want) if (v.is_floating_point() and v.dtype != want)
                 else v for v in ins]
 
-    def run(arg_vals, aux_vals, is_train=False, device=None):
+    def run(arg_vals, aux_vals, is_train=False, device=None,
+            generator=None):
         with torch.set_grad_enabled(bool(is_train)):
-            return _run(arg_vals, aux_vals, is_train, device)
+            return _run(arg_vals, aux_vals, is_train, device, generator)
 
-    def _run(arg_vals, aux_vals, is_train, device):
+    def _run(arg_vals, aux_vals, is_train, device, generator):
         if device is None:
             if not arg_vals:
                 raise MXNetError("run: no arguments to take a device "
@@ -122,6 +124,11 @@ def build_interpreter(sym: Symbol, compute_dtype=None):
                 kwargs["is_train"] = is_train
             if not n.inputs:
                 kwargs["device"] = device
+            if opdef.needs_rng:
+                if generator is None:
+                    raise MXNetError(f"run: {n.op} ({n.name}) draws random "
+                                     "numbers; pass generator=")
+                kwargs["generator"] = generator
             outs = opdef.fn(*ins, **kwargs)
             if not isinstance(outs, (tuple, list)):
                 outs = (outs,)
@@ -136,7 +143,21 @@ def build_interpreter(sym: Symbol, compute_dtype=None):
         out_vals = tuple(env[(id(h), i)] for h, i in heads)
         return out_vals, tuple(new_aux)
 
+    run.needs_rng = any(not n.is_variable and _reg.get(n.op).needs_rng
+                        for n in nodes)
     return run, arg_names, aux_names
+
+
+def graph_generator(run, device) -> Optional[torch.Generator]:
+    """The random stream of one bound graph: a ``torch.Generator`` on
+    ``device`` seeded from the package's generator, or None where the
+    graph draws nothing (so binding any other graph leaves the
+    initializers' numbers as they were)."""
+    if not run.needs_rng:
+        return None
+    seed = int(torch.randint(0, 2 ** 62, (1,),
+                             generator=_random.generator()))
+    return torch.Generator(device).manual_seed(seed)
 
 
 def _as_tensor(value, device, dtype=None) -> torch.Tensor:
@@ -166,6 +187,7 @@ class Executor:
         self._compute_dtype = compute_dtype
         run, arg_names, aux_names = build_interpreter(symbol, compute_dtype)
         self._run = run
+        self._gen = graph_generator(run, self._device)
         self._arg_names = arg_names
         self._aux_names = aux_names
         self.arg_arrays = self._canon(args, arg_names, "args")
@@ -272,7 +294,8 @@ class Executor:
                     vals[i] = leaves[i] = vals[i].detach().requires_grad_()
         _prof.record_dispatch("executor.forward")
         outs, new_aux = self._run(vals, [a._data for a in self.aux_arrays],
-                                  is_train=is_train, device=self._device)
+                                  is_train=is_train, device=self._device,
+                                  generator=self._gen)
         if is_train:
             for a, v in zip(self.aux_arrays, new_aux):
                 a._set_data(v.detach())

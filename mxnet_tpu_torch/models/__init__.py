@@ -1,18 +1,54 @@
-"""Symbolic model zoo (subset): the transformer LM and the ResNet family.
+"""Symbolic model zoo.
 
-``get_symbol(name, **kwargs)`` dispatches by network name, as the JAX
-package's does (reference: example/image-classification/common/fit.py
-importing ``symbols/<network>.py``).  Only the networks this package can
-build are registered; the rest of the JAX package's zoo (mlp, lenet,
-alexnet, vgg, resnext, inception, mobilenet, squeezenet, densenet, vit)
-waits for its ops (ROADMAP C1).
+PyTorch counterpart of ``mxnet_tpu/models/__init__.py`` (reference:
+example/image-classification/symbols/).  Every image network returns a
+Symbol ending in ``SoftmaxOutput`` named ``softmax``, so it goes straight
+into ``Module(symbol)`` with the default label name.
+``get_symbol(name, **kwargs)`` dispatches by network name, as
+``example/image-classification/common/fit.py`` imports
+``symbols/<network>.py``: mlp, lenet, alexnet, vgg, resnet, resnext,
+inception-bn (inception_bn), inception-v3 (inception_v3), mobilenet,
+squeezenet, densenet and vit, the JAX package's registry.  Beside it:
+``transformer_lm``, its KV-cache ``transformer_decode_step`` and
+``beam_search`` over a decode Module.  The SSD detector waits for its
+detection ops (ROADMAP C1.b).
 """
-from . import transformer  # noqa: F401
+from . import mlp as _mlp
+from . import lenet as _lenet
+from . import alexnet as _alexnet
+from . import vgg as _vgg
 from . import resnet as _resnet
-from .transformer import transformer_lm
-from .resnet import get_symbol as resnet
+from . import resnext as _resnext
+from . import inception_bn as _inception_bn
+from . import inception_v3 as _inception_v3
+from . import mobilenet as _mobilenet
+from . import squeezenet as _squeezenet
+from . import densenet as _densenet
+from . import vit as _vit  # module ref before the function shadows the name
 
-_REGISTRY = {"resnet": _resnet}
+from .mlp import get_symbol as mlp
+from .lenet import get_symbol as lenet
+from .alexnet import get_symbol as alexnet
+from .vgg import get_symbol as vgg
+from .resnet import get_symbol as resnet
+from .resnext import get_symbol as resnext
+from .inception_bn import get_symbol as inception_bn
+from .inception_v3 import get_symbol as inception_v3
+from .mobilenet import get_symbol as mobilenet
+from .squeezenet import get_symbol as squeezenet
+from .vit import vit
+from . import transformer  # noqa: F401
+from .transformer import transformer_lm, transformer_decode_step
+from .generation import beam_search
+
+_REGISTRY = {
+    "mlp": _mlp, "lenet": _lenet, "alexnet": _alexnet, "vgg": _vgg,
+    "resnet": _resnet, "resnext": _resnext, "inception-bn": _inception_bn,
+    "inception_bn": _inception_bn, "inception-v3": _inception_v3,
+    "inception_v3": _inception_v3, "mobilenet": _mobilenet,
+    "squeezenet": _squeezenet, "densenet": _densenet,
+    "vit": _vit,
+}
 
 
 def get_symbol(network, **kwargs):

@@ -1,0 +1,74 @@
+"""DenseNet (Huang et al. 2017; reference: the architecture of
+gluon/model_zoo/vision/densenet.py), as a symbolic graph for ``Module``.
+
+PyTorch counterpart of ``mxnet_tpu/models/densenet.py``: the same graph
+and names.
+"""
+from .. import symbol as sym
+
+# num_layers -> (num_init_features, growth_rate, block_config)
+_SPECS = {
+    121: (64, 32, (6, 12, 24, 16)),
+    161: (96, 48, (6, 12, 36, 24)),
+    169: (64, 32, (6, 12, 32, 32)),
+    201: (64, 32, (6, 12, 48, 32)),
+}
+
+
+def _conv_block(data, growth_rate, name):
+    # BN -> relu -> 1x1 conv (bottleneck 4k) -> BN -> relu -> 3x3 conv
+    x = sym.BatchNorm(data=data, name=f"{name}_bn1")
+    x = sym.Activation(data=x, act_type="relu")
+    x = sym.Convolution(data=x, num_filter=4 * growth_rate, kernel=(1, 1),
+                        no_bias=True, name=f"{name}_conv1")
+    x = sym.BatchNorm(data=x, name=f"{name}_bn2")
+    x = sym.Activation(data=x, act_type="relu")
+    x = sym.Convolution(data=x, num_filter=growth_rate, kernel=(3, 3),
+                        pad=(1, 1), no_bias=True, name=f"{name}_conv2")
+    return x
+
+
+def _dense_block(data, num_layers, growth_rate, name):
+    for i in range(num_layers):
+        out = _conv_block(data, growth_rate, f"{name}_l{i}")
+        data = sym.Concat(data, out, name=f"{name}_l{i}_concat")
+    return data
+
+
+def _transition(data, num_features, name):
+    x = sym.BatchNorm(data=data, name=f"{name}_bn")
+    x = sym.Activation(data=x, act_type="relu")
+    x = sym.Convolution(data=x, num_filter=num_features, kernel=(1, 1),
+                        no_bias=True, name=f"{name}_conv")
+    return sym.Pooling(data=x, kernel=(2, 2), stride=(2, 2),
+                       pool_type="avg", name=f"{name}_pool")
+
+
+def get_symbol(num_classes=1000, num_layers=121, image_shape=(3, 224, 224),
+               **kwargs):
+    if num_layers not in _SPECS:
+        raise ValueError(
+            f"densenet supports {sorted(_SPECS)}, got {num_layers}")
+    init_f, growth, blocks = _SPECS[num_layers]
+    data = sym.Variable("data")
+    x = sym.Convolution(data=data, num_filter=init_f, kernel=(7, 7),
+                        stride=(2, 2), pad=(3, 3), no_bias=True,
+                        name="conv0")
+    x = sym.BatchNorm(data=x, name="bn0")
+    x = sym.Activation(data=x, act_type="relu")
+    x = sym.Pooling(data=x, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                    pool_type="max")
+    nf = init_f
+    for i, nl in enumerate(blocks):
+        x = _dense_block(x, nl, growth, f"block{i + 1}")
+        nf += nl * growth
+        if i != len(blocks) - 1:
+            nf //= 2
+            x = _transition(x, nf, f"trans{i + 1}")
+    x = sym.BatchNorm(data=x, name="bn_final")
+    x = sym.Activation(data=x, act_type="relu")
+    x = sym.Pooling(data=x, global_pool=True, pool_type="avg",
+                    kernel=(7, 7), name="pool_final")
+    x = sym.Flatten(data=x)
+    x = sym.FullyConnected(data=x, num_hidden=num_classes, name="fc1")
+    return sym.SoftmaxOutput(data=x, name="softmax")

@@ -1,10 +1,10 @@
 """BaseModule: the high-level train / score interface.
 
 PyTorch counterpart of ``mxnet_tpu/module/base_module.py`` (reference:
-python/mxnet/module/base_module.py): ``fit``, ``score``,
-``forward_backward``, ``run_steps`` (the plain loop of K steps),
-``set_params``, parameter files and the input-description helpers.
-``predict`` / ``iter_predict`` are not ported yet.
+python/mxnet/module/base_module.py): ``fit``, ``score``, ``predict``,
+``iter_predict``, ``forward_backward``, ``run_steps`` (the plain loop of
+K steps), ``set_params``, parameter files and the input-description
+helpers.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 
 from .. import io as io_mod
 from .. import metric as metric_mod
+from .. import profiler as _prof
 from ..base import MXNetError
 from ..initializer import Uniform
 from ..model import BatchEndParam
@@ -191,6 +192,51 @@ class BaseModule:
             for callback in _as_list(score_end_callback):
                 callback(params)
         return eval_metric.get_name_value()
+
+    def iter_predict(self, eval_data, num_batch=None, reset=True):
+        """Yield ``(outputs, nbatch, batch)`` per batch of ``eval_data``:
+        the inference outputs with the batch's padding rows cut off, as
+        NDArrays on the module's device (reference: base_module.py
+        iter_predict)."""
+        assert self.binded and self.params_initialized
+        if reset:
+            eval_data.reset()
+        for nbatch, eval_batch in enumerate(eval_data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            self.forward(eval_batch, is_train=False)
+            pad = eval_batch.pad or 0
+            outputs = [out[0:out.shape[0] - pad]
+                       for out in self.get_outputs()]
+            yield outputs, nbatch, eval_batch
+
+    def predict(self, eval_data, num_batch=None, merge_batches=True,
+                reset=True, always_output_list=False):
+        """Inference outputs over ``eval_data`` (reference: base_module.py
+        predict).  Padding rows are cut off on the device.  Merged (the
+        default), each output's batches are joined on the device and read
+        back to the host once, as a CPU NDArray; a single output comes
+        alone unless ``always_output_list``.  Unmerged, the list of each
+        batch's outputs, on the device."""
+        assert self.binded and self.params_initialized
+        output_list = [outputs for outputs, _, _ in
+                       self.iter_predict(eval_data, num_batch, reset)]
+        if not output_list:
+            return output_list
+        if not merge_batches:
+            return [[o.copy() for o in outs] for outs in output_list]
+        num_outputs = len(output_list[0])
+        if any(len(outs) != num_outputs for outs in output_list):
+            raise MXNetError("predict: cannot merge batches with different "
+                             "numbers of outputs")
+        merged = []
+        for i in range(num_outputs):
+            joined = torch.cat([outs[i]._data for outs in output_list])
+            merged.append(NDArray(joined.cpu()))
+            _prof.record_host_sync("predict.readback")
+        if num_outputs == 1 and not always_output_list:
+            return merged[0]
+        return merged
 
     def fit(self, train_data, eval_data=None, eval_metric="acc",
             epoch_end_callback=None, batch_end_callback=None,

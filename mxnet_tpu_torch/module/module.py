@@ -14,9 +14,12 @@ computes the gradients itself, once, as the JAX package's fused step
 does; ``forward(is_train=False)`` records no graph.  ``run_steps`` is
 the plain loop of K steps.  Checkpoints (``save_checkpoint``, ``load``,
 optimizer states) use the JAX package's files, so either package resumes
-from the other's.  The JAX package's fused jit step and its scan over K
-steps, meshes, ZeRO, ``BucketingModule``, state inputs, fixed parameters
-and rebinding to new shapes are not ported yet.
+from the other's.  ``state_names`` are inputs carried from one forward to
+the next (a KV cache, an RNN's hidden state): they get no gradient and no
+optimizer update, and ``get_states`` / ``set_states`` read and set them.
+The JAX package's fused jit step and its scan over K steps, meshes, ZeRO,
+``BucketingModule``, fixed parameters and rebinding to new shapes are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from ..executor import Executor, _as_tensor
 from ..initializer import InitDesc, Uniform
 from .. import initializer as init_mod
 from ..model import _create_kvstore, _update_params, load_checkpoint
+from ..ndarray import NDArray
 from .. import optimizer as opt_mod
 from .. import profiler as _prof
 from .base_module import BaseModule, _check_input_names, _parse_data_desc
@@ -43,7 +47,7 @@ class Module(BaseModule):
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, compute_dtype=None):
+                 context=None, state_names=None, compute_dtype=None):
         super().__init__(logger=logger)
         if context is None:
             context = current_context()
@@ -57,14 +61,17 @@ class Module(BaseModule):
         self._symbol = symbol
         data_names = list(data_names) if data_names is not None else []
         label_names = list(label_names) if label_names is not None else []
+        state_names = list(state_names) if state_names is not None else []
         _check_input_names(symbol, data_names, "data", True)
         _check_input_names(symbol, label_names, "label", False)
-        input_names = data_names + label_names
+        _check_input_names(symbol, state_names, "state", True)
+        input_names = data_names + label_names + state_names
         self._param_names = [x for x in symbol.list_arguments()
                              if x not in input_names]
         self._aux_names = symbol.list_auxiliary_states()
         self._data_names = data_names
         self._label_names = label_names
+        self._state_names = state_names
         self._output_names = symbol.list_outputs()
         self._arg_params = None
         self._aux_params = None
@@ -213,7 +220,7 @@ class Module(BaseModule):
         for name in self._symbol.list_arguments():
             if name in self._data_names:
                 req[name] = "write" if inputs_need_grad else "null"
-            elif name in self._label_names:
+            elif name in self._label_names or name in self._state_names:
                 req[name] = "null"
             else:
                 req[name] = grad_req if for_training else "null"
@@ -349,6 +356,38 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized \
             and self.inputs_need_grad
         return [self._exec.grad_dict[n] for n in self._data_names]
+
+    def get_states(self, merge_multi_context=True):
+        """The state inputs' current values, one NDArray each (reference:
+        module.py get_states).  They are snapshots: no later ``forward``,
+        ``set_states`` or update changes them, because the module only
+        ever rebinds its state arrays to new tensors and never writes
+        into one in place."""
+        assert self.binded and self.params_initialized
+        return [NDArray(self._exec.arg_dict[n]._data)
+                for n in self._state_names]
+
+    def set_states(self, states=None, value=None):
+        """Set the state inputs from ``states`` (NDArrays, one per state
+        name, in the module's order, taken as they are, dtype included) or
+        fill each with the scalar ``value`` in its own dtype (reference:
+        module.py set_states)."""
+        assert self.binded and self.params_initialized
+        if (states is None) == (value is None):
+            raise MXNetError("set_states: give exactly one of states and "
+                             "value")
+        if value is not None:
+            for n in self._state_names:
+                arr = self._exec.arg_dict[n]
+                arr._set_data(torch.full_like(arr._data, value))
+            return
+        if len(states) != len(self._state_names):
+            raise MXNetError(f"set_states: {len(states)} states for "
+                             f"{self._state_names}")
+        for n, s in zip(self._state_names, states):
+            src = s[0] if isinstance(s, (list, tuple)) else s
+            arr = self._exec.arg_dict[n]
+            arr._set_data(src._data.to(arr._data.device))
 
     def update_metric(self, eval_metric, labels):
         eval_metric.update_dict(

@@ -1,5 +1,5 @@
 """NDArray (subset): the array type ``Module`` and the iterators hand to
-users, and NDArray files."""
-from .ndarray import NDArray, array, zeros, save, load
+users, ``take``, and NDArray files."""
+from .ndarray import NDArray, array, zeros, take, save, load
 
-__all__ = ["NDArray", "array", "zeros", "save", "load"]
+__all__ = ["NDArray", "array", "zeros", "take", "save", "load"]

@@ -6,8 +6,10 @@ PyTorch counterpart of the part of ``mxnet_tpu/ndarray/ndarray.py`` that
 ``NDArray`` wraps one ``torch.Tensor``; ``_set_data`` swaps the tensor
 (the executor and optimizers update through it).  PyTorch runs eagerly,
 so there is no lazy payload; ``wait_to_read`` synchronises the device.
-Slicing, operator overloads, autograd recording and the sparse types are
-not ported yet.
+A basic slice along axis 0 (``a[lo:hi]``) gives a view,
+``copy()`` a copy, and :func:`take` gathers along an axis on the
+array's device.  Other slicing, operator overloads, autograd recording
+and the sparse types are not ported yet.
 """
 from __future__ import annotations
 
@@ -71,6 +73,22 @@ class NDArray:
         return tuple(self._data.shape)
 
     @property
+    def ndim(self):
+        return self._data.dim()
+
+    def __getitem__(self, key):
+        """A basic slice along axis 0 (step 1), as a view that shares the
+        tensor."""
+        if isinstance(key, slice) and key.step in (None, 1):
+            return NDArray(self._data[key])
+        raise MXNetError(f"NDArray indexing by {key!r}: only a slice "
+                         "along axis 0 is ported")
+
+    def copy(self) -> "NDArray":
+        """A copy on the same device."""
+        return NDArray(self._data.detach().clone())
+
+    @property
     def dtype(self):
         return numpy_dtype(self._data.dtype)
 
@@ -114,6 +132,17 @@ def zeros(shape, ctx=None, dtype=None, **kw) -> NDArray:
                                dtype=torch_dtype(dtype or np.float32),
                                device=as_device(ctx)))
 
+
+def take(a, indices, axis=0, mode="clip") -> NDArray:
+    """The ``take`` op run imperatively on ``a``'s device (``indices`` is
+    moved there), without autograd: rows of ``a`` along ``axis`` at the
+    (truncated) ``indices``, clipped or wrapped per ``mode``."""
+    from ..ops import registry as _reg
+    idx = indices._data if isinstance(indices, NDArray) \
+        else torch.as_tensor(np.asarray(indices))
+    with torch.no_grad():
+        return NDArray(_reg.get("take").fn(
+            a._data, idx.to(a._data.device), axis=axis, mode=mode))
 
 
 def save(fname, data):

@@ -1,3 +1,4 @@
 """Operator implementations on torch tensors; importing registers them."""
 from . import registry
-from . import elemwise, matrix, indexing, nn, init_ops, attention  # noqa: F401
+from . import (elemwise, matrix, indexing, nn, init_ops,  # noqa: F401
+               attention, reduce)

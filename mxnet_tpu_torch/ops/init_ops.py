@@ -1,6 +1,7 @@
 """Array-creation ops (subset; reference: src/operator/tensor/init_op.cc).
 
-PyTorch counterpart of ``_arange`` in ``mxnet_tpu/ops/init_ops.py``.
+PyTorch counterpart of ``_arange`` in ``mxnet_tpu/ops/init_ops.py``,
+also registered as ``arange``.
 Creation ops have no input to take a device from, so the executor passes
 ``device``.
 """
@@ -11,8 +12,9 @@ import torch
 from .registry import register
 
 
-@register("_arange", attr_defaults={"start": 0.0, "stop": None, "step": 1.0,
-                                    "repeat": 1, "dtype": "float32"})
+@register("_arange", aliases=("arange",),
+          attr_defaults={"start": 0.0, "stop": None, "step": 1.0,
+                         "repeat": 1, "dtype": "float32"})
 def _arange(start=0.0, stop=None, step=1.0, repeat=1, dtype="float32",
             device=None, **kw):
     if stop is None:

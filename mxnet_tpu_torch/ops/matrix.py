@@ -1,11 +1,13 @@
 """Shape-manipulation ops (subset).
 
 PyTorch counterpart of the part of ``mxnet_tpu/ops/matrix.py`` the
-transformer and ResNet graphs use: ``Reshape`` with MXNet's special
-codes, ``Flatten``, ``transpose``, ``expand_dims``, ``slice_axis`` and
-``Concat``.  Reshape,
-transpose and slicing return views where torch can; ops that need
-contiguous memory (the attention kernel) make it themselves.
+transformer, decode and zoo graphs use: ``Reshape`` with MXNet's special
+codes, ``Flatten``, ``transpose``, ``expand_dims``, ``slice_axis``,
+``Concat``, ``batch_dot``, ``repeat`` and ``SwapAxis``.  Reshape,
+transpose, swapaxes and slicing return views where torch can; ops that
+need contiguous memory (the attention kernel) make it themselves.
+``batch_dot`` is a plain batched product (``torch.matmul``, cuBLAS on the
+card), as the JAX package leaves it to XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -88,3 +90,32 @@ def _slice_axis(data, axis=0, begin=0, end=None, **kw):
 def _concat(*args, dim=1, num_args=0, **kw):
     """reference: src/operator/concat.cc"""
     return torch.cat(args, dim=int(dim))
+
+
+@register("batch_dot", arg_names=["lhs", "rhs"],
+          attr_defaults={"transpose_a": False, "transpose_b": False})
+def _batch_dot(lhs, rhs, transpose_a=False, transpose_b=False, **kw):
+    """(..., m, k) x (..., k, n) -> (..., m, n); the flags swap the last
+    two axes of an operand first."""
+    if transpose_a:
+        lhs = lhs.transpose(-1, -2)
+    if transpose_b:
+        rhs = rhs.transpose(-1, -2)
+    return torch.matmul(lhs, rhs)
+
+
+@register("repeat", arg_names=["data"],
+          attr_defaults={"repeats": 1, "axis": None})
+def _repeat(data, repeats=1, axis=None, **kw):
+    """``np.repeat``: each element ``repeats`` times along ``axis`` (the
+    flattened array when None)."""
+    if axis is None:
+        return data.reshape(-1).repeat_interleave(int(repeats))
+    return data.repeat_interleave(int(repeats), dim=int(axis))
+
+
+@register("SwapAxis", arg_names=["data"], aliases=("swapaxes",),
+          attr_defaults={"dim1": 0, "dim2": 0})
+def _swapaxes(data, dim1=0, dim2=0, **kw):
+    """reference: src/operator/swapaxis.cc"""
+    return data.transpose(int(dim1), int(dim2))

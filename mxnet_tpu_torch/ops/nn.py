@@ -1,9 +1,10 @@
 """Neural-network layer ops (subset).
 
 PyTorch counterpart of the part of ``mxnet_tpu/ops/nn.py`` that the
-transformer LM and the ResNet family run: ``FullyConnected``,
-``Convolution``, ``Pooling``, ``BatchNorm``, ``LayerNorm``,
-``Activation``, ``softmax`` and ``SoftmaxOutput`` with its gradient.  The
+transformer LM and the symbolic zoo run: ``FullyConnected``,
+``Convolution``, ``Pooling``, ``BatchNorm``, ``LayerNorm``, ``LRN``,
+``Activation``, ``Dropout``, ``softmax`` and ``SoftmaxOutput`` with its
+gradient.  The
 large matrix products go to ``torch.nn.functional.linear`` and the
 convolutions to ``torch.nn.functional.conv{1,2,3}d`` (cuBLAS and cuDNN on
 the card), as the JAX package leaves them to XLA.  ``layout="NHWC"``
@@ -229,6 +230,44 @@ def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False,
                    for i in range(data.dim()))
     out = out * gamma.reshape(bshape) + beta.reshape(bshape)
     return out, mean.squeeze(ax), var.squeeze(ax)
+
+
+@register("LRN", arg_names=["data"],
+          attr_defaults={"alpha": 1e-4, "beta": 0.75, "knorm": 2.0,
+                         "nsize": 5})
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5, **kw):
+    """reference: src/operator/lrn.cc — cross-channel local response
+    normalisation of (N, C, H, W): each value over (knorm + alpha / nsize
+    * the sum of squares of the nsize channels around it) ** beta."""
+    sq = data.square()
+    pad = int(nsize) // 2
+    sq_pad = F.pad(sq, (0, 0, 0, 0, pad, pad))
+    c = data.shape[1]
+    windows = sum(sq_pad[:, i:i + c] for i in range(int(nsize)))
+    return data / (knorm + alpha / nsize * windows).pow(beta)
+
+
+@register("Dropout", arg_names=["data"], needs_rng=True, takes_is_train=True,
+          num_outputs=2, num_visible=1,
+          attr_defaults={"p": 0.5, "mode": "training", "axes": ()})
+def _dropout(data, p=0.5, mode="training", axes=(), is_train=True,
+             generator=None, **kw):
+    """reference: src/operator/dropout.cc — returns (out, mask); the graph
+    shows only ``out``.  It draws only in training or with
+    ``mode="always"``: each element (or each slice along ``axes``, whose
+    mask dims are 1 and broadcast) is kept with probability 1 - p and
+    scaled by 1 / (1 - p).  ``generator`` (the executor's
+    ``torch.Generator``, on the data's device) supplies the bits, which
+    are not the JAX package's."""
+    if (not is_train and mode != "always") or p <= 0.0:
+        return data, torch.ones_like(data)
+    shape = list(data.shape)
+    for a in (axes or ()):
+        shape[a] = 1
+    keep = torch.rand(shape, generator=generator, device=data.device) \
+        < (1.0 - p)
+    mask = keep.to(data.dtype) / (1.0 - p)
+    return data * mask, mask.expand(data.shape)
 
 
 _ACTIVATIONS = {

@@ -28,7 +28,7 @@ import torch
 
 from ..base import MXNetError, env
 from ..context import as_device
-from ..executor import build_interpreter
+from ..executor import build_interpreter, graph_generator
 from .. import profiler as _prof
 
 
@@ -87,6 +87,10 @@ class BucketedPredictor:
         self._sym = symbol
         self._run, self._arg_names, self._aux_names = build_interpreter(
             symbol, compute_dtype)
+        # a graph that draws (Dropout with mode="always") draws from its
+        # own stream, seeded from the package's generator as an
+        # Executor's is
+        self._gen = graph_generator(self._run, self.device)
         self._data_shapes = {n: tuple(int(d) for d in s)
                              for n, s in dict(data_shapes).items()}
         unknown = [n for n in self._data_shapes
@@ -265,7 +269,7 @@ class BucketedPredictor:
         with _prof.scope("serving_predict", "symbolic"), \
                 torch.inference_mode():
             outs, _ = self._run(tuple(arg_vals), aux_vals, False,
-                                self.device)
+                                self.device, self._gen)
             outs = [o[:n * rows_per_example(o.shape[0], bucket)]
                     for o in outs]
         return version, outs

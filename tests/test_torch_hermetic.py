@@ -71,3 +71,31 @@ def test_kernel_sources_are_cuda_for_sm90a():
             text = f.read()
         assert "__global__" in text and 'extern "C"' in text
         assert "scaled_dot_product_attention" not in text
+
+
+# the decode / zoo slice's modules: each is loaded by ``import
+# mxnet_tpu_torch`` (so the import test above holds them to no jax and no
+# CUDA context) and is among the sources the AST scan reads
+SLICE_MODULES = ["ops.reduce", "models.generation", "models.vit",
+                 "models.mlp", "models.lenet", "models.alexnet",
+                 "models.vgg", "models.resnext", "models.inception_bn",
+                 "models.inception_v3", "models.mobilenet",
+                 "models.squeezenet", "models.densenet"]
+
+
+def test_slice_modules_are_loaded_and_scanned():
+    code = ("import json, sys, torch\n"
+            "import mxnet_tpu_torch\n"
+            "print(json.dumps({'mods': sorted(sys.modules),\n"
+            "  'cuda_init': torch.cuda.is_initialized()}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["cuda_init"] is False
+    scanned = {os.path.relpath(p, ROOT) for p in _sources()}
+    for mod in SLICE_MODULES:
+        assert "mxnet_tpu_torch." + mod in out["mods"], mod
+        assert os.path.join("mxnet_tpu_torch",
+                            *mod.split(".")) + ".py" in scanned, mod

@@ -94,11 +94,24 @@ def test_params_from_numpy_checks_names_and_shapes():
 
 
 def test_interpreter_refuses_rng_ops():
+    """The interpreter refuses to run an op that draws random numbers
+    without a ``generator`` (torch's default one is not seeded by
+    ``mt.random.seed``); given one (an Executor's ``torch.Generator``), it
+    hands it to the op."""
     from mxnet_tpu_torch.ops import registry as treg
     from mxnet_tpu_torch.symbol.symbol import _compose
     if treg.find("_test_rng_op") is None:
         treg.register("_test_rng_op", arg_names=["data"], needs_rng=True)(
-            lambda data, **kw: data)
+            lambda data, generator=None, **kw:
+            data + torch.rand(data.shape, generator=generator))
     net = _compose("_test_rng_op", [mt.sym.Variable("x")], {}, None)
-    with pytest.raises(mt.MXNetError, match="random"):
-        tbuild(net)
+    run, _, _ = tbuild(net)
+    assert run.needs_rng
+    x = torch.zeros(4)
+    with pytest.raises(mt.MXNetError, match="_test_rng_op.*generator="):
+        run([x], [])
+    draws = [run([x], [], generator=torch.Generator().manual_seed(3))[0][0]
+             for _ in range(2)]
+    assert torch.equal(draws[0], draws[1])
+    assert not torch.equal(draws[0], x)
+    assert not tbuild(mt.sym.Variable("x") * 2.0)[0].needs_rng

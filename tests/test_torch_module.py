@@ -311,8 +311,9 @@ def test_rope_lm_trains():
 
 def test_swiglu_lm_trains():
     """The training half of ``test_swiglu_decode_parity_and_training``
-    (its decode half waits for the KV-cache slice): the fused gate|lin
-    projection has both halves, and the SwiGLU + rope LM trains."""
+    (its decode half is in ``tests/test_torch_decode.py``): the fused
+    gate|lin projection has both halves, and the SwiGLU + rope LM
+    trains."""
     net = mt.models.transformer_lm(24, 8, num_layers=1, d_model=32,
                                    num_heads=4, pos_type="rope",
                                    ffn_type="swiglu")

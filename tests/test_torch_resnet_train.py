@@ -14,12 +14,12 @@ Tolerances:
   The JAX package's reductions on the CPU lose more as they grow: at
   batch 8 of this net its f32 gradients are up to 1.6e-3 of the largest
   away from a float64 run (the port's: 6e-7;
-  ``tests/torch_resnet_numerics.py``), so the steps run at batch 2;
+  ``tests/torch_numerics.py resnet``), so the steps run at batch 2;
 * the golden curve: ``rtol=2e-3, atol=2e-3``, the golden's own
   (``tests/test_convergence.py``), on its first two steps.  Beyond them
   the curve is f32 rounding amplified: the JAX package misses its own
   golden by 0.082 when its initial parameters move by one ulp
-  (``tests/torch_resnet_numerics.py``), and so
+  (``tests/torch_numerics.py resnet``), and so
   does any arithmetic other than XLA-CPU's (the last test shows the
   amplification in the port)."""
 import json

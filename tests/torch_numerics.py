@@ -1,0 +1,403 @@
+"""CPU rehearsals: the f32 rounding numbers behind the port's
+tolerances and margins (not collected by pytest).
+
+    JAX_PLATFORMS=cpu python tests/torch_numerics.py [part ...]
+
+Parts (all by default; each prints JSON lines):
+
+* ``resnet`` (about two minutes): the numbers behind
+  ``tests/test_torch_resnet_train.py`` and ``chip_smoke.py``'s fp32
+  ResNet check:
+
+  - ``golden_curve``: the ResNet-20 golden loss curve
+    (``tests/golden/resnet20_loss_curve.json``) against the JAX Module's
+    own run, the JAX Module's run with every initial parameter moved by
+    one f32 ulp, and the port's runs from the JAX initial parameters,
+    plain and moved by one ulp (largest distance over the 24 losses);
+  - ``digits_gradients``: the first digits batch through ResNet-20 in
+    both packages, forward and gradients, each against a float64 run of
+    the port (relative to the largest value);
+  - ``small_batch8_gradients``: the same for a small cifar-stem ResNet at
+    batch 8 of random images;
+  - ``resnet50_fp32_vs_float64``: ``chip_smoke.py``'s fp32 check
+    (ResNet-50, batch 4 of 128x128, the same seeded weights) in fp32
+    against float64: the gradient's relative distance in norm and the
+    worst single parameter's, relative to its largest element.
+
+* ``deep_bn`` (about a minute): why ``tests/test_torch_zoo.py`` compares
+  the deep BatchNorm networks' gradients on the moving statistics: a
+  deep network's training gradient through batch statistics in f32,
+  port and JAX package, each against the port in float64 (relative to
+  the largest gradient), over seeds and sizes.
+
+* ``decode_vs_lm``, ``beam``, ``vit``, ``zoo``: the decode, beam, ViT and
+  zoo phases of ``chip_smoke.py``, with its own helpers, on the CPU at
+  full width and cut depth or batch:
+
+  - ``decode_vs_lm``: GPT-2 small's widths at 2 layers (not 12): the
+    LM's teacher-forced log-probabilities at seq 1024 against the decode
+    step's over the first 64 positions;
+  - ``beam``: the same model, 4 prompts x beam 4, 32 tokens: each beam's
+    score against its re-scoring by the teacher-forced LM;
+  - ``vit``: ViT-S/16 at full depth and width, 224x224, batch 16 (the
+    card's 128 cut for the CPU), the phase's two batches and Adam lr
+    5e-4: every loss of 25 steps in fp32 and 12 in bf16;
+  - ``zoo``: every zoo network of the phase with its seeded weights and
+    images: the logits of ``Module.predict`` in f32, with the CPU's
+    oneDNN convolutions and with PyTorch's plain ones (two reduction
+    orders; the card's cuDNN is a third), each against the interpreter's
+    float64 run, relative to the logits' spread (largest minus
+    smallest).  The float64 run's flash attention (ViT) is the plain
+    version, which computes in f32.
+
+It imports both packages, as the tests do.
+"""
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import mxnet_tpu as mx  # noqa: E402
+from mxnet_tpu import models as jmodels  # noqa: E402
+from mxnet_tpu.executor import build_interpreter as jbuild  # noqa: E402
+from mxnet_tpu.models.resnet import resnet as j_resnet  # noqa: E402
+
+import mxnet_tpu_torch as mt  # noqa: E402
+from mxnet_tpu_torch.executor import build_interpreter as tbuild  # noqa
+from mxnet_tpu_torch.models.resnet import resnet as t_resnet  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+INPUTS = ("data", "softmax_label")
+ULP = np.float32(1 + 2 ** -23)
+BATCH = 50
+SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+
+
+def digits_batches(steps):
+    """``tests/test_convergence.py``'s batches."""
+    from sklearn.datasets import load_digits
+    d = load_digits()
+    x = (d.images / 16.0).astype(np.float32)
+    y = d.target.astype(np.float32)
+    x = x.repeat(3, axis=1).repeat(3, axis=2)
+    x = np.pad(x, ((0, 0), (2, 2), (2, 2)))
+    x = np.stack([x, x, x], axis=1)
+    order = np.random.RandomState(0).permutation(len(x))
+    x, y = x[order], y[order]
+    return [(x[i * BATCH:(i + 1) * BATCH], y[i * BATCH:(i + 1) * BATCH])
+            for i in range(steps)]
+
+
+def nll(prob, y):
+    return float(-np.mean(np.log(np.maximum(
+        prob[np.arange(len(y)), y.astype(int)], 1e-8))))
+
+
+def jax_curve(batches, nudge):
+    net = jmodels.resnet(num_classes=10, num_layers=20,
+                         image_shape=(3, 28, 28))
+    mod = mx.mod.Module(net, context=mx.cpu())
+    mod.bind(data_shapes=[("data", (BATCH, 3, 28, 28))],
+             label_shapes=[("softmax_label", (BATCH,))])
+    mx.random.seed(7)
+    np.random.seed(7)
+    mod.init_params(mx.initializer.Xavier(rnd_type="gaussian",
+                                          magnitude=2.0))
+    args, aux = mod.get_params()
+    init = ({n: v.asnumpy().copy() for n, v in args.items()},
+            {n: v.asnumpy().copy() for n, v in aux.items()})
+    if nudge:
+        mod.set_params({n: mx.nd.array(v.asnumpy() * ULP)
+                        for n, v in args.items()}, aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=SGD)
+    losses = []
+    for x, y in batches:
+        mod.forward(mx.io.DataBatch([mx.nd.array(x)], [mx.nd.array(y)]),
+                    is_train=True)
+        losses.append(nll(mod.get_outputs()[0].asnumpy(), y))
+        mod.backward()
+        mod.update()
+    return np.array(losses), init
+
+
+def port_curve(batches, args, aux):
+    net = mt.models.resnet(num_classes=10, num_layers=20,
+                           image_shape=(3, 28, 28))
+    mod = mt.mod.Module(net, context=mt.cpu())
+    mod.bind(data_shapes=[("data", (BATCH, 3, 28, 28))],
+             label_shapes=[("softmax_label", (BATCH,))])
+    mod.init_params(arg_params=args, aux_params=aux)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=SGD)
+    losses = []
+    for x, y in batches:
+        mod.forward(mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                                    [mt.nd.array(y, ctx=mt.cpu())]),
+                    is_train=True)
+        losses.append(nll(mod.get_outputs()[0].asnumpy(), y))
+        mod.backward()
+        mod.update()
+    return np.array(losses)
+
+
+def jax_step(net, args, aux, x, y):
+    run, names, aux_names = jbuild(net)
+    pnames = [n for n in names if n not in INPUTS]
+
+    def f(*pv):
+        env = dict(zip(pnames, pv), data=jnp.asarray(x),
+                   softmax_label=jnp.asarray(y))
+        return run([env[n] for n in names],
+                   [jnp.asarray(aux[n]) for n in aux_names],
+                   jax.random.PRNGKey(0), True)[0][0]
+
+    def step(pv):
+        out, vjp = jax.vjp(f, *pv)
+        return out, vjp(jnp.ones_like(out))
+    out, grads = jax.jit(step)(tuple(jnp.asarray(args[n]) for n in pnames))
+    return np.asarray(out, np.float64), {
+        n: np.asarray(g, np.float64) for n, g in zip(pnames, grads)}
+
+
+def port_step(net, args, aux, x, y, dtype):
+    run, names, aux_names = tbuild(net)
+    vals = [torch.from_numpy(x if n == "data" else y if n == "softmax_label"
+                             else args[n]).to(dtype) for n in names]
+    pnames = [n for n in names if n not in INPUTS]
+    leaves = [v.requires_grad_() for n, v in zip(names, vals)
+              if n in pnames]
+    outs, _ = run(vals, [torch.from_numpy(aux[n]).to(dtype)
+                         for n in aux_names], is_train=True)
+    grads = torch.autograd.grad(outs[0], leaves, torch.ones_like(outs[0]),
+                                allow_unused=True)
+    return outs[0].detach().double().numpy(), {
+        n: g.double().numpy() for n, g in zip(pnames, grads)
+        if g is not None}
+
+
+def against(truth_out, truth_grads, out, grads):
+    scale = max(np.abs(g).max() for g in truth_grads.values())
+    return {"forward": float(np.abs(out - truth_out).max()
+                             / np.abs(truth_out).max()),
+            "gradient": float(max(np.abs(grads[n] - truth_grads[n]).max()
+                                  for n in truth_grads) / scale)}
+
+
+def compare(jnet, tnet, args, aux, x, y):
+    o64, g64 = port_step(tnet, args, aux, x, y, torch.float64)
+    o32, g32 = port_step(tnet, args, aux, x, y, torch.float32)
+    jo, jg = jax_step(jnet, args, aux, x, y)
+    return {"jax_f32": against(o64, g64, jo, jg),
+            "port_f32": against(o64, g64, o32, g32)}
+
+
+def small_params(net, B, shape, seed=0):
+    arg_shapes, _, aux_shapes = net.infer_shape(data=(B,) + shape,
+                                                softmax_label=(B,))
+    rng = np.random.RandomState(seed)
+    args = {n: (rng.randn(*s) * np.sqrt(2.0 / np.prod(s[1:]))
+                if n.endswith("_weight") else rng.uniform(0.5, 1.5, s)
+                if n.endswith("_gamma") else rng.randn(*s) * 0.1)
+            .astype(np.float32)
+            for n, s in zip(net.list_arguments(), arg_shapes)
+            if n not in INPUTS}
+    aux = {n: (rng.uniform(0.5, 1.5, s) if n.endswith("_var")
+               else rng.randn(*s) * 0.1).astype(np.float32)
+           for n, s in zip(net.list_auxiliary_states(), aux_shapes)}
+    return args, aux
+
+
+def part_resnet():
+    batches = digits_batches(24)
+    with open(os.path.join(ROOT, "tests", "golden",
+                           "resnet20_loss_curve.json")) as f:
+        golden = np.array(json.load(f)["losses"])
+    jplain, (args, aux) = jax_curve(batches, nudge=False)
+    jnudged, _ = jax_curve(batches, nudge=True)
+    tplain = port_curve(batches, args, aux)
+    tnudged = port_curve(batches, {n: v * ULP for n, v in args.items()},
+                         aux)
+    print(json.dumps({"golden_curve": {
+        name: float(np.abs(c - golden).max()) for name, c in (
+            ("jax", jplain), ("jax_one_ulp", jnudged), ("port", tplain),
+            ("port_one_ulp", tnudged))}}))
+
+    jnet = jmodels.resnet(num_classes=10, num_layers=20,
+                          image_shape=(3, 28, 28))
+    x, y = batches[0]
+    print(json.dumps({"digits_gradients": compare(
+        jnet, mt.models.resnet(num_classes=10, num_layers=20,
+                               image_shape=(3, 28, 28)), args, aux, x, y)}))
+
+    kw = dict(units=[1, 1, 1], num_stages=3, filter_list=[8, 8, 16, 32],
+              num_classes=10, image_shape=(3, 28, 28), bottle_neck=False)
+    sargs, saux = small_params(j_resnet(**kw), 8, (3, 28, 28))
+    rng = np.random.RandomState(1)
+    sx = rng.uniform(-1, 1, (8, 3, 28, 28)).astype(np.float32)
+    sy = rng.randint(0, 10, (8,)).astype(np.float32)
+    print(json.dumps({"small_batch8_gradients": compare(
+        j_resnet(**kw), t_resnet(**kw), sargs, saux, sx, sy)}))
+
+    B, shape = cs.RESNET_FP32_BATCH, cs.RESNET_FP32_IMAGE
+    sym, rargs, raux = cs.resnet_numpy_params(
+        mt, B, shape, cs.SEED + 7)
+    rng = np.random.default_rng(cs.SEED + 8)
+    rx = rng.uniform(-1, 1, (B,) + shape).astype(np.float32)
+    ry = rng.integers(0, 1000, B).astype(np.float32)
+    _, g64 = port_step(sym, rargs, raux, rx, ry, torch.float64)
+    _, g32 = port_step(sym, rargs, raux, rx, ry, torch.float32)
+    per = {n: float(np.abs(g32[n] - g64[n]).max() / np.abs(g64[n]).max())
+           for n in g64}
+    worst = max(per, key=per.get)
+    norm = float(np.sqrt(sum(((g32[n] - g64[n]) ** 2).sum() for n in g64)
+                         / sum((g ** 2).sum() for g in g64.values())))
+    print(json.dumps({"resnet50_fp32_vs_float64": {
+        "gradient_norm_rel": norm, "worst_param": worst,
+        "worst_param_rel": per[worst]}}))
+
+
+
+REHEARSAL_LAYERS = 2
+
+
+def _gpt2():
+    """The phase's config at REHEARSAL_LAYERS layers, and its weights."""
+    cs.GPT2_SMALL = dict(cs.GPT2_SMALL, num_layers=REHEARSAL_LAYERS)
+    net = mt.models.transformer_lm(**cs.GPT2_SMALL)
+    return cs.gpt2_params(net, cs.SEED)
+
+
+def part_decode_vs_lm():
+    params = _gpt2()
+    S, V = cs.GPT2_SMALL["seq_len"], cs.GPT2_SMALL["vocab_size"]
+    toks = np.random.default_rng(cs.SEED + 11).integers(0, V, (1, S),
+                                                        dtype=np.int32)
+    ref = cs.lm_logprobs(mt, params, toks, mt.cpu())[0]
+    mod = cs.decode_module(mt, params, 1, mt.cpu())
+    worst = 0.0
+    for t in range(cs.DECODE_STEPS):
+        tok = mt.nd.array(toks[:, t].astype(np.float32), ctx=mt.cpu())
+        logits = cs.decode_step(mt, mod, tok).asnumpy()[0]
+        worst = max(worst, float(np.abs(cs.log_softmax_np(logits)
+                                        - ref[t]).max()))
+    return dict(layers=REHEARSAL_LAYERS, positions=cs.DECODE_STEPS,
+                max_abs_logp_diff=worst,
+                logp_range=[float(ref[:cs.DECODE_STEPS].min()),
+                            float(ref[:cs.DECODE_STEPS].max())])
+
+
+def part_beam():
+    params = _gpt2()
+    prompts = np.array(cs.BEAM_PROMPTS)
+    P, K, G = len(prompts), cs.BEAM_SIZE, cs.BEAM_GEN
+    mod = cs.decode_module(mt, params, P * K, mt.cpu())
+    seqs, scores = mt.models.beam_search(mod, prompts, beam_size=K,
+                                         gen_len=G)
+    flat = seqs.reshape(P * K, G + 1)
+    lp = cs.lm_logprobs(mt, params, flat.astype(np.int32), mt.cpu())
+    rescored = np.array([lp[i, np.arange(G), flat[i, 1:]].sum()
+                         for i in range(P * K)]).reshape(P, K) / G
+    return dict(layers=REHEARSAL_LAYERS, beams=K, gen_len=G,
+                max_abs_score_diff=float(np.abs(rescored - scores).max()),
+                scores=scores.tolist())
+
+
+def vit_losses(dtype, steps, batch):
+    mod = mt.mod.Module(mt.models.vit(1000), context=mt.cpu(),
+                        compute_dtype=dtype)
+    mod.bind(data_shapes=[("data", (batch, 3, 224, 224))],
+             label_shapes=[("softmax_label", (batch,))])
+    mt.random.seed(cs.SEED)
+    mod.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                          magnitude=2.0))
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": cs.VIT_LR})
+    batches = cs.resnet_batches(torch, mt, torch.device("cpu"), batch,
+                                (3, 224, 224), cs.SEED + 12)
+    return cs.resnet_steps(mt, mod, batches, steps, lambda: None)[1]
+
+
+def part_vit():
+    out = {}
+    for dtype, steps in ((None, 25), ("bfloat16", 12)):
+        t0 = time.monotonic()
+        losses = vit_losses(dtype, steps, 16)
+        out[dtype or "float32"] = dict(
+            steps=steps, losses=losses,
+            first5=float(np.mean(losses[:5])),
+            last5=float(np.mean(losses[-5:])),
+            seconds=time.monotonic() - t0)
+    return dict(batch=16, **out)
+
+
+
+def part_deep_bn():
+    """A deep BatchNorm network's training gradient (batch statistics)
+    in f32, both packages, against the port in float64: mobilenet at
+    multiplier 0.25, three seeds of weights and images at each size."""
+    kw = dict(num_classes=10, multiplier=0.25)
+    rows = []
+    for shape in ((8, 3, 64, 64), (12, 3, 64, 64), (8, 3, 96, 96)):
+        for seed in range(3):
+            net = mt.models.get_symbol("mobilenet", **kw)
+            args, aux = small_params(net, shape[0], shape[1:], seed)
+            rng = np.random.RandomState(seed + 1)
+            x = rng.uniform(-1, 1, shape).astype(np.float32)
+            y = rng.randint(0, 10, shape[0]).astype(np.float32)
+            with torch.backends.mkldnn.flags(enabled=False):
+                res = compare(jmodels.get_symbol("mobilenet", **kw), net,
+                              args, aux, x, y)
+            rows.append(dict(shape=list(shape), seed=seed, **res))
+    return dict(network="mobilenet x0.25", rows=rows)
+
+
+def logits64(net, args, aux, x):
+    """``net``'s logits by the interpreter in float64 (inference)."""
+    run, names, aux_names = tbuild(cs.logits_graph(mt, net))
+    vals = [torch.from_numpy(x if n == "data" else args[n]).double()
+            for n in names]
+    outs, _ = run(vals, [torch.from_numpy(aux[n]).double()
+                         for n in aux_names], generator=torch.Generator())
+    return outs[0].numpy()
+
+
+def part_zoo():
+    out = {}
+    for i in range(len(cs.ZOO)):
+        name, _, net, args, aux, x = cs.zoo_case(mt, i)
+        exact = logits64(net, args, aux, x)
+        spread = float(exact.max() - exact.min())
+        row = dict(logit_spread=spread)
+        for onednn in (True, False):
+            with torch.backends.mkldnn.flags(enabled=onednn):
+                got = cs.zoo_predict(mt, cs.logits_graph(mt, net), args,
+                                     aux, x, mt.cpu())
+            row["onednn" if onednn else "plain"] = float(
+                np.abs(got - exact).max()) / spread
+        out[name] = row
+    return dict(networks=out,
+                worst=max(max(r["onednn"], r["plain"])
+                          for r in out.values()))
+
+
+PARTS = {"resnet": part_resnet, "deep_bn": part_deep_bn,
+         "decode_vs_lm": part_decode_vs_lm, "beam": part_beam,
+         "vit": part_vit, "zoo": part_zoo}
+
+if __name__ == "__main__":
+    for part in sys.argv[1:] or list(PARTS):
+        t0 = time.monotonic()
+        res = PARTS[part]()
+        if res is not None:
+            print(json.dumps({"part": part,
+                              "seconds": time.monotonic() - t0, **res}),
+                  flush=True)
