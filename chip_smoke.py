@@ -23,7 +23,12 @@ at batch 1 and 32 (float32, as ``benchmark/decode_bench.py``), holds the
 decode against the teacher-forced LM and ``beam_search`` against greedy
 decoding and a re-scoring, trains ViT-S/16 through ``Module`` on the
 flash kernels (non-causal, bf16), and holds ``Module.predict`` of every
-zoo network on the card against the CPU.  Every phase prints one JSON
+zoo network on the card against the CPU.  Then the Gluon path: the model
+zoo's ResNet-50 v1 trains at ImageNet width through ``autograd.record()``
+and ``gluon.Trainer``, hybridized with bf16 compute and imperatively,
+with one float32 step held against the CPU, and a user attention block
+at GPT-2 small's widths drives the flash kernels through the imperative
+autograd.  Every phase prints one JSON
 line;
 any failed phase exits non-zero.  The line before the last lists the
 kernels with their launches on each path, times and bounds; the last
@@ -225,6 +230,67 @@ ZOO_LOGIT_TOL = 1e-5
 # card's logits: the same logits, the softmax evaluated in two places in
 # f32, a few ulps of 1.0
 ZOO_SOFTMAX_TOL = 1e-6
+
+# Gluon ResNet-50 v1 training: the model zoo's resnet50_v1
+# (mxnet_tpu/gluon/model_zoo/vision/resnet.py:274, He et al. 2015 Table
+# 1) at ImageNet width, 1000 classes, batch 256 of 224x224 as bench.py,
+# through autograd.record() -> net -> SoftmaxCrossEntropyLoss ->
+# backward() -> gluon.Trainer.step(256): SGD lr 0.1 momentum 0.9 wd
+# 1e-4, Xavier gaussian magnitude 2, two synthetic batches made on the
+# card from a seed (int32 labels) taken in turn.  Hybridized with
+# compute_dtype="bfloat16" (the JAX package's Gluon bf16 recipe, bf16
+# compute over fp32 masters), 5 warm-up and 20 timed steps; then the same
+# net imperatively (not hybridized), 5 + 10 steps
+GLUON_BATCH = 256
+GLUON_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+GLUON_WARMUP = 5
+GLUON_STEPS = 20
+GLUON_IMP_WARMUP = 5
+GLUON_IMP_STEPS = 10
+# the mean loss of the last 5 of the 25 steps must beat the first 5's by
+# this many nats, fixed before the first card run from CPU rehearsals of
+# the same loop in fp32 (resnet50_v1 at full depth and width; the first
+# by tests/torch_numerics.py gluon): the drop was 23.05 nats at batch 16
+# of 112x112, 6.67 at batch 32 of 112x112, 5.75 and 4.18 at batch 64 of
+# 64x64 (two seeds), most of it a spike of the first steps (lr 0.1 with
+# no warm-up) that shrinks as the batch grows, the last 5 averaging
+# 6.3-6.9.  The margin is a fifth of the smallest drop, as RESNET_MARGIN's
+GLUON_MARGIN = 0.8
+# one fp32 step of resnet50_v1 at batch 2 of 224x224 (full depth and
+# width), card (TF32 off) against the CPU from the same seeded weights,
+# hybridized and imperatively, with resnet_fp32_card_vs_cpu's budget: the
+# loss within 1e-4, each running statistic within 1e-4 of its largest
+# element, the output layer's gradient and update (they pass no
+# BatchNorm) within 1e-3 of their largest element, and the whole gradient
+# and update within 5e-2 of their norm (tests/torch_numerics.py gluon
+# prints the CPU's fp32 distance from float64 behind it)
+GLUON_FP32_BATCH = 2
+GLUON_FP32_IMAGE = (3, 224, 224)
+GLUON_FP32_LOSS_TOL = 1e-4
+GLUON_FP32_AUX_RTOL = 1e-4
+GLUON_FP32_HEAD_RTOL = 1e-3
+GLUON_FP32_NORM_RTOL = 5e-2
+# the attention block: a user HybridBlock at GPT-2 small's widths (d 768,
+# 12 heads of 64, S 1024, batch 8, causal): Dense(3d) -> (B, H, S, D) ->
+# F.contrib.FlashAttention -> (B, S, d) -> Dense(d), under record() with
+# backward() and one Trainer step (SGD lr 0.1) a run, imperatively and
+# hybridized, in bf16 (hybridize(compute_dtype="bfloat16"); imperatively
+# net.cast("bfloat16") with bf16 inputs); and once in fp32 at batch 2
+# against the CPU (TF32 off): the output and the input gradient within
+# 1e-3 of their largest element, and every parameter's update within
+# 1e-3 of the block's largest update (K1-K3 against the plain attention,
+# as kernel_check's fp32 rows, plus the two Dense products summing
+# 768-2304 terms in another order).  Not of each parameter's own largest
+# update: a weight's gradient sums over 2048 tokens products of the loss
+# gradient with the inputs, which cancel, so the CPU's own fp32 lands
+# 2.9e-3 of the qkv weight's own largest update from float64, 2.3e-4 of
+# the block's (tests/torch_numerics.py gluon, attention_fp32_vs_float64;
+# the first card run showed the same 2.9e-3 card vs CPU while the output
+# and the input gradient agreed to 1.3e-6)
+ATTN_D, ATTN_HEADS, ATTN_SEQ, ATTN_BATCH = 768, 12, 1024, 8
+ATTN_STEPS = 3
+ATTN_FP32_BATCH = 2
+ATTN_FP32_RTOL = 1e-3
 
 
 T0 = time.monotonic()
@@ -1706,6 +1772,530 @@ def phase_zoo_predict(torch, mt):
     return vit_counts
 
 
+# --------------------------------------------------------------------------
+# Gluon: ResNet-50 v1 through gluon.Trainer, and the flash kernels through
+# autograd.record()
+# --------------------------------------------------------------------------
+def gluon_resnet(mt, ctx, seed, hybridize=True, cast=None, classes=1000):
+    """The model zoo's resnet50_v1, initialized on ``ctx`` (deferred
+    shapes resolve at the first forward); hybridized with bf16 compute,
+    or imperative and cast to ``cast``."""
+    with mt.name.NameManager():
+        net = mt.gluon.model_zoo.vision.resnet50_v1(classes=classes)
+    mt.random.seed(seed)
+    net.initialize(mt.initializer.Xavier(rnd_type="gaussian",
+                                         magnitude=2.0), ctx=ctx)
+    if cast is not None:
+        net.cast(cast)
+    if hybridize:
+        net.hybridize(compute_dtype="bfloat16")
+    return net
+
+
+def gluon_batches(torch, mt, device, batch, shape, seed,
+                  dtype="float32"):
+    """Two synthetic batches made on ``device``: uniform(-1, 1) images in
+    ``dtype`` and int32 labels in [0, 1000)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for _ in range(2):
+        x = torch.rand((batch,) + tuple(shape), generator=gen,
+                       device=device) * 2 - 1
+        y = torch.randint(0, 1000, (batch,), generator=gen, device=device,
+                          dtype=torch.int32)
+        out.append((mt.nd.NDArray(x.to(getattr(torch, dtype))),
+                    mt.nd.NDArray(y)))
+    return out
+
+
+def gluon_train_steps(mt, net, trainer, loss_fn, batches, n, sync):
+    """``n`` steps of record() -> loss(net(x), y) -> backward() ->
+    trainer.step(batch) over the batches in turn, each ended by ``sync``:
+    the ms of each step on the host clock and each step's mean loss (read
+    once, after the last step)."""
+    step_ms, losses = [], []
+    for i in range(n):
+        x, y = batches[i % len(batches)]
+        t = time.monotonic()
+        with mt.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        sync()
+        step_ms.append((time.monotonic() - t) * 1e3)
+        losses.append(loss.mean())
+    return step_ms, [float(l.asscalar()) for l in losses]
+
+
+def gluon_train_row(step_ms, losses, warmup, batch, peak_flops):
+    timed_ms = step_ms[warmup:]
+    med = float(np.median(timed_ms))
+    flops = 2 * RESNET_FWD_MACS * 3 * batch
+    tflops = flops / (med / 1e3) / 1e12
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    return dict(first_step_ms=step_ms[0], warmup_ms=step_ms[:warmup],
+                steps=len(timed_ms), step_ms=timed_ms, median_step_ms=med,
+                min_step_ms=min(timed_ms), max_step_ms=max(timed_ms),
+                images_per_s=batch / (med / 1e3), flops_per_step=flops,
+                flops_source="analytic, bench.py:495: 2 x 4.1e9 "
+                "multiply-adds a 224x224 image forward x 3 (forward and "
+                "backward) x batch; v1 and v2 differ by under 1%",
+                achieved_tflops=tflops, mfu=tflops * 1e12 / peak_flops,
+                mfu_peak_tflops=peak_flops / 1e12, losses=losses,
+                loss_first5_mean=first5, loss_last5_mean=last5)
+
+
+def phase_gluon_resnet_train(torch, mt, peak_flops):
+    """Gluon ResNet-50 v1 at ImageNet width, hybridized with bf16 compute,
+    through gluon.Trainer on cuda:0: GLUON_WARMUP + GLUON_STEPS steps with
+    the launch and dispatch counts reset just before and read just
+    after."""
+    dev = torch.device("cuda", 0)
+    B, shape = GLUON_BATCH, (3, 224, 224)
+    t0 = time.monotonic()
+    net = gluon_resnet(mt, mt.gpu(0), SEED)
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", dict(GLUON_OPT))
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    batches = gluon_batches(torch, mt, dev, B, shape, SEED + 20)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+
+    # the Gluon ResNet path: counts start at 0 here and are read after
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mt)
+    n = GLUON_WARMUP + GLUON_STEPS
+    step_ms, losses = gluon_train_steps(mt, net, trainer, loss_fn, batches,
+                                        n, torch.cuda.synchronize)
+    counts = read_counts(mt)
+    dispatch = mt.profiler.dispatch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    params = net.collect_params()
+    n_params = sum(int(np.prod(p.shape)) for k, p in params.items()
+                   if "running" not in k)
+    row = gluon_train_row(step_ms, losses, GLUON_WARMUP, B, peak_flops)
+    fails = []
+    want = {"trainer.step": n, "autograd.backward": n,
+            "gluon.cached_forward": n}
+    if any(dispatch.get(k) != v for k, v in want.items()) \
+            or any(counts.values()):
+        fails.append(f"dispatches {dispatch} (want {want}) and attention "
+                     f"launches {counts} (want none)")
+    if not all(np.isfinite(losses)):
+        fails.append(f"non-finite loss in {losses}")
+    if not row["loss_last5_mean"] < row["loss_first5_mean"] - GLUON_MARGIN:
+        fails.append(f"mean of the last 5 losses {row['loss_last5_mean']} "
+                     f"does not beat the first 5's "
+                     f"{row['loss_first5_mean']} by {GLUON_MARGIN}")
+    dtypes = sorted({str(p.data().as_torch().dtype)
+                     for p in params.values()})
+    if dtypes != ["torch.float32"]:
+        fails.append(f"parameter dtypes {dtypes}, want float32 masters")
+    emit("gluon_resnet_train", model="resnet-50 v1 (gluon model zoo)",
+         batch=B, image=list(shape), classes=1000, layout="NCHW",
+         hybridized=True, compute_dtype="bfloat16", masters="float32",
+         optimizer="gluon.Trainer sgd lr 0.1 momentum 0.9 wd 1e-4",
+         initializer="xavier gaussian magnitude 2", n_params=n_params,
+         cudnn_benchmark=torch.backends.cudnn.benchmark, setup_s=setup_s,
+         peak_mem_bytes=peak, dispatches=dispatch,
+         attention_launches=counts, margin=GLUON_MARGIN, failures=fails,
+         **row)
+    if fails:
+        raise RuntimeError("gluon_resnet_train: " + "; ".join(fails))
+    return net, trainer, loss_fn, batches, row["median_step_ms"]
+
+
+def phase_gluon_resnet_profile(torch, mt, net, trainer, loss_fn, batches,
+                               median_ms):
+    """One more hybridized step under torch.profiler: the card's busy
+    time, its idle share and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    x, y = batches[0]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        with mt.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        torch.cuda.synchronize()
+        prof_step_ms = (time.monotonic() - t) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+    if busy <= 0:
+        raise RuntimeError("gluon_resnet_profile: the profile shows no "
+                           "device time for a training step")
+    bn = sum(k[0] for k in kernels if "batch_norm" in k[2].lower())
+    emit("gluon_resnet_profile", step_ms=prof_step_ms, device_busy_ms=busy,
+         device_idle_share_of_step=max(0.0, 1 - busy / prof_step_ms),
+         device_idle_share_of_median_step=max(0.0, 1 - busy / median_ms),
+         batch_norm_kernels_ms=bn,
+         kernel_launches=sum(k[1] for k in kernels),
+         top_kernels=[dict(ms=ms, count=c, name=k)
+                      for ms, c, k in kernels[:12]])
+
+
+def phase_gluon_resnet_imperative(torch, mt, peak_flops, hybrid_ms):
+    """The same network and recipe, not hybridized: the JAX package's
+    Gluon bf16 recipe is hybridize(compute_dtype=...), which has no
+    imperative form, so the net is cast to bf16 (net.cast), its inputs
+    are bf16 and the SGD keeps fp32 masters (multi_precision);
+    GLUON_IMP_WARMUP + GLUON_IMP_STEPS steps."""
+    dev = torch.device("cuda", 0)
+    B, shape = GLUON_BATCH, (3, 224, 224)
+    t0 = time.monotonic()
+    net = gluon_resnet(mt, mt.gpu(0), SEED, hybridize=False,
+                       cast="bfloat16")
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(GLUON_OPT, multi_precision=True))
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    batches = gluon_batches(torch, mt, dev, B, shape, SEED + 20,
+                            dtype="bfloat16")
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mt)
+    n = GLUON_IMP_WARMUP + GLUON_IMP_STEPS
+    step_ms, losses = gluon_train_steps(mt, net, trainer, loss_fn, batches,
+                                        n, torch.cuda.synchronize)
+    counts = read_counts(mt)
+    dispatch = mt.profiler.dispatch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    row = gluon_train_row(step_ms, losses, GLUON_IMP_WARMUP, B, peak_flops)
+    fails = []
+    if dispatch.get("trainer.step") != n or "gluon.cached_forward" in \
+            dispatch or any(counts.values()):
+        fails.append(f"dispatches {dispatch} and attention launches "
+                     f"{counts} (want {n} steps, no cached forward, no "
+                     "attention)")
+    if not all(np.isfinite(losses)):
+        fails.append(f"non-finite loss in {losses}")
+    emit("gluon_resnet_imperative", model="resnet-50 v1 (gluon model zoo)",
+         batch=B, image=list(shape), hybridized=False,
+         bf16_recipe="net.cast('bfloat16'), bf16 inputs, SGD "
+         "multi_precision (fp32 masters)", setup_s=setup_s,
+         peak_mem_bytes=peak, dispatches=dispatch,
+         hybridized_median_step_ms=hybrid_ms,
+         imperative_over_hybridized=row["median_step_ms"] / hybrid_ms,
+         failures=fails, **row)
+    if fails:
+        raise RuntimeError("gluon_resnet_imperative: " + "; ".join(fails))
+    del net, trainer, batches
+    torch.cuda.empty_cache()
+
+
+def gluon_numpy_params(mt, seed):
+    """Seeded He-scaled resnet50_v1 weights by name, gamma near 1, small
+    beta, running statistics near (0, 1), as numpy (the shapes from a
+    CPU net's deferred initialization)."""
+    net = gluon_resnet(mt, mt.cpu(), seed, hybridize=False)
+    net(mt.nd.zeros((1,) + GLUON_FP32_IMAGE, ctx=mt.cpu()))
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, p in net.collect_params().items():
+        shape = p.shape
+        if name.endswith("running_var"):
+            x = rng.uniform(0.5, 1.5, shape)
+        else:
+            x = rng.standard_normal(shape)
+            if name.endswith("_weight"):
+                x *= np.sqrt(2.0 / np.prod(shape[1:]))
+            elif name.endswith("_gamma"):
+                x = 1 + 0.1 * x
+            else:
+                x *= 0.1
+        out[name] = x.astype(np.float32)
+    return out
+
+
+def gluon_fp32_step(mt, ctx, values, x, y, hybridize, dtype="float32"):
+    """One SGD-momentum step of resnet50_v1 from ``values`` on ``ctx``,
+    in fp32 (float64 for the CPU rehearsal's reference): (loss,
+    gradients, new parameters, seconds), as numpy."""
+    net = gluon_resnet(mt, ctx, SEED, hybridize=False, cast=dtype)
+    mt.convert.gluon_params_from_numpy(net.collect_params(), values, ctx)
+    if hybridize:
+        net.hybridize()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", dict(GLUON_OPT))
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    xs = mt.nd.array(x, ctx=ctx, dtype=dtype)
+    ys = mt.nd.array(y, ctx=ctx, dtype="int32")
+    t0 = time.monotonic()
+    with mt.autograd.record():
+        loss = loss_fn(net(xs), ys)
+    loss.backward()
+    grads = {k: p.grad().asnumpy() for k, p in net.collect_params().items()
+             if p.grad_req != "null"}
+    trainer.step(x.shape[0])
+    lval = float(loss.mean().asscalar())
+    secs = time.monotonic() - t0
+    return lval, grads, mt.convert.gluon_params_to_numpy(
+        net.collect_params()), secs
+
+
+def gluon_fp32_compare(card, cpu, values):
+    """The budget's numbers for one card-vs-CPU pair of steps."""
+    (gl, gg, gp, gs), (cl, cg, cp, cs) = card, cpu
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    def norm_rel(pairs):
+        return float(np.sqrt(sum(((a - b) ** 2).sum() for a, b in pairs))
+                     / np.sqrt(sum((b ** 2).sum() for _, b in pairs)))
+    head = [k for k in cg if "dense" in k]
+    upd = {k: (gp[k] - values[k], cp[k] - values[k]) for k in cg}
+    aux = {k: rel(gp[k], cp[k]) for k in cp if "running" in k}
+    worst_aux = max(aux, key=aux.get)
+    return dict(loss_gpu=gl, loss_cpu=cl, loss_diff=abs(gl - cl),
+                head_grad_rel_diff=max(rel(gg[k], cg[k]) for k in head),
+                head_update_rel_diff=max(rel(*upd[k]) for k in head),
+                grad_norm_rel_diff=norm_rel([(gg[k], cg[k]) for k in cg]),
+                update_norm_rel_diff=norm_rel(list(upd.values())),
+                worst_aux_rel_diff=aux[worst_aux], worst_aux=worst_aux,
+                gpu_s=gs, cpu_s=cs,
+                finite=bool(all(np.isfinite(v).all() for v in gp.values())))
+
+
+def phase_gluon_fp32(torch, mt):
+    """One fp32 step of resnet50_v1 at full depth and width (batch 2,
+    224x224), the card (TF32 off) against the CPU from the same weights,
+    hybridized and imperatively."""
+    values = gluon_numpy_params(mt, SEED + 21)
+    rng = np.random.default_rng(SEED + 22)
+    x = rng.uniform(-1, 1, (GLUON_FP32_BATCH,) + GLUON_FP32_IMAGE) \
+        .astype(np.float32)
+    y = rng.integers(0, 1000, GLUON_FP32_BATCH).astype(np.int32)
+    fails, rows = [], {}
+    for hybridize in (True, False):
+        key = "hybridized" if hybridize else "imperative"
+        row = gluon_fp32_compare(
+            gluon_fp32_step(mt, mt.gpu(0), values, x, y, hybridize),
+            gluon_fp32_step(mt, mt.cpu(), values, x, y, hybridize), values)
+        rows[key] = row
+        for name, lim in (("loss_diff", GLUON_FP32_LOSS_TOL),
+                          ("worst_aux_rel_diff", GLUON_FP32_AUX_RTOL),
+                          ("head_grad_rel_diff", GLUON_FP32_HEAD_RTOL),
+                          ("head_update_rel_diff", GLUON_FP32_HEAD_RTOL),
+                          ("grad_norm_rel_diff", GLUON_FP32_NORM_RTOL),
+                          ("update_norm_rel_diff", GLUON_FP32_NORM_RTOL)):
+            if not row[name] <= lim:
+                fails.append(f"{key} {name} {row[name]} beyond {lim}")
+        if not row["finite"]:
+            fails.append(f"{key}: non-finite parameters on the card")
+    emit("gluon_fp32_card_vs_cpu", model="resnet-50 v1 full depth and "
+         "width", cut=f"batch {GLUON_FP32_BATCH} (not 256)",
+         image=list(GLUON_FP32_IMAGE),
+         budget=dict(loss=GLUON_FP32_LOSS_TOL, aux=GLUON_FP32_AUX_RTOL,
+                     head=GLUON_FP32_HEAD_RTOL, norm=GLUON_FP32_NORM_RTOL),
+         failures=fails, **rows)
+    if fails:
+        raise RuntimeError("gluon_fp32_card_vs_cpu: " + "; ".join(fails))
+    torch.cuda.empty_cache()
+
+
+def attention_block(mt, prefix="attn_"):
+    """A user HybridBlock at GPT-2 small's widths: Dense(3d) -> q, k, v
+    (B, H, S, D) -> F.contrib.FlashAttention(causal) -> (B, S, d) ->
+    Dense(d)."""
+    gluon = mt.gluon
+    d, heads = ATTN_D, ATTN_HEADS
+
+    class CausalSelfAttention(gluon.HybridBlock):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.qkv = gluon.nn.Dense(3 * d, flatten=False, in_units=d)
+                self.proj = gluon.nn.Dense(d, flatten=False, in_units=d)
+
+        def hybrid_forward(self, F, x):
+            qkv = self.qkv(x).reshape((0, 0, 3, heads, d // heads))
+            qkv = F.transpose(qkv, axes=(2, 0, 3, 1, 4))
+            q, k, v = F.split(qkv, num_outputs=3, axis=0, squeeze_axis=True)
+            o = F.contrib.FlashAttention(q, k, v, causal=True)
+            o = F.transpose(o, axes=(0, 2, 1, 3)).reshape((0, 0, -3))
+            return self.proj(o)
+
+    with mt.name.NameManager():
+        return CausalSelfAttention(prefix=prefix)
+
+
+def attention_values(mt, seed):
+    """Seeded N(0, 0.02) weights of the block, as numpy."""
+    rng = np.random.default_rng(seed)
+    net = attention_block(mt)
+    return {name: (rng.standard_normal(p.shape) * 0.02).astype(np.float32)
+            for name, p in net.collect_params().items()}
+
+
+def attention_run(torch, mt, ctx, values, x, target, hybridize, dtype,
+                  steps):
+    """``steps`` of record() -> L2Loss(block(x), target) -> backward() ->
+    Trainer.step on ``ctx``; (losses, output, input gradient, parameters
+    after)."""
+    net = attention_block(mt)
+    net.initialize(ctx=ctx)
+    mt.convert.gluon_params_from_numpy(net.collect_params(), values)
+    if dtype == "bfloat16" and not hybridize:
+        net.cast("bfloat16")
+    if hybridize:
+        net.hybridize(compute_dtype=dtype if dtype == "bfloat16" else None)
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.1})
+    loss_fn = mt.gluon.loss.L2Loss()
+    in_dtype = dtype if not hybridize else "float32"
+    xs = mt.nd.array(x, ctx=ctx, dtype=in_dtype)
+    ts = mt.nd.array(target, ctx=ctx, dtype=in_dtype)
+    xs.attach_grad()
+    losses = []
+    for _ in range(steps):
+        with mt.autograd.record():
+            out = net(xs)
+            loss = loss_fn(out, ts)
+        loss.backward()
+        trainer.step(x.shape[0])
+        losses.append(loss.mean())
+    return ([float(l.asscalar()) for l in losses], out.asnumpy(),
+            xs.grad.asnumpy(), mt.convert.gluon_params_to_numpy(
+                net.collect_params()))
+
+
+def phase_gluon_attention(torch, mt):
+    """K1-K3 through the imperative autograd: the attention block at
+    GPT-2 small's widths under record() -> backward() -> Trainer.step, in
+    bf16 imperatively and hybridized (counts reset just before each path,
+    read just after: one K1 with lse, one K2 and one K3 a step), then the
+    q/k/v gradients through nd.contrib.FlashAttention against the plain
+    backward, a retained second backward and an input mutated after
+    recording (card = CPU), and one fp32 step against the CPU."""
+    from mxnet_tpu_torch.ops import attention as att
+    B, S, d = ATTN_BATCH, ATTN_SEQ, ATTN_D
+    rng = np.random.default_rng(SEED + 30)
+    values = attention_values(mt, SEED + 31)
+    x = rng.standard_normal((B, S, d)).astype(np.float32)
+    target = rng.standard_normal((B, S, d)).astype(np.float32)
+    fails, paths, rows = [], {}, {}
+    per_step = {"flash_fwd": 1, "flash_fwd_lse": 1, "flash_bwd_dq": 1,
+                "flash_bwd_dkv": 1}
+    for hybridize in (False, True):
+        key = "gluon_attention_" + ("hybridized" if hybridize
+                                    else "imperative")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        # this path: counts start at 0 here and are read right after
+        reset_counts(mt)
+        losses, out, gx, _ = attention_run(
+            torch, mt, mt.gpu(0), values, x, target, hybridize, "bfloat16",
+            ATTN_STEPS)
+        torch.cuda.synchronize()
+        counts = read_counts(mt)
+        secs = time.monotonic() - t0
+        want = {k: v * ATTN_STEPS for k, v in per_step.items()}
+        if counts != want:
+            fails.append(f"{key}: launches {counts}, want {want}")
+        if not (np.isfinite(losses).all() and np.isfinite(out).all()
+                and np.isfinite(gx).all()):
+            fails.append(f"{key}: non-finite loss, output or gradient")
+        paths[key] = counts
+        rows[key] = dict(losses=losses, launches=counts, seconds=secs,
+                         input_grad_max_abs=float(np.abs(gx).max()))
+
+    # q/k/v gradients through autograd against the plain backward, on
+    # the block's own shapes (not counted: a comparison launch)
+    dev = torch.device("cuda", 0)
+    H, D = ATTN_HEADS, d // ATTN_HEADS
+    qkv = [torch.from_numpy(rng.standard_normal((B, H, S, D), dtype=np.float32))
+           .to(dev, torch.bfloat16) for _ in range(3)]
+    g = torch.from_numpy(rng.standard_normal((B, H, S, D), dtype=np.float32)
+                         ).to(dev, torch.bfloat16)
+    arrs = [mt.nd.NDArray(t.clone()) for t in qkv]
+    for a in arrs:
+        a.attach_grad()
+    with mt.autograd.record():
+        o = mt.nd.contrib.FlashAttention(*arrs, causal=True)
+    o.backward(out_grad=mt.nd.NDArray(g))
+    # the plain backward from the same forward's out and lse (K1 again)
+    out_k, lse = att.flash_fwd_cuda(*qkv, True, None, return_lse=True)
+    ref = att._flash_bwd_reference(*qkv, out_k, lse, g, True, None)
+    grad_err = {}
+    for name, a, r in zip(("dq", "dk", "dv"), arrs, ref):
+        got, want = a.grad.as_torch().float(), r.float()
+        grad_err[name] = float((got - want).abs().max())
+        if not torch.allclose(got, want, **BWD_TOL["bfloat16"]):
+            fails.append(f"{name} through autograd: max error "
+                         f"{grad_err[name]} beyond {BWD_TOL['bfloat16']}")
+
+    # a retained second backward, and an input mutated after recording:
+    # the card against the CPU, fp32 (B 1, S 256, full width)
+    small_x = x[:1, :256]
+    mut = {}
+    for name, ctx in (("gpu", mt.gpu(0)), ("cpu", mt.cpu())):
+        net = attention_block(mt)
+        net.initialize(ctx=ctx)
+        mt.convert.gluon_params_from_numpy(net.collect_params(), values)
+        xs = mt.nd.array(small_x, ctx=ctx)
+        xs.attach_grad()
+        with mt.autograd.record():
+            y = net(xs)
+            loss = (y * y).sum()
+        loss.backward(retain_graph=True)
+        g1 = xs.grad.asnumpy().copy()
+        xs += 1.0                    # mutated after recording
+        loss.backward()
+        mut[name] = (g1, xs.grad.asnumpy())
+    (g1c, g2c), (g1h, g2h) = mut["gpu"], mut["cpu"]
+    # the second backward repeats the first (a mutation that reached the
+    # graph would move it by O(1)): within 1e-6 of the largest element
+    mut_err = float(np.abs(g2c - g1c).max() / np.abs(g1c).max())
+    mut_cpu = float(np.abs(g2h - g1h).max() / np.abs(g1h).max())
+    mut_vs_cpu = float(np.abs(g2c - g2h).max() / np.abs(g2h).max())
+    if mut_err > 1e-6 or mut_cpu > 1e-6 or mut_vs_cpu > ATTN_FP32_RTOL:
+        fails.append(f"retained / mutated backward: second minus first "
+                     f"{mut_err} (card), {mut_cpu} (CPU); card vs CPU "
+                     f"{mut_vs_cpu}")
+
+    # one fp32 step, card (TF32 off) against the CPU
+    fp32 = {}
+    for name, ctx in (("gpu", mt.gpu(0)), ("cpu", mt.cpu())):
+        for hybridize in (False, True):
+            fp32[(name, hybridize)] = attention_run(
+                torch, mt, ctx, values, x[:ATTN_FP32_BATCH],
+                target[:ATTN_FP32_BATCH], hybridize, "float32", 1)
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+    fp32_rows = {}
+    for hybridize in (False, True):
+        (gl, go, ggx, gp), (cl, co, cgx, cp) = \
+            fp32[("gpu", hybridize)], fp32[("cpu", hybridize)]
+        upd = {k: (gp[k] - values[k], cp[k] - values[k]) for k in cp}
+        scale = max(float(np.abs(c).max()) for _, c in upd.values())
+        per_param = {k: float(np.abs(g - c).max()) / scale
+                     for k, (g, c) in upd.items()}
+        worst = max(per_param, key=per_param.get)
+        r = dict(loss_gpu=gl[0], loss_cpu=cl[0], out_rel_diff=rel(go, co),
+                 input_grad_rel_diff=rel(ggx, cgx),
+                 update_rel_diff=per_param[worst], worst_param=worst,
+                 update_scale=scale,
+                 own_scale_rel_diff={k: rel(*upd[k]) for k in upd})
+        fp32_rows["hybridized" if hybridize else "imperative"] = r
+        for k in ("out_rel_diff", "input_grad_rel_diff", "update_rel_diff"):
+            if not r[k] <= ATTN_FP32_RTOL:
+                fails.append(f"fp32 {k} {r[k]} beyond {ATTN_FP32_RTOL}")
+    emit("gluon_attention", block="Dense(3d) -> FlashAttention(causal) -> "
+         "Dense(d)", d_model=d, heads=ATTN_HEADS, seq=S, batch=B,
+         steps_per_path=ATTN_STEPS, bf16=rows, per_step_launches=per_step,
+         qkv_grad_max_abs_err=grad_err, qkv_grad_tol=BWD_TOL["bfloat16"],
+         retained_second_minus_first=dict(gpu=mut_err, cpu=mut_cpu),
+         mutated_card_vs_cpu=mut_vs_cpu,
+         fp32_card_vs_cpu=fp32_rows, fp32_rtol=ATTN_FP32_RTOL,
+         failures=fails)
+    if fails:
+        raise RuntimeError("gluon_attention: " + "; ".join(fails))
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main():
     try:
         import torch
@@ -1760,9 +2350,23 @@ def main():
     vit_counts = phase_vit_train(torch, mt)
     zoo_counts = phase_zoo_predict(torch, mt)
 
+    # Gluon: ResNet-50 v1 through gluon.Trainer (hybridized bf16, its
+    # profile, imperative), its fp32 step against the CPU, and K1-K3
+    # through autograd.record()
+    net, trainer, loss_fn, gbatches, gmed = phase_gluon_resnet_train(
+        torch, mt, PEAK_FLOPS["bfloat16"])
+    phase_gluon_resnet_profile(torch, mt, net, trainer, loss_fn, gbatches,
+                               gmed)
+    del net, trainer, gbatches
+    torch.cuda.empty_cache()
+    phase_gluon_resnet_imperative(torch, mt, PEAK_FLOPS["bfloat16"], gmed)
+    phase_gluon_fp32(torch, mt)
+    gluon_paths = phase_gluon_attention(torch, mt)
+
     def by_path(key):
         return {"serve": serve_counts[key], "train": train_counts[key],
-                "vit_train": vit_counts[key]}
+                "vit_train": vit_counts[key],
+                **{p: c[key] for p, c in gluon_paths.items()}}
 
     def ms_of(row, key):  # the median with its min and max
         return dict(ms=row[key], ms_min=row[f"{key}_min"],
@@ -1829,9 +2433,11 @@ def main():
                             launches_by_path=paths, card=smi, **r))
     # plain_ms and library_ms of the two backward kernels are each of the
     # whole backward (dQ, dK and dV together): the plain version and
-    # SDPA's backward compute all three in one call; the ResNet, decode
-    # and beam-search paths launch none of them; the zoo phase launches
-    # only the fp32 forward (ViT), 12 times a batch
+    # SDPA's backward compute all three in one call; the ResNet (Module
+    # and Gluon), decode and beam-search paths launch none of them; the
+    # zoo phase launches only the fp32 forward (ViT), 12 times a batch;
+    # the Gluon attention block launches each of K1 (lse), K2 and K3 once
+    # a step on each of its two paths
     emit("total", seconds=time.monotonic() - T0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

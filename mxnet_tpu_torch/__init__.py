@@ -16,16 +16,18 @@ from .context import Context, cpu, gpu, current_context
 from . import base, context, profiler, ops, symbol, executor, models
 from . import serving, convert, cuda_lib
 from . import ndarray, random, io, initializer, optimizer, lr_scheduler
-from . import metric, model, callback, module
+from . import metric, model, callback, module, autograd, gluon
 from . import symbol as sym
 from . import ndarray as nd
 from . import module as mod
 from . import initializer as init
-from .convert import params_from_numpy
+from .convert import params_from_numpy, gluon_params_from_numpy, \
+    gluon_params_to_numpy
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "base", "context", "profiler", "ops", "symbol",
            "sym", "executor", "models", "serving", "convert",
            "params_from_numpy", "cuda_lib", "ndarray", "nd", "random",
            "io", "initializer", "init", "optimizer", "lr_scheduler",
-           "metric", "model", "callback", "module", "mod", "__version__"]
+           "metric", "model", "callback", "module", "mod", "autograd",
+           "gluon", "__version__"]

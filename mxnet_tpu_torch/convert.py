@@ -1,8 +1,11 @@
-"""Carry parameters from the JAX package (as numpy) into this package.
+"""Carry parameters between the JAX package (as numpy) and this package.
 
 Parameter names and layouts are the same in both packages (an FC weight
 is (out, in), an embedding (vocab, d)), so conversion moves values; it
-still checks every name and shape against this package's symbol.
+still checks every name and shape: against this package's symbol for
+``Module`` parameters, against a Gluon ``ParameterDict`` for a Gluon
+net's (``collect_params()`` of the same construction in either package
+holds the same names).
 """
 from __future__ import annotations
 
@@ -55,3 +58,34 @@ def params_from_numpy(arg_params: Dict[str, np.ndarray],
                 np.ascontiguousarray(arr)).to(device)
         out.append(tensors)
     return out[0], out[1]
+
+
+def gluon_params_to_numpy(params) -> Dict[str, np.ndarray]:
+    """``{name: numpy array}`` of a Gluon ``ParameterDict`` of either
+    package (every parameter initialized), running statistics included."""
+    return {name: np.asarray(p.data().asnumpy())
+            for name, p in params.items()}
+
+
+def gluon_params_from_numpy(params, values: Dict[str, np.ndarray],
+                            ctx=None) -> None:
+    """Set every parameter of this package's Gluon ``ParameterDict``
+    from ``values`` (e.g. :func:`gluon_params_to_numpy` of the JAX
+    package's net), on each parameter's device and in its dtype; a
+    parameter still waiting for its shape (deferred) takes the value's
+    shape and ``ctx``.  A missing, extra or mis-shaped name raises."""
+    missing = sorted(set(params.keys()) - set(values))
+    extra = sorted(set(values) - set(params.keys()))
+    if missing or extra:
+        raise MXNetError(f"gluon_params_from_numpy: names differ: missing "
+                         f"{missing}, extra {extra}")
+    for name, p in params.items():
+        v = np.asarray(values[name])
+        if p._data is None:
+            p._load_init(v, ctx)
+            continue
+        if tuple(v.shape) != tuple(p.shape):
+            raise MXNetError(f"gluon_params_from_numpy: {name!r} has shape "
+                             f"{tuple(v.shape)}, the parameter "
+                             f"{tuple(p.shape)}")
+        p.set_data(v)

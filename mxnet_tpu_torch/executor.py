@@ -63,7 +63,7 @@ def as_torch_dtype(dtype):
 
 def build_interpreter(sym: Symbol, compute_dtype=None):
     """Build ``run(arg_vals, aux_vals, is_train=False, device=None,
-    generator=None) -> (outs, new_aux)``.
+    generator=None, grad=None) -> (outs, new_aux)``.
 
     ``arg_vals``/``aux_vals`` follow ``list_arguments()`` /
     ``list_auxiliary_states()``.  ``device`` (default: the first argument's
@@ -94,8 +94,9 @@ def build_interpreter(sym: Symbol, compute_dtype=None):
                 else v for v in ins]
 
     def run(arg_vals, aux_vals, is_train=False, device=None,
-            generator=None):
-        with torch.set_grad_enabled(bool(is_train)):
+            generator=None, grad=None):
+        with torch.set_grad_enabled(bool(is_train if grad is None
+                                         else grad)):
             return _run(arg_vals, aux_vals, is_train, device, generator)
 
     def _run(arg_vals, aux_vals, is_train, device, generator):
@@ -137,7 +138,8 @@ def build_interpreter(sym: Symbol, compute_dtype=None):
                 outs = outs[:-opdef.num_aux]
                 for (src, _), u in zip(n.inputs[-opdef.num_aux:], updates):
                     if src.is_variable and src.name in aux_pos:
-                        new_aux[aux_pos[src.name]] = u
+                        old = aux_vals[aux_pos[src.name]]
+                        new_aux[aux_pos[src.name]] = u.to(old.dtype)
             for i, o in enumerate(outs):
                 env[(id(n), i)] = o
         out_vals = tuple(env[(id(h), i)] for h, i in heads)

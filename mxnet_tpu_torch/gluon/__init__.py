@@ -1,0 +1,16 @@
+"""Gluon: the imperative high-level API (reference: python/mxnet/gluon/).
+
+PyTorch counterpart of ``mxnet_tpu/gluon``: parameters, blocks and their
+hybridization, the ``nn`` layers, the losses, the single-device
+``Trainer``, ``utils`` and the model zoo's ResNets.  ``gluon.data``,
+``gluon.rnn`` and ``gluon.contrib`` are not ported yet (ROADMAP G3, C2).
+"""
+from .parameter import (Parameter, Constant, ParameterDict,
+                        DeferredInitializationError)
+from .block import Block, HybridBlock, SymbolBlock
+from .trainer import Trainer
+from . import nn
+from . import loss
+from . import model_zoo
+from . import utils
+from .utils import split_and_load

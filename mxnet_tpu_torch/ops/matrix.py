@@ -1,17 +1,20 @@
-"""Shape-manipulation ops (subset).
+"""Shape-manipulation ops.
 
-PyTorch counterpart of the part of ``mxnet_tpu/ops/matrix.py`` the
-transformer, decode and zoo graphs use: ``Reshape`` with MXNet's special
-codes, ``Flatten``, ``transpose``, ``expand_dims``, ``slice_axis``,
-``Concat``, ``batch_dot``, ``repeat`` and ``SwapAxis``.  Reshape,
-transpose, swapaxes and slicing return views where torch can; ops that
-need contiguous memory (the attention kernel) make it themselves.
-``batch_dot`` is a plain batched product (``torch.matmul``, cuBLAS on the
-card), as the JAX package leaves it to XLA outside any Pallas kernel.
+PyTorch counterpart of ``mxnet_tpu/ops/matrix.py``: ``Reshape`` with
+MXNet's special codes, ``Flatten``, ``transpose``, ``expand_dims``,
+``squeeze``, ``slice`` / ``slice_axis`` / ``slice_like``,
+``reshape_like``, ``Concat``, ``stack``, ``SliceChannel`` (``split``),
+``dot``, ``batch_dot``, ``tile``, ``repeat``, ``flip``, ``SwapAxis`` and
+``Pad``.  Reshape, transpose, swapaxes and slicing return views where
+torch can; ops that need contiguous memory (the attention kernel) make
+it themselves.  ``dot`` and ``batch_dot`` are plain products
+(``torch.tensordot`` / ``torch.matmul``, cuBLAS on the card), as the JAX
+package leaves them to XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .registry import register
 
@@ -77,6 +80,56 @@ def _expand_dims(data, axis=0, **kw):
     return data.unsqueeze(int(axis))
 
 
+@register("squeeze", arg_names=["data"], attr_defaults={"axis": None})
+def _squeeze(data, axis=None, **kw):
+    if axis is None:
+        return data.squeeze()
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    return data.squeeze(tuple(int(a) for a in axes))
+
+
+def _slice_tuple(begin, end, step=()):
+    step = tuple(step) or (None,) * len(begin)
+    return tuple(slice(b, e, s) for b, e, s in zip(begin, end, step))
+
+
+def _basic_slice(data, key):
+    """``data[key]`` for slices of any step: torch takes no negative
+    step, so those dims are flipped first and sliced forward."""
+    idx = []
+    for d, sl in enumerate(key):
+        step = sl.step if sl.step is not None else 1
+        if step > 0:
+            idx.append(sl)
+            continue
+        n = data.shape[d]
+        lo, hi, _ = sl.indices(n)   # numpy semantics of the reverse walk
+        data = data.flip(d)
+        idx.append(slice(n - 1 - lo, n - 1 - hi, -step))
+    return data[tuple(idx)]
+
+
+@register("slice", arg_names=["data"], aliases=("crop",),
+          attr_defaults={"begin": (), "end": (), "step": ()})
+def _slice(data, begin=(), end=(), step=(), **kw):
+    return _basic_slice(data, _slice_tuple(begin, end, step))
+
+
+@register("reshape_like", arg_names=["lhs", "rhs"])
+def _reshape_like(lhs, rhs, **kw):
+    return lhs.reshape(rhs.shape)
+
+
+@register("slice_like", arg_names=["data", "shape_like"],
+          attr_defaults={"axes": ()})
+def _slice_like(data, shape_like, axes=(), **kw):
+    axes = tuple(axes) or tuple(range(min(data.dim(), shape_like.dim())))
+    idx = [slice(None)] * data.dim()
+    for a in axes:
+        idx[a] = slice(0, shape_like.shape[a])
+    return data[tuple(idx)]
+
+
 @register("slice_axis", arg_names=["data"],
           attr_defaults={"axis": 0, "begin": 0, "end": None})
 def _slice_axis(data, axis=0, begin=0, end=None, **kw):
@@ -90,6 +143,40 @@ def _slice_axis(data, axis=0, begin=0, end=None, **kw):
 def _concat(*args, dim=1, num_args=0, **kw):
     """reference: src/operator/concat.cc"""
     return torch.cat(args, dim=int(dim))
+
+
+@register("stack", variadic=True, attr_defaults={"axis": 0, "num_args": 0})
+def _stack(*args, axis=0, num_args=0, **kw):
+    return torch.stack(args, dim=int(axis))
+
+
+@register("SliceChannel", arg_names=["data"], num_outputs=-1,
+          aliases=("split",),
+          attr_defaults={"num_outputs": 1, "axis": 1, "squeeze_axis": False})
+def _split(data, num_outputs=1, axis=1, squeeze_axis=False, **kw):
+    """reference: src/operator/slice_channel.cc — equal parts."""
+    axis = int(axis)
+    n = int(num_outputs)
+    if data.shape[axis] % n:
+        raise ValueError(f"split: dim {data.shape[axis]} of axis {axis} "
+                         f"is not divisible by {n}")
+    parts = torch.split(data, data.shape[axis] // n, dim=axis)
+    if squeeze_axis:
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts)
+
+
+@register("dot", arg_names=["lhs", "rhs"],
+          attr_defaults={"transpose_a": False, "transpose_b": False})
+def _dot(lhs, rhs, transpose_a=False, transpose_b=False, **kw):
+    """reference: tensor/dot-inl.h — contracts the last axis of lhs with
+    the first of rhs; a transpose flag reverses every axis of its
+    operand."""
+    if transpose_a:
+        lhs = lhs.permute(tuple(reversed(range(lhs.dim()))))
+    if transpose_b:
+        rhs = rhs.permute(tuple(reversed(range(rhs.dim()))))
+    return torch.tensordot(lhs, rhs, dims=1)
 
 
 @register("batch_dot", arg_names=["lhs", "rhs"],
@@ -112,6 +199,41 @@ def _repeat(data, repeats=1, axis=None, **kw):
     if axis is None:
         return data.reshape(-1).repeat_interleave(int(repeats))
     return data.repeat_interleave(int(repeats), dim=int(axis))
+
+
+@register("tile", arg_names=["data"], attr_defaults={"reps": ()})
+def _tile(data, reps=(), **kw):
+    return torch.tile(data, tuple(int(r) for r in reps))
+
+
+@register("flip", arg_names=["data"], aliases=("reverse",),
+          attr_defaults={"axis": 0})
+def _flip(data, axis=0, **kw):
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    return torch.flip(data, tuple(int(a) for a in axes))
+
+
+@register("Pad", arg_names=["data"], aliases=("pad",),
+          attr_defaults={"mode": "constant", "pad_width": (),
+                         "constant_value": 0})
+def _pad(data, mode="constant", pad_width=(), constant_value=0, **kw):
+    """reference: src/operator/pad.cc — ``pad_width`` holds (before,
+    after) for every axis, the leading axes' as zeros in the edge and
+    reflect modes (torch pads only the trailing ones there)."""
+    pw = [int(p) for p in pad_width]
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(len(pw) // 2)]
+    if mode != "constant":
+        if any(p != (0, 0) for p in pairs[:2]):
+            raise ValueError(f"Pad {mode}: only the spatial axes of an "
+                             "(N, C, ...) array pad")
+        pairs = pairs[2:]
+    flat = []
+    for before, after in reversed(pairs):
+        flat += [before, after]
+    if mode == "constant":
+        return F.pad(data, flat, value=float(constant_value))
+    tmode = {"edge": "replicate", "reflect": "reflect"}[mode]
+    return F.pad(data, flat, mode=tmode)
 
 
 @register("SwapAxis", arg_names=["data"], aliases=("swapaxes",),

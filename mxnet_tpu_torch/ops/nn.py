@@ -1,10 +1,12 @@
 """Neural-network layer ops (subset).
 
 PyTorch counterpart of the part of ``mxnet_tpu/ops/nn.py`` that the
-transformer LM and the symbolic zoo run: ``FullyConnected``,
-``Convolution``, ``Pooling``, ``BatchNorm``, ``LayerNorm``, ``LRN``,
-``Activation``, ``Dropout``, ``softmax`` and ``SoftmaxOutput`` with its
-gradient.  The
+transformer LM, the symbolic zoo and Gluon's layers run:
+``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Pooling``,
+``BatchNorm``, ``InstanceNorm``, ``LayerNorm``, ``LRN``, ``Activation``,
+``LeakyReLU`` (leaky, prelu, elu, selu, gelu, rrelu), ``Dropout``,
+``softmax``, ``log_softmax``, ``SoftmaxActivation`` and ``SoftmaxOutput``
+with its gradient.  The
 large matrix products go to ``torch.nn.functional.linear`` and the
 convolutions to ``torch.nn.functional.conv{1,2,3}d`` (cuBLAS and cuDNN on
 the card), as the JAX package leaves them to XLA.  ``layout="NHWC"``
@@ -88,6 +90,33 @@ def _convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
     out = _CONV[rank](x, weight, None if no_bias else bias, stride, pad,
                       dilate, int(num_group))
     return _to_nhwc(out) if nhwc else out
+
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register("Deconvolution", arg_names=["data", "weight", "bias"],
+          attr_defaults={"kernel": (), "stride": (), "dilate": (), "pad": (),
+                         "adj": (), "target_shape": (), "num_filter": 0,
+                         "num_group": 1, "no_bias": True, "layout": None,
+                         "workspace": 512})
+def _deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                   pad=(), adj=(), num_filter=0, num_group=1, no_bias=True,
+                   **kw):
+    """reference: deconvolution-inl.h — the transposed convolution, the
+    gradient of Convolution with respect to its data; the weight is
+    (in, out / group, *kernel), torch's own layout for it.  The output
+    is (in - 1) * stride - 2 * pad + dilate * (kernel - 1) + 1 + adj
+    along each spatial dim (``target_shape`` is ignored, as in the JAX
+    package)."""
+    rank = data.dim() - 2
+    stride = _pair(stride, rank) if stride else (1,) * rank
+    dilate = _pair(dilate, rank) if dilate else (1,) * rank
+    pad = _pair(pad, rank) if pad else (0,) * rank
+    adj = _pair(adj, rank) if adj else (0,) * rank
+    return _CONV_T[rank](data, weight, None if no_bias else bias, stride,
+                         pad, adj, int(num_group), dilate)
 
 
 def _full_pads(in_shape, kernel, stride, pad):
@@ -215,6 +244,19 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out, moving_mean, moving_var
 
 
+@register("InstanceNorm", arg_names=["data", "gamma", "beta"],
+          attr_defaults={"eps": 1e-3})
+def _instance_norm(data, gamma, beta, eps=1e-3, **kw):
+    """reference: src/operator/instance_norm.cc — each (example, channel)
+    normalised over its spatial dims with the biased variance."""
+    red = tuple(range(2, data.dim()))
+    mean = data.mean(dim=red, keepdim=True)
+    var = data.var(dim=red, keepdim=True, correction=0)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
 @register("LayerNorm", arg_names=["data", "gamma", "beta"], num_outputs=3,
           num_visible=1,
           attr_defaults={"axis": -1, "eps": 1e-5, "output_mean_var": False})
@@ -289,12 +331,67 @@ def _activation(data, act_type="relu", **kw):
     return fn(data)
 
 
+_SELU_SCALE, _SELU_ALPHA = 1.0507009873554805, 1.6732632423543772
+
+
+@register("LeakyReLU", arg_names=["data", "gamma"], needs_rng=True,
+          takes_is_train=True,
+          attr_defaults={"act_type": "leaky", "slope": 0.25,
+                         "lower_bound": 0.125, "upper_bound": 0.334})
+def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334, is_train=True,
+                generator=None, **kw):
+    """reference: src/operator/leaky_relu.cc.  ``gelu`` is the tanh
+    approximation (``jax.nn.gelu``'s default); ``rrelu`` draws each
+    negative slope from U(lower, upper) with ``generator`` in training
+    (not the JAX package's bits) and takes their mean otherwise."""
+    if act_type == "leaky":
+        return torch.where(data > 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * torch.expm1(data))
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if gamma.dim() == 1 else gamma
+        return torch.where(data > 0, data, g * data)
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(
+            data > 0, data, _SELU_ALPHA * torch.expm1(data))
+    if act_type == "gelu":
+        return F.gelu(data, approximate="tanh")
+    if act_type == "rrelu":
+        if is_train:
+            s = torch.rand(data.shape, generator=generator,
+                           device=data.device).to(data.dtype)
+            s = s * (upper_bound - lower_bound) + lower_bound
+        else:
+            s = (lower_bound + upper_bound) / 2.0
+        return torch.where(data > 0, data, s * data)
+    raise ValueError(act_type)
+
+
 @register("softmax", arg_names=["data"],
           attr_defaults={"axis": -1, "temperature": None})
 def _softmax(data, axis=-1, temperature=None, **kw):
     if temperature:
         data = data / temperature
     return torch.softmax(data, dim=int(axis))
+
+
+@register("log_softmax", arg_names=["data"],
+          attr_defaults={"axis": -1, "temperature": None})
+def _log_softmax(data, axis=-1, temperature=None, **kw):
+    if temperature:
+        data = data / temperature
+    return torch.log_softmax(data, dim=int(axis))
+
+
+@register("SoftmaxActivation", arg_names=["data"],
+          attr_defaults={"mode": "instance"})
+def _softmax_activation(data, mode="instance", **kw):
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1),
+                         dim=-1).reshape(data.shape)
 
 
 @register("SoftmaxOutput", arg_names=["data", "label"],

@@ -1,11 +1,12 @@
-"""Reductions over axes.
+"""Reductions over axes, norms, arg-reductions and broadcasting.
 
-PyTorch counterpart of the ``_reg_reduce`` family of
-``mxnet_tpu/ops/reduce.py`` (reference:
+PyTorch counterpart of ``mxnet_tpu/ops/reduce.py`` (reference:
 src/operator/tensor/broadcast_reduce_op*.cc): ``sum`` (``sum_axis``),
 ``mean``, ``prod``, ``nansum``, ``nanprod``, ``max`` (``max_axis``) and
 ``min`` (``min_axis``), each with ``axis`` (None or () for every axis),
-``keepdims`` and ``exclude`` (reduce every axis but the listed ones).
+``keepdims`` and ``exclude`` (reduce every axis but the listed ones);
+``norm``, ``argmax`` / ``argmin`` (float32 indices), the ``broadcast_to``
+/ ``broadcast_axis`` / ``broadcast_like`` family and ``L2Normalization``.
 """
 from __future__ import annotations
 
@@ -73,3 +74,88 @@ def _reg_reduce(name, fn, aliases):
 
 for _n, (_f, _a) in _REDUCE.items():
     _reg_reduce(_n, _f, _a)
+
+
+# --- norms, arg-reductions and broadcasting (reference:
+# broadcast_reduce_op_value.cc, broadcast_reduce_op_index.cc) --------------
+@register("_square_sum", arg_names=["data"],
+          attr_defaults={"axis": None, "keepdims": False, "exclude": False})
+def _square_sum(data, axis=None, keepdims=False, exclude=False, **kw):
+    return torch.sum(data.square(), dim=_axes(data, axis, exclude),
+                     keepdim=bool(keepdims))
+
+
+@register("norm", arg_names=["data"],
+          attr_defaults={"ord": 2, "axis": None, "keepdims": False})
+def _norm(data, ord=2, axis=None, keepdims=False, **kw):
+    """The L1 or L2 norm over ``axis`` (every axis when None)."""
+    dims = _axes(data, axis, False)
+    if ord == 1:
+        return torch.sum(data.abs(), dim=dims, keepdim=bool(keepdims))
+    return torch.sqrt(torch.sum(data.square(), dim=dims,
+                                keepdim=bool(keepdims)))
+
+
+def _arg_reduce(fn, data, axis, keepdims):
+    """Index of the extreme along ``axis`` (of the flattened array when
+    None), as float32, as the JAX package returns it."""
+    if axis is None:
+        out = fn(data.reshape(-1))
+        if keepdims:
+            out = out.reshape((1,) * data.dim())
+    else:
+        out = fn(data, dim=int(axis), keepdim=bool(keepdims))
+    return out.to(torch.float32)
+
+
+@register("argmax", arg_names=["data"], differentiable=False,
+          attr_defaults={"axis": None, "keepdims": False})
+def _argmax(data, axis=None, keepdims=False, **kw):
+    return _arg_reduce(torch.argmax, data, axis, keepdims)
+
+
+@register("argmin", arg_names=["data"], differentiable=False,
+          attr_defaults={"axis": None, "keepdims": False})
+def _argmin(data, axis=None, keepdims=False, **kw):
+    return _arg_reduce(torch.argmin, data, axis, keepdims)
+
+
+@register("argmax_channel", arg_names=["data"], differentiable=False)
+def _argmax_channel(data, **kw):
+    return torch.argmax(data, dim=-1).to(torch.float32)
+
+
+@register("broadcast_to", arg_names=["data"], attr_defaults={"shape": ()})
+def _broadcast_to(data, shape=(), **kw):
+    """A 0 in ``shape`` keeps the input's dim."""
+    shape = tuple(d if int(s) == 0 else int(s)
+                  for s, d in zip(shape, data.shape))
+    return data.expand(shape)
+
+
+@register("broadcast_axis", arg_names=["data"],
+          attr_defaults={"axis": (), "size": ()}, aliases=("broadcast_axes",))
+def _broadcast_axis(data, axis=(), size=(), **kw):
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    sizes = (size,) if isinstance(size, int) else tuple(size)
+    target = list(data.shape)
+    for a, s in zip(axes, sizes):
+        target[a] = int(s)
+    return data.expand(tuple(target))
+
+
+@register("broadcast_like", arg_names=["lhs", "rhs"])
+def _broadcast_like(lhs, rhs, **kw):
+    return lhs.expand(rhs.shape)
+
+
+@register("L2Normalization", arg_names=["data"],
+          attr_defaults={"eps": 1e-10, "mode": "instance"})
+def _l2norm(data, eps=1e-10, mode="instance", **kw):
+    """reference: src/operator/l2_normalization.cc"""
+    dims = {"instance": tuple(range(1, data.dim())), "channel": (1,),
+            "spatial": tuple(range(2, data.dim()))}.get(mode)
+    if dims is None:
+        raise ValueError(mode)
+    return data / torch.sqrt(
+        torch.sum(data.square(), dim=dims, keepdim=True) + eps)

@@ -14,6 +14,9 @@ are the port.
 """
 from __future__ import annotations
 
+import copyreg
+import io
+import pickle
 from typing import Tuple
 
 import numpy as np
@@ -273,19 +276,130 @@ class Adam(Optimizer):
 
 class Updater:
     """Applies an optimizer per keyed weight, creating each key's state at
-    its first update (reference: optimizer.py get_updater/Updater)."""
+    its first update (reference: optimizer.py get_updater/Updater).
+
+    ``get_states`` / ``set_states`` read and write the JAX package's
+    ``Updater`` blob: a pickle of ``{index: tuple of NDArray}`` whose
+    arrays are the JAX package's NDArray class over a numpy value, so
+    either package's Gluon ``Trainer`` loads the other's file.  The port
+    writes that class by name without importing it, and reads it (and a
+    JAX array inside it) through an unpickler that admits only those
+    names, numpy's and a few builtins; bfloat16 states are written as
+    float32, since numpy has no bfloat16."""
 
     def __init__(self, optimizer: Optimizer):
         self.optimizer = optimizer
         self.states = {}
+        self.states_synced = {}
 
     def __call__(self, index, grad, weight):
         if index not in self.states:
             self.states[index] = \
                 self.optimizer.create_state_multi_precision(index, weight)
+        elif not self.states_synced.get(index, True):
+            dev = weight._data.device
+            self.states[index] = tuple(
+                NDArray(st._data.to(dev)) for st in
+                self.optimizer._state_tuple(self.states[index]))
+        self.states_synced[index] = True
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
+
+    def get_states(self, dump_optimizer=False):
+        if dump_optimizer:
+            raise MXNetError("get_states(dump_optimizer=True): the "
+                             "optimizer object does not cross packages")
+        states = {k: tuple(_JaxNDArray(_numpy_state(st)) for st in
+                           self.optimizer._state_tuple(v))
+                  for k, v in self.states.items()}
+        buf = io.BytesIO()
+        _StatePickler(buf, protocol=2).dump(states)
+        return buf.getvalue()
+
+    def set_states(self, states):
+        """``states``: a blob of :meth:`get_states` of either package
+        (unpickled: load only files this program or the JAX package
+        wrote)."""
+        if isinstance(states, (bytes, bytearray)):
+            states = _StateUnpickler(io.BytesIO(states)).load()
+        if isinstance(states, tuple) and len(states) == 2:
+            states = states[0]
+        self.states = {
+            k: tuple(NDArray(np.ascontiguousarray(_state_value(st)))
+                     for st in self.optimizer._state_tuple(v))
+            for k, v in states.items()}
+        self.states_synced = dict.fromkeys(self.states, False)
 
 
 def get_updater(optimizer: Optimizer) -> Updater:
     return Updater(optimizer)
+
+
+# --------------------------------------------------------------------------
+# the JAX package's Updater blob
+# --------------------------------------------------------------------------
+_JAX_NDARRAY = ("mxnet_tpu.ndarray.ndarray", "NDArray")
+_JAX_ARRAY = ("jax._src.array", "_reconstruct_array")
+_SAFE_BUILTINS = {"tuple", "list", "dict", "set", "frozenset", "int",
+                  "float", "bool", "complex", "bytes", "str", "object"}
+
+
+class _JaxNDArray:
+    """The JAX package's NDArray class in a pickle: written by its name
+    with a numpy payload (its other slots empty), read back as this
+    class with the payload in ``value``."""
+
+    def __init__(self, value=None):
+        self.value = value
+
+    def __reduce_ex__(self, protocol):
+        return (copyreg.__newobj__, (_JaxNDArray,), (None, {
+            "_payload": self.value, "_thunk": None, "_handle": None,
+            "_ctx": None, "_grad": None, "_grad_req": "null",
+            "_deferred_init": None}))
+
+    def __setstate__(self, state):
+        slots = state[1] if isinstance(state, tuple) else state
+        self.value = slots.get("_payload")
+
+
+def _numpy_state(arr):
+    """An optimizer state as numpy (bfloat16 as float32)."""
+    t = arr._data.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+class _StatePickler(pickle._Pickler):
+    def save_global(self, obj, name=None):
+        if obj is _JaxNDArray:
+            self.write(pickle.GLOBAL + ("%s\n%s\n" % _JAX_NDARRAY).encode())
+            self.memoize(obj)
+            return
+        super().save_global(obj, name)
+
+
+def _reconstruct_array(fun, args, arr_state, aval_state):
+    """A JAX array's pickle, as the numpy array it carries."""
+    arr = fun(*args)
+    arr.__setstate__(arr_state)
+    return arr
+
+
+class _StateUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) == _JAX_NDARRAY:
+            return _JaxNDArray
+        if (module, name) == _JAX_ARRAY:
+            return _reconstruct_array
+        if module.split(".")[0] == "numpy" or (
+                module == "builtins" and name in _SAFE_BUILTINS) or (
+                module == "copyreg" and name == "_reconstructor"):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(f"optimizer states: {module}.{name} "
+                                     "is not a state array")
+
+
+def _state_value(st):
+    return np.asarray(st.value if isinstance(st, _JaxNDArray) else st)

@@ -1,4 +1,4 @@
-"""Profiler counters used by the serving path.
+"""Profiler counters (the serving path, Module, autograd and Gluon).
 
 PyTorch counterpart of the subset of ``mxnet_tpu/profiler.py`` that
 ``serving/`` calls: dispatch counters, host-sync counters, channel events,

@@ -9,11 +9,19 @@ heads), so a graph saved by either package loads in the other.
 
 Shape inference runs forward over the graph: parameter shapes are filled
 from the data shapes by per-op rules (FullyConnected, Convolution,
-BatchNorm, LayerNorm, Embedding), and every op's shape comes from
-running its torch function on ``device="meta"`` tensors, which carry
-shapes and no data. The JAX package's bidirectional pre-pass, which
+Deconvolution, BatchNorm, InstanceNorm, LayerNorm, Embedding, PReLU), and
+every op's shape comes from running its torch function on
+``device="meta"`` tensors, which carry shapes and no data;
+``infer_shape_partial`` (Gluon's deferred initialization) returns None
+where it cannot tell. The JAX package's bidirectional pre-pass, which
 resolves unknown (0) dims from constraints elsewhere in the graph, is
 not ported yet.
+
+A variable composed into an op's auxiliary slot (BatchNorm's moving
+statistics, as a Gluon block passes its ``running_mean``) is an
+auxiliary state of the graph, as in the reference; the JAX package keeps
+such a variable an argument, so a hybridized Gluon BatchNorm there never
+updates its running statistics (ROADMAP §3).
 """
 from __future__ import annotations
 
@@ -52,7 +60,14 @@ def node_num_outputs(node: Node) -> int:
     opdef = _reg.get(node.op)
     n = opdef.num_visible if opdef.num_visible is not None \
         else opdef.num_outputs
-    return 1 if n == -1 else n
+    if n == -1:  # attr-dependent (reference: SliceChannel num_outputs)
+        if node.op in ("SliceChannel", "split"):
+            return int(node.attrs.get("num_outputs", 1))
+        if node.op == "topk":
+            return 2 if node.attrs.get("ret_typ", "indices") == "both" \
+                else 1
+        return 1
+    return n
 
 
 def _topo_sort(heads: Sequence[Tuple[Node, int]]) -> List[Node]:
@@ -128,12 +143,42 @@ def _embedding_param_shapes(attrs, in_shapes):
     return {"weight": (int(attrs["input_dim"]), int(attrs["output_dim"]))}
 
 
+def _deconv_param_shapes(attrs, in_shapes):
+    data = in_shapes.get("data")
+    if data is None:
+        return {}
+    kernel = tuple(int(k) for k in attrs.get("kernel", ()))
+    nf = int(attrs.get("num_filter", 0))
+    ng = int(attrs.get("num_group", 1))
+    out = {"weight": (data[1], nf // ng) + kernel}
+    if not attrs.get("no_bias", True):
+        out["bias"] = (nf,)
+    return out
+
+
+def _in_param_shapes(attrs, in_shapes):
+    data = in_shapes.get("data")
+    if data is None:
+        return {}
+    return {"gamma": (data[1],), "beta": (data[1],)}
+
+
+def _prelu_param_shapes(attrs, in_shapes):
+    data = in_shapes.get("data")
+    if data is None or attrs.get("act_type", "leaky") != "prelu":
+        return {}
+    return {"gamma": (data[1] if len(data) > 1 else 1,)}
+
+
 PARAM_SHAPE_INFER = {
     "FullyConnected": _fc_param_shapes,
     "Convolution": _conv_param_shapes,
+    "Deconvolution": _deconv_param_shapes,
     "BatchNorm": _bn_param_shapes,
+    "InstanceNorm": _in_param_shapes,
     "LayerNorm": _ln_param_shapes,
     "Embedding": _embedding_param_shapes,
+    "LeakyReLU": _prelu_param_shapes,
 }
 
 
@@ -143,9 +188,12 @@ def _skip_args(op: str, attrs: dict) -> set:
     opdef = _reg.find(op)
     no_bias_default = (opdef.attr_defaults.get("no_bias", False)
                        if opdef else False)
+    skip = set()
     if attrs.get("no_bias", no_bias_default) in (True, "True", "true", 1):
-        return {"bias"}
-    return set()
+        skip.add("bias")
+    if op == "LeakyReLU" and attrs.get("act_type", "leaky") != "prelu":
+        skip.add("gamma")
+    return skip
 
 
 class Symbol:
@@ -168,6 +216,23 @@ class Symbol:
 
     def __len__(self):
         return len(self._expanded_heads())
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def __getitem__(self, index):
+        """One output (by position or name) or a slice of outputs."""
+        outputs = self._expanded_heads()
+        if isinstance(index, str):
+            names = self.list_outputs()
+            hits = [i for i, n in enumerate(names)
+                    if n == index or n == index + "_output"]
+            if not hits:
+                raise ValueError(f"no output named {index!r}")
+            return Symbol([outputs[hits[0]]])
+        if isinstance(index, slice):
+            return Symbol(outputs[index])
+        return Symbol([outputs[index]])
 
     def _expanded_heads(self) -> List[Tuple[Node, int]]:
         out = []
@@ -238,7 +303,15 @@ class Symbol:
         except Exception as e:
             raise MXNetError(f"infer_shape error: {e}")
 
-    def _infer_shape_impl(self, *args, **kwargs):
+    def infer_shape_partial(self, *args, **kwargs):
+        """As :meth:`infer_shape`, with None for what cannot be inferred
+        (every argument's shape None when the graph cannot be walked)."""
+        try:
+            return self._infer_shape_impl(*args, partial=True, **kwargs)
+        except Exception:
+            return ([None] * len(self.list_arguments()), None, None)
+
+    def _infer_shape_impl(self, *args, partial=False, **kwargs):
         arg_names = self.list_arguments()
         known: Dict[str, tuple] = {}
         for n, s in zip(arg_names, args):
@@ -250,7 +323,7 @@ class Symbol:
         arg_shapes = [shapes.get(n) for n in arg_names]
         aux_shapes = [shapes.get(n) for n in self.list_auxiliary_states()]
         missing = [n for n, s in zip(arg_names, arg_shapes) if s is None]
-        if missing:
+        if missing and not partial:
             raise MXNetError(f"infer_shape: cannot infer shapes for {missing}")
         return arg_shapes, shapes["__outputs__"], aux_shapes
 
@@ -302,9 +375,55 @@ class Symbol:
     def __mul__(self, o): return self._binop(o, "broadcast_mul", "_mul_scalar")
     __rmul__ = __mul__
     def __truediv__(self, o): return self._binop(o, "broadcast_div", "_div_scalar")
+    def __rtruediv__(self, o): return self._binop(o, "broadcast_div", "_rdiv_scalar", rop=True)
+    def __pow__(self, o): return self._binop(o, "broadcast_power", "_power_scalar")
+    def __rpow__(self, o): return self._binop(o, "broadcast_power", "_rpower_scalar", rop=True)
+    def __mod__(self, o): return self._binop(o, "broadcast_mod", "_mod_scalar")
+    def __neg__(self): return _compose("negative", [self], {}, None)
+    def __abs__(self): return _compose("abs", [self], {}, None)
+    def __gt__(self, o): return self._binop(o, "broadcast_greater", "_greater_scalar")
+    def __ge__(self, o): return self._binop(o, "broadcast_greater_equal", "_greater_equal_scalar")
+    def __lt__(self, o): return self._binop(o, "broadcast_lesser", "_lesser_scalar")
+    def __le__(self, o): return self._binop(o, "broadcast_lesser_equal", "_lesser_equal_scalar")
 
     def __hash__(self):
         return id(self)
+
+    # -- method mirrors of ops (the ones Gluon layers call) -----------------
+    def reshape(self, *shape, **kw):
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        return _compose("Reshape", [self], {"shape": shape, **kw}, None)
+
+    def transpose(self, *axes):
+        if len(axes) == 1 and isinstance(axes[0], (tuple, list)):
+            axes = tuple(axes[0])
+        return _compose("transpose", [self], {"axes": axes}, None)
+
+    def astype(self, dtype):
+        from ..ndarray.ndarray import dtype_name
+        return _compose("Cast", [self], {"dtype": dtype_name(dtype)}, None)
+
+    def sum(self, axis=None, keepdims=False):
+        return _compose("sum", [self], {"axis": axis, "keepdims": keepdims},
+                        None)
+
+    def mean(self, axis=None, keepdims=False):
+        return _compose("mean", [self], {"axis": axis, "keepdims": keepdims},
+                        None)
+
+    def flatten(self):
+        return _compose("Flatten", [self], {}, None)
+
+    def slice_axis(self, axis, begin, end):
+        return _compose("slice_axis", [self],
+                        {"axis": axis, "begin": begin, "end": end}, None)
+
+    def expand_dims(self, axis):
+        return _compose("expand_dims", [self], {"axis": axis}, None)
+
+    def softmax(self, axis=-1):
+        return _compose("softmax", [self], {"axis": axis}, None)
 
 
 def _attr_to_str(v):
@@ -342,6 +461,10 @@ def _compose(op_name: str, inputs: List[Symbol], attrs: dict,
             v = Variable(f"{name}_{extra}", attr=user_attr,
                          __is_aux__="1" if is_aux else None)
             heads.extend(v._expanded_heads())
+        # a given variable in an auxiliary slot is an auxiliary state
+        for slot, (src, _) in zip(wanted, heads):
+            if slot in aux_names and src.is_variable:
+                src._user_attrs["__is_aux__"] = "1"
 
     node = Node(op_name, name, attrs, heads, user_attrs)
     return Symbol([(node, None)])
@@ -355,7 +478,8 @@ def var(name, attr=None, shape=None, dtype=None, **kwargs) -> Symbol:
     if shape is not None:
         user_attrs["__shape__"] = str(tuple(shape))
     if dtype is not None:
-        user_attrs["__dtype__"] = np.dtype(dtype).name
+        from ..ndarray.ndarray import dtype_name
+        user_attrs["__dtype__"] = dtype_name(dtype)
     for k, v in kwargs.items():
         if v is not None:
             user_attrs[k] = str(v)

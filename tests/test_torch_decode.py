@@ -124,8 +124,8 @@ def test_nd_take_runs_on_the_arrays_device_without_autograd():
     # basic slicing along axis 0 is a view; copy() is not
     assert a[1:3].shape == (2, 3) and a.ndim == 2
     assert a[1:3].as_torch().data_ptr() == a.as_torch()[1].data_ptr()
-    with pytest.raises(mt.MXNetError, match="slice"):
-        a[2]
+    # general indexing (ported with the imperative NDArray): a row
+    np.testing.assert_array_equal(a[2].asnumpy(), a.asnumpy()[2])
     c = a.copy()
     assert c.as_torch().data_ptr() != a.as_torch().data_ptr()
 

@@ -99,3 +99,51 @@ def test_slice_modules_are_loaded_and_scanned():
         assert "mxnet_tpu_torch." + mod in out["mods"], mod
         assert os.path.join("mxnet_tpu_torch",
                             *mod.split(".")) + ".py" in scanned, mod
+
+
+# the imperative / Gluon slice's modules
+GLUON_MODULES = ["autograd", "ndarray.register", "gluon", "gluon.parameter",
+                 "gluon.block", "gluon.trainer", "gluon.loss", "gluon.utils",
+                 "gluon.nn", "gluon.nn.basic_layers", "gluon.nn.conv_layers",
+                 "gluon.model_zoo",
+                 "gluon.model_zoo.vision", "gluon.model_zoo.vision.resnet"]
+
+
+def test_gluon_and_autograd_import_and_run_hermetically():
+    """Importing ``mxnet_tpu_torch.gluon`` and ``.autograd`` and training
+    a step of a Gluon net on the CPU loads no jax and no mxnet_tpu,
+    starts no CUDA context and builds no kernel."""
+    code = (
+        "import json, sys, torch\n"
+        "import mxnet_tpu_torch.gluon as gluon\n"
+        "import mxnet_tpu_torch.autograd as autograd\n"
+        "import mxnet_tpu_torch as mt\n"
+        "with mt.cpu():\n"
+        "    net = gluon.nn.HybridSequential()\n"
+        "    net.add(gluon.nn.Conv2D(4, 3), gluon.nn.BatchNorm(),\n"
+        "            gluon.nn.Dense(3))\n"
+        "    net.initialize()\n"
+        "    net.hybridize()\n"
+        "    tr = gluon.Trainer(net.collect_params(), 'sgd')\n"
+        "    x = mt.nd.ones((2, 3, 6, 6))\n"
+        "    with autograd.record():\n"
+        "        loss = gluon.loss.L2Loss()(net(x), mt.nd.zeros((2, 3)))\n"
+        "    loss.backward()\n"
+        "    tr.step(2)\n"
+        "print(json.dumps({'mods': sorted(sys.modules),\n"
+        "  'cuda_init': torch.cuda.is_initialized(),\n"
+        "  'libs': sorted(mt.cuda_lib._libs)}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert [m for m in out["mods"] if _forbidden(m)] == []
+    assert out["cuda_init"] is False
+    assert out["libs"] == []
+    scanned = {os.path.relpath(p, ROOT) for p in _sources()}
+    for mod in GLUON_MODULES:
+        assert "mxnet_tpu_torch." + mod in out["mods"], mod
+        path = os.path.join("mxnet_tpu_torch", *mod.split("."))
+        assert path + ".py" in scanned or \
+            os.path.join(path, "__init__.py") in scanned, mod

@@ -30,6 +30,28 @@ Parts (all by default; each prints JSON lines):
   port and JAX package, each against the port in float64 (relative to
   the largest gradient), over seeds and sizes.
 
+* ``gluon`` (several minutes): the numbers behind ``chip_smoke.py``'s
+  Gluon phases and ``tests/test_torch_gluon_resnet.py``:
+
+  - ``train``: the ``gluon_resnet_train`` loop (resnet50_v1 at full
+    depth and width, ``gluon.Trainer`` SGD lr 0.1 momentum 0.9 wd 1e-4,
+    Xavier gaussian magnitude 2, two synthetic batches in turn) on the
+    CPU, hybridized, fp32, batch 16 of 112x112 (the card's 256 of
+    224x224 cut for the CPU): every loss of 25 steps, the means of the
+    first and last 5;
+  - ``fp32_vs_float64``: ``gluon_fp32_card_vs_cpu``'s step (batch 2,
+    224x224, the same seeded weights) on the CPU in fp32 against
+    float64, hybridized and imperatively: the budget's numbers;
+  - ``attention_fp32_vs_float64``: ``gluon_attention``'s fp32 step
+    (batch 2, the block's seeded weights) in fp32 against float64: each
+    parameter's update, relative to its own largest element and to the
+    block's largest update;
+  - ``small_resnets``: ``tests/test_torch_gluon_resnet.py``'s steps
+    (resnet18_v1, resnet50_v1, resnet50_v2, batch 2 of 64x64), each
+    package's f32 against the port's float64: the training logits and
+    the update, relative to their largest value, with oneDNN's
+    convolutions on and off.
+
 * ``decode_vs_lm``, ``beam``, ``vit``, ``zoo``: the decode, beam, ViT and
   zoo phases of ``chip_smoke.py``, with its own helpers, on the CPU at
   full width and cut depth or batch:
@@ -389,7 +411,94 @@ def part_zoo():
                           for r in out.values()))
 
 
-PARTS = {"resnet": part_resnet, "deep_bn": part_deep_bn,
+def part_gluon():
+    ctx = mt.cpu()
+    out = {}
+    # the training loop's losses (the margin of gluon_resnet_train)
+    B, shape = 16, (3, 112, 112)
+    net = cs.gluon_resnet(mt, ctx, cs.SEED, hybridize=False)
+    net.hybridize()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(cs.GLUON_OPT))
+    batches = cs.gluon_batches(torch, mt, torch.device("cpu"), B, shape,
+                               cs.SEED + 20)
+    n = cs.GLUON_WARMUP + cs.GLUON_STEPS
+    _, losses = cs.gluon_train_steps(
+        mt, net, trainer, mt.gluon.loss.SoftmaxCrossEntropyLoss(), batches,
+        n, lambda: None)
+    out["train"] = dict(batch=B, image=list(shape), losses=losses,
+                        first5=float(np.mean(losses[:5])),
+                        last5=float(np.mean(losses[-5:])))
+    # the fp32 card-vs-CPU budget: the CPU's fp32 against float64
+    values = cs.gluon_numpy_params(mt, cs.SEED + 21)
+    rng = np.random.default_rng(cs.SEED + 22)
+    x = rng.uniform(-1, 1, (cs.GLUON_FP32_BATCH,) + cs.GLUON_FP32_IMAGE) \
+        .astype(np.float32)
+    y = rng.integers(0, 1000, cs.GLUON_FP32_BATCH).astype(np.int32)
+    for hybridize in (True, False):
+        row = cs.gluon_fp32_compare(
+            cs.gluon_fp32_step(mt, ctx, values, x, y, hybridize),
+            cs.gluon_fp32_step(mt, ctx, values, x.astype(np.float64), y,
+                               hybridize, dtype="float64"), values)
+        out["fp32_vs_float64_" + ("hybridized" if hybridize
+                                  else "imperative")] = row
+    # the attention block's fp32 step against float64 (the basis of
+    # gluon_attention's fp32 check): each parameter's update, relative to
+    # its own largest element and to the block's largest update
+    rng = np.random.default_rng(cs.SEED + 30)
+    avals = cs.attention_values(mt, cs.SEED + 31)
+    full = (cs.ATTN_BATCH, cs.ATTN_SEQ, cs.ATTN_D)    # as the phase draws
+    ax = rng.standard_normal(full).astype(np.float32)[:cs.ATTN_FP32_BATCH]
+    at = rng.standard_normal(full).astype(np.float32)[:cs.ATTN_FP32_BATCH]
+
+    def attn_update(dtype):
+        net = cs.attention_block(mt)
+        net.initialize(ctx=ctx)
+        net.cast(dtype)
+        mt.convert.gluon_params_from_numpy(net.collect_params(), avals)
+        tr = mt.gluon.Trainer(net.collect_params(), "sgd",
+                              {"learning_rate": 0.1})
+        with mt.autograd.record():
+            loss = mt.gluon.loss.L2Loss()(
+                net(mt.nd.array(ax, ctx=ctx, dtype=dtype)),
+                mt.nd.array(at, ctx=ctx, dtype=dtype))
+        loss.backward()
+        tr.step(cs.ATTN_FP32_BATCH)
+        return {k: v.astype(np.float64) - avals[k] for k, v in
+                mt.convert.gluon_params_to_numpy(net.collect_params())
+                .items()}
+    u32, u64 = attn_update("float32"), attn_update("float64")
+    scale = max(float(np.abs(v).max()) for v in u64.values())
+    out["attention_fp32_vs_float64"] = {
+        k: dict(own=float(np.abs(u32[k] - u64[k]).max()
+                          / np.abs(u64[k]).max()),
+                block=float(np.abs(u32[k] - u64[k]).max()) / scale)
+        for k in u64}
+    # the small ResNets of tests/test_torch_gluon_resnet.py
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import test_torch_gluon_resnet as tg
+    small = {}
+    with ctx:
+        for name in tg.NETS:
+            for onednn in (True, False):
+                tg._CACHE.clear()
+                with torch.backends.mkldnn.flags(enabled=onednn):
+                    before, xs, ys, f64, t32 = tg._reference(name)
+                    jnet, _ = tg._build(name)
+                    j32 = tg._step(mx, jnet, xs, ys)
+
+                def logit_err(r):
+                    return float(np.abs(r[0] - f64[0]).max()
+                                 / np.abs(f64[0]).max())
+                small[f"{name}_onednn_{'on' if onednn else 'off'}"] = dict(
+                    port_logits=logit_err(t32), jax_logits=logit_err(j32),
+                    port_update=tg._update_err(t32[2], f64[2], before),
+                    jax_update=tg._update_err(j32[2], f64[2], before))
+    out["small_resnets"] = small
+    return out
+
+
+PARTS = {"resnet": part_resnet, "deep_bn": part_deep_bn, "gluon": part_gluon,
          "decode_vs_lm": part_decode_vs_lm, "beam": part_beam,
          "vit": part_vit, "zoo": part_zoo}
 
