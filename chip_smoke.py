@@ -28,7 +28,16 @@ zoo's ResNet-50 v1 trains at ImageNet width through ``autograd.record()``
 and ``gluon.Trainer``, hybridized with bf16 compute and imperatively,
 with one float32 step held against the CPU, and a user attention block
 at GPT-2 small's widths drives the flash kernels through the imperative
-autograd.  Every phase prints one JSON
+autograd.  Right after the build, a user kernel (the doubler,
+``mxnet_tpu_torch/csrc/rtc_doubler.cu``) is compiled at runtime through
+``mt.rtc.CudaModule`` and called on a 256 MiB NDArray.  Last, the RNN
+family: ``benchmark/rnn_bench.py``'s LSTM language model (2 x 650,
+vocab 10000, batch 64 x 35) trains through ``Module`` and
+``FusedRNNCell`` in bf16, with one fp32 step held against the CPU;
+``examples/rnn/train_ptb.py``'s ``BucketingModule.fit`` runs an epoch
+at the same widths over four buckets; and a Gluon LSTM LM at those
+widths trains through ``gluon.Trainer``, hybridized and imperatively,
+with one fp32 step held against the CPU.  Every phase prints one JSON
 line;
 any failed phase exits non-zero.  The line before the last lists the
 kernels with their launches on each path, times and bounds; the last
@@ -291,6 +300,88 @@ ATTN_D, ATTN_HEADS, ATTN_SEQ, ATTN_BATCH = 768, 12, 1024, 8
 ATTN_STEPS = 3
 ATTN_FP32_BATCH = 2
 ATTN_FP32_RTOL = 1e-3
+# the user-kernel path (mx.rtc): the doubler of tests/test_contrib.py:100
+# (o = 2 x, a Pallas kernel there) as CUDA source, compiled at runtime
+# through rtc.CudaModule and called through rtc.CudaFunction on an
+# (8192, 8192) f32 NDArray (256 MiB), bit for bit against x * 2; its
+# bound is one read and one write of 256 MiB at 3.35 TB/s
+RTC_SOURCE = os.path.join("mxnet_tpu_torch", "csrc", "rtc_doubler.cu")
+RTC_SHAPE = (8192, 8192)
+RTC_BLOCK = 256
+# the LSTM language model of benchmark/rnn_bench.py:39-63,88-99 (Zaremba
+# et al. 2014's medium PTB model: 2 layers of 650, embedding 650,
+# unrolled 35 steps; vocab 10000, batch 64), not cut: FusedRNNCell
+# (the fused RNN op, cuDNN), bf16 compute over fp32 masters, Xavier, SGD
+# momentum 0.9 at lr 0.3 (rnn_bench.py's lr 1.0, without the gradient
+# clipping of Zaremba et al., makes the loss alternate between the two
+# batches: 9.59 -> 9.44 over 25 steps in the CPU rehearsal, where lr 0.3
+# gives 9.18 -> 8.28; the step's work is the same), int32 ids and labels (rnn_bench.py feeds float
+# ids, which a bf16 cast rounds above 256), two synthetic batches made
+# on the card (rnn_batches); RNN_WARMUP + RNN_STEPS steps
+RNN = dict(layers=2, hidden=650, embed=650, seq=35, vocab=10000, batch=64)
+RNN_OPT = {"learning_rate": 0.3, "momentum": 0.9}
+RNN_WARMUP = 5
+RNN_STEPS = 20
+# analytic fwd + bwd FLOPs a token, rnn_bench.py:137-149 (copied): the
+# 4-gate input and hidden products of each layer and the vocab
+# projection, x 3 for the backward (the embedding is a gather)
+RNN_FLOPS_PER_TOKEN = 3.0 * (sum(
+    2.0 * 4 * RNN["hidden"] * ((RNN["embed"] if l == 0 else RNN["hidden"])
+                               + RNN["hidden"])
+    for l in range(RNN["layers"])) + 2.0 * RNN["hidden"] * RNN["vocab"])
+# the mean of the last 5 losses must be below the first 5's by this many
+# nats (fixed from tests/torch_numerics.py rnn, the same loop in fp32 on
+# the CPU: about a third of its drop)
+RNN_MARGIN = 0.3
+# one fp32 step of the same model and batch, card (TF32 off) against the
+# CPU from the same numpy weights: the loss, and each parameter's update
+# relative to its own largest element (tests/torch_numerics.py rnn: the
+# CPU's fp32 lands 2.6e-7 from float64 in the loss and 1.0e-6 in the
+# updates; the card's cuDNN is a second f32 order, and the budgets are
+# about 40x and 100x that)
+RNN_FP32_LOSS_TOL = 1e-5
+RNN_FP32_UPDATE_RTOL = 1e-4
+# examples/rnn/train_ptb.py's path (:58-110) at PTB-medium widths: 2
+# LSTMCells of 650 in a SequentialRNNCell (unfused), embedding 650,
+# vocab 10000 (the embedding and the softmax), BucketSentenceIter over
+# 3000 sentences of the example's synthetic_corpus (copied below) at
+# its own default of 60 token ids (with 10000, one epoch sees each id
+# about 5 times and the CPU rehearsal's perplexity stays flat or rises
+# at lr 0.01-1.0: PERF.md §6; its sentences are 8-24 tokens, so
+# bucket 40, the default, is bound and gets no batch), buckets
+# 10/20/30/40, batch 32,
+# BucketingModule.fit for one epoch with Perplexity (the pad label left
+# out), bf16, the example's SGD (lr 0.1, examples/common.py's momentum
+# 0.9 and wd 1e-4) and Xavier
+PTB = dict(layers=2, hidden=650, embed=650, vocab=10000, batch=32,
+           buckets=(10, 20, 30, 40), sentences=3000, corpus_vocab=60)
+PTB_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+# the mean log-perplexity of the last PTB_WINDOW batches must be below
+# the first PTB_WINDOW's by PTB_MARGIN nats (tests/torch_numerics.py
+# rnn, fp32 on the CPU: 8.32 -> 3.74 over 92 batches, so a third of it)
+PTB_WINDOW = 10
+PTB_MARGIN = 1.5
+# the Gluon LM at rnn_train's widths and batches: nn.Embedding ->
+# gluon.rnn.LSTM(650, 2) -> nn.Dense(10000),
+# SoftmaxCrossEntropyLoss(weight=35) (Gluon's loss is the mean over the
+# sequence; the weight makes it the sum that Module's SoftmaxOutput
+# differentiates, so rnn_train's SGD takes the same step; losses are
+# reported a token), gluon.Trainer; hybridized
+# (compute_dtype="bfloat16") and imperatively (net.cast("bfloat16"),
+# multi_precision), GLUON_LM_WARMUP + GLUON_LM_STEPS steps a path; one
+# fp32 step at batch GLUON_LM_FP32_BATCH card against CPU
+GLUON_LM_OPT = dict(RNN_OPT)
+GLUON_LM_WARMUP = 5
+GLUON_LM_STEPS = 10
+# the mean of the last 3 losses below the first 3's by this many nats
+# (tests/torch_numerics.py rnn: 9.21 -> 8.67, a third of it)
+GLUON_LM_MARGIN = 0.18
+# (tests/torch_numerics.py rnn: the CPU's fp32 lands 5.1e-7 from
+# float64 in the loss, and 1.5e-4 of their own largest element in the
+# h2h weights' updates, which cancel over 8 x 35 products; 1e-5 and 2e-3)
+GLUON_LM_FP32_BATCH = 8
+GLUON_LM_FP32_LOSS_TOL = 1e-5
+GLUON_LM_FP32_UPDATE_RTOL = 2e-3
 
 
 T0 = time.monotonic()
@@ -2296,6 +2387,613 @@ def phase_gluon_attention(torch, mt):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# the user-kernel path: mx.rtc
+# ---------------------------------------------------------------------------
+def rtc_doubler(mt):
+    """The doubler compiled through rtc.CudaModule from its source in the
+    checkout, and the op a user calls: rtc.CudaFunction over a closure
+    that allocates the output and launches the kernel."""
+    import torch
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, RTC_SOURCE)) as f:
+        source = f.read()
+    kernel = mt.rtc.CudaModule(source).get_kernel(
+        "doubler", "const float* x, float* y, int n")
+
+    def launch(x):
+        y = torch.empty_like(x)
+        n = x.numel()
+        kernel.launch([x, y, n], mt.gpu(x.device.index or 0),
+                      ((n + RTC_BLOCK - 1) // RTC_BLOCK,), (RTC_BLOCK,))
+        return y
+    return kernel, launch, mt.rtc.CudaFunction(launch, name="doubler")
+
+
+def phase_rtc(torch, mt):
+    """Compile the doubler, drive it as a user would (an NDArray on the
+    card through the op wrapper, twice, counts reset just before), hold
+    both results bit for bit against x * 2, and time the kernel beside
+    its bound, the plain version and torch.mul."""
+    t0 = time.monotonic()
+    kernel, launch, op = rtc_doubler(mt)
+    build_s = time.monotonic() - t0
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    x = torch.randn(RTC_SHAPE, generator=gen, device="cuda")
+    xa = mt.nd.NDArray(x)
+    kernel.launches = 0
+    y1 = op(xa)
+    y2 = op(xa)
+    launches = kernel.launches
+    torch.cuda.synchronize()
+    want = x * 2
+    equal = torch.equal(y1._data, want) and torch.equal(y2._data, want)
+    err = float((y1._data - want).abs().max())
+    if launches != 2 or not equal:
+        raise RuntimeError(f"rtc: {launches} launches (want 2), equal to "
+                           f"x * 2: {equal}, max |diff| {err}")
+    row = dict(shape=list(RTC_SHAPE), dtype="float32", build_s=build_s,
+               launches=launches, bit_identical=equal,
+               bit_identical_relaunch=torch.equal(y1._data, y2._data),
+               max_abs_err=err, library_so=kernel.path)
+    nbytes = 2 * x.numel() * 4
+    timed(row, "kernel_ms", lambda: launch(x))
+    timed(row, "plain_ms", lambda: x * 2)
+    timed(row, "library_ms", lambda: torch.mul(x, 2))
+    row.update(bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+               bound_by="bytes")
+    emit("rtc", **row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# the RNN family: benchmark/rnn_bench.py through Module, PTB bucketing,
+# the Gluon LSTM
+# ---------------------------------------------------------------------------
+def rnn_lm_sym(mt):
+    """rnn_bench.py's build_sym over the port: Embedding -> FusedRNNCell
+    (one RNN op, layout NTC) -> FullyConnected(vocab) -> SoftmaxOutput."""
+    sym = mt.sym
+    cell = mt.rnn.FusedRNNCell(RNN["hidden"], num_layers=RNN["layers"],
+                               mode="lstm", prefix="lstm_")
+    embed = sym.Embedding(sym.Variable("data"), input_dim=RNN["vocab"],
+                          output_dim=RNN["embed"], name="embed")
+    out, _ = cell.unroll(RNN["seq"], inputs=embed, merge_outputs=True,
+                         layout="NTC")
+    pred = sym.FullyConnected(sym.Reshape(out, shape=(-1, RNN["hidden"])),
+                              num_hidden=RNN["vocab"], name="pred")
+    lab = sym.Reshape(sym.Variable("softmax_label"), shape=(-1,))
+    return sym.SoftmaxOutput(pred, lab, name="softmax")
+
+
+def rnn_module(mt, ctx, compute_dtype=None, batch=None, arg_params=None):
+    """rnn_bench.py's Module: int32 ids and labels, Xavier (seeded) or
+    ``arg_params``, SGD lr 1.0 momentum 0.9."""
+    B, T = batch or RNN["batch"], RNN["seq"]
+    mod = mt.mod.Module(rnn_lm_sym(mt), context=ctx,
+                        compute_dtype=compute_dtype)
+    mod.bind([mt.io.DataDesc("data", (B, T), np.int32)],
+             [mt.io.DataDesc("softmax_label", (B, T), np.int32)])
+    mt.random.seed(SEED)
+    mod.init_params(mt.initializer.Xavier(), arg_params=arg_params)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(RNN_OPT))
+    return mod
+
+
+def rnn_batches(torch, mt, device, batch, seed):
+    """Two batches of int32 ids and labels made on ``device``: a uniform
+    random first token a row, then next = (3 * token + 1) % vocab (the
+    rule of lm_batch, which a model can learn), labels the next tokens.
+    rnn_bench.py draws its ids and labels uniformly, which times the same
+    work but gives a loss that only wanders under lr 1.0 (PERF.md §6)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    V, T = RNN["vocab"], RNN["seq"]
+    out = []
+    for _ in range(2):
+        toks = [torch.randint(0, V, (batch,), generator=gen, device=device,
+                              dtype=torch.int64)]
+        for _ in range(T):
+            toks.append((3 * toks[-1] + 1) % V)
+        toks = torch.stack(toks, 1).to(torch.int32)
+        out.append(mt.io.DataBatch([mt.nd.NDArray(toks[:, :-1].contiguous())],
+                                   [mt.nd.NDArray(toks[:, 1:].contiguous())]))
+    return out
+
+
+def rnn_split(torch, mt):
+    """Where an LSTM step's card time goes, part by part, each timed
+    alone at the step's shapes in bf16 (the fp32 softmax as the executor
+    runs it): the fused RNN forward + backward (cuDNN), the copy of its
+    weights into cuDNN's order that cuDNN makes on every call (the same
+    bytes, by torch.cat of the flat vector's views), the vocab
+    projection forward + backward, SoftmaxOutput and its gradient."""
+    from mxnet_tpu_torch.ops import rnn as rnn_ops
+    from mxnet_tpu_torch.ops import registry
+    dev, bf = torch.device("cuda", 0), torch.bfloat16
+    B, T, H, E, V, L = (RNN[k] for k in ("batch", "seq", "hidden", "embed",
+                                         "vocab", "layers"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+
+    def rnd(*shape, dtype=bf):
+        return (torch.randn(shape, generator=gen, device=dev) * 0.05) \
+            .to(dtype).requires_grad_()
+    n = rnn_ops.rnn_param_size(L, E, H, False, "lstm")
+    flat, x = rnd(n), rnd(T, B, E)
+    h0 = torch.zeros(L, 1, H, device=dev)
+    rnn_fn = registry.get("RNN").fn
+
+    def rnn_step():
+        out = rnn_fn(x, flat, h0, h0, state_size=H, num_layers=L,
+                     mode="lstm", is_train=True)[0]
+        torch.autograd.grad(out, [x, flat], torch.ones_like(out))
+    views = [w for layer in rnn_ops.unpack_flat(flat.detach(), L, E, H, 1, 4)
+             for per_dir in layer for w in per_dir]
+    hid, w = rnd(B * T, H), rnd(V, H)
+
+    def projection():
+        out = torch.nn.functional.linear(hid, w)
+        torch.autograd.grad(out, [hid, w], torch.ones_like(out))
+    logits = rnd(B * T, V, dtype=torch.float32)
+    lab = torch.randint(0, V, (B * T,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    sm = registry.get("SoftmaxOutput").fn
+
+    def softmax():
+        out = sm(logits, lab)
+        torch.autograd.grad(out, [logits], torch.ones_like(out))
+    row = {}
+    timed(row, "cudnn_rnn_fwd_bwd_ms", rnn_step, iters=5)
+    timed(row, "weight_repack_ms",
+          lambda: torch.cat([v.reshape(-1) for v in views]))
+    timed(row, "vocab_projection_fwd_bwd_ms", projection, iters=5)
+    timed(row, "softmax_output_fwd_grad_ms", softmax, iters=5)
+    row["weight_repack_bytes"] = 2 * n * 2
+    return row
+
+
+def phase_rnn_train(torch, mt, peak_flops):
+    """rnn_bench.py's configuration through the port's Module: setup,
+    the first step, RNN_WARMUP + RNN_STEPS steps over two batches with
+    the counts reset just before and read just after, tokens/s, TFLOP/s
+    on the analytic count, MFU, peak memory; then one profiled step, the
+    optimizer alone, and the step's parts timed alone (rnn_split)."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda", 0)
+    B, T = RNN["batch"], RNN["seq"]
+    t0 = time.monotonic()
+    mod = rnn_module(mt, mt.gpu(0), "bfloat16")
+    batches = rnn_batches(torch, mt, dev, B, SEED + 41)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    n_params = sum(int(np.prod(a.shape))
+                   for a in mod.get_params()[0].values())
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mt)
+    n = RNN_WARMUP + RNN_STEPS
+    step_ms, losses = resnet_steps(mt, mod, batches, n,
+                                   torch.cuda.synchronize)
+    counts = read_counts(mt)
+    dispatch = mt.profiler.dispatch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()) or dispatch.get("module.update") != n \
+            or dispatch.get("module.backward") != n:
+        raise RuntimeError(f"rnn_train: launches {counts} (want none: no "
+                           f"hand-written kernel is on this path) / "
+                           f"dispatches {dispatch}, want {n} updates and "
+                           "backwards")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not all(np.isfinite(losses)) or not last5 < first5 - RNN_MARGIN:
+        raise RuntimeError(f"rnn_train: losses {losses}: the last 5 "
+                           f"({last5}) do not beat the first 5 ({first5}) "
+                           f"by {RNN_MARGIN}")
+    out = mod.get_outputs()[0]
+    if out.shape != (B * T, RNN["vocab"]) or \
+            not bool(torch.isfinite(out._data).all()):
+        raise RuntimeError(f"rnn_train: output {out.shape} not finite")
+    timed_ms = step_ms[RNN_WARMUP:]
+    med = float(np.median(timed_ms))
+    tokens = B * T
+    flops = RNN_FLOPS_PER_TOKEN * tokens
+    tflops = flops / (med / 1e3) / 1e12
+
+    # one step under the profiler
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        mod.forward(batches[0], is_train=True)
+        mod.update()
+        torch.cuda.synchronize()
+        prof_ms = (time.monotonic() - t) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+    # the optimizer alone: the update after a synchronized backward
+    upd = []
+    for b in batches * 2:
+        mod.forward(b, is_train=True)
+        mod.backward()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        mod.update()
+        torch.cuda.synchronize()
+        upd.append((time.monotonic() - t) * 1e3)
+    split = rnn_split(torch, mt)
+    emit("rnn_train", model="lstm-ptb-medium (rnn_bench.py)", **RNN,
+         compute_dtype="bfloat16", masters="float32",
+         optimizer=RNN_OPT, initializer="xavier",
+         n_params=n_params, setup_s=setup_s, first_step_ms=step_ms[0],
+         warmup_ms=step_ms[:RNN_WARMUP], steps=len(timed_ms),
+         step_ms=timed_ms, median_step_ms=med, min_step_ms=min(timed_ms),
+         max_step_ms=max(timed_ms), tokens_per_s=tokens / (med / 1e3),
+         flops_per_token=RNN_FLOPS_PER_TOKEN, flops_per_step=flops,
+         flops_source="analytic, benchmark/rnn_bench.py:137-149",
+         achieved_tflops=tflops, mfu=tflops * 1e12 / peak_flops,
+         mfu_peak_tflops=peak_flops / 1e12, peak_mem_bytes=peak,
+         losses=losses, loss_first5_mean=first5, loss_last5_mean=last5,
+         margin=RNN_MARGIN, launches=counts, dispatches=dispatch)
+    emit("rnn_profile", step_ms=prof_ms, device_busy_ms=busy,
+         device_idle_share_of_step=max(0.0, 1 - busy / prof_ms),
+         device_idle_share_of_median_step=max(0.0, 1 - busy / med),
+         host_ms_of_median_step=max(0.0, med - busy),
+         update_ms=float(np.median(upd)), update_ms_min=min(upd),
+         update_ms_max=max(upd), **split,
+         top_kernels=[dict(ms=ms, count=c, name=k)
+                      for ms, c, k in kernels[:15]])
+    del mod, batches, out
+    torch.cuda.empty_cache()
+    return med, counts
+
+
+def rnn_numpy_params(mt, seed):
+    """Seeded Xavier weights of the rnn_bench model, as numpy, made on
+    the CPU (the same on every machine)."""
+    mod = mt.mod.Module(rnn_lm_sym(mt), context=mt.cpu())
+    mod.bind([mt.io.DataDesc("data", (1, RNN["seq"]), np.int32)],
+             [mt.io.DataDesc("softmax_label", (1, RNN["seq"]), np.int32)])
+    mt.random.seed(seed)
+    mod.init_params(mt.initializer.Xavier())
+    return {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+
+
+def rnn_numpy_batch(seed, batch):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, RNN["vocab"], (batch, RNN["seq"]),
+                         dtype=np.int32),
+            rng.integers(0, RNN["vocab"], (batch, RNN["seq"]),
+                         dtype=np.int32))
+
+
+def rnn_fp32_step(mt, ctx, params, x, y):
+    """One fp32 Module step (SGD with momentum: the first update is -lr x
+    the gradient / batch) from ``params`` on (x, y): (loss, {name:
+    update})."""
+    mod = rnn_module(mt, ctx, batch=x.shape[0], arg_params=params)
+    batch = mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                            [mt.nd.array(y, ctx=mt.cpu())])
+    mod.forward(batch, is_train=True)
+    mod.update()
+    metric = mt.metric.CrossEntropy()
+    mod.update_metric(metric, batch.label)
+    new = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+    return metric.get()[1], {n: new[n] - params[n] for n in params}
+
+
+def update_rel_diffs(a, b):
+    """{name: max |a - b| over max |b|} of two update dicts."""
+    return {n: float(np.abs(a[n] - b[n]).max()
+                     / max(float(np.abs(b[n]).max()), 1e-30)) for n in b}
+
+
+def phase_rnn_fp32(torch, mt):
+    """One fp32 step of rnn_bench.py's model at full width and batch,
+    card (cuDNN, TF32 off) against the CPU, from the same weights."""
+    params = rnn_numpy_params(mt, SEED + 42)
+    x, y = rnn_numpy_batch(SEED + 43, RNN["batch"])
+    t0 = time.monotonic()
+    gl, gu = rnn_fp32_step(mt, mt.gpu(0), params, x, y)
+    gs = time.monotonic() - t0
+    t0 = time.monotonic()
+    cl, cu = rnn_fp32_step(mt, mt.cpu(), params, x, y)
+    cs = time.monotonic() - t0
+    rel = update_rel_diffs(gu, cu)
+    worst = max(rel, key=rel.get)
+    if not np.isfinite(gl) or abs(gl - cl) > RNN_FP32_LOSS_TOL \
+            or rel[worst] > RNN_FP32_UPDATE_RTOL \
+            or not all(np.isfinite(v).all() for v in gu.values()):
+        raise RuntimeError(f"rnn fp32: loss {gl} card, {cl} CPU (tol "
+                           f"{RNN_FP32_LOSS_TOL}); update diffs {rel} "
+                           f"(tol {RNN_FP32_UPDATE_RTOL})")
+    emit("rnn_fp32_card_vs_cpu", batch=RNN["batch"], loss_gpu=gl,
+         loss_cpu=cl, loss_tol=RNN_FP32_LOSS_TOL, update_rel_diff=rel,
+         worst_param=worst, update_rtol=RNN_FP32_UPDATE_RTOL, gpu_s=gs,
+         cpu_s=cs)
+    torch.cuda.empty_cache()
+
+
+def synthetic_corpus(n=600, vocab_size=60, seed=0):
+    """examples/rnn/train_ptb.py's synthetic_corpus (copied: the example
+    imports the JAX package): a Markov-chain corpus, next token =
+    (token * 3 + 1) % V with noise, sentences of 8-24 tokens."""
+    rng = np.random.RandomState(seed)
+    sentences = []
+    for _ in range(n):
+        ln = rng.randint(8, 25)
+        s = [int(rng.randint(2, vocab_size))]
+        for _ in range(ln - 1):
+            if rng.rand() < 0.85:
+                s.append((s[-1] * 3 + 1) % (vocab_size - 2) + 2)
+            else:
+                s.append(int(rng.randint(2, vocab_size)))
+        sentences.append(s)
+    return sentences, vocab_size
+
+
+def ptb_sym_gen(mt, cfg):
+    """train_ptb.py's sym_gen_factory over the port (per-bucket graph of
+    unfused LSTMCells in a SequentialRNNCell)."""
+    sym = mt.sym
+
+    def sym_gen(seq_len):
+        embed = sym.Embedding(sym.Variable("data"), input_dim=cfg["vocab"],
+                              output_dim=cfg["embed"], name="embed")
+        stack = mt.rnn.SequentialRNNCell()
+        for i in range(cfg["layers"]):
+            stack.add(mt.rnn.LSTMCell(num_hidden=cfg["hidden"],
+                                      prefix="lstm_l%d_" % i))
+        outputs, _ = stack.unroll(seq_len, inputs=embed, merge_outputs=True)
+        pred = sym.FullyConnected(
+            sym.Reshape(outputs, shape=(-1, cfg["hidden"])),
+            num_hidden=cfg["vocab"], name="pred")
+        lab = sym.Reshape(sym.Variable("softmax_label"), shape=(-1,))
+        return (sym.SoftmaxOutput(data=pred, label=lab, name="softmax"),
+                ("data",), ("softmax_label",))
+    return sym_gen
+
+
+def ptb_fit(mt, ctx, cfg, compute_dtype, sync):
+    """One epoch of BucketingModule.fit over BucketSentenceIter
+    (int32), as train_ptb.py runs it; per batch (a batch_end_callback,
+    ended by ``sync``): its bucket, wall ms and mean negative
+    log-probability (from the Perplexity metric's running sums), and the
+    id of the bucket's executor."""
+    import random
+    random.seed(SEED)
+    np.random.seed(SEED)
+    sentences, _ = synthetic_corpus(cfg["sentences"], cfg["corpus_vocab"],
+                                    SEED)
+    it = mt.rnn.BucketSentenceIter(sentences, cfg["batch"],
+                                   buckets=list(cfg["buckets"]),
+                                   dtype="int32")
+    mod = mt.mod.BucketingModule(ptb_sym_gen(mt, cfg),
+                                 default_bucket_key=it.default_bucket_key,
+                                 context=ctx, compute_dtype=compute_dtype)
+    # the pad label (BucketSentenceIter's invalid_label, -1) left out: the
+    # example's Perplexity(ignore_label=None) counts each pad as class
+    # 9999 (labels are taken modulo the vocab), whose probability the
+    # training drives down, so its perplexity rises with the pads' share
+    metric = mt.metric.Perplexity(ignore_label=-1)
+    rows, last = [], {"t": None, "sum": 0.0, "num": 0}
+
+    def on_batch(param):
+        sync()
+        now = time.monotonic()
+        metric.get()  # folds the pending sums in
+        batch = param.locals["data_batch"]
+        d_sum = metric.sum_metric - last["sum"]
+        d_num = metric.num_inst - last["num"]
+        rows.append(dict(bucket=batch.bucket_key,
+                         ms=(now - last["t"]) * 1e3,
+                         nll=float(d_sum) / max(int(d_num), 1),
+                         executor=id(mod._curr_module._exec)))
+        last.update(t=now, sum=metric.sum_metric, num=metric.num_inst)
+    mt.random.seed(SEED)
+    last["t"] = time.monotonic()
+    mod.fit(it, num_epoch=1, eval_metric=metric, optimizer="sgd",
+            optimizer_params=dict(PTB_OPT),
+            initializer=mt.initializer.Xavier(),
+            batch_end_callback=on_batch)
+    return mod, rows, metric
+
+
+def phase_ptb_bucketing(torch, mt):
+    """train_ptb.py's path at PTB-medium widths on the card: every bucket
+    bound once, over one set of parameters and one optimizer, perplexity
+    falling over the epoch, wall ms a batch per bucket."""
+    t0 = time.monotonic()
+    reset_counts(mt)
+    mod, rows, metric = ptb_fit(mt, mt.gpu(0), PTB, "bfloat16",
+                                torch.cuda.synchronize)
+    secs = time.monotonic() - t0
+    counts = read_counts(mt)
+    dispatch = mt.profiler.dispatch_counts()
+    buckets = mod._buckets
+    default = buckets[max(PTB["buckets"])]
+    params = default._param_names
+    shared = all(b._exec.arg_dict[n] is default._exec.arg_dict[n]
+                 for b in buckets.values() for n in params)
+    one_updater = all(b._updater is default._updater
+                      for b in buckets.values())
+    execs = {}
+    for r in rows:
+        execs.setdefault(r["bucket"], set()).add(r["executor"])
+    nll = [r["nll"] for r in rows]
+    w = PTB_WINDOW
+    first, last = float(np.mean(nll[:w])), float(np.mean(nll[-w:]))
+    per_bucket = {}
+    for key in sorted(execs):
+        ms = [r["ms"] for r in rows if r["bucket"] == key]
+        # a bucket's first batch binds it: timed apart
+        per_bucket[str(key)] = dict(
+            batches=len(ms), first_ms=ms[0],
+            median_ms=float(np.median(ms[1:])) if len(ms) > 1 else None,
+            min_ms=min(ms[1:]) if len(ms) > 1 else None,
+            max_ms=max(ms[1:]) if len(ms) > 1 else None,
+            tokens_per_s=(PTB["batch"] * key / float(np.median(ms[1:]))
+                          * 1e3) if len(ms) > 1 else None)
+    problems = []
+    if any(counts.values()):
+        problems.append(f"launches {counts}: no hand-written kernel is on "
+                        "this path")
+    if sorted(buckets) != sorted(PTB["buckets"]):
+        problems.append(f"buckets bound {sorted(buckets)}")
+    if any(len(v) != 1 for v in execs.values()):
+        problems.append("a bucket was bound more than once")
+    if not shared or not one_updater:
+        problems.append(f"shared parameters {shared}, one updater "
+                        f"{one_updater}")
+    if dispatch.get("module.update") != len(rows):
+        problems.append(f"{dispatch.get('module.update')} updates for "
+                        f"{len(rows)} batches")
+    if not np.isfinite(nll).all() or not last < first - PTB_MARGIN:
+        problems.append(f"mean NLL of the last {w} batches {last} does "
+                        f"not beat the first {w}'s {first} by {PTB_MARGIN}")
+    emit("ptb_bucketing", example="examples/rnn/train_ptb.py", **PTB,
+         compute_dtype="bfloat16", optimizer=PTB_OPT, seconds=secs,
+         batches=len(rows), buckets_bound=sorted(buckets),
+         shared_parameters=shared, one_updater=one_updater,
+         per_bucket=per_bucket, perplexity_first=float(np.exp(first)),
+         perplexity_last=float(np.exp(last)), nll_first=first,
+         nll_last=last, margin=PTB_MARGIN,
+         epoch_perplexity=metric.get()[1], launches=counts,
+         dispatches=dispatch, nll=nll)
+    if problems:
+        raise RuntimeError("ptb_bucketing: " + "; ".join(problems))
+    del mod
+    torch.cuda.empty_cache()
+    return counts
+
+
+def gluon_lm(mt, ctx, cfg=None, prefix="lm_"):
+    """nn.Embedding -> gluon.rnn.LSTM -> nn.Dense(vocab), at rnn_train's
+    widths, Xavier (seeded)."""
+    cfg = cfg or RNN
+    gluon = mt.gluon
+    net = gluon.nn.HybridSequential(prefix=prefix)
+    with net.name_scope():
+        net.add(gluon.nn.Embedding(cfg["vocab"], cfg["embed"]))
+        net.add(gluon.rnn.LSTM(cfg["hidden"], num_layers=cfg["layers"],
+                               layout="NTC", input_size=cfg["embed"]))
+        net.add(gluon.nn.Dense(cfg["vocab"], flatten=False,
+                               in_units=cfg["hidden"]))
+    mt.random.seed(SEED)
+    net.initialize(mt.initializer.Xavier(), ctx=ctx)
+    return net
+
+
+def gluon_lm_steps(torch, mt, hybridize, batches, sync):
+    """GLUON_LM_WARMUP + GLUON_LM_STEPS Trainer steps of the Gluon LM on
+    the card, bf16 (hybridized with compute_dtype, or net.cast with
+    multi_precision): step ms and losses, counts read around them."""
+    net = gluon_lm(mt, mt.gpu(0))
+    opt = dict(GLUON_LM_OPT)
+    if hybridize:
+        net.hybridize(compute_dtype="bfloat16")
+    else:
+        net.cast("bfloat16")
+        opt["multi_precision"] = True
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", opt)
+    pairs = [(b.data[0], b.label[0]) for b in batches]
+    reset_counts(mt)
+    step_ms, losses = gluon_train_steps(
+        mt, net, trainer, gluon_lm_loss(mt), pairs,
+        GLUON_LM_WARMUP + GLUON_LM_STEPS, sync)
+    return step_ms, [l / RNN["seq"] for l in losses], read_counts(mt), \
+        mt.profiler.dispatch_counts()
+
+
+def gluon_lm_loss(mt):
+    """Softmax cross-entropy summed over the sequence (see
+    GLUON_LM_OPT)."""
+    return mt.gluon.loss.SoftmaxCrossEntropyLoss(weight=RNN["seq"])
+
+
+def phase_gluon_lstm(torch, mt, rnn_ms):
+    """The Gluon LM on rnn_train's batches, hybridized and imperatively:
+    losses finite and falling by GLUON_LM_MARGIN, one Trainer step and
+    (hybridized) one cached forward a step, no hand-written kernel."""
+    dev = torch.device("cuda", 0)
+    batches = rnn_batches(torch, mt, dev, RNN["batch"], SEED + 41)
+    out, problems = {}, []
+    n = GLUON_LM_WARMUP + GLUON_LM_STEPS
+    for name, hyb in (("hybridized", True), ("imperative", False)):
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, losses, counts, dispatch = gluon_lm_steps(
+            torch, mt, hyb, batches, torch.cuda.synchronize)
+        timed_ms = step_ms[GLUON_LM_WARMUP:]
+        med = float(np.median(timed_ms))
+        out[name] = dict(first_step_ms=step_ms[0], step_ms=timed_ms,
+                         median_step_ms=med, min_step_ms=min(timed_ms),
+                         max_step_ms=max(timed_ms),
+                         tokens_per_s=RNN["batch"] * RNN["seq"] / med * 1e3,
+                         over_rnn_train=med / rnn_ms, losses=losses,
+                         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                         launches=counts, dispatches=dispatch)
+        if any(counts.values()) or dispatch.get("trainer.step") != n or \
+                (hyb and dispatch.get("gluon.cached_forward") != n):
+            problems.append(f"{name}: launches {counts}, dispatches "
+                            f"{dispatch} over {n} steps")
+        first3, last3 = np.mean(losses[:3]), np.mean(losses[-3:])
+        if not np.isfinite(losses).all() or \
+                not last3 < first3 - GLUON_LM_MARGIN:
+            problems.append(f"{name}: losses {losses}: the last 3 do not "
+                            f"beat the first 3 by {GLUON_LM_MARGIN}")
+        torch.cuda.empty_cache()
+    emit("gluon_lstm", **RNN, optimizer=GLUON_LM_OPT,
+         margin=GLUON_LM_MARGIN, rnn_train_median_step_ms=rnn_ms, **out)
+    if problems:
+        raise RuntimeError("gluon_lstm: " + "; ".join(problems))
+    return {"gluon_lstm_" + k: v["launches"] for k, v in out.items()}
+
+
+def gluon_lm_fp32_step(mt, ctx, values, x, y, hybridize, dtype="float32"):
+    """One SGD step (GLUON_LM_OPT) of the Gluon LM from ``values``:
+    (loss, {name: update})."""
+    net = gluon_lm(mt, ctx)
+    if dtype != "float32":
+        net.cast(dtype)
+    mt.convert.gluon_params_from_numpy(net.collect_params(), values)
+    if hybridize:
+        net.hybridize()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                               dict(GLUON_LM_OPT))
+    with mt.autograd.record():
+        loss = gluon_lm_loss(mt)(
+            net(mt.nd.array(x, ctx=ctx, dtype=np.int32)),
+            mt.nd.array(y, ctx=ctx, dtype=np.int32))
+    loss.backward()
+    trainer.step(x.shape[0])
+    new = mt.convert.gluon_params_to_numpy(net.collect_params())
+    return float(loss.mean().asscalar()) / RNN["seq"], \
+        {k: new[k].astype(np.float64) - values[k] for k in values}
+
+
+def phase_gluon_lstm_fp32(torch, mt):
+    """One fp32 Gluon LM step at full width, batch GLUON_LM_FP32_BATCH,
+    card (cuDNN, TF32 off) against the CPU, hybridized and
+    imperatively."""
+    values = mt.convert.gluon_params_to_numpy(
+        gluon_lm(mt, mt.cpu()).collect_params())
+    x, y = rnn_numpy_batch(SEED + 44, GLUON_LM_FP32_BATCH)
+    out = {}
+    for hyb in (True, False):
+        gl, gu = gluon_lm_fp32_step(mt, mt.gpu(0), values, x, y, hyb)
+        cl, cu = gluon_lm_fp32_step(mt, mt.cpu(), values, x, y, hyb)
+        rel = update_rel_diffs(gu, cu)
+        worst = max(rel, key=rel.get)
+        name = "hybridized" if hyb else "imperative"
+        out[name] = dict(loss_gpu=gl, loss_cpu=cl, worst_param=worst,
+                         worst_update_rel_diff=rel[worst])
+        if not np.isfinite(gl) or abs(gl - cl) > GLUON_LM_FP32_LOSS_TOL \
+                or rel[worst] > GLUON_LM_FP32_UPDATE_RTOL:
+            raise RuntimeError(f"gluon lstm fp32 {name}: loss {gl} card, "
+                               f"{cl} CPU; update diffs {rel}")
+    emit("gluon_lstm_fp32_card_vs_cpu", batch=GLUON_LM_FP32_BATCH,
+         loss_tol=GLUON_LM_FP32_LOSS_TOL,
+         update_rtol=GLUON_LM_FP32_UPDATE_RTOL, **out)
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -2317,6 +3015,7 @@ def main():
 
     smi = phase_device(torch)
     phase_build(mt)
+    rtc_row = phase_rtc(torch, mt)
     checks = phase_kernels(torch, mt)
     bwd = phase_bwd_kernels(torch, mt)
 
@@ -2363,10 +3062,22 @@ def main():
     phase_gluon_fp32(torch, mt)
     gluon_paths = phase_gluon_attention(torch, mt)
 
+    # the RNN family: rnn_bench.py through Module (the fused RNN op on
+    # cuDNN), its fp32 step against the CPU, train_ptb.py's bucketing
+    # path, and the Gluon LSTM; none of them launches K1-K3
+    rnn_ms, rnn_counts = phase_rnn_train(torch, mt, PEAK_FLOPS["bfloat16"])
+    phase_rnn_fp32(torch, mt)
+    ptb_counts = phase_ptb_bucketing(torch, mt)
+    gluon_lstm_paths = phase_gluon_lstm(torch, mt, rnn_ms)
+    phase_gluon_lstm_fp32(torch, mt)
+
     def by_path(key):
         return {"serve": serve_counts[key], "train": train_counts[key],
                 "vit_train": vit_counts[key],
-                **{p: c[key] for p, c in gluon_paths.items()}}
+                **{p: c[key] for p, c in gluon_paths.items()},
+                "rnn_train": rnn_counts[key],
+                "ptb_bucketing": ptb_counts[key],
+                **{p: c[key] for p, c in gluon_lstm_paths.items()}}
 
     def ms_of(row, key):  # the median with its min and max
         return dict(ms=row[key], ms_min=row[f"{key}_min"],
@@ -2425,6 +3136,19 @@ def main():
              bound_by=f32["bound_by"], library_ms=f32["library_ms"],
              shape=f32["shape"], causal=False),
     ]
+    # K4: the user kernel of the rtc path (the JAX package's Pallas
+    # doubler, tests/test_contrib.py:107, launched at :110 through
+    # mxnet_tpu/rtc.py:32 PallasKernel)
+    rows.append(dict(
+        name="rtc_doubler", source=RTC_SOURCE,
+        design="one thread an element, blocks of 256; compiled at runtime "
+        "by rtc.CudaModule, called through rtc.CudaFunction",
+        replaces="tests/test_contrib.py:107",
+        paths={"rtc": rtc_row["launches"]},
+        max_abs_err=rtc_row["max_abs_err"], **ms_of(rtc_row, "kernel_ms"),
+        plain_ms=rtc_row["plain_ms"], bound_ms=rtc_row["bound_ms"],
+        bound_by=rtc_row["bound_by"], library_ms=rtc_row["library_ms"],
+        library="torch.mul(x, 2)", shape=rtc_row["shape"]))
     kernels = []
     for r in rows:
         paths = r.pop("paths") if "paths" in r else by_path(r.pop("key"))

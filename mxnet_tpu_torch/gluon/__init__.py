@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``mxnet_tpu/gluon``: parameters, blocks and their
 hybridization, the ``nn`` layers, the losses, the single-device
-``Trainer``, ``utils`` and the model zoo's ResNets.  ``gluon.data``,
-``gluon.rnn`` and ``gluon.contrib`` are not ported yet (ROADMAP G3, C2).
+``Trainer``, ``utils``, the model zoo's ResNets, ``rnn`` (cells and the
+fused RNN / LSTM / GRU layers) and ``contrib.rnn``.  ``gluon.data`` is
+not ported yet (ROADMAP G3).
 """
 from .parameter import (Parameter, Constant, ParameterDict,
                         DeferredInitializationError)
@@ -13,4 +14,6 @@ from . import nn
 from . import loss
 from . import model_zoo
 from . import utils
+from . import rnn
+from . import contrib
 from .utils import split_and_load

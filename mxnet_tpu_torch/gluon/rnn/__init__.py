@@ -1,0 +1,6 @@
+"""Gluon RNN API (reference: python/mxnet/gluon/rnn/)."""
+from .rnn_layer import RNN, LSTM, GRU
+from .rnn_cell import (RecurrentCell, HybridRecurrentCell, RNNCell,
+                       LSTMCell, GRUCell, SequentialRNNCell, DropoutCell,
+                       ModifierCell, ZoneoutCell, ResidualCell,
+                       BidirectionalCell)

@@ -12,6 +12,7 @@ and on the card; they are not the JAX package's bits.
 """
 from __future__ import annotations
 
+import json
 import math
 
 import numpy as np
@@ -54,6 +55,11 @@ class Initializer:
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
+
+    def dumps(self):
+        """``[name, kwargs]`` as JSON: the form a variable's ``__init__``
+        attribute holds (reference: initializer.py dumps)."""
+        return json.dumps([self.__class__.__name__.lower(), self._kwargs])
 
     def __call__(self, desc, arr):
         if not isinstance(desc, str):
@@ -205,3 +211,66 @@ class Xavier(Initializer):
             self._set(arr, _normal(shape, scale))
         else:
             raise ValueError("Unknown random type")
+
+
+@register
+class LSTMBias(Initializer):
+    """The LSTM's forget-gate bias (reference: initializer.py LSTMBias):
+    zeros, with ``forget_bias`` in the second quarter (gate order
+    [i, f, c, o])."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = torch.zeros(arr.shape)
+        num_hidden = int(b.shape[0] / 4)
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        self._set(arr, b)
+
+    _init_bias = _init_weight
+    _init_default = _init_weight
+
+
+@register
+class FusedRNN(Initializer):
+    """The packed parameter vector of a fused RNN (reference:
+    initializer.py FusedRNN): each per-gate piece of
+    ``FusedRNNCell.unpack_weights`` is filled by ``init`` (else the
+    surrounding global initializer, else ``Uniform(0.1)``) under its own
+    name, so ``*_weight`` pieces get the weight rule and ``*_bias``
+    pieces zeros; every LSTM forget-gate bias (i2h and h2h) is then set
+    to ``forget_bias``."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = create(klass, **kwargs)
+        super().__init__(init=init.dumps() if init is not None else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def __call__(self, desc, arr):
+        from .rnn import rnn_cell
+        cell = rnn_cell.FusedRNNCell(self._num_hidden, self._num_layers,
+                                     self._mode, self._bidirectional,
+                                     forget_bias=self._forget_bias,
+                                     prefix='')
+        args = cell.unpack_weights({'parameters': arr})
+        inner = self._init or getattr(desc, 'global_init', None) \
+            or Uniform(0.1)
+        for name, blk in args.items():
+            inner(InitDesc(name), blk)
+            if self._mode == 'lstm' and name.endswith('_f_bias'):
+                self._set(blk, torch.full(blk.shape, self._forget_bias))
+        packed = cell.pack_weights(args)['parameters']
+        self._set(arr, packed._data)

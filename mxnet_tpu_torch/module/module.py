@@ -17,9 +17,11 @@ optimizer states) use the JAX package's files, so either package resumes
 from the other's.  ``state_names`` are inputs carried from one forward to
 the next (a KV cache, an RNN's hidden state): they get no gradient and no
 optimizer update, and ``get_states`` / ``set_states`` read and set them.
-The JAX package's fused jit step and its scan over K steps, meshes, ZeRO,
-``BucketingModule``, fixed parameters and rebinding to new shapes are not
-ported yet.
+``bind(shared_module=...)`` makes this module hold the other's
+parameter NDArrays, and ``borrow_optimizer`` its optimizer (the
+``BucketingModule``'s buckets).  The JAX package's fused jit step and its
+scan over K steps, meshes, ZeRO, fixed parameters and rebinding to new
+shapes are not ported yet.
 """
 from __future__ import annotations
 
@@ -232,10 +234,37 @@ class Module(BaseModule):
         if self.params_initialized and self._arg_params:
             self._exec.copy_params_from(self._arg_params, self._aux_params,
                                         allow_extra_params=True)
-        if shared_module is not None and shared_module.params_initialized:
-            arg, aux = shared_module.get_params()
-            self._exec.copy_params_from(arg, aux, allow_extra_params=True)
-            self.params_initialized = True
+        if shared_module is not None:
+            self._share_arrays(shared_module)
+
+    def _share_arrays(self, shared_module):
+        """Hold ``shared_module``'s parameter and auxiliary NDArrays
+        themselves (those of the same name and shape), so an update
+        through either module is seen by both; this module's gradients
+        stay its own (reference: module.py bind(shared_module), whose
+        executors share one memory pool)."""
+        assert shared_module.binded
+        ex, other = self._exec, shared_module._exec
+        params = set(self._param_names) | set(self._aux_names)
+        for names, arrays, theirs in (
+                (ex._arg_names, ex.arg_arrays, other.arg_dict),
+                (ex._aux_names, ex.aux_arrays, other.aux_dict)):
+            for i, n in enumerate(names):
+                src = theirs.get(n)
+                if n in params and src is not None \
+                        and src.shape == arrays[i].shape:
+                    arrays[i] = src
+        self.params_initialized = shared_module.params_initialized
+
+    def borrow_optimizer(self, shared_module):
+        """Apply updates through ``shared_module``'s optimizer, updater
+        and states (reference: module.py borrow_optimizer; every bucket
+        of a BucketingModule updates through one optimizer)."""
+        assert shared_module.optimizer_initialized
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
 
     # -- optimizer -------------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",

@@ -66,8 +66,17 @@ def node_num_outputs(node: Node) -> int:
         if node.op == "topk":
             return 2 if node.attrs.get("ret_typ", "indices") == "both" \
                 else 1
+        if node.op == "RNN":  # output, then h (and c for an LSTM)
+            if not _flag(node.attrs.get("state_outputs", False)):
+                return 1
+            return 3 if node.attrs.get("mode", "lstm") == "lstm" else 2
         return 1
     return n
+
+
+def _flag(v) -> bool:
+    """An attribute flag given as a bool, an int or a string."""
+    return v in (True, "True", "true", 1, "1")
 
 
 def _topo_sort(heads: Sequence[Tuple[Node, int]]) -> List[Node]:
@@ -170,6 +179,23 @@ def _prelu_param_shapes(attrs, in_shapes):
     return {"gamma": (data[1] if len(data) > 1 else 1,)}
 
 
+def _rnn_param_shapes(attrs, in_shapes):
+    data = in_shapes.get("data")  # (seq, batch, input)
+    if data is None:
+        return {}
+    from ..ops.rnn import rnn_param_size
+    mode = attrs.get("mode", "lstm")
+    sh = int(attrs["state_size"])
+    nl = int(attrs.get("num_layers", 1))
+    bidir = _flag(attrs.get("bidirectional", False))
+    d = 2 if bidir else 1
+    shapes = {"parameters": (rnn_param_size(nl, data[2], sh, bidir, mode),),
+              "state": (nl * d, data[1], sh)}
+    if mode == "lstm":
+        shapes["state_cell"] = (nl * d, data[1], sh)
+    return shapes
+
+
 PARAM_SHAPE_INFER = {
     "FullyConnected": _fc_param_shapes,
     "Convolution": _conv_param_shapes,
@@ -179,6 +205,7 @@ PARAM_SHAPE_INFER = {
     "LayerNorm": _ln_param_shapes,
     "Embedding": _embedding_param_shapes,
     "LeakyReLU": _prelu_param_shapes,
+    "RNN": _rnn_param_shapes,
 }
 
 
@@ -193,6 +220,13 @@ def _skip_args(op: str, attrs: dict) -> set:
         skip.add("bias")
     if op == "LeakyReLU" and attrs.get("act_type", "leaky") != "prelu":
         skip.add("gamma")
+    if op == "RNN" and attrs.get("mode", "lstm") != "lstm":
+        skip.add("state_cell")
+    if op in ("SequenceReverse", "SequenceMask", "SequenceLast") \
+            and not _flag(attrs.get("use_sequence_length", False)):
+        # the length input exists only under use_sequence_length
+        # (reference: sequence_reverse-inl.h)
+        skip.add("sequence_length")
     return skip
 
 
@@ -470,13 +504,23 @@ def _compose(op_name: str, inputs: List[Symbol], attrs: dict,
     return Symbol([(node, None)])
 
 
-def var(name, attr=None, shape=None, dtype=None, **kwargs) -> Symbol:
-    """Create a variable symbol (reference: symbol.py var/Variable)."""
+def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+        dtype=None, init=None, **kwargs) -> Symbol:
+    """Create a variable symbol (reference: symbol.py var/Variable).
+    ``init`` (an Initializer or its ``dumps()`` string) is kept in the
+    ``__init__`` attribute, which ``Module.init_params`` reads."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
     user_attrs = dict(attr or {})
     if shape is not None:
         user_attrs["__shape__"] = str(tuple(shape))
+    if lr_mult is not None:
+        user_attrs["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        user_attrs["__wd_mult__"] = str(wd_mult)
+    if init is not None:
+        user_attrs["__init__"] = init if isinstance(init, str) \
+            else init.dumps()
     if dtype is not None:
         from ..ndarray.ndarray import dtype_name
         user_attrs["__dtype__"] = dtype_name(dtype)
@@ -632,6 +676,24 @@ def _eval_node_meta(n: Node, opdef: _reg.OpDef, ins):
     out = opdef.fn(*ins, **kwargs)
     out = out if isinstance(out, (tuple, list)) else (out,)
     return list(out)[:node_num_outputs(n)]
+
+
+def zeros(shape, dtype="float32", **kw):
+    """A constant of zeros (reference: symbol.py zeros)."""
+    if isinstance(shape, numbers.Integral):
+        shape = (shape,)
+    return _compose("_zeros", [], {"shape": tuple(shape),
+                                   "dtype": np.dtype(dtype).name},
+                    kw.get("name"))
+
+
+def ones(shape, dtype="float32", **kw):
+    """A constant of ones (reference: symbol.py ones)."""
+    if isinstance(shape, numbers.Integral):
+        shape = (shape,)
+    return _compose("_ones", [], {"shape": tuple(shape),
+                                  "dtype": np.dtype(dtype).name},
+                    kw.get("name"))
 
 
 def arange(start, stop=None, step=1.0, repeat=1, name=None, dtype="float32"):

@@ -147,3 +147,58 @@ def test_gluon_and_autograd_import_and_run_hermetically():
         path = os.path.join("mxnet_tpu_torch", *mod.split("."))
         assert path + ".py" in scanned or \
             os.path.join(path, "__init__.py") in scanned, mod
+
+
+# the RNN / rtc slice's modules
+RNN_MODULES = ["ops.rnn", "ops.sequence", "rnn", "rnn.rnn_cell", "rnn.io",
+               "module.bucketing_module", "gluon.rnn", "gluon.rnn.rnn_cell",
+               "gluon.rnn.rnn_layer", "gluon.contrib", "gluon.contrib.nn",
+               "gluon.contrib.rnn", "gluon.contrib.rnn.conv_rnn_cell",
+               "gluon.contrib.rnn.rnn_cell", "rtc"]
+
+
+def test_rnn_and_rtc_import_and_run_hermetically():
+    """Importing the RNN and rtc modules and training a BucketingModule
+    step of a fused LSTM on the CPU loads no jax and no mxnet_tpu,
+    starts no CUDA context and builds nothing: ``rtc`` compiles only
+    when a kernel is asked for, and nothing here asks."""
+    code = (
+        "import json, os, sys, torch\n"
+        "import mxnet_tpu_torch as mt\n"
+        "from mxnet_tpu_torch import rtc, rnn, gluon\n"
+        "def sym_gen(T):\n"
+        "    cell = mt.rnn.FusedRNNCell(4, num_layers=2, prefix='l_')\n"
+        "    e = mt.sym.Embedding(mt.sym.Variable('data'), input_dim=9,\n"
+        "                         output_dim=3)\n"
+        "    out, _ = cell.unroll(T, e, merge_outputs=True)\n"
+        "    out = mt.sym.FullyConnected(mt.sym.Reshape(out, shape=(-1, 4)),\n"
+        "                                num_hidden=9)\n"
+        "    lab = mt.sym.Reshape(mt.sym.Variable('softmax_label'),\n"
+        "                         shape=(-1,))\n"
+        "    return mt.sym.SoftmaxOutput(out, lab), ('data',), \\\n"
+        "        ('softmax_label',)\n"
+        "it = rnn.BucketSentenceIter([[1, 2, 3]] * 4 + [[4, 5]] * 4, 2,\n"
+        "                            buckets=[2, 3], dtype='int32')\n"
+        "mod = mt.mod.BucketingModule(sym_gen, 3, context=mt.cpu())\n"
+        "mod.fit(it, num_epoch=1, initializer=mt.init.Xavier())\n"
+        "print(json.dumps({'mods': sorted(sys.modules),\n"
+        "  'cuda_init': torch.cuda.is_initialized(),\n"
+        "  'libs': sorted(mt.cuda_lib._libs),\n"
+        "  'rtc_built': os.path.isdir(os.path.join(\n"
+        "      os.path.dirname(mt.cuda_lib.BUILD_DIR), 'rtc'))}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    before = os.path.isdir(os.path.join(ROOT, "build", "rtc"))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert [m for m in out["mods"] if _forbidden(m)] == []
+    assert out["cuda_init"] is False
+    assert out["libs"] == []
+    assert out["rtc_built"] == before
+    scanned = {os.path.relpath(p, ROOT) for p in _sources()}
+    for mod in RNN_MODULES:
+        assert "mxnet_tpu_torch." + mod in out["mods"], mod
+        path = os.path.join("mxnet_tpu_torch", *mod.split("."))
+        assert path + ".py" in scanned or \
+            os.path.join(path, "__init__.py") in scanned, mod

@@ -72,6 +72,21 @@ Parts (all by default; each prints JSON lines):
     smallest).  The float64 run's flash attention (ViT) is the plain
     version, which computes in f32.
 
+* ``rnn`` (about a minute on 8 cores): the numbers behind the RNN
+  phases' margins and budgets, at full width on the CPU in fp32:
+
+  - ``rnn_train``: the phase's loop (rnn_bench.py's model, lr and
+    momentum, 5 + 20 steps over two batches of its rule, drawn by the
+    CPU's generator: the card draws with a CUDA one): every loss, the
+    means of the first and last 5;
+  - ``rnn_fp32_vs_float64`` and ``gluon_lstm_fp32_vs_float64_*``: the
+    fp32 checks' steps against float64 (the executor in float64; the
+    Gluon net cast to float64): the loss and each parameter's update
+    relative to its own largest element;
+  - ``ptb_bucketing``: the phase's epoch (every batch's bucket and mean
+    NLL, the first and last 10's means);
+  - ``gluon_lstm_*``: the Gluon LM's 15 steps on the same batches.
+
 It imports both packages, as the tests do.
 """
 import json
@@ -498,9 +513,92 @@ def part_gluon():
     return out
 
 
+def _rnn_float64_step(params, x, y):
+    """rnn_fp32_step's step in float64 through the executor: the loss
+    and each parameter's update (SGD's first momentum step: -lr x the
+    gradient / batch)."""
+    sym = cs.rnn_lm_sym(mt)
+    args = {n: mt.nd.NDArray(torch.from_numpy(v.astype(np.float64)))
+            for n, v in params.items()}
+    args["data"] = mt.nd.NDArray(torch.from_numpy(x))
+    args["softmax_label"] = mt.nd.NDArray(torch.from_numpy(y))
+    req = {n: ("write" if n in params else "null") for n in args}
+    ex = mt.executor.Executor(sym, mt.cpu(), args=args, grad_req=req)
+    out = ex.forward(is_train=True)[0]
+    ex.backward()
+    lr, B = cs.RNN_OPT["learning_rate"], x.shape[0]
+    upd = {n: -lr * ex.grad_dict[n].asnumpy() / B for n in params}
+    p = out.asnumpy()[np.arange(y.size), y.reshape(-1)]
+    return float(-np.log(p + 1e-12).mean()), upd
+
+
+def part_rnn():
+    """The numbers behind chip_smoke.py's RNN phases, fixed before their
+    first card run: the rnn_train loop's losses (fp32, the CPU's own
+    seeded batches: the card draws its two batches with a CUDA
+    generator), the fp32 step's distance from float64 (rnn_fp32 and
+    gluon_lstm_fp32), the PTB bucketing epoch's per-batch NLL and the
+    Gluon LM's losses."""
+    ctx, cpu = mt.cpu(), torch.device("cpu")
+    out = {}
+    mod = cs.rnn_module(mt, ctx)
+    batches = cs.rnn_batches(torch, mt, cpu, cs.RNN["batch"], cs.SEED + 41)
+    t0 = time.monotonic()
+    _, losses = cs.resnet_steps(mt, mod, batches,
+                                cs.RNN_WARMUP + cs.RNN_STEPS, lambda: None)
+    out["rnn_train"] = dict(losses=losses, seconds=time.monotonic() - t0,
+                            first5=float(np.mean(losses[:5])),
+                            last5=float(np.mean(losses[-5:])))
+    del mod
+    params = cs.rnn_numpy_params(mt, cs.SEED + 42)
+    x, y = cs.rnn_numpy_batch(cs.SEED + 43, cs.RNN["batch"])
+    l32, u32 = cs.rnn_fp32_step(mt, ctx, params, x, y)
+    l64, u64 = _rnn_float64_step(params, x, y)
+    rel = cs.update_rel_diffs(u32, u64)
+    out["rnn_fp32_vs_float64"] = dict(loss32=l32, loss64=l64,
+                                      loss_diff=abs(l32 - l64),
+                                      update_rel_diff=rel,
+                                      worst=max(rel.values()))
+    gvals = mt.convert.gluon_params_to_numpy(
+        cs.gluon_lm(mt, ctx).collect_params())
+    gx, gy = cs.rnn_numpy_batch(cs.SEED + 44, cs.GLUON_LM_FP32_BATCH)
+    for hyb in (True, False):
+        g32 = cs.gluon_lm_fp32_step(mt, ctx, gvals, gx, gy, hyb)
+        g64 = cs.gluon_lm_fp32_step(mt, ctx, gvals, gx, gy, hyb,
+                                    dtype="float64")
+        rel = cs.update_rel_diffs(g32[1], g64[1])
+        out["gluon_lstm_fp32_vs_float64_" + ("hybridized" if hyb
+                                             else "imperative")] = dict(
+            loss_diff=abs(g32[0] - g64[0]), update_rel_diff=rel,
+            worst=max(rel.values()))
+    t0 = time.monotonic()
+    _, rows, _ = cs.ptb_fit(mt, ctx, cs.PTB, None, lambda: None)
+    nll = [r["nll"] for r in rows]
+    w = cs.PTB_WINDOW
+    out["ptb_bucketing"] = dict(batches=len(rows),
+                                buckets=[r["bucket"] for r in rows],
+                                nll=nll, first=float(np.mean(nll[:w])),
+                                last=float(np.mean(nll[-w:])),
+                                seconds=time.monotonic() - t0)
+    for hyb in (True, False):
+        net = cs.gluon_lm(mt, ctx)
+        if hyb:
+            net.hybridize()
+        trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(cs.GLUON_LM_OPT))
+        pairs = [(b.data[0], b.label[0]) for b in batches]
+        _, gl = cs.gluon_train_steps(
+            mt, net, trainer, cs.gluon_lm_loss(mt), pairs,
+            cs.GLUON_LM_WARMUP + cs.GLUON_LM_STEPS, lambda: None)
+        gl = [v / cs.RNN["seq"] for v in gl]
+        out["gluon_lstm_" + ("hybridized" if hyb else "imperative")] = \
+            dict(losses=gl, drop3=float(np.mean(gl[:3]) - np.mean(gl[-3:])))
+    return out
+
+
 PARTS = {"resnet": part_resnet, "deep_bn": part_deep_bn, "gluon": part_gluon,
          "decode_vs_lm": part_decode_vs_lm, "beam": part_beam,
-         "vit": part_vit, "zoo": part_zoo}
+         "vit": part_vit, "zoo": part_zoo, "rnn": part_rnn}
 
 if __name__ == "__main__":
     for part in sys.argv[1:] or list(PARTS):
