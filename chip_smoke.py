@@ -248,22 +248,28 @@ ZOO_SOFTMAX_TOL = 1e-6
 # 1e-4, Xavier gaussian magnitude 2, two synthetic batches made on the
 # card from a seed (int32 labels) taken in turn.  Hybridized with
 # compute_dtype="bfloat16" (the JAX package's Gluon bf16 recipe, bf16
-# compute over fp32 masters), 5 warm-up and 20 timed steps; then the same
+# compute over fp32 masters), 5 warm-up and 40 timed steps; then the same
 # net imperatively (not hybridized), 5 + 10 steps
 GLUON_BATCH = 256
 GLUON_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
 GLUON_WARMUP = 5
-GLUON_STEPS = 20
+GLUON_STEPS = 40
 GLUON_IMP_WARMUP = 5
 GLUON_IMP_STEPS = 10
-# the mean loss of the last 5 of the 25 steps must beat the first 5's by
+# the mean loss of the last 5 of the 45 steps must beat the first 5's by
 # this many nats, fixed before the first card run from CPU rehearsals of
 # the same loop in fp32 (resnet50_v1 at full depth and width; the first
 # by tests/torch_numerics.py gluon): the drop was 23.05 nats at batch 16
 # of 112x112, 6.67 at batch 32 of 112x112, 5.75 and 4.18 at batch 64 of
 # 64x64 (two seeds), most of it a spike of the first steps (lr 0.1 with
 # no warm-up) that shrinks as the batch grows, the last 5 averaging
-# 6.3-6.9.  The margin is a fifth of the smallest drop, as RESNET_MARGIN's
+# 6.3-6.9.  The margin is a fifth of the smallest drop, as RESNET_MARGIN's.
+# At batch 256 on the card the spike is small and the loss stays near
+# ln 1000 on the two batches of random labels until memorisation starts,
+# at a step that cuDNN's nondeterminism moves: the phase ran 25 steps
+# until a card run fell 0.50 short; tools/gluon_loss_runs.py (8 runs of
+# 60 steps, H100) read drops of 0.46-3.10 at 25 steps and 6.82-7.19 at
+# 45, so the phase runs 45 and keeps the margin
 GLUON_MARGIN = 0.8
 # one fp32 step of resnet50_v1 at batch 2 of 224x224 (full depth and
 # width), card (TF32 off) against the CPU from the same seeded weights,
@@ -308,6 +314,11 @@ ATTN_FP32_RTOL = 1e-3
 RTC_SOURCE = os.path.join("mxnet_tpu_torch", "csrc", "rtc_doubler.cu")
 RTC_SHAPE = (8192, 8192)
 RTC_BLOCK = 256
+# the vectorised doubler's grid: each thread takes four float4 vectors,
+# all in flight in one round of its loop (a launch sweep on the card,
+# PERF.md §6: one to 16 vectors a thread ran 0.182-0.187 ms, a grid of 2
+# to 64 blocks an SM, each thread looping over many, 0.19-0.20 ms)
+RTC_VECTORS_PER_THREAD = 4
 # the LSTM language model of benchmark/rnn_bench.py:39-63,88-99 (Zaremba
 # et al. 2014's medium PTB model: 2 layers of 650, embedding 650,
 # unrolled 35 steps; vocab 10000, batch 64), not cut: FusedRNNCell
@@ -382,6 +393,81 @@ GLUON_LM_MARGIN = 0.18
 GLUON_LM_FP32_BATCH = 8
 GLUON_LM_FP32_LOSS_TOL = 1e-5
 GLUON_LM_FP32_UPDATE_RTOL = 2e-3
+
+# SSD-300 with the VGG16-reduced backbone (mxnet_tpu/models/ssd.py
+# ssd_vgg16, BASELINE config 5) at its published width: 20 VOC classes,
+# 3x300x300, batch 32 (Liu et al. 2016, "SSD: Single Shot MultiBox
+# Detector", section 3), at most 16 objects an image, bf16 compute over
+# fp32 masters, examples/ssd/train_ssd.py's optimizer (SGD momentum 0.9,
+# lr 0.004, wd 5e-4, clip_gradient 4.0, lines 48-49 and 76-80) with
+# rescale_grad 1.0 as the reference's example/ssd/train/train_net.py sets
+# it (both loss heads already divide by their valid counts; Module's
+# default of 1/batch, which train_ssd.py leaves, divides the step by the
+# batch once more), and bench.py's Xavier (gaussian, magnitude 2) where
+# train_ssd.py has Xavier's default: the reference starts from pretrained
+# VGG16 weights, which the repo does not hold, and from scratch the
+# default's variance (1/fan) halves through each of the backbone's 15
+# ReLU convolutions, so the heads start at a uniform softmax.  CPU
+# rehearsal at batch 4 (tests/torch_numerics.py ssd): the mean of the last
+# 5 of 25 losses 0.006 below the first 5's with train_ssd.py's settings,
+# 0.023 with rescale_grad 1.0, 0.134 with both changes.
+# train_ssd.py's synthetic images (1-4 filled rectangles, each in the
+# intensity of its class, on noise) scaled to 20 classes, two batches
+# made on the card (ssd_batches) and taken in turn
+SSD = dict(num_classes=20, size=300, batch=32, max_objects=16)
+SSD_OPT = {"learning_rate": 0.004, "momentum": 0.9, "wd": 5e-4,
+           "clip_gradient": 4.0, "rescale_grad": 1.0}
+SSD_WARMUP = 5
+SSD_STEPS = 20
+SSD_INIT = dict(rnd_type="gaussian", magnitude=2.0)
+
+# the mean of the last 5 total losses (softmax cross-entropy over the
+# mined anchors + smooth-L1 a positive anchor) must beat the first 5's by
+# SSD_MARGIN, fixed from the CPU rehearsal (tests/torch_numerics.py ssd:
+# fp32, batch 4, the CPU's own batches: 5.932 -> 5.798, a drop of 0.134)
+# at about a third of it, since the card runs bf16 at batch 32 (the
+# per-anchor normalised step is about the same)
+SSD_MARGIN = 0.05
+# one fp32 step at batch 2, card (TF32 off) against the CPU from the same
+# parameters and batch (tests/torch_numerics.py ssd gives the fp32 step's
+# distance from float64):
+# - MultiBoxTarget's outputs equal, but for anchors at the mining cut
+#   whose background probabilities lie within SSD_TIE_RTOL of the cut on
+#   both sides (the convolutions round in another order on each side);
+#   the loc targets within SSD_LOC_ULPS f32 ulps (log rounds the last
+#   bit on its own on each side)
+# - the loss and each parameter's update (relative to its largest
+#   element) within SSD_FP32_LOSS_TOL and SSD_FP32_UPDATE_RTOL
+SSD_FP32_BATCH = 2
+SSD_TIE_RTOL = 1e-4
+SSD_LOC_ULPS = 2
+# (the CPU's fp32 against float64: loss 9.0e-7, updates 2.4e-3 of their
+# largest element, in stage5_conv3_bias; the card's own error adds one
+# of the same order: budgets 1e-5 and 1e-2)
+SSD_FP32_LOSS_TOL = 1e-5
+SSD_FP32_UPDATE_RTOL = 1e-2
+# detection: mode="detect" through Module.predict at batch 32 (bf16
+# compute), MultiBoxDetection's defaults (threshold 0.01, NMS 0.5, all
+# 8108 boxes); the check holds two images' detections card against CPU
+# and both against a numpy greedy NMS
+SSD_DETECT_IMAGES = 2
+# card against CPU on the same f32 inputs: the decoded boxes and scores
+# within 1e-6 (exp rounds its last bit on its own on each side; the
+# values lie in [0, 1]), the ids equal
+SSD_DETECT_TOL = 1e-6
+# the NMS suppression-matrix kernel (csrc/nms_overlap.cu) against its
+# plain version, bit for bit, at the shapes of one launch: the detect
+# path's (4 images x 8108 boxes, the chunk nms_keep hands it at
+# NMS_CHUNK_ELEMENTS, eight a batch of 32; per class; bf16 as the bf16
+# graph hands it, and f32) and Proposal's default (one image,
+# rpn_pre_nms_top_n 6000 pixel boxes, every box suppressing, threshold
+# 0.7); boxes in clusters so that many pairs lie near the threshold
+NMS_CASES = {"detect_bf16": (4, 8108, "bfloat16", "corner", 0.5, True),
+             "detect_fp32": (4, 8108, "float32", "corner", 0.5, True),
+             "proposal_fp32": (1, 6000, "float32", "pixel", 0.7, False)}
+# operations a candidate pair (j < i, j valid, one class): the IoU's
+# min / max / subtract / multiply / add / divide and the comparisons
+NMS_OPS_PER_PAIR = 20
 
 
 T0 = time.monotonic()
@@ -826,20 +912,22 @@ def phase_serve(torch, mt, sym, params_np):
 
 def reset_counts(mt):
     """Every kernel's launch count and the dispatch counters to 0."""
-    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import attention as att, detection
     att.flash_fwd_cuda.launches = 0
     att.flash_fwd_cuda.lse_launches = 0
     att.flash_bwd_cuda.dq_launches = 0
     att.flash_bwd_cuda.dkv_launches = 0
+    detection.suppress_matrix_cuda.launches = 0
     mt.profiler.reset_dispatch_counts()
 
 
 def read_counts(mt):
-    from mxnet_tpu_torch.ops import attention as att
+    from mxnet_tpu_torch.ops import attention as att, detection
     return {"flash_fwd": att.flash_fwd_cuda.launches,
             "flash_fwd_lse": att.flash_fwd_cuda.lse_launches,
             "flash_bwd_dq": att.flash_bwd_cuda.dq_launches,
-            "flash_bwd_dkv": att.flash_bwd_cuda.dkv_launches}
+            "flash_bwd_dkv": att.flash_bwd_cuda.dkv_launches,
+            "nms_suppress": detection.suppress_matrix_cuda.launches}
 
 
 def device_kernels(prof):
@@ -988,7 +1076,8 @@ def phase_train(torch, mt, sym):
     peak = torch.cuda.max_memory_allocated()
     n = TRAIN_STEPS
     want = {"flash_fwd": L * n, "flash_fwd_lse": L * n,
-            "flash_bwd_dq": L * n, "flash_bwd_dkv": L * n}
+            "flash_bwd_dq": L * n, "flash_bwd_dkv": L * n,
+            "nms_suppress": 0}
     if counts != want or dispatch.get("module.update") != n \
             or dispatch.get("module.backward") != n:
         raise RuntimeError(f"train: launches {counts} / dispatches "
@@ -1670,6 +1759,7 @@ def phase_vit_train(torch, mt):
     peak = torch.cuda.max_memory_allocated()
     want = {k: VIT_LAYERS * n for k in ("flash_fwd", "flash_fwd_lse",
                                          "flash_bwd_dq", "flash_bwd_dkv")}
+    want["nms_suppress"] = 0
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     fails = []
     if counts != want or dispatch.get("module.update") != n:
@@ -2267,7 +2357,7 @@ def phase_gluon_attention(torch, mt):
     target = rng.standard_normal((B, S, d)).astype(np.float32)
     fails, paths, rows = [], {}, {}
     per_step = {"flash_fwd": 1, "flash_fwd_lse": 1, "flash_bwd_dq": 1,
-                "flash_bwd_dkv": 1}
+                "flash_bwd_dkv": 1, "nms_suppress": 0}
     for hybridize in (False, True):
         key = "gluon_attention_" + ("hybridized" if hybridize
                                     else "imperative")
@@ -2391,32 +2481,49 @@ def phase_gluon_attention(torch, mt):
 # the user-kernel path: mx.rtc
 # ---------------------------------------------------------------------------
 def rtc_doubler(mt):
-    """The doubler compiled through rtc.CudaModule from its source in the
-    checkout, and the op a user calls: rtc.CudaFunction over a closure
-    that allocates the output and launches the kernel."""
+    """The two doublers compiled through rtc.CudaModule from their source
+    in the checkout, and the op a user calls: rtc.CudaFunction over a
+    closure that allocates the output and launches the vectorised kernel
+    (``doubler_vec4``: float4 accesses in a grid-stride loop, a grid of
+    RTC_VECTORS_PER_THREAD vectors a thread).  Returns (vec4 kernel, its
+    launch, the op, the one-thread-an-element kernel's launch)."""
     import torch
     root = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(root, RTC_SOURCE)) as f:
         source = f.read()
-    kernel = mt.rtc.CudaModule(source).get_kernel(
-        "doubler", "const float* x, float* y, int n")
+    module = mt.rtc.CudaModule(source)
+    sig = "const float* x, float* y, int n"
+    kernel = module.get_kernel("doubler_vec4", sig)
+    scalar = module.get_kernel("doubler", sig)
+    per_block = RTC_BLOCK * RTC_VECTORS_PER_THREAD
 
     def launch(x):
         y = torch.empty_like(x)
         n = x.numel()
-        kernel.launch([x, y, n], mt.gpu(x.device.index or 0),
+        blocks = max(1, (n // 4 + per_block - 1) // per_block)
+        kernel.launch([x, y, n], mt.gpu(x.device.index or 0), (blocks,),
+                      (RTC_BLOCK,))
+        return y
+
+    def launch_scalar(x):
+        y = torch.empty_like(x)
+        n = x.numel()
+        scalar.launch([x, y, n], mt.gpu(x.device.index or 0),
                       ((n + RTC_BLOCK - 1) // RTC_BLOCK,), (RTC_BLOCK,))
         return y
-    return kernel, launch, mt.rtc.CudaFunction(launch, name="doubler")
+    return kernel, launch, mt.rtc.CudaFunction(launch, name="doubler"), \
+        launch_scalar
 
 
 def phase_rtc(torch, mt):
-    """Compile the doubler, drive it as a user would (an NDArray on the
-    card through the op wrapper, twice, counts reset just before), hold
-    both results bit for bit against x * 2, and time the kernel beside
-    its bound, the plain version and torch.mul."""
+    """Compile the doublers, drive the vectorised one as a user would (an
+    NDArray on the card through the op wrapper, twice, counts reset just
+    before), hold both results bit for bit against x * 2 (and the kernel
+    on lengths with 1-3 trailing elements), and time it beside the first
+    design (one thread an element), its bound, the plain version and
+    torch.mul."""
     t0 = time.monotonic()
-    kernel, launch, op = rtc_doubler(mt)
+    kernel, launch, op, launch_scalar = rtc_doubler(mt)
     build_s = time.monotonic() - t0
     gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
     x = torch.randn(RTC_SHAPE, generator=gen, device="cuda")
@@ -2429,15 +2536,22 @@ def phase_rtc(torch, mt):
     want = x * 2
     equal = torch.equal(y1._data, want) and torch.equal(y2._data, want)
     err = float((y1._data - want).abs().max())
-    if launches != 2 or not equal:
+    tails = {n: torch.equal(launch(x.reshape(-1)[:n]), 2 * x.reshape(-1)[:n])
+             for n in (1, 5, 1027, 4099)}
+    scalar_equal = torch.equal(launch_scalar(x), want)
+    if launches != 2 or not equal or not all(tails.values()) \
+            or not scalar_equal:
         raise RuntimeError(f"rtc: {launches} launches (want 2), equal to "
-                           f"x * 2: {equal}, max |diff| {err}")
+                           f"x * 2: {equal}, max |diff| {err}, tails "
+                           f"{tails}, first design equal: {scalar_equal}")
     row = dict(shape=list(RTC_SHAPE), dtype="float32", build_s=build_s,
                launches=launches, bit_identical=equal,
                bit_identical_relaunch=torch.equal(y1._data, y2._data),
+               tails_bit_identical={str(k): v for k, v in tails.items()},
                max_abs_err=err, library_so=kernel.path)
     nbytes = 2 * x.numel() * 4
     timed(row, "kernel_ms", lambda: launch(x))
+    timed(row, "scalar_kernel_ms", lambda: launch_scalar(x))
     timed(row, "plain_ms", lambda: x * 2)
     timed(row, "library_ms", lambda: torch.mul(x, 2))
     row.update(bytes=nbytes, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
@@ -2994,6 +3108,621 @@ def phase_gluon_lstm_fp32(torch, mt):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the NMS suppression-matrix kernel (csrc/nms_overlap.cu)
+# ---------------------------------------------------------------------------
+def nms_case_inputs(torch, n, k, dtype, rule, classes, seed):
+    """Sorted-by-score stand-ins for NMS: boxes in clusters of 8 (centres
+    jittered by a few percent of the image, sides 5-40%), 5% of them
+    invalid, classes 0-19 (or none); pixel boxes on a 600 x 800 image."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+    centre = u(n, k // 8 + 1, 1, 2).expand(-1, -1, 8, -1).reshape(n, -1, 2)
+    centre = centre[:, :k] + (u(n, k, 2) - 0.5) * 0.06
+    half = (0.05 + u(n, k, 2) * 0.35) / 2
+    boxes = torch.cat([centre - half, centre + half], dim=-1).clamp(0, 1)
+    if rule == "pixel":
+        boxes = torch.round(boxes * torch.tensor([800., 600., 800., 600.],
+                                                 device=dev))
+    boxes = boxes.to(getattr(torch, dtype))
+    valid = u(n, k) > 0.05
+    cls = (u(n, k) * 20).floor() if classes else None
+    return boxes, valid, cls
+
+
+def phase_nms_kernel(torch, mt):
+    """The NMS kernel against its plain version on the card, each case
+    launched twice (equal), bit for bit; timed at each case's shape
+    beside its bound (the output's bytes against the candidate pairs'
+    operations at the f32 peak) and the plain version."""
+    from mxnet_tpu_torch.ops import detection
+    rows, fails = {}, []
+    for name, (n, k, dtype, rule, thresh, classes) in NMS_CASES.items():
+        boxes, valid, cls = nms_case_inputs(torch, n, k, dtype, rule,
+                                            classes, SEED + 70)
+        overlap = detection.iou_matrix if rule == "corner" \
+            else detection.pixel_iou
+        thresh = detection._w(thresh, boxes)
+        args = (boxes, valid, cls, k, k, thresh, overlap)
+        launches = detection.suppress_matrix_cuda.launches
+        got = detection.suppress_matrix_cuda(*args)
+        again = detection.suppress_matrix_cuda(*args)
+        want = detection.suppress_matrix_plain(*args)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want) and torch.equal(got, again)
+        mism = int((got != want).sum())
+        with torch.no_grad():
+            idx = torch.arange(k, device=boxes.device)
+            cand = (idx[:, None] < idx[None, :]) & valid[:, :, None]
+            if cls is not None:
+                cand &= cls[:, :, None] == cls[:, None, :]
+            pairs = int(cand.sum())
+        del cand
+        esize = 2 if dtype == "bfloat16" else 4
+        nbytes = n * k * (4 * esize + 1 + (4 if classes else 0)) + n * k * k
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = pairs * NMS_OPS_PER_PAIR / PEAK_FLOPS["float32"] * 1e3
+        row = dict(shape=[n, k], dtype=dtype, rule=rule, thresh=thresh,
+                   classes=classes, launches=(
+                       detection.suppress_matrix_cuda.launches - launches),
+                   bit_identical=equal, mismatches=mism,
+                   suppressing_pairs=int(want.sum()),
+                   candidate_pairs=pairs, bytes=nbytes,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   library_ms=None)
+        del got, again, want
+        timed(row, "kernel_ms",
+              lambda: detection.suppress_matrix_cuda(*args), iters=3)
+        timed(row, "plain_ms",
+              lambda: detection.suppress_matrix_plain(*args), iters=2,
+              repeats=3, warmup=1)
+        rows[name] = row
+        if not equal:
+            fails.append(f"{name}: {mism} elements differ from the plain "
+                         "version (or between two launches)")
+        torch.cuda.empty_cache()
+    emit("kernel_check_nms", cases=rows)
+    if fails:
+        raise RuntimeError("nms kernel: " + "; ".join(fails))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# SSD-VGG16 (BASELINE config 5): training through Module, one fp32 step
+# against the CPU, detection through Module.predict
+# ---------------------------------------------------------------------------
+def ssd_batches(torch, mt, device, batch, seed, n=2):
+    """``n`` batches of train_ssd.py's synthetic images made on
+    ``device``: noise in [0, 0.25), then 1-4 filled rectangles an image
+    (sides 1/6 to 1/2 of the image), each in the intensity 0.3 + 0.7 c /
+    (C - 1) of its class c; labels (batch, max_objects, 5) [class, x0,
+    y0, x1, y1] in normalised corners, the first rows the objects', the
+    rest -1."""
+    C, S, G = SSD["num_classes"], SSD["size"], SSD["max_objects"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+    ar = torch.arange(S, device=device)
+    out = []
+    for _ in range(n):
+        x = u(batch, 3, S, S) * 0.25
+        present = torch.arange(4, device=device) < \
+            (u(batch, 1) * 4).long() + 1                         # (B, 4)
+        cls = (u(batch, 4) * C).long().clamp(max=C - 1)
+        lo, hi = S // 6, S // 2
+        w = (lo + u(batch, 4) * (hi - lo)).long()
+        h = (lo + u(batch, 4) * (hi - lo)).long()
+        x0 = (u(batch, 4) * (S - w)).long()
+        y0 = (u(batch, 4) * (S - h)).long()
+        for k in range(4):
+            ins = ((ar[None, :, None] >= y0[:, k, None, None])
+                   & (ar[None, :, None] < (y0 + h)[:, k, None, None])
+                   & (ar[None, None, :] >= x0[:, k, None, None])
+                   & (ar[None, None, :] < (x0 + w)[:, k, None, None])
+                   & present[:, k, None, None])
+            shade = 0.3 + 0.7 * cls[:, k].float() / (C - 1)
+            x = torch.where(ins[:, None], shade[:, None, None, None], x)
+        rows = torch.stack([cls.float(), x0 / S, y0 / S, (x0 + w) / S,
+                            (y0 + h) / S], dim=-1)              # (B, 4, 5)
+        label = torch.full((batch, G, 5), -1.0, device=device)
+        label[:, :4] = torch.where(present[..., None], rows, -1.0)
+        out.append(mt.io.DataBatch([mt.nd.NDArray(x.contiguous())],
+                                   [mt.nd.NDArray(label)]))
+    return out
+
+
+def ssd_module(mt, ctx, compute_dtype=None, batch=None, arg_params=None):
+    """train_ssd.py's Module over ssd_vgg16: data and label, Xavier
+    with SSD_INIT (seeded) or ``arg_params``, SGD with momentum, wd and
+    clipping."""
+    B, S = batch or SSD["batch"], SSD["size"]
+    mod = mt.mod.Module(mt.models.ssd_vgg16(num_classes=SSD["num_classes"]),
+                        context=ctx, data_names=("data",),
+                        label_names=("label",), compute_dtype=compute_dtype)
+    mod.bind([mt.io.DataDesc("data", (B, 3, S, S))],
+             [mt.io.DataDesc("label", (B, SSD["max_objects"], 5))])
+    mt.random.seed(SEED)
+    mod.init_params(mt.initializer.Xavier(**SSD_INIT),
+                    arg_params=arg_params)
+    mod.init_optimizer(optimizer="sgd", optimizer_params=dict(SSD_OPT))
+    return mod
+
+
+def conv_macs(mt, net, shapes):
+    """Multiply-adds of every Convolution of ``net``'s forward at
+    ``shapes``: each output element takes (C_in / groups) x kh x kw,
+    counted while shape inference runs the ops on meta tensors."""
+    from mxnet_tpu_torch.ops import registry
+    op = registry.get("Convolution")
+    fn, macs = op.fn, []
+
+    def count(*args, **kw):
+        out = fn(*args, **kw)
+        macs.append(out.numel() * args[1][0].numel())
+        return out
+    op.fn = count
+    try:
+        net.infer_shape(**shapes)
+    finally:
+        op.fn = fn
+    return sum(macs)
+
+
+class OpCapture:
+    """Within ``with OpCapture(mt, name) as cap:`` every call of the
+    registered op ``name`` is kept as ((args, attrs), outputs) in
+    ``cap.calls`` (tensors detached)."""
+
+    def __init__(self, mt, name):
+        from mxnet_tpu_torch.ops import registry
+        self.op = registry.get(name)
+        self.calls = []
+
+    def __enter__(self):
+        fn = self.fn = self.op.fn
+
+        def keep(*args, **kw):
+            out = fn(*args, **kw)
+            det = [a.detach() if hasattr(a, "detach") else a for a in args]
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            self.calls.append(((det, dict(kw)),
+                               [o.detach() for o in outs]))
+            return out
+        self.op.fn = keep
+        return self
+
+    def __exit__(self, *exc):
+        self.op.fn = self.fn
+
+
+def ssd_stats(torch, outs):
+    """The step's losses and anchors from the three heads: the softmax
+    cross-entropy over the labelled anchors (the valid normalisation of
+    SoftmaxOutput), the smooth-L1 sum over the positive anchors, and the
+    counts of positive, negative (mined) and ignored anchors; device
+    tensors."""
+    prob, loc, lab = (o._data for o in outs)
+    lab = lab.long()
+    valid = lab >= 0
+    p = prob.gather(1, lab.clamp(min=0)[:, None])[:, 0]
+    npos = (lab > 0).sum()
+    cls = -(torch.log(p + 1e-12) * valid).sum() / valid.sum().clamp(min=1)
+    return torch.stack([cls, loc.sum() / npos.clamp(min=1),
+                        npos.float(), (lab == 0).sum().float(),
+                        (~valid).sum().float()])
+
+
+def ssd_steps(torch, mt, mod, batches, n, sync):
+    """``n`` steps of forward(is_train=True) + update() over the batches
+    in turn, each ended by ``sync``: the ms of each step on the host
+    clock and its ssd_stats (read after the step's time)."""
+    step_ms, stats = [], []
+    for i in range(n):
+        b = batches[i % len(batches)]
+        t = time.monotonic()
+        mod.forward(b, is_train=True)
+        mod.update()
+        sync()
+        step_ms.append((time.monotonic() - t) * 1e3)
+        stats.append(ssd_stats(torch, mod.get_outputs()))
+    return step_ms, torch.stack(stats).cpu().numpy()
+
+
+def ssd_split(torch, mt, mod, batch):
+    """Where an SSD step's card time goes, part by part, each timed alone
+    by CUDA events: the training forward, forward + backward, the
+    optimizer after a synchronised backward, and, on the inputs the step
+    hands them (captured), MultiBoxTarget, SoftmaxOutput's forward and
+    gradient, and the loc head (smooth_l1 + MakeLoss) forward and
+    backward.  The backbone and heads' share is forward + backward less
+    those three."""
+    from mxnet_tpu_torch.ops import registry
+    with OpCapture(mt, "_contrib_MultiBoxTarget") as tgt, \
+            OpCapture(mt, "SoftmaxOutput") as smo, \
+            OpCapture(mt, "smooth_l1") as sl1, \
+            OpCapture(mt, "MakeLoss") as mkl:
+        mod.forward(batch, is_train=True)
+    mod.backward()
+    row = {}
+
+    def fwd_bwd():
+        mod.forward(batch, is_train=True)
+        mod.backward()
+    timed(row, "forward_ms", lambda: mod.forward(batch, is_train=True),
+          iters=3, repeats=3, warmup=1)
+    timed(row, "forward_backward_ms", fwd_bwd, iters=3, repeats=3, warmup=1)
+    upd = []
+    for _ in range(4):
+        fwd_bwd()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        mod.update()
+        torch.cuda.synchronize()
+        upd.append((time.monotonic() - t) * 1e3)
+    row.update(update_ms=float(np.median(upd)), update_ms_min=min(upd),
+               update_ms_max=max(upd))
+    (args, kw), _ = tgt.calls[0]
+    target = registry.get("_contrib_MultiBoxTarget").fn
+    timed(row, "multibox_target_ms", lambda: target(*args, **kw), iters=5)
+    (sargs, skw), _ = smo.calls[0]
+    sm = registry.get("SoftmaxOutput").fn
+    sdata = sargs[0].clone().requires_grad_()
+
+    def softmax():
+        out = sm(sdata, sargs[1], **skw)
+        torch.autograd.grad(out, [sdata], torch.ones_like(out))
+    timed(row, "softmax_output_ms", softmax, iters=5)
+    (largs, lkw), _ = sl1.calls[0]
+    (margs, mkw), _ = [c for c in mkl.calls
+                       if c[0][1].get("normalization") == "valid"][0]
+    l1, ml = registry.get("smooth_l1").fn, registry.get("MakeLoss").fn
+    ldata = largs[0].clone().requires_grad_()
+
+    def loc_head():
+        out = ml(l1(ldata, **lkw), **mkw)
+        torch.autograd.grad(out, [ldata], torch.ones_like(out))
+    timed(row, "loc_loss_ms", loc_head, iters=5)
+    row["backbone_heads_forward_backward_ms"] = row["forward_backward_ms"] \
+        - row["multibox_target_ms"] - row["softmax_output_ms"] \
+        - row["loc_loss_ms"]
+    row["target_inputs"] = {"anchors": list(args[0].shape),
+                            "label": list(args[1].shape),
+                            "cls_pred": list(args[2].shape),
+                            "dtype": str(args[2].dtype)}
+    return row
+
+
+def phase_ssd_train(torch, mt, peak_flops):
+    """ssd_vgg16 at its published width through the port's Module:
+    setup, SSD_WARMUP + SSD_STEPS steps over two batches made on the
+    card with the counts reset just before and read just after,
+    images/s, TFLOP/s on the analytic count, MFU, peak memory, the
+    anchors and losses of each step; then one profiled step and the
+    step's parts timed alone (ssd_split)."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda", 0)
+    B, S = SSD["batch"], SSD["size"]
+    t0 = time.monotonic()
+    mod = ssd_module(mt, mt.gpu(0), "bfloat16")
+    batches = ssd_batches(torch, mt, dev, B, SEED + 60)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    n_params = sum(int(np.prod(a.shape))
+                   for a in mod.get_params()[0].values())
+    macs = conv_macs(mt, mt.models.ssd_vgg16(SSD["num_classes"]), dict(
+        data=(1, 3, S, S), label=(1, SSD["max_objects"], 5)))
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mt)
+    n = SSD_WARMUP + SSD_STEPS
+    step_ms, stats = ssd_steps(torch, mt, mod, batches, n,
+                               torch.cuda.synchronize)
+    counts = read_counts(mt)
+    dispatch = mt.profiler.dispatch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()) or dispatch.get("module.update") != n \
+            or dispatch.get("module.backward") != n:
+        raise RuntimeError(f"ssd_train: launches {counts} (want none: no "
+                           f"hand-written kernel is on this path) / "
+                           f"dispatches {dispatch}, want {n} updates and "
+                           "backwards")
+    losses = [float(c + l) for c, l in stats[:, :2]]
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not np.isfinite(stats[:, :2]).all() or \
+            not last5 < first5 - SSD_MARGIN:
+        raise RuntimeError(f"ssd_train: losses {losses}: the last 5 "
+                           f"({last5}) do not beat the first 5 ({first5}) "
+                           f"by {SSD_MARGIN}")
+    out = mod.get_outputs()
+    shapes = [tuple(o.shape) for o in out]
+    A = shapes[0][2]
+    if shapes != [(B, SSD["num_classes"] + 1, A), (B, 4 * A), (B, A)] \
+            or not all(bool(torch.isfinite(o._data).all()) for o in out):
+        raise RuntimeError(f"ssd_train: outputs {shapes} not finite or of "
+                           "the wrong shape")
+    timed_ms = step_ms[SSD_WARMUP:]
+    med = float(np.median(timed_ms))
+    flops = 3 * 2.0 * macs * B
+    tflops = flops / (med / 1e3) / 1e12
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        mod.forward(batches[0], is_train=True)
+        mod.update()
+        torch.cuda.synchronize()
+        prof_ms = (time.monotonic() - t) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+    split = ssd_split(torch, mt, mod, batches[0])
+    emit("ssd_train", model="ssd_vgg16 (mxnet_tpu/models/ssd.py)", **SSD,
+         anchors=A, compute_dtype="bfloat16", masters="float32",
+         optimizer=SSD_OPT, initializer="xavier gaussian magnitude 2",
+         n_params=n_params,
+         setup_s=setup_s, first_step_ms=step_ms[0],
+         warmup_ms=step_ms[:SSD_WARMUP], steps=len(timed_ms),
+         step_ms=timed_ms, median_step_ms=med, min_step_ms=min(timed_ms),
+         max_step_ms=max(timed_ms), images_per_s=B / (med / 1e3),
+         forward_macs_per_image=macs, flops_per_step=flops,
+         flops_source="analytic: 3 x 2 x the convolutions' multiply-adds "
+         "(conv_macs) x batch",
+         achieved_tflops=tflops, mfu=tflops * 1e12 / peak_flops,
+         mfu_peak_tflops=peak_flops / 1e12, peak_mem_bytes=peak,
+         cls_loss=stats[:, 0].tolist(), loc_loss=stats[:, 1].tolist(),
+         losses=losses, loss_first5_mean=first5, loss_last5_mean=last5,
+         margin=SSD_MARGIN,
+         positive_anchors=stats[:, 2].tolist(),
+         negative_anchors=stats[:, 3].tolist(),
+         ignored_anchors=stats[:, 4].tolist(),
+         launches=counts, dispatches=dispatch)
+    emit("ssd_profile", step_ms=prof_ms, device_busy_ms=busy,
+         device_idle_share_of_step=max(0.0, 1 - busy / prof_ms),
+         device_idle_share_of_median_step=max(0.0, 1 - busy / med),
+         host_ms_of_median_step=max(0.0, med - busy), **split,
+         top_kernels=[dict(ms=ms, count=c, name=k)
+                      for ms, c, k in kernels[:15]])
+    params = {k: v._data.clone() for k, v in mod.get_params()[0].items()}
+    x = batches[0].data[0]
+    del mod, batches, out
+    torch.cuda.empty_cache()
+    return counts, params, x
+
+
+def ssd_numpy_params(mt, seed, batch):
+    """Seeded weights of ssd_vgg16 (Xavier with SSD_INIT), as numpy,
+    made on the CPU."""
+    mod = mt.mod.Module(mt.models.ssd_vgg16(num_classes=SSD["num_classes"]),
+                        context=mt.cpu(), data_names=("data",),
+                        label_names=("label",))
+    mod.bind([mt.io.DataDesc("data", (batch, 3, SSD["size"], SSD["size"]))],
+             [mt.io.DataDesc("label", (batch, SSD["max_objects"], 5))])
+    mt.random.seed(seed)
+    mod.init_params(mt.initializer.Xavier(**SSD_INIT))
+    return {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+
+
+def ssd_fp32_step(torch, mt, ctx, params, x, y):
+    """One fp32 Module step from ``params`` on (x, y): (cls + loc loss,
+    {name: update}, MultiBoxTarget's inputs and outputs as numpy).  The
+    update is read from the momentum SGD keeps, -lr (clip(gradient) + wd
+    weight) after one step: new - old weight would add the rounding of
+    the weight's last bit, a large part of a small update."""
+    mod = ssd_module(mt, ctx, batch=x.shape[0], arg_params=params)
+    batch = mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                            [mt.nd.array(y, ctx=mt.cpu())])
+    with OpCapture(mt, "_contrib_MultiBoxTarget") as cap:
+        mod.forward(batch, is_train=True)
+    loss = float(ssd_stats(torch, mod.get_outputs())[:2].sum())
+    mod.update()
+    upd = {n: st[0].asnumpy() for n, st in mod._updater.states.items()}
+    (args, kw), outs = cap.calls[0]
+    return loss, upd, [a.cpu().numpy() for a in args], \
+        [o.cpu().numpy() for o in outs], kw
+
+
+def mining_cut_ties(card, cpu, kw):
+    """Anchors whose class target differs between the card and the CPU,
+    each with its background probability's distance from the mining cut
+    (the largest background probability mined) on each side, relative
+    to the cut.  ``card``/``cpu``: (MultiBoxTarget inputs, outputs)."""
+    rows = []
+    for n, a in zip(*np.nonzero(card[1][2] != cpu[1][2])):
+        row = dict(image=int(n), anchor=int(a),
+                   target=[float(card[1][2][n, a]), float(cpu[1][2][n, a])])
+        for side, (ins, outs) in (("card", card), ("cpu", cpu)):
+            logits = ins[2][n].astype(np.float64)
+            p = np.exp(logits[0] - logits.max(0)) / \
+                np.exp(logits - logits.max(0)).sum(0)
+            cut = p[outs[2][n] == 0].max()
+            row[side] = float(abs(p[a] - cut) / cut)
+        rows.append(row)
+    return rows
+
+
+def float_ulps(a, b):
+    """The largest distance of two f32 arrays in units in the last
+    place."""
+    ia = a.astype(np.float32).view(np.int32).astype(np.int64)
+    ib = b.astype(np.float32).view(np.int32).astype(np.int64)
+    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int(np.abs(ia - ib).max()) if ia.size else 0
+
+
+def phase_ssd_fp32(torch, mt):
+    """One fp32 step of ssd_vgg16 at full width, batch SSD_FP32_BATCH,
+    card (TF32 off) against the CPU from the same weights and batch:
+    MultiBoxTarget's outputs, the loss and every parameter's update."""
+    params = ssd_numpy_params(mt, SEED + 61, SSD_FP32_BATCH)
+    b = ssd_batches(torch, mt, torch.device("cpu"), SSD_FP32_BATCH,
+                    SEED + 62, n=1)[0]
+    x, y = b.data[0].asnumpy(), b.label[0].asnumpy()
+    t0 = time.monotonic()
+    gl, gu, gin, gout, kw = ssd_fp32_step(torch, mt, mt.gpu(0), params, x, y)
+    gs = time.monotonic() - t0
+    t0 = time.monotonic()
+    cl, cu, cin, cout, _ = ssd_fp32_step(torch, mt, mt.cpu(), params, x, y)
+    cs = time.monotonic() - t0
+    ties = mining_cut_ties((gin, gout), (cin, cout), kw)
+    bad_ties = [t for t in ties if sorted(t["target"]) != [-1.0, 0.0]
+                or max(t["card"], t["cpu"]) > SSD_TIE_RTOL]
+    mask_equal = bool(np.array_equal(gout[1], cout[1]))
+    loc_ulps = float_ulps(gout[0], cout[0])
+    inputs_equal = [bool(np.array_equal(gin[i], cin[i])) for i in (0, 1)]
+    rel = update_rel_diffs(gu, cu)
+    worst = max(rel, key=rel.get)
+    emit("ssd_fp32_card_vs_cpu", batch=SSD_FP32_BATCH, loss_gpu=gl,
+         loss_cpu=cl, loss_tol=SSD_FP32_LOSS_TOL,
+         anchors_label_equal=inputs_equal, loc_mask_equal=mask_equal,
+         loc_target_max_ulps=loc_ulps, loc_target_ulps_tol=SSD_LOC_ULPS,
+         cls_target_differences=len(ties), mining_cut_ties=ties,
+         tie_rtol=SSD_TIE_RTOL, positives=int((cout[2] > 0).sum()),
+         negatives=int((cout[2] == 0).sum()),
+         update_rel_diff_worst=rel[worst], worst_param=worst,
+         update_rtol=SSD_FP32_UPDATE_RTOL, gpu_s=gs, cpu_s=cs)
+    if not all(inputs_equal) or not mask_equal or loc_ulps > SSD_LOC_ULPS \
+            or bad_ties or not np.isfinite(gl) \
+            or abs(gl - cl) > SSD_FP32_LOSS_TOL \
+            or rel[worst] > SSD_FP32_UPDATE_RTOL \
+            or not all(np.isfinite(v).all() for v in gu.values()):
+        raise RuntimeError(
+            f"ssd fp32: anchors/label equal {inputs_equal}, loc mask equal "
+            f"{mask_equal}, loc targets {loc_ulps} ulps apart, target "
+            f"differences not near ties at the mining cut {bad_ties}; loss "
+            f"{gl} card, {cl} CPU (tol {SSD_FP32_LOSS_TOL}); worst update "
+            f"{worst} {rel[worst]} (tol {SSD_FP32_UPDATE_RTOL})")
+    torch.cuda.empty_cache()
+
+
+def np_greedy_nms(boxes, classes, valid, thresh):
+    """Plain greedy NMS of one image's boxes, sorted by score: visit j in
+    turn; a kept j drops every later box of its class whose IoU with it
+    (corners, no +1, f32 in the op's order) is above ``thresh``."""
+    f = np.float32
+    keep = valid.copy()
+    area = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    for j in range(len(boxes)):
+        if not keep[j]:
+            continue
+        iw = np.maximum(f(0), np.minimum(boxes[j, 2], boxes[j + 1:, 2])
+                        - np.maximum(boxes[j, 0], boxes[j + 1:, 0]))
+        ih = np.maximum(f(0), np.minimum(boxes[j, 3], boxes[j + 1:, 3])
+                        - np.maximum(boxes[j, 1], boxes[j + 1:, 1]))
+        inter = iw * ih
+        union = area[j] + area[j + 1:] - inter
+        with np.errstate(divide="ignore", invalid="ignore"):
+            iou = np.where(union > 0, inter / union, f(0))
+        keep[j + 1:] &= ~((iou > f(thresh)) & (classes[j + 1:] == classes[j]))
+    return keep
+
+
+def detect_vs_numpy(out, cls_prob, kw):
+    """Count of an image's rows where MultiBoxDetection's output ``out``
+    (A, 6) disagrees with a numpy greedy NMS over the same sorted boxes
+    (the classes and validity recomputed from ``cls_prob`` (C, A) and the
+    sort checked against the output's scores)."""
+    fg = cls_prob[1:]
+    score, cid = fg.max(0), fg.argmax(0)
+    valid = score >= np.float32(kw.get("threshold", 0.01))
+    order = np.argsort(-np.where(valid, score, -np.inf), kind="stable")
+    if not np.array_equal(out[:, 1], score[order]):
+        return -1
+    keep = np_greedy_nms(out[:, 2:], cid[order], valid[order],
+                         kw.get("nms_threshold", 0.5))
+    want = np.where(keep, cid[order].astype(np.float32), -1.0)
+    return int((want != out[:, 0]).sum())
+
+
+def phase_ssd_detect(torch, mt, params, x):
+    """The mode="detect" graph through Module (bf16 compute) with
+    ssd_train's parameters at batch 32: ms a batch (forward on card
+    data) and images/s, Module.predict over an NDArrayIter, and
+    MultiBoxDetection's and its NMS's own ms on the inputs the graph
+    hands it.  Checks: predict equals the op on those inputs; on two
+    images (the inputs made f32) the card's op equals the CPU's, and both
+    a numpy greedy NMS."""
+    from mxnet_tpu_torch.ops import detection, registry
+    B, S = SSD["batch"], SSD["size"]
+    net = mt.models.ssd_vgg16(num_classes=SSD["num_classes"], mode="detect")
+    mod = mt.mod.Module(net, context=mt.gpu(0), data_names=("data",),
+                        label_names=None, compute_dtype="bfloat16")
+    mod.bind([mt.io.DataDesc("data", (B, 3, S, S))], for_training=False)
+    mod.init_params(arg_params={n: mt.nd.NDArray(v) for n, v in
+                                params.items() if n in net.list_arguments()})
+    batch = mt.io.DataBatch([x], [])
+    reset_counts(mt)
+    with OpCapture(mt, "_contrib_MultiBoxDetection") as cap:
+        pred = mod.predict(mt.io.NDArrayIter(x.asnumpy(), batch_size=B))
+    counts = read_counts(mt)
+    (args, kw), (want,) = cap.calls[0]
+    det = registry.get("_contrib_MultiBoxDetection").fn
+    pred_equal = bool(torch.equal(pred._data, det(*args, **kw).cpu()))
+    row = dict(batch=B, predict_equals_op=pred_equal, launches=counts,
+               op_input_dtypes=[str(a.dtype) for a in args])
+
+    def forward():
+        mod.forward(batch, is_train=False)
+        return mod.get_outputs()[0]
+    timed(row, "batch_ms", forward, iters=3, repeats=5, warmup=1)
+    row["images_per_s"] = B / (row["batch_ms"] / 1e3)
+    timed(row, "multibox_detection_ms", lambda: det(*args, **kw), iters=3,
+          repeats=5, warmup=1)
+    # the NMS alone, on the sorted boxes the op hands it (captured)
+    nms_calls, nms_keep = [], detection.nms_keep
+
+    def keep_args(*a, **k):
+        nms_calls.append((a, k))
+        return nms_keep(*a, **k)
+    detection.nms_keep = keep_args
+    try:
+        out = det(*args, **kw)
+    finally:
+        detection.nms_keep = nms_keep
+    (nargs, nkw), stats = nms_calls[0], {}
+
+    def nms():
+        return nms_keep(*nargs, **dict(nkw, stats=stats))
+    keep = nms()
+    timed(row, "nms_ms", nms, iters=3, repeats=5, warmup=1)
+    row.update(nms_rounds=stats["rounds"], nms_pairs=stats["pairs"],
+               valid_boxes=int(nargs[1].sum()), kept_boxes=int(keep.sum()),
+               nms_equals_op=bool(torch.equal(
+                   torch.where(keep, nkw["classes"], -1.0), out[..., 0])))
+    # two images, the inputs made f32: card against CPU against numpy
+    k = SSD_DETECT_IMAGES
+    f32 = [a[:k].float() if a.shape[0] == B else a.float() for a in args]
+    gpu_out = det(*f32, **kw).cpu().numpy()
+    cpu_out = det(*[a.cpu() for a in f32], **kw).numpy()
+    probs = f32[0].cpu().numpy()
+    ids_equal = bool(np.array_equal(gpu_out[..., 0], cpu_out[..., 0]))
+    value_diff = float(np.abs(gpu_out - cpu_out).max())
+    numpy_diff = [[detect_vs_numpy(o[i], probs[i], kw) for i in range(k)]
+                  for o in (gpu_out, cpu_out)]
+    row.update(card_vs_cpu_ids_equal=ids_equal,
+               card_vs_cpu_max_abs_diff=value_diff,
+               rows_differing_from_numpy_nms=dict(zip(("card", "cpu"),
+                                                      numpy_diff)),
+               detections_per_image=[int((gpu_out[i, :, 0] >= 0).sum())
+                                     for i in range(k)])
+    emit("ssd_detect", **row)
+    flash = {k: v for k, v in counts.items() if k != "nms_suppress"}
+    if not pred_equal or any(flash.values()) or not counts["nms_suppress"] \
+            or not row["nms_equals_op"] \
+            or not ids_equal or value_diff > SSD_DETECT_TOL \
+            or any(d != 0 for ds in numpy_diff for d in ds) \
+            or tuple(pred.shape) != (B, want.shape[1], 6):
+        raise RuntimeError(f"ssd_detect: {row}")
+    del mod
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main():
     try:
         import torch
@@ -3018,6 +3747,7 @@ def main():
     rtc_row = phase_rtc(torch, mt)
     checks = phase_kernels(torch, mt)
     bwd = phase_bwd_kernels(torch, mt)
+    nms_rows = phase_nms_kernel(torch, mt)
 
     sym = mt.models.transformer_lm(**GPT2_SMALL)
     params_np = gpt2_params(sym, SEED)
@@ -3071,13 +3801,26 @@ def main():
     gluon_lstm_paths = phase_gluon_lstm(torch, mt, rnn_ms)
     phase_gluon_lstm_fp32(torch, mt)
 
+    # SSD-VGG16 (BASELINE config 5): training through Module at its
+    # published width, detection with the trained parameters through
+    # Module.predict, one fp32 step against the CPU; none of them
+    # launches K1-K4
+    ssd_counts, ssd_params, ssd_x = phase_ssd_train(
+        torch, mt, PEAK_FLOPS["bfloat16"])
+    ssd_detect_counts = phase_ssd_detect(torch, mt, ssd_params, ssd_x)
+    del ssd_params, ssd_x
+    torch.cuda.empty_cache()
+    phase_ssd_fp32(torch, mt)
+
     def by_path(key):
         return {"serve": serve_counts[key], "train": train_counts[key],
                 "vit_train": vit_counts[key],
                 **{p: c[key] for p, c in gluon_paths.items()},
                 "rnn_train": rnn_counts[key],
                 "ptb_bucketing": ptb_counts[key],
-                **{p: c[key] for p, c in gluon_lstm_paths.items()}}
+                **{p: c[key] for p, c in gluon_lstm_paths.items()},
+                "ssd_train": ssd_counts[key],
+                "ssd_detect": ssd_detect_counts[key]}
 
     def ms_of(row, key):  # the median with its min and max
         return dict(ms=row[key], ms_min=row[f"{key}_min"],
@@ -3141,14 +3884,37 @@ def main():
     # mxnet_tpu/rtc.py:32 PallasKernel)
     rows.append(dict(
         name="rtc_doubler", source=RTC_SOURCE,
-        design="one thread an element, blocks of 256; compiled at runtime "
-        "by rtc.CudaModule, called through rtc.CudaFunction",
+        design="float4 loads and stores, a grid-stride loop with four "
+        "vectors a thread in flight (a grid of four vectors a thread, "
+        "blocks of 256), a scalar tail for n % 4; compiled at runtime by "
+        "rtc.CudaModule, called through rtc.CudaFunction (the first "
+        "design, one thread an element: first_design_ms)",
         replaces="tests/test_contrib.py:107",
         paths={"rtc": rtc_row["launches"]},
         max_abs_err=rtc_row["max_abs_err"], **ms_of(rtc_row, "kernel_ms"),
+        first_design_ms=rtc_row["scalar_kernel_ms"],
         plain_ms=rtc_row["plain_ms"], bound_ms=rtc_row["bound_ms"],
         bound_by=rtc_row["bound_by"], library_ms=rtc_row["library_ms"],
         library="torch.mul(x, 2)", shape=rtc_row["shape"]))
+    # the NMS suppression matrix: no TPU kernel's port (the JAX package's
+    # NMS is a lax.fori_loop, mxnet_tpu/ops/detection.py:258-266), a
+    # hand-written kernel of the detect path all the same
+    nr = nms_rows["detect_bf16"]
+    rows.append(dict(
+        name="nms_suppress", source="mxnet_tpu_torch/csrc/nms_overlap.cu",
+        design="one thread an (image, j, i) pair, 256 i's of one row j a "
+        "block; the IoU in the plain version's rounding; one byte out a "
+        "pair", replaces="none: the NMS lax.fori_loop of "
+        "mxnet_tpu/ops/detection.py:258 and contrib_ops.py:206 (XLA, "
+        "not Pallas)", key="nms_suppress",
+        max_abs_err=float(max(r["mismatches"]
+                              for r in nms_rows.values())),
+        **ms_of(nr, "kernel_ms"), plain_ms=nr["plain_ms"],
+        bound_ms=nr["bound_ms"], bound_by=nr["bound_by"], library_ms=None,
+        shape=nr["shape"], dtype=nr["dtype"],
+        other_cases={k: dict(ms=v["kernel_ms"], plain_ms=v["plain_ms"],
+                             bound_ms=v["bound_ms"], bound_by=v["bound_by"])
+                     for k, v in nms_rows.items() if k != "detect_bf16"}))
     kernels = []
     for r in rows:
         paths = r.pop("paths") if "paths" in r else by_path(r.pop("key"))

@@ -34,7 +34,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
 # sources, in build order; each becomes lib<stem>.so
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "nms_overlap.cu")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -10,8 +10,8 @@ into ``Module(symbol)`` with the default label name.
 inception-bn (inception_bn), inception-v3 (inception_v3), mobilenet,
 squeezenet, densenet and vit, the JAX package's registry.  Beside it:
 ``transformer_lm``, its KV-cache ``transformer_decode_step`` and
-``beam_search`` over a decode Module.  The SSD detector waits for its
-detection ops (ROADMAP C1.b).
+``beam_search`` over a decode Module, and the SSD detectors ``ssd_vgg16``
+and ``ssd_toy`` (not in the registry, as in the JAX package).
 """
 from . import mlp as _mlp
 from . import lenet as _lenet
@@ -40,6 +40,8 @@ from .vit import vit
 from . import transformer  # noqa: F401
 from .transformer import transformer_lm, transformer_decode_step
 from .generation import beam_search
+from .ssd import ssd_vgg16, ssd_toy
+from . import ssd as _ssd  # noqa: F401
 
 _REGISTRY = {
     "mlp": _mlp, "lenet": _lenet, "alexnet": _alexnet, "vgg": _vgg,

@@ -515,6 +515,8 @@ def _invoke(op_name: str, inputs, attrs, out=None, ctx=None):
             aux._set_data(v.detach().to(aux._data.dtype))
         outs = outs[:-opdef.num_aux]
     nvis = opdef.num_visible
+    if callable(nvis):  # attr-dependent (reference NumVisibleOutputs)
+        nvis = nvis(attrs)
     if nvis is not None and nvis > 0:
         outs = outs[:nvis]
     arrays = _outputs(outs, out)

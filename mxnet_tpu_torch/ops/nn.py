@@ -5,15 +5,15 @@ transformer LM, the symbolic zoo and Gluon's layers run:
 ``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Pooling``,
 ``BatchNorm``, ``InstanceNorm``, ``LayerNorm``, ``LRN``, ``Activation``,
 ``LeakyReLU`` (leaky, prelu, elu, selu, gelu, rrelu), ``Dropout``,
-``softmax``, ``log_softmax``, ``SoftmaxActivation`` and ``SoftmaxOutput``
-with its gradient.  The
+``softmax``, ``log_softmax``, ``SoftmaxActivation``, ``SoftmaxOutput``
+with its gradient and the ``MakeLoss`` head.  The
 large matrix products go to ``torch.nn.functional.linear`` and the
 convolutions to ``torch.nn.functional.conv{1,2,3}d`` (cuBLAS and cuDNN on
 the card), as the JAX package leaves them to XLA.  ``layout="NHWC"``
 keeps the weight in OIHW: an (N, H, W, C) tensor permuted to
 (0, 3, 1, 2) is the same memory seen as a channels-last NCHW tensor, so
-the NCHW functions run on it without a copy.  Every op but
-``SoftmaxOutput`` gets its gradient from autograd; none of them writes in
+the NCHW functions run on it without a copy.  Every op but the two
+loss heads gets its gradient from autograd; none of them writes in
 place to a tensor autograd saved.
 """
 from __future__ import annotations
@@ -476,3 +476,53 @@ class SoftmaxOutputFunction(torch.autograd.Function):
         out, label = ctx.saved_tensors
         grad = softmax_output_grad(out, label, *ctx.opts)
         return (grad.to(g.dtype),) + (None,) * 7
+
+
+class MakeLossFunction(torch.autograd.Function):
+    """Identity forward whose gradient is the constant ``grad_scale``,
+    normalised by ``normalization`` (counterpart of the JAX package's
+    ``_makeloss_core`` ``custom_vjp``): the cotangent arriving from above
+    is replaced, as the other loss heads do.  ``batch`` divides by the
+    leading dim (0-d data counts as batch 1); ``valid`` by the count of
+    elements above ``valid_thresh``, at least 1."""
+
+    @staticmethod
+    def forward(ctx, data, grad_scale, valid_thresh, normalization):
+        ctx.save_for_backward(data)
+        ctx.opts = (grad_scale, valid_thresh, normalization)
+        return data.view_as(data)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        data, = ctx.saved_tensors
+        grad_scale, valid_thresh, normalization = ctx.opts
+        if normalization == "batch":
+            scale = grad_scale / (data.shape[0] if data.dim() else 1)
+            grad = torch.full_like(data, scale)
+        elif normalization == "valid":
+            valid = (data > valid_thresh).sum().clamp(min=1) \
+                .to(torch.float32)
+            grad = (grad_scale / valid).to(data.dtype).expand(data.shape)
+        else:
+            grad = torch.full_like(data, grad_scale)
+        return grad.to(g.dtype), None, None, None
+
+
+@register("MakeLoss", arg_names=["data"],
+          attr_defaults={"grad_scale": 1.0, "valid_thresh": 0.0,
+                         "normalization": "null"})
+def _makeloss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null",
+              **kw):
+    """reference: src/operator/make_loss.cc — forward is the identity,
+    the backward is :class:`MakeLossFunction`'s.  An unknown
+    ``normalization`` is refused, as the reference refuses an invalid
+    enum value when the op is created."""
+    normalization = str(normalization)
+    if normalization not in ("null", "batch", "valid"):
+        raise ValueError("MakeLoss normalization must be one of "
+                         "'null'/'batch'/'valid', got %r" % normalization)
+    if torch.is_grad_enabled() and data.requires_grad:
+        return MakeLossFunction.apply(data, float(grad_scale),
+                                      float(valid_thresh), normalization)
+    return data

@@ -30,8 +30,9 @@ class OpDef:
     name: str
     fn: Callable  # pure torch impl
     num_outputs: int = 1
-    # outputs the graph exposes (LayerNorm computes 3, shows 1)
-    num_visible: Optional[int] = None
+    # outputs the graph exposes (LayerNorm computes 3, shows 1), or a
+    # function of the node's attrs (Proposal's output_score)
+    num_visible: Optional[object] = None
     needs_rng: bool = False
     num_aux: int = 0
     differentiable: bool = True

@@ -60,6 +60,8 @@ def node_num_outputs(node: Node) -> int:
     opdef = _reg.get(node.op)
     n = opdef.num_visible if opdef.num_visible is not None \
         else opdef.num_outputs
+    if callable(n):  # attr-dependent (reference NumVisibleOutputs)
+        n = n(node.attrs)
     if n == -1:  # attr-dependent (reference: SliceChannel num_outputs)
         if node.op in ("SliceChannel", "split"):
             return int(node.attrs.get("num_outputs", 1))

@@ -87,6 +87,11 @@ Parts (all by default; each prints JSON lines):
     NLL, the first and last 10's means);
   - ``gluon_lstm_*``: the Gluon LM's 15 steps on the same batches.
 
+* ``ssd`` (several minutes): the numbers behind the SSD phases' margin
+  and budgets (``part_ssd``): the ``ssd_train`` loop at batch 4 in fp32,
+  the fp32 step against float64, the analytic multiply-adds and the
+  detect graph's NMS.
+
 It imports both packages, as the tests do.
 """
 import json
@@ -596,9 +601,102 @@ def part_rnn():
     return out
 
 
+SSD_REHEARSAL_BATCH = 4
+
+
+def _ssd_float64_step(params, x, y):
+    """ssd_fp32_step's step in float64 through the executor: the loss
+    (ssd_stats' cls + loc) and each parameter's update (SGD's first
+    momentum step: -lr x (clip(rescale_grad x gradient) + wd x weight)),
+    and MultiBoxTarget's class targets."""
+    sym = mt.models.ssd_vgg16(num_classes=cs.SSD["num_classes"])
+    args = {n: mt.nd.NDArray(torch.from_numpy(v.astype(np.float64)))
+            for n, v in params.items()}
+    args["data"] = mt.nd.NDArray(torch.from_numpy(x.astype(np.float64)))
+    args["label"] = mt.nd.NDArray(torch.from_numpy(y.astype(np.float64)))
+    req = {n: ("write" if n in params else "null") for n in args}
+    ex = mt.executor.Executor(sym, mt.cpu(), args=args, grad_req=req)
+    outs = ex.forward(is_train=True)
+    ex.backward()
+    loss = float(cs.ssd_stats(torch, outs)[:2].sum())
+    o = cs.SSD_OPT
+    upd = {}
+    for n, w in params.items():
+        g = ex.grad_dict[n].asnumpy() * o["rescale_grad"]
+        g = np.clip(g, -o["clip_gradient"], o["clip_gradient"])
+        upd[n] = -o["learning_rate"] * (g + o["wd"] * w.astype(np.float64))
+    return loss, upd, outs[2].asnumpy()
+
+
+def part_ssd():
+    """The numbers behind chip_smoke.py's SSD phases, fixed before their
+    first card run: the ssd_train loop on the CPU in fp32 at batch
+    SSD_REHEARSAL_BATCH (the card's 32 cut for the CPU; 300x300, 20
+    classes, the phase's optimizer and batch rule drawn by the CPU's
+    generator), every step's cls and loc losses and anchors; the
+    ssd_fp32 step's distance from float64 (loss, each parameter's update
+    relative to its largest element, class targets that differ); the
+    analytic multiply-adds; and the detect graph's NMS at batch 2 with
+    the rehearsal's trained weights (valid and kept boxes, fixed-point
+    rounds)."""
+    from mxnet_tpu_torch.ops import detection
+    ctx, cpu = mt.cpu(), torch.device("cpu")
+    B = SSD_REHEARSAL_BATCH
+    out = {"forward_macs_per_image": cs.conv_macs(
+        mt, mt.models.ssd_vgg16(cs.SSD["num_classes"]),
+        dict(data=(1, 3, 300, 300), label=(1, cs.SSD["max_objects"], 5)))}
+    mod = cs.ssd_module(mt, ctx, batch=B)
+    batches = cs.ssd_batches(torch, mt, cpu, B, cs.SEED + 60)
+    t0 = time.monotonic()
+    _, stats = cs.ssd_steps(torch, mt, mod, batches,
+                            cs.SSD_WARMUP + cs.SSD_STEPS, lambda: None)
+    losses = (stats[:, 0] + stats[:, 1]).tolist()
+    out["ssd_train"] = dict(
+        batch=B, seconds=time.monotonic() - t0, losses=losses,
+        cls=stats[:, 0].tolist(), loc=stats[:, 1].tolist(),
+        positive=stats[:, 2].tolist(), negative=stats[:, 3].tolist(),
+        first5=float(np.mean(losses[:5])), last5=float(np.mean(losses[-5:])),
+        drop=float(np.mean(losses[:5]) - np.mean(losses[-5:])))
+    trained = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+    del mod
+    params = cs.ssd_numpy_params(mt, cs.SEED + 61, cs.SSD_FP32_BATCH)
+    b = cs.ssd_batches(torch, mt, cpu, cs.SSD_FP32_BATCH, cs.SEED + 62,
+                       n=1)[0]
+    x, y = b.data[0].asnumpy(), b.label[0].asnumpy()
+    l32, u32, _, outs32, _ = cs.ssd_fp32_step(torch, mt, ctx, params, x, y)
+    l64, u64, ct64 = _ssd_float64_step(params, x, y)
+    rel = cs.update_rel_diffs(u32, u64)
+    out["ssd_fp32_vs_float64"] = dict(
+        loss32=l32, loss64=l64, loss_diff=abs(l32 - l64),
+        worst=max(rel.values()), worst_param=max(rel, key=rel.get),
+        cls_target_differences=int((outs32[2] != ct64).sum()),
+        positives=int((outs32[2] > 0).sum()))
+    net = mt.models.ssd_vgg16(cs.SSD["num_classes"], mode="detect")
+    dmod = mt.mod.Module(net, context=ctx, label_names=None)
+    dmod.bind([mt.io.DataDesc("data", (2, 3, 300, 300))], for_training=False)
+    dmod.init_params(arg_params={n: mt.nd.array(v, ctx=ctx)
+                                 for n, v in trained.items()
+                                 if n in net.list_arguments()})
+    stats = {}
+    orig = detection.nms_keep
+
+    def counted(*a, **kw):
+        return orig(*a, **dict(kw, stats=stats))
+    detection.nms_keep = counted
+    try:
+        det = dmod.predict(mt.io.NDArrayIter(
+            batches[0].data[0].asnumpy()[:2], batch_size=2)).asnumpy()
+    finally:
+        detection.nms_keep = orig
+    out["ssd_detect_nms"] = dict(
+        kept=(det[..., 0] >= 0).sum(1).tolist(),
+        valid=(det[..., 1] >= 0.01).sum(1).tolist(), **stats)
+    return out
+
+
 PARTS = {"resnet": part_resnet, "deep_bn": part_deep_bn, "gluon": part_gluon,
          "decode_vs_lm": part_decode_vs_lm, "beam": part_beam,
-         "vit": part_vit, "zoo": part_zoo, "rnn": part_rnn}
+         "vit": part_vit, "zoo": part_zoo, "rnn": part_rnn, "ssd": part_ssd}
 
 if __name__ == "__main__":
     for part in sys.argv[1:] or list(PARTS):
