@@ -7,13 +7,15 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 It builds the hand-written kernels from ``mxnet_tpu_torch/csrc`` (into
 ``build/``), holds each against its plain PyTorch version on the card
-(flash-attention forward K1, backward dQ K2 and dK/dV K3), serves a
+(flash-attention forward K1, backward dQ K2 and dK/dV K3, each in bf16
+and in float32), serves a
 GPT-2-small-width transformer LM (random weights from a seed) through
 ``DynamicBatcher`` -> ``BucketedPredictor`` on ``cuda:0``, checks the
 replies and one full-width request in float32 against the CPU, then
 trains the same LM through ``Module`` + ``NDArrayIter`` on ``cuda:0``
-(bf16 compute, fp32 masters) and checks one float32 training step
-against the same step on the CPU.  Then it trains ResNet-50 at ImageNet
+(bf16 compute, fp32 masters) and checks one float32 training step,
+which launches K1-K3 in float32 once a layer, against the same step on
+the CPU.  Then it trains ResNet-50 at ImageNet
 width through ``Module`` with the JAX package's ``bench.py`` recipe
 (batch 256, bf16 compute, SGD with momentum), profiles a step, checks
 one float32 step at full depth and width against the CPU, and runs
@@ -552,11 +554,34 @@ def phase_device(torch):
 # the kernel-check rows that are timed: the main paths' shapes
 TIMED_CASES = ("main_bf16", "main_fp32", "vit_bf16", "vit_fp32")
 
+# the f32 K2 and K3 (CUDA cores) as the kernels line describes them, and
+# the first design's ms at the main shape (4x4 patches of scalar shared
+# reads, synchronous copies; NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md
+# section 6), shown beside the current design's
+F32_BWD_DESIGN = {
+    "dq": "CUDA cores, full f32: 128 threads, each computing S and dP for "
+          "one 4x8 patch from float4 reads of rows strided D + 4, dS in "
+          "registers, then dQ += dS.K in 8x4 patches through shared "
+          "memory; K through a two-stage 16-byte cp.async ring, V's next "
+          "tile copied once S and dP are done; exp as exp2f; heaviest "
+          "causal q tiles first",
+    "dkv": "CUDA cores, full f32: 128 threads, 64 k rows a block, 64-row q "
+           "tiles with lse and delta copied by 16-byte cp.async; each "
+           "thread computes S^T and dP^T for one 4x8 patch, P^T and dS^T "
+           "through shared memory, then warps 0-1 add dV and warps 2-3 dK "
+           "in 8 x D/8 patches, summed over the GQA group in registers; "
+           "exp as exp2f",
+}
+
 # the kernels on the tensor cores (the bf16 instances of K1, K2 and K3):
 # each instance must hold HMMA instructions, and the D=64 ones (the main
 # paths') must not spill
 MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
                "flash_bwd_dkv_mma_kernel")
+# the float32 instances of K2 and K3, full f32 on the CUDA cores: each
+# instance must hold no HMMA instruction (no TF32 product), and the D=64
+# ones must not spill
+F32_BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
 def demangle(names, nvcc_dir):
@@ -580,7 +605,9 @@ def demangle(names, nvcc_dir):
 def phase_build(mt):
     """Build every source at once; per kernel, the registers and spills
     that ``-Xptxas -v`` reports and the HMMA (tensor-core product) count
-    of its machine code (``cuobjdump -sass``)."""
+    of its machine code (``cuobjdump -sass``).  The tensor-core kernels
+    must hold HMMA, the f32 K2 and K3 none; each has three instances (D
+    32, 64, 128), and none spills at D=64."""
     cl = mt.cuda_lib
     t0 = time.monotonic()
     built = cl.build_all()
@@ -599,14 +626,19 @@ def phase_build(mt):
             row = dict(report.get(mangled, {}), hmma=hmma.get(mangled, 0),
                        source=src)
             kernels[name] = row
-            if not any(stem in mangled for stem in MMA_KERNELS):
+            mma = any(stem in mangled for stem in MMA_KERNELS)
+            if not mma and not any(stem in mangled
+                                   for stem in F32_BWD_KERNELS):
                 continue
-            if row["hmma"] == 0:
+            if mma and row["hmma"] == 0:
                 failures.append(f"{name}: no HMMA instruction")
+            if not mma and row["hmma"]:
+                failures.append(f"{name}: {row['hmma']} HMMA instructions "
+                                "in an f32 kernel")
             if "ILi64E" in mangled and (row.get("spill_stores", 1)
                                         or row.get("spill_loads", 1)):
                 failures.append(f"{name}: spills {row}")
-    for stem in MMA_KERNELS:
+    for stem in MMA_KERNELS + F32_BWD_KERNELS:
         if sum(stem in n for n in kernels) != 3:  # D = 32, 64, 128
             failures.append(f"{stem}: not 3 instances in {sorted(kernels)}")
     emit("build", seconds=secs, sources=sorted(built), kernels=kernels)
@@ -731,6 +763,19 @@ def phase_bwd_kernels(torch, mt):
          "bfloat16"),
         ("causal_sq80_sk80_bf16", 2, 4, 2, 80, 80, 64, True, "bfloat16"),
         ("vit_bf16", VIT_BATCH, 6, 6, 196, 196, 64, False, "bfloat16"),
+        # the f32 (CUDA-core) K2 and K3 at the same edges, and across
+        # their 64-row tiles: Sq 80 and 33 end a q tile after 16 and 33
+        # rows, Sk 144 and 97 a k tile after 16 and 33
+        ("gqa_8to2_s300_fp32", 2, 8, 2, 300, 300, 64, True, "float32"),
+        ("sq1_sk1_fp32", 2, 4, 2, 1, 1, 64, True, "float32"),
+        ("ragged_sq77_sk130_fp32", 2, 4, 2, 77, 130, 64, False, "float32"),
+        ("causal_sq130_sk77_d128_fp32", 2, 4, 2, 130, 77, 128, True,
+         "float32"),
+        ("causal_sq80_sk80_fp32", 2, 4, 2, 80, 80, 64, True, "float32"),
+        ("sq80_sk144_d128_fp32", 1, 4, 1, 80, 144, 128, False, "float32"),
+        ("causal_sq33_sk97_d32_fp32", 2, 4, 2, 33, 97, 32, True, "float32"),
+        # ViT-S/16's fp32 training shape: 196 tokens, the last tile ragged
+        ("vit_fp32", VIT_BATCH, 6, 6, 196, 196, 64, False, "float32"),
     ]
     results, failures = {}, []
     for name, B, H, Hk, Sq, Sk, D, causal, dt in cases:
@@ -1143,13 +1188,15 @@ def phase_train(torch, mt, sym):
 def phase_train_fp32(torch, mt):
     """One fp32 Module step (SGD) at full width, FP32_TRAIN_LAYERS layers,
     batch 1: the card (kernels, TF32 off) against the CPU (plain path),
-    from the same numpy weights on the same batch."""
+    from the same numpy weights on the same batch.  The card's step
+    launches each of K1 (with lse), K2 and K3 once a layer, in f32;
+    returns those counts."""
     cfg = dict(GPT2_SMALL, num_layers=FP32_TRAIN_LAYERS)
     S, V = cfg["seq_len"], cfg["vocab_size"]
     sym = mt.models.transformer_lm(**cfg)
     params = gpt2_params(sym, SEED + 6)
     x, y = lm_batch(np.random.default_rng(SEED + 5), 1, S, V)
-    res = {}
+    res, counts = {}, None
     for name, ctx in (("gpu", mt.gpu(0)), ("cpu", mt.cpu())):
         mod = mt.mod.Module(sym, context=ctx)
         mod.bind([mt.io.DataDesc("data", (1, S), np.int32)],
@@ -1160,7 +1207,14 @@ def phase_train_fp32(torch, mt):
         batch = mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
                                 [mt.nd.array(y, ctx=mt.cpu())])
         t0 = time.monotonic()
-        train_step(mod, batch)
+        if name == "gpu":
+            # the card's step: counts start at 0 here, read right after
+            reset_counts(mt)
+            train_step(mod, batch)
+            torch.cuda.synchronize()
+            counts = read_counts(mt)
+        else:
+            train_step(mod, batch)
         metric = mt.metric.CrossEntropy()
         mod.update_metric(metric, batch.label)
         loss = metric.get()[1]
@@ -1169,6 +1223,11 @@ def phase_train_fp32(torch, mt):
         res[name] = (loss, new, secs)
         del mod
     (gl, gnew, gs), (cl, cnew, cs) = res["gpu"], res["cpu"]
+    L = FP32_TRAIN_LAYERS
+    want = {"flash_fwd": L, "flash_fwd_lse": L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L, "nms_suppress": 0}
+    if counts != want:
+        raise RuntimeError(f"train fp32: launches {counts}, want {want}")
     worst, worst_name = 0.0, None
     for n, w in params.items():
         dg, dc = gnew[n] - w, cnew[n] - w
@@ -1185,8 +1244,9 @@ def phase_train_fp32(torch, mt):
     emit("train_fp32_card_vs_cpu", layers=FP32_TRAIN_LAYERS, batch=1,
          loss_gpu=gl, loss_cpu=cl, loss_tol=FP32_LOSS_TOL,
          worst_update_rel_diff=worst, worst_param=worst_name,
-         update_rtol=FP32_UPDATE_RTOL, gpu_s=gs, cpu_s=cs)
+         update_rtol=FP32_UPDATE_RTOL, gpu_s=gs, cpu_s=cs, launches=counts)
     torch.cuda.empty_cache()
+    return counts
 
 
 def resnet_batches(torch, mt, device, batch, image_shape, seed):
@@ -3757,7 +3817,7 @@ def main():
     torch.cuda.empty_cache()
     phase_fp32(torch, mt, sym, params_np)
     train_counts = phase_train(torch, mt, sym)
-    phase_train_fp32(torch, mt)
+    train_fp32_counts = phase_train_fp32(torch, mt)
 
     # ResNet-50 (bench.py's path); cuDNN picks its algorithms by timing
     # them, as a user's training script would have it
@@ -3831,7 +3891,7 @@ def main():
 
     def at_vit(kind, err, ms_key, bound_key, by_key, row):
         """The kernel's numbers at ViT-S/16's shape (B 128, H 6, S 196,
-        D 64, non-causal, bf16, with lse)."""
+        D 64, non-causal) in ``row``'s dtype."""
         return dict(shape=row["shape"], causal=False, max_abs_err=err,
                     **ms_of(row, ms_key), plain_ms=row["plain_ms"],
                     bound_ms=row[bound_key], bound_by=row[by_key],
@@ -3879,6 +3939,27 @@ def main():
              bound_by=f32["bound_by"], library_ms=f32["library_ms"],
              shape=f32["shape"], causal=False),
     ]
+    # the fp32 instances of K2 and K3 (CUDA cores), launched on the fp32
+    # training path, at the main shape and at ViT-S/16's training shape
+    bf, vbf = bwd["main_fp32"], bwd["vit_fp32"]
+    for kind, errs, replaces in (("dq", ("dq",), "222"),
+                                 ("dkv", ("dk", "dv"), "273")):
+        rows.append(dict(
+            name=f"flash_bwd_{kind}_fp32",
+            source="mxnet_tpu_torch/csrc/flash_bwd.cu",
+            design=F32_BWD_DESIGN[kind],
+            replaces=f"mxnet_tpu/ops/attention.py:{replaces}",
+            paths={"train_fp32": train_fp32_counts[f"flash_bwd_{kind}"]},
+            max_abs_err=max(bf[f"{e}_max_abs_err"] for e in errs),
+            **ms_of(bf, f"{kind}_kernel_ms"),
+            plain_ms=bf["plain_ms"], bound_ms=bf[f"{kind}_bound_ms"],
+            bound_by=bf[f"{kind}_bound_by"], library_ms=bf["library_ms"],
+            library="SDPA's fp32 backward (torch.autograd.grad)",
+            shape=bf["shape"], causal=True,
+            at_vit_shape=at_vit(
+                kind, max(vbf[f"{e}_max_abs_err"] for e in errs),
+                f"{kind}_kernel_ms", f"{kind}_bound_ms", f"{kind}_bound_by",
+                vbf)))
     # K4: the user kernel of the rtc path (the JAX package's Pallas
     # doubler, tests/test_contrib.py:107, launched at :110 through
     # mxnet_tpu/rtc.py:32 PallasKernel)
@@ -3921,13 +4002,14 @@ def main():
         kernels.append(dict(name=r.pop("name"), route="cuda",
                             launches=sum(paths.values()),
                             launches_by_path=paths, card=smi, **r))
-    # plain_ms and library_ms of the two backward kernels are each of the
-    # whole backward (dQ, dK and dV together): the plain version and
-    # SDPA's backward compute all three in one call; the ResNet (Module
-    # and Gluon), decode and beam-search paths launch none of them; the
-    # zoo phase launches only the fp32 forward (ViT), 12 times a batch;
-    # the Gluon attention block launches each of K1 (lse), K2 and K3 once
-    # a step on each of its two paths
+    # plain_ms and library_ms of the backward kernels (both dtypes) are
+    # each of the whole backward (dQ, dK and dV together): the plain
+    # version and SDPA's backward compute all three in one call; the
+    # fp32 rows' launches are those of the one fp32 training step; the
+    # ResNet (Module and Gluon), decode and beam-search paths launch none
+    # of them; the zoo phase launches only the fp32 forward (ViT), 12
+    # times a batch; the Gluon attention block launches each of K1 (lse),
+    # K2 and K3 once a step on each of its two paths
     emit("total", seconds=time.monotonic() - T0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

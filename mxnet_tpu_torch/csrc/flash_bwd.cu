@@ -51,12 +51,18 @@
 //     bf16 rows padded to D + 8 values (ldmatrix without bank
 //     conflicts): Q, dO 64 rows each, K, V 2 stages each: 54 KB at
 //     D=64, 102 KB at D=128.
-//   - float32 -> flash_bwd_dq_kernel, the first design, on the f32 CUDA
-//     cores: 256 threads, each owning 4 rows x 4 columns of the 64x64
-//     score tile; it computes s and dP for them in one pass over D,
-//     writes dS to shared memory, and then adds dS . K into its 4 rows
-//     of dQ (columns tx + 16*j).  It stays for the reason given for K3
-//     below.
+//   - float32 -> flash_bwd_dq_kernel, on the f32 CUDA cores in full f32
+//     (no TF32, no mma): 128 threads (4 warps), the heaviest causal q
+//     tiles first as above.  Q and dO are staged once; K goes through a
+//     two-stage cp.async ring of 16-byte copies, V's next tile is copied
+//     as soon as this tile's S and dP are done (rows past Sq or Sk
+//     zero-filled by the copy).  Each thread computes S = Q.K^T and dP =
+//     dO.V^T for the same 4 x 8 patch (q rows r + 16 i, k columns c + 8
+//     j) from float4 reads along D, and dS = P (dP - delta) scale in
+//     registers (P masked only in tiles that meet the diagonal or a
+//     ragged edge); dS goes to shared memory, and after one barrier every
+//     thread adds dQ += dS.K for 8 q rows x D / 16 d columns, from float4
+//     reads of dS along k and of K along d.
 // * K3 (dK, dV): one block per (b, KV head, 64-row k tile).  It stages
 //   its K and V tiles once, then loops over the G = H / Hk query heads of
 //   its group and, for each, over the q tiles from the causal start
@@ -86,10 +92,18 @@
 //     Shared memory, bf16 rows padded to D + 8 values (ldmatrix without
 //     bank conflicts): K, V 64 rows each, Q, dO 2 stages each, lse and
 //     delta 2 stages: 55 KB at D=64, 69 KB at D=128.
-//   - float32 -> flash_bwd_dkv_kernel, the first design, on the f32 CUDA
-//     cores: 256 threads, each owning a 4x4 patch; the transposed tiles
-//     P^T and dS^T go through shared memory.  It stays: on the tensor
-//     cores f32 would mean TF32, about three decimal digits, and the f32
+//   - float32 -> flash_bwd_dkv_kernel, on the f32 CUDA cores in full
+//     f32: 128 threads.  K and V are staged once; Q, dO, lse and delta of
+//     each 64-row q tile are copied with 16-byte cp.async once the last
+//     tile is read (two stages would take 142 KB of shared memory at
+//     D=64, one block an SM; with one stage two blocks share an SM and
+//     each covers the other's copy).  Each thread computes S^T = K.Q^T
+//     and dP^T = V.dO^T for the same 4 x 8 patch (k rows r + 16 i, q
+//     columns c + 8 j) and P^T and dS^T from them; both go to shared
+//     memory, and after one barrier warps 0-1 add dV += P^T.dO and warps
+//     2-3 dK += dS^T.Q, each thread 8 k rows x D / 8 d columns, summed
+//     over the GQA group in registers.  f32 stays off the tensor cores:
+//     there it would mean TF32, about three decimal digits, and the f32
 //     path is what holds the card to the CPU at 1e-3 in chip_smoke.py.
 //
 // What bounds it.  At the training shape (B=8, H=Hk=12, S=1024, D=64,
@@ -106,13 +120,33 @@
 // designs take 0.093 ms (K2) and 0.13 ms (K3), about 5x their bounds
 // (PERF.md §6).
 //
-// Shared memory of the CUDA-core (float32) designs, rows padded to D+1
-// and 65 floats so that the column reads are free of bank conflicts:
-//   K2: Q, dO, K, V tiles 64 x (D+1), dS tile 64 x 65       (149 KB at D=128)
-//   K3: K, V, Q, dO tiles 64 x (D+1), P^T and dS^T 64 x 65,
-//       lse and delta of the q tile                         (162 KB at D=128)
+// What bounds the float32 designs.  The same work in f32 is bound by the
+// CUDA cores' FMAs: 0.289 ms for K2 and 0.385 ms for K3 at the training
+// shape on an H100 SXM (67 TFLOP/s, 128 FMAs a clock an SM).  Next comes
+// shared memory, which delivers 128 bytes a clock an SM to the threads:
+// a warp's LDS.128 takes four clocks, broadcast or not, so a TM x TN
+// patch of an outer product, TM + TN floats read for TM TN FMAs, costs
+// 4 (TM + TN) / (TM TN) bytes an FMA, and above 1 the FMAs wait: 4x4
+// patches, even read as float4, need 2 bytes an FMA.  Here K2 reads 1.5
+// bytes an FMA in both passes,
+// K3 1.5 for S^T and dP^T and 1.0 for dV and dK, every read a float4 of
+// rows strided D + 4 floats (row r + 1 four banks after row r), free of
+// bank conflicts.  8x8 patches of one product a thread (1.0 byte an FMA)
+// were tried and were slower: P had to be handed from one group of warps
+// to the other, one barrier more a tile and one group idle while the
+// other took the exponentials.  The f32 kernels compute exp(x) as
+// exp2f(x log2 e), one MUFU.EX2, as the bf16 kernels do (2% faster than
+// the accurate expf in K2; the kernels still agree with the plain
+// version within 1e-5 where 1e-3 is asked).  At most 255 registers a
+// thread at 128 threads, 105.5 KB (K2) or 107 KB (K3) of shared memory at
+// D=64, so two blocks (8 warps) share an SM:
+//   K2: Q, dO, 2 stages of K, V, the dS tile           (187 KB at D=128)
+//   K3: K, V, Q, dO, P^T, dS^T, lse and delta          (172 KB at D=128)
 // Both exceed the 48 KB static limit, hence the
 // cudaFuncAttributeMaxDynamicSharedMemorySize call before each launch.
+// On an NVIDIA H100 80GB HBM3 at 700.00 W at the training shape in f32,
+// K2 takes 0.536 ms and K3 0.769 ms, against SDPA's whole f32 backward
+// at 1.24-1.26 ms in the same runs (PERF.md section 6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,27 +156,137 @@
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per tile
-constexpr int BK = 64;    // key rows per tile
-constexpr int NT = 256;   // threads per block: 16 (tx) x 16 (ty)
-constexpr int PS = 65;    // row stride of the 64 x 64 P / dS tiles
+constexpr int BQ = 64;  // query rows per tile (K2 in both dtypes, K3 in bf16)
+constexpr int BK = 64;  // key rows per tile
+// exp(x) is computed as exp2f(x log2 e), one MUFU.EX2 (about 2 ulp)
+constexpr float LOG2E = 1.4426950408889634f;
 
-// Copy rows [r0, r0 + 64) of a (rows, D) matrix into a 64 x stride f32
-// tile, zero-filling rows past `rows`.
+// ---- float32: CUDA cores ----
+
+constexpr int NT = 128;     // threads of the f32 kernels: 4 warps
+constexpr int SS = BK + 8;  // row stride of the dS, P^T and dS^T tiles
+static_assert(BQ == BK, "the f32 kernels' tiles are square");
+
+// Row stride, in floats, of an f32 Q, K, V or dO tile: D + 4 keeps every
+// row on 16 bytes (cp.async, float4 reads) and puts row r + 1 four banks
+// after row r, so 8 consecutive rows read as float4 at one column cover
+// all 32 banks.
 template <int D>
-__device__ __forceinline__ void load_tile(float* dst, int stride,
-                                          const float* __restrict__ src,
-                                          int r0, int rows) {
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
-    const int r = i / D, c = i % D;
-    dst[r * stride + c] =
-        (r0 + r < rows) ? src[(int64_t)(r0 + r) * D + c] : 0.f;
+__host__ __device__ constexpr int f32_ld() {
+  return D + 4;
+}
+
+// This thread's group (0: warps 0-1, 1: warps 2-3) and its (r, c) in the
+// 8 x 8 layout of the group's 64 threads; a warp covers 4 r x 8 c, so the
+// 8 lanes of a quarter-warp share r and read 8 consecutive c.
+__device__ __forceinline__ void f32_group(int& grp, int& r, int& c) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  grp = w >> 1;
+  r = (w & 1) * 4 + (lane >> 3);
+  c = lane & 7;
+}
+
+template <int N>
+__device__ __forceinline__ void ld_vec(float (&v)[N], const float* p) {
+  static_assert(N == 2 || N == 4, "float2 or float4");
+  if constexpr (N == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    v[0] = x.x, v[1] = x.y;
   }
+}
+
+template <int N>
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[N]) {
+  if constexpr (N == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+
+// Stage rows [r0, r0 + ROWS) of a contiguous (rows, D) f32 matrix into a
+// ROWS x f32_ld<D>() tile with 16-byte cp.async; rows at or past `rows`
+// are zero-filled by the copy itself.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows_f32(float* dst,
+                                              const float* __restrict__ src,
+                                              int r0, int rows) {
+  constexpr int CPR = D / 4;  // 16-byte chunks per row
+  static_assert(ROWS * CPR % NT == 0, "chunks must split evenly");
+#pragma unroll
+  for (int j = 0; j < ROWS * CPR / NT; ++j) {
+    const int i = j * NT + threadIdx.x;
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = r0 + r < rows;
+    const float* g = ok ? src + (int64_t)(r0 + r) * D + c * 4 : src;
+    mma::cp_async16(dst + r * f32_ld<D>() + c * 4, g, ok ? 16 : 0);
+  }
+}
+
+// x[i][j] += A[r + 16 i] . B[c + 8 j] over D, both tiles row-major with
+// row stride LD: a 4 x 8 patch of a product whose reduction runs along
+// the rows, 12 float4 reads for every 128 FMAs.
+template <int D>
+__device__ __forceinline__ void patch_rows(float (&x)[4][8], const float* a,
+                                           const float* b, int r, int c) {
+  constexpr int LD = f32_ld<D>();
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float av[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ld_vec(av[i], a + (r + 16 * i) * LD + d);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float bv[4];
+      ld_vec(bv, b + (c + 8 * j) * LD + d);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i][j] = fmaf(av[i][e], bv[e], x[i][j]);
+    }
+  }
+}
+
+// g[i][m][n] += sum over k < K of P[r + 8 i][k] * B[k][col(m, n)] with
+// col(m, n) = m * C * CW + c * CW + n: the product of a tile P (rows of
+// stride PS, read as float4 along k) and a row-major tile B (stride LD,
+// read as CW-wide vectors along its columns), C column groups.
+template <int K, int PS, int LD, int C, int NC, int CW>
+__device__ __forceinline__ void patch_cols(float (&g)[8][NC][CW],
+                                           const float* p, const float* b,
+                                           int r, int c) {
+#pragma unroll 2
+  for (int k = 0; k < K; k += 4) {
+    float av[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ld_vec(av[i], p + (r + 8 * i) * PS + k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int m = 0; m < NC; ++m) {
+        float bv[CW];
+        ld_vec(bv, b + (k + e) * LD + m * C * CW + c * CW);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int n = 0; n < CW; ++n)
+            g[i][m][n] = fmaf(av[i][e], bv[n], g[i][m][n]);
+      }
+  }
+}
+
+// Shared memory, in floats, of the f32 dQ kernel: Q, dO, two stages of K,
+// V, and the P / dS tile.
+template <int D>
+__host__ __device__ constexpr int dq_f32_floats() {
+  return 2 * BQ * f32_ld<D>() + 3 * BK * f32_ld<D>() + BQ * SS;
 }
 
 // K2 in float32: dQ for one (b*H + h, 64-row q tile).
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
 flash_bwd_dq_kernel(const float* __restrict__ q,
                     const float* __restrict__ k,
                     const float* __restrict__ v,
@@ -150,116 +294,121 @@ flash_bwd_dq_kernel(const float* __restrict__ q,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int Hk, int Sq, int Sk, int causal, float scale) {
-  constexpr int DS = D + 1;
-  constexpr int DJ = D / 16;  // dQ columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;            // BQ x DS
-  float* sO = sQ + BQ * DS;    // dO tile, BQ x DS
-  float* sK = sO + BQ * DS;    // BK x DS
-  float* sV = sK + BK * DS;    // BK x DS
-  float* sS = sV + BK * DS;    // dS tile, BQ x PS
+  constexpr int LD = f32_ld<D>();
+  // dQ += dS.K: 8 q rows x D / 16 d columns a thread, in NC vectors of CW
+  constexpr int CW = D >= 64 ? 4 : 2, NC = D / (16 * CW);
+  extern __shared__ __align__(16) float smem_f32[];
+  float* sQ = smem_f32;          // BQ x LD
+  float* sO = sQ + BQ * LD;      // dO, BQ x LD
+  float* sK = sO + BQ * LD;      // 2 stages of BK x LD
+  float* sV = sK + 2 * BK * LD;  // BK x LD
+  float* sS = sV + BK * LD;      // dS, BQ x SS
 
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int q0 = (causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y) * BQ;
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
   const int b = bh / H, h = bh % H;
   const int kvh = b * Hk + h / (H / Hk);
   const float* kp = k + (int64_t)kvh * Sk * D;
   const float* vp = v + (int64_t)kvh * Sk * D;
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  load_tile<D>(sQ, DS, q + (int64_t)bh * Sq * D, q0, Sq);
-  load_tile<D>(sO, DS, dout + (int64_t)bh * Sq * D, q0, Sq);
-
-  float lr[4], dr[4];
-  bool rok[4];
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty * 4 + i;
-    rok[i] = qr < Sq;
-    lr[i] = rok[i] ? lse[(int64_t)bh * Sq + qr] : 0.f;
-    dr[i] = rok[i] ? delta[(int64_t)bh * Sq + qr] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  }
+  // S and dP: q rows r + 16 i, k columns c + 8 j; a warp 4 r x 8 c
+  const int r = (threadIdx.x >> 5) * 4 + ((threadIdx.x & 31) >> 3);
+  const int c = threadIdx.x & 7;
+  // dQ: q rows r3 + 8 i, column group c3 of 16
+  const int r3 = (threadIdx.x >> 4), c3 = threadIdx.x & 15;
 
   const int nk = (Sk + BK - 1) / BK;
   const int hi = causal ? min(nk, (q0 + BQ + BK - 1) / BK) : nk;
+
+  load_rows_f32<D, BQ>(sQ, q + (int64_t)bh * Sq * D, q0, Sq);
+  load_rows_f32<D, BQ>(sO, dout + (int64_t)bh * Sq * D, q0, Sq);
+  if (hi > 0) {
+    load_rows_f32<D, BK>(sK, kp, 0, Sk);
+    load_rows_f32<D, BK>(sV, vp, 0, Sk);
+  }
+  mma::cp_async_commit();
+
+  float lr[4], dr[4];  // rows r + 16 i (0 past Sq)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qr = q0 + r + 16 * i;
+    lr[i] = qr < Sq ? lse[(int64_t)bh * Sq + qr] : 0.f;
+    dr[i] = qr < Sq ? delta[(int64_t)bh * Sq + qr] : 0.f;
+  }
+  float acc[8][NC][CW];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int m = 0; m < NC; ++m)
+#pragma unroll
+      for (int n = 0; n < CW; ++n) acc[i][m][n] = 0.f;
+
   for (int kb = 0; kb < hi; ++kb) {
     const int k0 = kb * BK;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(sK, DS, kp, k0, Sk);
-    load_tile<D>(sV, DS, vp, k0, Sk);
-    __syncthreads();
+    const float* cK = sK + (kb & 1) * BK * LD;
+    mma::cp_async_wait<0>();
+    __syncthreads();  // K and V of this tile are in; the last tile is done
+    if (kb + 1 < hi) {  // K's next tile lands during this tile's work
+      load_rows_f32<D, BK>(sK + ((kb + 1) & 1) * BK * LD, kp, k0 + BK, Sk);
+      mma::cp_async_commit();
+    }
 
-    float s[4][4], dp[4][4];
+    float s[4][8], dp[4][8];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
+    patch_rows<D>(s, sQ, cK, r, c);
+    patch_rows<D>(dp, sO, sV, r, c);
+
+    // dS = P (dP - delta) scale, P masked only in tiles that meet the
+    // diagonal or a ragged edge
+    const bool edge =
+        (causal && k0 + BK - 1 > q0) || k0 + BK > Sk || q0 + BQ > Sq;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sQ[(ty * 4 + i) * DS + d];
-        ov[i] = sO[(ty * 4 + i) * DS + d];
-      }
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sK[(tx + 16 * j) * DS + d];
-        vv[j] = sV[(tx + 16 * j) * DS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+      for (int j = 0; j < 8; ++j) {
+        float p = exp2f(fmaf(s[i][j], scale, -lr[i]) * LOG2E);
+        if (edge) {
+          const int qr = q0 + r + 16 * i, kc = k0 + c + 8 * j;
+          if (qr >= Sq || kc >= Sk || (causal && kc > qr)) p = 0.f;
         }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = k0 + tx + 16 * j;
-        const bool ok = rok[i] && kc < Sk && (!causal || kc <= qr);
-        const float p = ok ? expf(s[i][j] * scale - lr[i]) : 0.f;
-        sS[(ty * 4 + i) * PS + tx + 16 * j] = p * (dp[i][j] - dr[i]) * scale;
+        sS[(r + 16 * i) * SS + c + 8 * j] = p * (dp[i][j] - dr[i]) * scale;
       }
+    __syncthreads();  // dS is in; V is read
+    if (kb + 1 < hi) {  // V's next tile lands during dQ
+      load_rows_f32<D, BK>(sV, vp, k0 + BK, Sk);
+      mma::cp_async_commit();
     }
-    __syncthreads();
 
-#pragma unroll 8
-    for (int c = 0; c < BK; ++c) {
-      float dsv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sS[(ty * 4 + i) * PS + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float kk = sK[c * DS + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(dsv[i], kk, acc[i][j]);
-      }
-    }
+    // dQ += dS.K
+    patch_cols<BK, SS, LD, 16, NC, CW>(acc, sS, cK, r3, c3);
   }
+  mma::cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!rok[i]) continue;
-    float* row = dq + ((int64_t)bh * Sq + q0 + ty * 4 + i) * D;
+  for (int i = 0; i < 8; ++i) {
+    const int qr = q0 + r3 + 8 * i;
+    if (qr >= Sq) continue;
+    float* row = dq + ((int64_t)bh * Sq + qr) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) row[tx + 16 * j] = acc[i][j];
+    for (int m = 0; m < NC; ++m)
+      st_vec(row + m * 16 * CW + c3 * CW, acc[i][m]);
   }
+}
+
+// Shared memory, in floats, of the f32 dK/dV kernel: K, V, Q and dO,
+// P^T and dS^T, the q tile's lse and delta.
+template <int D>
+__host__ __device__ constexpr int dkv_f32_floats() {
+  return 2 * BK * f32_ld<D>() + 2 * BQ * f32_ld<D>() + 2 * BK * SS + 2 * BQ;
 }
 
 // K3 in float32: dK and dV for one (b*Hk + kv head, 64-row k tile),
 // summed over the G query heads of the group.
 template <int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
 flash_bwd_dkv_kernel(const float* __restrict__ q,
                      const float* __restrict__ k,
                      const float* __restrict__ v,
@@ -268,131 +417,113 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int H, int Hk, int Sq, int Sk,
                      int causal, float scale) {
-  constexpr int DS = D + 1;
-  constexpr int DJ = D / 16;  // dK / dV columns per thread
-  extern __shared__ float smem[];
-  float* sK = smem;            // BK x DS
-  float* sV = sK + BK * DS;    // BK x DS
-  float* sQ = sV + BK * DS;    // BQ x DS
-  float* sO = sQ + BQ * DS;    // dO tile, BQ x DS
-  float* sP = sO + BQ * DS;    // P^T tile, BK x PS
-  float* sS = sP + BK * PS;    // dS^T tile, BK x PS
-  float* sL = sS + BK * PS;    // lse of the q tile, BQ
-  float* sD = sL + BQ;         // delta of the q tile, BQ
+  constexpr int LD = f32_ld<D>();
+  // dV or dK: 8 k rows x D / 8 d columns a thread, in D / 32 float4s
+  constexpr int NC = D / 32;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* sK = smem_f32;      // BK x LD
+  float* sV = sK + BK * LD;  // BK x LD
+  float* sQ = sV + BK * LD;  // BQ x LD
+  float* sO = sQ + BQ * LD;  // dO, BQ x LD
+  float* sP = sO + BQ * LD;  // P^T, BK x SS
+  float* sS = sP + BK * SS;  // dS^T, BK x SS
+  float* sL = sS + BK * SS;  // lse of the q tile, BQ
+  float* sD = sL + BQ;       // delta of the q tile, BQ
 
   const int bkh = blockIdx.x;  // b * Hk + kv head
   const int k0 = blockIdx.y * BK;
   const int b = bkh / Hk, kh = bkh % Hk;
   const int G = H / Hk;
+  load_rows_f32<D, BK>(sK, k + (int64_t)bkh * Sk * D, k0, Sk);
+  load_rows_f32<D, BK>(sV, v + (int64_t)bkh * Sk * D, k0, Sk);
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  load_tile<D>(sK, DS, k + (int64_t)bkh * Sk * D, k0, Sk);
-  load_tile<D>(sV, DS, v + (int64_t)bkh * Sk * D, k0, Sk);
-
-  bool kok[4];
-  float gk[4][DJ], gv[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    kok[i] = k0 + ty * 4 + i < Sk;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) gk[i][j] = gv[i][j] = 0.f;
-  }
-
+  // iterations walk (query head of the group, q tile from the causal
+  // start); `stage` starts the copies of iteration `it`
   const int nq = (Sq + BQ - 1) / BQ;
-  const int lo = causal ? k0 / BQ : 0;
-  for (int g = 0; g < G; ++g) {
-    const int bh = b * H + kh * G + g;
-    const float* qp = q + (int64_t)bh * Sq * D;
-    const float* op = dout + (int64_t)bh * Sq * D;
-    const float* lp = lse + (int64_t)bh * Sq;
-    const float* dlp = delta + (int64_t)bh * Sq;
-    for (int qb = lo; qb < nq; ++qb) {
-      const int q0 = qb * BQ;
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<D>(sQ, DS, qp, q0, Sq);
-      load_tile<D>(sO, DS, op, q0, Sq);
-      if (threadIdx.x < BQ) {
-        const int r = q0 + threadIdx.x;
-        sL[threadIdx.x] = r < Sq ? lp[r] : 0.f;
-        sD[threadIdx.x] = r < Sq ? dlp[r] : 0.f;
-      }
-      __syncthreads();
+  const int lo = causal ? min(k0 / BQ, nq) : 0;
+  const int nqt = nq - lo;
+  const int n_it = G * nqt;
+  auto stage = [&](int it) {
+    const int bh = b * H + kh * G + it / nqt;
+    const int q0 = (lo + it % nqt) * BQ;
+    load_rows_f32<D, BQ>(sQ, q + (int64_t)bh * Sq * D, q0, Sq);
+    load_rows_f32<D, BQ>(sO, dout + (int64_t)bh * Sq * D, q0, Sq);
+    const int i = threadIdx.x % BQ;
+    const bool ok = q0 + i < Sq;
+    const int64_t off = ok ? (int64_t)bh * Sq + q0 + i : 0;
+    if (threadIdx.x < BQ)
+      mma::cp_async4(sL + i, lse + off, ok);
+    else
+      mma::cp_async4(sD + i, delta + off, ok);
+  };
+  if (n_it > 0) stage(0);
+  mma::cp_async_commit();
 
-      // rows: k rows ty*4 + i; columns: q rows tx + 16*j
-      float s[4][4], dp[4][4];
+  // S^T and dP^T: k rows r + 16 i, q columns c + 8 j; a warp 4 r x 8 c
+  const int r = (threadIdx.x >> 5) * 4 + ((threadIdx.x & 31) >> 3);
+  const int c = threadIdx.x & 7;
+  // group 0 adds dV += P^T.dO, group 1 dK += dS^T.Q: k rows rg + 8 i
+  int grp, rg, cg;
+  f32_group(grp, rg, cg);
+  float g[8][NC][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], ov[4];
+    for (int m = 0; m < NC; ++m)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = sK[(ty * 4 + i) * DS + d];
-          vv[i] = sV[(ty * 4 + i) * DS + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = sQ[(tx + 16 * j) * DS + d];
-          ov[j] = sO[(tx + 16 * j) * DS + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-          }
-      }
+      for (int n = 0; n < 4; ++n) g[i][m][n] = 0.f;
 
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kr = k0 + ty * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int qc = tx + 16 * j;
-          const int qr = q0 + qc;
-          const bool ok = kok[i] && qr < Sq && (!causal || kr <= qr);
-          const float p = ok ? expf(s[i][j] * scale - sL[qc]) : 0.f;
-          sP[(ty * 4 + i) * PS + qc] = p;
-          sS[(ty * 4 + i) * PS + qc] = p * (dp[i][j] - sD[qc]) * scale;
-        }
-      }
-      __syncthreads();
+  for (int it = 0; it < n_it; ++it) {
+    mma::cp_async_wait<0>();
+    __syncthreads();  // this q tile is in
+    const int q0 = (lo + it % nqt) * BQ;
 
-#pragma unroll 8
-      for (int c = 0; c < BQ; ++c) {
-        float pv[4], dsv[4];
+    float s[4][8], dp[4][8];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = sP[(ty * 4 + i) * PS + c];
-          dsv[i] = sS[(ty * 4 + i) * PS + c];
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
+    patch_rows<D>(s, sK, sQ, r, c);
+    patch_rows<D>(dp, sV, sO, r, c);
+
+    // P^T and dS^T, masked only in tiles that meet the diagonal or a
+    // ragged edge
+    const bool edge =
+        (causal && k0 + BK - 1 > q0) || q0 + BQ > Sq || k0 + BK > Sk;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int qc = c + 8 * j, e = (r + 16 * i) * SS + qc;
+        float p = exp2f(fmaf(s[i][j], scale, -sL[qc]) * LOG2E);
+        if (edge) {
+          const int qr = q0 + qc, kr = k0 + r + 16 * i;
+          if (qr >= Sq || kr >= Sk || (causal && kr > qr)) p = 0.f;
         }
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          const float oo = sO[c * DS + tx + 16 * j];
-          const float qq = sQ[c * DS + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            gv[i][j] = fmaf(pv[i], oo, gv[i][j]);
-            gk[i][j] = fmaf(dsv[i], qq, gk[i][j]);
-          }
-        }
+        sP[e] = p;
+        sS[e] = p * (dp[i][j] - sD[qc]) * scale;
       }
+    __syncthreads();  // P^T and dS^T are in
+
+    // dV += P^T.dO (group 0), dK += dS^T.Q (group 1)
+    patch_cols<BQ, SS, LD, 8, NC, 4>(g, grp ? sS : sP, grp ? sQ : sO, rg,
+                                     cg);
+    __syncthreads();  // the q tile is read
+    if (it + 1 < n_it) {
+      stage(it + 1);
+      mma::cp_async_commit();
     }
   }
+  mma::cp_async_wait<0>();
 
+  float* out = grp ? dk : dv;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!kok[i]) continue;
-    const int64_t off = ((int64_t)bkh * Sk + k0 + ty * 4 + i) * D;
+  for (int i = 0; i < 8; ++i) {
+    const int kr = k0 + rg + 8 * i;
+    if (kr >= Sk) continue;
+    float* row = out + ((int64_t)bkh * Sk + kr) * D;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dk[off + tx + 16 * j] = gk[i][j];
-      dv[off + tx + 16 * j] = gv[i][j];
-    }
+    for (int m = 0; m < NC; ++m) st_vec(row + m * 32 + cg * 4, g[i][m]);
   }
 }
 
@@ -401,7 +532,6 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
 using mma::bf16;
 
 constexpr int MT = 128;  // threads of the bf16 kernels: 4 warps
-constexpr float LOG2E = 1.4426950408889634f;
 
 // K2 in bf16: dQ for one (b*H + h, 64-row q tile).
 template <int D>
@@ -742,7 +872,7 @@ struct Args {
 
 template <int D>
 int launch_dq(const Args& a) {
-  const size_t smem = sizeof(float) * (size_t)(4 * 64 * (D + 1) + BQ * PS);
+  const size_t smem = sizeof(float) * (size_t)dq_f32_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -773,8 +903,7 @@ int launch_dq_mma(const Args& a) {
 
 template <int D>
 int launch_dkv(const Args& a) {
-  const size_t smem = sizeof(float) *
-                      (size_t)(4 * 64 * (D + 1) + 2 * BK * PS + 2 * BQ);
+  const size_t smem = sizeof(float) * (size_t)dkv_f32_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

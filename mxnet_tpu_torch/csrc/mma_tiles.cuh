@@ -1,6 +1,6 @@
-// Tensor-core building blocks shared by the bf16 attention kernels:
-// cp.async staging of bf16 row tiles, ldmatrix fragment loads and the
-// mma.sync m16n8k16 bf16 product with f32 accumulators.
+// Building blocks shared by the attention kernels: cp.async copies, and
+// for the bf16 kernels the staging of bf16 row tiles, ldmatrix fragment
+// loads and the mma.sync m16n8k16 bf16 product with f32 accumulators.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), for a
 // lane with g = lane / 4 and t = lane % 4:

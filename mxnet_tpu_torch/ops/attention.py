@@ -55,14 +55,16 @@ def _check_heads(q, k, v):
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
 
 
-def _check_aligned(who, named):
-    """The bf16 kernels stage rows with 16-byte ``cp.async`` copies, so
-    every bf16 input must start on a 16-byte boundary (a fresh tensor
-    does; a view with an odd storage offset may not)."""
+def _check_aligned(who, named, dtypes=(torch.bfloat16,)):
+    """Kernels that stage rows with 16-byte ``cp.async`` copies need every
+    input of a dtype in ``dtypes`` to start on a 16-byte boundary (a
+    fresh tensor does; a view with an odd storage offset may not): the
+    forward's bf16 kernel, and both backward kernels in both dtypes."""
     for name, t in named:
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+        if t.dtype in dtypes and t.data_ptr() % 16:
             raise MXNetError(f"{who}: {name} does not start on a 16-byte "
-                             "boundary (bf16 kernels copy 16-byte chunks)")
+                             f"boundary ({t.dtype} kernels copy 16-byte "
+                             "chunks)")
 
 
 def _attn_reference(q, k, v, causal, scale, return_lse=False):
@@ -226,7 +228,7 @@ def _check_bwd_inputs(q, k, v, out, lse, dout):
         raise MXNetError(f"flash_bwd_cuda: head dim {q.shape[3]} not "
                          f"supported ({KERNEL_HEAD_DIMS})")
     _check_aligned("flash_bwd_cuda", (("q", q), ("k", k), ("v", v),
-                                      ("dout", dout)))
+                                      ("dout", dout)), _KERNEL_DTYPES)
     _check_row_stat("lse", lse, q)
 
 

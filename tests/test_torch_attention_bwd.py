@@ -42,6 +42,10 @@ CASES = [
     (1, 2, 2, 20, 52, 32, True),     # causal Sq < Sk (top-left)
     (1, 2, 2, 52, 20, 32, True),     # causal Sq > Sk
     (2, 4, 2, 24, 40, 64, False),    # cross attention, GQA
+    # across the card's f32 tile edges (64-row q and k tiles): Sq 80 and
+    # 33, Sk 144 and 97 end a tile after 16 or 33 rows
+    (1, 2, 1, 80, 144, 32, False),
+    (1, 2, 2, 33, 97, 32, True),
 ]
 IDS = ["B{}H{}Hk{}Sq{}Sk{}D{}{}".format(*c[:6], "c" if c[6] else "")
        for c in CASES]

@@ -43,6 +43,10 @@ CASES = [
     # the bf16 dQ kernel's 64-row q tile cut off after one warp's 16 rows
     (2, 4, 2, 80, 80, 64, True),
     (1, 4, 1, 80, 144, 128, False),
+    # the f32 kernels' 64-row tiles cut off after 33 rows (Sq 33, Sk 97)
+    # and after half a tile (96)
+    (2, 4, 2, 33, 97, 32, True),
+    (1, 2, 1, 96, 96, 64, True),
 ]
 CASE_IDS = ["B{}H{}Hk{}_Sq{}Sk{}_D{}_{}".format(
     *c[:6], "causal" if c[6] else "full") for c in CASES]
@@ -166,15 +170,16 @@ def test_backward_kernels_match_plain_version(dev, dtype, case):
                                                  before[1] + 1)
 
 
-DET_CASES = (2, 12, 14, 15)
+DET_CASES = (2, 12, 14, 15, 17, 18)
 
 
 @pytest.mark.parametrize("case", [CASES[i] for i in DET_CASES],
                          ids=[CASE_IDS[i] for i in DET_CASES])
-def test_bf16_kernels_are_deterministic(dev, case):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_are_deterministic(dev, dtype, case):
     """No atomics: two launches of K1 (with lse) and of the backward on
-    the same inputs give the same bits."""
-    q, k, v, out, lse, g, causal = _bwd_inputs(dev, torch.bfloat16, case, 0)
+    the same inputs give the same bits, in both dtypes."""
+    q, k, v, out, lse, g, causal = _bwd_inputs(dev, dtype, case, 0)
     out2, lse2 = att.flash_fwd_cuda(q, k, v, causal, None, return_lse=True)
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
     first = att.flash_bwd_cuda(q, k, v, out, lse, g, causal)
@@ -210,3 +215,10 @@ def test_backward_refuses_what_it_does_not_take(dev):
         att.flash_bwd_cuda(q, k, v, out, lse.double(), out, True)
     with pytest.raises(mt.MXNetError, match="dtype"):
         att.flash_bwd_cuda(q, k, v, out, lse, out.bfloat16(), True)
+    # the f32 backward copies rows in 16-byte chunks too: a contiguous
+    # f32 view 4 bytes into its storage is refused
+    flat = torch.zeros(q.numel() + 1, device=dev)
+    g = flat[1:].view(q.shape)
+    assert g.is_contiguous() and g.data_ptr() % 16
+    with pytest.raises(mt.MXNetError, match="16-byte"):
+        att.flash_bwd_cuda(q, k, v, out, lse, g, True)

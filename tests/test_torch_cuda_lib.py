@@ -149,3 +149,19 @@ def test_bf16_inputs_must_start_on_16_bytes():
     f32 = torch.zeros(2 * 16 * 64 + 1)[1:].view(1, 2, 16, 64)
     assert f32.data_ptr() % 16
     att._check_aligned("k", [("q", f32)])
+
+
+def test_backward_refuses_f32_views_off_16_bytes():
+    """The f32 backward kernels copy rows in 16-byte chunks as well: the
+    backward's check (every kernel dtype) refuses an f32 view 4 bytes
+    into its storage and takes one on 16 bytes; the forward's does not
+    ask it of f32."""
+    flat = torch.zeros(2 * 16 * 64 + 4)
+    good = flat[4:].view(1, 2, 16, 64)
+    bad = flat[1:1 + 2 * 16 * 64].view(1, 2, 16, 64)
+    assert good.data_ptr() % 16 == 0 and bad.data_ptr() % 16 == 4
+    att._check_aligned("flash_bwd_cuda", [("q", good)], att._KERNEL_DTYPES)
+    with pytest.raises(MXNetError, match="dout does not start on a 16-byte"):
+        att._check_aligned("flash_bwd_cuda", [("q", good), ("dout", bad)],
+                           att._KERNEL_DTYPES)
+    att._check_aligned("flash_fwd_cuda", [("q", bad)])
