@@ -463,10 +463,18 @@ SSD_DETECT_TOL = 1e-6
 # NMS_CHUNK_ELEMENTS, eight a batch of 32; per class; bf16 as the bf16
 # graph hands it, and f32) and Proposal's default (one image,
 # rpn_pre_nms_top_n 6000 pixel boxes, every box suppressing, threshold
-# 0.7); boxes in clusters so that many pairs lie near the threshold
-NMS_CASES = {"detect_bf16": (4, 8108, "bfloat16", "corner", 0.5, True),
-             "detect_fp32": (4, 8108, "float32", "corner", 0.5, True),
-             "proposal_fp32": (1, 6000, "float32", "pixel", 0.7, False)}
+# 0.7); boxes in clusters so that many pairs lie near the threshold, a
+# share of them invalid; and, untimed, the kernel's edges: a single box,
+# and every box invalid (rows stored as zeros without a load)
+NMS_CASES = {
+    # images, boxes, dtype, rule, threshold, classes, invalid share
+    "detect_bf16": (4, 8108, "bfloat16", "corner", 0.5, True, 0.05),
+    "detect_fp32": (4, 8108, "float32", "corner", 0.5, True, 0.05),
+    "proposal_fp32": (1, 6000, "float32", "pixel", 0.7, False, 0.05),
+    "single_box": (1, 1, "float32", "corner", 0.5, True, 0.0),
+    "all_invalid_bf16": (4, 8108, "bfloat16", "corner", 0.5, True, 1.0),
+}
+NMS_TIMED = ("detect_bf16", "detect_fp32", "proposal_fp32")
 # operations a candidate pair (j < i, j valid, one class): the IoU's
 # min / max / subtract / multiply / add / divide and the comparisons
 NMS_OPS_PER_PAIR = 20
@@ -498,6 +506,42 @@ def time_ms(fn, iters=20, repeats=5, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return float(np.median(times)), min(times), max(times)
+
+
+def device_ms(torch, fn, iters=20):
+    """(mean device ms a call of ``fn``, the kernels' names): the kernels
+    the card ran over ``iters`` calls under torch.profiler (after one
+    synchronised warm-up call), summed.  The first window of a process
+    may record no device activity (seen on the card once in eight
+    processes); a window that records none is taken again, twice at
+    most."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        if kernels:
+            return sum(ms for ms, _, _ in kernels) / iters, [
+                k for _, _, k in kernels]
+    raise RuntimeError("torch.profiler saw no device time")
+
+
+def host_ms(torch, fn, iters=50):
+    """Mean host ms before a call of ``fn`` returns (no synchronise inside
+    the loop: what the host spends to enqueue it), after a synchronised
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def timed(row, key, fn, **kw):
@@ -554,10 +598,7 @@ def phase_device(torch):
 # the kernel-check rows that are timed: the main paths' shapes
 TIMED_CASES = ("main_bf16", "main_fp32", "vit_bf16", "vit_fp32")
 
-# the f32 K2 and K3 (CUDA cores) as the kernels line describes them, and
-# the first design's ms at the main shape (4x4 patches of scalar shared
-# reads, synchronous copies; NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md
-# section 6), shown beside the current design's
+# the f32 K2 and K3 (CUDA cores) as the kernels line describes them
 F32_BWD_DESIGN = {
     "dq": "CUDA cores, full f32: 128 threads, each computing S and dP for "
           "one 4x8 patch from float4 reads of rows strided D + 4, dS in "
@@ -573,15 +614,43 @@ F32_BWD_DESIGN = {
            "exp as exp2f",
 }
 
+# K1's f32 instance and N1 as the kernels line describes them
+F32_FWD_DESIGN = (
+    "CUDA cores, full f32: 4 warps a block, each warp 16 q rows of a "
+    "64-row q tile, or (when 64-row tiles leave SMs without a block) all "
+    "four on one 16-row tile, each taking a quarter of every key tile "
+    "with its own softmax state, merged at the end; each lane S for a "
+    "4x8 (4x2) patch from float4 reads of rows strided D + 4, online "
+    "softmax in base 2 (exp2f) with the row max by shuffles, P through "
+    "the warp's own shared tile (__syncwarp), O += P.V in 4 x D/8 "
+    "patches; K and V through a two-stage 16-byte cp.async ring, one "
+    "barrier a tile; masks only on the diagonal and the ragged tile; "
+    "heaviest causal q tiles first")
+NMS_DESIGN = (
+    "16 consecutive i's a thread, one 16-byte store a row (rows padded to "
+    "16 bytes), 128 threads x 2048 i's x 16 rows j a block; the i's "
+    "classes in registers, their boxes (bf16 as their own 8 bytes) and "
+    "areas staged once in shared memory; the order, range and class "
+    "tests as a 16-bit mask before any IoU; a warp-row with 128 "
+    "candidates or more takes all 16 IoUs a lane, fewer are listed and "
+    "shared out across the warp 32 at a time; the rounded IoU decided "
+    "against exact bounds without dividing; invalid rows and the lower "
+    "triangle stored as zeros without an IoU; the plain version's "
+    "rounding")
+
 # the kernels on the tensor cores (the bf16 instances of K1, K2 and K3):
 # each instance must hold HMMA instructions, and the D=64 ones (the main
 # paths') must not spill
 MMA_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
                "flash_bwd_dkv_mma_kernel")
-# the float32 instances of K2 and K3, full f32 on the CUDA cores: each
-# instance must hold no HMMA instruction (no TF32 product), and the D=64
-# ones must not spill
-F32_BWD_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+# the float32 instances of K1, K2 and K3, full f32 on the CUDA cores, with
+# their count of instances: each must hold no HMMA instruction (no TF32
+# product), and the D=64 ones must not spill; K1's f32 kernel has two
+# instances a head dim (32, 64, 128), its warps owning the rows of a
+# 64-row q tile or splitting the keys of a 16-row one, K2's and K3's one
+# a head dim
+F32_KERNELS = {"flash_fwd_kernel": 6, "flash_bwd_dq_kernel": 3,
+               "flash_bwd_dkv_kernel": 3}
 
 
 def demangle(names, nvcc_dir):
@@ -594,8 +663,9 @@ def demangle(names, nvcc_dir):
     res = subprocess.run([tool], input="\n".join(names), capture_output=True,
                          text=True, timeout=60)
     # "void <unnamed>::flash_fwd_mma_kernel<(int)64>(...)", or with
-    # "(anonymous namespace)::"
-    short = [d.replace("(int)", "").replace("(anonymous namespace)", "")
+    # "(anonymous namespace)::"; a bool argument as "(bool)0"
+    short = [d.replace("(int)", "").replace("(bool)0", "false")
+             .replace("(bool)1", "true").replace("(anonymous namespace)", "")
              .split("(")[0].split("::")[-1] for d in res.stdout.splitlines()]
     if res.returncode != 0 or len(set(short)) != len(names):
         return dict(zip(names, names))
@@ -606,8 +676,9 @@ def phase_build(mt):
     """Build every source at once; per kernel, the registers and spills
     that ``-Xptxas -v`` reports and the HMMA (tensor-core product) count
     of its machine code (``cuobjdump -sass``).  The tensor-core kernels
-    must hold HMMA, the f32 K2 and K3 none; each has three instances (D
-    32, 64, 128), and none spills at D=64."""
+    must hold HMMA, the f32 K1, K2 and K3 none; each has its instances
+    (``F32_KERNELS``; three, D 32, 64, 128, for the tensor-core ones),
+    and none spills at D=64."""
     cl = mt.cuda_lib
     t0 = time.monotonic()
     built = cl.build_all()
@@ -627,8 +698,7 @@ def phase_build(mt):
                        source=src)
             kernels[name] = row
             mma = any(stem in mangled for stem in MMA_KERNELS)
-            if not mma and not any(stem in mangled
-                                   for stem in F32_BWD_KERNELS):
+            if not mma and not any(stem in mangled for stem in F32_KERNELS):
                 continue
             if mma and row["hmma"] == 0:
                 failures.append(f"{name}: no HMMA instruction")
@@ -638,9 +708,11 @@ def phase_build(mt):
             if "ILi64E" in mangled and (row.get("spill_stores", 1)
                                         or row.get("spill_loads", 1)):
                 failures.append(f"{name}: spills {row}")
-    for stem in MMA_KERNELS + F32_BWD_KERNELS:
-        if sum(stem in n for n in kernels) != 3:  # D = 32, 64, 128
-            failures.append(f"{stem}: not 3 instances in {sorted(kernels)}")
+    want = dict(F32_KERNELS, **{stem: 3 for stem in MMA_KERNELS})
+    for stem, count in want.items():
+        if sum(stem in n for n in kernels) != count:
+            failures.append(f"{stem}: not {count} instances in "
+                            f"{sorted(kernels)}")
     emit("build", seconds=secs, sources=sorted(built), kernels=kernels)
     if failures:
         raise RuntimeError("build checks failed: " + "; ".join(failures))
@@ -681,6 +753,21 @@ def phase_kernels(torch, mt):
         # ViT-S/16's fp32 predict in the zoo phase (batch 2, no lse): the
         # CUDA-core kernel, the last 64-row tile ragged
         ("vit_fp32", 2, 6, 6, 196, 196, 64, False, "float32", False),
+        # the f32 (CUDA-core) kernel at its edges in both of its designs:
+        # with enough heads for 64-row tiles (B H ceil(Sq / 64) of at
+        # least the SM count), and at a few heads, where the warps split
+        # the keys of 16-row tiles
+        ("ragged_sq77_sk130_fp32_q64", 34, 4, 2, 77, 130, 64, False,
+         "float32", True),
+        ("causal_sq130_sk77_d128_fp32_q64", 24, 4, 2, 130, 77, 128, True,
+         "float32", True),
+        ("lse_mqa_d32_fp32_q64", 34, 4, 1, 130, 130, 32, True, "float32",
+         True),
+        ("ragged_sq77_sk130_fp32", 2, 4, 2, 77, 130, 64, False, "float32",
+         True),
+        ("causal_sq300_sk100_d128_fp32", 2, 4, 2, 300, 100, 128, True,
+         "float32", True),
+        ("sq1_sk1_fp32", 2, 4, 2, 1, 1, 64, True, "float32", True),
     ]
     results, failures = {}, []
     for name, B, H, Hk, Sq, Sk, D, causal, dt, want_lse in cases:
@@ -712,6 +799,11 @@ def phase_kernels(torch, mt):
         row = dict(shape=[B, H, Hk, Sq, Sk, D], causal=causal, dtype=dt,
                    max_abs_err=errs[0], tol=TOL[dt],
                    bit_identical_relaunch=deterministic)
+        if dt == "float32":  # 64, or 16 where the warps split the keys
+            row["q_tile"] = att.flash_fwd_f32_tile(B, H, Sq)
+            if name.endswith("_q64") and row["q_tile"] != 64:
+                failures.append(f"{name}: q tile {row['q_tile']}, not the "
+                                "64 rows the case is for")
         if want_lse:
             row.update(lse_max_abs_err=errs[1], lse_tol=LSE_TOL)
         if name in TIMED_CASES:
@@ -723,11 +815,25 @@ def phase_kernels(torch, mt):
             timed(row, "plain_ms",
                   lambda: att._attn_reference(q, k, v, causal, None),
                   iters=5)
-            timed(row, "library_ms",
-                  lambda: torch.nn.functional.scaled_dot_product_attention(
-                      q, k, v, is_causal=causal))
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal)
+
+            def kern():
+                return att.flash_fwd_cuda(q, k, v, causal, None,
+                                          return_lse=want_lse)
+            timed(row, "library_ms", sdpa)
             row.update(bound_ms=bound, bound_by=by, flops=flops,
                        bytes=nbytes)
+            if dt == "float32":
+                # the card's own time of each (kernel_ms and library_ms,
+                # by CUDA events around back-to-back calls, read the
+                # host where it is the slower side), and the host's
+                row["kernel_device_ms"], _ = device_ms(torch, kern)
+                row["library_device_ms"], row["library_kernels"] = \
+                    device_ms(torch, sdpa)
+                row["kernel_host_ms"] = host_ms(torch, kern)
+                row["library_host_ms"] = host_ms(torch, sdpa)
         results[name] = row
         emit("kernel_check", name=name, **row)
     if failures:
@@ -3171,10 +3277,11 @@ def phase_gluon_lstm_fp32(torch, mt):
 # ---------------------------------------------------------------------------
 # the NMS suppression-matrix kernel (csrc/nms_overlap.cu)
 # ---------------------------------------------------------------------------
-def nms_case_inputs(torch, n, k, dtype, rule, classes, seed):
+def nms_case_inputs(torch, n, k, dtype, rule, classes, invalid, seed):
     """Sorted-by-score stand-ins for NMS: boxes in clusters of 8 (centres
-    jittered by a few percent of the image, sides 5-40%), 5% of them
-    invalid, classes 0-19 (or none); pixel boxes on a 600 x 800 image."""
+    jittered by a few percent of the image, sides 5-40%), a share
+    ``invalid`` of them invalid, classes 0-19 (or none); pixel boxes on a
+    600 x 800 image."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -3188,9 +3295,33 @@ def nms_case_inputs(torch, n, k, dtype, rule, classes, seed):
         boxes = torch.round(boxes * torch.tensor([800., 600., 800., 600.],
                                                  device=dev))
     boxes = boxes.to(getattr(torch, dtype))
-    valid = u(n, k) > 0.05
+    valid = u(n, k) >= invalid
     cls = (u(n, k) * 20).floor() if classes else None
     return boxes, valid, cls
+
+
+def nms_bound(torch, boxes, valid, cls, ks, ke, thresh, overlap):
+    """The least time of one N1 launch on these inputs: the boxes, valid
+    flags and classes read once and the (n, ks, ke) matrix written once
+    over the memory rate, against the IoUs of the pairs that pass the
+    order, validity and class tests (this data's count) over the f32
+    peak; with that count and its share of the matrix."""
+    n = valid.shape[0]
+    with torch.no_grad():
+        idx = torch.arange(ke, device=valid.device)
+        cand = (idx[:ks, None] < idx[None, :]) & valid[:, :ks, None]
+        if cls is not None:
+            cand &= cls[:, :ks, None] == cls[:, None, :ke]
+        pairs = int(cand.sum())
+    del cand
+    nbytes = n * ke * (4 * boxes.element_size() + 1
+                       + (4 if cls is not None else 0)) + n * ks * ke
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = pairs * NMS_OPS_PER_PAIR / PEAK_FLOPS["float32"] * 1e3
+    return dict(candidate_pairs=pairs,
+                candidate_share=pairs / (n * ks * ke), bytes=nbytes,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_nms_kernel(torch, mt):
@@ -3200,9 +3331,10 @@ def phase_nms_kernel(torch, mt):
     operations at the f32 peak) and the plain version."""
     from mxnet_tpu_torch.ops import detection
     rows, fails = {}, []
-    for name, (n, k, dtype, rule, thresh, classes) in NMS_CASES.items():
+    for name, (n, k, dtype, rule, thresh, classes, invalid) in \
+            NMS_CASES.items():
         boxes, valid, cls = nms_case_inputs(torch, n, k, dtype, rule,
-                                            classes, SEED + 70)
+                                            classes, invalid, SEED + 70)
         overlap = detection.iou_matrix if rule == "corner" \
             else detection.pixel_iou
         thresh = detection._w(thresh, boxes)
@@ -3212,34 +3344,22 @@ def phase_nms_kernel(torch, mt):
         again = detection.suppress_matrix_cuda(*args)
         want = detection.suppress_matrix_plain(*args)
         torch.cuda.synchronize()
-        equal = torch.equal(got, want) and torch.equal(got, again)
-        mism = int((got != want).sum())
-        with torch.no_grad():
-            idx = torch.arange(k, device=boxes.device)
-            cand = (idx[:, None] < idx[None, :]) & valid[:, :, None]
-            if cls is not None:
-                cand &= cls[:, :, None] == cls[:, None, :]
-            pairs = int(cand.sum())
-        del cand
-        esize = 2 if dtype == "bfloat16" else 4
-        nbytes = n * k * (4 * esize + 1 + (4 if classes else 0)) + n * k * k
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = pairs * NMS_OPS_PER_PAIR / PEAK_FLOPS["float32"] * 1e3
+        # the kernel's rows are padded to 16 bytes, False past column k
+        mism = int((got[..., :k] != want).sum()) + int(got[..., k:].sum())
+        equal = mism == 0 and torch.equal(got, again)
         row = dict(shape=[n, k], dtype=dtype, rule=rule, thresh=thresh,
                    classes=classes, launches=(
                        detection.suppress_matrix_cuda.launches - launches),
                    bit_identical=equal, mismatches=mism,
                    suppressing_pairs=int(want.sum()),
-                   candidate_pairs=pairs, bytes=nbytes,
-                   bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   library_ms=None)
+                   **nms_bound(torch, *args), library_ms=None)
         del got, again, want
-        timed(row, "kernel_ms",
-              lambda: detection.suppress_matrix_cuda(*args), iters=3)
-        timed(row, "plain_ms",
-              lambda: detection.suppress_matrix_plain(*args), iters=2,
-              repeats=3, warmup=1)
+        if name in NMS_TIMED:
+            timed(row, "kernel_ms",
+                  lambda: detection.suppress_matrix_cuda(*args), iters=3)
+            timed(row, "plain_ms",
+                  lambda: detection.suppress_matrix_plain(*args), iters=2,
+                  repeats=3, warmup=1)
         rows[name] = row
         if not equal:
             fails.append(f"{name}: {mism} elements differ from the plain "
@@ -3699,12 +3819,37 @@ def detect_vs_numpy(out, cls_prob, kw):
     return int((want != out[:, 0]).sum())
 
 
+def nms_path_kernel(torch, args):
+    """N1 on ``args`` (``suppress_matrix``'s) against its plain version,
+    bit for bit, and a relaunch; timed beside the plain version and its
+    bound on this data (the pairs that pass the order, validity and class
+    tests, an IoU each)."""
+    from mxnet_tpu_torch.ops import detection
+    ke = args[4]
+    got = detection.suppress_matrix_cuda(*args)
+    again = detection.suppress_matrix_cuda(*args)
+    want = detection.suppress_matrix_plain(*args)
+    kern = dict(shape=list(want.shape),
+                dtype=str(args[0].dtype).replace("torch.", ""),
+                mismatches=int((got[..., :ke] != want).sum())
+                + int(got[..., ke:].sum()),
+                relaunch_equal=bool(torch.equal(got, again)),
+                **nms_bound(torch, *args))
+    del got, again, want
+    timed(kern, "kernel_ms", lambda: detection.suppress_matrix_cuda(*args),
+          iters=3)
+    timed(kern, "plain_ms", lambda: detection.suppress_matrix_plain(*args),
+          iters=2, repeats=3, warmup=1)
+    return kern
+
+
 def phase_ssd_detect(torch, mt, params, x):
     """The mode="detect" graph through Module (bf16 compute) with
     ssd_train's parameters at batch 32: ms a batch (forward on card
     data) and images/s, Module.predict over an NDArrayIter, and
     MultiBoxDetection's and its NMS's own ms on the inputs the graph
-    hands it.  Checks: predict equals the op on those inputs; on two
+    hands it, split into the suppression matrices, the nonzero over them
+    and the rounds.  Checks: predict equals the op on those inputs; on two
     images (the inputs made f32) the card's op equals the CPU's, and both
     a numpy greedy NMS."""
     from mxnet_tpu_torch.ops import detection, registry
@@ -3750,6 +3895,38 @@ def phase_ssd_detect(torch, mt, params, x):
         return nms_keep(*nargs, **dict(nkw, stats=stats))
     keep = nms()
     timed(row, "nms_ms", nms, iters=3, repeats=5, warmup=1)
+    # its parts: the suppression matrices (N1's launches), the nonzero
+    # that lists their pairs, and the rounds over those pairs
+    nb, nv, nth, nov = nargs
+    k_eff = int(nv.any(dim=0).nonzero()[-1]) + 1
+    k_sup = k_eff if nkw.get("topk") is None else min(int(nkw["topk"]),
+                                                      k_eff)
+
+    def matrices():
+        return detection.nms_matrices(nb, nv, nth, nov, nkw.get("classes"),
+                                      k_sup, k_eff)
+
+    def suppress():
+        for _ in matrices():
+            pass
+    timed(row, "nms_suppress_ms", suppress, iters=3, repeats=5, warmup=1)
+    built = list(matrices())
+    timed(row, "nms_nonzero_ms", lambda: [S.nonzero() for _, S in built],
+          iters=3, repeats=5, warmup=1)
+    src, dst = detection.nms_pairs(built, k_eff)
+    del built
+    timed(row, "nms_rounds_ms",
+          lambda: detection.nms_rounds(nv[:, :k_eff], src, dst), iters=3,
+          repeats=5, warmup=1)
+    per = max(1, detection.NMS_CHUNK_ELEMENTS // (k_sup * k_eff))
+    row["nms_matrices"] = len(range(0, nv.shape[0], per))
+    del src, dst
+    # one N1 launch on the path's own first chunk
+    ncls = nkw.get("classes")
+    kern = nms_path_kernel(torch, (
+        nb[:per], nv[:per], None if ncls is None else ncls[:per], k_sup,
+        k_eff, nth, nov))
+    row["nms_kernel"] = kern
     row.update(nms_rounds=stats["rounds"], nms_pairs=stats["pairs"],
                valid_boxes=int(nargs[1].sum()), kept_boxes=int(keep.sum()),
                nms_equals_op=bool(torch.equal(
@@ -3773,14 +3950,15 @@ def phase_ssd_detect(torch, mt, params, x):
     emit("ssd_detect", **row)
     flash = {k: v for k, v in counts.items() if k != "nms_suppress"}
     if not pred_equal or any(flash.values()) or not counts["nms_suppress"] \
-            or not row["nms_equals_op"] \
+            or not row["nms_equals_op"] or kern["mismatches"] \
+            or not kern["relaunch_equal"] \
             or not ids_equal or value_diff > SSD_DETECT_TOL \
             or any(d != 0 for ds in numpy_diff for d in ds) \
             or tuple(pred.shape) != (B, want.shape[1], 6):
         raise RuntimeError(f"ssd_detect: {row}")
     del mod
     torch.cuda.empty_cache()
-    return counts
+    return counts, kern
 
 
 def main():
@@ -3867,7 +4045,8 @@ def main():
     # launches K1-K4
     ssd_counts, ssd_params, ssd_x = phase_ssd_train(
         torch, mt, PEAK_FLOPS["bfloat16"])
-    ssd_detect_counts = phase_ssd_detect(torch, mt, ssd_params, ssd_x)
+    ssd_detect_counts, nms_path = phase_ssd_detect(torch, mt, ssd_params,
+                                                   ssd_x)
     del ssd_params, ssd_x
     torch.cuda.empty_cache()
     phase_ssd_fp32(torch, mt)
@@ -3887,7 +4066,14 @@ def main():
                     ms_max=row[f"{key}_max"])
     fwd, b = checks["main_bf16"], bwd["main_bf16"]
     vf, vb = checks["vit_bf16"], bwd["vit_bf16"]
-    f32 = checks["vit_fp32"]
+    f32, mf = checks["vit_fp32"], checks["main_fp32"]
+
+    def f32_fwd_times(row):
+        """The fp32 K1's device and host ms beside SDPA's, and its q
+        tile, at ``row``'s shape."""
+        return {k: row[k] for k in ("kernel_device_ms", "library_device_ms",
+                                    "kernel_host_ms", "library_host_ms",
+                                    "q_tile")}
 
     def at_vit(kind, err, ms_key, bound_key, by_key, row):
         """The kernel's numbers at ViT-S/16's shape (B 128, H 6, S 196,
@@ -3926,18 +4112,26 @@ def main():
                                             vb["dv_max_abs_err"]),
                                  "dkv_kernel_ms", "dkv_bound_ms",
                                  "dkv_bound_by", vb)),
-        # the fp32 instance of K1 (CUDA cores), at ViT-S/16's predict
-        # shape in the zoo phase, the one path whose K1 launches are all
-        # fp32
+        # the fp32 instance of K1 (CUDA cores), launched on the fp32
+        # training step (with lse) and in ViT-S/16's predict in the zoo
+        # phase (the one path whose K1 launches are all fp32), at the main
+        # shape and at that predict shape
         dict(name="flash_fwd_fp32",
              source="mxnet_tpu_torch/csrc/flash_fwd.cu",
-             design="CUDA cores (fp32)",
+             design=F32_FWD_DESIGN,
              replaces="mxnet_tpu/ops/attention.py:73",
-             paths={"zoo_predict": zoo_counts["flash_fwd"]},
-             max_abs_err=f32["max_abs_err"], **ms_of(f32, "kernel_ms"),
-             plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
-             bound_by=f32["bound_by"], library_ms=f32["library_ms"],
-             shape=f32["shape"], causal=False),
+             paths={"train_fp32": train_fp32_counts["flash_fwd"],
+                    "zoo_predict": zoo_counts["flash_fwd"]},
+             max_abs_err=mf["max_abs_err"], **ms_of(mf, "kernel_ms"),
+             plain_ms=mf["plain_ms"], bound_ms=mf["bound_ms"],
+             bound_by=mf["bound_by"], library_ms=mf["library_ms"],
+             **f32_fwd_times(mf), shape=mf["shape"], causal=True,
+             at_vit_predict_shape=dict(
+                 shape=f32["shape"], causal=False,
+                 max_abs_err=f32["max_abs_err"], **ms_of(f32, "kernel_ms"),
+                 plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
+                 bound_by=f32["bound_by"], library_ms=f32["library_ms"],
+                 **f32_fwd_times(f32))),
     ]
     # the fp32 instances of K2 and K3 (CUDA cores), launched on the fp32
     # training path, at the main shape and at ViT-S/16's training shape
@@ -3979,23 +4173,27 @@ def main():
         library="torch.mul(x, 2)", shape=rtc_row["shape"]))
     # the NMS suppression matrix: no TPU kernel's port (the JAX package's
     # NMS is a lax.fori_loop, mxnet_tpu/ops/detection.py:258-266), a
-    # hand-written kernel of the detect path all the same
-    nr = nms_rows["detect_bf16"]
+    # hand-written kernel of the detect path all the same; timed on the
+    # path's own boxes (ssd_detect's first launch), the stand-ins of
+    # nms_kernel beside them
     rows.append(dict(
         name="nms_suppress", source="mxnet_tpu_torch/csrc/nms_overlap.cu",
-        design="one thread an (image, j, i) pair, 256 i's of one row j a "
-        "block; the IoU in the plain version's rounding; one byte out a "
-        "pair", replaces="none: the NMS lax.fori_loop of "
+        design=NMS_DESIGN, replaces="none: the NMS lax.fori_loop of "
         "mxnet_tpu/ops/detection.py:258 and contrib_ops.py:206 (XLA, "
         "not Pallas)", key="nms_suppress",
-        max_abs_err=float(max(r["mismatches"]
-                              for r in nms_rows.values())),
-        **ms_of(nr, "kernel_ms"), plain_ms=nr["plain_ms"],
-        bound_ms=nr["bound_ms"], bound_by=nr["bound_by"], library_ms=None,
-        shape=nr["shape"], dtype=nr["dtype"],
-        other_cases={k: dict(ms=v["kernel_ms"], plain_ms=v["plain_ms"],
-                             bound_ms=v["bound_ms"], bound_by=v["bound_by"])
-                     for k, v in nms_rows.items() if k != "detect_bf16"}))
+        max_abs_err=float(max([nms_path["mismatches"]] + [
+            r["mismatches"] for r in nms_rows.values()])),
+        **ms_of(nms_path, "kernel_ms"), plain_ms=nms_path["plain_ms"],
+        bound_ms=nms_path["bound_ms"], bound_by=nms_path["bound_by"],
+        library_ms=None, inputs="the detect path's own boxes",
+        shape=nms_path["shape"], dtype=nms_path["dtype"],
+        candidate_share=nms_path["candidate_share"],
+        other_cases={k: dict(ms=nms_rows[k]["kernel_ms"],
+                             plain_ms=nms_rows[k]["plain_ms"],
+                             bound_ms=nms_rows[k]["bound_ms"],
+                             bound_by=nms_rows[k]["bound_by"],
+                             candidate_share=nms_rows[k]["candidate_share"])
+                     for k in NMS_TIMED}))
     kernels = []
     for r in rows:
         paths = r.pop("paths") if "paths" in r else by_path(r.pop("key"))

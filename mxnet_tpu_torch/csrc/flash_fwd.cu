@@ -36,23 +36,43 @@
 //   rounded to bf16 straight from the accumulators into the A fragments
 //   of O += P.V (V's fragments by ldmatrix.trans); O stays f32 in
 //   registers until the epilogue divides by l and stores bf16.
-// * float32 -> flash_fwd_kernel, the first design, on the f32 CUDA cores:
-//   one block of 256 threads per (b*H + h, 64-row q tile), Q staged once
-//   and K/V tiles walked through shared memory in f32; each thread owns a
-//   4x4 patch of the score tile and the same 4 rows of the output, row
-//   max and sum reduce over a half-warp; row strides of D+1 and 65 floats
-//   keep the column reads free of bank conflicts.  Q, K, V and P tiles
-//   take 115 KB at D=128.  It stays: on the tensor cores f32 would mean
-//   TF32, about three decimal digits, and the f32 path is what holds the
-//   card to the CPU at 1e-3 in chip_smoke.py.
-//
+// * float32 -> flash_fwd_kernel, on the f32 CUDA cores in full f32 (no
+//   TF32, no mma: on the tensor cores f32 would mean TF32, about three
+//   decimal digits, and the f32 path is what holds the card to the CPU
+//   in chip_smoke.py).  A block of 4 warps takes a q tile of 64 rows, each
+//   warp 16 of them; K and V tiles of 64 rows go through a two-stage ring
+//   of 16-byte cp.async copies (the next tile's copy overlaps this tile's
+//   work; one barrier a tile), in f32 rows strided D + 4 floats.  Lane (a,
+//   c) = (lane / 8, lane % 8) computes S = Q.K^T for rows a + 4 i (i < 4)
+//   of its warp and keys c + 8 j (j < 8), a 4x8 patch from float4 reads
+//   along D; the online softmax runs in base 2 (exp2f, scale * log2 e
+//   folded in), the row max reduced by shuffles over the 8 lanes of a row
+//   and the row sum kept per lane until the end; P goes through the
+//   warp's own shared tile (only __syncwarp), and O += P.V adds 4 rows x
+//   D / 8 columns a lane from float4 reads, over the keys the warp's rows
+//   can see.  Only tiles that meet the diagonal or run past Sk mask per
+//   element; the heaviest causal q tiles start first.  When the grid of
+//   64-row tiles would leave SMs without a block (ViT-S/16's fp32
+//   predict, B 2, H 6, S 196: 48 blocks), the block takes 16 q rows
+//   instead and its four warps split the keys of every tile, 16 each, in
+//   4x2 patches of S, each with a softmax state of its own; the four
+//   states are merged through shared memory at the end (156 blocks, and a
+//   quarter of the work a warp).  Shared memory: Q, 2 stages of K and V,
+//   4 P tiles: 104 KB at D=64 (two blocks an SM), 187 KB at D=128.
+
 // What bounds it.  At the main shape (B=8, H=12, S=1024, D=64, causal,
 // bf16) the causal products are 12.9 GFLOP and q/k/v/o 50 MB: 13 us of
 // bf16 tensor-core work at 989 TFLOP/s against 15 us of HBM traffic at
 // 3.35 TB/s, so bytes bound it at 0.015 ms.  On an NVIDIA H100 80GB
 // HBM3 at 700.00 W the CUDA-core design took 0.58 ms there and the
 // tensor-core design takes 0.093 ms, 6x the bound and 1.9x SDPA's
-// forward (PERF.md §6).
+// forward (PERF.md §6).  In f32 the same products bound it at 0.19 ms
+// (67 TFLOP/s); next comes shared memory, which delivers 128 bytes a
+// clock an SM to the threads however a read broadcasts: a TM x TN patch
+// reads 4 (TM + TN) / (TM TN) bytes an FMA, 1.5 for 4x8 in both passes
+// (the first design's 4x4 patches of scalar reads took 2.0, and 0.61 ms).
+// In one run on that card this design took 0.3839 ms there and SDPA's
+// forward 0.5020 (PERF.md §6, the row "final").
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,173 +82,347 @@
 
 namespace {
 
-constexpr int BQ = 64;    // query rows per block
-constexpr int BK = 64;    // key rows per tile
-constexpr int NT = 256;   // threads per block: 16 (tx) x 16 (ty)
-constexpr int PS = BK + 1;
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+// ---- float32: CUDA cores ----
 
-// Copy rows [r0, r0 + 64) of a (rows, D) matrix into a 64 x stride f32
-// tile, zero-filling rows past `rows`.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, int stride,
-                                          const T* __restrict__ src,
-                                          int r0, int rows) {
-  for (int i = threadIdx.x; i < 64 * D; i += NT) {
-    const int r = i / D, c = i % D;
-    dst[r * stride + c] =
-        (r0 + r < rows) ? to_f32(src[(int64_t)(r0 + r) * D + c]) : 0.f;
+constexpr int WQ = 16;       // query rows a warp owns
+constexpr int BK = 64;       // key rows a tile
+constexpr int PS = BK + 8;   // row stride of a warp's P tile
+constexpr int MAX_DEVICES = 32;
+
+// Row stride, in floats, of an f32 Q, K or V tile: D + 4 keeps every row
+// on 16 bytes (cp.async, float4 reads) and puts row r + 1 four banks after
+// row r, so 8 consecutive rows read as float4 at one column cover all 32
+// banks.
+template <int D>
+__host__ __device__ constexpr int f32_ld() {
+  return D + 4;
+}
+
+// Shared memory, in floats, of the f32 kernel: Q (64 rows, or 16 when
+// the warps split the keys), two stages of K and V, and one P tile a warp.
+template <int D, bool SPLIT>
+__host__ __device__ constexpr int fwd_f32_floats() {
+  return WQ * (SPLIT ? 1 : 4) * f32_ld<D>() + 4 * BK * f32_ld<D>() +
+         4 * WQ * PS;
+}
+
+__device__ __forceinline__ void ld4(float (&v)[4], const float* p) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+}
+
+// Stage rows [r0, r0 + ROWS) of a contiguous (rows, D) f32 matrix into a
+// ROWS x f32_ld<D>() tile with 16-byte cp.async, NT threads sharing the
+// work; rows at or past `rows` are zero-filled by the copy itself.  A
+// thread copies one 16-byte column of every NT / (D / 4)-th row, so its
+// copies differ only by constant offsets from one shared and one global
+// address (offsets per copy computed once would be hoisted out of the
+// tile loop and held in registers: 64 of them at NT = 32).
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           int r0, int rows) {
+  constexpr int CPR = D / 4;     // 16-byte chunks per row
+  constexpr int STEP = NT / CPR;  // rows between a thread's copies
+  static_assert(NT % CPR == 0 && ROWS % STEP == 0, "chunks split evenly");
+  const int r = r0 + threadIdx.x / CPR, c = threadIdx.x % CPR * 4;
+  float* d = dst + (threadIdx.x / CPR) * f32_ld<D>() + c;
+  const float* g = src + (int64_t)r * D + c;
+  // (up to 64 copies a thread at one warp a block: unrolled in eights,
+  // or their addresses and predicates crowd the registers)
+#pragma unroll 8
+  for (int j = 0; j < ROWS / STEP; ++j) {
+    const bool ok = r + j * STEP < rows;
+    mma::cp_async16(d + j * STEP * f32_ld<D>(), ok ? g + j * STEP * D : src,
+                    ok ? 16 : 0);
   }
 }
 
-__device__ __forceinline__ float half_warp_max(float x) {
+// The max and the sum over the 8 lanes that share a row (lane & ~7).
+__device__ __forceinline__ float row_max(float x) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
+  for (int off = 1; off < 8; off <<= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
 
-__device__ __forceinline__ float half_warp_sum(float x) {
+__device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
+  for (int off = 1; off < 8; off <<= 1)
     x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+// K1 in float32: one block of 4 warps per (b*H + h, q tile).  Without
+// SPLIT the tile is 64 rows and warp w owns rows 16 w .. 16 w + 15 over
+// all keys; with SPLIT it is 16 rows that all four warps share, warp w
+// taking keys 16 w .. 16 w + 15 of every 64-key tile with a softmax state
+// of its own, and the four states are merged at the end.  Lane (a, c) =
+// (lane / 8, lane % 8) holds rows a + 4 i (i < 4) of its warp's rows, of
+// S at key columns c + 8 j of its warp's keys (j < 8, or 2 with SPLIT)
+// and of O at d columns 32 m + 4 c + n (m < D / 32, n < 4).
+template <int D, bool SPLIT>
+__global__ void __launch_bounds__(128, 2)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int H, int Hk, int Sq, int Sk,
                  int causal, float scale) {
-  constexpr int DS = D + 1;
-  constexpr int DJ = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;            // BQ x DS
-  float* sK = sQ + BQ * DS;    // BK x DS
-  float* sV = sK + BK * DS;    // BK x D
-  float* sP = sV + BK * D;     // BQ x PS
+  constexpr int NT = 128, LD = f32_ld<D>(), NC = D / 32;
+  constexpr int BQ = SPLIT ? WQ : 4 * WQ;  // q rows a block
+  constexpr int KW = SPLIT ? BK / 4 : BK;  // keys of a tile a warp takes
+  constexpr int JN = KW / 8;               // S columns a lane
+  extern __shared__ __align__(16) float smem_f32[];
+  float* sQ = smem_f32;             // BQ x LD
+  float* sK = sQ + BQ * LD;         // 2 stages of BK x LD
+  float* sV = sK + 2 * BK * LD;     // 2 stages of BK x LD
+  const int w = threadIdx.x >> 5;
+  float* sP = sV + 2 * BK * LD + w * WQ * PS;  // this warp's P, WQ x PS
 
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int q0 = (causal ? nq - 1 - (int)blockIdx.y : (int)blockIdx.y) * BQ;
   const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BQ;
   const int b = bh / H, h = bh % H;
   const int kvh = b * Hk + h / (H / Hk);
-  const T* qp = q + (int64_t)bh * Sq * D;
-  const T* kp = k + (int64_t)kvh * Sk * D;
-  const T* vp = v + (int64_t)kvh * Sk * D;
+  const float* kp = k + (int64_t)kvh * Sk * D;
+  const float* vp = v + (int64_t)kvh * Sk * D;
+  const int lane = threadIdx.x & 31;
+  const int wr = SPLIT ? 0 : w * WQ;   // the warp's first row in the tile
+  const int qw = q0 + wr;              // and its query position
+  const int kw = SPLIT ? w * KW : 0;   // the warp's first key in a tile
+  const int a = lane >> 3, c = lane & 7;
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int nk = (Sk + BK - 1) / BK;
+  const int hi = causal ? min(nk, (q0 + BQ + BK - 1) / BK) : nk;
 
-  load_tile<T, D>(sQ, DS, qp, q0, Sq);
+  stage_rows<D, BQ, NT>(sQ, q + (int64_t)bh * Sq * D, q0, Sq);
+  if (hi > 0) {
+    stage_rows<D, BK, NT>(sK, kp, 0, Sk);
+    stage_rows<D, BK, NT>(sV, vp, 0, Sk);
+  }
+  mma::cp_async_commit();
 
-  float m[4], l[4], acc[4][DJ];
+  // rows wr + a + 4 i: running max (base 2), this lane's part of the
+  // running sum, output
+  float m[4], l[4], acc[4][NC][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+    for (int mm = 0; mm < NC; ++mm)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) acc[i][mm][n] = 0.f;
   }
+  const float sl2 = scale * LOG2E;
 
-  const int nk = (Sk + BK - 1) / BK;
-  const int hi = causal ? min(nk, (q0 + BQ + BK - 1) / BK) : nk;
   for (int kb = 0; kb < hi; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // previous tile's readers are done
-    load_tile<T, D>(sK, DS, kp, k0, Sk);
-    load_tile<T, D>(sV, D, vp, k0, Sk);
-    __syncthreads();
+    const int k0 = kb * BK + kw;  // this warp's first key of the tile
+    const float* cK = sK + (kb & 1) * BK * LD + kw * LD;
+    const float* cV = sV + (kb & 1) * BK * LD + kw * LD;
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile kb is in; every warp is done with tile kb - 1
+    if (kb + 1 < hi) {  // the next tile's copy overlaps this tile's work
+      stage_rows<D, BK, NT>(sK + ((kb + 1) & 1) * BK * LD, kp,
+                            (kb + 1) * BK, Sk);
+      stage_rows<D, BK, NT>(sV + ((kb + 1) & 1) * BK * LD, vp,
+                            (kb + 1) * BK, Sk);
+      mma::cp_async_commit();
+    }
+    // the warp's keys that its rows see: none past Sk, and under causal
+    // none past the warp's last row
+    int kend = min(KW, Sk - k0);
+    if (causal) kend = min(kend, qw + WQ - k0);
+    if (kend <= 0) continue;  // warp-uniform
 
-    float s[4][4];
+    // S = Q.K^T: 4 q rows x JN keys a lane, 4 + JN float4 reads per
+    // 16 JN FMAs
+    float s[4][JN];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+      for (int j = 0; j < JN; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float qv[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty * 4 + i) * DS + d];
+      for (int i = 0; i < 4; ++i) ld4(qv[i], sQ + (wr + a + 4 * i) * LD + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * DS + d];
+      for (int j = 0; j < JN; ++j) {
+        float kv[4];
+        ld4(kv, cK + (c + 8 * j) * LD + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 4; ++e)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int i = 0; i < 4; ++i) s[i][j] = fmaf(qv[i][e], kv[e], s[i][j]);
+      }
     }
 
+    // online softmax in base 2; the mask only where the warp's rows meet
+    // the diagonal or its keys run past Sk; P to the warp's own tile
+    const bool edge = kend < KW || (causal && k0 + KW - 1 > qw);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qr = q0 + ty * 4 + i;
-      float mx = NEG;
+      float x[JN], mx = m[i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kc = k0 + tx + 16 * j;
-        const bool ok = kc < Sk && (!causal || kc <= qr);
-        s[i][j] = ok ? s[i][j] * scale : NEG;
-        mx = fmaxf(mx, s[i][j]);
+      for (int j = 0; j < JN; ++j) {
+        x[j] = s[i][j] * sl2;
+        if (edge) {
+          const int kc = k0 + c + 8 * j, qr = qw + a + 4 * i;
+          if (kc >= Sk || (causal && kc > qr)) x[j] = NEG;
+        }
+        mx = fmaxf(mx, x[j]);
       }
-      const float m_new = fmaxf(m[i], half_warp_max(mx));
-      const float alpha = expf(m[i] - m_new);
+      mx = row_max(mx);
+      const float alpha = exp2f(m[i] - mx);
+      m[i] = mx;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sP[(ty * 4 + i) * PS + tx + 16 * j] = p;
+      for (int j = 0; j < JN; ++j) {
+        // exp2f(NEG - mx) is 0 unless no key of the row has been seen yet
+        // (mx is NEG); what such a row adds, the next real key's alpha of
+        // 0, or the merge's weight of 0, takes away
+        const float p = exp2f(x[j] - mx);
+        sP[(a + 4 * i) * PS + c + 8 * j] = p;
         rs += p;
       }
-      l[i] = l[i] * alpha + half_warp_sum(rs);
-      m[i] = m_new;
+      l[i] = l[i] * alpha + rs;
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+      for (int mm = 0; mm < NC; ++mm)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) acc[i][mm][n] *= alpha;
     }
-    __syncthreads();
+    __syncwarp();  // the warp's P is in
 
-#pragma unroll 8
-    for (int c = 0; c < BK; ++c) {
-      float pv[4];
+    // O += P.V over the keys the warp sees (P is 0 past them, and V's rows
+    // past Sk are zero-filled): 4 P and 4 NC V float4 reads per 64 NC FMAs
+    const int kend4 = (kend + 3) & ~3;
+#pragma unroll 2
+    for (int kk = 0; kk < kend4; kk += 4) {
+      float pv[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty * 4 + i) * PS + c];
+      for (int i = 0; i < 4; ++i) ld4(pv[i], sP + (a + 4 * i) * PS + kk);
 #pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        const float vv = sV[c * D + tx + 16 * j];
+      for (int e = 0; e < 4; ++e)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
-      }
+        for (int mm = 0; mm < NC; ++mm) {
+          float vv[4];
+          ld4(vv, cV + (kk + e) * LD + mm * 32 + c * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+              acc[i][mm][n] = fmaf(pv[i][e], vv[n], acc[i][mm][n]);
+        }
     }
+    // the next write of P comes after the next __syncthreads
+  }
+  mma::cp_async_wait<0>();
+
+  if (!SPLIT) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float den = fmaxf(row_sum(l[i]), 1e-30f);
+      const int qr = qw + a + 4 * i;
+      if (qr >= Sq) continue;
+      float* orow = o + ((int64_t)bh * Sq + qr) * D;
+#pragma unroll
+      for (int mm = 0; mm < NC; ++mm)
+        *reinterpret_cast<float4*>(orow + mm * 32 + c * 4) =
+            make_float4(acc[i][mm][0] / den, acc[i][mm][1] / den,
+                        acc[i][mm][2] / den, acc[i][mm][3] / den);
+      if (lse != nullptr && c == 0)
+        lse[(int64_t)bh * Sq + qr] = m[i] * LN2 + logf(den);
+    }
+    return;
   }
 
+  // SPLIT: the four warps' states of each row, merged through the K and V
+  // stages (no copy is in flight: the last tile committed none)
+  __syncthreads();
+  float* cm = sK;             // 4 x WQ maxima
+  float* cl = cm + 4 * WQ;    // 4 x WQ sums
+  float* ca = sV;             // 4 x WQ x D outputs
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty * 4 + i;
-    if (qr >= Sq) continue;
-    const float den = fmaxf(l[i], 1e-30f);
-    T* orow = o + ((int64_t)bh * Sq + qr) * D;
+    const int r = a + 4 * i;
+    const float lt = row_sum(l[i]);
+    if (c == 0) cm[w * WQ + r] = m[i], cl[w * WQ + r] = lt;
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) store(orow + tx + 16 * j, acc[i][j] / den);
-    if (lse != nullptr && tx == 0)
-      lse[(int64_t)bh * Sq + qr] = m[i] + logf(den);
+    for (int mm = 0; mm < NC; ++mm)
+      *reinterpret_cast<float4*>(ca + (w * WQ + r) * D + mm * 32 + c * 4) =
+          make_float4(acc[i][mm][0], acc[i][mm][1], acc[i][mm][2],
+                      acc[i][mm][3]);
+  }
+  __syncthreads();
+  // thread t: row t / 8 and rows + 16 ..., 4-column chunks t % 8 + 8 n
+  for (int x = threadIdx.x; x < WQ * D / 4; x += NT) {
+    const int r = x / (D / 4), d = x % (D / 4) * 4;
+    const int qr = q0 + r;
+    if (qr >= Sq) continue;
+    float mx = NEG;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) mx = fmaxf(mx, cm[u * WQ + r]);
+    float den = 0.f, o4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float f = exp2f(cm[u * WQ + r] - mx);
+      den += cl[u * WQ + r] * f;
+      float a4[4];
+      ld4(a4, ca + (u * WQ + r) * D + d);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) o4[n] += a4[n] * f;
+    }
+    den = fmaxf(den, 1e-30f);
+    *reinterpret_cast<float4*>(o + ((int64_t)bh * Sq + qr) * D + d) =
+        make_float4(o4[0] / den, o4[1] / den, o4[2] / den, o4[3] / den);
+    if (lse != nullptr && d == 0)
+      lse[(int64_t)bh * Sq + qr] = mx * LN2 + logf(den);
   }
 }
 
-template <typename T, int D>
+// Whether the f32 kernel's warps split the keys (16-row q tiles): when the
+// grid of 64-row tiles leaves SMs of the device without a block.
+bool f32_split(int BH, int Sq, int device) {
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  return (int64_t)BH * ((Sq + 4 * WQ - 1) / (4 * WQ)) < (int64_t)sms;
+}
+
+template <int D, bool SPLIT>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* lse, int B, int H, int Hk, int Sq, int Sk, int causal,
+               float scale, int device, cudaStream_t stream) {
+  constexpr size_t smem = sizeof(float) * fwd_f32_floats<D, SPLIT>();
+  // above 48 KB only once allowed, once a device and instance
+  static unsigned allowed = 0;
+  if (smem > 48 * 1024 && !(allowed >> device & 1u)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<D, SPLIT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed |= 1u << device;
+  }
+  constexpr int BQ = SPLIT ? WQ : 4 * WQ;
+  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
+  flash_fwd_kernel<D, SPLIT><<<grid, 128, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o,
+      (float*)lse, H, Hk, Sq, Sk, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            int B, int H, int Hk, int Sq, int Sk, int causal, float scale,
-           cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * PS);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, H, Hk, Sq,
-      Sk, causal, scale);
-  return (int)cudaGetLastError();
+           int device, cudaStream_t stream) {
+  if (f32_split(B * H, Sq, device))
+    return launch_f32<D, true>(q, k, v, o, lse, B, H, Hk, Sq, Sk, causal,
+                               scale, device, stream);
+  return launch_f32<D, false>(q, k, v, o, lse, B, H, Hk, Sq, Sk, causal,
+                              scale, device, stream);
 }
 
 // ---- bf16: tensor cores ----
@@ -238,8 +432,6 @@ using mma::bf16;
 constexpr int MQ = 64;   // query rows per block: 4 warps of 16
 constexpr int MK = 64;   // key rows per tile
 constexpr int MT = 128;  // threads per block
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 __global__ void __launch_bounds__(MT)
@@ -398,13 +590,17 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int H, int Hk, int Sq, int Sk, int causal,
-               float scale, cudaStream_t stream) {
+               float scale, int device, cudaStream_t stream) {
   const size_t smem =
       sizeof(bf16) * (size_t)(MQ + 4 * MK) * mma::row_stride<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static unsigned allowed = 0;  // the attribute, once a device
+  if (!(allowed >> device & 1u)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed |= 1u << device;
+  }
   const dim3 grid(B * H, (Sq + MQ - 1) / MQ);
   flash_fwd_mma_kernel<D><<<grid, MT, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
@@ -417,29 +613,29 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
 template <int D>
 int launch_dtype(int dtype, const void* q, const void* k, const void* v,
                  void* o, void* lse, int B, int H, int Hk, int Sq, int Sk,
-                 int causal, float scale, cudaStream_t stream) {
+                 int causal, float scale, int device, cudaStream_t stream) {
   if (dtype == 1)
     return launch_mma<D>(q, k, v, o, lse, B, H, Hk, Sq, Sk, causal, scale,
-                         stream);
+                         device, stream);
   if (dtype == 0)
-    return launch<float, D>(q, k, v, o, lse, B, H, Hk, Sq, Sk, causal,
-                            scale, stream);
+    return launch<D>(q, k, v, o, lse, B, H, Hk, Sq, Sk, causal, scale,
+                     device, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 int launch_d(int D, int dtype, const void* q, const void* k, const void* v,
              void* o, void* lse, int B, int H, int Hk, int Sq, int Sk,
-             int causal, float scale, cudaStream_t stream) {
+             int causal, float scale, int device, cudaStream_t stream) {
   switch (D) {
     case 32:
       return launch_dtype<32>(dtype, q, k, v, o, lse, B, H, Hk, Sq, Sk,
-                              causal, scale, stream);
+                              causal, scale, device, stream);
     case 64:
       return launch_dtype<64>(dtype, q, k, v, o, lse, B, H, Hk, Sq, Sk,
-                              causal, scale, stream);
+                              causal, scale, device, stream);
     case 128:
       return launch_dtype<128>(dtype, q, k, v, o, lse, B, H, Hk, Sq, Sk,
-                               causal, scale, stream);
+                               causal, scale, device, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -456,11 +652,21 @@ int mxtt_flash_fwd(const void* q, const void* k, const void* v, void* o,
                    int dtype, int causal, float scale, int device,
                    void* stream) {
   if (B * H == 0 || Sq == 0) return 0;
-  if (Hk <= 0 || H % Hk != 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
+  if (Hk <= 0 || H % Hk != 0 || device < 0 || device >= MAX_DEVICES)
+    return (int)cudaErrorInvalidValue;
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   return launch_d(D, dtype, q, k, v, o, lse, B, H, Hk, Sq, Sk, causal, scale,
-                  (cudaStream_t)stream);
+                  device, (cudaStream_t)stream);
+}
+
+// q rows a block of the float32 kernel for these shapes on that device:
+// 64, or 16 when its warps split the keys; 0 on a bad device.
+int mxtt_flash_fwd_f32_tile(int B, int H, int Sq, int device) {
+  if (device < 0 || device >= MAX_DEVICES) return 0;
+  return f32_split(B * H, Sq, device) ? WQ : 4 * WQ;
 }
 
 const char* mxtt_error_string(int err) {

@@ -55,13 +55,12 @@ def _check_heads(q, k, v):
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
 
 
-def _check_aligned(who, named, dtypes=(torch.bfloat16,)):
-    """Kernels that stage rows with 16-byte ``cp.async`` copies need every
-    input of a dtype in ``dtypes`` to start on a 16-byte boundary (a
-    fresh tensor does; a view with an odd storage offset may not): the
-    forward's bf16 kernel, and both backward kernels in both dtypes."""
+def _check_aligned(who, named):
+    """The kernels stage rows with 16-byte ``cp.async`` copies, so every
+    input must start on a 16-byte boundary (a fresh tensor does; a view
+    with an odd storage offset may not)."""
     for name, t in named:
-        if t.dtype in dtypes and t.data_ptr() % 16:
+        if t.data_ptr() % 16:
             raise MXNetError(f"{who}: {name} does not start on a 16-byte "
                              f"boundary ({t.dtype} kernels copy 16-byte "
                              "chunks)")
@@ -93,15 +92,24 @@ def _attn_reference(q, k, v, causal, scale, return_lse=False):
     return out
 
 
-def flash_fwd_cuda(q, k, v, causal=False, scale=None, return_lse=False):
-    """Launch the Hopper flash-attention forward on CUDA tensors.
+def _fwd_lib():
+    from .. import cuda_lib
+    lib = cuda_lib.library("flash_fwd.cu")
+    if lib.mxtt_flash_fwd.argtypes is None:
+        lib.mxtt_flash_fwd.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p]
+        lib.mxtt_flash_fwd.restype = ctypes.c_int
+        lib.mxtt_flash_fwd_f32_tile.argtypes = [ctypes.c_int] * 4
+        lib.mxtt_flash_fwd_f32_tile.restype = ctypes.c_int
+        lib.mxtt_error_string.argtypes = [ctypes.c_int]
+        lib.mxtt_error_string.restype = ctypes.c_char_p
+    return lib
 
-    Checks device, dtype (float32 or bfloat16, all three alike), head dim
-    (32, 64 or 128), shapes, contiguity and (bf16) 16-byte alignment, and
-    raises on anything the kernel does not take.  Outputs are allocated
-    here; the kernel runs on the current stream and is not synchronised.
-    ``flash_fwd_cuda.launches`` counts successful launches, and
-    ``flash_fwd_cuda.lse_launches`` those of them with the lse output."""
+
+def _check_fwd_inputs(q, k, v):
+    """Raise on anything the forward kernel does not take (see
+    :func:`flash_fwd_cuda`)."""
     _check_heads(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
@@ -115,38 +123,53 @@ def flash_fwd_cuda(q, k, v, causal=False, scale=None, return_lse=False):
     if q.dtype not in _KERNEL_DTYPES:
         raise MXNetError(f"flash_fwd_cuda: dtype {q.dtype} not supported "
                          "(float32 or bfloat16)")
+    if q.shape[3] not in KERNEL_HEAD_DIMS:
+        raise MXNetError(f"flash_fwd_cuda: head dim {q.shape[3]} not "
+                         f"supported ({KERNEL_HEAD_DIMS})")
+    _check_aligned("flash_fwd_cuda", (("q", q), ("k", k), ("v", v)))
+
+
+def flash_fwd_cuda(q, k, v, causal=False, scale=None, return_lse=False):
+    """Launch the Hopper flash-attention forward on CUDA tensors.
+
+    Checks device, dtype (float32 or bfloat16, all three alike), head dim
+    (32, 64 or 128), shapes, contiguity and 16-byte alignment, and
+    raises on anything the kernel does not take.  Outputs are allocated
+    here; the kernel runs on the current stream and is not synchronised.
+    ``flash_fwd_cuda.launches`` counts successful launches, and
+    ``flash_fwd_cuda.lse_launches`` those of them with the lse output."""
+    _check_fwd_inputs(q, k, v)
+    dev, dt = q.device, q.dtype
     B, H, Sq, D = q.shape
     Hk, Sk = k.shape[1], k.shape[2]
-    if D not in KERNEL_HEAD_DIMS:
-        raise MXNetError(f"flash_fwd_cuda: head dim {D} not supported "
-                         f"({KERNEL_HEAD_DIMS})")
-    _check_aligned("flash_fwd_cuda", (("q", q), ("k", k), ("v", v)))
     if scale is None:
         scale = 1.0 / (D ** 0.5)
-    from .. import cuda_lib
-    lib = cuda_lib.library("flash_fwd.cu")
-    fn = lib.mxtt_flash_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.mxtt_error_string.argtypes = [ctypes.c_int]
-        lib.mxtt_error_string.restype = ctypes.c_char_p
+    lib = _fwd_lib()
     out = torch.empty_like(q)
-    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
            if return_lse else None)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr() if lse is not None else None,
-             B, H, Hk, Sq, Sk, D, _KERNEL_DTYPES[q.dtype], int(bool(causal)),
-             float(scale), q.device.index or 0, stream)
+    index = dev.index or 0
+    err = lib.mxtt_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None, B, H, Hk, Sq, Sk, D,
+        _KERNEL_DTYPES[dt], int(bool(causal)), float(scale), index,
+        torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise MXNetError("flash_fwd_cuda: launch failed: "
                          f"{lib.mxtt_error_string(err).decode()} ({err})")
     flash_fwd_cuda.launches += 1
     if return_lse:
         flash_fwd_cuda.lse_launches += 1
-    return (out, lse) if return_lse else out
+        return out, lse
+    return out
+
+
+def flash_fwd_f32_tile(B, H, Sq, device=0):
+    """q rows a block of the float32 forward kernel at these shapes on
+    CUDA ``device``: 64, or 16 when the grid of 64-row tiles leaves SMs
+    without a block and the block's warps split the keys instead (the
+    kernel's own rule, asked of the library)."""
+    return _fwd_lib().mxtt_flash_fwd_f32_tile(B, H, Sq, device)
 
 
 flash_fwd_cuda.launches = 0
@@ -228,7 +251,7 @@ def _check_bwd_inputs(q, k, v, out, lse, dout):
         raise MXNetError(f"flash_bwd_cuda: head dim {q.shape[3]} not "
                          f"supported ({KERNEL_HEAD_DIMS})")
     _check_aligned("flash_bwd_cuda", (("q", q), ("k", k), ("v", v),
-                                      ("dout", dout)), _KERNEL_DTYPES)
+                                      ("dout", dout)))
     _check_row_stat("lse", lse, q)
 
 
@@ -324,9 +347,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal=False, scale=None,
 class FlashAttentionFunction(torch.autograd.Function):
     """Flash attention with its gradient (counterpart of the JAX package's
     ``flash_attention`` ``custom_vjp``).  The forward keeps q, k, v, the
-    output and the logsumexp; the backward makes dO contiguous (autograd
-    hands over the graph's transposed view), takes ``delta = rowsum(dO *
-    O)`` in f32 and runs the backward kernels."""
+    output and the logsumexp; the backward makes dO contiguous and
+    16-byte aligned (autograd hands over the graph's transposed view),
+    takes ``delta = rowsum(dO * O)`` in f32 and runs the backward
+    kernels."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
@@ -339,7 +363,7 @@ class FlashAttentionFunction(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
+        dout = _kernel_ready(dout)
         delta = (dout.float() * out.float()).sum(-1)
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
                                          ctx.causal, ctx.scale, delta)
@@ -358,6 +382,12 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False):
     raise MXNetError(f"flash_attention: no path for device {q.device}")
 
 
+def _kernel_ready(t):
+    """``t`` contiguous and starting on 16 bytes, copied only if not."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 @register("_contrib_FlashAttention",
           arg_names=["query", "key", "value"],
           attr_defaults={"causal": False, "scale": None},
@@ -365,11 +395,12 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False):
 def _flash_attention_op(query, key, value, causal=False, scale=None, **kw):
     """Registry entry point (reference: ops/attention.py
     _contrib_FlashAttention).  The graph's head transposes hand over
-    strided views; the kernels take contiguous tensors.  With grad mode
+    strided views; the kernels take contiguous tensors that start on 16
+    bytes (a contiguous view that does not is copied).  With grad mode
     on and an input that requires grad it goes through
     :class:`FlashAttentionFunction` (forward with lse, backward kernels);
     otherwise through the lse-free forward, as serving does."""
-    q, k, v = query.contiguous(), key.contiguous(), value.contiguous()
+    q, k, v = (_kernel_ready(t) for t in (query, key, value))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFunction.apply(q, k, v, bool(causal), scale)

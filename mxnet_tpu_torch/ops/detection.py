@@ -295,15 +295,20 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def suppress_matrix(boxes, valid, classes, ks, ke, thresh, overlap):
-    """S (n, ks, ke) bool: S[n, j, i] when box j suppresses box i in
-    greedy NMS, i.e. j < i, valid[n, j], the classes agree (``classes``
-    None: every class) and ``overlap(j, i) > thresh``, for the first
-    ``ks`` rows and ``ke`` columns of ``boxes`` (n, K, 4).
+    """S (n, ks, ke) bool (on the card padded, see below): S[n, j, i]
+    when box j suppresses box i in greedy NMS, i.e. j < i, valid[n, j],
+    the classes agree (``classes`` None: every class) and ``overlap(j,
+    i) > thresh``, for the first ``ks`` rows and ``ke`` columns of
+    ``boxes`` (n, K, 4).
 
     A CUDA tensor launches the Hopper kernel (``csrc/nms_overlap.cu``,
     :func:`suppress_matrix_cuda`); a CPU or meta tensor takes the plain
     version (:func:`suppress_matrix_plain`), whose order of operations
-    the kernel keeps."""
+    the kernel keeps.  The kernel's rows are padded to a multiple of 16
+    columns, False past column ke: on the card S is (n, ks, ke rounded up
+    to 16), and a caller that wants (n, ks, ke) slices it (the caller
+    here lists the true pairs, and ``nonzero`` of the sliced view takes
+    twice as long as of the padded rows)."""
     if boxes.is_cuda:
         return suppress_matrix_cuda(boxes, valid, classes, ks, ke, thresh,
                                     overlap)
@@ -327,9 +332,11 @@ def suppress_matrix_plain(boxes, valid, classes, ks, ke, thresh, overlap):
 
 def suppress_matrix_cuda(boxes, valid, classes, ks, ke, thresh, overlap):
     """Launch ``csrc/nms_overlap.cu`` for :func:`suppress_matrix` on CUDA
-    tensors: boxes float32 or bfloat16 (n, K, 4), valid bool (n, K),
-    classes (n, K) (compared as float32) or None, ``overlap`` one of
-    :func:`iou_matrix` and :func:`pixel_iou`.  Raises on anything else.
+    tensors: boxes float32 or bfloat16 (n, K, 4), aligned to a box, valid
+    bool (n, K), classes (n, K) (compared as float32) or None,
+    ``overlap`` one of :func:`iou_matrix` and :func:`pixel_iou`.  Raises
+    on anything else.  Returns the kernel's rows, (n, ks, ke rounded up
+    to 16) bool, False past column ke.
     ``suppress_matrix_cuda.launches`` counts successful launches."""
     import ctypes
     from ..base import MXNetError
@@ -353,18 +360,22 @@ def suppress_matrix_cuda(boxes, valid, classes, ks, ke, thresh, overlap):
             classes is not None and tuple(classes.shape) != (n, K)):
         raise MXNetError("suppress_matrix_cuda: shapes differ: boxes "
                          f"{tuple(boxes.shape)}, valid {(n, K)}")
+    if boxes.data_ptr() % (4 * boxes.element_size()):
+        raise MXNetError("suppress_matrix_cuda: boxes must start on the "
+                         "size of a box (the kernel reads a box in one load)")
     lib = cuda_lib.library("nms_overlap.cu")
     fn = lib.mxtt_nms_suppress
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.mxtt_error_string.argtypes = [ctypes.c_int]
         lib.mxtt_error_string.restype = ctypes.c_char_p
-    S = torch.empty((n, ks, ke), dtype=torch.bool, device=boxes.device)
+    ld = -(-ke // 16) * 16
+    S = torch.empty((n, ks, ld), dtype=torch.bool, device=boxes.device)
     err = fn(boxes.data_ptr(), valid.data_ptr(),
              classes.data_ptr() if classes is not None else None,
-             S.data_ptr(), n, K, ks, ke, _KERNEL_DTYPES[boxes.dtype],
+             S.data_ptr(), n, K, ks, ke, ld, _KERNEL_DTYPES[boxes.dtype],
              _OVERLAP_RULES[overlap], float(thresh),
              boxes.device.index or 0,
              torch.cuda.current_stream(boxes.device).cuda_stream)
@@ -401,8 +412,9 @@ def nms_keep(boxes, valid, thresh, overlap, classes=None, topk=None,
     from keep = valid reaches it after at most the longest chain of
     suppressions plus one rounds, and no box is visited alone.  S is
     built for as many images at once as ``NMS_CHUNK_ELEMENTS`` allows
-    and kept as the list of its true pairs, so a round is a gather and a
-    scatter-add over those pairs.  Boxes after the last valid one of
+    (:func:`nms_matrices`) and kept as the list of its true pairs
+    (:func:`nms_pairs`), so a round is a gather and a scatter-add over
+    those pairs (:func:`nms_rounds`).  Boxes after the last valid one of
     every image are left out (only the trailing invalid columns are cut:
     the valid boxes need not come first).  A ``stats`` dict receives the
     rounds and the pairs."""
@@ -415,18 +427,42 @@ def nms_keep(boxes, valid, thresh, overlap, classes=None, topk=None,
     if K_eff == 0:
         return keep
     K_sup = K_eff if topk is None else min(int(topk), K_eff)
+    src, dst = nms_pairs(nms_matrices(boxes, valid, thresh, overlap,
+                                      classes, K_sup, K_eff), K_eff)
+    keep[:, :K_eff] = nms_rounds(valid[:, :K_eff], src, dst, stats)
+    return keep
+
+
+def nms_matrices(boxes, valid, thresh, overlap, classes, K_sup, K_eff):
+    """Yield (first image, S) for the images of ``boxes`` in chunks of
+    at most ``NMS_CHUNK_ELEMENTS`` matrix elements: S (images, K_sup,
+    K_eff or more: no true pair lies past column K_eff) from
+    :func:`suppress_matrix`."""
+    N = valid.shape[0]
     per = max(1, NMS_CHUNK_ELEMENTS // (K_sup * K_eff))
-    src, dst = [], []
     for s in range(0, N, per):
-        S = suppress_matrix(
+        yield s, suppress_matrix(
             boxes[s:s + per], valid[s:s + per],
             None if classes is None else classes[s:s + per],
             K_sup, K_eff, thresh, overlap)
+
+
+def nms_pairs(matrices, K_eff):
+    """(src, dst): the flat indices (image * K_eff + box) of the true
+    pairs (j suppresses i) of the matrices :func:`nms_matrices` yields."""
+    src, dst = [], []
+    for s, S in matrices:
         nz = S.nonzero()                                    # (img, j, i)
         src.append((nz[:, 0] + s) * K_eff + nz[:, 1])
         dst.append((nz[:, 0] + s) * K_eff + nz[:, 2])
-    src, dst = torch.cat(src), torch.cat(dst)
-    v = valid[:, :K_eff].reshape(-1)
+    return torch.cat(src), torch.cat(dst)
+
+
+def nms_rounds(valid, src, dst, stats=None):
+    """keep (N, K_eff): the fixed point of keep_i = valid_i and not any
+    of the pairs (src -> i) with keep_src, from keep = valid.  A
+    ``stats`` dict receives the rounds and the pairs."""
+    v = valid.reshape(-1)
     k = v.clone()
     rounds = 0
     while True:
@@ -437,11 +473,10 @@ def nms_keep(boxes, valid, thresh, overlap, classes=None, topk=None,
         if torch.equal(new, k):
             break
         k = new
-    keep[:, :K_eff] = k.reshape(N, K_eff)
     if stats is not None:
         stats["rounds"] = max(stats.get("rounds", 0), rounds)
         stats["pairs"] = int(src.numel())
-    return keep
+    return k.reshape(valid.shape)
 
 
 # --------------------------------------------------------------------------

@@ -36,8 +36,9 @@ def _prod(x, dims, keepdim):
 
 
 def _same_int(fn):
-    """Integer sums keep the input's integer type (torch widens to
-    int64; the JAX package's int32 stays int32)."""
+    """Integer sums keep the input's integer type, MXNet's rule (torch
+    widens to int64).  The JAX package runs with x64 on and returns
+    int64 here; tests/test_torch_indexing.py records the difference."""
     def run(x, dims, keepdim):
         out = fn(x, dims, keepdim)
         if not x.is_floating_point() and x.dtype != torch.bool:

@@ -1,14 +1,20 @@
-// An emulation of the parts of the CUDA runtime that the f32 kernels of
-// mxnet_tpu_torch/csrc use, for compiling them with a host C++ compiler
-// in the CPU tests (tests/test_torch_cuda_emu.py): one std::thread per
-// CUDA thread, the blocks of a grid one after another, a std::barrier
-// per block for __syncthreads, shared memory as a global array.
+// An emulation of the parts of the CUDA runtime that the kernels of
+// mxnet_tpu_torch/csrc run under it use, for compiling them with a host
+// C++ compiler in the CPU tests (tests/test_torch_cuda_emu*.py): the f32
+// attention kernels and the NMS kernel.  One std::thread per CUDA thread,
+// the blocks of a grid one after another, a std::barrier per block for
+// __syncthreads and one per warp for __syncwarp and the shuffles (each
+// lane writes its value to a slot of the block, the warp meets, each lane
+// reads its source lane's slot, the warp meets again), shared memory as a
+// global array.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
+#include <deque>
 #include <thread>
 #include <vector>
 
@@ -32,12 +38,79 @@ extern dim3 blockIdx;
 extern std::barrier<>* emu_barrier;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 
+// the warps' barriers and the shuffles' slots of the running block
+extern std::deque<std::barrier<>>* emu_warp_barriers;
+extern uint64_t emu_shfl_slots[1024];
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  (*emu_warp_barriers)[threadIdx.x / 32].arrive_and_wait();
+}
+template <class T>
+T emu_shfl_from(T v, int src_lane) {
+  static_assert(sizeof(T) <= sizeof(uint64_t), "one slot a lane");
+  const unsigned w = threadIdx.x / 32;
+  std::memcpy(&emu_shfl_slots[threadIdx.x], &v, sizeof(T));
+  __syncwarp();
+  T r;
+  std::memcpy(&r, &emu_shfl_slots[w * 32 + (src_lane & 31)], sizeof(T));
+  __syncwarp();
+  return r;
+}
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  return emu_shfl_from(v, (int)(threadIdx.x & 31) ^ lane_mask);
+}
+template <class T>
+T __shfl_sync(unsigned, T v, int src_lane) {
+  return emu_shfl_from(v, src_lane);
+}
+template <class T>
+T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  const int lane = (int)(threadIdx.x & 31);  // lanes below delta keep v
+  return emu_shfl_from(v, lane >= (int)delta ? lane - (int)delta : lane);
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  unsigned m = v;
+  for (int off = 1; off < 32; off <<= 1)
+    m = std::max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  return m;
+}
+inline unsigned __reduce_add_sync(unsigned, unsigned v) {
+  unsigned s = v;
+  for (int off = 1; off < 32; off <<= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}
+// the lanes of a warp are threads of their own: a shared-memory atomic
+// is a host atomic
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_RELAXED);
+}
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// IEEE single precision, round to nearest, never contracted: the host's
+// float arithmetic (x86-64 SSE, -ffp-contract=off)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
+struct uint4 { unsigned x, y, z, w; };
+struct uint2 { unsigned x, y; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
+}
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -45,7 +118,8 @@ enum {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
   cudaErrorInvalidConfiguration = 9,
-  cudaFuncAttributeMaxDynamicSharedMemorySize = 8
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaDevAttrMultiProcessorCount = 16
 };
 // what a block may use on an H100: 227 KB
 constexpr size_t kEmuSharedBytes = 232448;
@@ -60,6 +134,17 @@ inline int cudaGetLastError() {
   return e;
 }
 inline int cudaSetDevice(int) { return cudaSuccess; }
+inline int cudaGetDevice(int* d) {
+  *d = 0;
+  return cudaSuccess;
+}
+// the SMs a kernel sees; the tests set it to steer a choice that follows
+// the card's size
+extern "C" int emu_sm_count;
+inline int cudaDeviceGetAttribute(int* v, int, int) {
+  *v = emu_sm_count;
+  return cudaSuccess;
+}
 inline const char* cudaGetErrorString(int) { return "emulated launch error"; }
 
 // kernel<<<grid, threads, smem, stream>>>(args...) becomes
@@ -71,11 +156,16 @@ void emu_launch(K kernel, dim3 grid, int threads, size_t smem, void*,
     emu_error = cudaErrorInvalidConfiguration;
     return;
   }
+  for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
-      blockIdx = dim3(bx, by);
+      blockIdx = dim3(bx, by, bz);
       std::barrier<> bar(threads);
       emu_barrier = &bar;
+      std::deque<std::barrier<>> warps;
+      for (int w = 0; w < threads; w += 32)
+        warps.emplace_back(std::min(32, threads - w));
+      emu_warp_barriers = &warps;
       std::vector<std::thread> ts;
       for (int t = 0; t < threads; ++t)
         ts.emplace_back([=]() {

@@ -79,5 +79,7 @@ inline void pack_a(uint32_t (&)[4], const float (&)[4], const float (&)[4]) {
   abort();
 }
 inline void store_bf16x2(bf16*, float, float) { abort(); }
+inline float quad_max(float) { abort(); }
+inline float quad_sum(float) { abort(); }
 
 }  // namespace mma

@@ -88,6 +88,25 @@ def test_op_takes_strided_views_like_the_graph_hands_it():
                                    **TOL)
 
 
+def test_op_copies_views_that_do_not_start_on_16_bytes():
+    """The kernels copy 16-byte chunks; a contiguous view at an odd
+    offset reaches them as an aligned copy, with the JAX op's result."""
+    q, k, v = _qkv(1, 2, 2, 12, 12, 16, seed=11)
+    views = []
+    for a in (q, k, v):
+        buf = torch.zeros(a.size + 1)
+        buf[1:] = torch.from_numpy(a).reshape(-1)
+        views.append(buf[1:].view(a.shape))
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in views)
+    ready = tatt._kernel_ready(views[0])
+    assert ready.data_ptr() % 16 == 0 and torch.equal(ready, views[0])
+    assert tatt._kernel_ready(ready) is ready
+    out = treg.get("_contrib_FlashAttention")(*views, causal=True)
+    ref = jreg.get("_contrib_FlashAttention")(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
 def test_meta_tensors_take_the_plain_path():
     q = torch.empty(2, 4, 10, 32, device="meta")
     k = torch.empty(2, 2, 12, 32, device="meta")

@@ -2,7 +2,8 @@
 and K3) run on the CPU under an emulation of the CUDA runtime.
 
 The host C++ compiler builds the CUDA source against the headers in
-``tests/cuda_emu/``: one ``std::thread`` per CUDA thread, the blocks of a
+``tests/cuda_emu/`` (``cuda_emu/build.py``): one ``std::thread`` per
+CUDA thread, the blocks of a
 grid one after another, a ``std::barrier`` per block for
 ``__syncthreads``, shared memory as a global array.  ``cp.async`` copies
 either land at once (``emu_defer`` 0: a copy started before the
@@ -21,21 +22,14 @@ source, the card's arithmetic, races the host's memory model hides, or
 speed (``chip_smoke.py`` runs the kernels on the card).  Skips without a
 host C++ compiler."""
 import ctypes
-import os
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+from cuda_emu.build import build
 from mxnet_tpu_torch.ops import attention as att
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-EMU = os.path.join(HERE, "cuda_emu")
-SOURCE = os.path.join(os.path.dirname(HERE), "mxnet_tpu_torch", "csrc",
-                      "flash_bwd.cu")
 TOL = 1e-5
 
 # B, H, Hk, Sq, Sk, D, causal: both sides of the 64-row tile edges, GQA
@@ -60,33 +54,8 @@ IDS = ["B{}H{}Hk{}Sq{}Sk{}D{}{}".format(*c[:6], "c" if c[6] else "")
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no host C++ compiler to build the emulated kernels")
-    src = open(SOURCE).read()
-    # kernel<<<grid, threads, smem, stream>>>(...) -> emu_launch(kernel,
-    # grid, threads, smem, stream, ...); the extern __shared__ arrays
-    # become the emulation's globals
-    src, n = re.subn(r"(\w+<D>)<<<([^>]*)>>>\(", r"emu_launch(\1, \2, ",
-                     src)
-    assert n == 4, "the four launches of flash_bwd.cu"
-    src, n = re.subn(r"extern __shared__ __align__\(16\) (float|unsigned "
-                     r"char) (\w+)\[\];", r"", src)
-    assert n == 4, "the four kernels' shared arrays"
-    src = src.replace("namespace {", "extern float smem_f32[];\nextern "
-                      "unsigned char smem_raw[];\nnamespace {", 1)
-    out = tmp_path_factory.mktemp("cuda_emu")
-    cpp = out / "flash_bwd_emu.cpp"
-    cpp.write_text(src)
-    so = out / "libflash_bwd_emu.so"
-    res = subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-fPIC", "-shared", f"-I{EMU}", "-o",
-         str(so), str(cpp), os.path.join(EMU, "emu_state.cpp"),
-         "-lpthread"], capture_output=True, text=True, timeout=600)
-    if res.returncode and "c++20" in res.stderr:
-        pytest.skip(f"{cxx} lacks C++20 (std::barrier): {res.stderr[-300:]}")
-    assert res.returncode == 0, res.stderr[-3000:]
-    lib = ctypes.CDLL(str(so))
+    lib = build("flash_bwd.cu", str(tmp_path_factory.mktemp("cuda_emu")),
+                launches=4, extern_shared=4)
     tail = [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int,
                                  ctypes.c_void_p]
     lib.mxtt_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 7 + tail

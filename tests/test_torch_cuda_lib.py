@@ -137,8 +137,9 @@ def test_hmma_counts_count_tensor_core_products_per_kernel():
 
 
 def test_bf16_inputs_must_start_on_16_bytes():
-    """The bf16 kernels copy rows in 16-byte chunks; the wrappers refuse a
-    bf16 view that starts between chunks, and do not ask it of f32."""
+    """The kernels copy rows in 16-byte chunks; the wrappers refuse a bf16
+    view that starts between chunks, and an f32 one too (the f32 forward
+    stages its tiles with 16-byte copies as well)."""
     flat = torch.zeros(2 * 16 * 64 + 8, dtype=torch.bfloat16)
     good = flat[8:].view(1, 2, 16, 64)
     bad = flat[1:1 + 2 * 16 * 64].view(1, 2, 16, 64)
@@ -148,20 +149,22 @@ def test_bf16_inputs_must_start_on_16_bytes():
         att._check_aligned("k", [("q", good), ("q", bad)])
     f32 = torch.zeros(2 * 16 * 64 + 1)[1:].view(1, 2, 16, 64)
     assert f32.data_ptr() % 16
-    att._check_aligned("k", [("q", f32)])
+    with pytest.raises(MXNetError, match="q does not start on a 16-byte"):
+        att._check_aligned("k", [("q", f32)])
 
 
 def test_backward_refuses_f32_views_off_16_bytes():
     """The f32 backward kernels copy rows in 16-byte chunks as well: the
-    backward's check (every kernel dtype) refuses an f32 view 4 bytes
-    into its storage and takes one on 16 bytes; the forward's does not
-    ask it of f32."""
+    backward's check refuses an f32 view 4 bytes into its storage and
+    takes one on 16 bytes; so does the forward's, whose f32 kernel copies
+    16-byte chunks too."""
     flat = torch.zeros(2 * 16 * 64 + 4)
     good = flat[4:].view(1, 2, 16, 64)
     bad = flat[1:1 + 2 * 16 * 64].view(1, 2, 16, 64)
     assert good.data_ptr() % 16 == 0 and bad.data_ptr() % 16 == 4
-    att._check_aligned("flash_bwd_cuda", [("q", good)], att._KERNEL_DTYPES)
+    att._check_aligned("flash_bwd_cuda", [("q", good)])
     with pytest.raises(MXNetError, match="dout does not start on a 16-byte"):
-        att._check_aligned("flash_bwd_cuda", [("q", good), ("dout", bad)],
-                           att._KERNEL_DTYPES)
-    att._check_aligned("flash_fwd_cuda", [("q", bad)])
+        att._check_aligned("flash_bwd_cuda", [("q", good), ("dout", bad)])
+    att._check_aligned("flash_fwd_cuda", [("q", good)])
+    with pytest.raises(MXNetError, match="q does not start on a 16-byte"):
+        att._check_aligned("flash_fwd_cuda", [("q", bad)])

@@ -51,7 +51,9 @@ def test_nms_suppress_kernel_matches_plain_version(dev, dtype, rule):
             args = (b, valid, classes, ks, k, thresh, overlap)
             got = detection.suppress_matrix_cuda(*args)
             want = detection.suppress_matrix_plain(*args)
-            assert torch.equal(got, want), (classes is None, ks)
+            assert tuple(got.shape) == (n, ks, 304)  # rows of 16 bytes
+            assert torch.equal(got[..., :k], want), (classes is None, ks)
+            assert not got[..., k:].any()
     assert detection.suppress_matrix_cuda.launches == before + 4
     if rule == "corner" and dtype == torch.float32:
         logits = rng.standard_normal((n, 5, k)).astype(np.float32)
