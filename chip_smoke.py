@@ -39,8 +39,15 @@ vocab 10000, batch 64 x 35) trains through ``Module`` and
 ``examples/rnn/train_ptb.py``'s ``BucketingModule.fit`` runs an epoch
 at the same widths over four buckets; and a Gluon LSTM LM at those
 widths trains through ``gluon.Trainer``, hybridized and imperatively,
-with one fp32 step held against the CPU.  Every phase prints one JSON
-line;
+with one fp32 step held against the CPU.  Then SSD-VGG16 trains and
+detects.  Last, the rest of the Gluon model zoo (VGG-16, AlexNet,
+SqueezeNet 1.1, DenseNet-121, MobileNet 1.0, Inception v3, at full width
+and 1000 classes) trains through ``gluon.Trainer`` fed by
+``gluon.data.DataLoader`` with worker threads, each network's fp32 step
+is held against the CPU, the autoencoder, matrix-factorisation, DCGAN
+and SVM examples' graphs train through ``Module`` on their loss heads,
+and each newly ported dense op is held against the CPU.  Every phase
+prints one JSON line;
 any failed phase exits non-zero.  The line before the last lists the
 kernels with their launches on each path, times and bounds; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -3961,6 +3968,814 @@ def phase_ssd_detect(torch, mt, params, x):
     return counts, kern
 
 
+# --------------------------------------------------------------------------
+# The rest of the Gluon model zoo trained through gluon.data, the four
+# Module examples' loss heads, and the dense ops ported with them
+# --------------------------------------------------------------------------
+# six zoo networks at their published widths (mxnet_tpu/gluon/model_zoo/
+# vision/: VGG-16 (Simonyan & Zisserman 2015, config D), AlexNet
+# (Krizhevsky et al. 2012, one tower), SqueezeNet 1.1, DenseNet-121
+# (Huang et al. 2017), MobileNet 1.0 (Howard et al. 2017), Inception v3
+# (Szegedy et al. 2016)), 1000 classes, their published inputs, each fed
+# by gluon.data.DataLoader(ArrayDataset(images, labels), batch 64,
+# shuffle, 4 worker threads, last_batch="discard") and trained through
+# gluon.Trainer, hybridized with bf16 compute over fp32 masters,
+# ZOO_WARMUP + ZOO_STEPS steps (one epoch of the ZOO_IMAGES images).
+ZOO_NETS = (("vgg16", 224), ("alexnet", 224), ("squeezenet1.1", 224),
+            ("densenet121", 224), ("mobilenet1.0", 224),
+            ("inceptionv3", 299))
+ZOO_BATCH = 64
+ZOO_WARMUP = 3
+ZOO_STEPS = 10
+ZOO_WORKERS = 4
+ZOO_IMAGES = (ZOO_WARMUP + ZOO_STEPS) * ZOO_BATCH
+# SGD lr 0.005, momentum 0.9, wd 1e-4: in the CPU rehearsal at lr 0.01
+# (VGG's and AlexNet's published rate, for a batch of 128-256) VGG-16's
+# loss spiked to 10.9 and SqueezeNet 1.1's to 9.9 within 13 steps of
+# batch 16; at 0.005 every network's loss fell
+ZOO_OPT = {"learning_rate": 0.005, "momentum": 0.9, "wd": 1e-4}
+# the learnable rule: each image is one of ZOO_CLASSES seeded 8x8 colour
+# templates, upsampled, plus as much unit noise; its label is the
+# template's class (of the 1000 outputs)
+ZOO_CLASSES = 16
+# the mean loss of the last 3 steps must beat the first 3's by this many
+# nats, fixed from the CPU rehearsal before the first card run
+# (tests/torch_numerics.py zoo_data: the same loop in fp32 at batch 16,
+# VGG, AlexNet, SqueezeNet and MobileNet at 112x112, DenseNet at 224x224
+# and Inception at 299x299): the drops were 2.12 (VGG-16), 3.70
+# (AlexNet), 0.41 (SqueezeNet 1.1), 2.46 (DenseNet-121), 1.85 (MobileNet)
+# and 4.15 nats (Inception v3); the margin is a fifth of the smallest, as
+# RESNET_MARGIN's
+ZOO_MARGIN = 0.08
+# one fp32 SGD step of each network at batch 2 of its input, the card
+# (TF32 off) against the CPU from the same seeded weights, with
+# gluon_fp32_card_vs_cpu's budget; Dropout off (each device draws its
+# own masks) and, for DenseNet, BatchNorm on the moving statistics (the
+# DEEP_BN rule of tests/torch_numerics.py deep_bn: its batch-statistics
+# backward through 58 BatchNorms is ill-conditioned in fp32)
+ZOO_FP32_BATCH = 2
+ZOO_FP32_DEEP_BN = ("densenet121",)
+
+
+def zoo_images(side, seed):
+    """ZOO_IMAGES synthetic images of side x side in host memory and
+    their int32 labels (the learnable rule above)."""
+    rng = np.random.default_rng(seed)
+    tiles = rng.uniform(-1, 1, (ZOO_CLASSES, 3, 8, 8)).astype(np.float32)
+    rep = -(-side // 8)
+    tiles = tiles.repeat(rep, 2).repeat(rep, 3)[:, :, :side, :side]
+    labels = rng.integers(0, ZOO_CLASSES, ZOO_IMAGES).astype(np.int32)
+    images = rng.standard_normal((ZOO_IMAGES, 3, side, side),
+                                 dtype=np.float32)
+    images += tiles[labels]
+    return images, labels
+
+
+def zoo_net(mt, name, ctx, seed, classes=1000):
+    with mt.name.NameManager():
+        net = mt.gluon.model_zoo.vision.get_model(name, classes=classes)
+    mt.random.seed(seed)
+    net.initialize(mt.initializer.Xavier(rnd_type="gaussian",
+                                         magnitude=2.0), ctx=ctx)
+    return net
+
+
+def zoo_loader(mt, images, labels, batch, workers, seed):
+    np.random.seed(seed)              # the RandomSampler's shuffle
+    return mt.gluon.data.DataLoader(
+        mt.gluon.data.ArrayDataset(images, labels), batch_size=batch,
+        shuffle=True, num_workers=workers, last_batch="discard")
+
+
+def zoo_train_loop(mt, net, trainer, loss_fn, loader, n, sync):
+    """``n`` steps over the loader: the ms the main thread waits for each
+    batch, the ms of each step (record -> loss -> backward -> step,
+    ended by ``sync``), and each step's mean loss (read after the last
+    step); the last batch too."""
+    wait_ms, step_ms, losses = [], [], []
+    it = iter(loader)
+    for _ in range(n):
+        t = time.monotonic()
+        x, y = next(it)
+        t1 = time.monotonic()
+        with mt.autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(x.shape[0])
+        sync()
+        wait_ms.append((t1 - t) * 1e3)
+        step_ms.append((time.monotonic() - t1) * 1e3)
+        losses.append(loss.mean())
+    return wait_ms, step_ms, [float(l.asscalar()) for l in losses], (x, y)
+
+
+def forward_flops(torch, fn):
+    """Multiply-add FLOPs (2 a product) of the convolutions and matrix
+    products ``fn`` runs, counted from their shapes as they dispatch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+    total = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is aten.convolution.default:
+                w = args[1]
+                total[0] += 2 * out.numel() * int(np.prod(w.shape[1:]))
+            elif func in (aten.mm.default, aten.addmm.default):
+                a, b = args[-2], args[-1]
+                total[0] += 2 * a.shape[0] * a.shape[1] * b.shape[1]
+            elif func is aten.bmm.default:
+                a, b = args
+                total[0] += 2 * a.shape[0] * a.shape[1] * a.shape[2] * \
+                    b.shape[2]
+            return out
+    with Count():
+        fn()
+    return total[0]
+
+
+def phase_gluon_zoo_train(torch, mt, peak_flops):
+    """The slice's main path: each network of ZOO_NETS at full width fed
+    by the DataLoader and trained through gluon.Trainer on cuda:0, the
+    launch and dispatch counts reset just before its steps and read just
+    after; then its analytic FLOPs and one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+    rows, fails, data = {}, [], {}
+    n = ZOO_WARMUP + ZOO_STEPS
+    data_s = 0.0
+    for name, side in ZOO_NETS:
+        if side not in data:
+            data.clear()
+            t0 = time.monotonic()
+            data[side] = zoo_images(side, SEED + 40)
+            data_s += time.monotonic() - t0
+        images, labels = data[side]
+        t0 = time.monotonic()
+        net = zoo_net(mt, name, mt.gpu(0), SEED)
+        net.hybridize(compute_dtype="bfloat16")
+        trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(ZOO_OPT))
+        loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+        loader = zoo_loader(mt, images, labels, ZOO_BATCH, ZOO_WORKERS,
+                            SEED + 41)
+        setup_s = time.monotonic() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # the path: counts start at 0 here and are read after
+        reset_counts(mt)
+        wait_ms, step_ms, losses, (x, y) = zoo_train_loop(
+            mt, net, trainer, loss_fn, loader, n, torch.cuda.synchronize)
+        counts = read_counts(mt)
+        dispatch = mt.profiler.dispatch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        timed_ms = step_ms[ZOO_WARMUP:]
+        med = float(np.median(timed_ms))
+        fwd = forward_flops(torch, lambda: net(x))
+        flops = 3 * fwd
+        tflops = flops / (med / 1e3) / 1e12
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.monotonic()
+            with mt.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(x.shape[0])
+            torch.cuda.synchronize()
+            prof_ms = (time.monotonic() - t) * 1e3
+        kernels = device_kernels(prof)
+        busy = sum(k[0] for k in kernels)
+        first3, last3 = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+        params = net.collect_params()
+        row = dict(
+            image=[3, side, side], setup_s=setup_s,
+            first_step_ms=step_ms[0], warmup_ms=step_ms[:ZOO_WARMUP],
+            steps=len(timed_ms), step_ms=timed_ms, median_step_ms=med,
+            min_step_ms=min(timed_ms), max_step_ms=max(timed_ms),
+            images_per_s=ZOO_BATCH / (med / 1e3),
+            loader_wait_ms=wait_ms, median_loader_wait_ms=float(
+                np.median(wait_ms[ZOO_WARMUP:])),
+            max_loader_wait_ms=max(wait_ms[ZOO_WARMUP:]),
+            epoch_images_per_s=ZOO_BATCH * len(timed_ms) / (
+                sum(timed_ms) + sum(wait_ms[ZOO_WARMUP:])) * 1e3,
+            forward_flops_per_image=fwd / ZOO_BATCH, flops_per_step=flops,
+            flops_source="analytic: 2 x the multiply-adds of every "
+            "convolution and matrix product of one forward, counted from "
+            "their shapes as they dispatch, x 3 (forward and backward)",
+            achieved_tflops=tflops, mfu=tflops * 1e12 / peak_flops,
+            peak_mem_bytes=peak, profiled_step_ms=prof_ms,
+            device_busy_ms=busy,
+            device_idle_share_of_step=max(0.0, 1 - busy / prof_ms),
+            device_idle_share_of_median_step=max(0.0, 1 - busy / med),
+            top_kernels=[dict(ms=ms, count=c, name=k)
+                         for ms, c, k in kernels[:5]],
+            n_params=sum(int(np.prod(p.shape)) for k, p in params.items()
+                         if "running" not in k),
+            dispatches=dispatch, kernel_launches=counts, losses=losses,
+            loss_first3_mean=first3, loss_last3_mean=last3)
+        rows[name] = row
+        want = {"trainer.step": n, "autograd.backward": n,
+                "gluon.cached_forward": n}
+        if any(dispatch.get(k) != v for k, v in want.items()) \
+                or any(counts.values()):
+            fails.append(f"{name}: dispatches {dispatch} (want {want}) "
+                         f"and kernel launches {counts} (want none)")
+        if not all(np.isfinite(losses)):
+            fails.append(f"{name}: non-finite loss in {losses}")
+        if not last3 < first3 - ZOO_MARGIN:
+            fails.append(f"{name}: mean of the last 3 losses {last3} does "
+                         f"not beat the first 3's {first3} by {ZOO_MARGIN}")
+        if busy <= 0:
+            fails.append(f"{name}: the profile shows no device time")
+        del net, trainer, loader, x, y
+        torch.cuda.empty_cache()
+    data.clear()
+    emit("gluon_zoo_train", batch=ZOO_BATCH, classes=1000,
+         hybridized=True, compute_dtype="bfloat16", masters="float32",
+         optimizer="gluon.Trainer sgd lr 0.01 momentum 0.9 wd 1e-4",
+         initializer="xavier gaussian magnitude 2",
+         data=f"{ZOO_IMAGES} synthetic images in host memory, {ZOO_CLASSES}"
+         " classes (a seeded template each plus unit noise), "
+         "gluon.data.DataLoader(ArrayDataset, shuffle, num_workers="
+         f"{ZOO_WORKERS}, last_batch='discard')", data_s=data_s,
+         margin=ZOO_MARGIN, cudnn_benchmark=torch.backends.cudnn.benchmark,
+         failures=fails, **rows)
+    if fails:
+        raise RuntimeError("gluon_zoo_train: " + "; ".join(fails))
+
+
+def zoo_numpy_params(mt, name, side, seed):
+    """Seeded weights of a zoo network by name (He-scaled weights, gamma
+    near 1, small beta, running statistics near (0, 1)) as numpy, the
+    shapes from a CPU net's deferred initialization."""
+    net = zoo_net(mt, name, mt.cpu(), seed)
+    net(mt.nd.zeros((1, 3, side, side), ctx=mt.cpu()))
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, p in net.collect_params().items():
+        shape = p.shape
+        if k.endswith("running_var"):
+            v = rng.uniform(0.5, 1.5, shape)
+        else:
+            v = rng.standard_normal(shape)
+            if k.endswith("_weight"):
+                v *= np.sqrt(2.0 / np.prod(shape[1:]))
+            elif k.endswith("_gamma"):
+                v = 1 + 0.1 * v
+            else:
+                v *= 0.1
+        out[k] = v.astype(np.float32)
+    return out
+
+
+def zoo_fp32_step(mt, ctx, name, values, x, y, dtype="float32"):
+    """One SGD-momentum step of zoo network ``name`` from ``values`` on
+    ``ctx``, hybridized, Dropout off (and DenseNet's BatchNorm on its
+    moving statistics): (loss, gradients, new parameters, seconds,
+    output-layer parameter names)."""
+    net = zoo_net(mt, name, ctx, SEED)
+    for b in _blocks(net):
+        if type(b).__name__ == "Dropout":
+            b._rate = 0.0
+        if type(b).__name__ == "BatchNorm" and name in ZOO_FP32_DEEP_BN:
+            b._kwargs["use_global_stats"] = True
+    net.cast(dtype)
+    mt.convert.gluon_params_from_numpy(net.collect_params(), values, ctx)
+    net.hybridize()
+    trainer = mt.gluon.Trainer(net.collect_params(), "sgd", dict(ZOO_OPT))
+    loss_fn = mt.gluon.loss.SoftmaxCrossEntropyLoss()
+    xs = mt.nd.array(x, ctx=ctx, dtype=dtype)
+    ys = mt.nd.array(y, ctx=ctx, dtype="int32")
+    t0 = time.monotonic()
+    with mt.autograd.record():
+        loss = loss_fn(net(xs), ys)
+    loss.backward()
+    grads = {k: p.grad().asnumpy() for k, p in net.collect_params().items()
+             if p.grad_req != "null"}
+    trainer.step(x.shape[0])
+    lval = float(loss.mean().asscalar())
+    secs = time.monotonic() - t0
+    head = [k for k in net.output.collect_params() if k in grads]
+    return lval, grads, mt.convert.gluon_params_to_numpy(
+        net.collect_params()), secs, head
+
+
+def _blocks(net):
+    yield net
+    for c in net._children:
+        yield from _blocks(c)
+
+
+def zoo_fp32_compare(card, cpu, values):
+    """gluon_fp32_compare's numbers, the output layer as the head."""
+    (gl, gg, gp, gs, head), (cl, cg, cp, cs, _) = card, cpu
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    def norm_rel(pairs):
+        return float(np.sqrt(sum(((a - b) ** 2).sum() for a, b in pairs))
+                     / np.sqrt(sum((b ** 2).sum() for _, b in pairs)))
+    upd = {k: (gp[k] - values[k], cp[k] - values[k]) for k in cg}
+    aux = {k: rel(gp[k], cp[k]) for k in cp if "running" in k}
+    row = dict(loss_gpu=gl, loss_cpu=cl, loss_diff=abs(gl - cl),
+               head=head,
+               head_grad_rel_diff=max(rel(gg[k], cg[k]) for k in head),
+               head_update_rel_diff=max(rel(*upd[k]) for k in head),
+               grad_norm_rel_diff=norm_rel([(gg[k], cg[k]) for k in cg]),
+               update_norm_rel_diff=norm_rel(list(upd.values())),
+               gpu_s=gs, cpu_s=cs,
+               finite=bool(all(np.isfinite(v).all() for v in gp.values())))
+    if aux:
+        worst = max(aux, key=aux.get)
+        row.update(worst_aux_rel_diff=aux[worst], worst_aux=worst)
+    return row
+
+
+def phase_gluon_zoo_fp32(torch, mt):
+    """One fp32 step of each ZOO_NETS network at full width (batch 2 of
+    its input), the card (TF32 off) against the CPU from the same
+    weights."""
+    fails, rows = [], {}
+    for i, (name, side) in enumerate(ZOO_NETS):
+        values = zoo_numpy_params(mt, name, side, SEED + 50 + i)
+        rng = np.random.default_rng(SEED + 60 + i)
+        x = rng.uniform(-1, 1, (ZOO_FP32_BATCH, 3, side, side)) \
+            .astype(np.float32)
+        y = rng.integers(0, 1000, ZOO_FP32_BATCH).astype(np.int32)
+        row = zoo_fp32_compare(
+            zoo_fp32_step(mt, mt.gpu(0), name, values, x, y),
+            zoo_fp32_step(mt, mt.cpu(), name, values, x, y), values)
+        row["batch_norm"] = ("moving statistics (DEEP_BN)"
+                             if name in ZOO_FP32_DEEP_BN else "batch")
+        rows[name] = row
+        for key, lim in (("loss_diff", GLUON_FP32_LOSS_TOL),
+                         ("worst_aux_rel_diff", GLUON_FP32_AUX_RTOL),
+                         ("head_grad_rel_diff", GLUON_FP32_HEAD_RTOL),
+                         ("head_update_rel_diff", GLUON_FP32_HEAD_RTOL),
+                         ("grad_norm_rel_diff", GLUON_FP32_NORM_RTOL),
+                         ("update_norm_rel_diff", GLUON_FP32_NORM_RTOL)):
+            if key in row and not row[key] <= lim:
+                fails.append(f"{name} {key} {row[key]} beyond {lim}")
+        if not row["finite"]:
+            fails.append(f"{name}: non-finite parameters on the card")
+        torch.cuda.empty_cache()
+    emit("gluon_zoo_fp32_card_vs_cpu", batch=ZOO_FP32_BATCH,
+         dropout="off (each device draws its own masks)",
+         budget=dict(loss=GLUON_FP32_LOSS_TOL, aux=GLUON_FP32_AUX_RTOL,
+                     head=GLUON_FP32_HEAD_RTOL, norm=GLUON_FP32_NORM_RTOL),
+         failures=fails, **rows)
+    if fails:
+        raise RuntimeError("gluon_zoo_fp32_card_vs_cpu: " + "; ".join(fails))
+
+
+# The four Module examples' graphs, rebuilt here (the examples are files
+# of the JAX package's tree) at each example's own sizes, on synthetic
+# data in place of sklearn's digits (64 pixels in [0, 1], 1797 samples)
+# and MovieLens: examples/autoencoder/stacked_ae.py (64-32-16, mirrored,
+# LinearRegressionOutput, Adam 1e-3, batch 100), examples/recommender/
+# matrix_fact.py (200 users, 100 items, 8 hidden, 8000 ratings from rank-4
+# factors, Embedding -> product -> sum -> LinearRegressionOutput, Adam
+# 0.02, Normal(0.3), batch 256), examples/gan/dcgan_digits.py (the
+# Deconvolution -> BatchNorm -> relu generator and the Convolution ->
+# BatchNorm -> LeakyReLU discriminator at ngf = ndf = 16, z 32, 32x32,
+# LogisticRegressionOutput, Adam 2e-4 beta1 0.5, batch 64, the generator
+# trained on the discriminator's input gradient), examples/svm/
+# svm_digits.py (64-128-10 MLP, SVMOutput, SGD 0.1 momentum 0.9 wd 1e-4,
+# batch 100).  Each trains HEADS_EPOCHS epochs in fp32 through Module on
+# NDArrayIter batches; its metric (reconstruction MSE, validation RMSE,
+# the discriminator's loss, test accuracy) must improve by HEADS_MARGIN,
+# fixed from the CPU rehearsal (tests/torch_numerics.py zoo_data: gains
+# of 0.377 in MSE, 0.416 in RMSE, 0.485 nats and 0.889 in accuracy), a
+# fifth of each; one fp32 step on the card must equal the CPU's within
+# HEADS_STEP_RTOL of each parameter's largest value (one CPU thread
+# against eight, two reduction orders: 0 for three examples, 5.9e-6 for
+# the DCGAN's BatchNorms; the card's products sum in a third order)
+HEADS_EPOCHS = {"stacked_ae": 8, "matrix_fact": 10, "dcgan": 3, "svm": 12}
+HEADS_MARGIN = {"stacked_ae": 0.075, "matrix_fact": 0.083, "dcgan": 0.097,
+                "svm": 0.178}
+HEADS_STEP_RTOL = 1e-4
+
+
+def digits_like(seed, n=1797):
+    """Stand-ins for sklearn's digits: 10 seeded 8x8 templates in [0, 1]
+    plus noise, flattened to 64 values in [0, 1], with their labels."""
+    rng = np.random.default_rng(seed)
+    tiles = rng.uniform(0, 1, (10, 64))
+    y = rng.integers(0, 10, n)
+    x = np.clip(tiles[y] + 0.25 * rng.standard_normal((n, 64)), 0, 1)
+    return x.astype(np.float32), y.astype(np.float32)
+
+
+def ae_sym(mt, dims=(64, 32, 16)):
+    """stacked_ae.py full_sym."""
+    h = mt.sym.Variable("data")
+    label = mt.sym.Variable("recon_label")
+    for i, d in enumerate(dims[1:]):
+        h = mt.sym.Activation(mt.sym.FullyConnected(
+            h, num_hidden=d, name="enc%d" % i), act_type="relu")
+    for i in reversed(range(len(dims) - 1)):
+        h = mt.sym.FullyConnected(h, num_hidden=dims[i], name="dec%d" % i)
+        if i > 0:
+            h = mt.sym.Activation(h, act_type="relu")
+    return mt.sym.LinearRegressionOutput(h, label, name="recon")
+
+
+def mf_sym(mt, users=200, items=100, hidden=8):
+    """matrix_fact.py plain_net."""
+    user = mt.sym.Embedding(mt.sym.Variable("user"), input_dim=users,
+                            output_dim=hidden, name="user_embed")
+    item = mt.sym.Embedding(mt.sym.Variable("item"), input_dim=items,
+                            output_dim=hidden, name="item_embed")
+    pred = mt.sym.Flatten(mt.sym.sum(user * item, axis=1))
+    return mt.sym.LinearRegressionOutput(data=pred,
+                                         label=mt.sym.Variable("score"),
+                                         name="lro")
+
+
+def dcgan_syms(mt, ngf=16, ndf=16, nc=1):
+    """dcgan_digits.py make_generator and make_discriminator."""
+    eps = 1e-5 + 1e-12
+    g = mt.sym.Variable("rand")
+    for i, (nf, k, s, p) in enumerate(((ngf * 4, 4, 1, 0),
+                                       (ngf * 2, 4, 2, 1),
+                                       (ngf, 4, 2, 1))):
+        g = mt.sym.Deconvolution(g, name=f"g{i + 1}", kernel=(k, k),
+                                 stride=(s, s), pad=(p, p), num_filter=nf,
+                                 no_bias=True)
+        g = mt.sym.BatchNorm(g, name=f"gbn{i + 1}", fix_gamma=True, eps=eps)
+        g = mt.sym.Activation(g, name=f"gact{i + 1}", act_type="relu")
+    g = mt.sym.Deconvolution(g, name="g4", kernel=(4, 4), stride=(2, 2),
+                             pad=(1, 1), num_filter=nc, no_bias=True)
+    g = mt.sym.Activation(g, name="gact4", act_type="tanh")
+    d = mt.sym.Variable("data")
+    d = mt.sym.Convolution(d, name="d1", kernel=(4, 4), stride=(2, 2),
+                           pad=(1, 1), num_filter=ndf, no_bias=True)
+    d = mt.sym.LeakyReLU(d, name="dact1", act_type="leaky", slope=0.2)
+    for i, nf in ((2, ndf * 2), (3, ndf * 4)):
+        d = mt.sym.Convolution(d, name=f"d{i}", kernel=(4, 4), stride=(2, 2),
+                               pad=(1, 1), num_filter=nf, no_bias=True)
+        d = mt.sym.BatchNorm(d, name=f"dbn{i}", fix_gamma=True, eps=eps)
+        d = mt.sym.LeakyReLU(d, name=f"dact{i}", act_type="leaky",
+                             slope=0.2)
+    d = mt.sym.Convolution(d, name="d4", kernel=(4, 4), num_filter=1,
+                           no_bias=True)
+    d = mt.sym.LogisticRegressionOutput(data=mt.sym.Flatten(d),
+                                        label=mt.sym.Variable("label"),
+                                        name="dloss")
+    return g, d
+
+
+def svm_sym(mt):
+    """svm_digits.py svm_net."""
+    h = mt.sym.FullyConnected(mt.sym.Variable("data"), num_hidden=128,
+                              name="fc1")
+    h = mt.sym.Activation(h, act_type="relu")
+    h = mt.sym.FullyConnected(h, num_hidden=10, name="fc2")
+    return mt.sym.SVMOutput(h, name="svm")
+
+
+def _module(mt, sym, ctx, data_shapes, label_shapes, init, opt, opt_params,
+            seed, inputs_need_grad=False, params=None):
+    """A bound Module with its optimizer, its parameters from ``init`` or
+    from ``params`` (numpy (args, aux))."""
+    mod = mt.mod.Module(sym, data_names=[n for n, _ in data_shapes],
+                        label_names=[n for n, _ in label_shapes] or None,
+                        context=ctx)
+    mod.bind(data_shapes=data_shapes, label_shapes=label_shapes or None,
+             inputs_need_grad=inputs_need_grad)
+    mt.random.seed(seed)
+    if params is None:
+        mod.init_params(init)
+    else:
+        mod.init_params(arg_params={k: mt.nd.array(v, ctx=mt.cpu())
+                                    for k, v in params[0].items()},
+                        aux_params={k: mt.nd.array(v, ctx=mt.cpu())
+                                    for k, v in params[1].items()})
+    mod.init_optimizer(optimizer=opt, optimizer_params=dict(opt_params))
+    return mod
+
+
+def _params_np(mod):
+    a, x = mod.get_params()
+    return ({k: v.asnumpy() for k, v in a.items()},
+            {k: v.asnumpy() for k, v in x.items()})
+
+
+def heads_ae(mt, ctx, epochs, params=None, steps=None):
+    """stacked_ae.py's finetune stage; (MSE before, MSE after, module)."""
+    x, _ = digits_like(SEED + 70)
+    np.random.seed(SEED + 69)       # NDArrayIter's shuffle
+    it = mt.io.NDArrayIter(x, x, 100, shuffle=True,
+                           last_batch_handle="discard",
+                           label_name="recon_label")
+    mod = _module(mt, ae_sym(mt), ctx, it.provide_data, it.provide_label,
+                  mt.initializer.Xavier(), "adam", {"learning_rate": 1e-3},
+                  SEED + 71, params=params and params[0])
+
+    def mse():
+        ev = mt.io.NDArrayIter(x, x, 100, label_name="recon_label")
+        out = mod.predict(ev).asnumpy()
+        return float(((out - x[:len(out)]) ** 2).mean())
+    return _fit_loop(mod, it, epochs, steps, mse)
+
+
+def _fit_loop(mod, it, epochs, steps, metric):
+    before = metric()
+    done = 0
+    for _ in range(epochs):
+        it.reset()
+        for b in it:
+            mod.forward(b, is_train=True)
+            mod.backward()
+            mod.update()
+            done += 1
+            if steps is not None and done >= steps:
+                return before, metric(), mod
+    return before, metric(), mod
+
+
+def mf_ratings(seed, users=200, items=100, n=8000, rank=4, noise=0.1):
+    """matrix_fact.py make_ratings."""
+    rng = np.random.default_rng(seed)
+    U = rng.standard_normal((users, rank)) / np.sqrt(rank)
+    V = rng.standard_normal((items, rank)) / np.sqrt(rank)
+    u = rng.integers(0, users, n)
+    i = rng.integers(0, items, n)
+    r = (U[u] * V[i]).sum(1) + noise * rng.standard_normal(n)
+    return (u.astype(np.float32), i.astype(np.float32),
+            r.astype(np.float32))
+
+
+def heads_mf(mt, ctx, epochs, params=None, steps=None):
+    """matrix_fact.py through Module; (val RMSE before, after, module)."""
+    u, i, r = mf_ratings(SEED + 72)
+    nt = int(0.9 * len(r))
+    np.random.seed(SEED + 73)
+    it = mt.io.NDArrayIter({"user": u[:nt], "item": i[:nt]},
+                           {"score": r[:nt]}, batch_size=256, shuffle=True,
+                           last_batch_handle="discard")
+    mod = _module(mt, mf_sym(mt), ctx, it.provide_data, it.provide_label,
+                  mt.initializer.Normal(0.3), "adam",
+                  {"learning_rate": 0.02}, SEED + 74,
+                  params=params and params[0])
+
+    def rmse():
+        ev = mt.io.NDArrayIter({"user": u[nt:], "item": i[nt:]},
+                               {"score": r[nt:]}, batch_size=256)
+        out = mod.predict(ev).asnumpy().reshape(-1)
+        return float(np.sqrt(((out - r[nt:][:len(out)]) ** 2).mean()))
+    return _fit_loop(mod, it, epochs, steps, rmse)
+
+
+def heads_svm(mt, ctx, epochs, params=None, steps=None):
+    """svm_digits.py through Module; (test accuracy before, after)."""
+    x, y = digits_like(SEED + 75)
+    n = 1500
+    np.random.seed(SEED + 76)
+    it = mt.io.NDArrayIter(x[:n], y[:n], 100, shuffle=True,
+                           last_batch_handle="discard",
+                           label_name="svm_label")
+    mod = _module(mt, svm_sym(mt), ctx, it.provide_data, it.provide_label,
+                  mt.initializer.Xavier(), "sgd",
+                  {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+                  SEED + 77, params=params and params[0])
+
+    def acc():
+        ev = mt.io.NDArrayIter(x[n:], y[n:], 100, label_name="svm_label")
+        out = mod.predict(ev).asnumpy()
+        return float((out.argmax(1) == y[n:][:len(out)]).mean())
+    return _fit_loop(mod, it, epochs, steps, acc)
+
+
+def heads_dcgan(mt, ctx, epochs, params=None, steps=None, batch=64,
+                zdim=32):
+    """dcgan_digits.py's two-module loop; (the first epoch's mean
+    discriminator loss, the last epoch's, (modG, modD))."""
+    x, _ = digits_like(SEED + 78)
+    x = x.reshape(-1, 8, 8).repeat(4, 1).repeat(4, 2)[:, None] * 2 - 1
+    rng = np.random.default_rng(SEED + 79)
+    symG, symD = dcgan_syms(mt)
+    adam = {"learning_rate": 2e-4, "beta1": 0.5}
+    modG = _module(mt, symG, ctx, [("rand", (batch, zdim, 1, 1))], [],
+                   mt.initializer.Normal(0.02), "adam", adam, SEED + 80,
+                   params=params and params[0])
+    modD = _module(mt, symD, ctx, [("data", (batch, 1, 32, 32))],
+                   [("label", (batch,))], mt.initializer.Normal(0.02),
+                   "adam", adam, SEED + 81, inputs_need_grad=True,
+                   params=params and params[1])
+    ones = mt.nd.ones((batch,), ctx=mt.cpu())
+    zeros = mt.nd.zeros((batch,), ctx=mt.cpu())
+    d_losses, done = [float("nan")], 0
+    for _ in range(epochs):
+        perm = rng.permutation(len(x))
+        epoch = []
+        for i in range(len(x) // batch):
+            real = mt.nd.array(x[perm[i * batch:(i + 1) * batch]],
+                               ctx=mt.cpu())
+            noise = mt.nd.array(rng.standard_normal(
+                (batch, zdim, 1, 1)).astype(np.float32), ctx=mt.cpu())
+            modG.forward(mt.io.DataBatch(data=[noise]), is_train=True)
+            fake = modG.get_outputs()[0]
+            modD.forward(mt.io.DataBatch(data=[fake], label=[zeros]),
+                         is_train=True)
+            pf = modD.get_outputs()[0].asnumpy()
+            modD.backward()
+            modD.update()
+            modD.forward(mt.io.DataBatch(data=[real], label=[ones]),
+                         is_train=True)
+            pr = modD.get_outputs()[0].asnumpy()
+            modD.backward()
+            modD.update()
+            modD.forward(mt.io.DataBatch(data=[fake], label=[ones]),
+                         is_train=True)
+            modD.backward()
+            modG.backward(out_grads=modD.get_input_grads())
+            modG.update()
+            epoch.append(float(-(np.log(pr + 1e-7).mean()
+                                 + np.log(1 - pf + 1e-7).mean())))
+            done += 1
+            if steps is not None and done >= steps:
+                return epoch[0], epoch[-1], (modG, modD)
+        d_losses.append(float(np.mean(epoch)))
+    return d_losses[min(1, epochs)], d_losses[-1], (modG, modD)
+
+
+# metric, whether it should fall ("min") or rise ("max"), runner
+HEADS = {"stacked_ae": ("recon_mse", "min", heads_ae),
+         "matrix_fact": ("val_rmse", "min", heads_mf),
+         "dcgan": ("d_loss", "min", heads_dcgan),
+         "svm": ("test_acc", "max", heads_svm)}
+
+
+def heads_params(mt, name, ctx, params=None, steps=0):
+    """Each module's parameters of example ``name`` after ``steps`` fp32
+    steps from ``params`` (a list of numpy (args, aux), one a module; the
+    example's own initialization when None)."""
+    _, _, mod = HEADS[name][2](mt, ctx, 1 if steps else 0, params=params,
+                               steps=steps or None)
+    mods = mod if isinstance(mod, tuple) else (mod,)
+    return [_params_np(m) for m in mods]
+
+
+def heads_step_diff(card, cpu):
+    """The largest difference of the card's parameters after the step
+    from the CPU's, over the largest value."""
+    worst = 0.0
+    for (ga, gx), (ca, cx) in zip(card, cpu):
+        for g, c in ((ga, ca), (gx, cx)):
+            for k in c:
+                scale = max(float(np.abs(c[k]).max()), 1e-30)
+                worst = max(worst, float(np.abs(g[k] - c[k]).max()) / scale)
+    return worst
+
+
+def phase_module_heads(torch, mt):
+    """The four examples' graphs trained through Module on cuda:0 in
+    fp32, each with the launch and dispatch counts reset before and read
+    after; then one fp32 step each, card against CPU."""
+    rows, fails = {}, []
+    for name, (metric, sense, run) in HEADS.items():
+        reset_counts(mt)
+        t0 = time.monotonic()
+        before, after, _ = run(mt, mt.gpu(0), HEADS_EPOCHS[name])
+        secs = time.monotonic() - t0
+        counts = read_counts(mt)
+        dispatch = mt.profiler.dispatch_counts()
+        gain = (before - after) if sense == "min" else (after - before)
+        init = heads_params(mt, name, mt.cpu())
+        card = heads_params(mt, name, mt.gpu(0), init, steps=1)
+        cpu = heads_params(mt, name, mt.cpu(), init, steps=1)
+        diff = heads_step_diff(card, cpu)
+        rows[name] = dict(metric=metric, epochs=HEADS_EPOCHS[name],
+                          before=before, after=after, gain=gain,
+                          margin=HEADS_MARGIN[name], seconds=secs,
+                          dispatches=dispatch, kernel_launches=counts,
+                          fp32_step_rel_diff=diff)
+        if not np.isfinite(after) or not gain > HEADS_MARGIN[name]:
+            fails.append(f"{name}: {metric} {before} -> {after} does not "
+                         f"improve by {HEADS_MARGIN[name]}")
+        if not dispatch.get("module.update") or any(counts.values()):
+            fails.append(f"{name}: dispatches {dispatch}, kernel launches "
+                         f"{counts} (want updates, no kernel)")
+        if not diff <= HEADS_STEP_RTOL:
+            fails.append(f"{name}: one fp32 step differs from the CPU's by "
+                         f"{diff} of the largest value (> "
+                         f"{HEADS_STEP_RTOL})")
+    emit("module_heads", float32=True, step_rtol=HEADS_STEP_RTOL,
+         failures=fails, **rows)
+    if fails:
+        raise RuntimeError("module_heads: " + "; ".join(fails))
+
+
+def dense_op_cases(rng):
+    """(name, inputs as numpy, attributes, indices of the inputs that take
+    a gradient): each op of the slice at a shape a user gives it."""
+    act = rng.standard_normal((64, 256, 56, 56)).astype(np.float32)
+    fc = rng.standard_normal((256, 1000)).astype(np.float32)
+    lab = rng.integers(0, 1000, 256).astype(np.float32)
+    sig = rng.uniform(0.05, 0.95, (256, 1024)).astype(np.float32)
+    return [
+        ("UpSampling", [act], {"scale": 2}, (0,)),
+        ("UpSampling", [act, act], {"scale": 2, "num_args": 2,
+                                    "multi_input_mode": "sum"}, (0, 1)),
+        ("space_to_depth", [act], {"block_size": 2}, (0,)),
+        ("depth_to_space", [act], {"block_size": 2}, (0,)),
+        ("Crop", [act, act[:, :, :48, :48]], {"num_args": 2,
+                                              "center_crop": True}, (0,)),
+        ("_slice_assign", [act, act[:, :64, 8:40, 8:40] * 2],
+         {"begin": (0, 0, 8, 8), "end": (64, 64, 40, 40)}, (0, 1)),
+        ("_slice_assign_scalar", [act], {"scalar": 0.5, "begin": (0, 0),
+                                         "end": (64, 128)}, (0,)),
+        ("LinearRegressionOutput", [fc, fc[::-1].copy()], {}, (0,)),
+        ("MAERegressionOutput", [fc, fc[::-1].copy()], {}, (0,)),
+        ("LogisticRegressionOutput", [fc, (fc > 0).astype(np.float32)],
+         {}, (0,)),
+        ("SVMOutput", [fc, lab], {"margin": 1.0}, (0,)),
+        ("softmax_cross_entropy", [fc, lab], {}, (0,)),
+        ("IdentityAttachKLSparseReg", [sig, sig.mean(0)], {"is_train": True},
+         (0,)),
+        ("diag", [fc[:, :256]], {"k": 1}, (0,)),
+        ("_scatter_set_nd", [fc, fc[:4].reshape(-1),
+                             np.stack([rng.integers(0, 256, 4000),
+                                       rng.integers(0, 1000, 4000)])
+                             .astype(np.float32)], {"shape": fc.shape},
+         (0, 1)),
+        ("shape_array", [act], {}, ()),
+        ("size_array", [act], {}, ()),
+        ("cast_storage", [act], {"stype": "default"}, ()),
+        ("_eye", [], {"N": 1024, "k": 1}, ()),
+        ("_linspace", [], {"start": -1.0, "stop": 1.0, "num": 4096}, ()),
+    ]
+
+
+DENSE_OP_RTOL = 1e-6
+
+
+def dense_op_run(torch, mt, name, arrays, attrs, grad, device, cot_seed):
+    """(outputs, gradients) of one op on ``device`` as numpy; the
+    gradient of sum(out * c) for a seeded cotangent c."""
+    from mxnet_tpu_torch.ops import registry
+    ins = [torch.from_numpy(a).to(device) for a in arrays]
+    for i in grad:
+        ins[i].requires_grad_()
+    kw = dict(attrs)
+    if not arrays:
+        kw["device"] = device
+    out = registry.get(name)(*ins, **kw)
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    grads = []
+    if grad:
+        gen = torch.Generator().manual_seed(cot_seed)
+        cot = torch.randn(outs[0].shape, generator=gen).to(device)
+        outs[0].backward(cot.to(outs[0].dtype))
+        grads = [ins[i].grad.cpu().numpy() for i in grad]
+    return [o.detach().cpu().numpy() for o in outs], grads
+
+
+def phase_dense_ops(torch, mt):
+    """Each op the slice ported, once on the card against the same op on
+    the CPU, forward and gradient: ops that move or pick elements
+    exactly, the others within DENSE_OP_RTOL of the largest value."""
+    rng = np.random.default_rng(SEED + 90)
+    rows, fails = {}, []
+    # UpSampling's gradient sums each block of scale^2 in an order of its
+    # device's own; every other listed op moves, picks or writes values
+    exact = {"space_to_depth", "depth_to_space", "Crop",
+             "_slice_assign", "_slice_assign_scalar", "diag",
+             "_scatter_set_nd", "shape_array", "size_array", "cast_storage",
+             "_eye", "LinearRegressionOutput", "MAERegressionOutput",
+             "SVMOutput"}
+    for i, (name, arrays, attrs, grad) in enumerate(dense_op_cases(rng)):
+        key = f"{name}_{i}"
+        t0 = time.monotonic()
+        g_out, g_grad = dense_op_run(torch, mt, name, arrays, attrs, grad,
+                                     torch.device("cuda", 0), i)
+        torch.cuda.synchronize()
+        gpu_s = time.monotonic() - t0
+        c_out, c_grad = dense_op_run(torch, mt, name, arrays, attrs, grad,
+                                     torch.device("cpu"), i)
+        worst = 0.0
+        for g, c in zip(g_out + g_grad, c_out + c_grad):
+            if g.shape != c.shape or g.dtype != c.dtype:
+                fails.append(f"{key}: {g.shape} {g.dtype} on the card, "
+                             f"{c.shape} {c.dtype} on the CPU")
+                continue
+            gf, cf = g.astype(np.float64), c.astype(np.float64)
+            scale = max(float(np.abs(cf).max()), 1e-30)
+            worst = max(worst, float(np.abs(gf - cf).max()) / scale)
+        lim = 0.0 if name in exact else DENSE_OP_RTOL
+        rows[key] = dict(shapes=[list(a.shape) for a in arrays],
+                         out_shape=list(g_out[0].shape), rel_diff=worst,
+                         limit=lim, gpu_s=gpu_s)
+        if not worst <= lim:
+            fails.append(f"{key}: card vs CPU {worst} > {lim}")
+    emit("dense_ops", failures=fails, **rows)
+    if fails:
+        raise RuntimeError("dense_ops: " + "; ".join(fails))
+
+
 def main():
     try:
         import torch
@@ -4050,6 +4865,15 @@ def main():
     del ssd_params, ssd_x
     torch.cuda.empty_cache()
     phase_ssd_fp32(torch, mt)
+
+    # the rest of the Gluon zoo at full width, fed by gluon.data and
+    # trained through gluon.Trainer (the slice's main path), each
+    # network's fp32 step against the CPU, the four Module examples'
+    # loss heads, and the dense ops; none of them launches K1-K4 or N1
+    phase_gluon_zoo_train(torch, mt, PEAK_FLOPS["bfloat16"])
+    phase_gluon_zoo_fp32(torch, mt)
+    phase_module_heads(torch, mt)
+    phase_dense_ops(torch, mt)
 
     def by_path(key):
         return {"serve": serve_counts[key], "train": train_counts[key],

@@ -36,7 +36,8 @@ from . import random as _random
 
 
 # Ops kept in float32 under mixed precision: normalization statistics and
-# loss heads (same set as the JAX package).
+# loss heads (same set as the JAX package).  Every name has an op in the
+# port but CTCLoss (ROADMAP C1.b.2).
 AMP_FP32_OPS = frozenset({
     "InstanceNorm", "L2Normalization", "LRN", "norm",
     "SoftmaxOutput", "SoftmaxActivation", "softmax", "log_softmax",

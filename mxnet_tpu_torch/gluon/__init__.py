@@ -2,15 +2,16 @@
 
 PyTorch counterpart of ``mxnet_tpu/gluon``: parameters, blocks and their
 hybridization, the ``nn`` layers, the losses, the single-device
-``Trainer``, ``utils``, the model zoo's ResNets, ``rnn`` (cells and the
-fused RNN / LSTM / GRU layers) and ``contrib.rnn``.  ``gluon.data`` is
-not ported yet (ROADMAP G3).
+``Trainer``, ``utils``, ``data`` (datasets, samplers, the ``DataLoader``),
+the vision model zoo, ``rnn`` (cells and the fused RNN / LSTM / GRU
+layers) and ``contrib.rnn``.
 """
 from .parameter import (Parameter, Constant, ParameterDict,
                         DeferredInitializationError)
 from .block import Block, HybridBlock, SymbolBlock
 from .trainer import Trainer
 from . import nn
+from . import data
 from . import loss
 from . import model_zoo
 from . import utils

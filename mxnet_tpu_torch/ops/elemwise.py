@@ -27,13 +27,50 @@ def _round_away(x):
                        torch.round(x))
 
 
+class _Cbrt(torch.autograd.Function):
+    """Cube root that keeps the sign bit, ``copysign(|x|^(1/3), x)``
+    (torch has no ``cbrt``): -0.0 gives -0.0, so ``rcbrt`` gives -inf
+    there, as ``jnp.cbrt`` does.  The gradient is ``jnp.cbrt``'s,
+    ``g / (3 y^2)``: inf at 0, where the chain through ``abs`` would
+    give NaN."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.copysign(x.abs().pow(1.0 / 3.0), x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return g * (1.0 / 3.0) * y.pow(-2)
+
+
 def _cbrt(x):
-    return torch.sign(x) * x.abs().pow(1.0 / 3.0)
+    if not x.is_floating_point():
+        x = x.float()
+    return _Cbrt.apply(x)
+
+
+def _sign(x):
+    """``jnp.sign``: NaN stays NaN and -0.0 stays -0.0 (``torch.sign``
+    gives 0.0 for both); the gradient is 0 everywhere."""
+    keep = (x == 0) | torch.isnan(x)
+    return torch.where(keep, x.detach(), torch.sign(x))
+
+
+def _float(fn):
+    """``fn`` over an integer input promoted to float32 (torch has no
+    integer kernel for it; the JAX package promotes)."""
+    def run(*xs):
+        return fn(*[x.float() if isinstance(x, torch.Tensor)
+                    and not x.is_floating_point() else x for x in xs])
+    return run
 
 
 # --- unary math (reference: elemwise_unary_op.cc) --------------------------
 _UNARY = {
-    "abs": torch.abs, "sign": torch.sign, "rint": torch.round,
+    "abs": torch.abs, "sign": _sign, "rint": torch.round,
     "ceil": torch.ceil, "floor": torch.floor, "trunc": torch.trunc,
     "fix": torch.trunc, "square": torch.square, "sqrt": torch.sqrt,
     "rsqrt": torch.rsqrt, "cbrt": _cbrt,
@@ -129,7 +166,7 @@ def _like(fn):
 
 _BROADCAST = {
     "power": torch.pow, "maximum": torch.maximum, "minimum": torch.minimum,
-    "hypot": torch.hypot,
+    "hypot": _float(torch.hypot),
     "equal": _like(torch.eq), "not_equal": _like(torch.ne),
     "greater": _like(torch.gt), "greater_equal": _like(torch.ge),
     "lesser": _like(torch.lt), "lesser_equal": _like(torch.le),
@@ -167,7 +204,8 @@ _SCALAR = {
     "_rmod_scalar": lambda x, s: torch.remainder(torch.full_like(x, s), x),
     "_power_scalar": lambda x, s: torch.pow(x, s),
     "_rpower_scalar": lambda x, s: torch.pow(s, x),
-    "_hypot_scalar": lambda x, s: torch.hypot(x, torch.full_like(x, s)),
+    "_hypot_scalar": _float(
+        lambda x, s: torch.hypot(x, torch.full_like(x, s))),
     "_maximum_scalar": lambda x, s: torch.maximum(x, torch.full_like(x, s)),
     "_minimum_scalar": lambda x, s: torch.minimum(x, torch.full_like(x, s)),
     "_equal_scalar": _own(torch.eq),

@@ -111,13 +111,28 @@ def _gather_nd(data, indices, **kw):
           attr_defaults={"shape": ()})
 def _scatter_nd(data, indices, shape=(), **kw):
     """zeros(shape) with data written at indices (M, ...), as the JAX
-    package's ``.at[...].set``: a negative index counts from the end
-    once, an index still out of range is dropped, and of duplicate
-    indices the last write wins, in the output and in the gradient (the
-    others get none).  The winners are found first (the largest position
-    of each element), so the write itself has no duplicates and its
-    result does not depend on the device."""
+    package's ``.at[...].set`` (see :func:`_scatter_set`)."""
     shape = tuple(int(d) for d in shape)
+    return _scatter_set(torch.zeros(shape, dtype=data.dtype,
+                                    device=data.device), data, indices)
+
+
+@register("_scatter_set_nd", arg_names=["lhs", "rhs", "indices"],
+          attr_defaults={"shape": ()})
+def _scatter_set_nd(lhs, rhs, indices, shape=(), **kw):
+    """lhs with rhs written at indices (M, ...) (see :func:`_scatter_set`);
+    lhs gets the gradient everywhere but the written places."""
+    return _scatter_set(lhs, rhs.to(lhs.dtype), indices)
+
+
+def _scatter_set(base, data, indices):
+    """``base.at[indices].set(data)`` of the JAX package: a negative index
+    counts from the end once, an index still out of range is dropped, and
+    of duplicate indices the last write wins, in the output and in the
+    gradient (the others get none).  The winners are found first (the
+    largest position of each element), so the write itself has no
+    duplicates and its result does not depend on the device."""
+    shape = tuple(base.shape)
     idx = indices.to(torch.int64)
     M = idx.shape[0]
     idx, n = _wrap_negative(idx, shape[:M])
@@ -137,8 +152,7 @@ def _scatter_nd(data, indices, shape=(), **kw):
     last = last.scatter_reduce(0, lin[ok], pos[ok], "amax")
     win = ok & (last[lin] == pos)
     rows = data.reshape((lin.numel(),) + shape[M:])
-    out = torch.zeros((cells,) + shape[M:], dtype=data.dtype,
-                      device=data.device)
+    out = base.reshape((cells,) + shape[M:])
     out = out.index_put((lin[win],), rows[win])
     return out.reshape(shape)
 

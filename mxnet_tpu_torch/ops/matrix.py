@@ -4,8 +4,10 @@ PyTorch counterpart of ``mxnet_tpu/ops/matrix.py``: ``Reshape`` with
 MXNet's special codes, ``Flatten``, ``transpose``, ``expand_dims``,
 ``squeeze``, ``slice`` / ``slice_axis`` / ``slice_like``,
 ``reshape_like``, ``Concat``, ``stack``, ``SliceChannel`` (``split``),
-``dot``, ``batch_dot``, ``tile``, ``repeat``, ``flip``, ``SwapAxis`` and
-``Pad``.  Reshape, transpose, swapaxes and slicing return views where
+``dot``, ``batch_dot``, ``tile``, ``repeat``, ``flip``, ``SwapAxis``,
+``Pad``, ``Crop``, ``_slice_assign`` / ``_crop_assign`` (and their
+``_scalar`` forms), ``space_to_depth``, ``depth_to_space``, ``diag``,
+``shape_array``, ``size_array`` and ``cast_storage``.  Reshape, transpose, swapaxes and slicing return views where
 torch can; ops that need contiguous memory (the attention kernel) make
 it themselves.  ``dot`` and ``batch_dot`` are plain products
 (``torch.tensordot`` / ``torch.matmul``, cuBLAS on the card), as the JAX
@@ -16,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..base import MXNetError
 from .registry import register
 
 
@@ -85,7 +88,13 @@ def _squeeze(data, axis=None, **kw):
     if axis is None:
         return data.squeeze()
     axes = (axis,) if isinstance(axis, int) else tuple(axis)
-    return data.squeeze(tuple(int(a) for a in axes))
+    axes = tuple(int(a) for a in axes)
+    for a in axes:
+        if data.shape[a] != 1:
+            # torch.squeeze would return the array unchanged
+            raise ValueError(f"squeeze: axis {a} of shape {tuple(data.shape)}"
+                             " is not of length 1")
+    return data.squeeze(axes)
 
 
 def _slice_tuple(begin, end, step=()):
@@ -113,6 +122,54 @@ def _basic_slice(data, key):
           attr_defaults={"begin": (), "end": (), "step": ()})
 def _slice(data, begin=(), end=(), step=(), **kw):
     return _basic_slice(data, _slice_tuple(begin, end, step))
+
+
+def _assign(data, key, value):
+    """A copy of ``data`` with ``data[key] = value`` (the JAX package's
+    ``.at[key].set``), for slices of any step: dims of a negative step are
+    flipped, written with the forward slice :func:`_basic_slice` reads
+    through, and flipped back, so the elements meet ``value`` in the same
+    order."""
+    flips, idx = [], []
+    for d, sl in enumerate(key):
+        step = sl.step if sl.step is not None else 1
+        if step > 0:
+            idx.append(sl)
+            continue
+        n = data.shape[d]
+        lo, hi, _ = sl.indices(n)
+        flips.append(d)
+        idx.append(slice(n - 1 - lo, n - 1 - hi, -step))
+    out = data.flip(flips) if flips else data.clone()
+    out[tuple(idx)] = value
+    return out.flip(flips) if flips else out
+
+
+@register("_slice_assign", arg_names=["lhs", "rhs"],
+          aliases=("_crop_assign",),
+          attr_defaults={"begin": (), "end": (), "step": ()})
+def _slice_assign(lhs, rhs, begin=(), end=(), step=(), **kw):
+    """reference: tensor/matrix_op.cc _slice_assign — lhs with
+    ``lhs[begin:end:step] = rhs``, as a new tensor."""
+    return _assign(lhs, _slice_tuple(begin, end, step), rhs.to(lhs.dtype))
+
+
+@register("_slice_assign_scalar", arg_names=["data"],
+          aliases=("_crop_assign_scalar",),
+          attr_defaults={"scalar": 0.0, "begin": (), "end": (), "step": ()})
+def _slice_assign_scalar(data, scalar=0.0, begin=(), end=(), step=(), **kw):
+    return _assign(data, _slice_tuple(begin, end, step), scalar)
+
+
+@register("cast_storage", arg_names=["data"],
+          attr_defaults={"stype": "default"})
+def _cast_storage(data, stype="default", **kw):
+    """reference: tensor/cast_storage-inl.h.  Every tensor of the port is
+    dense; a sparse ``stype`` raises (ROADMAP C2: sparse storage)."""
+    if stype != "default":
+        raise MXNetError(f"cast_storage: stype {stype!r} is not ported "
+                         "(ROADMAP C2: sparse storage)")
+    return data
 
 
 @register("reshape_like", arg_names=["lhs", "rhs"])
@@ -241,3 +298,68 @@ def _pad(data, mode="constant", pad_width=(), constant_value=0, **kw):
 def _swapaxes(data, dim1=0, dim2=0, **kw):
     """reference: src/operator/swapaxis.cc"""
     return data.transpose(int(dim1), int(dim2))
+
+
+@register("Crop", variadic=True,
+          attr_defaults={"num_args": 1, "offset": (0, 0), "h_w": (0, 0),
+                         "center_crop": False})
+def _crop(*args, num_args=1, offset=(0, 0), h_w=(0, 0), center_crop=False,
+          **kw):
+    """reference: src/operator/crop.cc — an NCHW spatial crop to ``h_w``,
+    or to the second input's height and width, at ``offset`` or
+    centred."""
+    data = args[0]
+    if len(args) > 1:
+        th, tw = args[1].shape[2], args[1].shape[3]
+    else:
+        th, tw = (int(v) for v in h_w)
+    if center_crop:
+        oh = (data.shape[2] - th) // 2
+        ow = (data.shape[3] - tw) // 2
+    else:
+        oh, ow = (int(v) for v in offset)
+    return data[:, :, oh:oh + th, ow:ow + tw]
+
+
+@register("space_to_depth", arg_names=["data"],
+          attr_defaults={"block_size": 1})
+def _space_to_depth(data, block_size=1, **kw):
+    """(N, C, H, W) -> (N, C b^2, H / b, W / b), the block's offsets
+    leading the channels, as the JAX package orders them."""
+    b = int(block_size)
+    n, c, h, w = data.shape
+    x = data.reshape(n, c, h // b, b, w // b, b)
+    return x.permute(0, 3, 5, 1, 2, 4).reshape(n, c * b * b, h // b, w // b)
+
+
+@register("depth_to_space", arg_names=["data"],
+          attr_defaults={"block_size": 1})
+def _depth_to_space(data, block_size=1, **kw):
+    """The inverse of ``space_to_depth``."""
+    b = int(block_size)
+    n, c, h, w = data.shape
+    x = data.reshape(n, b, b, c // (b * b), h, w)
+    return x.permute(0, 3, 4, 1, 5, 2).reshape(n, c // (b * b), h * b, w * b)
+
+
+@register("diag", arg_names=["data"], attr_defaults={"k": 0})
+def _diag(data, k=0, **kw):
+    """``jnp.diag``: a vector's k-th diagonal matrix or a matrix's k-th
+    diagonal; of more dims, the diagonal of the first two axes, last."""
+    if data.dim() <= 2:
+        return torch.diag(data, int(k))
+    return torch.diagonal(data, offset=int(k), dim1=0, dim2=1)
+
+
+@register("shape_array", arg_names=["data"], differentiable=False)
+def _shape_array(data, **kw):
+    """The shape as an int64 vector, on the data's device."""
+    return torch.tensor(tuple(data.shape), dtype=torch.int64,
+                        device=data.device)
+
+
+@register("size_array", arg_names=["data"], differentiable=False)
+def _size_array(data, **kw):
+    """The element count as an int64 vector of one."""
+    return torch.tensor([data.numel()], dtype=torch.int64,
+                        device=data.device)

@@ -5,15 +5,18 @@ transformer LM, the symbolic zoo and Gluon's layers run:
 ``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Pooling``,
 ``BatchNorm``, ``InstanceNorm``, ``LayerNorm``, ``LRN``, ``Activation``,
 ``LeakyReLU`` (leaky, prelu, elu, selu, gelu, rrelu), ``Dropout``,
-``softmax``, ``log_softmax``, ``SoftmaxActivation``, ``SoftmaxOutput``
-with its gradient and the ``MakeLoss`` head.  The
+``softmax``, ``log_softmax``, ``SoftmaxActivation``, ``UpSampling``
+(nearest), the loss heads ``SoftmaxOutput``, ``LinearRegressionOutput``,
+``MAERegressionOutput``, ``LogisticRegressionOutput``, ``SVMOutput``
+and ``MakeLoss`` with their own gradients, ``softmax_cross_entropy``,
+``IdentityAttachKLSparseReg`` and the ``_v1`` aliases.  The
 large matrix products go to ``torch.nn.functional.linear`` and the
 convolutions to ``torch.nn.functional.conv{1,2,3}d`` (cuBLAS and cuDNN on
 the card), as the JAX package leaves them to XLA.  ``layout="NHWC"``
 keeps the weight in OIHW: an (N, H, W, C) tensor permuted to
 (0, 3, 1, 2) is the same memory seen as a channels-last NCHW tensor, so
-the NCHW functions run on it without a copy.  Every op but the two
-loss heads gets its gradient from autograd; none of them writes in
+the NCHW functions run on it without a copy.  Every op but the loss
+heads and the KL penalty gets its gradient from autograd; none of them writes in
 place to a tensor autograd saved.
 """
 from __future__ import annotations
@@ -24,7 +27,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .registry import register
+from ..base import MXNetError
+from .indexing import _pick
+from .registry import register, alias
 
 
 def _pair(v, n=2):
@@ -369,9 +374,16 @@ def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
     raise ValueError(act_type)
 
 
+def _promote(data):
+    """Integer input as float32: torch has no integer softmax, and the
+    JAX package promotes."""
+    return data if data.is_floating_point() else data.float()
+
+
 @register("softmax", arg_names=["data"],
           attr_defaults={"axis": -1, "temperature": None})
 def _softmax(data, axis=-1, temperature=None, **kw):
+    data = _promote(data)
     if temperature:
         data = data / temperature
     return torch.softmax(data, dim=int(axis))
@@ -380,6 +392,7 @@ def _softmax(data, axis=-1, temperature=None, **kw):
 @register("log_softmax", arg_names=["data"],
           attr_defaults={"axis": -1, "temperature": None})
 def _log_softmax(data, axis=-1, temperature=None, **kw):
+    data = _promote(data)
     if temperature:
         data = data / temperature
     return torch.log_softmax(data, dim=int(axis))
@@ -388,6 +401,7 @@ def _log_softmax(data, axis=-1, temperature=None, **kw):
 @register("SoftmaxActivation", arg_names=["data"],
           attr_defaults={"mode": "instance"})
 def _softmax_activation(data, mode="instance", **kw):
+    data = _promote(data)
     if mode == "channel":
         return torch.softmax(data, dim=1)
     return torch.softmax(data.reshape(data.shape[0], -1),
@@ -526,3 +540,200 @@ def _makeloss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null",
         return MakeLossFunction.apply(data, float(grad_scale),
                                       float(valid_thresh), normalization)
     return data
+
+
+class _RegressionOutputFunction(torch.autograd.Function):
+    """The regression heads (counterpart of the JAX package's
+    ``_make_regression_output`` ``custom_vjp``): the forward is the link
+    function, the backward replaces the seed gradient by
+    ``grad(out, label) * grad_scale``, the label reshaped to the output's
+    shape; the label gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, link, grad_fn, grad_scale):
+        out = link(data)
+        ctx.save_for_backward(out, label)
+        ctx.opts = (grad_fn, grad_scale)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        grad_fn, grad_scale = ctx.opts
+        grad = grad_fn(out, label.reshape(out.shape).to(out.dtype))
+        return (grad * grad_scale).to(g.dtype), None, None, None, None
+
+
+def _regression_output(name, link, grad_fn):
+    def _op(data, label, grad_scale=1.0, **kw):
+        if torch.is_grad_enabled() and data.requires_grad:
+            return _RegressionOutputFunction.apply(data, label, link,
+                                                   grad_fn, float(grad_scale))
+        return link(data)
+    _op.__doc__ = (f"reference: src/operator/regression_output.cc "
+                   f"{name}; the gradient is "
+                   ":class:`_RegressionOutputFunction`'s.")
+    register(name, arg_names=["data", "label"],
+             attr_defaults={"grad_scale": 1.0})(_op)
+
+
+_regression_output("LinearRegressionOutput", lambda x: x,
+                   lambda o, l: o - l)
+_regression_output("MAERegressionOutput", lambda x: x,
+                   lambda o, l: torch.sign(o - l))
+_regression_output("LogisticRegressionOutput", torch.sigmoid,
+                   lambda o, l: o - l)
+
+
+def svm_output_grad(data, label, margin, reg, use_linear):
+    """The one-vs-all hinge gradient of ``SVMOutput`` (the reference's
+    L1_SVM / L2_SVM kernels, svm_output.cc:30,48, as the JAX package
+    vectorises them), in float32 and cast back to the data's dtype.  A
+    label outside [0, classes) gets no true class, as ``jax.nn.one_hot``
+    gives."""
+    f32 = data.float()
+    lab = label.to(torch.int64)
+    onehot = (lab.unsqueeze(-1) == torch.arange(
+        data.shape[-1], device=data.device)).float()
+    if use_linear:
+        g_true = -(margin > f32).float() * reg
+        g_other = (margin > -f32).float() * reg
+    else:
+        g_true = -2.0 * reg * (margin - f32) * (margin > f32)
+        g_other = 2.0 * reg * (margin + f32) * (margin > -f32)
+    grad = onehot * g_true + (1.0 - onehot) * g_other
+    return grad.to(data.dtype)
+
+
+class _SVMOutputFunction(torch.autograd.Function):
+    """Identity forward; the backward replaces the seed gradient by
+    :func:`svm_output_grad` (the JAX package's ``_svm_core``)."""
+
+    @staticmethod
+    def forward(ctx, data, label, margin, reg, use_linear):
+        ctx.save_for_backward(data, label)
+        ctx.opts = (margin, reg, use_linear)
+        return data.view_as(data)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        data, label = ctx.saved_tensors
+        grad = svm_output_grad(data, label, *ctx.opts)
+        return grad.to(g.dtype), None, None, None, None
+
+
+@register("SVMOutput", arg_names=["data", "label"],
+          attr_defaults={"margin": 1.0, "regularization_coefficient": 1.0,
+                         "use_linear": False})
+def _svm_output(data, label, margin=1.0, regularization_coefficient=1.0,
+                use_linear=False, **kw):
+    """reference: src/operator/svm_output.cc — the forward is the
+    identity, the loss lives in the backward: the one-vs-all squared
+    hinge (L2-SVM), or the hinge with ``use_linear`` (L1-SVM)."""
+    if torch.is_grad_enabled() and data.requires_grad:
+        return _SVMOutputFunction.apply(
+            data, label, float(margin), float(regularization_coefficient),
+            bool(use_linear))
+    return data
+
+
+@register("softmax_cross_entropy", arg_names=["data", "label"])
+def _softmax_ce(data, label, **kw):
+    """The summed cross entropy of ``log_softmax(data)`` at the labels, a
+    0-d tensor; a label outside [-classes, classes) reads NaN, as the JAX
+    package's ``take_along_axis`` does (see ``batch_take``)."""
+    return -_pick(torch.log_softmax(_promote(data), dim=-1),
+                  label, axis=-1).sum()
+
+
+@register("UpSampling", variadic=True,
+          attr_defaults={"scale": 1, "sample_type": "nearest",
+                         "num_args": 1, "workspace": 512, "num_filter": 0,
+                         "multi_input_mode": "concat"})
+def _upsampling(*args, scale=1, sample_type="nearest", num_args=1,
+                num_filter=0, multi_input_mode="concat", **kw):
+    """reference: src/operator/upsampling.cc, nearest mode: each input's
+    rows and columns repeated ``scale`` times, several inputs concatenated
+    on the channels or summed (``multi_input_mode``).
+
+    ``sample_type="bilinear"`` is refused: the JAX package computes
+    nearest for it too, repeating the weight input as if it were data (a
+    fault of the reference, ROADMAP §3), and the port gives no answer
+    rather than that one."""
+    if sample_type != "nearest":
+        raise MXNetError(
+            f"UpSampling: sample_type={sample_type!r} is not supported; the "
+            "JAX package computes nearest for bilinear, repeating the weight "
+            "as data (a reference fault, ROADMAP §3)")
+    s = int(scale)
+    outs = [a.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+            for a in args]
+    if len(outs) == 1:
+        return outs[0]
+    if multi_input_mode == "sum":
+        out = outs[0]
+        for o in outs[1:]:
+            out = out + o
+        return out
+    return torch.cat(outs, dim=1)
+
+
+# legacy _v1 ops (reference: batch_norm_v1.cc, convolution_v1.cc,
+# pooling_v1.cc): older implementations of the same math, kept for graph
+# compatibility; true aliases, as in the JAX package
+alias("BatchNorm_v1", "BatchNorm")
+alias("Convolution_v1", "Convolution")
+alias("Pooling_v1", "Pooling")
+
+
+class _KLSparseRegFunction(torch.autograd.Function):
+    """Identity forward; the backward adds the KL sparseness penalty
+    ``penalty * (-rho / mu + (1 - rho) / (1 - mu))`` of the per-unit
+    moving average ``mu`` to the incoming gradient (the JAX package's
+    ``_klreg_core``)."""
+
+    @staticmethod
+    def forward(ctx, data, moving_avg, rho, penalty):
+        ctx.save_for_backward(moving_avg)
+        ctx.opts = (rho, penalty)
+        return data.view_as(data)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        mu, = ctx.saved_tensors
+        rho, penalty = ctx.opts
+        pen = penalty * (-rho / mu + (1.0 - rho) / (1.0 - mu))
+        shape = (1,) + tuple(pen.shape) if g.dim() == pen.dim() + 1 \
+            else pen.shape
+        return g + pen.reshape(shape).to(g.dtype), None, None, None
+
+
+@register("IdentityAttachKLSparseReg", arg_names=["data"], num_aux=1,
+          aux_names=["moving_avg"], takes_is_train=True,
+          attr_defaults={"sparseness_target": 0.1, "penalty": 0.001,
+                         "momentum": 0.9})
+def _identity_attach_kl_sparse_reg(data, moving_avg, sparseness_target=0.1,
+                                   penalty=0.001, momentum=0.9,
+                                   is_train=False, **kw):
+    """reference: src/operator/identity_attach_KL_sparse_reg-inl.h — the
+    identity, with the KL sparseness penalty of
+    :class:`_KLSparseRegFunction` attached to its gradient.  As in the JAX
+    package, the training forward updates the aux ``moving_avg`` (the
+    momentum average of each unit's mean activation over the batch) and
+    returns it after the output; the reference updates it in the
+    backward."""
+    rho, pen = float(sparseness_target), float(penalty)
+
+    def attach(mu):
+        if torch.is_grad_enabled() and data.requires_grad:
+            return _KLSparseRegFunction.apply(data, mu, rho, pen)
+        return data
+    if is_train:
+        avg = data.detach().reshape(data.shape[0], -1).mean(0) \
+            .reshape(moving_avg.shape)
+        ma = momentum * moving_avg + (1.0 - momentum) * avg
+        return attach(ma), ma
+    return attach(moving_avg)

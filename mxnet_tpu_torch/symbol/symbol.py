@@ -198,6 +198,14 @@ def _rnn_param_shapes(attrs, in_shapes):
     return shapes
 
 
+def _klreg_aux_shapes(attrs, in_shapes):
+    """One moving average a unit, (data[1],), as the reference infers it
+    (identity_attach_KL_sparse_reg-inl.h); the JAX package gives the aux
+    the data's own shape and cannot bind the op (ROADMAP §3)."""
+    data = in_shapes.get("data")
+    return {} if data is None else {"moving_avg": (data[1],)}
+
+
 PARAM_SHAPE_INFER = {
     "FullyConnected": _fc_param_shapes,
     "Convolution": _conv_param_shapes,
@@ -208,6 +216,7 @@ PARAM_SHAPE_INFER = {
     "Embedding": _embedding_param_shapes,
     "LeakyReLU": _prelu_param_shapes,
     "RNN": _rnn_param_shapes,
+    "IdentityAttachKLSparseReg": _klreg_aux_shapes,
 }
 
 

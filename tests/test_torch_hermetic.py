@@ -202,3 +202,57 @@ def test_rnn_and_rtc_import_and_run_hermetically():
         path = os.path.join("mxnet_tpu_torch", *mod.split("."))
         assert path + ".py" in scanned or \
             os.path.join(path, "__init__.py") in scanned, mod
+
+
+# the zoo / data slice's modules
+ZOO_DATA_MODULES = ["gluon.data", "gluon.data.dataset", "gluon.data.sampler",
+                    "gluon.data.dataloader", "gluon.data.vision",
+                    "gluon.model_zoo.vision.alexnet",
+                    "gluon.model_zoo.vision.vgg",
+                    "gluon.model_zoo.vision.squeezenet",
+                    "gluon.model_zoo.vision.inception",
+                    "gluon.model_zoo.vision.densenet",
+                    "gluon.model_zoo.vision.mobilenet"]
+
+
+def test_gluon_data_and_zoo_import_and_run_hermetically():
+    """A zoo network fed by a ``DataLoader`` with worker threads, trained
+    a step on the CPU, and the new dense ops: no jax, no mxnet_tpu, no
+    CUDA context, no kernel built."""
+    code = (
+        "import json, sys, numpy as np, torch\n"
+        "import mxnet_tpu_torch as mt\n"
+        "from mxnet_tpu_torch import gluon, autograd\n"
+        "with mt.cpu():\n"
+        "    net = gluon.model_zoo.vision.get_model('squeezenet1.1',\n"
+        "                                           classes=3)\n"
+        "    net.initialize()\n"
+        "    net.hybridize()\n"
+        "    tr = gluon.Trainer(net.collect_params(), 'sgd')\n"
+        "    ds = gluon.data.ArrayDataset(np.ones((4, 3, 32, 32), 'f'),\n"
+        "                                 np.zeros(4, 'f'))\n"
+        "    for x, y in gluon.data.DataLoader(ds, batch_size=2,\n"
+        "                                      num_workers=2):\n"
+        "        with autograd.record():\n"
+        "            loss = gluon.loss.SoftmaxCrossEntropyLoss()(net(x), y)\n"
+        "        loss.backward()\n"
+        "        tr.step(2)\n"
+        "    mt.nd.UpSampling(mt.nd.ones((1, 1, 2, 2)), scale=2)\n"
+        "    mt.nd.space_to_depth(mt.nd.ones((1, 1, 2, 2)), block_size=2)\n"
+        "print(json.dumps({'mods': sorted(sys.modules),\n"
+        "  'cuda_init': torch.cuda.is_initialized(),\n"
+        "  'libs': sorted(mt.cuda_lib._libs)}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert [m for m in out["mods"] if _forbidden(m)] == []
+    assert out["cuda_init"] is False
+    assert out["libs"] == []
+    scanned = {os.path.relpath(p, ROOT) for p in _sources()}
+    for mod in ZOO_DATA_MODULES:
+        assert "mxnet_tpu_torch." + mod in out["mods"], mod
+        path = os.path.join("mxnet_tpu_torch", *mod.split("."))
+        assert path + ".py" in scanned or \
+            os.path.join(path, "__init__.py") in scanned, mod

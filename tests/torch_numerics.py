@@ -92,6 +92,23 @@ Parts (all by default; each prints JSON lines):
   the fp32 step against float64, the analytic multiply-adds and the
   detect graph's NMS.
 
+* ``zoo_data`` (about ten minutes on 8 cores): the numbers behind the
+  gluon.data / zoo and loss-head phases, with ``chip_smoke.py``'s own
+  helpers on the CPU:
+
+  - ``train_<net>``: ``gluon_zoo_train``'s loop (the DataLoader with
+    its worker threads, 3 + 10 steps, SGD lr 0.005) in fp32 at batch 16
+    (the card's 64 cut for the CPU), VGG-16, AlexNet, SqueezeNet 1.1 and
+    MobileNet at 112x112, DenseNet-121 at 224x224, Inception v3 at
+    299x299: every loss and the drop of the last 3's mean from the first
+    3's;
+  - ``fp32_vs_float64_<net>``: ``gluon_zoo_fp32_card_vs_cpu``'s step
+    (batch 2 at full size, the same seeded weights) in fp32 against
+    float64: the budget's numbers;
+  - ``heads_<example>``: ``module_heads``' runs (the metric before and
+    after the epochs) and one step with one CPU thread against all of
+    them (two fp32 reduction orders, as the card and the CPU are).
+
 It imports both packages, as the tests do.
 """
 import json
@@ -694,9 +711,68 @@ def part_ssd():
     return out
 
 
+def part_zoo_data():
+    """The numbers behind chip_smoke.py's gluon_zoo_train margin,
+    gluon_zoo_fp32 budget and module_heads margins and step tolerance,
+    with its own helpers, on the CPU before the first card run."""
+    ctx = mt.cpu()
+    out = {}
+    n = cs.ZOO_WARMUP + cs.ZOO_STEPS
+    B = 16
+    sides = {"densenet121": 224, "inceptionv3": 299}
+    for name, side in cs.ZOO_NETS:
+        side = sides.get(name, 112)
+        images, labels = cs.zoo_images(side, cs.SEED + 40)
+        net = cs.zoo_net(mt, name, ctx, cs.SEED)
+        net.hybridize()
+        trainer = mt.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(cs.ZOO_OPT))
+        with ctx:
+            loader = cs.zoo_loader(mt, images, labels, B, cs.ZOO_WORKERS,
+                                   cs.SEED + 41)
+            wait, step, losses, _ = cs.zoo_train_loop(
+                mt, net, trainer, mt.gluon.loss.SoftmaxCrossEntropyLoss(),
+                loader, n, lambda: None)
+        out[f"train_{name}"] = dict(
+            batch=B, side=side, losses=losses,
+            drop=float(np.mean(losses[:3]) - np.mean(losses[-3:])),
+            median_step_ms=float(np.median(step)),
+            median_wait_ms=float(np.median(wait)))
+        print(json.dumps({name: out[f"train_{name}"]}), flush=True)
+    for i, (name, side) in enumerate(cs.ZOO_NETS):
+        values = cs.zoo_numpy_params(mt, name, side, cs.SEED + 50 + i)
+        rng = np.random.default_rng(cs.SEED + 60 + i)
+        x = rng.uniform(-1, 1, (cs.ZOO_FP32_BATCH, 3, side, side)) \
+            .astype(np.float32)
+        y = rng.integers(0, 1000, cs.ZOO_FP32_BATCH).astype(np.int32)
+        row = cs.zoo_fp32_compare(
+            cs.zoo_fp32_step(mt, ctx, name, values, x, y),
+            cs.zoo_fp32_step(mt, ctx, name, values, x.astype(np.float64),
+                             y, dtype="float64"), values)
+        out[f"fp32_vs_float64_{name}"] = row
+        print(json.dumps({name: row}), flush=True)
+    threads = torch.get_num_threads()
+    for name, (metric, sense, run) in cs.HEADS.items():
+        before, after, _ = run(mt, ctx, cs.HEADS_EPOCHS[name])
+        init = cs.heads_params(mt, name, ctx)
+        many = cs.heads_params(mt, name, ctx, init, steps=1)
+        torch.set_num_threads(1)
+        try:
+            one = cs.heads_params(mt, name, ctx, init, steps=1)
+        finally:
+            torch.set_num_threads(threads)
+        out[f"heads_{name}"] = dict(
+            metric=metric, before=before, after=after,
+            gain=(before - after) if sense == "min" else (after - before),
+            step_one_vs_many_threads=cs.heads_step_diff(one, many))
+        print(json.dumps({name: out[f"heads_{name}"]}), flush=True)
+    return out
+
+
 PARTS = {"resnet": part_resnet, "deep_bn": part_deep_bn, "gluon": part_gluon,
          "decode_vs_lm": part_decode_vs_lm, "beam": part_beam,
-         "vit": part_vit, "zoo": part_zoo, "rnn": part_rnn, "ssd": part_ssd}
+         "vit": part_vit, "zoo": part_zoo, "rnn": part_rnn, "ssd": part_ssd,
+         "zoo_data": part_zoo_data}
 
 if __name__ == "__main__":
     for part in sys.argv[1:] or list(PARTS):
