@@ -46,7 +46,13 @@ and 1000 classes) trains through ``gluon.Trainer`` fed by
 ``gluon.data.DataLoader`` with worker threads, each network's fp32 step
 is held against the CPU, the autoencoder, matrix-factorisation, DCGAN
 and SVM examples' graphs train through ``Module`` on their loss heads,
-and each newly ported dense op is held against the CPU.  Every phase
+and each newly ported dense op is held against the CPU.  Last, a
+GShard-style mixture-of-experts LM at GPT-2 small's widths (8 experts in
+every layer, top-2 gating, the chunked cross-entropy head) trains
+through ``Module`` in bf16, its decode step is held against the
+teacher-forced LM and one float32 step against the CPU, and the other
+op families of that slice (linalg, sampling, the optimizer update ops,
+CTC, a Custom op) run once each at a user's shape.  Every phase
 prints one JSON line;
 any failed phase exits non-zero.  The line before the last lists the
 kernels with their launches on each path, times and bounds; the last
@@ -4776,6 +4782,799 @@ def phase_dense_ops(torch, mt):
         raise RuntimeError("dense_ops: " + "; ".join(fails))
 
 
+# --------------------------------------------------------------------------
+# C1.b.2: a GShard-style MoE GPT-2-small LM with the chunked CE head
+# --------------------------------------------------------------------------
+# GPT-2 small's widths (GPT2_SMALL) with a mixture of 8 gelu experts in
+# every layer's FFN, top-2 gating (GShard, Lepikhin et al. 2020) at the
+# op's default capacity factor 2.0 (C = 2.0 * T * 2 / 8: 4096 slots an
+# expert at batch 8 x 1024), and the chunked cross-entropy head over
+# benchmark/transformer_bench.py's 8 vocabulary chunks
+MOE = dict(GPT2_SMALL, moe_experts=8, moe_k=2, loss_type="chunked_ce",
+           ce_chunks=8)
+MOE_BATCH = 8
+MOE_WARMUP = 3
+MOE_STEPS = 10
+MOE_LR = 3e-4
+# the last loss must beat the first by MOE_MARGIN nats (the phase's loop:
+# Adam lr 3e-4, Xavier gaussian magnitude 2, one batch of lm_batch's
+# rule), fixed before the first card run from the CPU rehearsal
+# (tests/torch_numerics.py c1b2: the same 13 steps in fp32 at 2 layers
+# and batch 1 fell 4.57 nats): a fifth of that, rounded
+MOE_MARGIN = 1.0
+# one fp32 SGD step at MOE_FP32_LAYERS layers, batch 1, card (TF32 off)
+# against the CPU from the same numpy weights: the loss within 1e-4 nats
+# and each parameter's update within 2e-3 of that update's largest
+# element (the rehearsal's fp32 step against float64: 2.1e-7 and 3.3e-4,
+# LayerNorm's gamma; card and CPU are two such fp32 errors, 3x margin);
+# every token's two experts must be the same on both devices (no token
+# changed its experts between fp32 and float64 in the rehearsal)
+MOE_FP32_LAYERS = 2
+MOE_FP32_LR = 0.1
+MOE_FP32_LOSS_TOL = 1e-4
+MOE_FP32_UPDATE_RTOL = 2e-3
+# the MoE decode step (fp32) at batch 32 against the MoE LM's
+# teacher-forced log-probabilities (fp32, seq MOE_DECODE_POSITIONS, the
+# same 32 sequences), at GPT-2's initialisation (gpt2_init_params), over
+# the sequences no MoE call of either run dropped a token of; at least
+# half of them must be compared.  The decode routes the 32 tokens of one
+# position a call (capacity 16 an expert), which share the position's
+# embedding and so lean to the same experts: the CPU rehearsal at full
+# depth dropped tokens of 11 of the 32 sequences, the LM's calls
+# (capacity 256) of 4 (with wpe at 0.02 in place of GPT-2's 0.01 and
+# another seed, 14 and 8).  The log-probabilities of the 21 others
+# agreed within 3.7e-6; 1e-4 for the card's reduction orders (K1
+# against batch_dot and softmax)
+MOE_DECODE_BATCH = 32
+MOE_DECODE_POSITIONS = 16
+MOE_DECODE_LOGP_TOL = 1e-4
+
+
+def gpt2_init_params(sym, seed):
+    """Seeded weights at GPT-2's initialisation (the released model.py of
+    openai/gpt-2: wte and every matrix N(0, 0.02), wpe N(0, 0.01), biases
+    0, LayerNorm gamma 1 and beta 0), as numpy."""
+    shapes, _, _ = sym.infer_shape(data=(1, GPT2_SMALL["seq_len"]),
+                                   softmax_label=(1, GPT2_SMALL["seq_len"]))
+    rng = np.random.default_rng(seed)
+    params = {}
+    for name, shape in zip(sym.list_arguments(), shapes):
+        if name in ("data", "softmax_label"):
+            continue
+        if name.endswith("_gamma"):
+            params[name] = np.ones(shape, np.float32)
+        elif name.endswith(("_beta", "_bias")):
+            params[name] = np.zeros(shape, np.float32)
+        else:
+            std = 0.01 if name == "pos_embed_weight" else 0.02
+            params[name] = rng.standard_normal(shape, dtype=np.float32) \
+                * np.float32(std)
+    return params
+
+
+def moe_module(mt, ctx, cfg, batch, compute_dtype=None, for_training=True):
+    """The MoE LM of ``cfg`` bound through Module for int32 ids and
+    labels (batch, seq)."""
+    S = cfg["seq_len"]
+    mod = mt.mod.Module(mt.models.transformer_lm(**cfg), context=ctx,
+                        compute_dtype=compute_dtype)
+    mod.bind([mt.io.DataDesc("data", (batch, S), np.int32)],
+             [mt.io.DataDesc("softmax_label", (batch, S), np.int32)],
+             for_training=for_training)
+    return mod
+
+
+def moe_step_flops(cfg, batch, capacity):
+    """Multiply-adds x 2 of one training step, counted from the products
+    it dispatches: per layer QKV, the output projection, the router, the
+    two expert products over all E x C slots (full or not) and the
+    attention products (S^2, as transformer_bench.py counts them), the
+    backward twice the forward; the chunked head's forward, its
+    recomputation and its two gradient products over the whole
+    vocabulary."""
+    S, D, F, E, L, V = (cfg[k] for k in ("seq_len", "d_model", "d_ff",
+                                         "moe_experts", "num_layers",
+                                         "vocab_size"))
+    T = batch * S
+    layer = (2 * T * D * 3 * D + 2 * T * D * D + 2 * T * D * E
+             + 2 * 2 * E * capacity * D * F + 4 * batch * S * S * D)
+    return 3.0 * L * layer + 4 * 2.0 * T * V * D
+
+
+def moe_lm_logprobs(mt, params, toks, ctx):
+    """(log-probabilities (B, S, V), the sequences any MoE call dropped a
+    token of): the MoE LM with the softmax head, fp32, teacher-forced."""
+    from mxnet_tpu_torch.ops import moe
+    B, S = toks.shape
+    cfg = dict(MOE, seq_len=S, max_len=GPT2_SMALL["seq_len"],
+               loss_type="softmax")
+    mod = moe_module(mt, ctx, cfg, B, for_training=False)
+    mod.init_params(arg_params=params)
+    with moe.collect_routing() as st:
+        mod.forward(mt.io.DataBatch([mt.nd.array(toks, ctx=mt.cpu())],
+                                    [mt.nd.array(np.zeros_like(toks),
+                                                 ctx=mt.cpu())]),
+                    is_train=False)
+        probs = mod.get_outputs()[0].asnumpy().reshape(B, S, -1)
+    dropped = np.zeros(B, bool)
+    for mask in st["dropped_tokens"]:       # tokens in (b, s) order
+        dropped |= mask.numpy().reshape(B, S).any(1)
+    return log_probs(probs), dropped, st
+
+
+def moe_decode_logprobs(mt, params, toks, ctx):
+    """(log-softmax of each step's logits (B, S, V), the sequences any
+    MoE call dropped a token of): the MoE decode step at batch B, fp32,
+    one position a step."""
+    from mxnet_tpu_torch.ops import moe
+    B, S = toks.shape
+    cfg = {k: v for k, v in MOE.items()
+           if k not in ("vocab_size", "seq_len", "loss_type", "ce_chunks")}
+    dec = mt.models.transformer_decode_step(
+        MOE["vocab_size"], GPT2_SMALL["seq_len"], B, **cfg)
+    mod = mt.mod.Module(dec, context=ctx, data_names=("data",),
+                        label_names=None,
+                        state_names=decode_state_names(cfg["num_layers"]))
+    mod.bind(data_shapes=[("data", (B,))], for_training=False)
+    mod.init_params(arg_params=params)
+    mod.set_states(value=0)
+    out = []
+    with moe.collect_routing() as st:
+        for t in range(S):
+            tok = mt.nd.array(toks[:, t].astype(np.float32), ctx=mt.cpu())
+            out.append(log_softmax_np(decode_step(mt, mod, tok).asnumpy()))
+    dropped = np.zeros(B, bool)
+    for mask in st["dropped_tokens"]:       # one token a sequence
+        dropped |= mask.numpy()
+    return np.stack(out, 1), dropped, st
+
+
+def moe_decode_vs_lm(mt, ctx):
+    """The decode step against the teacher-forced LM on the same
+    MOE_DECODE_BATCH sequences, at GPT-2's initialisation: the largest
+    log-prob difference over the sequences neither run dropped a token
+    of, and the drop counts."""
+    V = MOE["vocab_size"]
+    params = gpt2_init_params(mt.models.transformer_lm(**dict(
+        MOE, loss_type="softmax")), SEED + 74)
+    toks = np.random.default_rng(SEED + 71).integers(
+        0, V, (MOE_DECODE_BATCH, MOE_DECODE_POSITIONS), dtype=np.int32)
+    ref, lm_drop, lm_st = moe_lm_logprobs(mt, params, toks, ctx)
+    got, dec_drop, dec_st = moe_decode_logprobs(mt, params, toks, ctx)
+    keep = ~(lm_drop | dec_drop)
+    diffs = np.abs(got - ref).max(axis=(1, 2))
+    return dict(batch=MOE_DECODE_BATCH, positions=MOE_DECODE_POSITIONS,
+                lm_capacity=lm_st["capacity"],
+                decode_capacity=dec_st["capacity"],
+                lm_dropped_choices=lm_st["dropped"],
+                decode_dropped_choices=dec_st["dropped"],
+                lm_dropped_sequences=int(lm_drop.sum()),
+                decode_dropped_sequences=int(dec_drop.sum()),
+                compared_sequences=int(keep.sum()),
+                max_abs_logp_diff=float(diffs[keep].max()) if keep.any()
+                else None,
+                logp_diff_of_dropped=float(diffs[~keep].max())
+                if (~keep).any() else None)
+
+
+def moe_fp32_step(mt, ctx, params, x, y):
+    """One fp32 SGD step of the MoE LM at MOE_FP32_LAYERS layers: (loss,
+    new parameters, every layer's (T, k) experts, seconds)."""
+    from mxnet_tpu_torch.ops import moe
+    cfg = dict(MOE, num_layers=MOE_FP32_LAYERS)
+    mod = moe_module(mt, ctx, cfg, x.shape[0])
+    mod.init_params(arg_params=params)
+    mod.init_optimizer(optimizer="sgd",
+                       optimizer_params={"learning_rate": MOE_FP32_LR})
+    batch = mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                            [mt.nd.array(y, ctx=mt.cpu())])
+    t0 = time.monotonic()
+    with moe.collect_routing() as st:
+        train_step(mod, batch)
+        loss = float(mod.get_outputs()[0].asnumpy())
+    secs = time.monotonic() - t0
+    new = {n: a.asnumpy() for n, a in mod.get_params()[0].items()}
+    return loss, new, [e.numpy() for e in st["experts"]], secs
+
+
+def moe_fp32_compare(card, cpu, params):
+    """The loss difference, the worst parameter's update difference
+    relative to its largest element, and the tokens whose two experts
+    differ."""
+    worst, worst_name = 0.0, None
+    for n, w in params.items():
+        dg, dc = card[1][n] - w, cpu[1][n] - w
+        rel = float(np.abs(dg - dc).max() / max(np.abs(dc).max(), 1e-30))
+        if not np.isfinite(card[1][n]).all():
+            rel = float("inf")
+        if rel >= worst:
+            worst, worst_name = rel, n
+    flips = sum(int((a != b).any(1).sum()) for a, b in zip(card[2], cpu[2]))
+    return dict(loss_diff=abs(card[0] - cpu[0]), worst_update_rel_diff=worst,
+                worst_param=worst_name, routing_differs_tokens=flips)
+
+
+class NoTensorOf:
+    """A TorchDispatchMode recording the largest tensor any op makes
+    (``largest``), to show that no tensor of ``numel`` elements or more is
+    ever made."""
+
+    def __init__(self, torch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        outer = self
+        outer.largest = 0
+
+        class _Spy(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                for o in (out if isinstance(out, (tuple, list)) else (out,)):
+                    if isinstance(o, torch.Tensor):
+                        outer.largest = max(outer.largest, o.numel())
+                return out
+        self._mode = _Spy()
+
+    def __enter__(self):
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def moe_head_memory(torch, mt, params, batch):
+    """Bytes above the bound model that one bf16 forward and backward of
+    the MoE LM needs at its peak, with the chunked head and with the
+    SoftmaxOutput head, from the same parameters."""
+    rows = {}
+    for head in ("chunked_ce", "softmax"):
+        mod = moe_module(mt, mt.gpu(0), dict(MOE, loss_type=head),
+                         MOE_BATCH, "bfloat16")
+        mod.init_params(arg_params=params)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        torch.cuda.synchronize()
+        rows[head] = torch.cuda.max_memory_allocated() - base
+        del mod
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_moe_lm_train(torch, mt, peak_flops):
+    """The MoE GPT-2-small LM (MOE) trained through Module on cuda:0, bf16
+    over fp32 masters, Adam: first the decode step against the
+    teacher-forced LM (moe_decode_vs_lm, GPT-2's initialisation); then the
+    training path, launch counts reset just before the MOE_WARMUP +
+    MOE_STEPS steps and read just after; then one step collecting the
+    routing under a dispatch spy (no (B*S, V) tensor), one under
+    torch.profiler, and the two heads' memory."""
+    from torch.profiler import ProfilerActivity, profile
+    S, V, L, D, E, K = (MOE[k] for k in ("seq_len", "vocab_size",
+                                         "num_layers", "d_model",
+                                         "moe_experts", "moe_k"))
+    B = MOE_BATCH
+    x, y = lm_batch(np.random.default_rng(SEED + 70), B, S, V)
+    t0 = time.monotonic()
+    mod = moe_module(mt, mt.gpu(0), MOE, B, "bfloat16")
+    mt.random.seed(SEED)
+    mod.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                          magnitude=2.0))
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": MOE_LR})
+    batch = mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                            [mt.nd.array(y, ctx=mt.cpu())])
+    args, _ = mod.get_params()
+    n_params = sum(int(np.prod(a.shape)) for a in args.values())
+    n_expert = sum(int(np.prod(a.shape)) for n, a in args.items()
+                   if "_expert_" in n)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+
+    # the decode step against the LM, fp32
+    t0 = time.monotonic()
+    dec = moe_decode_vs_lm(mt, mt.gpu(0))
+    dec["seconds"] = time.monotonic() - t0
+    torch.cuda.empty_cache()
+
+    # the training path: counts start at 0 here and are read right after
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mt)
+    losses, step_ms = [], []
+    n = MOE_WARMUP + MOE_STEPS
+    for _ in range(n):
+        t = time.monotonic()
+        train_step(mod, batch)
+        losses.append(float(mod.get_outputs()[0].asnumpy()))
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t) * 1e3)
+    counts = read_counts(mt)
+    dispatch = mt.profiler.dispatch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    # one more step: the routing's counts, and the largest tensor made
+    from mxnet_tpu_torch.ops import moe
+    with moe.collect_routing() as st, NoTensorOf(torch) as spy:
+        train_step(mod, batch)
+        torch.cuda.synchronize()
+    load = st["load"].numpy() / (L * B * S * K)    # share of the choices
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        train_step(mod, batch)
+        torch.cuda.synchronize()
+        prof_step_ms = (time.monotonic() - t) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+    attn_ms = {stem: sum(k[0] for k in kernels if stem in k[2])
+               for stem in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+
+    params_now = {k: a for k, a in mod.get_params()[0].items()}
+    del mod
+    torch.cuda.empty_cache()
+    head_mem = moe_head_memory(torch, mt, params_now, batch)
+    del params_now
+    torch.cuda.empty_cache()
+
+    C = st["capacity"]
+    flops = moe_step_flops(MOE, B, C)
+    timed = step_ms[MOE_WARMUP:]
+    med = float(np.median(timed))
+    fails = []
+    want = {"flash_fwd": L * n, "flash_fwd_lse": L * n,
+            "flash_bwd_dq": L * n, "flash_bwd_dkv": L * n,
+            "nms_suppress": 0}
+    if counts != want or dispatch.get("module.update") != n \
+            or dispatch.get("module.backward") != n:
+        fails.append(f"launches {counts} / dispatches {dispatch} over {n} "
+                     f"steps, want {want} and {n} updates and backwards")
+    if not all(np.isfinite(losses)):
+        fails.append(f"non-finite loss in {losses}")
+    elif not losses[-1] < losses[0] - MOE_MARGIN:
+        fails.append(f"last loss {losses[-1]} does not beat the first "
+                     f"{losses[0]} by {MOE_MARGIN}")
+    if spy.largest >= B * S * V:
+        fails.append(f"a tensor of {spy.largest} elements was made (B*S*V "
+                     f"= {B * S * V})")
+    if not all(attn_ms.values()):
+        fails.append(f"the profiled step shows {attn_ms}")
+    comp = dec["compared_sequences"]
+    if comp < MOE_DECODE_BATCH / 2 or dec["max_abs_logp_diff"] is None \
+            or not dec["max_abs_logp_diff"] <= MOE_DECODE_LOGP_TOL:
+        fails.append(f"decode vs LM: {dec['max_abs_logp_diff']} over "
+                     f"{comp} sequences (tol {MOE_DECODE_LOGP_TOL}, at "
+                     f"least {MOE_DECODE_BATCH // 2})")
+    emit("moe_lm_train", model="gpt2-small-width moe", layers=L,
+         experts=E, top_k=K, capacity=C, head=f"chunked_ce x "
+         f"{MOE['ce_chunks']}", batch=B, seq=S, vocab=V,
+         compute_dtype="bfloat16", masters="float32",
+         optimizer=f"adam lr {MOE_LR}",
+         initializer="xavier gaussian magnitude 2", setup_s=setup_s,
+         n_params=n_params, n_expert_params=n_expert, warmup=MOE_WARMUP,
+         steps=MOE_STEPS, losses=losses, margin=MOE_MARGIN,
+         step_ms=timed, median_step_ms=med, min_step_ms=min(timed),
+         max_step_ms=max(timed), tokens_per_s=B * S / (med / 1e3),
+         flops_per_step=flops, achieved_tflops=flops / (med / 1e3) / 1e12,
+         mfu=flops / (med / 1e3) / peak_flops, peak_mem_bytes=peak,
+         dropped_choice_share=st["dropped"] / st["choices"],
+         expert_load_share=[float(v) for v in load],
+         largest_tensor_elements=spy.largest, bsv=B * S * V,
+         head_peak_bytes=head_mem, launches=counts, dispatches=dispatch,
+         decode_vs_lm=dict(dec, tol=MOE_DECODE_LOGP_TOL), failures=fails)
+    emit("moe_lm_profile", step_ms=prof_step_ms, device_busy_ms=busy,
+         device_idle_share_of_step=max(0.0, 1 - busy / prof_step_ms),
+         device_idle_share_of_median_step=max(0.0, 1 - busy / med),
+         flash_fwd_ms=attn_ms["flash_fwd"],
+         flash_bwd_dq_ms=attn_ms["flash_bwd_dq"],
+         flash_bwd_dkv_ms=attn_ms["flash_bwd_dkv"],
+         top_kernels=[dict(ms=ms, count=c, name=k)
+                      for ms, c, k in kernels[:16]])
+    if fails:
+        raise RuntimeError("moe_lm_train: " + "; ".join(fails))
+    return counts
+
+
+def phase_moe_fp32(torch, mt):
+    """One fp32 step of the MoE LM at MOE_FP32_LAYERS layers, batch 1,
+    card (kernels, TF32 off) against the CPU from the same numpy
+    weights."""
+    cfg = dict(MOE, num_layers=MOE_FP32_LAYERS)
+    S, V = cfg["seq_len"], cfg["vocab_size"]
+    params = gpt2_params(mt.models.transformer_lm(**cfg), SEED + 72)
+    x, y = lm_batch(np.random.default_rng(SEED + 73), 1, S, V)
+    reset_counts(mt)
+    card = moe_fp32_step(mt, mt.gpu(0), params, x, y)
+    counts = read_counts(mt)
+    cpu = moe_fp32_step(mt, mt.cpu(), params, x, y)
+    row = moe_fp32_compare(card, cpu, params)
+    L = MOE_FP32_LAYERS
+    want = {"flash_fwd": L, "flash_fwd_lse": L, "flash_bwd_dq": L,
+            "flash_bwd_dkv": L, "nms_suppress": 0}
+    emit("moe_fp32_card_vs_cpu", layers=L, batch=1, loss_gpu=card[0],
+         loss_cpu=cpu[0], loss_tol=MOE_FP32_LOSS_TOL,
+         update_rtol=MOE_FP32_UPDATE_RTOL, gpu_s=card[3], cpu_s=cpu[3],
+         launches=counts, **row)
+    if counts != want or row["routing_differs_tokens"] \
+            or not row["loss_diff"] <= MOE_FP32_LOSS_TOL \
+            or not row["worst_update_rel_diff"] <= MOE_FP32_UPDATE_RTOL:
+        raise RuntimeError(f"moe fp32: {row}, launches {counts} (want "
+                           f"{want})")
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# C1.b.2: the other op families, once each at a user's shape, card vs CPU
+# --------------------------------------------------------------------------
+# linalg: a batch of 32 SPD matrices of 64 x 64 (A = M M^T / 64 + I,
+# condition number about 5) through potrf -> potri against inverse, and
+# every other linalg op at that size; the card's fp32 (cuSOLVER / cuBLAS,
+# TF32 off) and the CPU's fp32 (LAPACK) each against the CPU's float64,
+# outputs and the gradient of sum(out * c) for a seeded c, relative to
+# the largest value.  The card must be within OPS_LINALG_RTOL: a
+# backward-stable fp32 factorisation or solve of a 64 x 64 matrix of
+# condition number about 5 is within n u kappa = 64 x 6e-8 x 5 = 2e-5 of
+# exact (the CPU rehearsal's fp32: at most 1.2e-6).  syevd's
+# eigenvectors, ill-conditioned where 64 eigenvalues crowd into [1, 5]
+# (1.2e-3 from float64 on the CPU), are compared through the sign-free
+# V^T diag(w) V and w; the gradient through them still divides by the
+# eigenvalues' gaps (1.3e-4 on the CPU), so it is held to
+# OPS_SYEVD_GRAD_RTOL.  (The first card run held the card to the CPU's
+# fp32 at 1e-5, a budget taken from the CPU's distance to float64 alone;
+# cuSOLVER's syevd landed 2.4e-5 from LAPACK's, so the check now measures
+# each device from float64 and states the bound a stable fp32 routine
+# meets.)
+OPS_LINALG_RTOL = 1e-4
+OPS_SYEVD_GRAD_RTOL = 1e-3
+# sampling: OPS_DRAWS draws of each distribution on the card, mean and
+# variance within OPS_SE standard errors of the analytic ones
+OPS_DRAWS = 10 ** 6
+OPS_SE = 5.0
+# optimizer ops on a (4096, 4096) float32 weight (bf16 with an fp32
+# master for mp_*): card against CPU relative to the largest value (each
+# op one elementwise kernel on either device, IEEE single with sqrt and
+# division correctly rounded: equal but for an ulp)
+OPS_UPDATE_TOL = 1e-6
+# CTC at an OCR-like shape (T 80, N 64, 10 symbols + blank, labels of 1 to
+# 4 symbols): the card's fp32 loss and gradient against the CPU's float64
+# within OPS_CTC_RTOL of the largest value.  The fp32 recursion itself
+# sets the error: the gradient is the softmax less the alignments'
+# posterior, two near-equal probabilities, and on these inputs the CPU's
+# fp32 gradient is 7.7e-5 from float64 (tests/torch_numerics.py c1b2),
+# its loss 4.2e-7.  (The first card run held the card to the CPU's fp32
+# at 1e-5, from a rehearsal in which the op still computed float64
+# inputs in fp32: 1.24e-5 on the gradient.)
+OPS_CTC_RTOL = 1e-4
+# the custom_softmax example (examples/numpy_ops/custom_softmax.py) on
+# digits_like stand-ins, trained through Module.fit on the card for its
+# default 10 epochs: the held-out accuracy must gain OPS_CUSTOM_MARGIN, a
+# fifth of the CPU rehearsal's 0.08 -> 1.00
+OPS_CUSTOM_EPOCHS = 10
+OPS_CUSTOM_MARGIN = 0.18
+
+
+def linalg_cases(rng):
+    """(op, inputs, attributes, name): the linalg ops at batch 32 of
+    64 x 64 (khatri_rao: three factors of 64 columns)."""
+    n, m = 32, 64
+    g = rng.standard_normal((n, m, m)).astype(np.float32)
+    spd = g @ g.transpose(0, 2, 1) / m + np.eye(m, dtype=np.float32)
+    low = np.linalg.cholesky(spd).astype(np.float32)
+    b = rng.standard_normal((n, m, m)).astype(np.float32)
+    c = rng.standard_normal((n, m, m)).astype(np.float32)
+    flip = np.ones((m, 1), np.float32)
+    flip[0] = -1                      # a negative determinant
+    return [("linalg_potrf", [spd], {}), ("linalg_potri", [low], {}),
+            ("linalg_inverse", [spd], {}),
+            ("linalg_gemm", [g, b, c], {"transpose_b": True, "alpha": 0.5}),
+            ("linalg_gemm2", [g, b], {"transpose_a": True}),
+            ("linalg_trmm", [low, b], {"rightside": True}),
+            ("linalg_trsm", [low, b], {"transpose": True}),
+            ("linalg_syrk", [g], {"alpha": 2.0}),
+            ("linalg_sumlogdiag", [low], {}),
+            ("linalg_det", [spd], {}),
+            ("linalg_slogdet", [spd * flip], {}),
+            ("linalg_gelqf", [g[:, :32]], {}), ("linalg_syevd", [spd], {}),
+            ("khatri_rao", [g[0], b[0], c[0, :16]], {})]
+
+
+def linalg_signs(torch, name, outs):
+    """gelqf's factors with each row of Q (and L's column) turned so that
+    its largest entry is positive (Q's rows are unique only up to sign);
+    the other ops' outputs as they are."""
+    if name != "linalg_gelqf":
+        return outs
+    idx = outs[1].abs().argmax(-1, keepdim=True)
+    s = torch.sign(outs[1].gather(-1, idx))
+    return [outs[0] * s.transpose(-1, -2), outs[1] * s]
+
+
+def linalg_run(torch, mt, name, arrays, attrs, device, seed):
+    """Outputs and the inputs' gradients of sum(out * c) over the
+    sign-free outputs (gelqf: L Q; syevd: V^T diag(w) V and w), as
+    float64 numpy; gelqf's outputs sign-aligned, syevd's the sign-free
+    ones."""
+    from mxnet_tpu_torch.ops import registry
+    ins = [torch.from_numpy(a).to(device).requires_grad_() for a in arrays]
+    out = registry.get(name)(*ins, **attrs)
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    gen = torch.Generator().manual_seed(seed)
+    if name == "linalg_gelqf":      # L Q is free of the signs
+        free = [outs[0] @ outs[1]]
+    elif name == "linalg_syevd":    # V^T diag(w) V and w are
+        free = [outs[0].transpose(-1, -2) @ (outs[1][..., None] * outs[0]),
+                outs[1]]
+    else:
+        free = [o for o in outs if o.is_floating_point()]
+    cots = [torch.randn(o.shape, generator=gen).to(device) for o in free]
+    torch.autograd.backward(free, cots)
+    outs = [o.detach() for o in (free if name == "linalg_syevd" else outs)]
+    outs = linalg_signs(torch, name, outs)
+    return ([o.double().cpu().numpy() for o in outs],
+            [i.grad.double().cpu().numpy() for i in ins])
+
+
+def rel_diff(a, b):
+    """max |a - b| over the largest |b|."""
+    return float(np.abs(a - b).max() / max(float(np.abs(b).max()), 1e-30))
+
+
+# name, kwargs, analytic (mean, variance)
+SAMPLERS = {
+    "uniform": (dict(low=-1.0, high=3.0), (1.0, 16 / 12)),
+    "normal": (dict(loc=2.0, scale=0.5), (2.0, 0.25)),
+    "gamma": (dict(alpha=2.5, beta=1.5), (3.75, 2.5 * 1.5 ** 2)),
+    "exponential": (dict(scale=2.0), (2.0, 4.0)),
+    "poisson": (dict(lam=3.5), (3.5, 3.5)),
+    "negative_binomial": (dict(k=3, p=0.4), (4.5, 11.25)),
+    "generalized_negative_binomial": (dict(mu=2.0, alpha=0.5), (2.0, 4.0)),
+    "randint": (dict(low=-3, high=5), (0.5, 63 / 12)),
+}
+
+
+def moments_within(x, mean, var, se):
+    """(z of the mean, z of the variance): their distances from the
+    analytic values in standard errors (the variance's from the sample's
+    fourth central moment)."""
+    x = np.asarray(x, np.float64).ravel()
+    m, v = x.mean(), x.var(ddof=1)
+    m4 = ((x - m) ** 4).mean()
+    return (abs(m - mean) / np.sqrt(var / x.size),
+            abs(v - var) / np.sqrt(max(m4 - v * v, 1e-30) / x.size))
+
+
+def optimizer_cases(rng, shape=(4096, 4096)):
+    """(op, inputs, attributes): each update op on a user's weight."""
+    w = rng.uniform(-1, 1, shape).astype(np.float32)
+    g = rng.uniform(-2, 2, shape).astype(np.float32)
+
+    def st():
+        return rng.uniform(0, 0.5, shape).astype(np.float32)
+    common = dict(wd=1e-4, rescale_grad=0.5, clip_gradient=0.6)
+    return [("sgd_update", [w, g], dict(lr=0.1, **common)),
+            ("sgd_mom_update", [w, g, st()], dict(lr=0.1, momentum=0.9,
+                                                  **common)),
+            ("mp_sgd_update", [w, g, w], dict(lr=0.1, **common)),
+            ("mp_sgd_mom_update", [w, g, st(), w],
+             dict(lr=0.1, momentum=0.9, **common)),
+            ("adam_update", [w, g, st(), st()],
+             dict(lr=1e-3, epsilon=1e-6, **common)),
+            ("rmsprop_update", [w, g, st()], dict(lr=1e-3, epsilon=1e-6,
+                                                 **common)),
+            ("rmspropalex_update", [w, g, st(), np.zeros_like(w), st()],
+             dict(lr=1e-3, epsilon=1e-6, **common)),
+            ("ftrl_update", [w, g, st(), st()], dict(lr=0.1, **common)),
+            ("signsgd_update", [w, g], dict(lr=0.1, **common))]
+
+
+def ctc_inputs(rng, T=80, N=64, C=11, L=4):
+    """OCR-like activations (T, N, C) and labels (N, L) of 1 to L symbols
+    in 1..C-1, padded with 0 (blank first)."""
+    x = rng.standard_normal((T, N, C)).astype(np.float32)
+    lab = rng.integers(1, C, (N, L)).astype(np.float32)
+    lens = rng.integers(1, L + 1, N)
+    lab[np.arange(L)[None, :] >= lens[:, None]] = 0
+    return x, lab
+
+
+def ctc_run(torch, mt, x, lab, device):
+    from mxnet_tpu_torch.ops import registry
+    d = torch.from_numpy(x).to(device).requires_grad_()
+    loss = registry.get("CTCLoss")(d, torch.from_numpy(lab).to(device))
+    loss.sum().backward()
+    return (loss.detach().double().cpu().numpy(),
+            d.grad.double().cpu().numpy())
+
+
+def custom_softmax_prop(mt):
+    """examples/numpy_ops/custom_softmax.py's op, registered in the port
+    as ``numpy_softmax``: a softmax loss head in numpy with the backward
+    prob - onehot."""
+
+    class NumpySoftmax(mt.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            y = np.exp(x - x.max(axis=1, keepdims=True))
+            y /= y.sum(axis=1, keepdims=True)
+            self.assign(out_data[0], req[0], y)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            lab = in_data[1].asnumpy().ravel().astype(int)
+            y = out_data[0].asnumpy().copy()
+            y[np.arange(lab.shape[0]), lab] -= 1.0
+            self.assign(in_grad[0], req[0], y)
+
+    @mt.operator.register("numpy_softmax")
+    class NumpySoftmaxProp(mt.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ['data', 'label']
+
+        def list_outputs(self):
+            return ['output']
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return NumpySoftmax()
+
+
+def custom_softmax_run(mt, ctx, epochs):
+    """The example's run (net_symbol, Module.fit with SGD lr 0.1 momentum
+    0.9, Xavier, batch 100 over the first 1500 samples) on digits_like:
+    (held-out accuracy after init, after training, seconds)."""
+    custom_softmax_prop(mt)
+    data = mt.sym.Variable('data')
+    label = mt.sym.Variable('softmax_label')
+    h = mt.sym.FullyConnected(data, num_hidden=64, name='fc1')
+    h = mt.sym.Activation(h, act_type='relu')
+    h = mt.sym.FullyConnected(h, num_hidden=10, name='fc2')
+    net = mt.sym.Custom(h, label, op_type='numpy_softmax', name='softmax')
+    x, y = digits_like(SEED + 80)
+    np.random.seed(SEED)
+    mt.random.seed(SEED)
+    train = mt.io.NDArrayIter(x[:1500], y[:1500], 100, shuffle=True,
+                              last_batch_handle='discard')
+    test = mt.io.NDArrayIter(x[1500:], y[1500:], 100)
+    mod = mt.mod.Module(net, context=ctx)
+    mod.bind(train.provide_data, train.provide_label)
+    mod.init_params(mt.initializer.Xavier())
+    before = mod.score(test, 'acc')[0][1]
+    t0 = time.monotonic()
+    mod.fit(train, num_epoch=epochs, optimizer='sgd',
+            optimizer_params={'learning_rate': 0.1, 'momentum': 0.9})
+    secs = time.monotonic() - t0
+    test.reset()
+    return before, mod.score(test, 'acc')[0][1], secs
+
+
+def phase_ops_c1b2(torch, mt):
+    """The slice's other op families on the card: linalg, sampling, the
+    optimizer ops and CTC against the CPU (or the analytic moments), and
+    the Custom op example trained through Module; the launch counts are
+    reset before and read after (none of K1-K4 or N1 runs)."""
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    rows, fails = {}, []
+    reset_counts(mt)
+    cases = linalg_cases(np.random.default_rng(SEED + 81))
+    spd = cases[0][1][0]
+    worst = {}
+    for i, (name, arrays, attrs) in enumerate(cases):
+        g_out, g_grad = linalg_run(torch, mt, name, arrays, attrs, cuda, i)
+        c_out, c_grad = linalg_run(torch, mt, name, arrays, attrs, cpu, i)
+        r_out, r_grad = linalg_run(torch, mt, name,
+                                   [a.astype(np.float64) for a in arrays],
+                                   attrs, cpu, i)
+        worst[name] = dict(
+            out=max(rel_diff(a, b) for a, b in zip(g_out, r_out)),
+            grad=max(rel_diff(a, b) for a, b in zip(g_grad, r_grad)),
+            cpu_out=max(rel_diff(a, b) for a, b in zip(c_out, r_out)),
+            cpu_grad=max(rel_diff(a, b) for a, b in zip(c_grad, r_grad)),
+            card_vs_cpu=max(rel_diff(a, b) for a, b in
+                            zip(g_out + g_grad, c_out + c_grad)))
+        grad_tol = OPS_SYEVD_GRAD_RTOL if name == "linalg_syevd" \
+            else OPS_LINALG_RTOL
+        if not (worst[name]["out"] <= OPS_LINALG_RTOL
+                and worst[name]["grad"] <= grad_tol):
+            fails.append(f"{name}: card vs float64 {worst[name]} > "
+                         f"{OPS_LINALG_RTOL} / {grad_tol}")
+    with torch.no_grad():
+        A = mt.nd.array(spd, ctx=mt.gpu(0))
+        chain = rel_diff(
+            mt.nd.linalg.potri(mt.nd.linalg.potrf(A)).asnumpy(),
+            mt.nd.linalg.inverse(A).asnumpy())
+    if not chain <= OPS_LINALG_RTOL:
+        fails.append(f"potri(potrf(A)) vs inverse(A): {chain}")
+    rows["linalg"] = dict(batch=32, size=64, rel_diff=worst,
+                          potri_potrf_vs_inverse=chain,
+                          rtol=OPS_LINALG_RTOL,
+                          syevd_grad_rtol=OPS_SYEVD_GRAD_RTOL)
+
+    ctx = mt.gpu(0)
+    samp = {}
+    for name, (kw, (mean, var)) in SAMPLERS.items():
+        mt.random.seed(SEED + 82)
+        a = getattr(mt.nd.random, name)(shape=(OPS_DRAWS,), ctx=ctx, **kw)
+        mt.random.seed(SEED + 82)
+        again = getattr(mt.nd.random, name)(shape=(OPS_DRAWS,), ctx=ctx,
+                                            **kw)
+        x = a.asnumpy()
+        zm, zv = moments_within(x, mean, var, OPS_SE)
+        repeats = bool(np.array_equal(x, again.asnumpy()))
+        samp[name] = dict(mean=float(x.mean()), var=float(x.var(ddof=1)),
+                          want=[mean, var], z_mean=zm, z_var=zv,
+                          reseed_repeats=repeats, device=str(a.context))
+        if not (zm <= OPS_SE and zv <= OPS_SE and repeats):
+            fails.append(f"{name}: {samp[name]}")
+    probs = np.array([0.1, 0.2, 0.3, 0.4], np.float32)
+    draw = mt.nd.random.multinomial(mt.nd.array(probs, ctx=ctx),
+                                    shape=(OPS_DRAWS,)).asnumpy()
+    freq = np.bincount(draw, minlength=4) / OPS_DRAWS
+    zf = np.abs(freq - probs) / np.sqrt(probs * (1 - probs) / OPS_DRAWS)
+    perm = mt.nd.random.shuffle(mt.nd.array(
+        np.arange(OPS_DRAWS, dtype=np.float32), ctx=ctx)).asnumpy()
+    is_perm = bool(np.array_equal(np.sort(perm), np.arange(OPS_DRAWS)))
+    samp["multinomial"] = dict(freq=freq.tolist(), z=zf.tolist())
+    samp["shuffle_is_permutation"] = is_perm
+    if not (zf.max() <= OPS_SE and is_perm):
+        fails.append(f"multinomial z {zf} / shuffle {is_perm}")
+    rows["sampling"] = dict(draws=OPS_DRAWS, se=OPS_SE, **samp)
+
+    from mxnet_tpu_torch.ops import registry
+    upd = {}
+    for name, arrays, attrs in optimizer_cases(np.random.default_rng(
+            SEED + 83)):
+        res = []
+        for dev in (cuda, cpu):
+            ins = [torch.from_numpy(a).to(dev) for a in arrays]
+            if name.startswith("mp_"):      # a bf16 weight and gradient
+                ins[0], ins[1] = ins[0].bfloat16(), ins[1].bfloat16()
+            out = registry.get(name)(*ins, **attrs)
+            out = list(out) if isinstance(out, (tuple, list)) else [out]
+            res.append([o.double().cpu().numpy() for o in out])
+        upd[name] = max(rel_diff(a, b) for a, b in zip(*res))
+        if not upd[name] <= OPS_UPDATE_TOL:
+            fails.append(f"{name}: card vs CPU {upd[name]}")
+    rows["optimizer_ops"] = dict(shape=[4096, 4096], diff=upd,
+                                 tol=OPS_UPDATE_TOL)
+
+    x, lab = ctc_inputs(np.random.default_rng(SEED + 84))
+    (gl, gg), (cl, cg) = (ctc_run(torch, mt, x, lab, d) for d in (cuda, cpu))
+    rl, rg = ctc_run(torch, mt, x.astype(np.float64), lab, cpu)
+    ctc = dict(shape=list(x.shape), loss_rel_diff=rel_diff(gl, rl),
+               grad_rel_diff=rel_diff(gg, rg),
+               cpu_loss_rel_diff=rel_diff(cl, rl),
+               cpu_grad_rel_diff=rel_diff(cg, rg),
+               card_vs_cpu=max(rel_diff(gl, cl), rel_diff(gg, cg)),
+               rtol=OPS_CTC_RTOL, loss_range=[float(rl.min()),
+                                              float(rl.max())])
+    if not (max(ctc["loss_rel_diff"], ctc["grad_rel_diff"]) <= OPS_CTC_RTOL
+            and np.isfinite(gl).all()):
+        fails.append(f"CTC: {ctc}")
+    rows["ctc"] = ctc
+
+    before, after, secs = custom_softmax_run(mt, mt.gpu(0),
+                                             OPS_CUSTOM_EPOCHS)
+    rows["custom"] = dict(example="numpy_ops/custom_softmax.py",
+                          epochs=OPS_CUSTOM_EPOCHS, acc_before=before,
+                          acc_after=after, margin=OPS_CUSTOM_MARGIN,
+                          seconds=secs)
+    if not after - before >= OPS_CUSTOM_MARGIN:
+        fails.append(f"custom: accuracy {before} -> {after}")
+    counts = read_counts(mt)
+    if any(counts.values()):
+        fails.append(f"kernel launches {counts} (want none)")
+    emit("ops_c1b2", launches=counts, failures=fails, **rows)
+    if fails:
+        raise RuntimeError("ops_c1b2: " + "; ".join(fails))
+
+
 def main():
     try:
         import torch
@@ -4875,6 +5674,14 @@ def main():
     phase_module_heads(torch, mt)
     phase_dense_ops(torch, mt)
 
+    # C1.b.2: the MoE GPT-2-small LM with the chunked CE head (the slice's
+    # main path: K1-K3 twelve times a step each), its fp32 step against
+    # the CPU, and the other op families once each
+    torch.cuda.empty_cache()
+    moe_counts = phase_moe_lm_train(torch, mt, PEAK_FLOPS["bfloat16"])
+    phase_moe_fp32(torch, mt)
+    phase_ops_c1b2(torch, mt)
+
     def by_path(key):
         return {"serve": serve_counts[key], "train": train_counts[key],
                 "vit_train": vit_counts[key],
@@ -4883,7 +5690,8 @@ def main():
                 "ptb_bucketing": ptb_counts[key],
                 **{p: c[key] for p, c in gluon_lstm_paths.items()},
                 "ssd_train": ssd_counts[key],
-                "ssd_detect": ssd_detect_counts[key]}
+                "ssd_detect": ssd_detect_counts[key],
+                "moe_lm_train": moe_counts[key]}
 
     def ms_of(row, key):  # the median with its min and max
         return dict(ms=row[key], ms_min=row[f"{key}_min"],

@@ -17,6 +17,8 @@ from . import base, context, profiler, ops, symbol, executor, models
 from . import serving, convert, cuda_lib
 from . import ndarray, random, io, initializer, optimizer, lr_scheduler
 from . import metric, model, callback, module, autograd, gluon, rnn, rtc
+from . import operator
+from . import operator as op
 from . import symbol as sym
 from . import ndarray as nd
 from . import module as mod
@@ -30,4 +32,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
            "params_from_numpy", "cuda_lib", "ndarray", "nd", "random",
            "io", "initializer", "init", "optimizer", "lr_scheduler",
            "metric", "model", "callback", "module", "mod", "autograd",
-           "gluon", "rnn", "rtc", "__version__"]
+           "gluon", "rnn", "rtc", "operator", "op", "__version__"]

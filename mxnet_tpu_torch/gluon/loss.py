@@ -207,11 +207,27 @@ class TripletLoss(Loss):
 
 
 class CTCLoss(Loss):
-    """Connectionist temporal classification loss (reference: loss.py:320).
-    Its ``CTCLoss`` op is not ported yet (ROADMAP C1.b): constructing the
-    loss raises."""
+    """Connectionist temporal classification loss (reference: loss.py:320)
+    over the ``CTCLoss`` op (``ops/sequence.py``).  ``layout`` 'NTC' or
+    'TNC', ``label_layout`` 'NT' or 'TN'; ``pred_lengths`` and
+    ``label_lengths``, when given, set the op's ``use_*_lengths``."""
 
     def __init__(self, layout='NTC', label_layout='NT', weight=None,
                  **kwargs):
-        raise MXNetError("gluon.loss.CTCLoss: the CTCLoss op is not ported "
-                         "to mxnet_tpu_torch yet (ROADMAP C1.b)")
+        assert layout in ('NTC', 'TNC')
+        assert label_layout in ('NT', 'TN')
+        self._layout = layout
+        self._label_layout = label_layout
+        batch_axis = label_layout.find('N')
+        super().__init__(weight, batch_axis, **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        if self._layout == 'NTC':
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._batch_axis == 1:
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        loss = F.CTCLoss(pred, label, pred_lengths, label_lengths,
+                         use_data_lengths=pred_lengths is not None,
+                         use_label_lengths=label_lengths is not None)
+        return _apply_weighting(F, loss, self._weight, sample_weight)

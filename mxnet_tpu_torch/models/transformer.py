@@ -8,19 +8,15 @@ Attention in the LM runs ``sym.contrib.FlashAttention``, which on the
 card is the hand-written flash-attention kernel; the decode step attends
 over its cache with ``batch_dot`` and a masked ``softmax``.  Pre-norm
 residual blocks; FFN gelu (sigmoid approximation) or SwiGLU; positions
-learned or rotary; grouped-query attention through ``num_kv_heads``.
+learned or rotary; grouped-query attention through ``num_kv_heads``;
+optionally a mixture-of-experts FFN in every layer (``moe_experts``,
+``moe_k``: ``sym.contrib.MoE``, gelu experts) and, for training, the
+chunked cross-entropy head (``loss_type="chunked_ce"``), whose (B*S,
+vocab) logits never exist whole.
 """
 from .. import symbol as sym
-from ..base import MXNetError
 
 import math
-
-
-def _check_moe(who, moe_experts):
-    if moe_experts:
-        raise MXNetError(f"{who}: moe_experts>0 needs the MoE op, which "
-                         "waits for ROADMAP item C1 (remaining op "
-                         "families: ops/moe.py)")
 
 
 def _rope_inv_freq(hd, base):
@@ -80,8 +76,13 @@ def _attention_block(x, seq_len, d_model, num_heads, name,
     return sym.Reshape(out, shape=(-1, seq_len, d_model))
 
 
-def _ffn_block(x, seq_len, d_model, d_ff, name, ffn_type="gelu"):
+def _ffn_block(x, seq_len, d_model, d_ff, name, moe_experts=0, moe_k=1,
+               ffn_type="gelu"):
     flat = sym.Reshape(x, shape=(-1, d_model))
+    if ffn_type == "swiglu" and moe_experts:
+        raise ValueError(
+            "ffn_type='swiglu' with moe_experts>0 is not supported — "
+            "the MoE expert FFN is gelu; drop one of the two options")
     if ffn_type == "swiglu":
         # SwiGLU: silu(xW1) * xW3 -> W2, one fused projection [gate | lin]
         both = sym.FullyConnected(flat, num_hidden=2 * d_ff,
@@ -94,9 +95,24 @@ def _ffn_block(x, seq_len, d_model, d_ff, name, ffn_type="gelu"):
         return sym.Reshape(out, shape=(-1, seq_len, d_model))
     if ffn_type != "gelu":
         raise ValueError(f"ffn_type must be gelu|swiglu, got {ffn_type!r}")
-    hdn = sym.FullyConnected(flat, num_hidden=d_ff, name=f"{name}_fc1")
-    hdn = hdn * sym.sigmoid(hdn * 1.702)   # gelu (sigmoid approx)
-    out = sym.FullyConnected(hdn, num_hidden=d_model, name=f"{name}_fc2")
+    if moe_experts:
+        gate = sym.Variable(f"{name}_gate_weight",
+                            shape=(d_model, moe_experts))
+        w1 = sym.Variable(f"{name}_expert_w1_weight",
+                          shape=(moe_experts, d_model, d_ff))
+        b1 = sym.Variable(f"{name}_expert_b1_bias", shape=(moe_experts, d_ff))
+        w2 = sym.Variable(f"{name}_expert_w2_weight",
+                          shape=(moe_experts, d_ff, d_model))
+        b2 = sym.Variable(f"{name}_expert_b2_bias",
+                          shape=(moe_experts, d_model))
+        out = sym.contrib.MoE(flat, gate, w1, b1, w2, b2,
+                              num_experts=moe_experts, k=moe_k,
+                              activation="gelu", name=f"{name}_moe")
+    else:
+        hdn = sym.FullyConnected(flat, num_hidden=d_ff, name=f"{name}_fc1")
+        hdn = hdn * sym.sigmoid(hdn * 1.702)   # gelu (sigmoid approx)
+        out = sym.FullyConnected(hdn, num_hidden=d_model,
+                                 name=f"{name}_fc2")
     return sym.Reshape(out, shape=(-1, seq_len, d_model))
 
 
@@ -108,17 +124,20 @@ def transformer_lm(vocab_size, seq_len, num_layers=2, d_model=128,
     """Causal LM symbol: data (B, S) token ids, softmax_label (B, S);
     the output is the (B*S, vocab) softmax.
 
-    ``max_len`` (default seq_len) sizes the positional embedding.  The
-    MoE FFN (``moe_experts > 0``) and the chunked loss head
-    (``loss_type="chunked_ce"``) are not ported yet and raise."""
-    _check_moe("transformer_lm", moe_experts)
-    if loss_type == "chunked_ce":
-        raise MXNetError("transformer_lm: loss_type='chunked_ce' needs the "
-                         "chunked LM loss, which waits for ROADMAP item T1 "
-                         "(the training slice: ops/chunked_loss.py)")
-    if loss_type != "softmax":
+    ``max_len`` (default seq_len) sizes the positional embedding.
+    ``moe_experts > 0`` makes every layer's FFN a mixture of that many
+    gelu experts, each token routed to its top ``moe_k``.
+    ``loss_type="chunked_ce"`` replaces the SoftmaxOutput head with the
+    chunked LM loss over ``ce_chunks`` vocabulary chunks: the output is
+    then the scalar mean cross-entropy (the ``Loss`` metric reads it;
+    perplexity is exp(loss)), and the head's parameters keep their names
+    (``lm_head_weight``, ``lm_head_bias``), so checkpoints move between
+    the two heads."""
+    if loss_type not in ("softmax", "chunked_ce"):
         raise ValueError(
             f"loss_type must be softmax|chunked_ce, got {loss_type!r}")
+    if loss_type == "chunked_ce" and int(ce_chunks) < 1:
+        raise ValueError(f"ce_chunks must be >= 1, got {ce_chunks}")
     d_ff = d_ff or 4 * d_model
     max_len = max_len or seq_len
     if max_len < seq_len:
@@ -154,11 +173,20 @@ def transformer_lm(vocab_size, seq_len, num_layers=2, d_model=128,
                              rope_cs=rope_cs)
         x = x + a
         f = _ffn_block(sym.LayerNorm(x, name=f"{name}_ln2"),
-                       seq_len, d_model, d_ff, name, ffn_type=ffn_type)
+                       seq_len, d_model, d_ff, name,
+                       moe_experts=moe_experts, moe_k=moe_k,
+                       ffn_type=ffn_type)
         x = x + f
     x = sym.LayerNorm(x, name="final_ln")
     hidden = sym.Reshape(x, shape=(-1, d_model))
     label = sym.Reshape(sym.Variable("softmax_label"), shape=(-1,))
+    if loss_type == "chunked_ce":
+        # the head's parameters named as FullyConnected names them
+        w = sym.Variable("lm_head_weight", shape=(vocab_size, d_model))
+        b = sym.Variable("lm_head_bias", shape=(vocab_size,))
+        tok_loss = sym.chunked_lm_loss(hidden, w, b, label,
+                                       num_chunks=ce_chunks)
+        return sym.make_loss(sym.mean(tok_loss))
     logits = sym.FullyConnected(hidden, num_hidden=vocab_size,
                                 name="lm_head")
     return sym.SoftmaxOutput(data=logits, label=label, name="softmax")
@@ -189,9 +217,9 @@ def transformer_decode_step(vocab_size, max_len, batch_size,
     [new k / v caches per layer] + [cur_pos + 1].  Under a bf16
     ``compute_dtype`` the ``cur_pos + 1`` add runs in bf16, as in the JAX
     package, so the counter stops at 256 (ROADMAP §3): decode in fp32.
-    The MoE FFN (``moe_experts > 0``) is not ported yet and raises.
+    Pass the LM's ``moe_experts`` and ``moe_k``: an MoE step routes the
+    batch's B tokens, so its experts' capacity is that of B tokens.
     """
-    _check_moe("transformer_decode_step", moe_experts)
     d_ff = d_ff or 4 * d_model
     h = num_heads
     hk = h if num_kv_heads is None else num_kv_heads
@@ -277,7 +305,8 @@ def transformer_decode_step(vocab_size, max_len, batch_size,
         x = x + a
         f = _ffn_block(sym.expand_dims(
             sym.LayerNorm(x, name=f"{name}_ln2"), axis=1),
-            1, d_model, d_ff, name, ffn_type=ffn_type)
+            1, d_model, d_ff, name, moe_experts=moe_experts, moe_k=moe_k,
+            ffn_type=ffn_type)
         x = x + sym.Reshape(f, shape=(-1, d_model))
     x = sym.LayerNorm(x, name="final_ln")
     logits = sym.FullyConnected(x, num_hidden=vocab_size, name="lm_head")

@@ -15,3 +15,5 @@ contrib = _ContribNS(globals())
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
            "concatenate", "stack_arrays", "onehot_encode", "moveaxis",
            "waitall", "take", "save", "load", "contrib"]
+
+from . import random, linalg  # noqa: E402,F401  nd.random.*, nd.linalg.*

@@ -7,3 +7,5 @@ from ..base import ContribNamespace as _ContribNS
 
 init_symbol_module(globals())
 contrib = _ContribNS(globals())
+
+from . import random, linalg  # noqa: E402,F401  sym.random.*, sym.linalg.*

@@ -233,6 +233,11 @@ def _skip_args(op: str, attrs: dict) -> set:
         skip.add("gamma")
     if op == "RNN" and attrs.get("mode", "lstm") != "lstm":
         skip.add("state_cell")
+    if op == "CTCLoss":   # each length input only under its flag
+        if not _flag(attrs.get("use_data_lengths", False)):
+            skip.add("data_lengths")
+        if not _flag(attrs.get("use_label_lengths", False)):
+            skip.add("label_lengths")
     if op in ("SequenceReverse", "SequenceMask", "SequenceLast") \
             and not _flag(attrs.get("use_sequence_length", False)):
         # the length input exists only under use_sequence_length

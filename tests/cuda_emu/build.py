@@ -24,7 +24,7 @@ def build(name, out_dir, launches, extern_shared):
     """Compile ``csrc/<name>`` under the emulation into ``out_dir`` and
     load it; ``launches`` and ``extern_shared`` are the counts of kernel
     launches and ``extern __shared__`` arrays the source must hold.
-    Skips without a host C++ compiler with C++20 (``std::barrier``)."""
+    Skips without a host C++ compiler with C++17."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the emulated kernels")
@@ -44,10 +44,10 @@ def build(name, out_dir, launches, extern_shared):
         f.write(src)
     so = os.path.join(out_dir, "lib" + name.replace(".cu", "_emu.so"))
     res = subprocess.run(
-        [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+        [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
          f"-I{EMU}", "-o", so, cpp, os.path.join(EMU, "emu_state.cpp"),
          "-lpthread"], capture_output=True, text=True, timeout=600)
-    if res.returncode and "c++20" in res.stderr:
-        pytest.skip(f"{cxx} lacks C++20 (std::barrier): {res.stderr[-300:]}")
+    if res.returncode and "c++17" in res.stderr:
+        pytest.skip(f"{cxx} lacks C++17: {res.stderr[-300:]}")
     assert res.returncode == 0, res.stderr[-3000:]
     return ctypes.CDLL(so)

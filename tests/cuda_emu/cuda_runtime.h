@@ -1,21 +1,26 @@
 // An emulation of the parts of the CUDA runtime that the kernels of
 // mxnet_tpu_torch/csrc run under it use, for compiling them with a host
 // C++ compiler in the CPU tests (tests/test_torch_cuda_emu*.py): the f32
-// attention kernels and the NMS kernel.  One std::thread per CUDA thread,
-// the blocks of a grid one after another, a std::barrier per block for
-// __syncthreads and one per warp for __syncwarp and the shuffles (each
-// lane writes its value to a slot of the block, the warp meets, each lane
-// reads its source lane's slot, the warp meets again), shared memory as a
-// global array.
+// attention kernels and the NMS kernel.  One fiber (a ucontext with its
+// own stack, all on the calling OS thread) per CUDA thread, the blocks of
+// a grid one after another, a barrier per block for __syncthreads and one
+// per warp for __syncwarp and the shuffles (each lane writes its value to
+// a slot of the block, the warp meets, each lane reads its source lane's
+// slot, the warp meets again), shared memory as a global array.  A fiber
+// runs until it arrives at a barrier; the scheduler then runs the fibers
+// free to go in an order it shuffles at each pass (a fixed seed, so a run
+// repeats), so threads run ahead of one another as far as the barriers
+// let them, in changing orders: a missing barrier shows as a read of data
+// not yet written, or already overwritten.  A barrier that some threads never
+// reach (a hang on the card) aborts the process with a message.
 #pragma once
 #include <algorithm>
-#include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
 #include <deque>
-#include <thread>
+#include <functional>
 #include <vector>
 
 using std::max;
@@ -33,13 +38,34 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-extern thread_local dim3 threadIdx;
+// the running fiber's thread index, set by the scheduler at each switch
+extern dim3 threadIdx;
 extern dim3 blockIdx;
-extern std::barrier<>* emu_barrier;
+
+// A barrier of `expected` fibers: each arriving fiber gives the OS
+// thread back to the scheduler (emu_state.cpp), the last after opening
+// the next generation; the scheduler resumes a fiber only once the
+// generation it arrived in has passed.
+struct EmuBarrier {
+  int expected, arrived = 0;
+  unsigned gen = 0;
+  explicit EmuBarrier(int n) : expected(n) {}
+  void arrive_and_wait();
+};
+void emu_wait(EmuBarrier* b, unsigned gen);
+inline void EmuBarrier::arrive_and_wait() {
+  const unsigned g = gen;
+  if (++arrived == expected) {
+    arrived = 0;
+    ++gen;
+  }
+  emu_wait(this, g);
+}
+extern EmuBarrier* emu_barrier;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 
 // the warps' barriers and the shuffles' slots of the running block
-extern std::deque<std::barrier<>>* emu_warp_barriers;
+extern std::deque<EmuBarrier>* emu_warp_barriers;
 extern uint64_t emu_shfl_slots[1024];
 inline void __syncwarp(unsigned = 0xffffffffu) {
   (*emu_warp_barriers)[threadIdx.x / 32].arrive_and_wait();
@@ -80,10 +106,12 @@ inline unsigned __reduce_add_sync(unsigned, unsigned v) {
     s += __shfl_xor_sync(0xffffffffu, s, off);
   return s;
 }
-// the lanes of a warp are threads of their own: a shared-memory atomic
-// is a host atomic
+// the lanes of a warp are fibers of one OS thread: an atomic is a plain
+// read-modify-write between two switches
 inline unsigned atomicOr(unsigned* p, unsigned v) {
-  return __atomic_fetch_or(p, v, __ATOMIC_RELAXED);
+  const unsigned old = *p;
+  *p = old | v;
+  return old;
 }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
@@ -147,6 +175,10 @@ inline int cudaDeviceGetAttribute(int* v, int, int) {
 }
 inline const char* cudaGetErrorString(int) { return "emulated launch error"; }
 
+// runs `threads` fibers of emu_body to their end (emu_state.cpp)
+extern std::function<void()>* emu_body;
+void emu_run_block(int threads);
+
 // kernel<<<grid, threads, smem, stream>>>(args...) becomes
 // emu_launch(kernel, grid, threads, smem, stream, args...)
 template <class K, class... A>
@@ -156,22 +188,19 @@ void emu_launch(K kernel, dim3 grid, int threads, size_t smem, void*,
     emu_error = cudaErrorInvalidConfiguration;
     return;
   }
+  std::function<void()> body = [=]() { kernel(args...); };
+  emu_body = &body;
   for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       blockIdx = dim3(bx, by, bz);
-      std::barrier<> bar(threads);
+      EmuBarrier bar(threads);
       emu_barrier = &bar;
-      std::deque<std::barrier<>> warps;
+      std::deque<EmuBarrier> warps;
       for (int w = 0; w < threads; w += 32)
         warps.emplace_back(std::min(32, threads - w));
       emu_warp_barriers = &warps;
-      std::vector<std::thread> ts;
-      for (int t = 0; t < threads; ++t)
-        ts.emplace_back([=]() {
-          threadIdx = dim3(t);
-          kernel(args...);
-        });
-      for (auto& t : ts) t.join();
+      emu_run_block(threads);
     }
+  emu_body = nullptr;
 }

@@ -11,6 +11,7 @@
 #include <vector>
 
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 extern "C" int emu_defer;
 
@@ -28,8 +29,9 @@ struct Copy {
   const void* src;
   int bytes, size;
 };
-extern thread_local std::vector<Copy> open_group;
-extern thread_local std::deque<std::vector<Copy>> groups;
+// each CUDA thread's open group and committed groups (by threadIdx.x)
+extern std::vector<Copy> open_groups[1024];
+extern std::deque<std::vector<Copy>> groups_of[1024];
 
 inline void land(const Copy& c) {
   memset(c.dst, 0, c.size);
@@ -37,7 +39,7 @@ inline void land(const Copy& c) {
 }
 inline void start_copy(const Copy& c) {
   if (emu_defer)
-    open_group.push_back(c);
+    open_groups[threadIdx.x].push_back(c);
   else
     land(c);
 }
@@ -48,11 +50,12 @@ inline void cp_async4(void* dst, const void* src, bool ok) {
   start_copy({dst, src, ok ? 4 : 0, 4});
 }
 inline void cp_async_commit() {
-  groups.push_back(open_group);
-  open_group.clear();
+  groups_of[threadIdx.x].push_back(open_groups[threadIdx.x]);
+  open_groups[threadIdx.x].clear();
 }
 template <int N>
 inline void cp_async_wait() {
+  auto& groups = groups_of[threadIdx.x];
   while ((int)groups.size() > N) {
     for (const Copy& c : groups.front()) land(c);
     groups.pop_front();

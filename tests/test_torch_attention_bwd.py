@@ -28,6 +28,7 @@ from mxnet_tpu.ops import attention as jatt
 
 from mxnet_tpu_torch.ops import attention as tatt
 from mxnet_tpu_torch.ops import registry as treg
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 VJP_TOL = 1e-4

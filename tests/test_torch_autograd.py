@@ -26,6 +26,7 @@ import torch
 
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 RNG_SEED = 7
 

@@ -23,6 +23,7 @@ from mxnet_tpu.models.resnet import resnet as j_resnet
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.models.resnet import resnet as t_resnet
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 B, SHAPE = 2, (3, 28, 28)
 NET = dict(units=[1, 1, 1], num_stages=3, filter_list=[8, 8, 16, 32],

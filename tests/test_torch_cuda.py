@@ -13,6 +13,7 @@ import torch
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops import attention as att
 from mxnet_tpu_torch.serving import BucketedPredictor
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 pytestmark = pytest.mark.cuda
 

@@ -2,9 +2,9 @@
 and K3) run on the CPU under an emulation of the CUDA runtime.
 
 The host C++ compiler builds the CUDA source against the headers in
-``tests/cuda_emu/`` (``cuda_emu/build.py``): one ``std::thread`` per
-CUDA thread, the blocks of a
-grid one after another, a ``std::barrier`` per block for
+``tests/cuda_emu/`` (``cuda_emu/build.py``): one fiber per CUDA thread
+(all on one OS thread, run in shuffled orders between barriers), the
+blocks of a grid one after another, a barrier per block for
 ``__syncthreads``, shared memory as a global array.  ``cp.async`` copies
 either land at once (``emu_defer`` 0: a copy started before the
 tile's last readers are done shows) or are held in their commit group
@@ -29,6 +29,7 @@ import torch
 
 from cuda_emu.build import build
 from mxnet_tpu_torch.ops import attention as att
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 TOL = 1e-5
 

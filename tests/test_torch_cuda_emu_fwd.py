@@ -1,7 +1,7 @@
 """The float32 flash-attention forward kernel (``csrc/flash_fwd.cu``
 ``flash_fwd_kernel``, K1's f32 instance) run on the CPU under the
-emulation of the CUDA runtime in ``tests/cuda_emu/`` (one
-``std::thread`` per CUDA thread, barriers for ``__syncthreads``,
+emulation of the CUDA runtime in ``tests/cuda_emu/`` (one fiber per
+CUDA thread, barriers for ``__syncthreads``,
 ``__syncwarp`` and the warp shuffles, ``cp.async`` copies landing when
 they start or only at the wait that must cover them).
 
@@ -26,6 +26,7 @@ import torch
 
 from cuda_emu.build import build
 from mxnet_tpu_torch.ops import attention as att
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 TOL = 1e-5
 

@@ -22,6 +22,7 @@ import torch
 
 from cuda_emu.build import build
 from mxnet_tpu_torch.ops import detection
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 # images, boxes K, ks, ke, dtype, rule, thresh, classes, invalid share
 CASES = {

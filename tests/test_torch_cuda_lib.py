@@ -14,6 +14,7 @@ import torch
 
 from mxnet_tpu_torch import MXNetError, cuda_lib
 from mxnet_tpu_torch.ops import attention as att
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 
 @pytest.fixture

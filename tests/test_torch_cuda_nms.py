@@ -10,6 +10,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mt
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 pytestmark = pytest.mark.cuda
 

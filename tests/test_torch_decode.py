@@ -36,6 +36,7 @@ from mxnet_tpu.ops import registry as jreg
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops import registry as treg
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 OP_TOL = dict(rtol=1e-5, atol=1e-6)
 
@@ -407,5 +408,16 @@ def test_beam_search_refuses_a_module_of_another_batch():
 
 
 def test_moe_decode_step_raises():
-    with pytest.raises(mt.MXNetError, match="moe_experts"):
-        mt.models.transformer_decode_step(10, 4, 2, moe_experts=4)
+    """The MoE decode step raised until the MoE op was ported (C1.b.2);
+    now it builds with the JAX decode step's argument names and shapes,
+    and only an unknown option still raises
+    (``tests/test_torch_moe.py`` holds its values against the JAX
+    package)."""
+    kw = dict(num_layers=1, d_model=16, num_heads=2, moe_experts=4,
+              moe_k=2)
+    dec = mt.models.transformer_decode_step(10, 4, 2, **kw)
+    jdec = jmodels.transformer_decode_step(10, 4, 2, **kw)
+    assert dec.list_arguments() == jdec.list_arguments()
+    assert "layer0_expert_w1_weight" in dec.list_arguments()
+    with pytest.raises(ValueError, match="swiglu"):
+        mt.models.transformer_decode_step(10, 4, 2, ffn_type="swiglu", **kw)

@@ -12,6 +12,7 @@ import torch
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.serving import BucketedPredictor
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

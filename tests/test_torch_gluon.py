@@ -26,6 +26,7 @@ import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import gluon, autograd, nd
 from mxnet_tpu_torch.gluon import nn
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 CPU = mt.cpu()
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -201,8 +202,9 @@ def test_trainer_convergence():
 
 
 def test_losses_against_jax():
-    """Every loss but CTCLoss (which raises, ROADMAP C1.b) on the same
-    inputs in both packages, with and without sample_weight."""
+    """Every loss on the same inputs in both packages, with and without
+    sample_weight; CTCLoss (ported in C1.b.2) with its lengths too
+    (``tests/test_torch_ctc.py`` holds its gradient)."""
     rng = np.random.RandomState(9)
     p = rng.randn(4, 5).astype('f')
     lab = rng.randn(4, 5).astype('f')
@@ -233,8 +235,14 @@ def test_losses_against_jax():
         t = getattr(gluon.loss, name)(**kw)(
             *[nd.array(x) for x in arrays]).asnumpy()
         np.testing.assert_allclose(t, j, err_msg=name, **TOL)
-    with pytest.raises(mt.MXNetError, match="C1.b"):
-        gluon.loss.CTCLoss()
+    pred = rng.randn(4, 6, 5).astype('f')               # NTC, blank 0
+    ctc_lab = np.array([[1, 2, 0], [3, 3, 4], [2, 0, 0], [4, 1, 2]], 'f')
+    lens = np.array([6, 5, 4, 6], 'f')
+    j = mx.gluon.loss.CTCLoss()(mx.nd.array(pred), mx.nd.array(ctc_lab),
+                                mx.nd.array(lens)).asnumpy()
+    t = gluon.loss.CTCLoss()(nd.array(pred), nd.array(ctc_lab),
+                             nd.array(lens)).asnumpy()
+    np.testing.assert_allclose(t, j, err_msg="CTCLoss", **TOL)
 
 
 def test_loss_hybridized_equals_imperative():

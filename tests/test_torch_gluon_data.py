@@ -18,6 +18,7 @@ import pytest
 
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 
 @pytest.fixture(autouse=True)

@@ -42,6 +42,7 @@ import torch
 
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 NETS = ("resnet18_v1", "resnet50_v1", "resnet50_v2")
 B, IMAGE, CLASSES = 2, (3, 64, 64), 10

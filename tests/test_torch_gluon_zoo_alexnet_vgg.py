@@ -22,6 +22,7 @@ import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 
 from torch_gluon_zoo import check_against_jax
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 CLASSES = 10
 INFER_RTOL = TRAIN_RTOL = 1e-5

@@ -16,6 +16,7 @@ import pytest
 import mxnet_tpu_torch as mt
 
 from torch_gluon_zoo import check_against_jax, check_logits
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 
 @pytest.fixture(autouse=True)

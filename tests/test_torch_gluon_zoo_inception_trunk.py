@@ -18,6 +18,7 @@ from mxnet_tpu.gluon.model_zoo.vision import inception as jinception
 from mxnet_tpu_torch.gluon.model_zoo.vision import inception as tinception
 
 from torch_gluon_zoo import check_against_jax
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 BLOCKS = (("_make_A", (32, "A1_")), ("_make_B", ("B_",)),
           ("_make_C", (128, "C1_")), ("_make_D", ("D_",)),

@@ -17,6 +17,7 @@ import pytest
 import mxnet_tpu_torch as mt
 
 from torch_gluon_zoo import check_against_jax
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 
 @pytest.fixture(autouse=True)

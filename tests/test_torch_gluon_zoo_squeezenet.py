@@ -21,6 +21,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.gluon.model_zoo import vision
 
 from torch_gluon_zoo import check_against_jax, check_logits
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 CLASSES = 10
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",

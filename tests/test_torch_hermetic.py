@@ -6,6 +6,7 @@ import json
 import os
 import subprocess
 import sys
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "mxnet_tpu")

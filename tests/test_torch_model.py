@@ -23,6 +23,7 @@ from mxnet_tpu.executor import build_interpreter as jbuild
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.executor import build_interpreter as tbuild
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 V, S, B = 50, 16, 3
 KW = dict(num_layers=2, d_model=32, num_heads=4, num_kv_heads=2)

@@ -32,6 +32,7 @@ import mxnet_tpu as mx
 from mxnet_tpu import models as jmodels
 
 import mxnet_tpu_torch as mt
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 V, S, B = 50, 16, 3
 KW = dict(num_layers=2, d_model=32, num_heads=4, num_kv_heads=2)

@@ -30,6 +30,7 @@ import mxnet_tpu.ops  # noqa: F401  registers the JAX ops
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops import registry as treg
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CPU = mt.cpu()

@@ -26,6 +26,7 @@ from mxnet_tpu.ops import registry as jreg
 
 import mxnet_tpu_torch  # noqa: F401
 from mxnet_tpu_torch.ops import registry as treg
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 J, T = jreg._OP_REGISTRY, treg._OP_REGISTRY
 NAMES = sorted(n for n in set(J) & set(T)

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import mxnet_tpu as mx
 
 import mxnet_tpu_torch as mt
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 NAMES = ("fc_weight", "fc_bias")

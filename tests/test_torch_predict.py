@@ -22,6 +22,7 @@ import torch
 import mxnet_tpu as mx
 
 import mxnet_tpu_torch as mt
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 N, B, D_IN, HID, CLS = 50, 20, 6, 8, 3
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -31,6 +31,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.executor import build_interpreter as tbuild
 from mxnet_tpu_torch.models.resnet import (resnet as t_resnet,
                                            space_to_depth_stem_weight)
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 FWD_TOL = 1e-5
 GRAD_RTOL = 1e-4

@@ -23,6 +23,7 @@ import mxnet_tpu.ops  # noqa: F401  registers the JAX ops
 
 from mxnet_tpu_torch.ops import registry as treg
 from mxnet_tpu_torch.executor import AMP_SPLIT_OPS
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

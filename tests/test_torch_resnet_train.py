@@ -34,6 +34,7 @@ from mxnet_tpu.models.resnet import resnet as j_resnet
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.models.resnet import resnet as t_resnet
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "golden", "resnet20_loss_curve.json")

@@ -42,6 +42,7 @@ from mxnet_tpu.ops import registry as jreg
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops import registry as treg
 from mxnet_tpu_torch.ops import rnn as trnn
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 CPU = mt.cpu()
 FWD = dict(rtol=1e-5, atol=1e-5)
@@ -221,8 +222,14 @@ def test_sequence_ops_no_phantom_length_arg():
 
 
 def test_ctc_loss_raises_naming_its_item():
-    with pytest.raises(mt.MXNetError, match="C1.b"):
-        treg.get("CTCLoss").fn(torch.zeros(2, 1, 3), torch.zeros(1, 1))
+    """CTCLoss raised until it was ported (C1.b.2); now uniform
+    activations over 3 classes (blank 0) and the label [1] over 2 steps
+    give -log of the 3 alignments' probability (1, b1, 1b, each 1/9), as
+    the JAX op gives (``tests/test_torch_ctc.py`` holds the rest)."""
+    got = treg.get("CTCLoss").fn(torch.zeros(2, 1, 3), torch.ones(1, 1))
+    want = mx.nd.CTCLoss(mx.nd.zeros((2, 1, 3)), mx.nd.ones((1, 1)))
+    np.testing.assert_allclose(got.numpy(), -np.log([3 / 9]), rtol=1e-6)
+    np.testing.assert_allclose(got.numpy(), want.asnumpy(), rtol=1e-6)
 
 
 # --------------------------------------------------------------------------

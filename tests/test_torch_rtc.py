@@ -19,6 +19,7 @@ import torch
 import mxnet_tpu as mx
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import rtc
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 CPU = mt.cpu()
 

@@ -26,6 +26,7 @@ import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import profiler as tprof
 from mxnet_tpu_torch.serving import (BucketedPredictor, BusyError,
                                      DynamicBatcher, parse_buckets)
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 V, S = 50, 16
 KW = dict(num_layers=2, d_model=32, num_heads=4, num_kv_heads=2)

@@ -28,6 +28,7 @@ from mxnet_tpu.ops import registry as jreg
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.ops import registry as treg
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -33,6 +33,7 @@ from mxnet_tpu.executor import build_interpreter as jbuild
 
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.executor import build_interpreter as tbuild
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 VAL = dict(rtol=1e-5, atol=1e-5)
 RTOL = 1e-4

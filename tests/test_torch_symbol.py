@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch import symbol as tsym
 from mxnet_tpu_torch.executor import build_interpreter as tbuild
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 V, S = 50, 16
 VARIANTS = {
@@ -124,7 +125,18 @@ def test_infer_shape_errors():
 
 
 def test_unported_model_options_raise_with_roadmap_item():
-    with pytest.raises(mt.MXNetError, match="ROADMAP"):
-        mt.models.transformer_lm(V, S, moe_experts=4)
-    with pytest.raises(mt.MXNetError, match="ROADMAP"):
-        mt.models.transformer_lm(V, S, loss_type="chunked_ce")
+    """The MoE FFN and the chunked CE head raised until C1.b.2 ported
+    them; now both build with the JAX graph's arguments and outputs
+    (``tests/test_torch_moe.py`` and ``test_torch_chunked_loss.py`` hold
+    their values), and only options neither package knows raise."""
+    for kw in (dict(moe_experts=4, moe_k=2), dict(loss_type="chunked_ce")):
+        net = mt.models.transformer_lm(V, S, num_layers=1, d_model=32,
+                                       num_heads=4, **kw)
+        jnet = jmodels.transformer_lm(V, S, num_layers=1, d_model=32,
+                                      num_heads=4, **kw)
+        assert net.list_arguments() == jnet.list_arguments()
+        assert net.list_outputs() == jnet.list_outputs()
+    with pytest.raises(ValueError, match="loss_type"):
+        mt.models.transformer_lm(V, S, loss_type="hinge")
+    with pytest.raises(ValueError, match="ce_chunks"):
+        mt.models.transformer_lm(V, S, loss_type="chunked_ce", ce_chunks=0)

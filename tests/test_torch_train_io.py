@@ -15,6 +15,7 @@ import torch
 import mxnet_tpu as mx
 
 import mxnet_tpu_torch as mt
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 
 def _iter_batches(pkg, data, label, **kw):

@@ -46,6 +46,7 @@ from mxnet_tpu.ops import registry as jreg
 import mxnet_tpu_torch as mt
 from mxnet_tpu_torch.executor import build_interpreter as tbuild
 from mxnet_tpu_torch.ops import registry as treg
+import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
 OP_TOL = dict(rtol=1e-5, atol=1e-6)
 FWD_TOL = 1e-5

@@ -109,6 +109,16 @@ Parts (all by default; each prints JSON lines):
     after the epochs) and one step with one CPU thread against all of
     them (two fp32 reduction orders, as the card and the CPU are).
 
+* ``c1b2`` (a few minutes on 8 cores): the numbers behind the MoE LM
+  and ops_c1b2 phases (``part_c1b2``): the moe_lm_train loop at 2
+  layers and batch 1 in fp32, the MoE fp32 step against float64, the
+  MoE decode step against the LM, the linalg and CTC cases in fp32
+  against float64, and the custom_softmax example's accuracy.
+
+* ``moe_bf16`` (seconds): the JAX package's bf16 MoE routing fault at
+  GPT-2 small's token count (``part_moe_bf16``), beside the port's
+  routing of the same logits.
+
 It imports both packages, as the tests do.
 """
 import json
@@ -769,10 +779,137 @@ def part_zoo_data():
     return out
 
 
+def _moe_float64_step(params, x, y):
+    """moe_fp32_step's step in float64 through the executor: the loss,
+    the new parameters (SGD at batch 1: -lr x the gradient) and the
+    experts each token was routed to."""
+    from mxnet_tpu_torch.ops import moe
+    cfg = dict(cs.MOE, num_layers=cs.MOE_FP32_LAYERS)
+    sym = mt.models.transformer_lm(**cfg)
+    args = {n: mt.nd.NDArray(torch.from_numpy(v.astype(np.float64)))
+            for n, v in params.items()}
+    args["data"] = mt.nd.NDArray(torch.from_numpy(x))
+    args["softmax_label"] = mt.nd.NDArray(torch.from_numpy(y))
+    req = {n: ("write" if n in params else "null") for n in args}
+    ex = mt.executor.Executor(sym, mt.cpu(), args=args, grad_req=req)
+    with moe.collect_routing() as st:
+        loss = float(ex.forward(is_train=True)[0].asnumpy())
+        ex.backward()
+    new = {n: params[n] - cs.MOE_FP32_LR * ex.grad_dict[n].asnumpy()
+           for n in params}
+    return loss, new, [e.numpy() for e in st["experts"]], 0.0
+
+
+def part_c1b2():
+    """The numbers behind chip_smoke.py's moe_lm_train margin, the
+    moe_fp32 and decode-vs-LM budgets and the ops_c1b2 budgets and
+    margin, with its own helpers, on the CPU before the first card run:
+
+    - ``moe_train``: the phase's loop (Adam lr 3e-4, Xavier gaussian
+      magnitude 2, MOE_WARMUP + MOE_STEPS steps on lm_batch's rule) in
+      fp32 at 2 layers and batch 1 (the card's 12 layers and batch 8 cut
+      for the CPU): every loss and the drop;
+    - ``moe_fp32_vs_float64``: moe_fp32_card_vs_cpu's step (2 layers,
+      batch 1, the same seeded weights) in fp32 against float64;
+    - ``moe_decode_vs_lm``: the phase's decode step against the
+      teacher-forced LM (batch 32, 16 positions, 12 layers, GPT-2's
+      initialisation): drops and the largest log-prob difference;
+    - ``linalg_fp32_vs_float64``, ``ctc_fp32_vs_float64``: ops_c1b2's
+      cases in fp32 against float64, relative to the largest value;
+    - ``custom``: the custom_softmax example's accuracy before and after
+      its epochs."""
+    ctx = mt.cpu()
+    out = {}
+    cfg = dict(cs.MOE, num_layers=2)
+    S, V = cfg["seq_len"], cfg["vocab_size"]
+    x, y = cs.lm_batch(np.random.default_rng(cs.SEED + 70), 1, S, V)
+    mod = cs.moe_module(mt, ctx, cfg, 1)
+    mt.random.seed(cs.SEED)
+    mod.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                          magnitude=2.0))
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": cs.MOE_LR})
+    batch = mt.io.DataBatch([mt.nd.array(x, ctx=ctx)],
+                            [mt.nd.array(y, ctx=ctx)])
+    losses = []
+    for _ in range(cs.MOE_WARMUP + cs.MOE_STEPS):
+        cs.train_step(mod, batch)
+        losses.append(float(mod.get_outputs()[0].asnumpy()))
+    out["moe_train"] = dict(layers=2, batch=1, losses=losses,
+                            drop=losses[0] - losses[-1])
+    print(json.dumps(out["moe_train"]), flush=True)
+    del mod
+
+    params = cs.gpt2_params(mt.models.transformer_lm(**cfg), cs.SEED + 72)
+    x, y = cs.lm_batch(np.random.default_rng(cs.SEED + 73), 1, S, V)
+    f32 = cs.moe_fp32_step(mt, ctx, params, x, y)
+    f64 = _moe_float64_step(params, x, y)
+    out["moe_fp32_vs_float64"] = dict(
+        loss32=f32[0], loss64=f64[0], **cs.moe_fp32_compare(f32, f64,
+                                                            params))
+    print(json.dumps(out["moe_fp32_vs_float64"]), flush=True)
+
+    out["moe_decode_vs_lm"] = cs.moe_decode_vs_lm(mt, ctx)
+    print(json.dumps(out["moe_decode_vs_lm"]), flush=True)
+
+    worst = {}
+    for i, (name, arrays, attrs) in enumerate(cs.linalg_cases(
+            np.random.default_rng(cs.SEED + 81))):
+        o32, g32 = cs.linalg_run(torch, mt, name, arrays, attrs, "cpu", i)
+        o64, g64 = cs.linalg_run(torch, mt, name,
+                                 [a.astype(np.float64) for a in arrays],
+                                 attrs, "cpu", i)
+        worst[name] = dict(
+            out=max(cs.rel_diff(a, b) for a, b in zip(o32, o64)),
+            grad=max(cs.rel_diff(a, b) for a, b in zip(g32, g64)))
+    out["linalg_fp32_vs_float64"] = worst
+    print(json.dumps(worst), flush=True)
+
+    x, lab = cs.ctc_inputs(np.random.default_rng(cs.SEED + 84))
+    l32, g32 = cs.ctc_run(torch, mt, x, lab, "cpu")
+    l64, g64 = cs.ctc_run(torch, mt, x.astype(np.float64), lab, "cpu")
+    out["ctc_fp32_vs_float64"] = dict(loss=cs.rel_diff(l32, l64),
+                                      grad=cs.rel_diff(g32, g64))
+    print(json.dumps(out["ctc_fp32_vs_float64"]), flush=True)
+
+    before, after, secs = cs.custom_softmax_run(mt, ctx,
+                                                cs.OPS_CUSTOM_EPOCHS)
+    out["custom"] = dict(before=before, after=after, gain=after - before,
+                         seconds=secs)
+    return out
+
+
+def part_moe_bf16():
+    """The JAX package's bf16 MoE routing fault (ROADMAP §3): its
+    ``_top_k_gating`` on seeded normal logits at T 8192 (GPT-2 small's
+    batch 8 x 1024), E 8, k 1, capacity 2048, in float32 and bfloat16:
+    the capacity slots holding a token and the most tokens in one slot;
+    and the port's ``top_k_route`` on the same logits."""
+    from mxnet_tpu.ops import moe as jmoe
+    from mxnet_tpu_torch.ops import moe as tmoe
+    T, E, C = 8192, 8, 2048
+    logits = np.random.default_rng(0).standard_normal((T, E)).astype(
+        np.float32)
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        dispatch, _ = jmoe._top_k_gating(jnp.asarray(logits,
+                                                     getattr(jnp, dt)), 1, C)
+        per_slot = np.asarray(dispatch, np.float32).sum(axis=0)
+        experts, slots, keep, _ = tmoe.top_k_route(
+            torch.tensor(logits).to(getattr(torch, dt)), 1, C)
+        flat = (experts * C + slots)[keep]
+        out[dt] = dict(jax_slots_used=int((per_slot > 0).sum()),
+                       jax_most_tokens_in_a_slot=int(per_slot.max()),
+                       port_slots_used=int(flat.unique().numel()),
+                       port_tokens_kept=int(keep.sum()))
+    return out
+
+
 PARTS = {"resnet": part_resnet, "deep_bn": part_deep_bn, "gluon": part_gluon,
          "decode_vs_lm": part_decode_vs_lm, "beam": part_beam,
          "vit": part_vit, "zoo": part_zoo, "rnn": part_rnn, "ssd": part_ssd,
-         "zoo_data": part_zoo_data}
+         "zoo_data": part_zoo_data, "c1b2": part_c1b2,
+         "moe_bf16": part_moe_bf16}
 
 if __name__ == "__main__":
     for part in sys.argv[1:] or list(PARTS):
