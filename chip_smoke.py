@@ -52,7 +52,14 @@ every layer, top-2 gating, the chunked cross-entropy head) trains
 through ``Module`` in bf16, its decode step is held against the
 teacher-forced LM and one float32 step against the CPU, and the other
 op families of that slice (linalg, sampling, the optimizer update ops,
-CTC, a Custom op) run once each at a user's shape.  Every phase
+CTC, a Custom op) run once each at a user's shape.  Last, the front
+end: ResNet-50 trains at full width with LARS through ``Module.fit`` fed
+by a ``PrefetchingIter`` that copies each batch to the card on a side
+stream (no host sync inside ``Module.update``), is reshaped to batch 64
+and scored, and its checkpoint is fine-tuned with the trunk fixed; then
+every optimizer runs on ResNet-50's parameter shapes on the card and on
+the CPU, and the new metrics, initializers, file iterators,
+``FeedForward`` and ``SequentialModule`` are checked.  Every phase
 prints one JSON line;
 any failed phase exits non-zero.  The line before the last lists the
 kernels with their launches on each path, times and bounds; the last
@@ -1478,24 +1485,32 @@ def phase_resnet_train(torch, mt, peak_flops):
     return mod, batches, med
 
 
-def phase_resnet_profile(torch, mod, batches, median_ms):
-    """One more ResNet-50 step under torch.profiler: the card's busy time,
-    its idle share of the profiled step and of the median step, and the
-    largest kernels."""
+def profiled_step(torch, mod, batch):
+    """One more training step (forward and update) under
+    torch.profiler: (the step's ms, the card's busy ms, its kernels as
+    ``device_kernels`` gives them).  Raises when the card shows no
+    time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.monotonic()
-        mod.forward(batches[0], is_train=True)
+        mod.forward(batch, is_train=True)
         mod.update()
         torch.cuda.synchronize()
-        prof_step_ms = (time.monotonic() - t) * 1e3
+        step_ms = (time.monotonic() - t) * 1e3
     kernels = device_kernels(prof)
     busy = sum(k[0] for k in kernels)
     if busy <= 0:
-        raise RuntimeError("resnet_profile: the profile shows no device "
-                           "time for a training step")
+        raise RuntimeError("profile: no device time for a training step")
+    return step_ms, busy, kernels
+
+
+def phase_resnet_profile(torch, mod, batches, median_ms):
+    """One more ResNet-50 step under torch.profiler: the card's busy time,
+    its idle share of the profiled step and of the median step, and the
+    largest kernels."""
+    prof_step_ms, busy, kernels = profiled_step(torch, mod, batches[0])
     emit("resnet_profile", step_ms=prof_step_ms, device_busy_ms=busy,
          device_idle_share_of_step=max(0.0, 1 - busy / prof_step_ms),
          device_idle_share_of_median_step=max(0.0, 1 - busy / median_ms),
@@ -5575,6 +5590,847 @@ def phase_ops_c1b2(torch, mt):
         raise RuntimeError("ops_c1b2: " + "; ".join(fails))
 
 
+# ---------------------------------------------------------------------------
+# C8: the front end (every optimizer, metric, initializer and iterator,
+# fixed parameters and reshape in Module, SequentialModule, FeedForward)
+# ---------------------------------------------------------------------------
+# bench.py:367's BENCH_OPT=lars recipe (its lr, momentum and wd; LARS's
+# own eta)
+LARS_OPT = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+            "eta": 0.001}
+LARS_HOST_BATCHES = 4          # seeded host batches, cycled by ResizeIter
+LARS_STEPS = 16                # the fit's batches (one epoch)
+LARS_WARMUP = 4                # left out of the step statistics
+LARS_EVAL_BATCH = 64
+# the loss drop (mean of the first 4 steps' losses minus the last 4's),
+# from tests/torch_numerics.py c8 (see PERF.md §6)
+LARS_MARGIN = 0.05
+# the batch-64 eval against the batch-256 rows (max abs difference over
+# the largest probability): the CPU, one algorithm for both batches,
+# reads 1.4e-5 (tests/torch_numerics.py c8); the card, whose cuDNN takes
+# another bf16 convolution algorithm at each batch, read 0.0116 in the
+# first whole run of this phase (PERF.md §6, f2); the budget is 2.6 times
+# that, and the rows of the next images (the control) must lie beyond it.
+# The argmax is printed, not held: a near-tie of the barely trained head
+# moved in one row of 64 at a 0.014 difference (f3), and whatever the
+# argmax can catch the budget catches, as a flip needs a top-two gap
+# within twice the difference
+LARS_EVAL_RTOL = 0.03
+# examples/image_classification/fine_tune.py's recipe at the north
+# star's width: a 100-class head on the last flatten, SGD lr 0.01
+# momentum 0.9, Xavier gaussian "in" magnitude 2 for the head
+FT_CLASSES = 100
+FT_OPT = {"learning_rate": 0.01, "momentum": 0.9}
+FT_STEPS = 16
+FT_WARMUP = 4
+FT_MARGIN = 0.05
+# every optimizer name of the JAX package's registry, with the
+# hyperparameters of its update
+FE_OPTIMIZERS = {
+    "sgd": {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+    "ccsgd": {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+    "nag": {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+    "sgld": {"learning_rate": 1e-4, "wd": 1e-4},
+    "dcasgd": {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4},
+    "adam": {"learning_rate": 1e-3, "wd": 1e-4},
+    "adagrad": {"learning_rate": 0.01, "wd": 1e-4},
+    "rmsprop": {"learning_rate": 1e-3, "centered": True, "wd": 1e-4},
+    "adadelta": {"wd": 1e-4},
+    "ftrl": {"learning_rate": 0.1},
+    "adamax": {"learning_rate": 2e-3, "wd": 1e-4},
+    "nadam": {"learning_rate": 1e-3, "wd": 1e-4},
+    "signum": {"learning_rate": 1e-3, "wd_lh": 1e-4},
+    "lars": dict(LARS_OPT),
+    "lamb": {"learning_rate": 1e-3, "wd": 1e-4},
+    "test": {},
+}
+FE_STEPS = 3
+FE_TIMED = 5
+# card against CPU, per array: ||card - cpu|| / ||cpu - w0||, at most
+# FE_BUDGET_FACTOR times the worst fp32-against-float64 distance of the
+# same update on the CPU (tests/torch_numerics.py c8 prints it), and at
+# least FE_BUDGET_FLOOR
+FE_BUDGET_FACTOR = 4.0
+FE_BUDGET_FLOOR = 1e-6
+# (fp32, bf16 multi-precision) worst distance against float64 per
+# optimizer: tests/torch_numerics.py c8's optimizer_budgets
+FE_REHEARSED = {
+    "sgd": (1.2e-06, 1.9e-06),
+    "ccsgd": (1.2e-06, 1.9e-06),
+    "nag": (5.9e-07, 7.5e-07),
+    "dcasgd": (8.8e-07, 1.8e-06),
+    "adam": (1.9e-06, 3.1e-06),
+    "adagrad": (3.0e-07, 2.3e-07),
+    "rmsprop": (2.7e-07, 3.1e-07),
+    "adadelta": (4.3e-07, 5.3e-07),
+    "ftrl": (3.4e-09, 2.8e-09),
+    "adamax": (9.8e-07, 9.2e-07),
+    "nadam": (3.2e-06, 2.7e-06),
+    "signum": (2.6e-06, 2.7e-02),
+    "lars": (1.3e-04, 1.4e-04),
+    "lamb": (1.2e-04, 8.9e-05),
+    "test": (6.9e-07, 1.4e-08),
+}
+# an update that is lr times a sign: one rounding of the momentum
+# across zero flips a whole step, so no distance from float64 bounds
+# it (signum's bf16 multi-precision row above is such flips).  Card
+# and CPU run the same elementwise fp32 ops on the same inputs and
+# agree bit for bit (PERF.md §6, PR 14), so these are held to the floor
+FE_SIGN_UPDATES = ("signum",)
+FE_METRIC_RTOL = 1e-6
+FE_ORTHO_TOL = 1e-5
+FE_SEQ_RTOL = 1e-5
+MNIST_SHAPE = (60000, 28, 28)
+
+
+def host_batches(batch, image_shape, classes, n, seed):
+    """``n`` batches of seeded host data in one pair of arrays: images
+    uniform in [-1, 1), float32 labels in [0, classes)."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((n * batch,) + tuple(image_shape), dtype=np.float32)
+    x = x * 2 - 1
+    y = rng.integers(0, classes, n * batch).astype(np.float32)
+    return x, y
+
+
+def prefetch_feed(mt, ctx, x, y, batch, steps):
+    """``steps`` batches of the host arrays, cycled, staged in pinned
+    memory and copied to ``ctx`` on a side stream by a worker thread."""
+    base = mt.io.NDArrayIter(x, y, batch_size=batch)
+    return mt.io.PrefetchingIter(mt.io.ResizeIter(base, steps),
+                                 device_put=True, device=ctx)
+
+
+class StepClock:
+    """A batch-end callback: the ms between batch ends, each ended by
+    ``sync`` (the consumer's stream only, so the prefetch copy of the
+    next batch is not waited for), and each batch's mean cross-entropy
+    from the module's softmax output."""
+
+    def __init__(self, sync):
+        self.sync, self.t, self.ms, self.losses = sync, None, [], []
+
+    def __call__(self, param):
+        self.sync()
+        now = time.monotonic()
+        if self.t is not None:
+            self.ms.append((now - self.t) * 1e3)
+        self.t = now
+        mod, batch = param.locals["self"], param.locals["data_batch"]
+        prob = mod.get_outputs()[0]._data.float()
+        lab = batch.label[0]._data.to(prob.device).long()
+        self.losses.append(float(-prob.gather(1, lab[:, None])
+                                 .clamp_min(1e-12).log().mean()))
+
+
+def prefetch_waits(feed):
+    """The consumer's waits for the prefetch worker: the first (which
+    includes staging and copying the first batch) and the rest's median
+    and largest, in ms."""
+    w = feed.waits_ms
+    rest = w[1:] or [0.0]
+    return dict(prefetch_first_wait_ms=w[0] if w else None,
+                prefetch_wait_ms_median=float(np.median(rest)),
+                prefetch_wait_ms_max=float(max(rest)),
+                prefetch_waits=len(w))
+
+
+def step_stats(ms, warmup):
+    timed = ms[max(0, warmup - 1):]
+    return dict(median_step_ms=float(np.median(timed)),
+                min_step_ms=float(min(timed)), max_step_ms=float(max(timed)),
+                steps_timed=len(timed))
+
+
+def no_sync_update(torch, mod):
+    """Run ``mod.update`` under ``set_sync_debug_mode("error")``: a
+    wait of the host for the card inside the update raises."""
+    real = mod.update
+
+    def update():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            real()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    mod.update = update
+
+
+def lars_fit(mt, ctx, batch, image_shape, steps, sync, update_hook):
+    """bench.py's ResNet-50 v2 (bf16 over fp32 masters) trained by
+    ``Module.fit`` with LARS over a PrefetchingIter(ResizeIter(
+    NDArrayIter)) of seeded host batches, a TopKAccuracy(5) +
+    CrossEntropy metric and a ProgressBar; ``update_hook(module)`` runs
+    before the fit (the card wraps ``update`` in the sync debug mode,
+    the CPU rehearsal leaves it); returns (module, clock, feed, host x,
+    host y)."""
+    sym = mt.models.get_symbol("resnet", **dict(
+        RESNET, image_shape=",".join(str(d) for d in image_shape)))
+    x, y = host_batches(batch, image_shape, 1000, LARS_HOST_BATCHES,
+                        SEED + 90)
+    feed = prefetch_feed(mt, ctx, x, y, batch, steps)
+    mod = mt.mod.Module(sym, context=ctx, compute_dtype="bfloat16")
+    update_hook(mod)
+    clock = StepClock(sync)
+    metric = mt.metric.CompositeEvalMetric(
+        [mt.metric.TopKAccuracy(5), mt.metric.CrossEntropy()])
+    mt.random.seed(SEED + 91)
+    mod.fit(feed, eval_metric=metric,
+            batch_end_callback=[mt.callback.ProgressBar(steps), clock],
+            optimizer="lars", optimizer_params=LARS_OPT,
+            initializer=mt.initializer.Xavier(rnd_type="gaussian",
+                                              magnitude=2.0),
+            num_epoch=1)
+    return mod, clock, feed, x, y, metric
+
+
+def eval_rows(mt, mod, x, n):
+    """The softmax output of an inference forward over the first ``n``
+    host rows (the module's bound batch must be ``n``)."""
+    ctx = mod._context
+    mod.forward(mt.io.DataBatch([mt.nd.array(x[:n], ctx=ctx)], None),
+                is_train=False)
+    return mod.get_outputs()[0]._data.float().clone()
+
+
+def lars_reshape_checks(torch, mt, mod, x, y, batch, eval_batch):
+    """Module.reshape to ``eval_batch``, score a validation iterator
+    there, hold the eval outputs against the bound batch's first rows,
+    check the parameters' storage and reshape back; one more update
+    must continue the momentum (fc1_bias: ``mom' = 0.9 mom - lr g``)."""
+    shape = tuple(x.shape[1:])
+    rows = eval_rows(mt, mod, x, batch)
+    full = rows[:eval_batch]
+    params = mod.get_params()[0]
+    ptrs = {n: a._data.data_ptr() for n, a in params.items()}
+    states = {n: tuple(s for s in st) for n, st in
+              mod._updater.states.items()}
+    mod.reshape([("data", (eval_batch,) + shape)],
+                [("softmax_label", (eval_batch,))])
+    small = eval_rows(mt, mod, x, eval_batch)
+    rel = float((small - full).abs().max() / full.abs().max())
+    pick, top = small.argmax(1), full.argmax(1)
+    agree = float((pick == top).float().mean())
+    # where the argmax moved: the batch-256 row's gap between its top
+    # class and the one batch 64 picked, over the largest probability
+    # (a near-tie of a barely trained 1000-class head)
+    flips = (pick != top).nonzero().flatten()
+    gaps = ((full[flips, top[flips]] - full[flips, pick[flips]])
+            / full.abs().max()).tolist()
+    # the control: the same distance to the rows of the next images,
+    # which a reshape that fed the wrong rows would give
+    shifted = rows[1:eval_batch + 1]
+    control = float((small - shifted).abs().max() / shifted.abs().max())
+    control_agree = float((pick == shifted.argmax(1)).float().mean())
+    del rows
+    val = mt.io.NDArrayIter(x[:batch], y[:batch], batch_size=eval_batch)
+    score = dict(mod.score(val, mt.metric.CompositeEvalMetric(
+        [mt.metric.TopKAccuracy(5), mt.metric.CrossEntropy()]),
+        score_end_callback=mt.callback.LogValidationMetricsCallback()))
+    after = mod.get_params()[0]
+    same_storage = all(after[n] is params[n]
+                       and after[n]._data.data_ptr() == p
+                       for n, p in ptrs.items())
+    same_states = all(mod._updater.states[n][i] is s
+                      for n, st in states.items() for i, s in enumerate(st))
+    mod.reshape([("data", (batch,) + shape)],
+                [("softmax_label", (batch,))])
+    mom = mod._updater.states["fc1_bias"][0]._data.clone()
+    ctx = mod._context
+    b = mt.io.DataBatch([mt.nd.array(x[batch:2 * batch], ctx=ctx)],
+                        [mt.nd.array(y[batch:2 * batch], ctx=ctx)])
+    mod.forward(b, is_train=True)
+    mod.backward()
+    mod.update()
+    g = mod._exec.grad_dict["fc1_bias"]._data * (1.0 / batch)
+    want = LARS_OPT["momentum"] * mom - LARS_OPT["learning_rate"] * g
+    got = mod._updater.states["fc1_bias"][0]._data
+    mom_err = float((got - want).abs().max() / want.abs().max())
+    return dict(eval_rel_diff=rel, eval_argmax_agree=agree,
+                eval_argmax_flip_gaps=gaps, eval_control_rel_diff=control,
+                eval_control_argmax_agree=control_agree,
+                val_score=score, same_storage=same_storage,
+                same_states=same_states, momentum_rel_err=mom_err,
+                momentum_was_zero=bool(float(mom.abs().max()) == 0.0))
+
+
+def phase_resnet_lars_fit(torch, mt, peak_flops, prefix):
+    """ResNet-50 v2 at full width trained with LARS by Module.fit from a
+    prefetching iterator, the update under the sync debug mode, then
+    reshape / score / reshape back; saves the module's checkpoint at
+    ``prefix`` (epoch 1) and returns the phase's row."""
+    dev = torch.device("cuda", 0)
+    B, shape = RESNET_BATCH, (3, 224, 224)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mt)
+    t0 = time.monotonic()
+    mod, clock, feed, x, y, metric = lars_fit(
+        mt, mt.gpu(0), B, shape, LARS_STEPS,
+        torch.cuda.current_stream(dev).synchronize,
+        lambda m: no_sync_update(torch, m))
+    fit_s = time.monotonic() - t0
+    counts = read_counts(mt)
+    dispatch = mt.profiler.dispatch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    feed.close()
+    del mod.update          # the class's own update from here on
+    fails = []
+    stats = step_stats(clock.ms, LARS_WARMUP)
+    med = stats["median_step_ms"]
+    flops = 2 * RESNET_FWD_MACS * 3 * B
+    tflops = flops / (med / 1e3) / 1e12
+    first, last = float(np.mean(clock.losses[:4])), \
+        float(np.mean(clock.losses[-4:]))
+    if dispatch.get("module.update") != LARS_STEPS or any(counts.values()):
+        fails.append(f"dispatches {dispatch}, launches {counts} (want "
+                     f"{LARS_STEPS} updates, no kernel)")
+    if not all(np.isfinite(clock.losses)) or \
+            not last < first - LARS_MARGIN:
+        fails.append(f"losses {clock.losses}: the last 4's mean does not "
+                     f"beat the first 4's by {LARS_MARGIN}")
+    b0 = mt.io.DataBatch([mt.nd.array(x[:B], ctx=mt.gpu(0))],
+                         [mt.nd.array(y[:B], ctx=mt.gpu(0))])
+    _, busy, _ = profiled_step(torch, mod, b0)
+    idle = max(0.0, 1 - busy / med)
+    checks = lars_reshape_checks(torch, mt, mod, x, y, B, LARS_EVAL_BATCH)
+    if not checks["eval_rel_diff"] <= LARS_EVAL_RTOL:
+        fails.append(f"batch-{LARS_EVAL_BATCH} eval differs from the "
+                     f"batch-{B} rows by {checks['eval_rel_diff']}")
+    if not checks["eval_control_rel_diff"] > LARS_EVAL_RTOL:
+        fails.append(f"the next images' rows are within "
+                     f"{checks['eval_control_rel_diff']} of the batch-"
+                     f"{LARS_EVAL_BATCH} eval: the {LARS_EVAL_RTOL} budget "
+                     "cannot tell rows apart")
+    if not (checks["same_storage"] and checks["same_states"]):
+        fails.append("reshape moved a parameter or an optimizer state")
+    if checks["momentum_was_zero"] or not checks["momentum_rel_err"] \
+            <= 1e-5:
+        fails.append(f"momentum after reshaping back: {checks}")
+    row = dict(model="resnet-50 v2", batch=B, image=list(shape),
+               classes=1000, compute_dtype="bfloat16", masters="float32",
+               optimizer="lars lr 0.1 momentum 0.9 wd 1e-4 eta 0.001",
+               feed="PrefetchingIter(ResizeIter(NDArrayIter(4 host "
+                    "batches)), device_put=True)",
+               fit_s=fit_s, steps=LARS_STEPS, **stats,
+               step_ms=clock.ms, images_per_s=B / (med / 1e3),
+               flops_per_step=flops, achieved_tflops=tflops,
+               mfu=tflops * 1e12 / peak_flops, peak_mem_bytes=peak,
+               device_busy_ms=busy, device_idle_share=idle,
+               **prefetch_waits(feed), losses=clock.losses,
+               loss_first4_mean=first, loss_last4_mean=last,
+               margin=LARS_MARGIN, train_metric=dict(zip(*metric.get())),
+               update_sync_debug_mode="error", dispatches=dispatch,
+               attention_launches=counts, eval_rtol=LARS_EVAL_RTOL,
+               failures=fails, **checks)
+    emit("resnet_lars_fit", **row)
+    if fails:
+        raise RuntimeError("resnet_lars_fit: " + "; ".join(fails))
+    mod.save_checkpoint(prefix, 1)
+    return row
+
+
+def finetune_symbol(mt, sym, classes):
+    """fine_tune.py's get_fine_tune_model: the last flatten output, a new
+    ``fc_finetune`` head and a SoftmaxOutput."""
+    internals = sym.get_internals()
+    outputs = [o for o in internals.list_outputs()
+               if "flatten" in o and o.endswith("_output")]
+    net = mt.sym.FullyConnected(data=internals[outputs[-1]],
+                                num_hidden=classes, name="fc_finetune")
+    return mt.sym.SoftmaxOutput(data=net, name="softmax")
+
+
+def finetune_fit(mt, ctx, prefix, epoch, batch, image_shape, steps, sync):
+    """fine_tune.py's second stage: the checkpoint cut at its last
+    flatten, every trunk argument fixed, the head fitted; returns
+    (module, clock, feed, trunk names, args, aux)."""
+    sym, args, aux = mt.model.load_checkpoint(prefix, epoch)
+    net = finetune_symbol(mt, sym, FT_CLASSES)
+    trunk = [n for n in net.list_arguments()
+             if n not in ("data", "softmax_label")
+             and not n.startswith("fc_finetune")]
+    args = {k: v for k, v in args.items() if k in set(trunk)}
+    x, y = host_batches(batch, image_shape, FT_CLASSES, LARS_HOST_BATCHES,
+                        SEED + 92)
+    feed = prefetch_feed(mt, ctx, x, y, batch, steps)
+    mod = mt.mod.Module(net, context=ctx, compute_dtype="bfloat16",
+                        fixed_param_names=trunk)
+    clock = StepClock(sync)
+    mt.random.seed(SEED + 93)
+    mod.fit(feed, eval_metric="acc", batch_end_callback=clock,
+            arg_params=args, aux_params=aux, allow_missing=True,
+            optimizer="sgd", optimizer_params=FT_OPT,
+            initializer=mt.initializer.Xavier(rnd_type="gaussian",
+                                              factor_type="in",
+                                              magnitude=2),
+            num_epoch=1)
+    return mod, clock, feed, trunk, args, aux
+
+
+def phase_resnet_finetune(torch, mt, prefix, lars_row):
+    """The LARS module's checkpoint fine-tuned with a frozen trunk by
+    Module.fit: fixed parameters bit-identical and without gradients,
+    the head changed, the loss down by FT_MARGIN."""
+    import gc
+    dev = torch.device("cuda", 0)
+    B, shape = RESNET_BATCH, (3, 224, 224)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mt)
+    t0 = time.monotonic()
+    mod, clock, feed, trunk, args, aux = finetune_fit(
+        mt, mt.gpu(0), prefix, 1, B, shape, FT_STEPS,
+        torch.cuda.current_stream(dev).synchronize)
+    fit_s = time.monotonic() - t0
+    counts = read_counts(mt)
+    dispatch = mt.profiler.dispatch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    feed.close()
+    fails = []
+    got, aux_now = mod.get_params()
+    changed = [n for n in trunk if not torch.equal(
+        got[n]._data.cpu(), args[n]._data.cpu())]
+    grads = [n for n in trunk if mod._exec.grad_dict[n] is not None
+             or got[n]._data.requires_grad]
+    head0 = mod._exec.arg_dict["fc_finetune_weight"]
+    moved_aux = sum(not torch.equal(aux_now[n]._data.cpu(), aux[n]._data)
+                    for n in aux)
+    stats = step_stats(clock.ms, FT_WARMUP)
+    first, last = float(np.mean(clock.losses[:4])), \
+        float(np.mean(clock.losses[-4:]))
+    if changed or grads:
+        fails.append(f"fixed parameters changed {changed[:5]} or have "
+                     f"gradients {grads[:5]}")
+    if not all(np.isfinite(clock.losses)) or \
+            not last < first - FT_MARGIN:
+        fails.append(f"losses {clock.losses}: the last 4's mean does not "
+                     f"beat the first 4's by {FT_MARGIN}")
+    if dispatch.get("module.update") != FT_STEPS or any(counts.values()):
+        fails.append(f"dispatches {dispatch}, launches {counts}")
+    emit("resnet_finetune", model="resnet-50 v2 trunk + fc_finetune",
+         batch=B, classes=FT_CLASSES, compute_dtype="bfloat16",
+         masters="float32", optimizer="sgd lr 0.01 momentum 0.9",
+         fixed_params=len(trunk), head_weight_shape=list(head0.shape),
+         fit_s=fit_s, steps=FT_STEPS, **stats, step_ms=clock.ms,
+         images_per_s=B / (stats["median_step_ms"] / 1e3),
+         peak_mem_bytes=peak, lars_peak_mem_bytes=lars_row["peak_mem_bytes"],
+         lars_median_step_ms=lars_row["median_step_ms"],
+         **prefetch_waits(feed), losses=clock.losses,
+         loss_first4_mean=first, loss_last4_mean=last,
+         margin=FT_MARGIN, fixed_changed=len(changed),
+         fixed_with_grad=len(grads), aux_states_moved=int(moved_aux),
+         aux_states=len(aux), dispatches=dispatch,
+         attention_launches=counts, failures=fails)
+    if fails:
+        raise RuntimeError("resnet_finetune: " + "; ".join(fails))
+
+
+def resnet_param_shapes(mt):
+    sym = mt.models.get_symbol("resnet", **RESNET)
+    shapes = sym.infer_shape(data=(1, 3, 224, 224))[0]
+    return [(n, tuple(s)) for n, s in zip(sym.list_arguments(), shapes)
+            if n not in ("data", "softmax_label")]
+
+
+def opt_inputs(shapes, seed, steps):
+    """Seeded host weights and ``steps`` gradients per array."""
+    rng = np.random.default_rng(seed)
+    w = {n: rng.standard_normal(s, dtype=np.float32) * 0.05
+         for n, s in shapes}
+    g = [{n: rng.standard_normal(s, dtype=np.float32) * 0.01
+          for n, s in shapes} for _ in range(steps)]
+    return w, g
+
+
+def opt_run(mt, name, w, grads, ctx, dtype=None, multi_precision=False):
+    """``len(grads)`` updates of every array by one updater keyed by
+    parameter name; returns the updated weights (their fp32 masters
+    with multi-precision) as CPU tensors, and the updater."""
+    import torch
+    params = dict(FE_OPTIMIZERS[name], multi_precision=multi_precision)
+    opt = mt.optimizer.create(name, param_idx2name={n: n for n in w},
+                              **params)
+    upd = mt.optimizer.get_updater(opt)
+    dt = dtype or "float32"
+    weights = {n: mt.nd.array(v, ctx=ctx, dtype=dt) for n, v in w.items()}
+    for g in grads:
+        for n, v in g.items():
+            upd(n, mt.nd.array(v, ctx=ctx, dtype=dt), weights[n])
+    if multi_precision:
+        return {n: upd.states[n][0]._data.cpu() for n in w}, upd
+    return {n: a._data.cpu() for n, a in weights.items()}, upd
+
+
+def bf16_rounded(d):
+    """float32 arrays rounded to bfloat16 and back (nearest even)."""
+    import torch
+    return {k: torch.from_numpy(v).bfloat16().float().numpy()
+            for k, v in d.items()}
+
+
+def opt_distance(torch, a, b, w0):
+    """Per array, ||a - b|| / ||b - w0|| (float64)."""
+    out = {}
+    for n, x in a.items():
+        x, y = x.double(), b[n].double()
+        ref = (y - torch.from_numpy(w0[n]).double()).norm()
+        out[n] = float((x - y).norm() / max(float(ref), 1e-30))
+    return out
+
+
+def opt_time(torch, mt, name, w, grad):
+    """Median ms of FE_TIMED whole-set updates on the card (CUDA
+    events), and the bytes they must move: each weight, gradient and
+    state read once and each weight and state written once."""
+    ctx = mt.gpu(0)
+    opt = mt.optimizer.create(name, param_idx2name={n: n for n in w},
+                              **FE_OPTIMIZERS[name])
+    upd = mt.optimizer.get_updater(opt)
+    weights = {n: mt.nd.array(v, ctx=ctx) for n, v in w.items()}
+    grads = {n: mt.nd.array(v, ctx=ctx) for n, v in grad.items()}
+    for n in w:
+        upd(n, grads[n], weights[n])
+    ms = []
+    for _ in range(FE_TIMED):
+        s, e = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        s.record()
+        for n in w:
+            upd(n, grads[n], weights[n])
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+    n_states = sum(st is not None for st in upd.states[next(iter(w))])
+    nbytes = sum(a.size for a in w.values()) * 4 * (3 + 2 * n_states)
+    return float(np.median(ms)), nbytes
+
+
+def sgld_noise_check(torch, mt, w, g):
+    """SGLD on the card: its step minus the deterministic part is
+    N(0, sqrt(lr)); (mean, std, expected std, standard error)."""
+    lr, wd = FE_OPTIMIZERS["sgld"]["learning_rate"], \
+        FE_OPTIMIZERS["sgld"]["wd"]
+    got, _ = opt_run(mt, "sgld", w, [g], mt.gpu(0))
+    noise = []
+    for n, x in got.items():
+        wd_n = wd if n.endswith(("_weight", "_gamma")) else 0.0
+        det = w[n].astype(np.float64) - lr / 2 * (g[n] + wd_n * w[n])
+        noise.append((x.double().numpy() - det).ravel())
+    noise = np.concatenate(noise)
+    return dict(mean=float(noise.mean()), std=float(noise.std()),
+                want_std=float(np.sqrt(lr)),
+                se=float(np.sqrt(lr) / np.sqrt(noise.size)),
+                n=int(noise.size))
+
+
+def fe_optimizers(torch, mt):
+    """Every optimizer on ResNet-50's parameter shapes: FE_STEPS updates
+    on the card and on the CPU in fp32, again with bf16 weights under
+    multi_precision (the fp32 masters compared), each array within its
+    budget; SGLD by its deterministic part and its noise's moments; the
+    whole set's update time beside its bytes bound."""
+    shapes = resnet_param_shapes(mt)
+    w, grads = opt_inputs(shapes, SEED + 94, FE_STEPS)
+    rows, fails = {}, []
+    for name in FE_OPTIMIZERS:
+        if name == "sgld":
+            s = sgld_noise_check(torch, mt, w, grads[0])
+            ok = abs(s["mean"]) < 5 * s["se"] and \
+                abs(s["std"] - s["want_std"]) < 5 * s["want_std"] / \
+                np.sqrt(2 * s["n"])
+            rows[name] = dict(noise=s)
+            if not ok:
+                fails.append(f"sgld noise {s}")
+        else:
+            row = {}
+            for mp in (False, True):
+                dt = "bfloat16" if mp else None
+                card, _ = opt_run(mt, name, w, grads, mt.gpu(0), dt, mp)
+                # the fp32 masters from bf16 weights and gradients are an
+                # fp32 run from the bf16-rounded ones, on the CPU
+                wc, gc = (bf16_rounded(w), [bf16_rounded(g) for g in grads]) \
+                    if mp else (w, grads)
+                cpu, _ = opt_run(mt, name, wc, gc, mt.cpu())
+                worst = max(opt_distance(torch, card, cpu, wc).values())
+                budget = FE_BUDGET_FLOOR if name in FE_SIGN_UPDATES else \
+                    max(FE_BUDGET_FLOOR,
+                        FE_BUDGET_FACTOR * FE_REHEARSED[name][int(mp)])
+                row["mp_bf16" if mp else "fp32"] = dict(
+                    worst_rel_dist=worst, budget=budget)
+                if not worst <= budget:
+                    fails.append(f"{name} ({'bf16 mp' if mp else 'fp32'}): "
+                                 f"card vs CPU {worst} > {budget}")
+                del card, cpu
+            rows[name] = row
+        ms, nbytes = opt_time(torch, mt, name, w, grads[0])
+        rows[name].update(update_ms=ms, bytes=nbytes,
+                          bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                          bound_by="bytes")
+        torch.cuda.empty_cache()
+    return dict(arrays=len(shapes),
+                parameters=int(sum(np.prod(s) for _, s in shapes)),
+                steps=FE_STEPS, **rows), fails
+
+
+def fe_metrics(torch, mt):
+    """Every new metric updated from card tensors against the same
+    metric from CPU tensors."""
+    rng = np.random.default_rng(SEED + 95)
+    prob = rng.random((256, 1000), dtype=np.float32) + 1e-3
+    prob /= prob.sum(1, keepdims=True)
+    lab = rng.integers(0, 1000, 256).astype(np.float32)
+    bin_p = rng.random((256, 2), dtype=np.float32)
+    bin_l = rng.integers(0, 2, 256).astype(np.float32)
+    reg_p = rng.standard_normal((256, 3)).astype(np.float32)
+    reg_l = rng.standard_normal((256, 3)).astype(np.float32)
+    cases = {"f1": (bin_l, bin_p), "mae": (reg_l, reg_p),
+             "mse": (reg_l, reg_p), "rmse": (reg_l, reg_p),
+             "nll_loss": (lab, prob),
+             "pearsonr": (reg_l[:, 0], reg_p[:, 0]),
+             "torch": (lab, prob[:, 0]), "caffe": (lab, prob[:, 0])}
+    out, fails = {}, []
+    for name, (l, p) in cases.items():
+        vals = []
+        for ctx in (mt.gpu(0), mt.cpu()):
+            m = mt.metric.create(name)
+            for _ in range(2):
+                m.update([mt.nd.array(l, ctx=ctx)], [mt.nd.array(p, ctx=ctx)])
+            vals.append(m.get()[1])
+        out[name] = dict(card=vals[0], cpu=vals[1])
+        if not abs(vals[0] - vals[1]) <= FE_METRIC_RTOL * abs(vals[1]):
+            fails.append(f"metric {name}: {vals}")
+    m = mt.metric.np(lambda label, pred: float(np.abs(label - pred).mean()))
+    m.update([mt.nd.array(reg_l, ctx=mt.gpu(0))],
+             [mt.nd.array(reg_p, ctx=mt.gpu(0))])
+    want = float(np.abs(reg_l - reg_p).mean())
+    out["custom_np"] = dict(card=m.get()[1], numpy=want)
+    if not abs(m.get()[1] - want) <= FE_METRIC_RTOL * want:
+        fails.append(f"metric.np: {m.get()[1]} vs {want}")
+    return out, fails
+
+
+def fe_initializers(torch, mt, workdir):
+    """The initializers on the card against the CPU from the same seed
+    (every draw is made on the CPU, so equal bit for bit), and
+    Orthogonal's orthogonality."""
+    path = os.path.join(workdir, "init.params")
+    mt.nd.save(path, {"arg:w_weight": mt.nd.array(
+        np.arange(12, dtype=np.float32).reshape(3, 4), ctx=mt.cpu())})
+    inits = {
+        "orthogonal": (mt.initializer.Orthogonal, (256, 2304)),
+        "msraprelu": (mt.initializer.MSRAPrelu, (256, 64, 3, 3)),
+        "bilinear": (mt.initializer.Bilinear, (64, 1, 4, 4)),
+        "load": (lambda: mt.initializer.Load(path), (3, 4)),
+        "mixed": (lambda: mt.initializer.Mixed(
+            [".*"], [mt.initializer.Xavier()]), (128, 256))}
+    out, fails = {}, []
+    for name, (make, shape) in inits.items():
+        vals = []
+        for ctx in (mt.gpu(0), mt.cpu()):
+            arr = mt.nd.zeros(shape, ctx=ctx)
+            mt.random.seed(SEED + 96)
+            make()(mt.initializer.InitDesc("w_weight"), arr)
+            vals.append(arr._data.cpu())
+        same = bool(torch.equal(vals[0], vals[1]))
+        out[name] = dict(shape=list(shape), card_equals_cpu=same)
+        if not same:
+            fails.append(f"initializer {name}: card differs from the CPU")
+    q = out["orthogonal"]
+    arr = mt.nd.zeros((256, 2304), ctx=mt.gpu(0))
+    mt.initializer.Orthogonal(scale=1.0)(mt.initializer.InitDesc("q_weight"),
+                                         arr)
+    a = arr._data.double()
+    q["orthogonality_err"] = float((a @ a.T - torch.eye(
+        256, dtype=torch.float64, device=a.device)).abs().max())
+    if not q["orthogonality_err"] <= FE_ORTHO_TOL:
+        fails.append(f"orthogonal: {q['orthogonality_err']}")
+    return out, fails
+
+
+def write_idx(path, arr):
+    """An IDX file (MNIST's container) of a uint8 array."""
+    import struct
+    with open(path, "wb") as f:
+        f.write(struct.pack(">HBB", 0, 0x08, arr.ndim))
+        f.write(struct.pack(">" + "I" * arr.ndim, *arr.shape))
+        f.write(arr.tobytes())
+
+
+def fe_iterators(torch, mt, workdir):
+    """CSVIter, LibSVMIter and MNISTIter (60000 x 28 x 28 idx files
+    written here from a seed) yield the files' contents, read again
+    through a PrefetchingIter onto the card."""
+    rng = np.random.default_rng(SEED + 97)
+    out, fails = {}, []
+    imgs = rng.integers(0, 256, MNIST_SHAPE, dtype=np.uint8)
+    labs = rng.integers(0, 10, MNIST_SHAPE[0], dtype=np.uint8)
+    ip = os.path.join(workdir, "train-images-idx3-ubyte")
+    lp = os.path.join(workdir, "train-labels-idx1-ubyte")
+    write_idx(ip, imgs)
+    write_idx(lp, labs)
+    t0 = time.monotonic()
+    it = mt.io.MNISTIter(image=ip, label=lp, batch_size=1000, shuffle=False,
+                         silent=True)
+    feed = mt.io.PrefetchingIter(it, device_put=True, device=mt.gpu(0))
+    xs, ys, devices = [], [], set()
+    for b in feed:
+        devices.add(b.data[0]._data.device.type)
+        xs.append(b.data[0]._data.cpu())
+        ys.append(b.label[0]._data.cpu())
+    feed.close()
+    if devices != {"cuda"}:
+        fails.append(f"MNIST batches on {devices}, not on the card")
+    x = torch.cat(xs).numpy()
+    ok = x.shape == (MNIST_SHAPE[0], 1, 28, 28) and np.array_equal(
+        x[:, 0], imgs.astype(np.float32) / 255.0) and np.array_equal(
+        torch.cat(ys).numpy(), labs.astype(np.float32))
+    out["mnist"] = dict(images=MNIST_SHAPE[0], batches=len(xs), equal=ok,
+                        seconds=time.monotonic() - t0)
+    if not ok:
+        fails.append("MNISTIter batches differ from the idx files")
+    data = rng.random((1000, 12), dtype=np.float32)
+    label = np.arange(1000, dtype=np.float32)
+    dp, lbp = os.path.join(workdir, "d.csv"), os.path.join(workdir, "l.csv")
+    np.savetxt(dp, data, delimiter=",")
+    np.savetxt(lbp, label, delimiter=",")
+    it = mt.io.CSVIter(data_csv=dp, data_shape=(3, 4), label_csv=lbp,
+                       batch_size=100, round_batch=False)
+    got = np.concatenate([b.data[0].asnumpy() for b in it])
+    want = np.loadtxt(dp, delimiter=",", dtype=np.float32)
+    ok = np.array_equal(got.reshape(1000, 12), want)
+    out["csv"] = dict(rows=1000, equal=ok)
+    if not ok:
+        fails.append("CSVIter batches differ from the file")
+    dense = np.zeros((500, 300), np.float32)
+    lines = []
+    for i in range(500):
+        cols = np.sort(rng.choice(300, rng.integers(1, 20), replace=False))
+        vals = np.round(rng.uniform(-2, 2, cols.size), 4).astype(np.float32)
+        dense[i, cols] = vals
+        lines.append("%d %s" % (i % 2, " ".join(
+            "%d:%s" % (c, repr(float(v))) for c, v in zip(cols, vals))))
+    sp = os.path.join(workdir, "d.libsvm")
+    with open(sp, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    it = mt.io.LibSVMIter(data_libsvm=sp, data_shape=(300,), batch_size=50)
+    got = np.concatenate([b.data[0].asnumpy() for b in it])
+    ok = np.array_equal(got, dense)
+    out["libsvm"] = dict(rows=500, equal=ok)
+    if not ok:
+        fails.append("LibSVMIter batches differ from the file")
+    return out, fails
+
+
+def fe_feedforward(mt, ctx):
+    """matrix_fact.py through FeedForward at module_heads' sizes, epochs
+    and optimizer: (validation RMSE before, after)."""
+    import warnings
+    u, i, r = mf_ratings(SEED + 72)
+    nt = int(0.9 * len(r))
+    np.random.seed(SEED + 73)
+    train = mt.io.NDArrayIter({"user": u[:nt], "item": i[:nt]},
+                              {"score": r[:nt]}, batch_size=256,
+                              shuffle=True, last_batch_handle="discard")
+
+    def rmse(model):
+        ev = mt.io.NDArrayIter({"user": u[nt:], "item": i[nt:]},
+                               batch_size=256)
+        out = model.predict(ev).reshape(-1)
+        return float(np.sqrt(((out - r[nt:][:len(out)]) ** 2).mean()))
+    def model(epochs, arg_params=None):
+        return mt.model.FeedForward(
+            mf_sym(mt), ctx=ctx, num_epoch=epochs, optimizer="adam",
+            initializer=mt.initializer.Normal(0.3), learning_rate=0.02,
+            arg_params=arg_params)
+    mt.random.seed(SEED + 74)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        init = model(0).fit(train)      # the initial parameters only
+        train.reset()
+        trained = model(HEADS_EPOCHS["matrix_fact"],
+                        init.arg_params).fit(train)
+    return rmse(init), rmse(trained)
+
+
+def fe_sequential(torch, mt):
+    """A SequentialModule of two Modules against one Module over the
+    whole graph, one SGD step each from the same parameters on the
+    card (fp32): the largest parameter difference, relative."""
+    rng = np.random.default_rng(SEED + 98)
+    x = rng.standard_normal((256, 512)).astype(np.float32)
+    y = rng.integers(0, 10, 256).astype(np.float32)
+    S = mt.sym
+    trunk = S.Activation(S.FullyConnected(S.Variable("data"),
+                                          num_hidden=1024, name="fc1"),
+                         act_type="relu")
+    head = S.FullyConnected(S.Variable("data"), num_hidden=10, name="fc2")
+    whole = S.SoftmaxOutput(S.FullyConnected(trunk, num_hidden=10,
+                                             name="fc2"), name="softmax")
+    args = {"fc1_weight": rng.standard_normal((1024, 512)) * 0.03,
+            "fc1_bias": np.zeros(1024), "fc2_weight":
+            rng.standard_normal((10, 1024)) * 0.03, "fc2_bias": np.zeros(10)}
+    args = {k: v.astype(np.float32) for k, v in args.items()}
+    ctx = mt.gpu(0)
+    opt = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+    seq = mt.mod.SequentialModule()
+    seq.add(mt.mod.Module(trunk, label_names=None, context=ctx))
+    seq.add(mt.mod.Module(S.SoftmaxOutput(head, name="softmax"),
+                          context=ctx), take_labels=True)
+    one = mt.mod.Module(whole, context=ctx)
+    batch = mt.io.DataBatch([mt.nd.array(x, ctx=ctx)],
+                            [mt.nd.array(y, ctx=ctx)])
+    for m in (seq, one):
+        m.bind(data_shapes=[("data", (256, 512))],
+               label_shapes=[("softmax_label", (256,))])
+        m.init_params(arg_params=args, aux_params={})
+        m.init_optimizer(optimizer="sgd", optimizer_params=opt)
+        for _ in range(2):
+            m.forward(batch, is_train=True)
+            m.backward()
+            m.update()
+    a, b = seq.get_params()[0], one.get_params()[0]
+    return max(float((a[k]._data - b[k]._data).abs().max()
+                     / b[k]._data.abs().max()) for k in b)
+
+
+def phase_front_end(torch, mt):
+    """Small checks of the front end on the card: every optimizer, the
+    new metrics, initializers and file iterators, FeedForward and
+    SequentialModule; no kernel launches."""
+    reset_counts(mt)
+    fails = []
+    t0 = time.monotonic()
+    rows = {}
+    rows["optimizers"], f = fe_optimizers(torch, mt)
+    fails += f
+    rows["optimizers_s"] = time.monotonic() - t0
+    rows["metrics"], f = fe_metrics(torch, mt)
+    fails += f
+    with tempfile.TemporaryDirectory() as workdir:
+        rows["initializers"], f = fe_initializers(torch, mt, workdir)
+        fails += f
+        rows["iterators"], f = fe_iterators(torch, mt, workdir)
+        fails += f
+    before, after = fe_feedforward(mt, mt.gpu(0))
+    rows["feedforward"] = dict(example="recommender/matrix_fact.py",
+                               val_rmse_before=before, val_rmse_after=after,
+                               margin=HEADS_MARGIN["matrix_fact"])
+    if not before - after > HEADS_MARGIN["matrix_fact"]:
+        fails.append(f"FeedForward RMSE {before} -> {after}")
+    diff = fe_sequential(torch, mt)
+    rows["sequential"] = dict(rel_diff=diff, rtol=FE_SEQ_RTOL)
+    if not diff <= FE_SEQ_RTOL:
+        fails.append(f"SequentialModule differs from the Module by {diff}")
+    counts = read_counts(mt)
+    if any(counts.values()):
+        fails.append(f"kernel launches {counts} (want none)")
+    emit("front_end", seconds=time.monotonic() - t0, launches=counts,
+         failures=fails, **rows)
+    if fails:
+        raise RuntimeError("front_end: " + "; ".join(fails))
+
+
 def main():
     try:
         import torch
@@ -5681,6 +6537,19 @@ def main():
     moe_counts = phase_moe_lm_train(torch, mt, PEAK_FLOPS["bfloat16"])
     phase_moe_fp32(torch, mt)
     phase_ops_c1b2(torch, mt)
+
+    # C8: ResNet-50 trained with LARS by Module.fit from a prefetching
+    # iterator, reshaped and scored, its checkpoint fine-tuned with a
+    # frozen trunk, and the front end's small checks; none launches K1-K4
+    # or N1
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        prefix = os.path.join(workdir, "lars")
+        lars_row = phase_resnet_lars_fit(torch, mt, PEAK_FLOPS["bfloat16"],
+                                         prefix)
+        phase_resnet_finetune(torch, mt, prefix, lars_row)
+    torch.cuda.empty_cache()
+    phase_front_end(torch, mt)
 
     def by_path(key):
         return {"serve": serve_counts[key], "train": train_counts[key],

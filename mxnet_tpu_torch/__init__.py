@@ -12,8 +12,11 @@ kernel and creates no CUDA context.  It imports neither ``jax`` nor
 anything of ``mxnet_tpu``.
 """
 from .base import MXNetError, __version__
-from .context import Context, cpu, gpu, current_context
-from . import base, context, profiler, ops, symbol, executor, models
+from .context import Context, cpu, cpu_pinned, gpu, num_gpus, \
+    current_context
+from . import base, context, profiler, ops, name, attribute
+from .attribute import AttrScope
+from . import symbol, executor, models
 from . import serving, convert, cuda_lib
 from . import ndarray, random, io, initializer, optimizer, lr_scheduler
 from . import metric, model, callback, module, autograd, gluon, rnn, rtc
@@ -23,11 +26,24 @@ from . import symbol as sym
 from . import ndarray as nd
 from . import module as mod
 from . import initializer as init
+from . import optimizer as opt
+from .symbol import Symbol
+from .executor import Executor
+from .initializer import Initializer
+from .optimizer import Optimizer
+from .io import DataBatch, DataDesc, DataIter, NDArrayIter, ResizeIter, \
+    PrefetchingIter, CSVIter
+from .module import Module, BaseModule
+from .ndarray import NDArray
 from .convert import params_from_numpy, gluon_params_from_numpy, \
     gluon_params_to_numpy
 
-__all__ = ["MXNetError", "Context", "cpu", "gpu", "current_context",
-           "base", "context", "profiler", "ops", "symbol",
+__all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
+           "num_gpus", "current_context", "base", "context", "profiler",
+           "ops", "name", "attribute", "AttrScope", "symbol", "Symbol",
+           "Executor", "Initializer", "Optimizer", "opt", "DataBatch",
+           "DataDesc", "DataIter", "NDArrayIter", "ResizeIter",
+           "PrefetchingIter", "CSVIter", "Module", "BaseModule", "NDArray",
            "sym", "executor", "models", "serving", "convert",
            "params_from_numpy", "cuda_lib", "ndarray", "nd", "random",
            "io", "initializer", "init", "optimizer", "lr_scheduler",

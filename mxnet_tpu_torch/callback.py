@@ -1,11 +1,13 @@
-"""Training callbacks (subset; PyTorch counterpart of
-``mxnet_tpu/callback.py``): checkpoints at the end of an epoch, metric
-logging and ``Speedometer``.  The JAX package's sharded asynchronous
-checkpoint (``do_checkpoint(sharded_async=True)``) is not ported yet
-(ROADMAP C4)."""
+"""Training callbacks (PyTorch counterpart of ``mxnet_tpu/callback.py``):
+checkpoints at the end of an epoch, metric logging, ``Speedometer``,
+``ProgressBar`` and ``LogValidationMetricsCallback``.  The JAX
+package's sharded asynchronous checkpoint
+(``do_checkpoint(sharded_async=True)``) is not ported yet (ROADMAP
+C4)."""
 from __future__ import annotations
 
 import logging
+import math
 import time
 
 from .model import save_checkpoint
@@ -87,3 +89,33 @@ class Speedometer:
             logging.info("Iter[%d] Batch [%d]\tSpeed: %.2f samples/sec",
                          param.epoch, count, speed)
         self.tic = time.time()
+
+
+class ProgressBar:
+    """Batch-end callback: log a bar of ``length`` characters filled to
+    ``nbatch / total`` (reference: callback.py ProgressBar).  It reads no
+    metric, so it adds no readback."""
+
+    def __init__(self, total, length=80):
+        self.bar_len = length
+        self.total = total
+
+    def __call__(self, param):
+        count = param.nbatch
+        filled_len = int(round(self.bar_len * count / float(self.total)))
+        percents = math.ceil(100.0 * count / float(self.total))
+        prog_bar = "=" * filled_len + "-" * (self.bar_len - filled_len)
+        logging.info("[%s] %s%s\r", prog_bar, percents, "%")
+
+
+class LogValidationMetricsCallback:
+    """Eval-end callback: log every validation metric (reference:
+    callback.py LogValidationMetricsCallback).  Reading the metric is the
+    validation pass's one readback."""
+
+    def __call__(self, param):
+        if not param.eval_metric:
+            return
+        for name, value in param.eval_metric.get_name_value():
+            logging.info("Epoch[%d] Validation-%s=%f", param.epoch, name,
+                         value)

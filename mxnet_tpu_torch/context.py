@@ -3,8 +3,10 @@
 PyTorch counterpart of ``mxnet_tpu/context.py``: a ``Context`` names a
 logical device and maps onto a :class:`torch.device`.  ``gpu(i)`` is
 ``cuda:i`` and is the default context; ``cpu()`` must be asked for
-explicitly (the tests do).  Resolving a GPU context on a machine without
-CUDA raises — nothing falls back to the CPU silently.
+explicitly (the tests do).  ``cpu_pinned()`` is page-locked host memory
+(an NDArray made there is pinned, which needs CUDA).  Resolving a GPU
+context on a machine without CUDA raises — nothing falls back to the
+CPU silently.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from .base import MXNetError
 class Context:
     """A logical device (cpu/gpu) backed by a torch.device."""
 
-    _DEVICE_TYPES = ("cpu", "gpu")
+    _DEVICE_TYPES = ("cpu", "gpu", "cpu_pinned")
     _default_ctx = threading.local()
 
     def __init__(self, device_type, device_id: int = 0):
@@ -36,7 +38,7 @@ class Context:
     def torch_device(self) -> torch.device:
         """The torch.device for this context.  A GPU context raises when
         CUDA is absent or the ordinal does not exist."""
-        if self.device_type == "cpu":
+        if self.device_type in ("cpu", "cpu_pinned"):
             return torch.device("cpu")
         if not torch.cuda.is_available():
             raise MXNetError(
@@ -75,6 +77,17 @@ def cpu(device_id: int = 0) -> Context:
 
 def gpu(device_id: int = 0) -> Context:
     return Context("gpu", device_id)
+
+
+def cpu_pinned(device_id: int = 0) -> Context:
+    """Page-locked host memory: the staging place of fast copies to the
+    card."""
+    return Context("cpu_pinned", device_id)
+
+
+def num_gpus() -> int:
+    """The number of CUDA devices visible (0 without CUDA)."""
+    return torch.cuda.device_count()
 
 
 def current_context() -> Context:

@@ -10,7 +10,11 @@ records the graph; an inference run records nothing.
 ``Executor`` binds a Symbol to argument, gradient and auxiliary arrays
 (``NDArray``) on one device: ``forward(is_train)`` runs the interpreter,
 ``backward(out_grads)`` seeds every floating output with ones (or the
-given cotangents) and writes the parameter gradients per ``grad_req``.
+given cotangents) and writes the parameter gradients per ``grad_req``;
+an argument whose ``grad_req`` is ``null`` is no leaf of autograd's
+graph, so the backward stops where the trainable graph starts.
+``reshape`` rebinds to new input shapes and keeps every array whose
+shape stays, the same NDArray objects.
 The JAX package's fused forward+backward jit and the multi-step drivers
 have no counterpart here: autograd keeps the forward's graph until the
 backward.  Ops that draw random numbers (``needs_rng``, e.g. Dropout)
@@ -83,6 +87,19 @@ def build_interpreter(sym: Symbol, compute_dtype=None):
     aux_pos = {n: i for i, n in enumerate(aux_names)}
     heads = sym.heads
     cd = as_torch_dtype(compute_dtype)
+    # each value is dropped from the run's environment after the last
+    # node that reads it (heads are kept), so that a forward holds only
+    # the activations autograd saves and those still to be read
+    last_read = {}
+    for k, n in enumerate(nodes):
+        for src, i in n.inputs:
+            last_read[(id(src), i)] = k
+    needed = set(last_read) | {(id(h), i) for h, i in heads}
+    for h, i in heads:
+        last_read.pop((id(h), i), None)
+    dead_after = [[] for _ in nodes]
+    for key, k in last_read.items():
+        dead_after[k].append(key)
 
     def _amp_cast(ins, op):
         split = AMP_SPLIT_OPS.get(op)
@@ -108,7 +125,7 @@ def build_interpreter(sym: Symbol, compute_dtype=None):
             device = arg_vals[0].device
         env = {}
         new_aux = list(aux_vals)
-        for n in nodes:
+        for k, n in enumerate(nodes):
             if n.is_variable:
                 if n.name in arg_pos:
                     env[(id(n), 0)] = arg_vals[arg_pos[n.name]]
@@ -142,7 +159,10 @@ def build_interpreter(sym: Symbol, compute_dtype=None):
                         old = aux_vals[aux_pos[src.name]]
                         new_aux[aux_pos[src.name]] = u.to(old.dtype)
             for i, o in enumerate(outs):
-                env[(id(n), i)] = o
+                if (id(n), i) in needed:
+                    env[(id(n), i)] = o
+            for key in dead_after[k]:
+                env.pop(key, None)
         out_vals = tuple(env[(id(h), i)] for h, i in heads)
         return out_vals, tuple(new_aux)
 
@@ -346,6 +366,71 @@ class Executor:
                 garr._set_data(garr._data + g)
             else:
                 garr._set_data(g)
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs):
+        """An executor over the same graph for the input shapes in
+        ``kwargs`` (reference: executor.py reshape).  Every argument,
+        gradient and auxiliary array whose shape does not change is the
+        same NDArray object in both executors (parameters, optimizer
+        state keyed on them, ``grad_req`` and the random stream carry
+        over).  The shapes are inferred with every argument that
+        ``kwargs`` does not name held at its old shape, so a conflict
+        (an FC weight behind a flatten whose input grew) raises instead
+        of zeroing a trained weight, as the JAX package's and the
+        reference's reshape do.  With ``partial_shaping=True`` such
+        arguments and auxiliary states may change shape, and are then
+        new zeros of the same dtype."""
+        given = {k: tuple(v) for k, v in kwargs.items()}
+        if partial_shaping:
+            try:
+                arg_shapes, _, aux_shapes = self._symbol._infer_shape_impl(
+                    partial=True, **given)
+            except MXNetError:
+                raise
+            except Exception as e:
+                raise MXNetError(f"reshape: infer_shape error: {e}")
+        else:
+            held = {n: tuple(a.shape) for n, a in
+                    zip(self._arg_names, self.arg_arrays) if n not in given}
+            arg_shapes, _, aux_shapes = self._symbol.infer_shape(
+                **held, **given)
+        # what the new shapes do not determine keeps its shape
+        arg_shapes = [tuple(a.shape) if s is None else tuple(s)
+                      for a, s in zip(self.arg_arrays, arg_shapes)]
+        aux_shapes = [tuple(a.shape) if s is None else tuple(s)
+                      for a, s in zip(self.aux_arrays,
+                                      aux_shapes or [None] * len(
+                                          self.aux_arrays))]
+        changed = [n for n, a, s in zip(self._arg_names + self._aux_names,
+                                        self.arg_arrays + self.aux_arrays,
+                                        arg_shapes + aux_shapes)
+                   if n not in given and tuple(a.shape) != s]
+        if changed and not partial_shaping:
+            raise MXNetError(
+                f"reshape: the shape of unspecified arrays {changed} "
+                "changed; pass partial_shaping=True to allocate new ones")
+
+        def keep_or_new(old, shape, changed):
+            if old is not None and not changed \
+                    and tuple(old.shape) == tuple(shape):
+                return old
+            return NDArray(torch.zeros(tuple(shape),
+                                       dtype=old._data.dtype,
+                                       device=self._device))
+
+        new = Executor.__new__(Executor)
+        new.__dict__.update(self.__dict__)
+        new.arg_arrays = [keep_or_new(a, s, n in kwargs) for n, a, s in
+                          zip(self._arg_names, self.arg_arrays, arg_shapes)]
+        new.grad_arrays = [
+            None if g is None else keep_or_new(g, s, False)
+            for g, s in zip(self.grad_arrays, arg_shapes)]
+        new.aux_arrays = [keep_or_new(a, s, False)
+                          for a, s in zip(self.aux_arrays, aux_shapes)]
+        new._out_arrays = None
+        new._graph = None
+        return new
 
     def copy_params_from(self, arg_params, aux_params=None,
                          allow_extra_params=False):

@@ -1,6 +1,8 @@
-"""Weight initializers (subset).
+"""Weight initializers.
 
-PyTorch counterpart of ``mxnet_tpu/initializer.py``: the parameter's
+PyTorch counterpart of ``mxnet_tpu/initializer.py`` (Zero, One,
+Constant, Uniform, Normal, Orthogonal, Xavier, MSRAPrelu, Bilinear,
+LSTMBias, FusedRNN, Load, Mixed): the parameter's
 *name* picks the rule (``*_weight`` -> the initializer's weight rule,
 ``*_bias`` and ``*_beta`` -> 0, ``*_gamma`` -> 1, moving statistics ->
 0/1), as in the reference's ``Initializer.__call__``; an ``__init__``
@@ -13,7 +15,9 @@ and on the card; they are not the JAX package's bits.
 from __future__ import annotations
 
 import json
+import logging
 import math
+import re
 
 import numpy as np
 import torch
@@ -41,7 +45,7 @@ def register(klass):
 
 
 def create(name, **kwargs):
-    if isinstance(name, Initializer):
+    if isinstance(name, (Initializer, Load, Mixed)):
         return name
     try:
         return _INIT_REGISTRY[name.lower()](**kwargs)
@@ -274,3 +278,115 @@ class FusedRNN(Initializer):
                 self._set(blk, torch.full(blk.shape, self._forget_bias))
         packed = cell.pack_weights(args)['parameters']
         self._set(arr, packed._data)
+
+
+@register
+class Orthogonal(Initializer):
+    """A scaled orthogonal matrix (Saxe et al. 2013; reference:
+    initializer.py Orthogonal): the SVD factor of a random (out, in)
+    matrix, uniform in [-1, 1] or gaussian, times ``scale``, reshaped to
+    the weight."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, name, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = _uniform((nout, nin), -1.0, 1.0)
+        else:
+            tmp = _normal((nout, nin), 1.0)
+        u, _, v = torch.linalg.svd(tmp.double(), full_matrices=False)
+        q = u if tuple(u.shape) == (nout, nin) else v
+        self._set(arr, (self.scale * q).float().reshape(arr.shape))
+
+
+@register
+class MSRAPrelu(Xavier):
+    """He et al.'s initialization for PReLU networks (reference:
+    initializer.py MSRAPrelu): gaussian Xavier with magnitude
+    ``2 / (1 + slope ** 2)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2. / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel of a Deconvolution's weight
+    (reference: initializer.py Bilinear)."""
+
+    def _init_weight(self, name, arr):
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.)
+        c = (2 * f - 1 - f % 2) / (2. * f)
+        i = np.arange(int(np.prod(shape)))
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        weight = ((1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c)))
+        self._set(arr, torch.from_numpy(
+            weight.astype(np.float32).reshape(shape)))
+
+
+@register
+class Load:
+    """Initialize from a dict of arrays (or a parameter file's name),
+    with ``arg:`` / ``aux:`` prefixes dropped; a name it lacks goes to
+    ``default_init`` (reference: initializer.py Load)."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        if isinstance(param, str):
+            from .serialization import load_ndarrays
+            param = load_ndarrays(param)
+        self.param = {name.replace("arg:", "").replace("aux:", ""): arr
+                      for name, arr in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            src = self.param[name]
+            if tuple(arr.shape) != tuple(src.shape):
+                raise AssertionError(
+                    f"Parameter {name} cannot be initialized from loading. "
+                    f"Shape mismatch, target {tuple(arr.shape)} vs loaded "
+                    f"{tuple(src.shape)}")
+            t = src._data if hasattr(src, "_data") else \
+                torch.from_numpy(np.ascontiguousarray(np.asarray(src)))
+            Initializer._set(arr, t)
+            if self.verbose:
+                logging.info("Initialized %s by loading", name)
+        else:
+            if self.default_init is None:
+                raise AssertionError(
+                    f"Cannot Initialize {name}. Not found in loaded param "
+                    "and no default Initializer is provided.")
+            self.default_init(name, arr)
+            if self.verbose:
+                logging.info("Initialized %s by default", name)
+
+
+@register
+class Mixed:
+    """The first initializer whose regular expression matches the
+    parameter's name (reference: initializer.py Mixed)."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise ValueError("patterns and initializers must have the same "
+                             "length")
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise ValueError(
+            f"Parameter name {name} did not match any pattern. Consider "
+            'adding a ".*" pattern at the end with default Initializer.')

@@ -1,19 +1,28 @@
-"""Evaluation metrics (subset).
+"""Evaluation metrics.
 
 PyTorch counterpart of ``mxnet_tpu/metric.py``: ``EvalMetric``,
-``Accuracy``, ``TopKAccuracy``, ``Perplexity``, ``CrossEntropy``,
-``Loss``, ``CompositeEvalMetric`` and ``create``. A metric computes with
+``CompositeEvalMetric``, ``Accuracy``, ``TopKAccuracy``, ``F1``,
+``Perplexity``, ``MAE``, ``MSE``, ``RMSE``, ``CrossEntropy``,
+``NegativeLogLikelihood``, ``PearsonCorrelation``, ``Loss`` (and its
+``Torch`` and ``Caffe`` names), ``CustomMetric`` with ``np`` and
+``create``. A metric computes with
 torch ops on the device its predictions live on and keeps its running
 sums there, so a training step does not read the (B*S, vocab) softmax
 back to the host; the host sees the sums only at ``get()`` (one
 readback), as the JAX package's device-resident path does. Labels and
-predictions may be NDArrays, tensors or numpy arrays.
+predictions may be NDArrays, tensors or numpy arrays.  Where the
+host would have to look at a label to reject it (F1's labels outside
+{0, 1}, CrossEntropy's and Perplexity's outside the class axis), the
+batch is left out of the sums on the device and the error is raised at
+the next ``get()``, as the JAX package's device path does.  A
+``CustomMetric`` calls its Python function on numpy arrays, one readback
+a batch.
 """
 from __future__ import annotations
 
 import math
 
-import numpy as np
+import numpy  # `np` is the module-level metric factory below
 import torch
 
 from .base import MXNetError
@@ -27,7 +36,7 @@ def _t(x) -> torch.Tensor:
         return x._data.detach()
     if isinstance(x, torch.Tensor):
         return x.detach()
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+    return torch.from_numpy(numpy.ascontiguousarray(numpy.asarray(x)))
 
 
 def check_label_shapes(labels, preds, shape=0):
@@ -46,8 +55,11 @@ def register(klass):
 
 
 def create(metric, *args, **kwargs):
-    """A metric from a name, an EvalMetric or a list of them
-    (reference: metric.py create)."""
+    """A metric from a name, an EvalMetric, a function of (label, pred)
+    (a ``CustomMetric``) or a list of them (reference: metric.py
+    create)."""
+    if callable(metric) and not isinstance(metric, EvalMetric):
+        return CustomMetric(metric, *args, **kwargs)
     if isinstance(metric, EvalMetric):
         return metric
     if isinstance(metric, list):
@@ -78,6 +90,15 @@ class EvalMetric:
 
     def __str__(self):
         return f"EvalMetric: {dict(zip(*self.get()))}"
+
+    def get_config(self):
+        """The metric's constructor arguments, class and names."""
+        config = self._kwargs.copy()
+        config.update({"metric": self.__class__.__name__,
+                       "name": self.name,
+                       "output_names": self.output_names,
+                       "label_names": self.label_names})
+        return config
 
     def update_dict(self, label, pred):
         if self.output_names is not None:
@@ -138,6 +159,13 @@ class CompositeEvalMetric(EvalMetric):
 
     def add(self, metric):
         self.metrics.append(create(metric))
+
+    def get_metric(self, index):
+        try:
+            return self.metrics[index]
+        except IndexError:
+            return ValueError(f"Metric index {index} is out of range 0 and "
+                              f"{len(self.metrics)}")
 
     def update_dict(self, labels, preds):
         for metric in self.metrics:
@@ -217,8 +245,70 @@ class TopKAccuracy(EvalMetric):
             self._accumulate(hits, pred.shape[0])
 
 
+class _DeferredBadLabels:
+    """A metric whose labels are checked on the device: a batch with a
+    label out of range adds nothing to the sums and counts itself in
+    ``_bad``, and the next ``get()`` raises ``_bad_exc``, again at every
+    ``get()`` until ``reset()`` (the JAX package's device path)."""
+
+    _bad_exc = ValueError
+    _bad_msg = "out-of-range labels in device-accumulated metric"
+
+    def reset(self):
+        super().reset()
+        self._bad = []
+        self._bad_label_seen = False
+
+    def _count_bad(self, nbad):
+        self._bad.append(nbad)
+
+    def _sync(self):
+        super()._sync()
+        if self._bad:
+            if sum(int(b) for b in self._bad):
+                self._bad_label_seen = True
+            self._bad = []
+        if self._bad_label_seen:
+            raise self._bad_exc(self._bad_msg)
+
+
+_CLASS_RANGE_MSG = ("label index out of range for the class axis "
+                    "(detected at metric sync; the host path raises "
+                    "IndexError per batch)")
+
+
 @register
-class Perplexity(EvalMetric):
+class F1(_DeferredBadLabels, EvalMetric):
+    """Binary F1 of a batch, averaged over batches (reference: metric.py
+    F1): ``2 tp / (2 tp + fp + fn)``, 0 where that is 0/0; the
+    prediction is the argmax over axis 1."""
+
+    _bad_msg = "F1 currently only supports binary classification."
+
+    def __init__(self, name="f1", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            pred = _t(pred)
+            label = _t(label).to(pred.device).to(torch.int32).reshape(-1)
+            nbad = ((label < 0) | (label > 1)).sum()
+            ok = nbad == 0
+            pl = pred.argmax(dim=1).to(torch.int32)
+            lb = label.clamp(0, 1)
+            tp = ((pl == 1) & (lb == 1)).sum().double()
+            fp = ((pl == 1) & (lb == 0)).sum().double()
+            fn = ((pl == 0) & (lb == 1)).sum().double()
+            denom = 2 * tp + fp + fn
+            f1 = torch.where(denom > 0, 2 * tp / denom.clamp(min=1.0), 0.0)
+            self._accumulate(torch.where(ok, f1, 0.0), ok.to(torch.int64))
+            self._count_bad(nbad)
+
+
+@register
+class Perplexity(_DeferredBadLabels, EvalMetric):
     """exp of the mean negative log-probability of the labels, rows whose
     label is ``ignore_label`` left out (reference: metric.py Perplexity;
     probabilities floored at 1e-10)."""
@@ -230,6 +320,9 @@ class Perplexity(EvalMetric):
         self.ignore_label = ignore_label
         self.axis = axis
 
+    _bad_exc = IndexError
+    _bad_msg = _CLASS_RANGE_MSG
+
     def update(self, labels, preds):
         if len(labels) != len(preds):
             raise ValueError("labels and preds differ in number")
@@ -240,6 +333,8 @@ class Perplexity(EvalMetric):
             if label.numel() * nclass != pred.numel():
                 raise ValueError(f"shape mismatch: {tuple(label.shape)} vs. "
                                  f"{tuple(pred.shape)}")
+            nbad = ((label < -nclass) | (label >= nclass)).sum()
+            ok = nbad == 0
             probs = pred.reshape(-1, nclass).gather(
                 1, label.remainder(nclass)[:, None]).squeeze(1).float()
             count = label.numel()
@@ -247,7 +342,10 @@ class Perplexity(EvalMetric):
                 ignore = label == int(self.ignore_label)
                 count = count - ignore.sum()
                 probs = torch.where(ignore, torch.ones_like(probs), probs)
-            self._accumulate(-probs.clamp(min=1e-10).log().sum(), count)
+            loss = -probs.clamp(min=1e-10).log().sum()
+            self._accumulate(torch.where(ok, loss, 0.0),
+                             torch.where(ok, count, 0))
+            self._count_bad(nbad)
 
     def get(self):
         self._sync()
@@ -256,8 +354,64 @@ class Perplexity(EvalMetric):
         return (self.name, math.exp(self.sum_metric / self.num_inst))
 
 
+class _RegressionMetric(EvalMetric):
+    """A score of the residual ``label - pred`` per batch, averaged over
+    batches; a 1-d label or prediction is a column."""
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            pred = _t(pred)
+            label = _t(label).to(pred.device)
+            if label.dim() == 1:
+                label = label[:, None]
+            if pred.dim() == 1:
+                pred = pred[:, None]
+            self._accumulate(self._score(label - pred), 1)
+
+
 @register
-class CrossEntropy(EvalMetric):
+class MAE(_RegressionMetric):
+    """Mean absolute error (reference: metric.py MAE)."""
+
+    def __init__(self, name="mae", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    @staticmethod
+    def _score(err):
+        return err.abs().mean()
+
+
+@register
+class MSE(_RegressionMetric):
+    """Mean squared error (reference: metric.py MSE)."""
+
+    def __init__(self, name="mse", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    @staticmethod
+    def _score(err):
+        return (err ** 2.0).mean()
+
+
+@register
+class RMSE(_RegressionMetric):
+    """Root mean squared error of a batch, averaged over batches
+    (reference: metric.py RMSE)."""
+
+    def __init__(self, name="rmse", output_names=None, label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    @staticmethod
+    def _score(err):
+        return (err ** 2.0).mean().sqrt()
+
+
+@register
+class CrossEntropy(_DeferredBadLabels, EvalMetric):
     """Mean of ``-log(p[label] + eps)`` over rows (reference: metric.py
     CrossEntropy)."""
 
@@ -267,6 +421,9 @@ class CrossEntropy(EvalMetric):
                          label_names=label_names)
         self.eps = eps
 
+    _bad_exc = IndexError
+    _bad_msg = _CLASS_RANGE_MSG
+
     def update(self, labels, preds):
         check_label_shapes(labels, preds)
         for label, pred in zip(labels, preds):
@@ -275,9 +432,48 @@ class CrossEntropy(EvalMetric):
             if label.shape[0] != pred.shape[0]:
                 raise ValueError(f"{label.shape[0]} labels for "
                                  f"{pred.shape[0]} rows")
-            prob = pred.gather(1, label[:, None]).squeeze(1).float()
-            self._accumulate(-(prob + self.eps).log().sum(),
-                             label.shape[0])
+            nclass = pred.shape[-1]
+            nbad = ((label < -nclass) | (label >= nclass)).sum()
+            ok = nbad == 0
+            prob = pred.gather(1, label.remainder(nclass)[:, None]) \
+                .squeeze(1).float()
+            self._accumulate(
+                torch.where(ok, -(prob + self.eps).log().sum(), 0.0),
+                torch.where(ok, label.shape[0], 0))
+            self._count_bad(nbad)
+
+
+@register
+class NegativeLogLikelihood(CrossEntropy):
+    """CrossEntropy under its NLL name (reference: metric.py
+    NegativeLogLikelihood)."""
+
+    def __init__(self, eps=1e-12, name="nll-loss", output_names=None,
+                 label_names=None):
+        super().__init__(eps=eps, name=name, output_names=output_names,
+                         label_names=label_names)
+
+
+@register
+class PearsonCorrelation(EvalMetric):
+    """Pearson's r of a batch's predictions and labels, averaged over
+    batches (reference: metric.py PearsonCorrelation; float64 on the
+    device)."""
+
+    def __init__(self, name="pearsonr", output_names=None,
+                 label_names=None):
+        super().__init__(name, output_names=output_names,
+                         label_names=label_names)
+
+    def update(self, labels, preds):
+        check_label_shapes(labels, preds)
+        for label, pred in zip(labels, preds):
+            check_label_shapes(label, pred, 1)
+            pred = _t(pred).reshape(-1).double()
+            label = _t(label).to(pred.device).reshape(-1).double()
+            a, b = pred - pred.mean(), label - label.mean()
+            r = (a * b).sum() / ((a * a).sum() * (b * b).sum()).sqrt()
+            self._accumulate(r, 1)
 
 
 @register
@@ -294,8 +490,77 @@ class Loss(EvalMetric):
             self._accumulate(pred.float().sum(), pred.numel())
 
 
+@register
+class Torch(Loss):
+    """Loss under the name ``torch`` (reference: metric.py Torch)."""
+
+    def __init__(self, name="torch", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class Caffe(Loss):
+    """Loss under the name ``caffe`` (reference: metric.py Caffe)."""
+
+    def __init__(self, name="caffe", output_names=None, label_names=None):
+        super().__init__(name, output_names, label_names)
+
+
+@register
+class CustomMetric(EvalMetric):
+    """``feval(label, pred)`` on numpy arrays, per output: a number (one
+    instance) or a ``(sum, count)`` pair (reference: metric.py
+    CustomMetric).  Reads each batch back to the host."""
+
+    def __init__(self, feval, name=None, allow_extra_outputs=False,
+                 output_names=None, label_names=None):
+        if name is None:
+            name = feval.__name__
+            if name.find("<") != -1:
+                name = "custom(%s)" % name
+        super().__init__(name, feval=feval,
+                         allow_extra_outputs=allow_extra_outputs,
+                         output_names=output_names, label_names=label_names)
+        self._feval = feval
+        self._allow_extra_outputs = allow_extra_outputs
+
+    def update(self, labels, preds):
+        if not self._allow_extra_outputs:
+            check_label_shapes(labels, preds)
+        for pred, label in zip(preds, labels):
+            reval = self._feval(_numpy(label), _numpy(pred))
+            if isinstance(reval, tuple):
+                sum_metric, num_inst = reval
+                self.sum_metric += sum_metric
+                self.num_inst += num_inst
+            else:
+                self.sum_metric += reval
+                self.num_inst += 1
+
+    def get_config(self):
+        raise NotImplementedError("CustomMetric cannot be serialized")
+
+
+def _numpy(x):
+    t = _t(x)
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def np(numpy_feval, name=None, allow_extra_outputs=False):
+    """A CustomMetric over a function of numpy (label, pred) (reference:
+    metric.py np)."""
+    def feval(label, pred):
+        return numpy_feval(label, pred)
+    feval.__name__ = numpy_feval.__name__
+    return CustomMetric(feval, name, allow_extra_outputs)
+
+
 _METRIC_REGISTRY["acc"] = Accuracy
 _METRIC_REGISTRY["top_k_acc"] = TopKAccuracy
 _METRIC_REGISTRY["top_k_accuracy"] = TopKAccuracy
 _METRIC_REGISTRY["ce"] = CrossEntropy
 _METRIC_REGISTRY["cross-entropy"] = CrossEntropy
+_METRIC_REGISTRY["nll_loss"] = NegativeLogLikelihood
+_METRIC_REGISTRY["pearsonr"] = PearsonCorrelation

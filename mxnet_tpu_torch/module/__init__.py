@@ -1,7 +1,10 @@
-"""Module API (subset): ``BaseModule``, ``Module`` and
-``BucketingModule``."""
+"""Module API: ``BaseModule``, ``Module``, ``BucketingModule``,
+``SequentialModule``, ``PythonModule`` and ``PythonLossModule``."""
 from .base_module import BaseModule
 from .module import Module
 from .bucketing_module import BucketingModule
+from .sequential_module import SequentialModule
+from .python_module import PythonModule, PythonLossModule
 
-__all__ = ["BaseModule", "Module", "BucketingModule"]
+__all__ = ["BaseModule", "Module", "BucketingModule", "SequentialModule",
+           "PythonModule", "PythonLossModule"]

@@ -33,9 +33,6 @@ class BucketingModule(BaseModule):
                  compute_dtype=None, mesh=None, sharding_rules=None):
         super().__init__(logger=logger)
         assert default_bucket_key is not None
-        if fixed_param_names:
-            raise MXNetError("fixed_param_names is not ported yet "
-                             "(ROADMAP C8)")
         if mesh is not None or sharding_rules is not None:
             raise MXNetError("mesh / sharding_rules are not ported yet "
                              "(ROADMAP D1)")
@@ -44,6 +41,7 @@ class BucketingModule(BaseModule):
         self._context = context
         self._state_names = list(state_names or [])
         self._compute_dtype = compute_dtype
+        self._fixed_param_names = list(fixed_param_names or [])
         self._buckets = {}
         self._curr_module = None
         self._curr_bucket_key = None
@@ -59,6 +57,7 @@ class BucketingModule(BaseModule):
         symbol, data_names, label_names = self._sym_gen(bucket_key)
         return Module(symbol, data_names, label_names, logger=self.logger,
                       context=self._context, state_names=self._state_names,
+                      fixed_param_names=self._fixed_param_names,
                       compute_dtype=self._compute_dtype)
 
     @property

@@ -19,9 +19,17 @@ the next (a KV cache, an RNN's hidden state): they get no gradient and no
 optimizer update, and ``get_states`` / ``set_states`` read and set them.
 ``bind(shared_module=...)`` makes this module hold the other's
 parameter NDArrays, and ``borrow_optimizer`` its optimizer (the
-``BucketingModule``'s buckets).  The JAX package's fused jit step and its
-scan over K steps, meshes, ZeRO, fixed parameters and rebinding to new
-shapes are not ported yet.
+``BucketingModule``'s buckets).  ``fixed_param_names`` are parameters
+that get no gradient tensor and no update (``grad_req`` null): they are
+no leaves of autograd's graph, so the backward stops where the trainable
+graph starts; BatchNorm's moving statistics still follow a training
+forward, as in the JAX package.  ``reshape`` rebinds to new input shapes
+(a batch-size switch for evaluation) and keeps the parameter NDArrays,
+auxiliary states, ``grad_req`` and optimizer states; ``forward`` does it
+by itself when a batch's data and label shapes differ from the bound
+ones.  The JAX package's fused jit step and its scan over K steps
+(plain PyTorch runs eagerly), meshes and ZeRO (ROADMAP D1) and
+``install_monitor`` (ROADMAP C6) are not ported.
 """
 from __future__ import annotations
 
@@ -49,8 +57,14 @@ class Module(BaseModule):
 
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
-                 context=None, state_names=None, compute_dtype=None):
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 state_names=None, mesh=None, sharding_rules=None,
+                 compute_dtype=None, zero_stage=None):
         super().__init__(logger=logger)
+        if mesh is not None or sharding_rules is not None or zero_stage:
+            raise MXNetError("mesh / sharding_rules / zero_stage: device "
+                             "meshes and ZeRO are not ported yet "
+                             "(ROADMAP D1)")
         if context is None:
             context = current_context()
         if isinstance(context, (list, tuple)):
@@ -64,12 +78,16 @@ class Module(BaseModule):
         data_names = list(data_names) if data_names is not None else []
         label_names = list(label_names) if label_names is not None else []
         state_names = list(state_names) if state_names is not None else []
+        fixed_param_names = list(fixed_param_names) \
+            if fixed_param_names is not None else []
         _check_input_names(symbol, data_names, "data", True)
         _check_input_names(symbol, label_names, "label", False)
         _check_input_names(symbol, state_names, "state", True)
+        _check_input_names(symbol, fixed_param_names, "fixed_param", True)
         input_names = data_names + label_names + state_names
         self._param_names = [x for x in symbol.list_arguments()
                              if x not in input_names]
+        self._fixed_param_names = fixed_param_names
         self._aux_names = symbol.list_auxiliary_states()
         self._data_names = data_names
         self._label_names = label_names
@@ -222,7 +240,8 @@ class Module(BaseModule):
         for name in self._symbol.list_arguments():
             if name in self._data_names:
                 req[name] = "write" if inputs_need_grad else "null"
-            elif name in self._label_names or name in self._state_names:
+            elif name in self._label_names or name in self._state_names \
+                    or name in self._fixed_param_names:
                 req[name] = "null"
             else:
                 req[name] = grad_req if for_training else "null"
@@ -236,6 +255,27 @@ class Module(BaseModule):
                                         allow_extra_params=True)
         if shared_module is not None:
             self._share_arrays(shared_module)
+
+    def reshape(self, data_shapes, label_shapes=None):
+        """Rebind to new input shapes, keeping the parameter NDArrays
+        (the same objects), auxiliary states, ``grad_req`` and optimizer
+        states (reference: module.py reshape).  A module bound with
+        labels must be given labels of the new shape."""
+        assert self.binded and self.params_initialized
+        new_data, new_labels = _parse_data_desc(
+            self._data_names, self._label_names, data_shapes, label_shapes)
+        if self._label_shapes and not new_labels:
+            raise MXNetError("reshape: this module was bound with "
+                             "label_shapes; pass label_shapes of the new "
+                             "batch too")
+        self._exec = self._exec.reshape(
+            **{d.name: d.shape for d in new_data + list(new_labels or [])})
+        self._data_shapes, self._label_shapes = new_data, new_labels
+        self._grads_fresh = False
+
+    def install_monitor(self, mon):
+        raise MXNetError("install_monitor: the Monitor is not ported yet "
+                         "(ROADMAP C6)")
 
     def _share_arrays(self, shared_module):
         """Hold ``shared_module``'s parameter and auxiliary NDArrays
@@ -309,7 +349,7 @@ class Module(BaseModule):
         states, as the JAX package writes them (bf16 states, which numpy
         lacks, are written as float32)."""
         assert self.optimizer_initialized
-        states = {n: tuple(s.asnumpy() for s in st)
+        states = {n: tuple(None if s is None else s.asnumpy() for s in st)
                   for n, st in self._updater.states.items()}
         _prof.record_host_sync("module.save_optimizer_states")
         with open(fname, "wb") as fout:
@@ -325,6 +365,8 @@ class Module(BaseModule):
             states = pickle.load(fin)
         for n, st in states.items():
             for s, v in zip(self._updater.states.get(n, ()), st):
+                if s is None or v is None:
+                    continue
                 v = np.asarray(v)
                 t = (torch.from_numpy(v.view(np.int16)).view(torch.bfloat16)
                      if v.dtype.name == "bfloat16" else torch.from_numpy(v))
@@ -337,20 +379,19 @@ class Module(BaseModule):
     # -- compute ---------------------------------------------------------------
     def forward(self, data_batch, is_train=None):
         """Run the graph on ``data_batch`` (its NDArrays are copied to the
-        module's device).  The inputs keep the bound shapes (an
-        ``NDArrayIter`` pads or drops its last batch); rebinding to other
-        shapes is not ported yet."""
+        module's device).  A batch whose data or label shapes differ from
+        the bound ones rebinds the executor to them first
+        (:meth:`Executor.reshape`: parameters and states carry over)."""
         assert self.binded and self.params_initialized
         if is_train is None:
             is_train = self.for_training
         kwargs = dict(zip(self._data_names, data_batch.data))
         if data_batch.label is not None and self._label_names:
             kwargs.update(zip(self._label_names, data_batch.label))
-        for name, value in kwargs.items():
-            if tuple(value.shape) != self._exec.arg_dict[name].shape:
-                raise MXNetError(f"forward: {name} has shape "
-                                 f"{tuple(value.shape)}, the module is bound "
-                                 f"to {self._exec.arg_dict[name].shape}")
+        arg_dict = self._exec.arg_dict
+        new = {n: tuple(v.shape) for n, v in kwargs.items()}
+        if any(tuple(arg_dict[n].shape) != s for n, s in new.items()):
+            self._exec = self._exec.reshape(**new)
         self._exec.forward(is_train=is_train, **kwargs)
         self._grads_fresh = False
 

@@ -82,6 +82,8 @@ class NDArray:
             data = data.to(torch_dtype(dtype))
         if ctx is not None:
             data = data.to(as_device(ctx))
+            if getattr(ctx, "device_type", None) == "cpu_pinned":
+                data = data.pin_memory()
         self._data = data
         self._grad = None
         self._grad_req = "null"

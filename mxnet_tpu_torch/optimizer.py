@@ -1,21 +1,26 @@
-"""Optimizers (subset).
+"""Optimizers.
 
 PyTorch counterpart of ``mxnet_tpu/optimizer.py``: the ``Optimizer`` base
-class (lr/wd multipliers, ``rescale_grad``, ``clip_gradient``, update
-counts, multi-precision master copies), ``SGD`` (momentum, wd) and
-``Adam`` (bias correction by update count), with the JAX package's
-formulas.  Each optimizer's ``_update_impl(weight, grad, states, lr, wd)
--> (new_weight, new_states)`` is a function of torch tensors; it runs
-under ``torch.no_grad`` and returns new tensors, which ``update`` binds
-into the weight's and the states' NDArrays (not an in-place update: the
-old tensors are freed, and a tensor a caller still holds keeps its
-value).  The JAX package runs no Pallas kernel here, so plain torch ops
-are the port.
+class (lr/wd multipliers, from ``__lr_mult__`` / ``__wd_mult__`` symbol
+attributes too, ``rescale_grad``, ``clip_gradient``, update counts,
+multi-precision master copies) and every optimizer of the JAX package
+with its formulas: SGD (``ccsgd``), NAG, SGLD, DCASGD, Adam, AdaGrad,
+RMSProp, AdaDelta, Ftrl, Adamax, Nadam, Signum, LARS, LAMB and Test.
+Each optimizer's ``_update_impl(weight, grad, states, lr, wd[, t]) ->
+(new_weight, new_states)`` is a function of torch tensors; it runs under
+``torch.no_grad`` and returns new tensors, which ``update`` binds into
+the weight's and the states' NDArrays (not an in-place update: the old
+tensors are freed, and a tensor a caller still holds keeps its value).
+A state slot may be None (DCASGD without momentum).  LARS's and LAMB's
+layer-wise trust ratios are ``torch.where`` on the device, so an update
+never waits for the card.  The JAX package runs no Pallas kernel here,
+so plain torch ops are the port.
 """
 from __future__ import annotations
 
 import copyreg
 import io
+import math
 import pickle
 from typing import Tuple
 
@@ -24,6 +29,7 @@ import torch
 
 from .base import MXNetError
 from .ndarray import NDArray
+from . import random as _rnd
 
 _OPT_REGISTRY = {}
 
@@ -135,11 +141,13 @@ class Optimizer:
         ts = ((self._index_update_count[index],) if self.needs_t else None)
         use_mp = self.mp_states_active(weight, states)
         (new_w,), (new_st,) = self.apply_fused(
-            (weight._data,), (grad._data,), (tuple(s._data for s in states),),
+            (weight._data,), (grad._data,),
+            (tuple(None if s is None else s._data for s in states),),
             (lr,), (wd,), (use_mp,), ts)
         weight._set_data(new_w)
         for s, v in zip(states, new_st):
-            s._set_data(v)
+            if s is not None:
+                s._set_data(v)
 
     def update_multi_precision(self, index, weight, grad, state):
         self.update(index, weight, grad, state)
@@ -274,6 +282,409 @@ class Adam(Optimizer):
         return weight - lr * m / (v.sqrt() + self.epsilon), (m, v)
 
 
+def _l2norm(x):
+    """The L2 norm of a tensor, at least in float32, as a 0-d tensor on
+    its device: LARS's and LAMB's layer norms must not accumulate in
+    bf16, and must not be read back."""
+    return torch.linalg.vector_norm(
+        x, dtype=torch.float32 if x.dtype in _LOW_PRECISION else None)
+
+
+def _zeros_state(weight):
+    return NDArray(torch.zeros_like(weight._data))
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov accelerated gradient (reference: optimizer.py NAG):
+    ``g = clip(grad * rescale) + wd * w; mom = momentum * mom + g;
+    w -= lr * (g + momentum * mom)``."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return ()
+        return (_zeros_state(weight),)
+
+    def _update_impl(self, weight, grad, states, lr, wd, t=None):
+        g = _clip(grad * self.rescale_grad, self.clip_gradient) + wd * weight
+        if self.momentum == 0.0 or not states:
+            return weight - lr * g, ()
+        new_mom = self.momentum * states[0] + g
+        return weight - lr * (g + self.momentum * new_mom), (new_mom,)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics (reference: optimizer.py
+    SGLD): ``w += -lr / 2 * (g + wd * w) + N(0, sqrt(lr))``.  The noise
+    comes from one ``torch.Generator`` per device, seeded at its first
+    use from :func:`mxnet_tpu_torch.random.generator`, so
+    ``mt.random.seed`` fixes it; the draws are not the JAX package's."""
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self._gens = {}
+
+    def _generator(self, device):
+        gen = self._gens.get(device)
+        if gen is None:
+            seed = int(torch.randint(0, 2 ** 62, (1,),
+                                     generator=_rnd.generator()))
+            gen = self._gens[device] = \
+                torch.Generator(device).manual_seed(seed)
+        return gen
+
+    def _update_impl(self, weight, grad, states, lr, wd, t=None):
+        g = _clip(grad * self.rescale_grad, self.clip_gradient)
+        noise = torch.randn(weight.shape, dtype=weight.dtype,
+                            device=weight.device,
+                            generator=self._generator(weight.device))
+        return weight - lr / 2 * (g + wd * weight) \
+            + noise * math.sqrt(lr), ()
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD (reference: optimizer.py
+    DCASGD): ``comp = g + wd * w + lamda * g * g * (w - w_prev)``; with
+    momentum ``mom = momentum * mom - lr * comp; w += mom``, else
+    ``w -= lr * comp``.  States: (momentum or None, the previous
+    weight)."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        prev = NDArray(weight._data.clone())
+        if self.momentum == 0.0:
+            return (None, prev)
+        return (_zeros_state(weight), prev)
+
+    def _update_impl(self, weight, grad, states, lr, wd, t=None):
+        mom, prev = states
+        g = _clip(grad * self.rescale_grad, self.clip_gradient)
+        comp = g + wd * weight + self.lamda * g * g * (weight - prev)
+        if mom is not None:
+            new_mom = self.momentum * mom - lr * comp
+            return weight + new_mom, (new_mom, weight)
+        return weight - lr * comp, (None, weight)
+
+
+@register
+class AdaGrad(Optimizer):
+    """reference: optimizer.py AdaGrad: ``hist += g * g;
+    w -= lr * (g / sqrt(hist + eps) + wd * w)``."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return (_zeros_state(weight),)
+
+    def _update_impl(self, weight, grad, states, lr, wd, t=None):
+        g = _clip(grad * self.rescale_grad, self.clip_gradient)
+        hist = states[0] + g * g
+        w = weight - lr * (g / (hist + self.float_stable_eps).sqrt()
+                           + wd * weight)
+        return w, (hist,)
+
+
+@register
+class RMSProp(Optimizer):
+    """reference: optimizer.py RMSProp (``centered=False``: Tieleman and
+    Hinton; ``True``: Graves's variant with a mean of the gradient and a
+    momentum of the step), optionally clipping the weights."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        n = 3 if self.centered else 1
+        return tuple(_zeros_state(weight) for _ in range(n))
+
+    def _clip_w(self, w):
+        if self.clip_weights:
+            return w.clamp(-self.clip_weights, self.clip_weights)
+        return w
+
+    def _update_impl(self, weight, grad, states, lr, wd, t=None):
+        g = _clip(grad * self.rescale_grad, self.clip_gradient) + wd * weight
+        new_n = self.gamma1 * states[0] + (1 - self.gamma1) * g * g
+        if not self.centered:
+            w = weight - lr * g / (new_n + self.epsilon).sqrt()
+            return self._clip_w(w), (new_n,)
+        _, gm, delta = states
+        new_g = self.gamma1 * gm + (1 - self.gamma1) * g
+        new_delta = self.gamma2 * delta - lr * g / (
+            new_n - new_g * new_g + self.epsilon).sqrt()
+        return self._clip_w(weight + new_delta), (new_n, new_g, new_delta)
+
+
+@register
+class AdaDelta(Optimizer):
+    """reference: optimizer.py AdaDelta (no learning rate):
+    ``acc_g = rho * acc_g + (1 - rho) * g * g; delta = sqrt(acc_delta +
+    eps) / sqrt(acc_g + eps) * g; acc_delta = rho * acc_delta + (1 - rho)
+    * delta ** 2; w -= delta + wd * w``."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_state(weight), _zeros_state(weight))
+
+    def _update_impl(self, weight, grad, states, lr, wd, t=None):
+        acc_g, acc_delta = states
+        g = _clip(grad * self.rescale_grad, self.clip_gradient)
+        new_acc_g = self.rho * acc_g + (1. - self.rho) * g * g
+        delta = (acc_delta + self.epsilon).sqrt() / \
+            (new_acc_g + self.epsilon).sqrt() * g
+        new_acc_delta = self.rho * acc_delta + (1. - self.rho) * delta * delta
+        return weight - delta - wd * weight, (new_acc_g, new_acc_delta)
+
+
+@register
+class Ftrl(Optimizer):
+    """Follow the regularized leader, proximal (reference: optimizer.py
+    Ftrl): states z and n; a weight whose ``|z| <= lamda1`` is 0."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_zeros_state(weight), _zeros_state(weight))   # z, n
+
+    def _update_impl(self, weight, grad, states, lr, wd, t=None):
+        z, n = states
+        g = _clip(grad * self.rescale_grad, self.clip_gradient)
+        new_n = n + g * g
+        sigma = (new_n.sqrt() - n.sqrt()) / lr
+        new_z = z + g - sigma * weight
+        w = torch.where(
+            new_z.abs() <= self.lamda1, torch.zeros_like(weight),
+            -(new_z - new_z.sign() * self.lamda1)
+            / ((self.beta + new_n.sqrt()) / lr + wd))
+        return w, (new_z, new_n)
+
+
+@register
+class Adamax(Optimizer):
+    """reference: optimizer.py Adamax (Adam with the infinity norm):
+    ``m = beta1 * m + (1 - beta1) * g; u = max(beta2 * u, |g|);
+    w -= lr / (1 - beta1 ** t) * m / u``."""
+
+    needs_t = True
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (_zeros_state(weight), _zeros_state(weight))
+
+    def _update_impl(self, weight, grad, states, lr, wd, t=None):
+        lr = lr / (1. - self.beta1 ** t)
+        m_t, u_t = states
+        g = _clip(grad * self.rescale_grad, self.clip_gradient) + wd * weight
+        new_m = self.beta1 * m_t + (1. - self.beta1) * g
+        new_u = torch.maximum(self.beta2 * u_t, g.abs())
+        return weight - lr * new_m / new_u, (new_m, new_u)
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum (reference: optimizer.py Nadam).  The
+    momentum schedule's running product ``m_schedule`` is one number of
+    the optimizer, advanced at every update of any weight, as in the
+    reference."""
+
+    needs_t = True
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.
+
+    def create_state(self, index, weight):
+        return (_zeros_state(weight), _zeros_state(weight))
+
+    def _update_impl(self, weight, grad, states, lr, wd, t=None):
+        g = _clip(grad * self.rescale_grad, self.clip_gradient) + wd * weight
+        momentum_t = self.beta1 * (1. - 0.5 * 0.96 **
+                                   (t * self.schedule_decay))
+        momentum_t_1 = self.beta1 * (1. - 0.5 * 0.96 **
+                                     ((t + 1) * self.schedule_decay))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        m_t, v_t = states
+        g_prime = g / (1. - self.m_schedule)
+        new_m = self.beta1 * m_t + (1. - self.beta1) * g
+        new_v = self.beta2 * v_t + (1. - self.beta2) * g * g
+        m_t_prime = new_m / (1. - m_schedule_next)
+        v_t_prime = new_v / (1. - self.beta2 ** t)
+        m_t_bar = (1. - momentum_t) * g_prime + momentum_t_1 * m_t_prime
+        return weight - lr * m_t_bar / (v_t_prime.sqrt() + self.epsilon), \
+            (new_m, new_v)
+
+
+@register
+class Signum(Optimizer):
+    """Sign-based SGD (reference: the signsgd / signum update ops):
+    without momentum ``w -= lr * sign(g)``; with it ``mom = momentum *
+    mom - (1 - momentum) * g; w = (1 - lr * wd_lh) * w + lr *
+    sign(mom)``."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return ()
+        return (_zeros_state(weight),)
+
+    def _update_impl(self, weight, grad, states, lr, wd, t=None):
+        g = _clip(grad * self.rescale_grad, self.clip_gradient) + wd * weight
+        if not states:
+            return weight - lr * g.sign(), ()
+        new_mom = self.momentum * states[0] - (1 - self.momentum) * g
+        if self.wd_lh:
+            w = (1 - lr * self.wd_lh) * weight + lr * new_mom.sign()
+        else:
+            w = weight + lr * new_mom.sign()
+        return w, (new_mom,)
+
+
+@register
+class LARS(Optimizer):
+    """Layer-wise adaptive rate scaling (You et al. 2017), the JAX
+    package's large-batch SGD.  Per weight of two or more dims:
+
+        trust = eta * ||w|| / (||g|| + wd * ||w|| + eps)  (1 if a norm is 0)
+        mom   = momentum * mom - lr * trust * (g + wd * w)
+        w    += mom
+
+    Biases and BatchNorm's gamma and beta (one dim) take plain momentum
+    SGD without weight decay.  The norms are float32 and the trust ratio
+    is a ``torch.where`` on the weight's device: nothing is read back."""
+
+    def __init__(self, learning_rate=0.1, momentum=0.9, eta=0.001,
+                 epsilon=1e-9, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.eta = eta
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros_state(weight),)
+
+    def _update_impl(self, weight, grad, states, lr, wd, t=None):
+        g = _clip(grad * self.rescale_grad, self.clip_gradient)
+        mom = states[0]
+        if weight.dim() <= 1:
+            new_mom = self.momentum * mom - lr * g
+            return weight + new_mom, (new_mom,)
+        w_norm = _l2norm(weight)
+        g_norm = _l2norm(g)
+        trust = torch.where(
+            (w_norm > 0) & (g_norm > 0),
+            self.eta * w_norm / (g_norm + wd * w_norm + self.epsilon),
+            1.0).to(weight.dtype)
+        new_mom = self.momentum * mom - lr * trust * (g + wd * weight)
+        return weight + new_mom, (new_mom,)
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise adaptive Adam (You et al. 2019):
+
+        m, v  = Adam's moments, bias-corrected by the update count t
+        r     = m_hat / (sqrt(v_hat) + eps) + wd * w
+        ratio = ||w|| / ||r||   (1 where either norm is 0)
+        w    -= lr * ratio * r
+
+    ``lower_bound`` / ``upper_bound`` clamp ``||w||``.  As in LARS the
+    norms are float32 and the ratio stays on the device."""
+
+    needs_t = True
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.lower_bound = lower_bound
+        self.upper_bound = upper_bound
+
+    def create_state(self, index, weight):
+        return (_zeros_state(weight), _zeros_state(weight))
+
+    def _update_impl(self, weight, grad, states, lr, wd, t=None):
+        mean, var = states
+        if t is None:
+            t = max(self.num_update, 1)
+        g = _clip(grad * self.rescale_grad, self.clip_gradient)
+        m = self.beta1 * mean + (1. - self.beta1) * g
+        v = self.beta2 * var + (1. - self.beta2) * g * g
+        one = np.float32(1.0)
+        m_hat = m / float(one - np.float32(self.beta1) ** t)
+        v_hat = v / float(one - np.float32(self.beta2) ** t)
+        r = m_hat / (v_hat.sqrt() + self.epsilon) + wd * weight
+        w_norm = _l2norm(weight)
+        if self.lower_bound is not None:
+            w_norm = w_norm.clamp(min=self.lower_bound)
+        if self.upper_bound is not None:
+            w_norm = w_norm.clamp(max=self.upper_bound)
+        r_norm = _l2norm(r)
+        ratio = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            1.0).to(weight.dtype)
+        return weight - lr * ratio * r, (m, v)
+
+
+@register
+class Test(Optimizer):
+    """reference: optimizer.py Test, for unit tests:
+    ``w += grad * rescale_grad``."""
+
+    def create_state(self, index, weight):
+        return (_zeros_state(weight),)
+
+    def _update_impl(self, weight, grad, states, lr, wd, t=None):
+        return weight + grad * self.rescale_grad, (states[0],)
+
+
+# ccSGD is SGD in the reference's later versions
+_OPT_REGISTRY["ccsgd"] = SGD
+
+
 class Updater:
     """Applies an optimizer per keyed weight, creating each key's state at
     its first update (reference: optimizer.py get_updater/Updater).
@@ -299,8 +710,8 @@ class Updater:
         elif not self.states_synced.get(index, True):
             dev = weight._data.device
             self.states[index] = tuple(
-                NDArray(st._data.to(dev)) for st in
-                self.optimizer._state_tuple(self.states[index]))
+                None if st is None else NDArray(st._data.to(dev))
+                for st in self.optimizer._state_tuple(self.states[index]))
         self.states_synced[index] = True
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
@@ -309,8 +720,9 @@ class Updater:
         if dump_optimizer:
             raise MXNetError("get_states(dump_optimizer=True): the "
                              "optimizer object does not cross packages")
-        states = {k: tuple(_JaxNDArray(_numpy_state(st)) for st in
-                           self.optimizer._state_tuple(v))
+        states = {k: tuple(None if st is None else
+                           _JaxNDArray(_numpy_state(st))
+                           for st in self.optimizer._state_tuple(v))
                   for k, v in self.states.items()}
         buf = io.BytesIO()
         _StatePickler(buf, protocol=2).dump(states)
@@ -325,7 +737,8 @@ class Updater:
         if isinstance(states, tuple) and len(states) == 2:
             states = states[0]
         self.states = {
-            k: tuple(NDArray(np.ascontiguousarray(_state_value(st)))
+            k: tuple(None if st is None else
+                     NDArray(np.ascontiguousarray(_state_value(st)))
                      for st in self.optimizer._state_tuple(v))
             for k, v in states.items()}
         self.states_synced = dict.fromkeys(self.states, False)

@@ -7,15 +7,21 @@ binding it builds a plain function on tensors
 save/load keeps the nnvm layout of the JAX package (nodes / arg_nodes /
 heads), so a graph saved by either package loads in the other.
 
-Shape inference runs forward over the graph: parameter shapes are filled
-from the data shapes by per-op rules (FullyConnected, Convolution,
-Deconvolution, BatchNorm, InstanceNorm, LayerNorm, Embedding, PReLU), and
-every op's shape comes from running its torch function on
-``device="meta"`` tensors, which carry shapes and no data;
+Shape inference first runs the JAX package's bidirectional pre-pass,
+which resolves unknown (0) dims from constraints elsewhere in the graph
+(elementwise and broadcast binaries, FullyConnected, Convolution,
+Concat, SliceChannel, shape-preserving unaries) and checks given shapes
+against them; then it runs forward over the graph: parameter shapes are
+filled from the data shapes by per-op rules (FullyConnected,
+Convolution, Deconvolution, BatchNorm, InstanceNorm, LayerNorm,
+Embedding, PReLU), and every op's shape comes from running its torch
+function on ``device="meta"`` tensors, which carry shapes and no data.
 ``infer_shape_partial`` (Gluon's deferred initialization) returns None
-where it cannot tell. The JAX package's bidirectional pre-pass, which
-resolves unknown (0) dims from constraints elsewhere in the graph, is
-not ported yet.
+where it cannot tell; ``infer_type`` runs the ops on meta tensors of
+the given dtypes.  ``load`` reads nnvm-era files and the reference's
+pre-nnvm (v0.8) files, whose implicit trailing inputs it adds.  Symbols
+made inside an :class:`~mxnet_tpu_torch.attribute.AttrScope` carry its
+attributes.
 
 A variable composed into an op's auxiliary slot (BatchNorm's moving
 statistics, as a Gluon block passes its ``running_mean``) is an
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
+from .. import attribute as _attribute
 from .. import name as _name
 from ..ops import registry as _reg
 
@@ -320,6 +327,44 @@ class Symbol:
         return [n.name for n in self.nodes()
                 if n.is_variable and n._user_attrs.get("__is_aux__")]
 
+    def list_inputs(self):
+        """Every variable: arguments and auxiliary states."""
+        return [n.name for n in self.nodes() if n.is_variable]
+
+    def get_internals(self) -> "Symbol":
+        """Every output of every node, as one grouped symbol (index it
+        by name, e.g. ``internals["flatten0_output"]``)."""
+        return Symbol([(n, i) for n in self.nodes()
+                       for i in range(node_num_outputs(n))])
+
+    def get_children(self) -> Optional["Symbol"]:
+        """The inputs of every head node (each node once), or None when
+        no head has inputs."""
+        heads, seen = [], set()
+        for node, _ in self._heads:
+            if id(node) not in seen:
+                seen.add(id(node))
+                heads.extend(node.inputs)
+        return Symbol(heads) if heads else None
+
+    def _single_head(self) -> Tuple[Node, int]:
+        if len(self._heads) != 1:
+            raise MXNetError("attributes are read from a single-output "
+                             "symbol")
+        return self._heads[0]
+
+    def attr(self, key):
+        """The user attribute ``key`` of this symbol's node, or None."""
+        return self._single_head()[0]._user_attrs.get(key)
+
+    def list_attr(self):
+        """The user attributes of this symbol's node."""
+        return {k: v for k, v in self._single_head()[0]._user_attrs.items()
+                if not k.startswith("__is_aux")}
+
+    def _set_attr(self, **kwargs):
+        self._single_head()[0]._user_attrs.update(kwargs)
+
     def attr_dict(self):
         """{node name: {attr: str}} of the nodes that carry attributes:
         user attributes (``__init__``, ``__lr_mult__``, ...) and op
@@ -369,13 +414,47 @@ class Symbol:
                 known[n] = tuple(s)
         known.update({k: tuple(v) for k, v in kwargs.items()
                       if v is not None})
-        shapes = _infer_graph_shapes(self, known)
+        shapes, _ = _infer_graph_shapes(self, known, {})
         arg_shapes = [shapes.get(n) for n in arg_names]
         aux_shapes = [shapes.get(n) for n in self.list_auxiliary_states()]
         missing = [n for n, s in zip(arg_names, arg_shapes) if s is None]
         if missing and not partial:
             raise MXNetError(f"infer_shape: cannot infer shapes for {missing}")
         return arg_shapes, shapes["__outputs__"], aux_shapes
+
+    def infer_type(self, *args, **kwargs):
+        """(arg_types, out_types, aux_types) as numpy dtypes, from the
+        given input dtypes (positional in ``list_arguments`` order or by
+        name), as the JAX package infers them: a variable's ``dtype``
+        attribute pins it; the first floating dtype given (or pinned)
+        becomes every other input's, float32 without one; each op runs
+        on meta tensors of its inputs' dtypes (of shape (1,)), and an
+        output whose op cannot run there is the default dtype."""
+        arg_names = self.list_arguments()
+        aux_names = self.list_auxiliary_states()
+        known: Dict[str, np.dtype] = {}
+        for n, t in zip(arg_names, args):
+            if t is not None:
+                known[n] = np.dtype(t)
+        known.update({k: np.dtype(v) for k, v in kwargs.items()
+                      if v is not None})
+        float_attr = []
+        for node in self.nodes():
+            if node.is_variable and "__dtype__" in node._user_attrs:
+                dt = np.dtype(node._user_attrs["__dtype__"])
+                known.setdefault(node.name, dt)
+                if np.issubdtype(dt, np.floating):
+                    float_attr.append(dt)
+        floats = [v for v in known.values() if np.issubdtype(v, np.floating)]
+        default = next(iter(floats + float_attr), np.dtype("float32"))
+        for n in arg_names + aux_names:
+            known.setdefault(n, default)
+        _, dtypes = _infer_graph_shapes(self, {}, known,
+                                        shapes_optional=True,
+                                        dummy_shapes=True)
+        outs = [default if t is None else t for t in dtypes["__outputs__"]]
+        return ([dtypes.get(n) or default for n in arg_names], outs,
+                [dtypes.get(n) or default for n in aux_names])
 
     # -- save/load ----------------------------------------------------------
     def tojson(self):
@@ -493,7 +572,8 @@ def _compose(op_name: str, inputs: List[Symbol], attrs: dict,
     attrs = {k: v for k, v in attrs.items() if v is not None}
     hint = op_name.lower().lstrip("_")
     name = _name.current().get(name, hint)
-    user_attrs = dict(user_attr or {})
+    # an explicit attr= merges over the ambient AttrScope's attributes
+    user_attrs = _attribute.current().get(user_attr)
 
     heads: List[Tuple[Node, int]] = []
     for s in inputs:
@@ -527,7 +607,7 @@ def var(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
     ``__init__`` attribute, which ``Module.init_params`` reads."""
     if not isinstance(name, str):
         raise TypeError("Expect a string for variable name")
-    user_attrs = dict(attr or {})
+    user_attrs = _attribute.current().get(attr)
     if shape is not None:
         user_attrs["__shape__"] = str(tuple(shape))
     if lr_mult is not None:
@@ -560,14 +640,26 @@ def Group(symbols) -> Symbol:
 
 
 def load_json(json_str: str) -> Symbol:
-    """Rebuild a Symbol from nnvm-layout JSON (as ``tojson`` of either
-    package writes it)."""
+    """Rebuild a Symbol from graph JSON: the nnvm layout (as ``tojson``
+    of either package writes it, edges ``[node, output, version]``) or
+    the reference's pre-nnvm v0.8 layout (edges ``[node, output]``, op
+    attributes in ``param`` and user attributes in a sibling ``attr``).
+    Op attributes are parsed against the op's defaults.  A v0.8 file
+    leaves out an op's implicit trailing inputs (BatchNorm's moving
+    statistics, a loss head's label); they are added as variables with
+    composition's names (``{node}_{input}``), auxiliary where the op
+    takes them as auxiliary states, and none for an input the op's
+    attributes drop (``no_bias``)."""
     g = json.loads(json_str)
     nodes: List[Node] = []
     for jn in g["nodes"]:
         attrs = dict(jn.get("attrs", jn.get("param", {})) or {})
         user_attrs = {k: v for k, v in attrs.items()
                       if k.startswith("__") or k in ("ctx_group",)}
+        # only the v0.8 layout (told by its "param" dict) keeps user
+        # attributes in "attr"; an nnvm-era "attr" holds op attributes
+        if "param" in jn:
+            user_attrs.update(jn.get("attr", {}) or {})
         op = jn["op"]
         if op == "null":
             node = Node(None, jn["name"], {}, [], user_attrs)
@@ -575,9 +667,21 @@ def load_json(json_str: str) -> Symbol:
             opdef = _reg.find(op)
             if opdef is None:
                 raise MXNetError(f"cannot load graph: unknown op {op!r}")
-            op_attrs = {k: _parse_attr(v)
+            op_attrs = {k: _parse_attr(v, opdef.attr_defaults.get(k))
                         for k, v in attrs.items() if not k.startswith("__")}
             inputs = [(nodes[e[0]], e[1]) for e in jn["inputs"]]
+            skip = _skip_args(op, op_attrs)
+            args_w = [a for a in (opdef.arg_names or []) if a not in skip]
+            aux_w = [a for a in (opdef.aux_names or []) if a not in skip]
+            want = args_w + aux_w
+            if not opdef.variadic and args_w and len(inputs) < len(want):
+                # added variables stay out of `nodes`: the file's edges
+                # index its own node list
+                for pos in range(len(inputs), len(want)):
+                    inputs.append((Node(
+                        None, f"{jn['name']}_{want[pos]}", {}, [],
+                        {"__is_aux__": "1"} if pos >= len(args_w)
+                        else {}), 0))
             node = Node(op, jn["name"], op_attrs, inputs, user_attrs)
         nodes.append(node)
     return Symbol([(nodes[e[0]], e[1]) for e in g["heads"]])
@@ -589,10 +693,26 @@ def load(fname: str) -> Symbol:
         return load_json(f.read())
 
 
-def _parse_attr(v):
-    """Parse a stringified attr back to python (tuples, bools, numbers)."""
+def _parse_attr(v, default=None):
+    """Parse a stringified attr back to python (tuples, bools, numbers),
+    typed by the op's ``default`` where it has one: a string attribute
+    stays a string, 0/1 of a flag is a bool, a number where the default
+    is a tuple is a tuple of one."""
     if not isinstance(v, str):
         return v
+    if isinstance(default, str) and v.strip() not in ("None", ""):
+        return v
+    out = _parse_untyped(v)
+    if isinstance(default, bool) and out in (0, 1) \
+            and not isinstance(out, bool):
+        return bool(out)
+    if isinstance(default, tuple) and isinstance(out, numbers.Number) \
+            and not isinstance(out, bool):
+        return (out,)
+    return out
+
+
+def _parse_untyped(v):
     s = v.strip()
     if s in ("True", "true"):
         return True
@@ -602,7 +722,7 @@ def _parse_attr(v):
         return None
     if s.startswith("(") or s.startswith("["):
         parts = [p.strip() for p in s[1:-1].split(",") if p.strip()]
-        return tuple(_parse_attr(p) for p in parts)
+        return tuple(_parse_untyped(p) for p in parts)
     try:
         return int(s)
     except ValueError:
@@ -615,30 +735,348 @@ def _parse_attr(v):
 
 
 # ---------------------------------------------------------------------------
+# bidirectional pre-pass (reference: infer_graph_attr_pass.cc iterates
+# forward and backward, so a 0 ("unknown") dim anywhere can be pinned by
+# constraints elsewhere).  It resolves unknown dims for the structural
+# ops where backward propagation matters and hands fully resolved
+# variable shapes to the forward pass; it also checks given shapes
+# against those ops' constraints (FullyConnected's weight against
+# num_hidden, Concat's parts against its output).
+# ---------------------------------------------------------------------------
+_SHAPE_PRESERVING_OPS = frozenset({
+    "Activation", "relu", "sigmoid", "tanh", "softsign", "exp", "log",
+    "negative", "abs", "square", "sqrt", "BlockGrad", "stop_gradient",
+    "_copy", "identity", "make_loss", "zeros_like", "ones_like",
+    "LeakyReLU", "softmax", "log_softmax", "Dropout", "BatchNorm",
+    "InstanceNorm", "L2Normalization", "Cast", "cast",
+})
+# strict same-shape binaries: inputs and output all unify dim-wise
+_ELEMWISE_BINARY_OPS = frozenset({
+    "elemwise_add", "elemwise_sub", "elemwise_mul", "elemwise_div",
+    "elemwise_mod", "_identity_with_attr_like_rhs", "_grad_add",
+})
+# numpy-broadcast binaries: right-aligned, 1s broadcast; an unknown input
+# dim takes the output's (no broadcast assumed), as the reference's
+# BinaryBroadcastShape does
+_BROADCAST_BINARY_OPS = frozenset({
+    "broadcast_add", "broadcast_sub", "broadcast_mul", "broadcast_div",
+    "broadcast_mod", "broadcast_power", "broadcast_maximum",
+    "broadcast_minimum", "broadcast_hypot",
+})
+
+
+def _unify_dims(a, b, where=""):
+    """Dim-wise merge of two patterns (None or 0 = unknown)."""
+    if a is None:
+        return list(b) if b is not None else None
+    if b is None:
+        return list(a)
+    if len(a) != len(b):
+        raise MXNetError(f"infer_shape: rank mismatch {a} vs {b} {where}")
+    out = []
+    for x, y in zip(a, b):
+        x = x or None
+        y = y or None
+        if x is not None and y is not None and x != y:
+            raise MXNetError(
+                f"infer_shape: inconsistent dims {a} vs {b} {where}")
+        out.append(x if x is not None else y)
+    return out
+
+
+def _prepass_broadcast(ins, out0):
+    """New (a, b, out) patterns of a broadcast binary, or None when the
+    output's rank cannot be told yet."""
+    if out0 is not None:
+        r = len(out0)
+    elif ins[0] is not None and ins[1] is not None:
+        r = max(len(ins[0]), len(ins[1]))
+    else:
+        return None
+
+    def aligned(p):   # right-aligned; absent leading dims act as 1
+        return [None] * r if p is None else [1] * (r - len(p)) + list(p)
+
+    a, b, o = aligned(ins[0]), aligned(ins[1]), aligned(out0)
+    new_a, new_b, new_o = list(a), list(b), list(o)
+    for d in range(r):
+        cand = {v for v in (a[d], b[d]) if v and v != 1}
+        if len(cand) > 1:
+            raise MXNetError(f"infer_shape: broadcast mismatch "
+                             f"{ins[0]} vs {ins[1]}")
+        if cand:
+            new_o[d] = _unify_dims([o[d]], [cand.pop()])[0]
+        elif a[d] == 1 and b[d] == 1:
+            new_o[d] = _unify_dims([o[d]], [1])[0]
+        if new_o[d]:
+            if a[d] is None:
+                new_a[d] = new_o[d]
+            if b[d] is None:
+                new_b[d] = new_o[d]
+    return new_a, new_b, new_o, r
+
+
+def _prepass_conv(n, data, out0, w):
+    """New (data, out) patterns of a Convolution, or None."""
+    kern = tuple(n.attrs.get("kernel", ()) or ())
+    rank = len(kern)
+    if not rank or data is None or len(data) != rank + 2:
+        return None
+    stride = tuple(n.attrs.get("stride", ()) or (1,) * rank)
+    pad = tuple(n.attrs.get("pad", ()) or (0,) * rank)
+    dil = tuple(n.attrs.get("dilate", ()) or (1,) * rank)
+    nf = int(n.attrs.get("num_filter", 0))
+    # channel and spatial axes move for NHWC
+    nhwc = n.attrs.get("layout") == "NHWC" and rank == 2
+    sp0, c_ax = (1, rank + 1) if nhwc else (2, 1)
+    data = list(data)
+    hint = [None] * (rank + 2)
+    hint[0], hint[c_ax] = data[0], nf
+    o = _unify_dims(out0 or [None] * (rank + 2), hint, w)
+    for d in range(rank):
+        ke = dil[d] * (kern[d] - 1) + 1
+        if data[sp0 + d]:
+            o[sp0 + d] = (data[sp0 + d] + 2 * pad[d] - ke) // stride[d] + 1
+        elif o[sp0 + d]:
+            data[sp0 + d] = (o[sp0 + d] - 1) * stride[d] - 2 * pad[d] + ke
+    data[0] = o[0]
+    return data, o
+
+
+def _prepass_concat(n, parts, out0, w):
+    """[(target, pattern)] for a Concat: (None, p) is its output, (j, p)
+    its j-th input."""
+    dim = int(n.attrs.get("dim", 1))
+    rank = next((len(p) for p in parts + [out0] if p is not None), None)
+    if rank is None:
+        return []
+    dim %= rank
+    base = [None] * rank   # the non-concat dims, unified over every part
+    for p in parts + [out0]:
+        if p is None:
+            continue
+        for d in range(rank):
+            if d != dim and p[d]:
+                base[d] = _unify_dims([base[d]], [p[d]], w)[0]
+    tot, missing = 0, []
+    for j, p in enumerate(parts):
+        if p is not None and p[dim]:
+            tot += p[dim]
+        else:
+            missing.append(j)
+    o = list(base)
+    o[dim] = tot if not missing else (
+        out0[dim] if out0 and out0[dim] else None)
+    puts = [(None, o)]
+    if out0 and out0[dim] and len(missing) == 1:
+        rem = out0[dim] - tot
+        if rem <= 0:
+            raise MXNetError(f"infer_shape: concat parts sum to {tot} but "
+                             f"the output dim is {out0[dim]} {w}")
+        fill = list(base)
+        fill[dim] = rem
+        puts.append((missing[0], fill))
+    for j, p in enumerate(parts):
+        fill = list(base)
+        fill[dim] = p[dim] if p and p[dim] else None
+        puts.append((j, fill))
+    return puts
+
+
+def _prepass_split(n, data, outs):
+    """[(target, pattern)] for a SliceChannel: (None, p) its input,
+    (i, p) its i-th output."""
+    num = int(n.attrs.get("num_outputs", 1))
+    axis = int(n.attrs.get("axis", 1))
+    squeeze = _flag(n.attrs.get("squeeze_axis", False))
+    if axis < 0:   # normalized against the input's rank
+        in_rank = len(data) if data is not None else next(
+            (len(o) + (1 if squeeze else 0) for o in outs if o is not None),
+            None)
+        if in_rank is None:
+            return []
+        axis %= in_rank
+    puts = []
+    for i, oi in enumerate(outs):
+        if data is not None:
+            exp = list(data)
+            exp[axis] = data[axis] // num if data[axis] else None
+            if squeeze:
+                exp = exp[:axis] + exp[axis + 1:]
+            puts.append((i, exp))
+        if oi is not None:
+            if squeeze:
+                back = list(oi[:axis]) + [num] + list(oi[axis:])
+            else:
+                back = list(oi)
+                back[axis] = oi[axis] * num if oi[axis] else None
+            puts.append((None, back))
+    return puts
+
+
+def _partial_prepass(nodes, var_pat, generic_eval=True):
+    """Fixpoint bidirectional dim propagation.  ``var_pat``: id(node) ->
+    list pattern (None = unknown) of the variables, updated in place.
+    ``generic_eval`` also runs every other op whose inputs are complete
+    on meta tensors; without it only the rules above run (as checks)."""
+    pat: Dict[Tuple[int, int], list] = {}
+    for n in nodes:
+        if n.is_variable and var_pat.get(id(n)) is not None:
+            pat[(id(n), 0)] = list(var_pat[id(n)])
+
+    def get(src, idx):
+        return pat.get((id(src), idx))
+
+    def put(src, idx, p, where):
+        if p is None:
+            return False
+        merged = _unify_dims(get(src, idx), p, where)
+        if merged != get(src, idx):
+            pat[(id(src), idx)] = merged
+            if src.is_variable:
+                var_pat[id(src)] = merged
+            return True
+        return False
+
+    def complete(p):
+        return p is not None and all(d for d in p)
+
+    for _ in range(3 * len(nodes) + 8):
+        changed = False
+        for n in nodes:
+            if n.is_variable:
+                continue
+            ins = [get(s, i) for s, i in n.inputs]
+            out0 = get(n, 0)
+            op = n.op
+            w = f"at {n.name!r} ({op})"
+            try:
+                if op in _ELEMWISE_BINARY_OPS and len(n.inputs) == 2:
+                    m = _unify_dims(_unify_dims(ins[0], ins[1], w), out0, w)
+                    changed |= put(*n.inputs[0], m, w)
+                    changed |= put(*n.inputs[1], m, w)
+                    changed |= put(n, 0, m, w)
+                elif op in _BROADCAST_BINARY_OPS and len(n.inputs) == 2:
+                    res = _prepass_broadcast(ins, out0)
+                    if res is None:
+                        continue
+                    new_a, new_b, new_o, r = res
+                    if ins[0] is not None:
+                        changed |= put(*n.inputs[0],
+                                       new_a[r - len(ins[0]):], w)
+                    if ins[1] is not None:
+                        changed |= put(*n.inputs[1],
+                                       new_b[r - len(ins[1]):], w)
+                    changed |= put(n, 0, new_o, w)
+                elif op in _SHAPE_PRESERVING_OPS and n.inputs:
+                    m = _unify_dims(ins[0], out0, w)
+                    changed |= put(*n.inputs[0], m, w)
+                    changed |= put(n, 0, m, w)
+                elif op == "FullyConnected" and \
+                        _flag(n.attrs.get("flatten", True)):
+                    # flatten=False keeps leading dims of unknown rank:
+                    # left to the forward pass
+                    nh = int(n.attrs.get("num_hidden", 0))
+                    data = ins[0]
+                    o = _unify_dims(out0, [None, nh], w)
+                    if data is not None and len(data) == 2:
+                        o = _unify_dims(o, [data[0], nh], w)
+                        changed |= put(*n.inputs[0], [o[0], data[1]], w)
+                        if len(n.inputs) > 1 and data[1]:
+                            changed |= put(*n.inputs[1], [nh, data[1]], w)
+                    changed |= put(n, 0, o, w)
+                elif op == "Convolution":
+                    res = _prepass_conv(n, ins[0], out0, w)
+                    if res is not None:
+                        changed |= put(*n.inputs[0], res[0], w)
+                        changed |= put(n, 0, res[1], w)
+                elif op in ("Concat", "concat"):
+                    for j, p in _prepass_concat(n, ins, out0, w):
+                        src = (n, 0) if j is None else n.inputs[j]
+                        changed |= put(*src, p, w)
+                elif op in ("SliceChannel", "split"):
+                    outs = [get(n, i) for i in range(node_num_outputs(n))]
+                    for i, p in _prepass_split(n, ins[0], outs):
+                        src = n.inputs[0] if i is None else (n, i)
+                        changed |= put(*src, p, w)
+                elif generic_eval and ins and not complete(out0) and \
+                        all(complete(p) for p in ins):
+                    outs = _eval_node_meta(n, _reg.get(op),
+                                           [_meta(p) for p in ins])
+                    for i, t in enumerate(outs):
+                        changed |= put(n, i, list(t.shape), w)
+            except MXNetError:
+                raise
+            except Exception:
+                continue
+        if not changed:
+            break
+
+
+# ---------------------------------------------------------------------------
 # forward shape inference on meta tensors
 # ---------------------------------------------------------------------------
 _META = torch.device("meta")
 
 
-def _infer_graph_shapes(sym: Symbol, known_shapes: Dict[str, tuple]):
-    """Forward abstract interpretation with parameter-shape back-fill.
-    Returns a dict keyed by variable name, plus ``"__outputs__"`` listing
-    per-head shapes."""
+def _meta(shape, dtype=torch.float32):
+    return torch.empty(tuple(shape), dtype=dtype, device=_META)
+
+
+def _infer_graph_shapes(sym: Symbol, known_shapes: Dict[str, tuple],
+                        known_dtypes: Dict[str, object],
+                        shapes_optional=False, dummy_shapes=False):
+    """Forward abstract interpretation with parameter-shape back-fill,
+    after the bidirectional pre-pass.  Returns ``(shapes, dtypes)``
+    dicts keyed by variable name, each with ``"__outputs__"`` listing
+    the heads' (None where unknown).  ``dummy_shapes`` gives every
+    variable without a shape (1,), for dtype inference, and
+    ``shapes_optional`` skips an op that cannot be evaluated."""
+    from ..ndarray.ndarray import numpy_dtype, torch_dtype
     nodes = _topo_sort(sym._expanded_heads())
     var_shape: Dict[int, Optional[tuple]] = {}
+    var_dtype: Dict[int, torch.dtype] = {}
     val: Dict[Tuple[int, int], torch.Tensor] = {}
+    partial_pat: Dict[int, list] = {}
+    has_partial = False
+    for n in nodes:
+        if not n.is_variable:
+            continue
+        shp = known_shapes.get(n.name)
+        if shp is None and "__shape__" in n._user_attrs:
+            shp = _parse_attr(n._user_attrs["__shape__"])
+        if shp is None and dummy_shapes:
+            shp = (1,)
+        if shp is not None and any(not d for d in shp):
+            # 0 = an unknown dim (MXNet's convention), left to the
+            # pre-pass, never a literal 0-size dim
+            partial_pat[id(n)] = [d or None for d in shp]
+            shp = None
+            has_partial = True
+        elif shp is not None:
+            partial_pat[id(n)] = list(shp)
+        var_shape[id(n)] = tuple(shp) if shp else None
+        # shapes alone run every op in float32, as mixed dtypes (a bf16
+        # weight of a net cast to bf16 against a float32 input) would
+        # stop an op that the shapes let run; dtype inference types them
+        dt = known_dtypes.get(n.name)
+        if dt is None and dummy_shapes and "__dtype__" in n._user_attrs:
+            dt = n._user_attrs["__dtype__"]
+        var_dtype[id(n)] = torch_dtype(dt) if dt is not None \
+            else torch.float32
 
-    def meta(shape):
-        return torch.empty(tuple(shape), dtype=torch.float32, device=_META)
+    if not dummy_shapes:
+        _partial_prepass(nodes, partial_pat, generic_eval=has_partial)
+        for n in nodes:   # adopt what the pre-pass resolved completely
+            if n.is_variable and var_shape.get(id(n)) is None:
+                p = partial_pat.get(id(n))
+                if p is not None and all(d for d in p):
+                    var_shape[id(n)] = tuple(p)
 
     for n in nodes:
         if n.is_variable:
-            shp = known_shapes.get(n.name)
-            if shp is None and "__shape__" in n._user_attrs:
-                shp = _parse_attr(n._user_attrs["__shape__"])
-            var_shape[id(n)] = tuple(shp) if shp else None
-            if shp:
-                val[(id(n), 0)] = meta(shp)
+            if var_shape[id(n)] is not None:
+                val[(id(n), 0)] = _meta(var_shape[id(n)], var_dtype[id(n)])
             continue
         opdef = _reg.get(n.op)
         infer_hook = PARAM_SHAPE_INFER.get(n.op)
@@ -655,7 +1093,7 @@ def _infer_graph_shapes(sym: Symbol, known_shapes: Dict[str, tuple]):
                 if src is not None and src.is_variable \
                         and var_shape.get(id(src)) is None:
                     var_shape[id(src)] = tuple(shp)
-                    val[(id(src), 0)] = meta(shp)
+                    val[(id(src), 0)] = _meta(shp, var_dtype[id(src)])
         missing = [(src, idx) for src, idx in n.inputs
                    if (id(src), idx) not in val]
         if missing:
@@ -663,24 +1101,41 @@ def _infer_graph_shapes(sym: Symbol, known_shapes: Dict[str, tuple]):
             # shape of the first known one (labels of loss heads)
             knowns = [val[(id(s), i)] for s, i in n.inputs
                       if (id(s), i) in val]
-            if not knowns or not all(s.is_variable for s, _ in missing):
+            if knowns and all(s.is_variable for s, _ in missing):
+                for src, idx in missing:
+                    val[(id(src), idx)] = _meta(knowns[0].shape,
+                                                var_dtype[id(src)])
+                    var_shape[id(src)] = tuple(knowns[0].shape)
+            elif shapes_optional:
+                continue
+            else:
                 raise MXNetError(
                     f"infer_shape: insufficient information at node "
                     f"{n.name!r} ({n.op})")
-            for src, idx in missing:
-                val[(id(src), idx)] = knowns[0]
-                var_shape[id(src)] = tuple(knowns[0].shape)
-        outs = _eval_node_meta(n, opdef,
-                               [val[(id(s), i)] for s, i in n.inputs])
+        try:
+            outs = _eval_node_meta(n, opdef,
+                                   [val[(id(s), i)] for s, i in n.inputs])
+        except Exception:
+            if shapes_optional:
+                continue
+            raise
         for i, t in enumerate(outs):
             val[(id(n), i)] = t
 
-    shapes = {"__outputs__": [
-        tuple(val[(id(hn), hi)].shape) for hn, hi in sym._expanded_heads()]}
+    def np_dtype(t):
+        dt = numpy_dtype(t)
+        return np.dtype(dt) if dt != "bfloat16" else dt
+
+    heads = [val.get((id(hn), hi)) for hn, hi in sym._expanded_heads()]
+    shapes = {"__outputs__": [None if t is None else tuple(t.shape)
+                              for t in heads]}
+    dtypes = {"__outputs__": [None if t is None else np_dtype(t.dtype)
+                              for t in heads]}
     for n in nodes:
         if n.is_variable:
             shapes[n.name] = var_shape.get(id(n))
-    return shapes
+            dtypes[n.name] = np_dtype(var_dtype[id(n)])
+    return shapes, dtypes
 
 
 def _eval_node_meta(n: Node, opdef: _reg.OpDef, ins):

@@ -115,6 +115,27 @@ Parts (all by default; each prints JSON lines):
   MoE decode step against the LM, the linalg and CTC cases in fp32
   against float64, and the custom_softmax example's accuracy.
 
+* ``c8`` (several minutes on 8 cores): the numbers behind the
+  ``resnet_lars_fit``, ``resnet_finetune`` and ``front_end`` phases
+  (``part_c8``), with ``chip_smoke.py``'s own helpers on the CPU:
+
+  - ``lars_fit``: the phase's ``Module.fit`` (LARS, bf16 compute,
+    PrefetchingIter over ResizeIter, 16 batches) at the card's batch 256
+    of 112x112 images (224x224 cut for the CPU): every loss and the first
+    4's mean minus the last 4's;
+  - ``lars_eval``: the reshape checks at batch 256 -> 64 (the batch-64
+    eval against the batch-256 rows, relative to the largest
+    probability, and the same distance to the next images' rows, the
+    control), and the bf16 eval against an fp32 Module's on the same
+    parameters: the spread bf16 itself gives;
+  - ``finetune``: the fine-tune stage from that checkpoint (frozen trunk,
+    SGD lr 0.01 on a 100-class head): every loss and the drop;
+  - ``optimizer_budgets``: every optimizer's FE_STEPS updates of
+    ResNet-50's parameter shapes on the CPU in fp32 against float64
+    (and with bf16 weights under multi_precision, the fp32 masters
+    against float64 from the bf16-rounded inputs): the worst array's
+    ||a - b|| / ||b - w0||.
+
 * ``moe_bf16`` (seconds): the JAX package's bf16 MoE routing fault at
   GPT-2 small's token count (``part_moe_bf16``), beside the port's
   routing of the same logits.
@@ -905,11 +926,84 @@ def part_moe_bf16():
     return out
 
 
+def part_c8():
+    """The numbers behind chip_smoke.py's C8 phases; see the module
+    docstring."""
+    import tempfile
+    ctx = mt.cpu()
+    out = {}
+    torch.manual_seed(0)
+    shape, batch = (3, 112, 112), cs.RESNET_BATCH
+    mod, clock, feed, x, y, _ = cs.lars_fit(mt, ctx, batch, shape,
+                                            cs.LARS_STEPS, lambda: None,
+                                            lambda m: None)
+    feed.close()
+    out["lars_fit"] = dict(batch=batch, image=list(shape),
+                           losses=clock.losses,
+                           drop=float(np.mean(clock.losses[:4])
+                                      - np.mean(clock.losses[-4:])))
+    print(json.dumps(out["lars_fit"]), flush=True)
+    checks = cs.lars_reshape_checks(torch, mt, mod, x, y, batch,
+                                    cs.LARS_EVAL_BATCH)
+    args, aux = mod.get_params()
+    f32 = mt.mod.Module(mod.symbol, context=ctx)
+    f32.bind(data_shapes=[("data", (batch,) + shape)],
+             label_shapes=[("softmax_label", (batch,))],
+             for_training=False)
+    f32.init_params(arg_params=args, aux_params=aux)
+    p32 = cs.eval_rows(mt, f32, x, batch)
+    p16 = cs.eval_rows(mt, mod, x, batch)
+    out["lars_eval"] = dict(
+        checks, bf16_vs_fp32_rel_diff=float((p16 - p32).abs().max()
+                                            / p32.abs().max()))
+    print(json.dumps(out["lars_eval"], default=str), flush=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        prefix = os.path.join(workdir, "lars")
+        mod.save_checkpoint(prefix, 1)
+        del mod, f32
+        ft, clock, feed, trunk, _, _ = cs.finetune_fit(
+            mt, ctx, prefix, 1, batch, shape, cs.FT_STEPS, lambda: None)
+        feed.close()
+    out["finetune"] = dict(batch=batch, fixed=len(trunk),
+                           losses=clock.losses,
+                           drop=float(np.mean(clock.losses[:4])
+                                      - np.mean(clock.losses[-4:])))
+    print(json.dumps(out["finetune"]), flush=True)
+    del ft
+
+    shapes = cs.resnet_param_shapes(mt)
+    w, grads = cs.opt_inputs(shapes, cs.SEED + 94, cs.FE_STEPS)
+
+    wr, gr = cs.bf16_rounded(w), [cs.bf16_rounded(g) for g in grads]
+    budgets = {}
+    for name in cs.FE_OPTIMIZERS:
+        if name == "sgld":
+            continue
+        f32, _ = cs.opt_run(mt, name, w, grads, ctx)
+        f64, _ = cs.opt_run(mt, name, {k: v.astype(np.float64)
+                                       for k, v in w.items()},
+                            [{k: v.astype(np.float64) for k, v in g.items()}
+                             for g in grads], ctx, "float64")
+        d32 = max(cs.opt_distance(torch, f32, f64, w).values())
+        del f32, f64
+        mp, _ = cs.opt_run(mt, name, w, grads, ctx, "bfloat16", True)
+        m64, _ = cs.opt_run(mt, name, {k: v.astype(np.float64)
+                                       for k, v in wr.items()},
+                            [{k: v.astype(np.float64) for k, v in g.items()}
+                             for g in gr], ctx, "float64")
+        dmp = max(cs.opt_distance(torch, mp, m64, wr).values())
+        del mp, m64
+        budgets[name] = (d32, dmp)
+        print(json.dumps({name: budgets[name]}), flush=True)
+    out["optimizer_budgets"] = budgets
+    return out
+
+
 PARTS = {"resnet": part_resnet, "deep_bn": part_deep_bn, "gluon": part_gluon,
          "decode_vs_lm": part_decode_vs_lm, "beam": part_beam,
          "vit": part_vit, "zoo": part_zoo, "rnn": part_rnn, "ssd": part_ssd,
          "zoo_data": part_zoo_data, "c1b2": part_c1b2,
-         "moe_bf16": part_moe_bf16}
+         "moe_bf16": part_moe_bf16, "c8": part_c8}
 
 if __name__ == "__main__":
     for part in sys.argv[1:] or list(PARTS):
