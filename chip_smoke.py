@@ -59,8 +59,15 @@ stream (no host sync inside ``Module.update``), is reshaped to batch 64
 and scored, and its checkpoint is fine-tuned with the trunk fixed; then
 every optimizer runs on ResNet-50's parameter shapes on the card and on
 the CPU, and the new metrics, initializers, file iterators,
-``FeedForward`` and ``SequentialModule`` are checked.  Every phase
-prints one JSON line;
+``FeedForward`` and ``SequentialModule`` are checked.  Last, data IO:
+1024 seeded images of ImageNet's sizes are encoded on the card by nvJPEG
+into a JPEG record file, the kernel I1 (``csrc/image_augment.cu``: resize,
+crop, mirror, normalize) is held against its plain version, ResNet-50
+trains by ``Module.fit`` from ``ImageRecordIter`` with
+``train_imagenet.py``'s arguments (nvJPEG decode and I1 on the card), and
+from raw records through ``ImageRecordUInt8Iter``, SSD-VGG16 trains from
+``ImageDetRecordIter`` and detects, and ``ImageRecordDataset`` feeds a
+``DataLoader``.  Every phase prints one JSON line;
 any failed phase exits non-zero.  The line before the last lists the
 kernels with their launches on each path, times and bounds; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -705,6 +712,8 @@ def phase_build(mt):
     secs = time.monotonic() - t0
     kernels, failures = {}, []
     for src, info in built.items():
+        if src in cl.SHIMS:        # no kernel of its own (nvJPEG's shim)
+            continue
         log = info["log"]
         if not log and os.path.exists(info["path"] + ".log"):
             with open(info["path"] + ".log") as f:
@@ -728,7 +737,12 @@ def phase_build(mt):
             if "ILi64E" in mangled and (row.get("spill_stores", 1)
                                         or row.get("spill_loads", 1)):
                 failures.append(f"{name}: spills {row}")
-    want = dict(F32_KERNELS, **{stem: 3 for stem in MMA_KERNELS})
+    want = dict(F32_KERNELS, **{stem: 3 for stem in MMA_KERNELS},
+                image_augment_kernel=3)
+    for name, row in kernels.items():
+        if "image_augment_kernel" in name and (row.get("spill_stores", 1)
+                                               or row.get("spill_loads", 1)):
+            failures.append(f"{name}: spills {row}")
     for stem, count in want.items():
         if sum(stem in n for n in kernels) != count:
             failures.append(f"{stem}: not {count} instances in "
@@ -6431,6 +6445,750 @@ def phase_front_end(torch, mt):
         raise RuntimeError("front_end: " + "; ".join(fails))
 
 
+# ---------------------------------------------------------------------------
+# C3: data IO on the card (record files, nvJPEG, I1)
+# ---------------------------------------------------------------------------
+# the JPEG record file: ImageNet's usual training sizes (h, w), its 1000
+# classes, quality 95; each image a smooth field (a random 6 x 8 grid
+# upsampled) plus luma and weaker chroma noise of a seeded strength, so
+# that the mean record lands in REC_KB_RANGE (ImageNet's training JPEGs
+# average about 110 KB; PIL's q95 encoder gives 82.8-128.9 KB, mean
+# 107.8, over the noise range on this generator: tests/torch_numerics.py
+# c3)
+REC_IMAGES = 1024
+REC_SIZES = ((375, 500), (500, 375))
+REC_QUALITY = 95
+REC_CLASSES = 1000
+REC_NOISE = (6.0, 20.0)
+REC_KB_RANGE = (80.0, 150.0)
+# nvJPEG's decode against PIL's on the same records: the JAX package's own
+# bound for its native decoder against PIL (tests/test_io_image.py:100),
+# mean absolute levels (the two decoders' IDCT and chroma upsampling
+# differ)
+DECODE_MAD_TOL = 2.0
+# examples/image_classification/train_imagenet.py:71-76
+IMAGENET_REC_ARGS = dict(data_shape=(3, 224, 224), batch_size=256,
+                         shuffle=True, rand_mirror=True, rand_crop=True,
+                         resize=256, mean_r=123.68, mean_g=116.779,
+                         mean_b=103.939)
+REC_WARMUP, REC_STEPS = 3, 10
+REC_WINDOW = 8              # profiled steps fed by the iterator
+# train_imagenet.py:57-69: raw records packed at 256 x 256
+# (tools/im2rec.py --pack-raw 256), two epochs of them
+UINT8_REC_ARGS = dict(data_shape=(3, 224, 224), batch_size=256,
+                      shuffle=True, rand_mirror=True, rand_crop=True,
+                      part_index=0, num_parts=1)
+UINT8_IMAGES, UINT8_STORED = 512, 256
+UINT8_WARMUP, UINT8_STEPS = 3, 3
+# train_ssd.py:63-65 over a record file of 96 images (three batches of
+# 32) with 1-4 boxes each; 2 + 4 steps (two epochs)
+SSD_REC_IMAGES = 96
+SSD_REC_WARMUP, SSD_REC_STEPS = 2, 4
+SSD_REC_CROP = 0.5          # the crop sampler's share in the label check
+# the pixels normalized to about unit scale, as ssd_train's synthetic
+# batches (0-1) are: from raw 0-255 values SSD-VGG16's losses diverged
+# within six steps on the card (the means of IMAGENET_REC_ARGS, the stds
+# of mxnet_tpu/image/image.py CreateAugmenter)
+SSD_REC_NORM = dict(mean_r=123.68, mean_g=116.779, mean_b=103.939,
+                    std_r=58.395, std_g=57.12, std_b=57.375)
+REC_DATASET_IMAGES = 256
+REC_DATASET_BATCH = 64
+I1_SOURCE = os.path.join("mxnet_tpu_torch", "csrc", "image_augment.cu")
+I1_DESIGN = (
+    "one thread a pixel (n, y, x), its channels in a loop, the bilinear "
+    "taps and weights computed once; neighbouring threads on neighbouring "
+    "x, so each channel plane's stores coalesce; the per-image table "
+    "(pointer, h, w, y0, x0, flip) through the read-only cache; every "
+    "float operation __f*_rn, bit-identical to the plain version")
+
+
+def i1_count():
+    from mxnet_tpu_torch.ops import image_augment
+    return image_augment.augment_cuda.launches
+
+
+def reset_i1(mt):
+    from mxnet_tpu_torch.ops import image_augment
+    image_augment.augment_cuda.launches = 0
+
+
+def rec_image(torch, dev, gen, h, w, sigma):
+    """One (h, w, 3) uint8 image on the card: a smooth field plus luma
+    noise of ``sigma`` levels and chroma noise of 0.3 sigma."""
+    import torch.nn.functional as F
+    low = torch.randn((1, 3, 6, 8), generator=gen, device=dev) * 50
+    field = F.interpolate(low, size=(h, w), mode="bilinear",
+                          align_corners=False)[0].permute(1, 2, 0) + 128
+    lum = torch.randn((h, w, 1), generator=gen, device=dev) * sigma
+    chroma = torch.randn((h, w, 3), generator=gen, device=dev) * (0.3 * sigma)
+    return (field + lum + chroma).clamp(0, 255).to(torch.uint8).contiguous()
+
+
+def rec_specs(n, seed):
+    """Each image's (h, w), noise and label, drawn on the host."""
+    rng = np.random.default_rng(seed)
+    sizes = [REC_SIZES[k] for k in rng.integers(0, 2, n)]
+    return sizes, rng.uniform(*REC_NOISE, n), \
+        rng.integers(0, REC_CLASSES, n).astype(np.float32)
+
+
+def rec_jpegs(mt, path, start, n):
+    """The JPEG payloads and labels of records ``start`` .. ``start + n``
+    of an indexed record file."""
+    from mxnet_tpu_torch import native
+    offs = native.index_rec_file(path)
+    raws = native.read_records(path, offs[start:start + n])
+    heads = [mt.recordio.unpack(r) for r in raws]
+    return [p for _, p in heads], np.array([h.label for h, _ in heads],
+                                           np.float32)
+
+
+def stop_producer(it):
+    """Stop a record iterator's producer thread, as its ``reset()`` does
+    before starting the next epoch's, and wait for it: no batch (and no
+    I1 launch) of it falls into a later count."""
+    import queue
+    it._stop.set()
+    try:
+        while it._queue.get_nowait() is not None:
+            pass
+    except queue.Empty:
+        pass
+    it._worker.join(timeout=60)
+    if it._worker.is_alive():
+        raise RuntimeError("a record iterator's producer did not stop")
+
+
+def count_batches(it):
+    """A box whose [0] counts the batches the iterator's producer makes
+    from here on."""
+    real, box = it._produce, [0]
+
+    def produce(idxs):
+        out = real(idxs)
+        box[0] += 1
+        return out
+    it._produce = produce
+    return box
+
+
+def decoder_row(dec):
+    from mxnet_tpu_torch.image import nvjpeg
+    return dict(decoder=f"nvjpeg {nvjpeg.version()}",
+                hardware_backend=dec.hardware, hw_status=dec.hw_status,
+                hw_engines=dec.hw_engines, hw_cores_per_engine=dec.hw_cores,
+                backend_counts=dict(dec.backend_counts),
+                decode_failures=dec.failures)
+
+
+def decoder_probe():
+    """What the machine offers the data path: nvJPEG's header and library
+    in the CUDA toolkit, libjpeg's header (the host decoder's), PIL."""
+    import glob
+    import PIL
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return dict(cuda_home=home,
+                nvjpeg_h=os.path.exists(os.path.join(home, "include",
+                                                     "nvjpeg.h")),
+                libnvjpeg=sorted(os.path.basename(f) for f in glob.glob(
+                    os.path.join(home, "lib*", "libnvjpeg.so*"))),
+                jpeglib_h=os.path.exists("/usr/include/jpeglib.h"),
+                pil=PIL.__version__)
+
+
+def nvjpeg_vs_pil_by_size(torch, mt, dev):
+    """nvJPEG's decode against PIL's by image size: at each size one
+    image of each kind (a smooth 4 x 4 field plus 30 levels of uniform
+    per-channel noise, and ``rec_image`` at 12 levels), encoded by the
+    card at REC_QUALITY, decoded by both; mean absolute levels."""
+    import io as _io
+    import torch.nn.functional as F
+    from PIL import Image
+    from mxnet_tpu_torch.image import nvjpeg
+    dec = nvjpeg.Decoder(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 101)
+
+    def distance(img):
+        jpg = mt.recordio.unpack(mt.recordio.pack_img(
+            (0, 0.0, 0, 0), img, quality=REC_QUALITY))[1]
+        images, fails = dec.decode([jpg], 3)
+        if fails:
+            raise RuntimeError("nvjpeg_vs_pil_by_size: a failed decode")
+        got = images.image(0).float().cpu().numpy()
+        pil = np.asarray(Image.open(_io.BytesIO(jpg)).convert("RGB"),
+                         np.float32)
+        return float(np.abs(got - pil).mean())
+
+    out = []
+    for h, w in ((51, 46), (64, 80), (375, 500)):
+        base = torch.rand((1, 3, 4, 4), generator=gen, device=dev) * 200
+        field = F.interpolate(base, size=(h, w), mode="bilinear")[0]
+        noise = torch.rand((3, h, w), generator=gen, device=dev) * 30
+        uniform = (field + noise).clamp(0, 255).to(torch.uint8) \
+            .permute(1, 2, 0).contiguous()
+        out.append(dict(size=[h, w], uniform_noise=distance(uniform),
+                        rec_image=distance(rec_image(torch, dev, gen, h, w,
+                                                     12.0))))
+    dec.close()
+    return out
+
+
+def phase_rec_write(torch, mt, workdir):
+    """REC_IMAGES seeded images made on the card, encoded there by nvJPEG
+    through ``recordio.pack_img`` and written with an index: mean record
+    size, encode rate; the first batch's records decoded by nvJPEG, held
+    against the source pixels (printed) and against PIL's decode of the
+    same bytes (DECODE_MAD_TOL); the decode rate of one batch alone; the
+    machine's JPEG libraries, and nvJPEG against PIL by image size."""
+    import io as _io
+    from PIL import Image
+    from mxnet_tpu_torch import native
+    from mxnet_tpu_torch.image import nvjpeg
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+    sizes, sigmas, labels = rec_specs(REC_IMAGES, SEED + 100)
+    path = os.path.join(workdir, "imagenet.rec")
+    rec = mt.recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    B = IMAGENET_REC_ARGS["batch_size"]
+    src, nbytes, enc_s = [], [], 0.0
+    t0 = time.monotonic()
+    for i in range(REC_IMAGES):
+        img = rec_image(torch, dev, gen, *sizes[i], sigmas[i])
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        payload = mt.recordio.pack_img((0, float(labels[i]), i, 0), img,
+                                       quality=REC_QUALITY)
+        enc_s += time.monotonic() - t
+        rec.write_idx(i, payload)
+        nbytes.append(len(payload))
+        if i < B:
+            src.append(img)
+    rec.close()
+    write_s = time.monotonic() - t0
+    jpegs, labs = rec_jpegs(mt, path, 0, B)
+    dec = nvjpeg.Decoder(dev)
+    images, fails = dec.decode(jpegs, 3)
+    torch.cuda.synchronize()
+    mad_src, mad_pil, worst_pil = [], [], 0.0
+    for i in range(B):
+        got = images.image(i).float()
+        mad_src.append(float((got - src[i].float()).abs().mean()))
+        pil = np.asarray(Image.open(_io.BytesIO(bytes(jpegs[i])))
+                         .convert("RGB"))
+        d = float((got.cpu() - torch.from_numpy(pil.astype(np.float32)))
+                  .abs().mean())
+        mad_pil.append(d)
+        worst_pil = max(worst_pil, d)
+    # one batch's decode alone (after the one above warmed it), synchronised
+    t = time.monotonic()
+    dec.decode(jpegs, 3)
+    torch.cuda.synchronize()
+    decode_ms = (time.monotonic() - t) * 1e3
+    kb = np.array(nbytes) / 1024
+    row = dict(records=REC_IMAGES, sizes=[list(s) for s in REC_SIZES],
+               quality=REC_QUALITY, classes=REC_CLASSES,
+               noise_levels=list(REC_NOISE), file_bytes=os.path.getsize(path),
+               mean_record_kb=float(kb.mean()), min_record_kb=float(kb.min()),
+               max_record_kb=float(kb.max()), kb_range=list(REC_KB_RANGE),
+               encoder="nvjpeg (recordio.pack_img of a CUDA tensor), "
+                       "baseline 4:2:0",
+               encode_s=enc_s, encode_images_per_s=REC_IMAGES / enc_s,
+               encode_mb_per_s=sum(nbytes) / enc_s / 1e6, write_s=write_s,
+               checked=B, labels_equal=bool(np.array_equal(labs,
+                                                           labels[:B])),
+               mad_vs_source_mean=float(np.mean(mad_src)),
+               mad_vs_source_max=float(np.max(mad_src)),
+               mad_vs_pil_mean=float(np.mean(mad_pil)),
+               mad_vs_pil_max=worst_pil, mad_vs_pil_tol=DECODE_MAD_TOL,
+               decode_batch_ms=decode_ms,
+               decode_images_per_s=B / (decode_ms / 1e3),
+               host_jpeg_library=native.available("jpeg_io"),
+               probe=decoder_probe(),
+               mad_vs_pil_by_size=nvjpeg_vs_pil_by_size(torch, mt, dev),
+               **decoder_row(dec))
+    fails_ = []
+    if fails or not row["labels_equal"]:
+        fails_.append(f"{fails} failed decodes, labels equal "
+                      f"{row['labels_equal']}")
+    if not REC_KB_RANGE[0] <= row["mean_record_kb"] <= REC_KB_RANGE[1]:
+        fails_.append(f"mean record {row['mean_record_kb']} KB")
+    if not worst_pil < DECODE_MAD_TOL:
+        fails_.append(f"nvJPEG's decode {worst_pil} levels from PIL's")
+    row["failures"] = fails_
+    emit("rec_write", **row)
+    if fails_:
+        raise RuntimeError("rec_write: " + "; ".join(fails_))
+    dec.close()
+    return path, row
+
+
+def phase_i1_kernel(torch, mt, path):
+    """I1 against its plain version bit for bit at the main path's shape
+    (batch 256 of the record file's images decoded by nvJPEG, resized to
+    256 x 256, cropped to 224 at the iterator's draws, mirrored,
+    normalized by the example's means), with a failed slot too; its uint8
+    instances (NCHW and NHWC, 224 crops of 256 x 256 raw images); each
+    relaunched and required identical; times by CUDA events beside the
+    bytes bound."""
+    from mxnet_tpu_torch.image import nvjpeg
+    from mxnet_tpu_torch.ops import image_augment as ia
+    dev = torch.device("cuda", 0)
+    B = IMAGENET_REC_ARGS["batch_size"]
+    c, h, w = IMAGENET_REC_ARGS["data_shape"]
+    R = IMAGENET_REC_ARGS["resize"]
+    jpegs, _ = rec_jpegs(mt, path, 0, B)
+    dec = nvjpeg.Decoder(dev)
+    images, _ = dec.decode(jpegs, 3)
+    rng = np.random.RandomState(SEED + 101)
+    y0 = rng.randint(0, R - h + 1, B)
+    x0 = rng.randint(0, R - w + 1, B)
+    flips = rng.rand(B) < 0.5
+    mean = np.array([IMAGENET_REC_ARGS[k] for k in ("mean_r", "mean_g",
+                                                    "mean_b")], np.float32)
+    std = np.ones(3, np.float32)
+    args = (y0, x0, flips, (R, R), (h, w), mean, std)
+    rows, fails = {}, []
+
+    def check(name, imgs, a, out="float32", layout="NCHW"):
+        got = ia.augment_cuda(imgs, *a, out=out, layout=layout)
+        again = ia.augment_cuda(imgs, *a, out=out, layout=layout)
+        want = ia.augment_plain(imgs, *a, out=out, layout=layout)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        same = bool(torch.equal(got, want)) and bool(torch.equal(got, again))
+        if not same:
+            fails.append(f"{name}: kernel differs from the plain version "
+                         f"by {err} (or from its relaunch)")
+        row = dict(shape=list(got.shape), out=out, layout=layout,
+                   bit_identical=same, max_abs_err=err)
+        timed(row, "kernel_ms", lambda: ia.augment_cuda(
+            imgs, *a, out=out, layout=layout), iters=20, repeats=5)
+        timed(row, "plain_ms", lambda: ia.augment_plain(
+            imgs, *a, out=out, layout=layout), iters=1, repeats=3, warmup=1)
+        nbytes = ia.bound_bytes(imgs, a[0], a[1], a[2], a[3], a[4],
+                                4 if out == "float32" else 1)
+        row.update(bound_bytes=nbytes,
+                   bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                   bound_by="bytes", library_ms=None,
+                   library="none: no one PyTorch call resizes, crops, "
+                           "mirrors and normalizes ragged images")
+        rows[name] = row
+
+    check("main", images, args)
+    # a failed decode in slot 5: its pixels read as zeros
+    failed = ia.DecodedImages(images.flat, images.offsets, images.heights,
+                              images.widths, 3,
+                              np.arange(B) != 5)
+    check("failed_slot", failed, args)
+    # the uint8 instances: raw 256 x 256 images (random bytes) made on the
+    # card, cropped and mirrored
+    gen = torch.Generator(device=dev).manual_seed(SEED + 102)
+    S = UINT8_STORED
+    raw = torch.randint(0, 256, (B * S * S * 3,), generator=gen,
+                        device=dev, dtype=torch.uint8)
+    rawi = ia.DecodedImages(raw, np.arange(B) * (S * S * 3),
+                            np.full(B, S), np.full(B, S), 3)
+    uargs = (y0, x0, flips, (S, S), (h, w), None, None)
+    check("uint8_nchw", rawi, uargs, "uint8", "NCHW")
+    check("uint8_nhwc", rawi, uargs, "uint8", "NHWC")
+    emit("i1_kernel", source=I1_SOURCE, design=I1_DESIGN, cases=rows,
+         failures=fails)
+    dec.close()
+    if fails:
+        raise RuntimeError("i1_kernel: " + "; ".join(fails))
+    return rows
+
+
+def profiled_window(torch, fn, n):
+    """``n`` calls of ``fn`` under torch.profiler, ended by a
+    synchronise: (window ms, the card's busy ms, its largest kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t) * 1e3
+    kernels = device_kernels(prof)
+    busy = sum(k[0] for k in kernels)
+    if busy <= 0:
+        raise RuntimeError("profile: no device time in the window")
+    return ms, busy, kernels
+
+
+def rec_fit(torch, mt, it, steps, warmup, sym=None):
+    """ResNet-50 v2 (bf16 over fp32 masters, SGD momentum) trained by
+    ``Module.fit`` over ``steps`` batches of the record iterator ``it``
+    (ResizeIter without resetting it: it restarts itself at its end),
+    counts reset just before and read just after; returns (module, row,
+    failures)."""
+    dev = torch.device("cuda", 0)
+    sym = sym or mt.models.get_symbol("resnet", **RESNET)
+    # the epoch its constructor started is stopped and a new one started
+    # after the counts are reset, so that every batch made is counted
+    stop_producer(it)
+    made = count_batches(it)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(mt)
+    reset_i1(mt)
+    it.reset()
+    waits0 = len(it.wait_ms)
+    feed = mt.io.ResizeIter(it, steps, reset_internal=False)
+    mod = mt.mod.Module(sym, context=mt.gpu(0), compute_dtype="bfloat16")
+    clock = StepClock(torch.cuda.current_stream(dev).synchronize)
+    mt.random.seed(SEED + 103)
+    t0 = time.monotonic()
+    mod.fit(feed, eval_metric=mt.metric.CrossEntropy(),
+            batch_end_callback=[clock], optimizer="sgd",
+            optimizer_params=RESNET_OPT,
+            initializer=mt.initializer.Xavier(rnd_type="gaussian",
+                                              magnitude=2.0),
+            num_epoch=1)
+    fit_s = time.monotonic() - t0
+    stop_producer(it)
+    launches, batches = i1_count(), made[0]
+    counts = read_counts(mt)
+    dispatch = mt.profiler.dispatch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    waits = it.wait_ms[waits0:]
+    stats = step_stats(clock.ms, warmup)
+    fails = []
+    if launches != batches or batches < steps:
+        fails.append(f"I1 launched {launches} times for {batches} batches "
+                     f"made ({steps} steps): want once a batch")
+    if any(counts.values()) or dispatch.get("module.update") != steps:
+        fails.append(f"launches {counts} (want none), dispatches "
+                     f"{dispatch} (want {steps} updates)")
+    if not all(np.isfinite(clock.losses)):
+        fails.append(f"non-finite loss in {clock.losses}")
+    timed_waits = waits[warmup:] or [0.0]
+    row = dict(model="resnet-50 v2", compute_dtype="bfloat16",
+               masters="float32", optimizer="sgd lr 0.1 momentum 0.9 wd "
+               "1e-4", fit_s=fit_s, steps=steps, **stats,
+               step_ms=clock.ms,
+               images_per_s=it.batch_size / (stats["median_step_ms"] / 1e3),
+               wait_ms_per_step_median=float(np.median(timed_waits)),
+               wait_ms_per_step_max=float(max(timed_waits)),
+               wait_first_ms=waits[0] if waits else None, waits=len(waits),
+               i1_launches=launches, batches_made=batches,
+               epochs_of_the_file=batches * it.batch_size /
+               len(it._offsets),
+               decode_failures=it.decode_failures, peak_mem_bytes=peak,
+               losses=clock.losses, dispatches=dispatch,
+               attention_launches=counts)
+    return mod, row, fails
+
+
+def pipeline_rate(torch, it, n):
+    """Images a second through the iterator alone: ``n`` batches, each
+    synchronised, after one batch of warm-up (restarting at the end)."""
+    def one():
+        try:
+            b = it.next()
+        except StopIteration:
+            it.reset()
+            b = it.next()
+        b.data[0]._data.sum()
+        torch.cuda.synchronize()
+    one()
+    t = time.monotonic()
+    for _ in range(n):
+        one()
+    return n * it.batch_size / (time.monotonic() - t)
+
+
+def phase_imagenet_rec_fit(torch, mt, path, synthetic_ms, peak_flops):
+    """The slice's main path: train_imagenet.py's ImageRecordIter over
+    the JPEG record file (nvJPEG + I1 on the card) feeding ResNet-50 v2
+    at batch 256 through Module.fit, REC_WARMUP + REC_STEPS steps over
+    more than one epoch of the file; step ms beside resnet_train's
+    synthetic step of this run, the iterator's wait a step, the
+    pipeline's images a second alone, the card's idle share over steps
+    fed by the iterator."""
+    B = IMAGENET_REC_ARGS["batch_size"]
+    probe = mt.io.ImageRecordIter(path_imgrec=path, seed=SEED + 104,
+                                  **IMAGENET_REC_ARGS)
+    rate = pipeline_rate(torch, probe, 3)
+    stop_producer(probe)
+    it = mt.io.ImageRecordIter(path_imgrec=path, **IMAGENET_REC_ARGS)
+    steps = REC_WARMUP + REC_STEPS
+    mod, row, fails = rec_fit(torch, mt, it, steps, REC_WARMUP)
+    # the card's idle share over REC_WINDOW steps fed by the iterator, its
+    # producer decoding the next batches meanwhile (the file holds four
+    # batches, so the window spans two epochs' starts, as the fit does)
+    it.reset()
+    feed = mt.io.ResizeIter(it, REC_WINDOW + 1, reset_internal=False)
+
+    def step():
+        b = feed.next()
+        mod.forward(b, is_train=True)
+        mod.update()
+    step()
+    win_ms, busy, kernels = profiled_window(torch, step, REC_WINDOW)
+    stop_producer(it)
+    med = row["median_step_ms"]
+    flops = 2 * RESNET_FWD_MACS * 3 * B
+    out = mod.get_outputs()[0]
+    if tuple(out.shape) != (B, 1000) or \
+            not bool(torch.isfinite(out._data.float()).all()):
+        fails.append(f"output {tuple(out.shape)} not finite")
+    i1 = [k for k in kernels if "image_augment" in k[2]]
+    row.update(args=IMAGENET_REC_ARGS, records=len(it._offsets),
+               pipeline_images_per_s=rate,
+               synthetic_median_step_ms=synthetic_ms,
+               step_over_synthetic=med / synthetic_ms,
+               achieved_tflops=flops / (med / 1e3) / 1e12,
+               mfu=flops / (med / 1e3) / peak_flops,
+               profiled_steps=REC_WINDOW, profiled_window_ms=win_ms,
+               device_busy_ms=busy,
+               device_idle_share=max(0.0, 1 - busy / win_ms),
+               i1_ms_in_window=sum(k[0] for k in i1),
+               top_kernels=[dict(ms=ms, count=c, name=k)
+                            for ms, c, k in kernels[:10]],
+               **decoder_row(it.decoder), failures=fails)
+    emit("imagenet_rec_fit", **row)
+    if fails:
+        raise RuntimeError("imagenet_rec_fit: " + "; ".join(fails))
+    del mod
+    it.decoder.close()
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_uint8_rec_fit(torch, mt, path, workdir):
+    """train_imagenet.py's --uint8-rec path: the JPEG records decoded by
+    nvJPEG and resized to 256 x 256 by I1 (uint8 NHWC, no crop), packed
+    raw as tools/im2rec.py --pack-raw 256 packs them, then
+    ImageRecordUInt8Iter (I1 crops and mirrors on the card) feeding the
+    same ResNet-50 v2 for UINT8_WARMUP + UINT8_STEPS steps."""
+    from mxnet_tpu_torch.image import nvjpeg
+    from mxnet_tpu_torch.ops import image_augment as ia
+    dev = torch.device("cuda", 0)
+    S = UINT8_STORED
+    raw_path = os.path.join(workdir, "imagenet_raw.rec")
+    rec = mt.recordio.MXIndexedRecordIO(raw_path[:-4] + ".idx", raw_path, "w")
+    dec = nvjpeg.Decoder(dev)
+    t0 = time.monotonic()
+    step = IMAGENET_REC_ARGS["batch_size"]
+    for start in range(0, UINT8_IMAGES, step):
+        jpegs, labels = rec_jpegs(mt, path, start % REC_IMAGES, step)
+        images, _ = dec.decode(jpegs, 3)
+        z = np.zeros(len(jpegs), np.int64)
+        raw = ia.augment(images, z, z, z.astype(bool), (S, S), (S, S),
+                         out="uint8", layout="NHWC").cpu().numpy()
+        for i in range(len(jpegs)):
+            rec.write_idx(start + i, mt.recordio.pack(
+                (0, float(labels[i]), start + i, 0), raw[i].tobytes()))
+    rec.close()
+    pack_s = time.monotonic() - t0
+    dec.close()
+    it = mt.io.ImageRecordUInt8Iter(path_imgrec=raw_path, **UINT8_REC_ARGS)
+    steps = UINT8_WARMUP + UINT8_STEPS
+    mod, row, fails = rec_fit(torch, mt, it, steps, UINT8_WARMUP)
+    row.update(args=UINT8_REC_ARGS, records=UINT8_IMAGES,
+               stored_shape=[S, S, 3], pack_s=pack_s,
+               file_bytes=os.path.getsize(raw_path), failures=fails)
+    emit("uint8_rec_fit", **row)
+    if fails:
+        raise RuntimeError("uint8_rec_fit: " + "; ".join(fails))
+    del mod
+    torch.cuda.empty_cache()
+    return row
+
+
+def det_images(torch, dev, n, seed):
+    """``n`` (h, w, 3) uint8 images on the card at ImageNet's sizes, each
+    the record file's field with 1-4 filled rectangles of the class shade
+    0.3 + 0.7 c / (C - 1) (as ssd_batches draws them), and their classes
+    and normalized boxes."""
+    C = SSD["num_classes"]
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sizes, sigmas, _ = rec_specs(n, seed)
+    images, classes, boxes = [], [], []
+    for i in range(n):
+        h, w = sizes[i]
+        img = rec_image(torch, dev, gen, h, w, sigmas[i]) // 4
+        cl, bx = [], []
+        for _ in range(int(rng.integers(1, 5))):
+            c = int(rng.integers(0, C))
+            bh = int(rng.integers(h // 6, h // 2))
+            bw = int(rng.integers(w // 6, w // 2))
+            y0, x0 = int(rng.integers(0, h - bh)), int(rng.integers(0, w - bw))
+            img[y0:y0 + bh, x0:x0 + bw] = int(255 * (0.3 + 0.7 * c / (C - 1)))
+            cl.append(float(c))
+            bx.append([x0 / w, y0 / h, (x0 + bw) / w, (y0 + bh) / h])
+        images.append(img)
+        classes.append(cl)
+        boxes.append(bx)
+    return images, classes, boxes
+
+
+class LabelsOnly:
+    """``native.decode_jpeg_batch`` for a CPU ImageDetRecordIter where
+    libjpeg's headers may be missing (a GPU machine need not have them,
+    and the card path needs none): zero pixels of the asked shape, so that
+    the CPU path's own code computes the labels (crop sampler, mirror)
+    while no pixel is compared."""
+
+    def __init__(self, native):
+        self.native, self.real = native, native.decode_jpeg_batch
+
+    def __enter__(self):
+        def zeros(jpegs, h, w, c=3, nthreads=0):
+            return np.zeros((len(jpegs), h, w, c), np.uint8), 0
+        self.native.decode_jpeg_batch = zeros
+        return self
+
+    def __exit__(self, *a):
+        self.native.decode_jpeg_batch = self.real
+
+
+def phase_ssd_rec_fit(torch, mt, workdir):
+    """SSD-VGG16 (as ssd_train: batch 32, 300 x 300, bf16) trained from an
+    ImageDetRecordIter over a record file written in pack_det_dataset's
+    format by the card's encoder, with train_ssd.py:63-65's arguments,
+    SSD_REC_WARMUP + SSD_REC_STEPS steps over two epochs; then the detect
+    graph on one batch of it (N1); then the labels of the first two
+    batches with the crop sampler on, against the same iterator on the
+    CPU (its labels computed by the CPU path's code, its pixels not
+    decoded: see LabelsOnly)."""
+    from mxnet_tpu_torch import native
+    dev = torch.device("cuda", 0)
+    B, S = SSD["batch"], SSD["size"]
+    path = os.path.join(workdir, "ssd.rec")
+    t0 = time.monotonic()
+    images, classes, boxes = det_images(torch, dev, SSD_REC_IMAGES,
+                                        SEED + 105)
+    mt.image.pack_det_dataset(path, images, classes, boxes, quality=95)
+    write_s = time.monotonic() - t0
+    kw = dict(data_shape=(3, S, S), batch_size=B,
+              max_objects=SSD["max_objects"], rand_mirror=True, shuffle=True,
+              **SSD_REC_NORM)
+    it = mt.io.ImageDetRecordIter(path, **kw)
+    mod = ssd_module(mt, mt.gpu(0), "bfloat16")
+    stop_producer(it)
+    made = count_batches(it)
+    reset_counts(mt)
+    reset_i1(mt)
+    it.reset()
+    n = SSD_REC_WARMUP + SSD_REC_STEPS
+    feed = mt.io.ResizeIter(it, n, reset_internal=False)
+    waits0 = len(it.wait_ms)
+    step_ms, stats, last = [], [], None
+    for _ in range(n):
+        b = feed.next()
+        t = time.monotonic()
+        mod.forward(b, is_train=True)
+        mod.backward()
+        mod.update()
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t) * 1e3)
+        stats.append(ssd_stats(torch, mod.get_outputs()))
+        last = b
+    stats = torch.stack(stats).cpu().numpy()
+    # the detect graph with the trained parameters on the last batch
+    params = {k: v for k, v in mod.get_params()[0].items()}
+    net = mt.models.ssd_vgg16(num_classes=SSD["num_classes"], mode="detect")
+    det = mt.mod.Module(net, context=mt.gpu(0), data_names=("data",),
+                        label_names=None, compute_dtype="bfloat16")
+    det.bind([mt.io.DataDesc("data", (B, 3, S, S))], for_training=False)
+    det.init_params(arg_params={k: v for k, v in params.items()
+                                if k in net.list_arguments()})
+    det.forward(mt.io.DataBatch([last.data[0]], []), is_train=False)
+    dets = det.get_outputs()[0]._data
+    torch.cuda.synchronize()
+    stop_producer(it)
+    launches, batches = i1_count(), made[0]
+    counts = read_counts(mt)
+    waits = it.wait_ms[waits0:]
+    fails = []
+    if launches != batches or batches < n:
+        fails.append(f"I1 launched {launches} times for {batches} batches")
+    if not counts["nms_suppress"] or any(
+            v for k, v in counts.items() if k != "nms_suppress"):
+        fails.append(f"launches {counts}: want N1 in the detect pass and "
+                     "no attention kernel")
+    if not np.isfinite(stats[:, :2]).all() or \
+            not bool(torch.isfinite(dets.float()).all()):
+        fails.append(f"losses {stats[:, :2].tolist()} or detections not "
+                     "finite")
+    # the crop sampler's labels, card against CPU
+    ck = dict(kw, rand_crop=SSD_REC_CROP, seed=SEED + 106)
+    card = mt.io.ImageDetRecordIter(path, **ck)
+    with LabelsOnly(native):
+        cpu = mt.io.ImageDetRecordIter(path, device=mt.cpu(), **ck)
+        cpu_labels = [cpu.next().label[0].asnumpy() for _ in range(2)]
+        stop_producer(cpu)
+    card_labels = [card.next().label[0].asnumpy() for _ in range(2)]
+    stop_producer(card)
+    labels_equal = all(np.array_equal(a, b)
+                       for a, b in zip(card_labels, cpu_labels))
+    if not labels_equal:
+        fails.append("the card's labels after the crop sampler differ from "
+                     "the CPU path's")
+    losses = [float(c + l) for c, l in stats[:, :2]]
+    emit("ssd_rec_fit", model="ssd_vgg16", **SSD, args=kw,
+         records=SSD_REC_IMAGES, write_s=write_s, steps=n,
+         step_ms=step_ms, **step_stats(step_ms, SSD_REC_WARMUP),
+         losses=losses, wait_ms=waits,
+         wait_ms_per_step_median=float(np.median(waits[SSD_REC_WARMUP:]
+                                                 or [0.0])),
+         i1_launches=launches, batches_made=batches, launches=counts,
+         detections=list(dets.shape),
+         labels_checked=sum(int((l[..., 0] >= 0).sum())
+                            for l in card_labels),
+         labels_equal_cpu=labels_equal, crop_sampler=SSD_REC_CROP,
+         **decoder_row(it.decoder), failures=fails)
+    if fails:
+        raise RuntimeError("ssd_rec_fit: " + "; ".join(fails))
+    for x in (it, card):
+        x.decoder.close()
+    del mod, det
+    torch.cuda.empty_cache()
+    return counts, launches
+
+
+def phase_rec_dataset(torch, mt, path):
+    """gluon.data.vision.ImageRecordDataset over the JPEG record file
+    through a DataLoader with worker threads (PIL decodes on the host, as
+    in the JAX package), one pass over REC_DATASET_IMAGES records: each
+    batch's shape and labels; images a second."""
+    ds = mt.gluon.data.vision.ImageRecordDataset(
+        path, transform=lambda x, y: (mt.nd.NDArray(
+            x.as_torch()[:224, :224], ctx=mt.cpu()), y))
+    _, want = rec_jpegs(mt, path, 0, REC_DATASET_IMAGES)
+    sampler = mt.gluon.data.BatchSampler(
+        mt.gluon.data.SequentialSampler(REC_DATASET_IMAGES),
+        REC_DATASET_BATCH, "keep")
+    loader = mt.gluon.data.DataLoader(ds, batch_sampler=sampler,
+                                      num_workers=4)
+    t0 = time.monotonic()
+    shapes, labels, devices = [], [], set()
+    with mt.gpu(0):
+        for x, y in loader:
+            shapes.append(tuple(x.shape))
+            devices.add(str(x._data.device))
+            labels.append(y.asnumpy())
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    labels = np.concatenate(labels)
+    fails = []
+    if shapes != [(REC_DATASET_BATCH, 224, 224, 3)] * (
+            REC_DATASET_IMAGES // REC_DATASET_BATCH) or \
+            not np.array_equal(labels, want) or devices != {"cuda:0"}:
+        fails.append(f"batches {shapes} on {devices}, labels equal "
+                     f"{np.array_equal(labels, want)}")
+    emit("rec_dataset", records=REC_DATASET_IMAGES, batch=REC_DATASET_BATCH,
+         workers=4, decoder="PIL (imdecode, host)", seconds=secs,
+         images_per_s=REC_DATASET_IMAGES / secs, batch_shapes=shapes[:1],
+         devices=sorted(devices), failures=fails)
+    if fails:
+        raise RuntimeError("rec_dataset: " + "; ".join(fails))
+
+
 def main():
     try:
         import torch
@@ -6551,6 +7309,21 @@ def main():
     torch.cuda.empty_cache()
     phase_front_end(torch, mt)
 
+    # C3: data IO. The JPEG record file written on the card by nvJPEG,
+    # I1 against its plain version, then the slice's main path (ResNet-50
+    # v2 by Module.fit from ImageRecordIter: nvJPEG + I1), the raw-record
+    # path, SSD from ImageDetRecordIter (I1, and N1 in its detect pass)
+    # and the Gluon record dataset; no attention kernel
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        rec_path, rec_row = phase_rec_write(torch, mt, workdir)
+        i1_rows = phase_i1_kernel(torch, mt, rec_path)
+        imagenet_row = phase_imagenet_rec_fit(torch, mt, rec_path, med,
+                                              PEAK_FLOPS["bfloat16"])
+        uint8_row = phase_uint8_rec_fit(torch, mt, rec_path, workdir)
+        ssd_rec_counts, ssd_rec_i1 = phase_ssd_rec_fit(torch, mt, workdir)
+        phase_rec_dataset(torch, mt, rec_path)
+
     def by_path(key):
         return {"serve": serve_counts[key], "train": train_counts[key],
                 "vit_train": vit_counts[key],
@@ -6560,7 +7333,8 @@ def main():
                 **{p: c[key] for p, c in gluon_lstm_paths.items()},
                 "ssd_train": ssd_counts[key],
                 "ssd_detect": ssd_detect_counts[key],
-                "moe_lm_train": moe_counts[key]}
+                "moe_lm_train": moe_counts[key],
+                "ssd_rec_fit": ssd_rec_counts[key]}
 
     def ms_of(row, key):  # the median with its min and max
         return dict(ms=row[key], ms_min=row[f"{key}_min"],
@@ -6695,6 +7469,33 @@ def main():
                              bound_by=nms_rows[k]["bound_by"],
                              candidate_share=nms_rows[k]["candidate_share"])
                      for k in NMS_TIMED}))
+    # I1: no TPU kernel's port (the JAX package's decode -> crop -> mirror
+    # -> normalize pass is host C++); launched once a batch on the record
+    # paths, timed at the main path's shape on its own decoded images
+    im, u8 = i1_rows["main"], i1_rows["uint8_nchw"]
+    rows.append(dict(
+        name="image_augment", source=I1_SOURCE, design=I1_DESIGN,
+        replaces="none: the host C++ mxnet_tpu/native/io_native.cc:250 "
+        "jpeg_decode_augment_batch (resize_bilinear :127 folded in; "
+        "crop_flip_u8_batch :322 and _nhwc :366 for raw records)",
+        paths={"imagenet_rec_fit": imagenet_row["i1_launches"],
+               "uint8_rec_fit": uint8_row["i1_launches"],
+               "ssd_rec_fit": ssd_rec_i1},
+        max_abs_err=max(r["max_abs_err"] for r in i1_rows.values()),
+        **ms_of(im, "kernel_ms"), plain_ms=im["plain_ms"],
+        bound_ms=im["bound_ms"], bound_by=im["bound_by"], library_ms=None,
+        shape=im["shape"], inputs="the record file's first batch decoded "
+        "by nvJPEG (500 x 375 and 375 x 500), resized to 256, cropped to "
+        "224, mirrored, normalized",
+        at_uint8_shape=dict(shape=u8["shape"], **ms_of(u8, "kernel_ms"),
+                            plain_ms=u8["plain_ms"],
+                            bound_ms=u8["bound_ms"],
+                            bound_by=u8["bound_by"], library_ms=None),
+        decoder=dict(decoder=rec_row["decoder"],
+                     backend_counts=rec_row["backend_counts"],
+                     decode_images_per_s=rec_row["decode_images_per_s"],
+                     pipeline_images_per_s=imagenet_row[
+                         "pipeline_images_per_s"])))
     kernels = []
     for r in rows:
         paths = r.pop("paths") if "paths" in r else by_path(r.pop("key"))

@@ -33,6 +33,16 @@ from .initializer import Initializer
 from .optimizer import Optimizer
 from .io import DataBatch, DataDesc, DataIter, NDArrayIter, ResizeIter, \
     PrefetchingIter, CSVIter
+from . import native, recordio, image_record_iter
+from .image_record_iter import ImageRecordIter, ImageRecordUInt8Iter
+from . import image
+from . import image as img
+from .image.detection import ImageDetRecordIter
+# the reference registers the record iterators in mx.io, and _v1 variants
+# (src/io/io.cc:337-758), here the same classes, as in the JAX package
+io.ImageRecordIter = io.ImageRecordIter_v1 = ImageRecordIter
+io.ImageRecordUInt8Iter = io.ImageRecordUInt8Iter_v1 = ImageRecordUInt8Iter
+io.ImageDetRecordIter = ImageDetRecordIter
 from .module import Module, BaseModule
 from .ndarray import NDArray
 from .convert import params_from_numpy, gluon_params_from_numpy, \
@@ -48,4 +58,6 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "params_from_numpy", "cuda_lib", "ndarray", "nd", "random",
            "io", "initializer", "init", "optimizer", "lr_scheduler",
            "metric", "model", "callback", "module", "mod", "autograd",
-           "gluon", "rnn", "rtc", "operator", "op", "__version__"]
+           "gluon", "rnn", "rtc", "operator", "op", "native", "recordio",
+           "image_record_iter", "ImageRecordIter", "ImageRecordUInt8Iter",
+           "image", "img", "ImageDetRecordIter", "__version__"]

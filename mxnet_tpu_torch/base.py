@@ -57,6 +57,8 @@ declare_env("MXNET_SERVING_MAX_WAIT_MS", float, 2.0,
 declare_env("MXNET_SERVING_QUEUE_DEPTH", int, 256,
             "serving: admission control — requests queued past this "
             "depth are shed with a typed BUSY reply")
+declare_env("MXNET_CPU_WORKER_NTHREADS", int, 4,
+            "host worker threads for the data pipeline")
 
 
 class ContribNamespace:

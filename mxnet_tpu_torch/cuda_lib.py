@@ -1,11 +1,13 @@
 """Build and load the package's hand-written CUDA kernels.
 
 Each source under ``csrc/`` is compiled by ``nvcc`` into its own shared
-library with a plain C interface and loaded with ``ctypes``.  The build
+library with a plain C interface and loaded with ``ctypes``: the kernels
+(``SOURCES``) and the shims over the toolkit's libraries (``SHIMS``,
+each linked with its library: nvJPEG).  The build
 happens at first use, from the sources in the checkout, into
 ``build/kernels/<stem>-<hash>/`` beside the package; the hash covers the
 source text, every header under ``csrc/`` (``*.cuh``) and the compiler
-flags, so an edited source or header rebuilds.
+and linker flags, so an edited source or header rebuilds.
 Importing this module builds nothing and creates no CUDA context.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all
@@ -34,7 +36,11 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
 # sources, in build order; each becomes lib<stem>.so
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "nms_overlap.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "nms_overlap.cu",
+           "image_augment.cu")
+# plain-C shims over the toolkit's libraries, built as the kernels are,
+# each linked with its libraries
+SHIMS = {"nvjpeg_decode.cu": ["-lnvjpeg"]}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -65,7 +71,8 @@ def _lib_path(source: str) -> str:
     """Where ``source``'s library goes: keyed by the source, every header
     of ``csrc/`` (a source may include any of them) and the flags."""
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + SHIMS.get(source, [])
+    h = hashlib.sha256(" ".join(flags).encode())
     for name in (source, *headers):
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(b"\0" + name.encode() + b"\0" + f.read())
@@ -74,7 +81,7 @@ def _lib_path(source: str) -> str:
                         f"lib{stem}.so")
 
 
-def build_all(sources=SOURCES) -> Dict[str, dict]:
+def build_all(sources=SOURCES + tuple(SHIMS)) -> Dict[str, dict]:
     """Build every source that is not built yet, all ``nvcc`` processes
     started together.  Returns ``{source: {"path", "seconds", "log"}}``;
     ``log`` holds nvcc's output (``-Xptxas -v`` register and
@@ -90,7 +97,8 @@ def build_all(sources=SOURCES) -> Dict[str, dict]:
         nvcc = nvcc or find_nvcc()
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = f"{path}.tmp{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, src),
+               *SHIMS.get(src, [])]
         p = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
         procs.append((src, path, tmp, p, time.monotonic()))

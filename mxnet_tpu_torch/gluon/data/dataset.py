@@ -3,7 +3,8 @@
 PyTorch counterpart of ``mxnet_tpu/gluon/data/dataset.py``."""
 from __future__ import annotations
 
-from ...base import MXNetError
+import threading
+
 
 
 class Dataset:
@@ -79,10 +80,20 @@ class ArrayDataset(Dataset):
 
 
 class RecordFileDataset(Dataset):
-    """Dataset over a RecordIO file (reference: dataset.py:108).  The port
-    has no ``recordio`` yet (ROADMAP C3: data IO), so this raises."""
+    """Dataset over a RecordIO file and its .idx index (reference:
+    dataset.py:108): item ``i`` is the raw record of the index's i-th
+    key."""
 
     def __init__(self, filename):
-        raise MXNetError(
-            f"RecordFileDataset({filename!r}): recordio is not ported to "
-            "mxnet_tpu_torch yet (ROADMAP C3: data IO)")
+        from ... import recordio
+        idx_file = filename[:filename.rfind('.')] + '.idx'
+        self._record = recordio.MXIndexedRecordIO(idx_file, filename, 'r')
+        self._lock = threading.Lock()
+
+    def __len__(self):
+        return len(self._record.keys)
+
+    def __getitem__(self, idx):
+        # one file handle: the DataLoader's worker threads take turns
+        with self._lock:
+            return self._record.read_idx(self._record.keys[idx])

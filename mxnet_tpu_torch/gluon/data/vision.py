@@ -18,7 +18,7 @@ import numpy as np
 from ...base import MXNetError
 from ...context import cpu
 from ...ndarray import NDArray
-from .dataset import Dataset
+from .dataset import Dataset, RecordFileDataset
 
 
 class _DownloadedDataset(Dataset):
@@ -115,12 +115,25 @@ class CIFAR10(_DownloadedDataset):
         self._label = np.concatenate(label)
 
 
-class ImageRecordDataset(Dataset):
-    """Images packed in a RecordIO file (reference: vision.py:130).  The
-    port has no ``recordio`` or image decoder yet (ROADMAP C3: data IO),
-    so this raises."""
+class ImageRecordDataset(RecordFileDataset):
+    """Images packed in a RecordIO file (reference: vision.py:130): item
+    ``i`` is (image, label), the image decoded by PIL (``imdecode``) into
+    an HWC uint8 NDArray on the CPU, as the other vision datasets keep
+    their samples; the ``DataLoader`` moves each batch to the caller's
+    context in one copy."""
 
     def __init__(self, filename, flag=1, transform=None):
-        raise MXNetError(
-            f"ImageRecordDataset({filename!r}): recordio and image decoding "
-            "are not ported to mxnet_tpu_torch yet (ROADMAP C3: data IO)")
+        super().__init__(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        from ... import recordio, image
+        record = super().__getitem__(idx)
+        header, img = recordio.unpack(record)
+        img = NDArray(image.imdecode(img, self._flag, to_ndarray=False),
+                      ctx=cpu())
+        label = header.label
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label

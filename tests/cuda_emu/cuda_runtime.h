@@ -1,8 +1,9 @@
 // An emulation of the parts of the CUDA runtime that the kernels of
 // mxnet_tpu_torch/csrc run under it use, for compiling them with a host
 // C++ compiler in the CPU tests (tests/test_torch_cuda_emu*.py): the f32
-// attention kernels and the NMS kernel.  One fiber (a ucontext with its
-// own stack, all on the calling OS thread) per CUDA thread, the blocks of
+// attention kernels, the NMS kernel and the image augment kernel.  One
+// fiber (a ucontext with its own stack, all on the calling OS thread) per
+// CUDA thread, the blocks of
 // a grid one after another, a barrier per block for __syncthreads and one
 // per warp for __syncwarp and the shuffles (each lane writes its value to
 // a slot of the block, the warp meets, each lane reads its source lane's
@@ -121,6 +122,11 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+// a load through the read-only cache: a plain load here
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
 
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };

@@ -235,8 +235,13 @@ def _graphs(pkg):
 
 @pytest.mark.parametrize("i", range(11))
 def test_bidirectional_shape_inference_matches_jax(i):
-    js, jkw = _graphs(mx)[i]
-    ts, tkw = _graphs(mt)[i]
+    # each package under a fresh NameManager: the unnamed FullyConnected
+    # and Convolution nodes take their argument names from it, and the
+    # process-wide managers' counters depend on what ran before
+    with mx.name.NameManager():
+        js, jkw = _graphs(mx)[i]
+    with mt.name.NameManager():
+        ts, tkw = _graphs(mt)[i]
     assert ts.infer_shape(**tkw) == js.infer_shape(**jkw)
     assert ts.list_arguments() == js.list_arguments()
 

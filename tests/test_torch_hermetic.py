@@ -257,3 +257,51 @@ def test_gluon_data_and_zoo_import_and_run_hermetically():
         path = os.path.join("mxnet_tpu_torch", *mod.split("."))
         assert path + ".py" in scanned or \
             os.path.join(path, "__init__.py") in scanned, mod
+
+
+# the data-IO slice's modules
+C3_MODULES = ["recordio", "native", "image_record_iter", "image",
+              "image.image", "image.detection", "image.nvjpeg",
+              "ops.image_augment"]
+
+
+def test_data_io_imports_hermetically_and_builds_at_first_use(tmp_path):
+    """Importing the port builds neither the host data-path libraries nor
+    a kernel and starts no CUDA context; a record iterator on the CPU
+    then builds the host libraries (and no kernel), loads no jax and no
+    mxnet_tpu."""
+    code = (
+        "import json, sys, numpy as np, torch\n"
+        "import mxnet_tpu_torch as mt\n"
+        "from mxnet_tpu_torch.image import nvjpeg\n"
+        "from mxnet_tpu_torch.ops import image_augment\n"
+        "at_import = sorted(mt.native._libs)\n"
+        f"path = {str(tmp_path / 'd.rec')!r}\n"
+        "w = mt.recordio.MXRecordIO(path, 'w')\n"
+        "for i in range(4):\n"
+        "    img = np.full((20, 18, 3), 40 * i, np.uint8)\n"
+        "    w.write(mt.recordio.pack_img((0, float(i), i, 0), img))\n"
+        "w.close()\n"
+        "it = mt.io.ImageRecordIter(path_imgrec=path, data_shape=(3, 16, 16),\n"
+        "                           batch_size=2, device=mt.cpu())\n"
+        "n = sum(1 for _ in it)\n"
+        "print(json.dumps({'mods': sorted(sys.modules), 'n': n,\n"
+        "  'at_import': at_import, 'native': sorted(mt.native._libs),\n"
+        "  'cuda_init': torch.cuda.is_initialized(),\n"
+        "  'libs': sorted(mt.cuda_lib._libs)}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert [m for m in out["mods"] if _forbidden(m)] == []
+    assert out["at_import"] == []
+    assert out["native"] == ["jpeg_io", "rec_io"] and out["n"] == 2
+    assert out["cuda_init"] is False
+    assert out["libs"] == []
+    scanned = {os.path.relpath(p, ROOT) for p in _sources()}
+    for mod in C3_MODULES:
+        assert "mxnet_tpu_torch." + mod in out["mods"], mod
+        path = os.path.join("mxnet_tpu_torch", *mod.split("."))
+        assert path + ".py" in scanned or \
+            os.path.join(path, "__init__.py") in scanned, mod

@@ -46,25 +46,12 @@ import importlib  # noqa: E402
 import mxnet_tpu_torch as mt  # noqa: E402
 
 # names the port's front-end modules lack, with the ROADMAP item that
-# ports them
-MODULE_NOT_PORTED = {
-    ("io", "ImageRecordIter"): "C3 (data IO)",
-    ("io", "ImageRecordIter_v1"): "C3 (data IO)",
-    ("io", "ImageRecordUInt8Iter"): "C3 (data IO)",
-    ("io", "ImageRecordUInt8Iter_v1"): "C3 (data IO)",
-    ("io", "ImageDetRecordIter"): "C3 (data IO)",
-}
+# ports them (the record iterators came with C3, data IO)
+MODULE_NOT_PORTED = {}
 FRONT_END = ("optimizer", "metric", "initializer", "io", "callback",
              "model", "module", "attribute", "lr_scheduler")
 # top-level names of the JAX package the port lacks, with the reason
 TOP_NOT_PORTED = {
-    "ImageRecordIter": "C3 (data IO)",
-    "ImageRecordUInt8Iter": "C3 (data IO)",
-    "ImageDetRecordIter": "C3 (data IO)",
-    "image": "C3 (data IO)",
-    "img": "C3 (data IO)",
-    "image_record_iter": "C3 (data IO)",
-    "recordio": "C3 (data IO)",
     "Monitor": "C6 (observability)",
     "monitor": "C6 (observability)",
     "tracing": "C6 (observability)",
@@ -82,7 +69,6 @@ TOP_NOT_PORTED = {
     "wirecodec": "E1-E2 (the distributed plane)",
     "compression": "E1-E2 (the distributed plane)",
     "parallel": "D1 (multi-GPU)",
-    "native": "C7 (C ABI)",
     "analysis": "F1 (tooling)",
     "tpu": "by design: the port's devices are gpu(i)",
     "num_tpus": "by design: the port's devices are gpu(i)",
@@ -114,6 +100,21 @@ def test_front_end_module_names_cover_the_jax_package(name):
     missing = {n for n in _public(jmod) if not hasattr(tmod, n)}
     listed = {n for (m, n) in MODULE_NOT_PORTED if m == name}
     assert missing == listed, sorted(missing ^ listed)
+
+
+def test_record_iterators_are_io_names_with_their_v1_aliases():
+    """The JAX package registers the record iterators in ``io``, with the
+    reference's ``_v1`` names for the same classes; so does the port."""
+    import mxnet_tpu as mx
+    for name in ("ImageRecordIter", "ImageRecordUInt8Iter"):
+        assert getattr(mt.io, name + "_v1") is getattr(mt.io, name) \
+            is getattr(mt, name)
+        assert getattr(mx.io, name + "_v1") is getattr(mx.io, name)
+    assert mt.io.ImageDetRecordIter is mt.ImageDetRecordIter
+    # the port's native module is the host data path (the JAX package's
+    # mxnet_tpu/native/__init__.py); the C ABI beside it is C7's
+    assert hasattr(mt.native, "decode_augment_batch")
+    assert not hasattr(mt.native, "capi")
 
 
 def test_front_end_registries_cover_the_jax_package():

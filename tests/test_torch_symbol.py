@@ -129,11 +129,17 @@ def test_unported_model_options_raise_with_roadmap_item():
     them; now both build with the JAX graph's arguments and outputs
     (``tests/test_torch_moe.py`` and ``test_torch_chunked_loss.py`` hold
     their values), and only options neither package knows raise."""
+    from mxnet_tpu import name as jname
     for kw in (dict(moe_experts=4, moe_k=2), dict(loss_type="chunked_ce")):
-        net = mt.models.transformer_lm(V, S, num_layers=1, d_model=32,
-                                       num_heads=4, **kw)
-        jnet = jmodels.transformer_lm(V, S, num_layers=1, d_model=32,
-                                      num_heads=4, **kw)
+        # each package under a fresh NameManager: the unnamed MakeLoss
+        # takes its output's name from it, and the process-wide managers'
+        # counters depend on what ran before
+        with mt.name.NameManager():
+            net = mt.models.transformer_lm(V, S, num_layers=1, d_model=32,
+                                           num_heads=4, **kw)
+        with jname.NameManager():
+            jnet = jmodels.transformer_lm(V, S, num_layers=1, d_model=32,
+                                          num_heads=4, **kw)
         assert net.list_arguments() == jnet.list_arguments()
         assert net.list_outputs() == jnet.list_outputs()
     with pytest.raises(ValueError, match="loss_type"):

@@ -140,6 +140,25 @@ Parts (all by default; each prints JSON lines):
   GPT-2 small's token count (``part_moe_bf16``), beside the port's
   routing of the same logits.
 
+* ``c3`` (about ten seconds): the numbers behind the record phases of
+  ``chip_smoke.py`` (``part_c3``), with its own image generator
+  (``rec_image``) on the CPU:
+
+  - ``record_kb``: the mean, least and largest JPEG size of PIL's
+    quality-95 encoder (4:2:0) over the generator's noise range at
+    ImageNet's 500 x 375, the choice of ``REC_NOISE`` against
+    ``REC_KB_RANGE``;
+  - ``libjpeg_vs_pil``: the host library's decode (``native/jpeg_io.cc``)
+    against PIL's on those JPEGs, mean absolute levels, beside
+    ``DECODE_MAD_TOL``;
+  - ``dct_downscale``: at each decode size, the host path's pixels (the
+    fused pass, which decodes at 1/d in the DCT domain where the image is
+    at least twice the size, ``jpeg_io.cc decode_one``) against the card
+    path's arithmetic (the full-size decode resized by I1's plain
+    version), both from libjpeg's decode: mean and largest absolute
+    levels, with d; nvJPEG's own distance from libjpeg comes on top
+    (``rec_write``'s ``mad_vs_pil``).
+
 It imports both packages, as the tests do.
 """
 import json
@@ -999,11 +1018,57 @@ def part_c8():
     return out
 
 
+def part_c3():
+    import io as _io
+    from PIL import Image
+    from mxnet_tpu_torch import native
+    gen = torch.Generator().manual_seed(cs.SEED + 100)
+    sizes, jpegs, mads = [], [], []
+    for sigma in np.linspace(*cs.REC_NOISE, 8):
+        img = cs.rec_image(torch, torch.device("cpu"), gen, 375, 500, sigma)
+        buf = _io.BytesIO()
+        Image.fromarray(img.numpy()).save(buf, "JPEG",
+                                          quality=cs.REC_QUALITY)
+        jpegs.append(buf.getvalue())
+        sizes.append(len(jpegs[-1]) / 1024)
+    for j in jpegs:
+        pil = np.asarray(Image.open(_io.BytesIO(j)).convert("RGB"))
+        ours, _ = native.decode_jpeg_batch([j], 375, 500, 3, 1)
+        mads.append(float(np.abs(ours[0].astype(int) - pil).mean()))
+    from mxnet_tpu_torch.ops import image_augment as ia
+    full = [native.decode_jpeg_batch([j], 375, 500, 3, 1)[0][0]
+            for j in jpegs]
+    images = ia.DecodedImages.from_arrays(full)
+    n = len(jpegs)
+    zero, no = np.zeros(n, np.int64), np.zeros(n, bool)
+    down = {}
+    for size in (256, 187, 128, 64):
+        host, _ = native.decode_augment_batch(jpegs, size, size, size,
+                                              size, zero, zero, no, 0, 1,
+                                              3, 1)
+        card = ia.augment_plain(images, zero, zero, no, (size, size),
+                                (size, size)).numpy()
+        d = 1
+        while d < 8 and 375 // (d * 2) >= size and 500 // (d * 2) >= size:
+            d *= 2
+        diff = np.abs(host - card)
+        down[size] = dict(d=d, mean=float(diff.mean()),
+                          max=float(diff.max()))
+    return {"record_kb": dict(mean=float(np.mean(sizes)),
+                              min=float(min(sizes)), max=float(max(sizes)),
+                              noise=list(cs.REC_NOISE),
+                              kb_range=list(cs.REC_KB_RANGE)),
+            "libjpeg_vs_pil": dict(mean=float(np.mean(mads)),
+                                   max=float(max(mads)),
+                                   tol=cs.DECODE_MAD_TOL),
+            "dct_downscale": down}
+
+
 PARTS = {"resnet": part_resnet, "deep_bn": part_deep_bn, "gluon": part_gluon,
          "decode_vs_lm": part_decode_vs_lm, "beam": part_beam,
          "vit": part_vit, "zoo": part_zoo, "rnn": part_rnn, "ssd": part_ssd,
          "zoo_data": part_zoo_data, "c1b2": part_c1b2,
-         "moe_bf16": part_moe_bf16, "c8": part_c8}
+         "moe_bf16": part_moe_bf16, "c8": part_c8, "c3": part_c3}
 
 if __name__ == "__main__":
     for part in sys.argv[1:] or list(PARTS):
