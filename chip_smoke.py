@@ -535,13 +535,13 @@ def time_ms(fn, iters=20, repeats=5, warmup=3):
     return float(np.median(times)), min(times), max(times)
 
 
-def device_ms(torch, fn, iters=20):
+def device_ms(torch, fn, iters=20, stem=""):
     """(mean device ms a call of ``fn``, the kernels' names): the kernels
     the card ran over ``iters`` calls under torch.profiler (after one
-    synchronised warm-up call), summed.  The first window of a process
-    may record no device activity (seen on the card once in eight
-    processes); a window that records none is taken again, twice at
-    most."""
+    synchronised warm-up call), those whose names hold ``stem`` alone
+    where it is given, summed.  The first window of a process may record
+    no device activity (seen on the card once in eight processes); a
+    window that records none of them is taken again, twice at most."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
@@ -550,11 +550,12 @@ def device_ms(torch, fn, iters=20):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        kernels = device_kernels(prof)
+        kernels = [r for r in device_kernels(prof) if stem in r[2]]
         if kernels:
             return sum(ms for ms, _, _ in kernels) / iters, [
                 k for _, _, k in kernels]
-    raise RuntimeError("torch.profiler saw no device time")
+    raise RuntimeError(f"torch.profiler saw no device time{stem and ' of '}"
+                       f"{stem}")
 
 
 def host_ms(torch, fn, iters=50):
@@ -738,10 +739,10 @@ def phase_build(mt):
                                         or row.get("spill_loads", 1)):
                 failures.append(f"{name}: spills {row}")
     want = dict(F32_KERNELS, **{stem: 3 for stem in MMA_KERNELS},
-                image_augment_kernel=3)
+                image_augment_kernel=3, relu_grad_kernel=4)
     for name, row in kernels.items():
-        if "image_augment_kernel" in name and (row.get("spill_stores", 1)
-                                               or row.get("spill_loads", 1)):
+        if ("image_augment_kernel" in name or "relu_grad_kernel" in name) \
+                and (row.get("spill_stores", 1) or row.get("spill_loads", 1)):
             failures.append(f"{name}: spills {row}")
     for stem, count in want.items():
         if sum(stem in n for n in kernels) != count:
@@ -1437,6 +1438,102 @@ def resnet_steps(mt, mod, batches, n, sync):
     return step_ms, losses
 
 
+# R1: jax.nn.relu's gradient in one pass (csrc/relu_grad.cu), the
+# backward of every relu of the ResNet and zoo paths
+R1_SOURCE = os.path.join("mxnet_tpu_torch", "csrc", "relu_grad.cu")
+R1_DESIGN = (
+    "a grid-stride loop over 16-byte vectors of g, y and the output (8 "
+    "bf16 values), the test y > 0 on the bits (b - 1 < the bits of +inf, "
+    "unsigned), a scalar tail and a scalar path for misaligned tensors; "
+    "at most 8 blocks of 256 an SM; bit-identical to the plain version")
+# ResNet-50 v2's largest relu (stage 1's 256-channel activations at batch
+# 256) in bf16, and stage 0's 64-channel one in fp32
+R1_CASES = {"resnet50_stage1_bf16": ((256, 256, 56, 56), "bfloat16"),
+            "resnet50_stem_fp32": ((256, 64, 112, 112), "float32")}
+
+
+def r1_count():
+    from mxnet_tpu_torch.ops import elemwise
+    return elemwise.relu_grad_cuda.launches
+
+
+def reset_r1():
+    from mxnet_tpu_torch.ops import elemwise
+    elemwise.relu_grad_cuda.launches = 0
+
+
+def relu_nodes(sym):
+    """The relus of a symbol's graph (Activation with act_type relu, or
+    the relu op): R1 launches once each a training step."""
+    nodes = json.loads(sym.tojson())["nodes"]
+    return sum(n["op"] == "relu" or (n["op"] == "Activation" and n.get(
+        "attrs", {}).get("act_type", "relu") == "relu") for n in nodes)
+
+
+def phase_r1_kernel(torch, mt):
+    """R1 against its plain version bit for bit at ResNet-50's relu shapes
+    (NaN, +-0 and +-inf placed in the output and the cotangent), and on
+    a view off its 16-byte alignment (the scalar path); each relaunched
+    and required identical; times by CUDA events and the device time
+    (torch.profiler) beside the bytes bound, the plain version's two
+    passes and torch's own one-pass relu backward (``threshold_backward``:
+    g at NaN, so not the same function; context, not a library call)."""
+    from mxnet_tpu_torch.ops import elemwise
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 110)
+    rows, fails = {}, []
+    special = torch.tensor([float("nan"), float("inf"), 0.0, -0.0],
+                           device=dev)
+    for name, (shape, dtype) in R1_CASES.items():
+        dt = getattr(torch, dtype)
+        x = torch.randn(shape, generator=gen, device=dev, dtype=dt)
+        g = torch.randn(shape, generator=gen, device=dev, dtype=dt)
+        x.view(-1)[:4] = special.to(dt)
+        g.view(-1)[4:8] = special.to(dt)
+        y = torch.relu(x)
+        got = elemwise.relu_grad_cuda(g, y)
+        again = elemwise.relu_grad_cuda(g, y)
+        want = elemwise.relu_grad_plain(g, y)
+        off = elemwise.relu_grad_cuda(g.view(-1)[1:], y.view(-1)[1:])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.view(torch.int16 if a.element_size() == 2
+                                      else torch.int32),
+                               b.view(torch.int16 if b.element_size() == 2
+                                      else torch.int32))
+                   for a, b in ((got, want), (again, want),
+                                (off, want.view(-1)[1:])))
+        err = float((got.float() - want.float()).nan_to_num().abs().max())
+        if not same:
+            fails.append(f"{name}: R1 differs from the plain version (or "
+                         "from its relaunch, or off its alignment)")
+        n = g.numel()
+        row = dict(shape=list(shape), dtype=dtype, bit_identical=same,
+                   max_abs_err=err)
+        def call():
+            return elemwise.relu_grad_cuda(g, y)
+        timed(row, "kernel_ms", call)
+        row["device_ms"], _ = device_ms(torch, call,
+                                        stem="relu_grad_kernel")
+        timed(row, "plain_ms", lambda: elemwise.relu_grad_plain(g, y))
+        timed(row, "torch_threshold_backward_ms",
+              lambda: torch.ops.aten.threshold_backward(g, y, 0))
+        nbytes = 3 * n * g.element_size()
+        row.update(bound_bytes=nbytes,
+                   bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                   bound_by="bytes", library_ms=None,
+                   library="none: no one PyTorch call gives g where y > 0 "
+                           "and 0 elsewhere (threshold_backward passes g "
+                           "at NaN)")
+        rows[name] = row
+        del x, g, y, got, again, want, off
+        torch.cuda.empty_cache()
+    emit("r1_kernel", source=R1_SOURCE, design=R1_DESIGN, cases=rows,
+         failures=fails)
+    if fails:
+        raise RuntimeError("r1_kernel: " + "; ".join(fails))
+    return rows
+
+
 def phase_resnet_train(torch, mt, peak_flops):
     """ResNet-50 at ImageNet width through Module on cuda:0, bench.py's
     recipe: RESNET_WARMUP + RESNET_STEPS steps, launch and dispatch
@@ -1455,10 +1552,15 @@ def phase_resnet_train(torch, mt, peak_flops):
     # the ResNet path: counts start at 0 here and are read right after
     torch.cuda.reset_peak_memory_stats()
     reset_counts(mt)
+    reset_r1()
     n = RESNET_WARMUP + RESNET_STEPS
     step_ms, losses = resnet_steps(mt, mod, batches, n,
                                    torch.cuda.synchronize)
     counts = read_counts(mt)
+    r1 = r1_count()
+    if r1 != n * relu_nodes(mod.symbol):
+        raise RuntimeError(f"resnet_train: R1 launched {r1} times over {n} "
+                           f"steps of {relu_nodes(mod.symbol)} relus")
     dispatch = mt.profiler.dispatch_counts()
     peak = torch.cuda.max_memory_allocated()
     if dispatch.get("module.update") != n \
@@ -1495,8 +1597,8 @@ def phase_resnet_train(torch, mt, peak_flops):
          mfu_peak_tflops=peak_flops / 1e12, peak_mem_bytes=peak,
          dispatches=dispatch, attention_launches=counts, losses=losses,
          loss_first5_mean=first5, loss_last5_mean=last5,
-         margin=RESNET_MARGIN)
-    return mod, batches, med
+         margin=RESNET_MARGIN, relu_grad_launches=r1)
+    return mod, batches, med, r1
 
 
 def profiled_step(torch, mod, batch):
@@ -6495,11 +6597,19 @@ REC_DATASET_IMAGES = 256
 REC_DATASET_BATCH = 64
 I1_SOURCE = os.path.join("mxnet_tpu_torch", "csrc", "image_augment.cu")
 I1_DESIGN = (
-    "one thread a pixel (n, y, x), its channels in a loop, the bilinear "
-    "taps and weights computed once; neighbouring threads on neighbouring "
-    "x, so each channel plane's stores coalesce; the per-image table "
-    "(pointer, h, w, y0, x0, flip) through the read-only cache; every "
-    "float operation __f*_rn, bit-identical to the plain version")
+    "a block per (band of 8 output rows, image), 128 threads: the image's "
+    "table read once a thread, no division to find a pixel; the column "
+    "taps (both byte offsets and the weight, mirror applied) once a block "
+    "and the row taps once a row, in shared memory; the band's source "
+    "window staged into shared memory by 16-byte loads (each row aligned "
+    "down, its offset carried); four output x a thread, one float4 (or "
+    "32-bit) store a channel plane, a scalar tail for ragged widths; bytes "
+    "to floats and back by the 2^23 bias (no conversion instructions); "
+    "the identity a staged crop-and-mirror copy; every float operation "
+    "__f*_rn in the host code's order, bit-identical to the plain version")
+# a crop whose width is not a multiple of 4 (scalar stores): 299 x 299 of
+# the record file's images resized to 320, batch 32
+I1_RAGGED = dict(batch=32, resize=320, crop=(299, 299))
 
 
 def i1_count():
@@ -6726,10 +6836,12 @@ def phase_i1_kernel(torch, mt, path):
     """I1 against its plain version bit for bit at the main path's shape
     (batch 256 of the record file's images decoded by nvJPEG, resized to
     256 x 256, cropped to 224 at the iterator's draws, mirrored,
-    normalized by the example's means), with a failed slot too; its uint8
+    normalized by the example's means), with a failed slot too, at a
+    width that is not a multiple of 4 (``I1_RAGGED``), and its uint8
     instances (NCHW and NHWC, 224 crops of 256 x 256 raw images); each
-    relaunched and required identical; times by CUDA events beside the
-    bytes bound."""
+    relaunched and required identical; times by CUDA events (the whole
+    call), the kernel's device time by torch.profiler and the wrapper's
+    host time, beside the bytes bound and the previous design's time."""
     from mxnet_tpu_torch.image import nvjpeg
     from mxnet_tpu_torch.ops import image_augment as ia
     dev = torch.device("cuda", 0)
@@ -6761,8 +6873,16 @@ def phase_i1_kernel(torch, mt, path):
                          f"by {err} (or from its relaunch)")
         row = dict(shape=list(got.shape), out=out, layout=layout,
                    bit_identical=same, max_abs_err=err)
-        timed(row, "kernel_ms", lambda: ia.augment_cuda(
-            imgs, *a, out=out, layout=layout), iters=20, repeats=5)
+
+        def call():
+            return ia.augment_cuda(imgs, *a, out=out, layout=layout)
+        timed(row, "kernel_ms", call, iters=20, repeats=5)
+        # the kernel alone (torch.profiler) and the wrapper's host time a
+        # call: the row's kernel_ms is the larger of the two where the host
+        # cannot keep ahead
+        row["device_ms"], _ = device_ms(torch, call,
+                                        stem="image_augment_kernel")
+        row["host_ms"] = host_ms(torch, call)
         timed(row, "plain_ms", lambda: ia.augment_plain(
             imgs, *a, out=out, layout=layout), iters=1, repeats=3, warmup=1)
         nbytes = ia.bound_bytes(imgs, a[0], a[1], a[2], a[3], a[4],
@@ -6772,6 +6892,7 @@ def phase_i1_kernel(torch, mt, path):
                    bound_by="bytes", library_ms=None,
                    library="none: no one PyTorch call resizes, crops, "
                            "mirrors and normalizes ragged images")
+        row["bound_share"] = row["bound_ms"] / row["device_ms"]
         rows[name] = row
 
     check("main", images, args)
@@ -6780,6 +6901,14 @@ def phase_i1_kernel(torch, mt, path):
                               images.widths, 3,
                               np.arange(B) != 5)
     check("failed_slot", failed, args)
+    # a width that is not a multiple of 4: the scalar stores
+    rb, rr, (rh, rw) = (I1_RAGGED[k] for k in ("batch", "resize", "crop"))
+    ragged = ia.DecodedImages(images.flat, images.offsets[:rb],
+                              images.heights[:rb], images.widths[:rb], 3)
+    check("ragged_299", ragged, (rng.randint(0, rr - rh + 1, rb),
+                                 rng.randint(0, rr - rw + 1, rb),
+                                 rng.rand(rb) < 0.5, (rr, rr), (rh, rw),
+                                 mean, std))
     # the uint8 instances: raw 256 x 256 images (random bytes) made on the
     # card, cropped and mirrored
     gen = torch.Generator(device=dev).manual_seed(SEED + 102)
@@ -6833,6 +6962,7 @@ def rec_fit(torch, mt, it, steps, warmup, sym=None):
     torch.cuda.reset_peak_memory_stats()
     reset_counts(mt)
     reset_i1(mt)
+    reset_r1()
     it.reset()
     waits0 = len(it.wait_ms)
     feed = mt.io.ResizeIter(it, steps, reset_internal=False)
@@ -6850,6 +6980,7 @@ def rec_fit(torch, mt, it, steps, warmup, sym=None):
     stop_producer(it)
     launches, batches = i1_count(), made[0]
     counts = read_counts(mt)
+    r1 = r1_count()
     dispatch = mt.profiler.dispatch_counts()
     peak = torch.cuda.max_memory_allocated()
     waits = it.wait_ms[waits0:]
@@ -6858,6 +6989,9 @@ def rec_fit(torch, mt, it, steps, warmup, sym=None):
     if launches != batches or batches < steps:
         fails.append(f"I1 launched {launches} times for {batches} batches "
                      f"made ({steps} steps): want once a batch")
+    if r1 != steps * relu_nodes(sym):
+        fails.append(f"R1 launched {r1} times over {steps} steps of "
+                     f"{relu_nodes(sym)} relus")
     if any(counts.values()) or dispatch.get("module.update") != steps:
         fails.append(f"launches {counts} (want none), dispatches "
                      f"{dispatch} (want {steps} updates)")
@@ -6872,7 +7006,8 @@ def rec_fit(torch, mt, it, steps, warmup, sym=None):
                wait_ms_per_step_median=float(np.median(timed_waits)),
                wait_ms_per_step_max=float(max(timed_waits)),
                wait_first_ms=waits[0] if waits else None, waits=len(waits),
-               i1_launches=launches, batches_made=batches,
+               i1_launches=launches, relu_grad_launches=r1,
+               batches_made=batches,
                epochs_of_the_file=batches * it.batch_size /
                len(it._offsets),
                decode_failures=it.decode_failures, peak_mem_bytes=peak,
@@ -7214,6 +7349,7 @@ def main():
     checks = phase_kernels(torch, mt)
     bwd = phase_bwd_kernels(torch, mt)
     nms_rows = phase_nms_kernel(torch, mt)
+    r1_rows = phase_r1_kernel(torch, mt)
 
     sym = mt.models.transformer_lm(**GPT2_SMALL)
     params_np = gpt2_params(sym, SEED)
@@ -7228,7 +7364,8 @@ def main():
     # ResNet-50 (bench.py's path); cuDNN picks its algorithms by timing
     # them, as a user's training script would have it
     torch.backends.cudnn.benchmark = True
-    mod, batches, med = phase_resnet_train(torch, mt, PEAK_FLOPS["bfloat16"])
+    mod, batches, med, resnet_r1 = phase_resnet_train(
+        torch, mt, PEAK_FLOPS["bfloat16"])
     phase_resnet_profile(torch, mod, batches, med)
     del mod, batches
     torch.cuda.empty_cache()
@@ -7473,6 +7610,16 @@ def main():
     # -> normalize pass is host C++); launched once a batch on the record
     # paths, timed at the main path's shape on its own decoded images
     im, u8 = i1_rows["main"], i1_rows["uint8_nchw"]
+
+    def i1_times(row):
+        """ms: the whole call by CUDA events, as every row has it, which
+        the wrapper's host time (host_ms) holds where the kernel is
+        shorter; device_ms: the kernel alone (torch.profiler)"""
+        return dict(shape=row["shape"], **ms_of(row, "kernel_ms"),
+                    device_ms=row["device_ms"], host_ms=row["host_ms"],
+                    plain_ms=row["plain_ms"],
+                    bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                    library_ms=None)
     rows.append(dict(
         name="image_augment", source=I1_SOURCE, design=I1_DESIGN,
         replaces="none: the host C++ mxnet_tpu/native/io_native.cc:250 "
@@ -7482,20 +7629,41 @@ def main():
                "uint8_rec_fit": uint8_row["i1_launches"],
                "ssd_rec_fit": ssd_rec_i1},
         max_abs_err=max(r["max_abs_err"] for r in i1_rows.values()),
-        **ms_of(im, "kernel_ms"), plain_ms=im["plain_ms"],
-        bound_ms=im["bound_ms"], bound_by=im["bound_by"], library_ms=None,
-        shape=im["shape"], inputs="the record file's first batch decoded "
+        **i1_times(im), inputs="the record file's first batch decoded "
         "by nvJPEG (500 x 375 and 375 x 500), resized to 256, cropped to "
         "224, mirrored, normalized",
-        at_uint8_shape=dict(shape=u8["shape"], **ms_of(u8, "kernel_ms"),
-                            plain_ms=u8["plain_ms"],
-                            bound_ms=u8["bound_ms"],
-                            bound_by=u8["bound_by"], library_ms=None),
+        at_uint8_shape=i1_times(u8),
+        other_cases={k: i1_times(i1_rows[k])
+                     for k in ("uint8_nhwc", "ragged_299", "failed_slot")},
         decoder=dict(decoder=rec_row["decoder"],
                      backend_counts=rec_row["backend_counts"],
                      decode_images_per_s=rec_row["decode_images_per_s"],
                      pipeline_images_per_s=imagenet_row[
                          "pipeline_images_per_s"])))
+    # R1: no TPU kernel's port (jax.nn.relu's gradient rule, which XLA
+    # fuses); launched once a relu a step on the ResNet-50 paths, timed at
+    # ResNet-50's largest relu
+    r1, r1f = r1_rows["resnet50_stage1_bf16"], r1_rows["resnet50_stem_fp32"]
+
+    def r1_times(row):
+        """ms by CUDA events, as every row has it; device_ms: the kernel
+        alone (torch.profiler)"""
+        return dict(shape=row["shape"], dtype=row["dtype"],
+                    **ms_of(row, "kernel_ms"), device_ms=row["device_ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"], library_ms=None,
+                    torch_threshold_backward_ms=row[
+                        "torch_threshold_backward_ms"])
+    rows.append(dict(
+        name="relu_grad", source=R1_SOURCE, design=R1_DESIGN,
+        replaces="none: jax.nn.relu's gradient rule select(x > 0, g, 0), "
+        "which XLA fuses into the backward (the JAX package's "
+        "Activation, mxnet_tpu/ops/nn.py:326)",
+        paths={"resnet_train": resnet_r1,
+               "imagenet_rec_fit": imagenet_row["relu_grad_launches"],
+               "uint8_rec_fit": uint8_row["relu_grad_launches"]},
+        max_abs_err=max(r["max_abs_err"] for r in r1_rows.values()),
+        **r1_times(r1), at_fp32=r1_times(r1f)))
     kernels = []
     for r in rows:
         paths = r.pop("paths") if "paths" in r else by_path(r.pop("key"))

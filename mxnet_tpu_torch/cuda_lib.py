@@ -37,7 +37,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
 # sources, in build order; each becomes lib<stem>.so
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "nms_overlap.cu",
-           "image_augment.cu")
+           "image_augment.cu", "relu_grad.cu")
 # plain-C shims over the toolkit's libraries, built as the kernels are,
 # each linked with its libraries
 SHIMS = {"nvjpeg_decode.cu": ["-lnvjpeg"]}

@@ -124,7 +124,8 @@ def augment_plain(images, y0s, x0s, flips, dec_hw, out_hw, mean=None,
     c = images.channels
     dev = images.flat.device
     y0, x0 = _clamped(y0s, x0s, dh, dw, oh, ow)
-    mean_t, inv_t = _norm(mean, std, c)
+    mean_t, inv_t = (torch.from_numpy(np.array(a, np.float32))
+                     for a in _norm(mean, std, c))
     outs = []
     for i in range(len(images)):
         ry = torch.arange(int(y0[i]), int(y0[i]) + oh, device=dev)
@@ -145,12 +146,11 @@ def augment_plain(images, y0s, x0s, flips, dec_hw, out_hw, mean=None,
 def _norm(mean, std, c):
     """float32 mean and 1 / std per channel (the reciprocal rounded to
     float32, as the host code computes ``1.0f / stdv[k]``)."""
-    m = np.zeros(c, np.float32) if mean is None else np.ascontiguousarray(
-        np.broadcast_to(np.asarray(mean, np.float32).ravel(), (c,)))
-    s = np.ones(c, np.float32) if std is None else np.ascontiguousarray(
-        np.broadcast_to(np.asarray(std, np.float32).ravel(), (c,)))
-    inv = (np.float32(1.0) / s).astype(np.float32)
-    return torch.from_numpy(m.copy()), torch.from_numpy(inv)
+    m = np.zeros(c, np.float32) if mean is None else np.broadcast_to(
+        np.asarray(mean, np.float32).ravel(), (c,))
+    s = np.ones(c, np.float32) if std is None else np.broadcast_to(
+        np.asarray(std, np.float32).ravel(), (c,))
+    return m, np.float32(1.0) / s
 
 
 def augment(images, y0s, x0s, flips, dec_hw, out_hw, mean=None, std=None,
@@ -168,14 +168,26 @@ def augment(images, y0s, x0s, flips, dec_hw, out_hw, mean=None, std=None,
                          std, out, layout)
 
 
-def _meta(images, y0s, x0s, flips):
-    """The kernel's table, int64 (6, n): pointer (0 for a failed decode),
-    h, w, y0, x0, flip of each image."""
-    base = images.flat.data_ptr()
-    ptr = np.where(images.valid, base + images.offsets, 0)
-    return np.stack([ptr, images.heights, images.widths,
-                     np.asarray(y0s, np.int64), np.asarray(x0s, np.int64),
-                     np.asarray(flips, bool).astype(np.int64)])
+def _meta(images, y0s, x0s, flips, mean=None, std=None):
+    """The kernel's table, int64 (6 n + 4): pointer (0 for a failed
+    decode), h, w, y0, x0, flip of each image, row by row, then the mean
+    and 1 / std of channels 0 .. 3 as 8 float32 (zero padded), so that
+    one copy takes it to the card."""
+    n = len(images)
+    t = np.empty(6 * n + 4, np.int64)
+    t[:n] = images.offsets
+    t[:n] += images.flat.data_ptr()
+    t[:n][~images.valid] = 0
+    t[n:2 * n] = images.heights
+    t[2 * n:3 * n] = images.widths
+    t[3 * n:4 * n] = y0s
+    t[4 * n:5 * n] = x0s
+    t[5 * n:6 * n] = np.asarray(flips, bool)
+    norm = t[6 * n:].view(np.float32)
+    norm[:] = 0
+    m, inv = _norm(mean, std, images.channels)
+    norm[:len(m)], norm[4:4 + len(inv)] = m, inv
+    return t
 
 
 def augment_cuda(images, y0s, x0s, flips, dec_hw, out_hw, mean=None,
@@ -183,7 +195,8 @@ def augment_cuda(images, y0s, x0s, flips, dec_hw, out_hw, mean=None,
     """Launch I1 (``csrc/image_augment.cu``) on the current stream of the
     buffer's device.  Raises on what the kernel does not take (a CPU
     buffer, more than 4 channels, a crop larger than the decode size, an
-    output kind other than float32 NCHW and uint8 NCHW or NHWC).
+    output kind other than float32 NCHW and uint8 NCHW or NHWC, more than
+    65535 images).
     ``augment_cuda.launches`` counts successful launches."""
     import ctypes
     from .. import cuda_lib
@@ -197,30 +210,28 @@ def augment_cuda(images, y0s, x0s, flips, dec_hw, out_hw, mean=None,
     dh, dw = dec_hw
     oh, ow = out_hw
     n, c = len(images), images.channels
-    if not 1 <= c <= 4 or oh > dh or ow > dw:
-        raise MXNetError(f"augment_cuda: {c} channels, crop {out_hw} of "
-                         f"{dec_hw}: the kernel takes 1-4 channels and a "
-                         "crop inside the decode size")
+    if not 1 <= c <= 4 or oh > dh or ow > dw or n > 65535:
+        raise MXNetError(f"augment_cuda: {n} images of {c} channels, crop "
+                         f"{out_hw} of {dec_hw}: the kernel takes at most "
+                         "65535 images of 1-4 channels and a crop inside "
+                         "the decode size")
     dev = flat.device
     shape = (n, oh, ow, c) if layout == "NHWC" else (n, c, oh, ow)
     res = torch.empty(shape, dtype=getattr(torch, out), device=dev)
     if n == 0:
         return res
-    meta = torch.from_numpy(_meta(images, y0s, x0s, flips)).pin_memory() \
-        .to(dev, non_blocking=True)
-    m, inv = _norm(mean, std, c)
-    norm = torch.cat([m, inv]).pin_memory().to(dev, non_blocking=True)
+    meta = torch.from_numpy(_meta(images, y0s, x0s, flips, mean, std)) \
+        .pin_memory().to(dev, non_blocking=True)
     lib = cuda_lib.library("image_augment.cu")
     fn = lib.mxtt_image_augment
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.mxtt_error_string.argtypes = [ctypes.c_int]
         lib.mxtt_error_string.restype = ctypes.c_char_p
-    err = fn(meta.data_ptr(), norm.data_ptr(), res.data_ptr(), n, c, dh, dw,
-             oh, ow, kind, dev.index or 0,
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(meta.data_ptr(), res.data_ptr(), n, c, dh, dw, oh, ow, kind,
+             dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise MXNetError("augment_cuda: launch failed: "
                          f"{lib.mxtt_error_string(err).decode()} ({err})")

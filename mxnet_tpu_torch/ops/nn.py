@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from .elemwise import _relu, _sign
 from .indexing import _pick
 from .registry import register, alias
 
@@ -318,7 +319,7 @@ def _dropout(data, p=0.5, mode="training", axes=(), is_train=True,
 
 
 _ACTIVATIONS = {
-    "relu": F.relu,
+    "relu": _relu,
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
     "softrelu": F.softplus,
@@ -581,7 +582,7 @@ def _regression_output(name, link, grad_fn):
 _regression_output("LinearRegressionOutput", lambda x: x,
                    lambda o, l: o - l)
 _regression_output("MAERegressionOutput", lambda x: x,
-                   lambda o, l: torch.sign(o - l))
+                   lambda o, l: _sign(o - l))
 _regression_output("LogisticRegressionOutput", torch.sigmoid,
                    lambda o, l: o - l)
 

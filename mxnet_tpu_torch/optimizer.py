@@ -30,6 +30,7 @@ import torch
 from .base import MXNetError
 from .ndarray import NDArray
 from . import random as _rnd
+from .ops.elemwise import _sign
 
 _OPT_REGISTRY = {}
 
@@ -480,7 +481,7 @@ class Ftrl(Optimizer):
         new_z = z + g - sigma * weight
         w = torch.where(
             new_z.abs() <= self.lamda1, torch.zeros_like(weight),
-            -(new_z - new_z.sign() * self.lamda1)
+            -(new_z - _sign(new_z) * self.lamda1)
             / ((self.beta + new_n.sqrt()) / lr + wd))
         return w, (new_z, new_n)
 
@@ -572,12 +573,12 @@ class Signum(Optimizer):
     def _update_impl(self, weight, grad, states, lr, wd, t=None):
         g = _clip(grad * self.rescale_grad, self.clip_gradient) + wd * weight
         if not states:
-            return weight - lr * g.sign(), ()
+            return weight - lr * _sign(g), ()
         new_mom = self.momentum * states[0] - (1 - self.momentum) * g
         if self.wd_lh:
-            w = (1 - lr * self.wd_lh) * weight + lr * new_mom.sign()
+            w = (1 - lr * self.wd_lh) * weight + lr * _sign(new_mom)
         else:
-            w = weight + lr * new_mom.sign()
+            w = weight + lr * _sign(new_mom)
         return w, (new_mom,)
 
 

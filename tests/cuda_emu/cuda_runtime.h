@@ -42,6 +42,7 @@ struct dim3 {
 // the running fiber's thread index, set by the scheduler at each switch
 extern dim3 threadIdx;
 extern dim3 blockIdx;
+extern dim3 gridDim;
 
 // A barrier of `expected` fibers: each arriving fiber gives the OS
 // thread back to the scheduler (emu_state.cpp), the last after opening
@@ -122,6 +123,15 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+// round toward zero: the sum in double, then toward zero to float; exact
+// wherever the double sum is (operands within 29 binary orders of each
+// other, as in the kernels' uses)
+inline float __fadd_rz(float a, float b) {
+  const double d = (double)a + (double)b;
+  float r = (float)d;
+  if (std::fabs((double)r) > std::fabs(d)) r = std::nextafter(r, 0.0f);
+  return r;
+}
 // a load through the read-only cache: a plain load here
 template <class T>
 inline T __ldg(const T* p) {
@@ -132,6 +142,7 @@ struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 struct uint4 { unsigned x, y, z, w; };
 struct uint2 { unsigned x, y; };
+struct int4 { int x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d};
 }
@@ -144,6 +155,11 @@ inline float __uint_as_float(unsigned u) {
   float f;
   std::memcpy(&f, &u, 4);
   return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, 4);
+  return u;
 }
 
 typedef int cudaError_t;
@@ -196,6 +212,7 @@ void emu_launch(K kernel, dim3 grid, int threads, size_t smem, void*,
   }
   std::function<void()> body = [=]() { kernel(args...); };
   emu_body = &body;
+  gridDim = grid;
   for (unsigned bz = 0; bz < grid.z; ++bz)
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {

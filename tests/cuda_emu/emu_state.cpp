@@ -1,5 +1,5 @@
-// The emulation's globals: thread and block indices, the block's and
-// its warps' barriers, the shuffles' slots, the SM count, the launch
+// The emulation's globals: thread and block indices, the grid's size,
+// the block's and its warps' barriers, the shuffles' slots, the SM count, the launch
 // error, the cp.async mode and groups, and shared memory (the extern
 // __shared__ arrays of the kernels, 227 KB each); and the scheduler that
 // runs a block's CUDA threads as fibers of the calling OS thread.
@@ -12,6 +12,7 @@
 
 dim3 threadIdx;
 dim3 blockIdx;
+dim3 gridDim;
 EmuBarrier* emu_barrier;
 std::deque<EmuBarrier>* emu_warp_barriers;
 uint64_t emu_shfl_slots[1024];

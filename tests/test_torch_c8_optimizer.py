@@ -215,6 +215,28 @@ def test_lars_lamb_trust_ratio_one_at_zero_norm():
         np.testing.assert_allclose(w.asnumpy(), -0.1, rtol=1e-6)
 
 
+@pytest.mark.parametrize("name,params", [
+    ("signum", {"momentum": 0.0}), ("signum", {"momentum": 0.9}),
+    ("ftrl", {"lamda1": 0.05})], ids=["signum_mom0", "signum_mom09", "ftrl"])
+def test_nan_gradient_element_gives_jax_nan_weight(name, params):
+    """One NaN gradient element in the second of three steps at lr 0.1:
+    the JAX package's ``jnp.sign`` keeps NaN, so that weight becomes NaN
+    (``torch.sign`` takes NaN's sign as 0: Signum skipped the step at
+    momentum 0 and froze the element at momentum 0.9).  FTRL's weight is
+    NaN either way; its sign is taken alike for consistency.  The other
+    elements match to ``TOL``; NaN compares equal to NaN."""
+    params = dict(params, learning_rate=0.1)
+    w, grads = _data(3, seed=7)
+    grads[1]["fc_weight"][2, 3] = np.nan
+    jw, jst, _ = _run(mx, name, params, w, grads)
+    tw, tst, _ = _run(mt, name, params, w, grads)
+    assert np.isnan(jw["fc_weight"][2, 3])
+    assert np.isnan(jw["fc_weight"]).sum() == 1
+    for n in NAMES:
+        np.testing.assert_allclose(tw[n], jw[n], err_msg=n, **TOL)
+        _close_states(tst[n], jst[n], err_msg=n, **TOL)
+
+
 def test_module_state_files_cross(tmp_path):
     """``save_optimizer_states`` of a LARS and a centered-RMSProp Module
     in one package loads into the other's, state for state."""

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mt
-from mxnet_tpu_torch.ops import attention as att
+from mxnet_tpu_torch.ops import attention as att, elemwise
 from mxnet_tpu_torch.serving import BucketedPredictor
 import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
@@ -223,3 +223,43 @@ def test_backward_refuses_what_it_does_not_take(dev):
     assert g.is_contiguous() and g.data_ptr() % 16
     with pytest.raises(mt.MXNetError, match="16-byte"):
         att.flash_bwd_cuda(q, k, v, out, lse, g, True)
+
+
+def _relu_gradient_penalty(x, w1, w2):
+    """``sum(gx * gx)`` of ``gx = d sum(y * y) / dx`` taken with
+    ``create_graph`` through ``Activation(act_type='relu')``, back to
+    ``x``: ``gx`` and ``x``'s gradient."""
+    xs = mt.nd.array(x)
+    xs.attach_grad()
+    with mt.autograd.record():
+        h = mt.nd.Activation(mt.nd.FullyConnected(
+            xs, mt.nd.array(w1), no_bias=True, num_hidden=w1.shape[0]),
+            act_type="relu")
+        y = mt.nd.FullyConnected(h, mt.nd.array(w2), no_bias=True,
+                                 num_hidden=w2.shape[0])
+        gx, = mt.autograd.grad((y * y).sum(), [xs], create_graph=True)
+        pen = (gx * gx).sum()
+    pen.backward()
+    return [gx.asnumpy(), xs.grad.asnumpy()]
+
+
+def test_second_order_through_relu_on_card_equals_cpu(dev):
+    """The relu's backward on the card (R1) stays differentiable: a
+    gradient penalty through ``Activation(act_type='relu')`` equals the
+    CPU's (whose plain backward the JAX package holds,
+    ``test_torch_grad_sweep.py``), float32 with TF32 off, rtol 1e-5 and
+    atol 1e-5 of the largest value (sums of up to 128 terms).
+    R1 runs three times: the first-order backward, then the relu's
+    gradient's own backward and the relu's again under ``pen``."""
+    rng = np.random.default_rng(16)
+    x, w1, w2 = (rng.uniform(-1, 1, s).astype(np.float32) / np.sqrt(s[1])
+                 for s in ((64, 96), (128, 96), (32, 128)))
+    with mt.cpu():
+        want = _relu_gradient_penalty(x, w1, w2)
+    before = elemwise.relu_grad_cuda.launches
+    got = _relu_gradient_penalty(x, w1, w2)
+    assert elemwise.relu_grad_cuda.launches == before + 3
+    assert np.abs(want[1]).max() > 1e-3
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max())

@@ -135,6 +135,25 @@ def test_regression_heads(name, label_shape):
     _check(name, [x, y], {"grad_scale": 0.5}, rtol=rtol)
 
 
+def test_mae_regression_gradient_is_nan_at_a_nan_data_or_label():
+    """``jnp.sign`` keeps NaN, so a NaN data or label element gives its
+    output a NaN gradient in the JAX package (``torch.sign``'s 0 stopped
+    it silently); a tie keeps the sign of zero.  Compared exactly, NaN
+    equal to NaN."""
+    x = _rand(4, 3, lo=-2, hi=2)
+    y = _rand(4, 3, seed=1)
+    x[0, 1] = np.nan
+    y[2, 2] = np.nan
+    y[3, 0] = x[3, 0]
+    _check("MAERegressionOutput", [x, y], {"grad_scale": 0.5})
+    xt = torch.from_numpy(x.copy()).requires_grad_()
+    treg.get("MAERegressionOutput")(xt, torch.from_numpy(y)).sum() \
+        .backward()
+    nan = np.isnan(xt.grad.numpy())
+    assert nan[0, 1] and nan[2, 2] and nan.sum() == 2
+    assert xt.grad[3, 0] == 0
+
+
 @pytest.mark.parametrize("use_linear", [False, True], ids=["l2", "l1"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_svm_output(use_linear, dtype):

@@ -28,6 +28,24 @@ chip call (``cd <copy> && python3 <repo>/tools/chip_kernel_times.py k1
     nonzero LABEL  torch.nonzero of a (4, 8108, 8108) bool matrix (0.2%
                    ones), contiguous, as the view of a (4, 8108, 8112)
                    one, and of that padded tensor
+    i1 LABEL       I1 at chip_smoke.py's phase_i1_kernel shapes on
+                   images made on the card (no JPEG: its time does not
+                   depend on the pixels): batch 256 of 500 x 375 and
+                   375 x 500 resized to 256, cropped to 224, float32
+                   NCHW; 32 of them resized to 320, cropped to 299;
+                   raw 256 x 256 cropped to 224, uint8 NCHW and NHWC.
+                   Whether it equals the plain version, ms by CUDA
+                   events, the kernel's device ms by torch.profiler,
+                   the wrapper's host ms, the bytes bound
+    relu LABEL     ResNet-50 v2's training step (chip_smoke.py's
+                   resnet_train setup: batch 256, bf16, SGD momentum)
+                   with Activation's relu as ``F.relu`` (torch's
+                   gradient: g at NaN), as ``ops/elemwise.py`` ``_relu``
+                   (jax.nn.relu's: 0 at NaN; R1's one pass on the card)
+                   and as that Function with the plain version's two
+                   passes and with torch's one pass (its host cost
+                   alone), in turns A B C D D C B A in one process, 8
+                   steps a turn after 3 warm-up steps: median ms
 
 Uses the checkout's own ``chip_smoke.py`` helpers (``time_ms``,
 ``device_ms``, ``NMS_CASES``, ``nms_case_inputs``); needs one CUDA card.
@@ -151,6 +169,94 @@ def nms_times(path=None):
     return out
 
 
+def i1_times():
+    from mxnet_tpu_torch.ops import image_augment as ia
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 103)
+    sizes = cs.rec_specs(256, cs.SEED + 104)[0]
+    imgs = [cs.rec_image(torch, dev, gen, h, w, 12.0) for h, w in sizes]
+    flat = torch.cat([im.reshape(-1) for im in imgs])
+    nb = np.array([im.numel() for im in imgs])
+    offs = np.concatenate([[0], np.cumsum(nb)[:-1]])
+    hs, ws = np.array(sizes).T
+    rng = np.random.RandomState(cs.SEED + 101)
+    mean = np.array([123.68, 116.779, 103.939], np.float32)
+    S = cs.UINT8_STORED
+    raw = torch.randint(0, 256, (256 * S * S * 3,), generator=gen,
+                        device=dev, dtype=torch.uint8)
+    cases = {
+        "main": (ia.DecodedImages(flat, offs, hs, ws, 3), 256, 224,
+                 "float32", "NCHW"),
+        "ragged_299": (ia.DecodedImages(flat, offs[:32], hs[:32], ws[:32],
+                                        3), 320, 299, "float32", "NCHW"),
+        "uint8_nchw": (ia.DecodedImages(raw, np.arange(256) * S * S * 3,
+                                        np.full(256, S), np.full(256, S), 3),
+                       S, 224, "uint8", "NCHW"),
+    }
+    cases["uint8_nhwc"] = cases["uint8_nchw"][:3] + ("uint8", "NHWC")
+    out = {}
+    for name, (images, dec, crop, kind, layout) in cases.items():
+        n = len(images)
+        a = (rng.randint(0, dec - crop + 1, n), rng.randint(0, dec - crop + 1,
+                                                             n),
+             rng.rand(n) < 0.5, (dec, dec), (crop, crop))
+        norm = (mean, np.ones(3, np.float32)) if kind == "float32" \
+            else (None, None)
+
+        def call():
+            return ia.augment_cuda(images, *a, *norm, out=kind,
+                                   layout=layout)
+        same = torch.equal(call(), ia.augment_plain(images, *a, *norm,
+                                                     out=kind, layout=layout))
+        dev_ms = cs.device_ms(torch, call, stem="image_augment_kernel")[0]
+        med, lo, hi = cs.time_ms(call)
+        nbytes = ia.bound_bytes(images, *a, 4 if kind == "float32" else 1)
+        out[name] = dict(bit_identical=same, ms=med, ms_min=lo, ms_max=hi,
+                         device_ms=dev_ms, host_ms=cs.host_ms(torch, call),
+                         bound_ms=nbytes / cs.PEAK_BYTES_PER_S * 1e3)
+    return out
+
+
+def relu_times():
+    import torch.nn.functional as F
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch.ops import elemwise, nn
+
+    def function(backward):
+        """``_relu``'s autograd Function with another backward"""
+        class Relu(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                y = F.relu(x)
+                ctx.save_for_backward(y)
+                return y
+
+            @staticmethod
+            def backward(ctx, g):
+                return backward(g, ctx.saved_tensors[0])
+        return lambda x: Relu.apply(x) if x.requires_grad else F.relu(x)
+    variants = {
+        "torch_relu": F.relu, "r1": elemwise._relu,
+        # the plain version's two passes (a comparison and a where)
+        "two_pass": function(elemwise.relu_grad_plain),
+        # torch's one pass (g at NaN): the Function's host cost alone
+        "one_pass_function": function(
+            lambda g, y: torch.ops.aten.threshold_backward(g, y, 0))}
+    torch.backends.cudnn.benchmark = True
+    dev = torch.device("cuda", 0)
+    B, shape = cs.RESNET_BATCH, (3, 224, 224)
+    mod = cs.resnet_module(mt, mt.gpu(0), B, shape, "bfloat16", cs.SEED)
+    batches = cs.resnet_batches(torch, mt, dev, B, shape, cs.SEED)
+    out = {k: [] for k in variants}
+    for name in list(variants) + list(variants)[::-1]:
+        nn._ACTIVATIONS["relu"] = variants[name]
+        ms, _ = cs.resnet_steps(mt, mod, batches, 11, torch.cuda.synchronize)
+        out[name] += ms[3:]
+    nn._ACTIVATIONS["relu"] = elemwise._relu
+    return {k: dict(median_ms=float(np.median(v)), min_ms=min(v),
+                    max_ms=max(v), steps=len(v)) for k, v in out.items()}
+
+
 def nonzero_times():
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     padded = torch.rand((4, 8108, 8112), generator=gen, device="cuda") \
@@ -172,7 +278,8 @@ def main():
     if what == "capture":
         print(json.dumps({"what": what, **capture(label)}), flush=True)
         return 0
-    times = {"k1": k1_times, "nms": nms_times, "nonzero": nonzero_times}
+    times = {"k1": k1_times, "nms": nms_times, "nonzero": nonzero_times,
+             "i1": i1_times, "relu": relu_times}
     print(json.dumps({"what": what, "variant": label,
                       **times[what](*sys.argv[3:])}), flush=True)
     return 0
