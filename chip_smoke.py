@@ -7324,6 +7324,510 @@ def phase_rec_dataset(torch, mt, path):
         raise RuntimeError("rec_dataset: " + "; ".join(fails))
 
 
+# ---------------------------------------------------------------------------
+# C2: sparse storage and the single-process KVStore on the card
+# ---------------------------------------------------------------------------
+# examples/sparse/linear_classification.py at a user's width: avazu-app's
+# LIBSVM width (1,000,000 hashed features, 15 nonzeros a row), batch 8192,
+# the example's learning rate; 4 distinct batches of the seeded rows, taken
+# in turn, so the loss of a batch seen before falls
+SPARSE_FEATURES = 1_000_000
+SPARSE_NNZ = 15
+SPARSE_BATCH = 8192
+SPARSE_BATCHES = 4
+SPARSE_LR = 0.5
+SPARSE_WARMUP, SPARSE_STEPS = 3, 10
+# card against the port's CPU run after the 13 steps: the CPU tests'
+# tolerances (tests/test_torch_sparse_paths.py: float32 logs and sigmoids
+# an ulp apart, sums in another order; lazy Adam's steps of rows whose
+# summed gradient cancels to about its epsilon, 2e-4 absolute).  The
+# CPU's float32 run ends within 6.8e-11 (SGD) and 4.4e-5 (Adam) of a
+# float64 run's weights (tests/torch_numerics.py c2)
+SPARSE_TOL = {"sgd": dict(rtol=1e-5, atol=1e-6),
+              "adam": dict(rtol=1e-5, atol=2e-4)}
+# csr.dot(w) against csr.todense() @ w on the first CSR_CHECK_ROWS rows of
+# a batch (4 GB dense): 15 products a row summed in another order
+CSR_CHECK_ROWS = 1024
+CSR_DOT_TOL = dict(rtol=1e-5, atol=1e-6)
+# examples/recommender/two_tower.py at MovieLens-20M's size (138,493 users,
+# 26,744 rated movies), dimension 64, batch 8192, SGD through
+# Trainer(kvstore='device'); the example's learning rate 0.5 at its batch
+# 64, scaled linearly to 8192 (a row is read about once a batch, so the
+# unscaled rate moves it 128 times less); its planted rank-4 affinities
+# and top-16 preference pools, computed on the card for the drawn users
+TOWER_USERS, TOWER_ITEMS, TOWER_DIM = 138_493, 26_744, 64
+TOWER_BATCH, TOWER_BATCHES = 8192, 4
+TOWER_LR = 0.5 * 8192 / 64
+TOWER_RANK, TOWER_POOL = 4, 16
+TOWER_WARMUP, TOWER_STEPS = 3, 10
+# card against CPU after the steps: float32 dot products of 64 terms and
+# the repeated rows' gradient sums (index_add_'s atomics on the card) in
+# another order; the CPU's float32 tables end within 3.0e-7 of a float64
+# run's (tests/torch_numerics.py c2), so two float32 runs within 2e-6,
+# against tables of order 0.3-1.6
+TOWER_TOL = dict(rtol=1e-5, atol=2e-6)
+# Module.fit of a small MLP (64 -> 128 -> 10) through a local store
+KV_MLP = dict(samples=4096, features=64, hidden=128, classes=10, batch=128,
+              epochs=2)
+
+
+def sparse_dataset(seed):
+    """SPARSE_BATCHES x SPARSE_BATCH rows of SPARSE_NNZ distinct columns
+    (repeats in a row redrawn), +-1 values and the planted weight's
+    sign as the label, as the example's make_dataset makes them (its
+    rng.choice without replacement permutes all 10^6 columns a row)."""
+    rng = np.random.RandomState(seed)
+    n = SPARSE_BATCH * SPARSE_BATCHES
+    planted = rng.randn(SPARSE_FEATURES).astype(np.float32)
+    cols = np.sort(rng.randint(0, SPARSE_FEATURES, (n, SPARSE_NNZ)), axis=1)
+    while True:
+        dup = np.zeros(cols.shape, bool)
+        dup[:, 1:] = cols[:, 1:] == cols[:, :-1]
+        if not dup.any():
+            break
+        cols[dup] = rng.randint(0, SPARSE_FEATURES, int(dup.sum()))
+        cols.sort(axis=1)
+    vals = rng.choice([-1.0, 1.0], cols.shape).astype(np.float32)
+    y = ((planted[cols] * vals).sum(axis=1) > 0).astype(np.float32)
+    return cols, vals, y
+
+
+def write_libsvm(path, cols, vals, y):
+    with open(path, "w") as f:
+        for c, v, lab in zip(cols, vals, y):
+            f.write("%d %s\n" % (lab, " ".join(
+                "%d:%d" % (ci, vi) for ci, vi in zip(c, v))))
+
+
+class LinearRun:
+    """The example's training state on ``ctx``: the local store, the
+    weight with a row-sparse gradient, the bias, the optimizer and its
+    states."""
+
+    def __init__(self, mt, optimizer, ctx, dtype="float32"):
+        self.mt, self.ctx = mt, ctx
+        self.kv = mt.kv.create("local")
+        self.w = mt.nd.zeros((SPARSE_FEATURES, 1), ctx=ctx, dtype=dtype)
+        self.w.attach_grad(stype="row_sparse")
+        self.bias = mt.nd.zeros((1,), ctx=ctx, dtype=dtype)
+        self.bias.attach_grad()
+        self.kv.init("w", self.w)
+        self.opt = mt.optimizer.create(optimizer, learning_rate=SPARSE_LR)
+        self.w_state = list(self.opt.create_state(0, self.w))
+        self.b_state = list(self.opt.create_state(1, self.bias))
+
+    def step(self, torch, csr, by, ev=None):
+        """One step of the example's loop: kv.row_sparse_pull of the
+        batch's rows, Embedding(sparse_grad=True) over the CSR's column
+        ids, the log loss, the lazy update, kv.push.  With ``ev`` (four
+        CUDA events: step start, update start and end, step end) the
+        lazy update runs where any wait of the host on the card raises.
+        Returns (the loss tensor, the pulled RowSparseNDArray, the
+        weight's tensor when it was pulled: an update binds a new one)."""
+        mt, w = self.mt, self.w
+        if ev:
+            ev[0].record()
+        pulled = mt.nd.sparse.zeros("row_sparse", w.shape, ctx=self.ctx)
+        self.kv.row_sparse_pull("w", out=pulled, row_ids=csr.indices)
+        w_pulled = w.as_torch()
+        shape = (SPARSE_BATCH, SPARSE_NNZ)
+        bc = mt.nd.NDArray(csr.indices.as_torch().view(shape))
+        bv = mt.nd.NDArray(csr.data.as_torch().view(shape))
+        with mt.autograd.record():
+            emb = mt.nd.Embedding(bc, w, input_dim=SPARSE_FEATURES,
+                                  output_dim=1, sparse_grad=True)
+            p = mt.nd.sigmoid((emb.reshape(shape) * bv).sum(axis=1)
+                              + self.bias)
+            loss = -(by * mt.nd.log(p + 1e-7)
+                     + (1 - by) * mt.nd.log(1 - p + 1e-7)).mean()
+        loss.backward()
+        if w.grad.stype != "row_sparse":
+            raise RuntimeError("sparse_linear: the gradient densified")
+        if ev:
+            ev[1].record()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            self.opt.update(0, w, w.grad, self.w_state)
+        finally:
+            if ev:
+                torch.cuda.set_sync_debug_mode(0)
+        if ev:
+            ev[2].record()
+        self.opt.update(1, self.bias, self.bias.grad, self.b_state)
+        self.kv.push("w", w)
+        if ev:
+            ev[3].record()
+        return loss.as_torch().detach(), pulled, w_pulled
+
+    def tensors(self):
+        return [self.w.as_torch()] + [s.as_torch() for s in self.w_state]
+
+
+def linear_steps(torch, run, batches, steps, timing=False):
+    """``steps`` steps of ``run`` over ``batches`` ((csr, label) pairs)
+    in turn.  With ``timing`` (the card): each step's and each lazy
+    update's ms by CUDA events, and the pulled rows held bit for bit
+    against the weight's as it was when they were pulled.  Returns
+    (losses, row), the row with the densify count's change."""
+    start = run.mt.nd.sparse.DENSIFY_COUNT
+    losses, step_ms, update_ms, rows, pull_bad = [], [], [], [], 0
+    for i in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)] \
+            if timing else None
+        loss, pulled, w_pulled = run.step(torch, *batches[i % len(batches)],
+                                          ev=ev)
+        losses.append(loss)
+        if timing:
+            ev[3].synchronize()
+            step_ms.append(ev[0].elapsed_time(ev[3]))
+            update_ms.append(ev[1].elapsed_time(ev[2]))
+            idx = pulled.indices.as_torch()
+            rows.append(int(idx.shape[0]))
+            pull_bad += not torch.equal(pulled.data.as_torch(),
+                                        w_pulled.index_select(0, idx))
+    row = dict(densified=run.mt.nd.sparse.DENSIFY_COUNT - start,
+               step_ms=step_ms, update_ms=update_ms, rows=rows,
+               pull_mismatches=pull_bad)
+    return [float(v) for v in losses], row
+
+
+def max_excess(a, b, tol):
+    """The largest |a - b| - (atol + rtol |b|) (at most 0 within ``tol``)
+    and the largest |a - b|, of two tensors on the CPU."""
+    d = (a - b).abs()
+    return (float((d - tol["atol"] - tol["rtol"] * b.abs()).max()),
+            float(d.max()))
+
+
+def phase_sparse_linear(torch, mt):
+    """examples/sparse/linear_classification.py at avazu-app's width: the
+    rows written as a LibSVM file and read back by LibSVMIter as CSR
+    batches, moved to the card; lazy SGD, then lazy Adam, 3 + 10 steps
+    each through the example's loop, each step checking the store's
+    row_sparse_pull against the weight; the same steps on the CPU from
+    the same batches.  Correct: no densify, untouched weight and state
+    rows bit-identical (0), pulled rows bit-identical, csr.dot = the
+    dense product, card = CPU within SPARSE_TOL, the loss falling."""
+    dev = mt.gpu(0)
+    t0 = time.monotonic()
+    cols, vals, y = sparse_dataset(SEED + 80)
+    gen_s = time.monotonic() - t0
+    fails, row = [], dict(features=SPARSE_FEATURES, nnz=SPARSE_NNZ,
+                          batch=SPARSE_BATCH, batches=SPARSE_BATCHES,
+                          lr=SPARSE_LR, data_s=gen_s)
+    with tempfile.TemporaryDirectory() as workdir:
+        path = os.path.join(workdir, "train.libsvm")
+        t0 = time.monotonic()
+        write_libsvm(path, cols, vals, y)
+        row["libsvm_mb"] = os.path.getsize(path) / 2 ** 20
+        it = mt.io.LibSVMIter(data_libsvm=path, data_shape=(SPARSE_FEATURES,),
+                              batch_size=SPARSE_BATCH)
+        host = [(b.data[0], b.label[0]) for b in it]
+        row["libsvm_read_s"] = time.monotonic() - t0
+    if [c.stype for c, _ in host] != ["csr"] * SPARSE_BATCHES:
+        fails.append("LibSVMIter gave no CSR batches")
+    if not np.array_equal(host[0][0].indices.asnumpy(),
+                          cols[:SPARSE_BATCH].reshape(-1)):
+        fails.append("the CSR's columns are not the file's")
+    card = [(c.as_in_context(dev), lab.as_in_context(dev))
+            for c, lab in host]
+    # csr.dot against the dense product, and its time
+    c0 = card[0][0]
+    ptr = c0.indptr.as_torch()
+    nz = CSR_CHECK_ROWS * SPARSE_NNZ
+    sub = mt.nd.sparse.CSRNDArray(c0.data.as_torch()[:nz],
+                                  c0.indices.as_torch()[:nz],
+                                  ptr[:CSR_CHECK_ROWS + 1],
+                                  (CSR_CHECK_ROWS, SPARSE_FEATURES))
+    wv = mt.nd.array(np.random.RandomState(SEED + 81).randn(
+        SPARSE_FEATURES, 1).astype(np.float32), ctx=dev)
+    start = mt.nd.sparse.DENSIFY_COUNT
+    got = sub.dot(wv).as_torch()
+    timed(row, "csr_dot_ms", lambda: c0.dot(wv))
+    if mt.nd.sparse.DENSIFY_COUNT != start:
+        fails.append("csr.dot densified")
+    want = torch.mm(sub.todense().as_torch(), wv.as_torch())
+    row["csr_dot_max_abs_err"] = float((got - want).abs().max())
+    if not torch.allclose(got, want, **CSR_DOT_TOL):
+        fails.append(f"csr.dot off by {row['csr_dot_max_abs_err']}")
+    del want, sub
+    torch.cuda.empty_cache()
+    touched = torch.zeros(SPARSE_FEATURES, dtype=torch.bool, device="cuda")
+    for c, _ in card:
+        touched[c.indices.as_torch()] = True
+    steps = SPARSE_WARMUP + SPARSE_STEPS
+    for name in ("sgd", "adam"):
+        reset_counts(mt)
+        run = LinearRun(mt, name, dev)
+        losses, r = linear_steps(torch, run, card, steps, timing=True)
+        counts = read_counts(mt)
+        tensors = run.tensors()
+        cpu_run = LinearRun(mt, name, mt.cpu())
+        closses, _ = linear_steps(torch, cpu_run, host, steps)
+        # idle share and launches a step: two more steps under the profiler
+        ms, busy, kernels = profiled_window(
+            torch, lambda: linear_steps(torch, run, card, 1), 2)
+        untouched_ok = all(
+            bool(t[~touched].view(torch.int32).eq(0).all())
+            for t in tensors)
+        excess = [max_excess(a.cpu(), b, SPARSE_TOL[name])
+                  for a, b in zip(tensors, cpu_run.tensors())]
+        timed_ms = r["step_ms"][SPARSE_WARMUP:]
+        sub_row = dict(
+            median_step_ms=float(np.median(timed_ms)),
+            min_step_ms=min(timed_ms), max_step_ms=max(timed_ms),
+            update_ms=float(np.median(r["update_ms"][SPARSE_WARMUP:])),
+            rows_touched_per_step=float(np.mean(r["rows"])),
+            idle_share=1.0 - busy / ms, busy_ms_per_step=busy / 2,
+            launches_per_step=sum(k[1] for k in kernels) / 2,
+            top_kernels=kernels[:5], losses=losses, cpu_losses=closses,
+            max_abs_diff_vs_cpu=[e[1] for e in excess],
+            excess_vs_tol=[e[0] for e in excess],
+            densified=r["densified"], pull_mismatches=r["pull_mismatches"],
+            untouched_rows_bit_identical=untouched_ok,
+            attention_launches=counts)
+        row[name] = sub_row
+        if r["densified"]:
+            fails.append(f"{name}: densified {r['densified']} times")
+        if r["pull_mismatches"]:
+            fails.append(f"{name}: {r['pull_mismatches']} pulls differ")
+        if not untouched_ok:
+            fails.append(f"{name}: an untouched row changed")
+        if max(e[0] for e in excess) > 0:
+            fails.append(f"{name}: card vs CPU {excess}")
+        if not np.mean(losses[-4:]) < np.mean(losses[:4]):
+            fails.append(f"{name}: the loss did not fall {losses}")
+        if any(counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv")):
+            fails.append(f"{name}: attention launches {counts}")
+    emit("sparse_linear", **row, failures=fails)
+    if fails:
+        raise RuntimeError("sparse_linear: " + "; ".join(fails))
+    return row
+
+
+def tower_stream(torch, seed, device="cuda"):
+    """The example's make_clickstream at MovieLens-20M's size: planted
+    rank-4 affinities, each drawn user's top-16 items (scored on the
+    card, a chunk of users at a time) as its positives' pool, uniform
+    negatives; (users, items, labels) as float32 numpy, shuffled."""
+    rng = np.random.RandomState(seed)
+    events = TOWER_BATCH * TOWER_BATCHES // 2
+    U = torch.from_numpy(rng.randn(TOWER_USERS, TOWER_RANK).astype(
+        np.float32)).to(device)
+    V = torch.from_numpy(rng.randn(TOWER_ITEMS, TOWER_RANK).astype(
+        np.float32)).to(device)
+    users = rng.randint(0, TOWER_USERS, events)
+    picks = rng.randint(0, TOWER_POOL, events)
+    neg = rng.randint(0, TOWER_ITEMS, events)
+    uniq, inv = np.unique(users, return_inverse=True)
+    uq = torch.from_numpy(uniq).to(device)
+    pools = torch.cat([torch.topk(U[uq[k:k + 4096]] @ V.T, TOWER_POOL,
+                                  dim=1).indices
+                       for k in range(0, len(uniq), 4096)]).cpu().numpy()
+    pos = pools[inv, picks]
+    u = np.concatenate([users, users])
+    i = np.concatenate([pos, neg])
+    yl = np.concatenate([np.ones(events, np.float32),
+                         np.zeros(events, np.float32)])
+    perm = rng.permutation(len(yl))
+    return (u[perm].astype(np.float32), i[perm].astype(np.float32),
+            yl[perm])
+
+
+def tower_steps(torch, mt, towers, trainer, batches, steps, timing=False):
+    """The example's train step (score = sum(user * item), the squared
+    error summed, trainer.step(batch)) over ``batches`` in turn; with
+    ``timing``, each step's ms by CUDA events."""
+    user_tower, item_tower = towers
+    losses, step_ms = [], []
+    for k in range(steps):
+        uids, iids, label = batches[k % len(batches)]
+        if timing:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        with mt.autograd.record():
+            score = mt.nd.sum(user_tower(uids) * item_tower(iids), axis=1)
+            loss = mt.nd.sum((score - label) ** 2)
+        loss.backward()
+        trainer.step(TOWER_BATCH)
+        losses.append(loss.as_torch().detach())
+        if timing:
+            ev[1].record()
+            ev[1].synchronize()
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+    return [float(v) for v in losses], step_ms
+
+
+def tower_pair(mt, ctx, init=None, dtype="float32"):
+    """The two sparse-gradient towers on ``ctx``, from Normal(0.3) or
+    from ``init`` (the user and item tables) and their Trainer."""
+    towers = []
+    for n, prefix, k in ((TOWER_USERS, "user_embed_", 0),
+                         (TOWER_ITEMS, "item_scores_", 1)):
+        t = mt.gluon.nn.Embedding(n, TOWER_DIM, sparse_grad=True,
+                                  prefix=prefix, dtype=dtype)
+        t.initialize(mt.init.Normal(0.3), ctx=ctx)
+        if init is not None:
+            t.weight.set_data(mt.nd.array(init[k], ctx=ctx, dtype=dtype))
+        towers.append(t)
+    params = [p for t in towers for p in t.collect_params().values()]
+    trainer = mt.gluon.Trainer(params, "sgd", {"learning_rate": TOWER_LR},
+                               kvstore="device")
+    return towers, trainer
+
+
+def phase_two_tower_fit(torch, mt):
+    """examples/recommender/two_tower.py's train at MovieLens-20M's size:
+    two Gluon Embeddings with sparse_grad=True through
+    Trainer(kvstore='device') and SGD, 3 + 10 steps of batch 8192, and
+    the same steps on the CPU from the card's initial tables.  Correct:
+    card = CPU within TOWER_TOL, no densify, rows no batch read
+    bit-identical to the start, the loss falling, no attention launch."""
+    dev = mt.gpu(0)
+    fails = []
+    mt.random.seed(SEED + 91)
+    u, i, yl = tower_stream(torch, SEED + 90)
+    B = TOWER_BATCH
+
+    def batches(ctx):
+        return [tuple(mt.nd.array(a[k * B:(k + 1) * B], ctx=ctx)
+                      for a in (u, i, yl)) for k in range(TOWER_BATCHES)]
+    towers, trainer = tower_pair(mt, dev)
+    init = [t.weight.data().asnumpy() for t in towers]
+    steps = TOWER_WARMUP + TOWER_STEPS
+    reset_counts(mt)
+    start = mt.nd.sparse.DENSIFY_COUNT
+    losses, step_ms = tower_steps(torch, mt, towers, trainer, batches(dev),
+                                  steps, timing=True)
+    densified = mt.nd.sparse.DENSIFY_COUNT - start
+    counts = read_counts(mt)
+    card = [t.weight.data().asnumpy() for t in towers]
+    kind = type(trainer._kvstore).__name__, trainer._kvstore.type
+    ctowers, ctrainer = tower_pair(mt, mt.cpu(), init)
+    closses, _ = tower_steps(torch, mt, ctowers, ctrainer,
+                             batches(mt.cpu()), steps)
+    cpu = [t.weight.data().asnumpy() for t in ctowers]
+    # idle share: two more card steps under the profiler
+    pb = batches(dev)
+    ms, busy, kernels = profiled_window(
+        torch, lambda: tower_steps(torch, mt, towers, trainer, pb, 1), 2)
+    untouched = []
+    for w0, w1, ids in ((init[0], card[0], u[:B * TOWER_BATCHES]),
+                        (init[1], card[1], i[:B * TOWER_BATCHES])):
+        rows = np.setdiff1d(np.arange(len(w0)), ids.astype(np.int64))
+        untouched.append((len(rows), bool(np.array_equal(
+            w1[rows].view(np.int32), w0[rows].view(np.int32)))))
+    diffs = [float(np.abs(a - b).max()) for a, b in zip(card, cpu)]
+    close = all(np.allclose(a, b, **TOWER_TOL) for a, b in zip(card, cpu))
+    timed_ms = step_ms[TOWER_WARMUP:]
+    row = dict(users=TOWER_USERS, items=TOWER_ITEMS, dim=TOWER_DIM,
+               batch=B, batches=TOWER_BATCHES, lr=TOWER_LR,
+               median_step_ms=float(np.median(timed_ms)),
+               min_step_ms=min(timed_ms), max_step_ms=max(timed_ms),
+               samples_per_s=B / float(np.median(timed_ms)) * 1e3,
+               idle_share=1.0 - busy / ms, busy_ms_per_step=busy / 2,
+               launches_per_step=sum(k[1] for k in kernels) / 2,
+               top_kernels=kernels[:5], losses=losses, cpu_losses=closses,
+               max_abs_diff_vs_cpu=diffs, untouched_rows=untouched,
+               densified=densified, store=kind, attention_launches=counts)
+    if densified:
+        fails.append(f"densified {densified} times")
+    if not close:
+        fails.append(f"card vs CPU {diffs}")
+    if not all(ok for _, ok in untouched):
+        fails.append(f"an untouched row changed {untouched}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fails.append(f"the loss did not fall {losses}")
+    if kind != ("KVStore", "device"):
+        fails.append(f"the trainer's store is {kind}")
+    if any(counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                               "flash_bwd_dkv")):
+        fails.append(f"attention launches {counts}")
+    emit("two_tower_fit", **row, failures=fails)
+    if fails:
+        raise RuntimeError("two_tower_fit: " + "; ".join(fails))
+    return row
+
+
+def kv_mlp_fit(mt, kvstore, x, yv, args, fname):
+    """Module.fit of the MLP on the card (SGD with momentum), its states
+    saved to ``fname``: (module, parameters as numpy)."""
+    d = mt.sym.Variable("data")
+    h = mt.sym.Activation(mt.sym.FullyConnected(
+        d, num_hidden=KV_MLP["hidden"], name="fc1"), act_type="relu")
+    net = mt.sym.SoftmaxOutput(mt.sym.FullyConnected(
+        h, num_hidden=KV_MLP["classes"], name="fc2"), name="softmax")
+    mod = mt.mod.Module(net, context=mt.gpu(0))
+    it = mt.io.NDArrayIter(x, yv, batch_size=KV_MLP["batch"])
+    mod.fit(it, num_epoch=KV_MLP["epochs"], kvstore=kvstore,
+            arg_params={k: mt.nd.array(v) for k, v in args.items()},
+            optimizer="sgd", optimizer_params={
+                "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+    mod.save_optimizer_states(fname)
+    return mod, {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def phase_kv_module_fit(torch, mt):
+    """Module.fit of a small MLP with kvstore=mt.kv.create('local'), which
+    updates inside the store, against the same fit with kvstore=None:
+    the same arithmetic, so the weights and the optimizer states (the
+    store writes its updater's blob, the module without one a name ->
+    arrays pickle: compared decoded) must be bit-identical."""
+    import pickle
+    rng = np.random.RandomState(SEED + 95)
+    n, f, hdim, c = (KV_MLP[k] for k in ("samples", "features", "hidden",
+                                         "classes"))
+    x = rng.randn(n, f).astype(np.float32)
+    yv = np.argmax(x @ rng.randn(f, c), axis=1).astype(np.float32)
+    args = {"fc1_weight": (rng.randn(hdim, f) * 0.1).astype(np.float32),
+            "fc1_bias": np.zeros(hdim, np.float32),
+            "fc2_weight": (rng.randn(c, hdim) * 0.1).astype(np.float32),
+            "fc2_bias": np.zeros(c, np.float32)}
+    fails = []
+    with tempfile.TemporaryDirectory() as workdir:
+        kv = mt.kv.create("local")
+        reset_counts(mt)
+        reset_r1()
+        t0 = time.monotonic()
+        mod, got = kv_mlp_fit(mt, kv, x, yv, args,
+                              os.path.join(workdir, "kv.states"))
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        counts, r1 = read_counts(mt), r1_count()
+        _, want = kv_mlp_fit(mt, None, x, yv, args,
+                             os.path.join(workdir, "plain.states"))
+        upd = mt.optimizer.get_updater(mt.optimizer.SGD())
+        with open(os.path.join(workdir, "kv.states"), "rb") as fin:
+            upd.set_states(fin.read())
+        with open(os.path.join(workdir, "plain.states"), "rb") as fin:
+            plain = pickle.load(fin)
+    on_store = mod._update_on_kvstore and mod._kvstore is kv
+    same_w = all(np.array_equal(got[k].view(np.int32), want[k].view(np.int32))
+                 for k in args)
+    same_s = sorted(upd.states) == sorted(plain) and all(
+        np.array_equal(a.asnumpy().view(np.int32),
+                       np.asarray(b).view(np.int32))
+        for k in plain for a, b in zip(upd.states[k], plain[k]))
+    steps = KV_MLP["epochs"] * (n // KV_MLP["batch"])
+    emit("kv_module_fit", store=kv.type, update_on_kvstore=on_store,
+         steps=steps, seconds=secs, weights_bit_identical=same_w,
+         states_bit_identical=same_s, relu_grad_launches=r1,
+         attention_launches=counts)
+    if not on_store:
+        fails.append("the module did not update in the store")
+    if not (same_w and same_s):
+        fails.append(f"store vs none: weights {same_w}, states {same_s}")
+    if r1 != steps:
+        fails.append(f"{r1} R1 launches for {steps} steps")
+    if any(counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                               "flash_bwd_dkv")):
+        fails.append(f"attention launches {counts}")
+    if fails:
+        raise RuntimeError("kv_module_fit: " + "; ".join(fails))
+    return r1
+
+
 def main():
     try:
         import torch
@@ -7460,6 +7964,14 @@ def main():
         uint8_row = phase_uint8_rec_fit(torch, mt, rec_path, workdir)
         ssd_rec_counts, ssd_rec_i1 = phase_ssd_rec_fit(torch, mt, workdir)
         phase_rec_dataset(torch, mt, rec_path)
+
+    # C2: sparse storage and the single-process KVStore (the slice's main
+    # paths: the sparse linear classifier and the two-tower recommender;
+    # then Module.fit through a local store); no attention kernel
+    torch.cuda.empty_cache()
+    phase_sparse_linear(torch, mt)
+    phase_two_tower_fit(torch, mt)
+    kv_r1 = phase_kv_module_fit(torch, mt)
 
     def by_path(key):
         return {"serve": serve_counts[key], "train": train_counts[key],
@@ -7661,7 +8173,8 @@ def main():
         "Activation, mxnet_tpu/ops/nn.py:326)",
         paths={"resnet_train": resnet_r1,
                "imagenet_rec_fit": imagenet_row["relu_grad_launches"],
-               "uint8_rec_fit": uint8_row["relu_grad_launches"]},
+               "uint8_rec_fit": uint8_row["relu_grad_launches"],
+               "kv_module_fit": kv_r1},
         max_abs_err=max(r["max_abs_err"] for r in r1_rows.values()),
         **r1_times(r1), at_fp32=r1_times(r1f)))
     kernels = []

@@ -22,6 +22,8 @@ from . import ndarray, random, io, initializer, optimizer, lr_scheduler
 from . import metric, model, callback, module, autograd, gluon, rnn, rtc
 from . import operator
 from . import operator as op
+from . import kvstore
+from . import kvstore as kv
 from . import symbol as sym
 from . import ndarray as nd
 from . import module as mod
@@ -60,4 +62,5 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "metric", "model", "callback", "module", "mod", "autograd",
            "gluon", "rnn", "rtc", "operator", "op", "native", "recordio",
            "image_record_iter", "ImageRecordIter", "ImageRecordUInt8Iter",
-           "image", "img", "ImageDetRecordIter", "__version__"]
+           "image", "img", "ImageDetRecordIter", "kvstore", "kv",
+           "__version__"]

@@ -19,7 +19,19 @@ Backward), built on torch autograd with MXNet's semantics:
   is that of the recorded value (the JAX package's handle versioning);
 - the noted leaves are dropped after a backward unless ``retain_graph``;
   a backward with none noted, or on a head no recorded op produced,
-  raises :class:`MXNetError`.
+  raises :class:`MXNetError`;
+- a variable whose grad buffer is row-sparse (``attach_grad(stype=
+  'row_sparse')``, a Gluon parameter with ``grad_stype='row_sparse'``)
+  is no leaf: each gather that reads it (``Embedding``'s weight,
+  ``take`` along axis 0) reads its tensor detached, and the gather's
+  output becomes a leaf noted with the row ids it read (normalised as
+  the gather normalised them).  :func:`backward` re-arms the grad buffer
+  in place with the outputs' gradients as values and those ids as
+  indices, in recording order, repeats kept (after the old ones under
+  ``grad_req='add'``), so the dense (rows, d) gradient is never built
+  (JAX package: ``autograd.py:164-305``).  Any other read of such a
+  variable under ``record()``, a hybridized graph's included, makes the
+  backward raise :class:`MXNetError`, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -39,6 +51,12 @@ class _State(threading.local):
         self.training = False
         # id(leaf tensor) -> (NDArray, leaf tensor), in recording order
         self.leaves: Dict[int, Tuple[object, torch.Tensor]] = {}
+        # (NDArray, gather output leaf, row ids) of the row-sparse
+        # variables' gathers, in recording order
+        self.gathers: List[Tuple[object, torch.Tensor, torch.Tensor]] = []
+        # why the next backward must fail (a row-sparse variable read
+        # by other than a gather), or None
+        self.sparse_error = None
 
 
 _state = _State()
@@ -109,11 +127,33 @@ def mark_variables(variables, gradients, grad_reqs="write"):
         v._grad_req = req
 
 
+_HIDDEN_GATHER = ("row_sparse gradients are not supported through a "
+                  "hybridized/cached graph (the fused program hides the "
+                  "gather); un-hybridize the block consuming this "
+                  "parameter, or use a dense gradient "
+                  "(grad_stype='default')")
+
+
+def _sparse_variable(arr) -> bool:
+    return (getattr(arr, "_grad_req", "null") != "null"
+            and getattr(arr._grad, "stype", "default") == "row_sparse")
+
+
+def _refuse_sparse(message):
+    if _state.sparse_error is None:
+        _state.sparse_error = message
+
+
 def variable_tensor(arr) -> torch.Tensor:
     """The tensor a recorded op reads from ``arr``: for a marked floating
     array, a torch leaf noted for :func:`backward` (made from its tensor
-    at its first recorded read since it was last rebound)."""
+    at its first recorded read since it was last rebound).  A row-sparse
+    variable read here (a hybridized graph, an indexing expression, a
+    ``Function``) is read detached, and the next backward raises."""
     t = arr._data
+    if _sparse_variable(arr):
+        _refuse_sparse(_HIDDEN_GATHER)
+        return t.detach()
     if getattr(arr, "_grad", None) is None or arr._grad_req == "null" \
             or not t.is_floating_point():
         return t
@@ -123,6 +163,66 @@ def variable_tensor(arr) -> torch.Tensor:
     if t.is_leaf:
         _state.leaves.setdefault(id(t), (arr, t))
     return t
+
+
+def recorded_inputs(op_name, inputs, attrs):
+    """The tensors a recorded registry op reads from ``inputs``
+    (:func:`variable_tensor` each), and the (array, row ids) of the
+    row-sparse variable it gathers from, or None."""
+    vals, sparse_at = [], None
+    for pos, x in enumerate(inputs):
+        if _sparse_variable(x):
+            vals.append(x._data.detach())
+            sparse_at = pos
+        else:
+            vals.append(variable_tensor(x))
+    if sparse_at is None:
+        return vals, None
+    from .ops.indexing import sparse_grad_rows
+    rows = sparse_grad_rows(op_name, sparse_at, vals, attrs)
+    if rows is None:
+        _refuse_sparse(
+            "row_sparse gradient requested for an array consumed by op "
+            f"{op_name!r}; only Embedding/take(axis=0) produce sparse "
+            "gradients (reference: indexing_op.cc sparse-grad storage "
+            "inference)")
+        return vals, None
+    return vals, (inputs[sparse_at], rows)
+
+
+def sparse_gather_output(gather, out: torch.Tensor) -> torch.Tensor:
+    """A gather's output from a row-sparse variable as a leaf noted with
+    the gather's row ids: its gradient is the rows' gradient values."""
+    leaf = out.detach().requires_grad_()
+    _state.gathers.append((gather[0], leaf, gather[1]))
+    return leaf
+
+
+def _drop_recorded():
+    _state.leaves = {}
+    _state.gathers = []
+    _state.sparse_error = None
+
+
+def _write_sparse_grads(gathers, grads):
+    """Re-arm each row-sparse grad buffer in place (``Parameter`` and
+    ``Module`` hold it) with its gathers' gradients as values and their
+    row ids as indices."""
+    from .ndarray.sparse import RowSparseNDArray
+    parts: Dict[int, list] = {}
+    for (arr, leaf, rows), g in zip(gathers, grads):
+        if g is None:
+            g = torch.zeros_like(leaf)
+        entry = parts.setdefault(id(arr), [arr, [], []])
+        entry[1].append(g.reshape((-1,) + tuple(arr.shape[1:])))
+        entry[2].append(rows)
+    for arr, vals, rows in parts.values():
+        buf = arr._grad
+        if arr._grad_req == "add" and buf.indices.shape[0] > 0:
+            vals = [buf.data._data] + vals
+            rows = [buf.indices._data] + rows
+        vals = torch.cat(vals).to(buf.data._data.dtype)
+        RowSparseNDArray.__init__(buf, vals, torch.cat(rows), arr.shape)
 
 
 def _as_tensors(heads, head_grads):
@@ -160,12 +260,19 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     """Differentiate the heads with respect to every variable a recorded
     op read, writing each gradient into its array's grad buffer."""
     leaves: List[Tuple[object, torch.Tensor]] = list(_state.leaves.values())
-    if not leaves:
+    gathers = list(_state.gathers)
+    if _state.sparse_error is not None:
+        err = _state.sparse_error
+        _drop_recorded()
+        raise MXNetError(err)
+    if not leaves and not gathers:
         raise MXNetError("backward called outside of autograd.record scope "
                          "or no marked (attach_grad) variable was recorded")
     hts, cts = _as_tensors(heads, head_grads)
     _prof.record_dispatch("autograd.backward")
-    grads = _grad(hts, [t for _, t in leaves], cts, retain_graph)
+    grads = _grad(hts, [t for _, t in leaves] + [o for _, o, _ in gathers],
+                  cts, retain_graph)
+    sparse_grads, grads = grads[len(leaves):], grads[:len(leaves)]
     # sum per array: one array may have been read under several leaves
     # (it was rebound between recorded reads)
     total: Dict[int, list] = {}
@@ -183,8 +290,9 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
                 buf._set_data(buf._data + g.to(buf._data.dtype))
             else:
                 buf._set_data(g.to(buf._data.dtype))
+        _write_sparse_grads(gathers, sparse_grads)
     if not retain_graph:
-        _state.leaves = {}
+        _drop_recorded()
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -209,7 +317,7 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                    else (g if create_graph else g.detach()))
            for t, g in zip(ins, gs)]
     if not retain_graph:
-        _state.leaves = {}
+        _drop_recorded()
     return out[0] if single else out
 
 

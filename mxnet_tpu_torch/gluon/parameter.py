@@ -39,10 +39,9 @@ class Parameter:
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
                  stype='default', grad_stype='default'):
-        if stype != 'default' or grad_stype != 'default':
-            raise MXNetError(f"Parameter {name!r}: sparse storage "
-                             f"(stype={stype!r}, grad_stype={grad_stype!r}) "
-                             "is not ported yet (ROADMAP C2)")
+        if grad_stype not in ('default', 'row_sparse'):
+            raise MXNetError(f"Parameter {name!r}: grad_stype must be "
+                             f"'default' or 'row_sparse', not {grad_stype!r}")
         self.name = name
         self._grad_req = grad_req if differentiable else 'null'
         if isinstance(shape, int):
@@ -58,6 +57,11 @@ class Parameter:
         self._grad: Optional[NDArray] = None
         self._deferred_init = None   # (init, ctx, default_init)
         self._trainer = None
+        # the data is dense whatever ``stype`` says, as in the JAX
+        # package; a row_sparse ``grad_stype`` makes the gradient the
+        # touched rows' values and ids (autograd's sparse path)
+        self._stype = stype
+        self._grad_stype = grad_stype
 
     def __repr__(self):
         dt = dtype_name(self.dtype) if self.dtype is not None else None
@@ -169,9 +173,18 @@ class Parameter:
         self._finish_init(init, ctx, default_init)
 
     def _init_grad(self):
-        self._grad = NDArray(torch.zeros_like(self._data._data.detach()))
+        self._grad = self._zero_grad_array(self._data._data.detach())
         autograd.mark_variables([self._data], [self._grad],
                                 [self._grad_req])
+
+    def _zero_grad_array(self, like):
+        """A zero gradient for a tensor ``like``: dense, or row-sparse
+        with no row stored (JAX package ``parameter.py:172-177``)."""
+        if self._grad_stype == 'row_sparse':
+            from ..ndarray.sparse import zeros as sp_zeros
+            return sp_zeros('row_sparse', tuple(like.shape),
+                            ctx=like.device, dtype=like.dtype)
+        return NDArray(torch.zeros_like(like))
 
     # -- access ----------------------------------------------------------
     def _check_initialized(self):
@@ -211,7 +224,15 @@ class Parameter:
         return [self._data.context]
 
     def zero_grad(self):
-        if self._grad is not None:
+        """A dense gradient set to 0; a row-sparse one left with no row."""
+        if self._grad is None:
+            return
+        if self._grad_stype == 'row_sparse':
+            from ..ndarray.sparse import RowSparseNDArray
+            empty = self._zero_grad_array(self._data._data)
+            RowSparseNDArray.__init__(self._grad, empty.data, empty.indices,
+                                      empty.shape)
+        else:
             self._grad[:] = 0
 
     def set_data(self, data):
@@ -244,7 +265,9 @@ class Parameter:
             return
         dev = ctx.torch_device()
         self._data._set_data(self._data._data.detach().to(dev))
-        if self._grad is not None:
+        if self._grad_stype == 'row_sparse' and self._grad is not None:
+            self._init_grad()   # a fresh empty one on the new device
+        elif self._grad is not None:
             self._grad._set_data(self._grad._data.to(dev))
 
     def cast(self, dtype):
@@ -254,7 +277,9 @@ class Parameter:
         if self._data is not None:
             self._data = NDArray(self._data._data.detach().to(
                 torch_dtype(dtype)))
-            if self._grad is not None:
+            if self._grad_stype == 'row_sparse' and self._grad is not None:
+                self._init_grad()   # a fresh empty one in the new dtype
+            elif self._grad is not None:
                 self._grad = NDArray(self._grad._data.to(torch_dtype(dtype)))
                 autograd.mark_variables([self._data], [self._grad],
                                         [self._grad_req])

@@ -4,9 +4,13 @@ PyTorch counterpart of the single-device path of
 ``mxnet_tpu/gluon/trainer.py``: ``step(batch_size)`` sets the optimizer's
 ``rescale_grad`` to ``scale / batch_size`` and runs the port's updater on
 each parameter with a gradient, one parameter at a time (the updater
-rebinds each weight NDArray to its new tensor, under ``torch.no_grad``).
-The kvstore argument takes ``None``, ``"device"`` or ``"local"``: one
-device needs no reduction, so ``allreduce_grads`` does nothing.  The
+rebinds each weight NDArray to its new tensor, under ``torch.no_grad``);
+a row-sparse gradient takes the optimizer's lazy route.  The kvstore
+argument takes ``None``, a single-process store type by name or a
+:class:`~mxnet_tpu_torch.kvstore.KVStore`; the store is created at the
+first ``step``, ``save_states`` or ``load_states`` (JAX package
+``trainer.py:95-140``) and is a facade: one device needs no reduction,
+so ``allreduce_grads`` does nothing and the update stays here.  The
 distributed stores, ``mesh=`` and ``zero_stage=1`` are not ported
 (ROADMAP E1, D1) and raise.  ``save_states`` / ``load_states`` write and
 read the updater's states in the format both packages' ``Module`` and
@@ -15,11 +19,10 @@ read the updater's states in the format both packages' ``Module`` and
 from __future__ import annotations
 
 from ..base import MXNetError
+from .. import kvstore as kvs_mod
 from .. import optimizer as opt_mod
 from .. import profiler as _prof
 from .parameter import ParameterDict, Parameter
-
-_LOCAL_STORES = (None, "device", "local")
 
 
 class Trainer:
@@ -32,10 +35,10 @@ class Trainer:
             raise ValueError(
                 "First argument must be a list or dict of Parameters, "
                 f"got {type(params)}")
-        if kvstore not in _LOCAL_STORES:
-            raise MXNetError(f"Trainer(kvstore={kvstore!r}): distributed "
-                             "kvstores are not ported to mxnet_tpu_torch "
-                             "yet (ROADMAP E1)")
+        if isinstance(kvstore, str):
+            kvs_mod.create(kvstore)   # a distributed type raises now (E1)
+        elif not (kvstore is None or isinstance(kvstore, kvs_mod.KVStore)):
+            raise TypeError("kvstore must be KVStore, str or None")
         if mesh is not None or zero_stage:
             raise MXNetError("Trainer(mesh=, zero_stage=): mesh training "
                              "is not ported to mxnet_tpu_torch yet "
@@ -52,6 +55,8 @@ class Trainer:
             self._params.append(param)
         self._scale = 1.0
         self._kv_type = kvstore
+        self._kvstore = None
+        self._kv_initialized = False
         self._init_optimizer(optimizer, dict(optimizer_params or {}))
 
     def _init_optimizer(self, optimizer, optimizer_params):
@@ -66,6 +71,14 @@ class Trainer:
         self._optimizer.param_dict = param_dict
         self._updaters = [opt_mod.get_updater(self._optimizer)]
 
+    def _init_kvstore(self):
+        """The store, made at first use (reference: trainer.py:102)."""
+        if isinstance(self._kv_type, str):
+            self._kvstore = kvs_mod.create(self._kv_type)
+        else:
+            self._kvstore = self._kv_type
+        self._kv_initialized = True
+
     @property
     def learning_rate(self):
         return self._optimizer.lr
@@ -77,6 +90,8 @@ class Trainer:
         """One optimizer update of every parameter with a gradient, the
         gradient scaled by ``1 / batch_size`` (reference: trainer.py:148)."""
         self._optimizer.rescale_grad = self._scale / batch_size
+        if not self._kv_initialized:
+            self._init_kvstore()
         _prof.record_dispatch("trainer.step")
         updater = self._updaters[0]
         for i, param in enumerate(self._params):
@@ -149,9 +164,13 @@ class Trainer:
 
     def save_states(self, fname):
         """The updater's states, in the format both packages load."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         with open(fname, 'wb') as fout:
             fout.write(self._updaters[0].get_states())
 
     def load_states(self, fname):
+        if not self._kv_initialized:
+            self._init_kvstore()
         with open(fname, 'rb') as fin:
             self._updaters[0].set_states(fin.read())

@@ -24,6 +24,7 @@ import torch
 from .base import MXNetError
 from .context import as_device, cpu
 from .ndarray import NDArray
+from .ndarray.sparse import CSRNDArray
 
 
 class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
@@ -650,8 +651,9 @@ class LibSVMIter(DataIter):
     ``label_libsvm`` gives the labels by its first column), in batches
     of ``data_shape`` features; ``round_batch`` wraps the last batch
     around (reference: src/io/iter_libsvm.cc).  The features come as a
-    dense float32 NDArray: the port has no CSR storage yet (ROADMAP C2),
-    so the JAX package's CSRNDArray batch is its dense value here."""
+    CSRNDArray on the CPU, O(nnz), with the JAX package's data, indices,
+    indptr and pad (JAX ``io.py:655-737``): ``csr.dot`` reads it as it
+    is, and ``as_in_context`` moves its parts to a device."""
 
     @staticmethod
     def _parse_libsvm(path):
@@ -708,10 +710,17 @@ class LibSVMIter(DataIter):
                 raise StopIteration
             take += list(range(short))
         self._cursor += self.batch_size
-        dense = np.zeros((self.batch_size, self._ncol), np.float32)
-        for r, i in enumerate(take):
-            dense[r, self._rows_idx[i]] = self._rows_data[i]
-        return DataBatch([NDArray(dense, ctx=cpu())],
+        rdat = [self._rows_data[i] for i in take]
+        ridx = [self._rows_idx[i] for i in take]
+        data = np.concatenate(rdat) if any(len(r) for r in rdat) else \
+            np.zeros((0,), np.float32)
+        indices = np.concatenate(ridx) if any(len(r) for r in ridx) else \
+            np.zeros((0,), np.int64)
+        indptr = np.zeros(self.batch_size + 1, np.int64)
+        np.cumsum([len(r) for r in ridx], out=indptr[1:])
+        csr = CSRNDArray(data, indices, indptr,
+                         (self.batch_size, self._ncol), ctx=cpu())
+        return DataBatch([csr],
                          [NDArray(self._labels[take], ctx=cpu())],
                          pad=short, provide_data=self.provide_data,
                          provide_label=self.provide_label)

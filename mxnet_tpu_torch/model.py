@@ -1,12 +1,14 @@
 """Model helpers.
 
 PyTorch counterpart of ``mxnet_tpu/model.py``: ``BatchEndParam``,
-``_create_kvstore``, ``_update_params``, the checkpoint pair
-``save_checkpoint`` / ``load_checkpoint``, whose files either package
-reads, and the legacy ``FeedForward`` estimator over ``Module``.  With
-one device and
-``'local'`` or ``None`` there is no store; a distributed kvstore raises
-until the port's distributed plane exists (ROADMAP E1).
+the kvstore wiring (``_create_kvstore``, ``_initialize_kvstore``,
+``_update_params_on_kvstore``, ``_update_params``; JAX package
+``model.py:23-110``), the checkpoint pair ``save_checkpoint`` /
+``load_checkpoint``, whose files either package reads, and the legacy
+``FeedForward`` estimator over ``Module``.  With one device a store type
+by name means no store, and a KVStore object updates inside the store
+(:mod:`mxnet_tpu_torch.kvstore`, single-process); a distributed kvstore
+raises until the port's distributed plane exists (ROADMAP E1).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from .base import MXNetError
+from . import kvstore as kvs
 from .serialization import load_ndarrays, save_ndarrays
 from .symbol import load as _load_symbol
 
@@ -27,35 +30,84 @@ BatchEndParam = namedtuple("BatchEndParams",
 
 
 def _create_kvstore(kvstore, num_device, arg_params):
-    """(store, update_on_kvstore) — always (None, False) here: one device
-    needs no store (reference: model.py _create_kvstore)."""
+    """(store, update_on_kvstore) (reference: model.py:57): a KVStore
+    object updates inside the store; a type name with one device needs
+    no store; a 'local' store of a parameter over 16M values updates
+    outside it.  A distributed type raises (ROADMAP E1)."""
+    update_on_kvstore = True
     if kvstore is None:
-        return None, False
-    if isinstance(kvstore, str):
-        if "dist" in kvstore:
-            raise MXNetError(f"kvstore {kvstore!r}: the distributed "
-                             "kvstore is not ported yet (ROADMAP E1)")
-        if num_device == 1:
-            return None, False
-        raise MXNetError(f"kvstore {kvstore!r} over {num_device} devices: "
-                         "multi-device training is not ported yet "
-                         "(ROADMAP D1)")
-    raise MXNetError(f"kvstore {kvstore!r}: KVStore objects are not ported "
-                     "yet (ROADMAP E1)")
+        kv = None
+    elif isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        if num_device == 1 and "dist" not in kvstore:
+            kv = None
+        else:
+            kv = kvs.create(kvstore)
+            if kvstore == "local":
+                max_size = max(np.prod(param.shape)
+                               for param in arg_params.values())
+                if max_size > 1024 * 1024 * 16:
+                    update_on_kvstore = False
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    if kv is None:
+        update_on_kvstore = False
+    return kv, update_on_kvstore
+
+
+def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
+                        update_on_kvstore):
+    """Put every parameter into the store; when it updates there, pull
+    them back (reference: model.py:96)."""
+    for idx, param_on_devs in enumerate(param_arrays):
+        name = param_names[idx]
+        kvstore.init(name, arg_params[name])
+        if update_on_kvstore:
+            if not isinstance(param_on_devs, (list, tuple)):
+                param_on_devs = [param_on_devs]
+            kvstore.pull(name, param_on_devs, priority=-idx)
+
+
+def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore,
+                              param_names):
+    """Push every gradient, the store updates, pull every weight back
+    (reference: model.py:105), one list push and one list pull."""
+    names, grads, args = [], [], []
+    for index, (arg_list, grad_list) in enumerate(
+            zip(param_arrays, grad_arrays)):
+        if grad_list is None or (isinstance(grad_list, list)
+                                 and grad_list[0] is None):
+            continue
+        names.append(param_names[index])
+        grads.append(grad_list)
+        args.append(arg_list)
+    if not names:
+        return
+    kvstore.push(names, grads)
+    kvstore.pull(names, out=args)
 
 
 def _update_params(param_arrays, grad_arrays, updater, num_device,
                    kvstore=None, param_names=None):
     """Apply ``updater(key, grad, weight)`` to every weight that has a
-    gradient, keyed by parameter name when given (reference: model.py
-    _update_params, without the store's reduce)."""
-    if kvstore is not None:
-        raise MXNetError("_update_params: no kvstore is ported yet")
-    for index, (arg, grad) in enumerate(zip(param_arrays, grad_arrays)):
-        if grad is None:
+    gradient, keyed by parameter name when given; with a store, each
+    gradient is pushed and the reduced one pulled back first (reference:
+    model.py:117)."""
+    for index, (arg_list, grad_list) in enumerate(
+            zip(param_arrays, grad_arrays)):
+        if not isinstance(arg_list, (list, tuple)):
+            arg_list, grad_list = [arg_list], [grad_list]
+        if grad_list[0] is None:
             continue
-        key = param_names[index] if param_names else index * num_device
-        updater(key, grad, arg)
+        if kvstore:
+            name = param_names[index]
+            kvstore.push(name, grad_list, priority=-index)
+            kvstore.pull(name, grad_list, priority=-index)
+        for k, (w, g) in enumerate(zip(arg_list, grad_list)):
+            key = param_names[index] if param_names else \
+                index * num_device + k
+            updater(key, g, w)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):

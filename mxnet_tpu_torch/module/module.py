@@ -45,7 +45,8 @@ from ..context import current_context
 from ..executor import Executor, _as_tensor
 from ..initializer import InitDesc, Uniform
 from .. import initializer as init_mod
-from ..model import _create_kvstore, _update_params, load_checkpoint
+from ..model import _create_kvstore, _initialize_kvstore, \
+    _update_params, _update_params_on_kvstore, load_checkpoint
 from ..ndarray import NDArray
 from .. import optimizer as opt_mod
 from .. import profiler as _prof
@@ -99,6 +100,7 @@ class Module(BaseModule):
         self._updater = None
         self._preload_opt_states = None
         self._kvstore = None
+        self._update_on_kvstore = False
         self._grad_req = None
         self._exec = None
         self._data_shapes = self._label_shapes = None
@@ -303,6 +305,7 @@ class Module(BaseModule):
         assert shared_module.optimizer_initialized
         self._optimizer = shared_module._optimizer
         self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
         self._updater = shared_module._updater
         self.optimizer_initialized = True
 
@@ -312,14 +315,19 @@ class Module(BaseModule):
                        force_init=False):
         """reference: module.py init_optimizer.  A named optimizer gets
         ``rescale_grad = 1 / batch_size`` unless given: the loss head's
-        gradient is a sum over the batch."""
+        gradient is a sum over the batch.  A KVStore object holds the
+        parameters and runs the optimizer on each push
+        (update-on-kvstore, JAX package ``module.py:374-417``); a store
+        type by name means none, on one device."""
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             self.logger.warning("optimizer already initialized, "
                                 "ignoring...")
             return
         arg_params = {n: self._exec.arg_dict[n] for n in self._param_names}
-        self._kvstore, _ = _create_kvstore(kvstore, 1, arg_params)
+        kv, self._update_on_kvstore = _create_kvstore(kvstore, 1,
+                                                      arg_params)
+        self._kvstore = kv
         if isinstance(optimizer, str):
             optimizer_params = dict(optimizer_params)
             if "rescale_grad" not in optimizer_params:
@@ -332,11 +340,22 @@ class Module(BaseModule):
         elif not isinstance(optimizer, opt_mod.Optimizer):
             raise TypeError("optimizer must be a name or an Optimizer")
         self._optimizer = optimizer
-        self._updater = opt_mod.get_updater(optimizer)
+        if kv:
+            _initialize_kvstore(kv, [[arg_params[n]]
+                                     for n in self._param_names],
+                                arg_params, self._param_names,
+                                self._update_on_kvstore)
+        if self._update_on_kvstore:
+            kv.set_optimizer(optimizer)
+            self._updater = kv._updater
+        else:
+            self._updater = opt_mod.get_updater(optimizer)
         # every state now, so that a checkpoint before the first update
-        # holds them all (multi-precision prepends an fp32 master copy)
+        # holds them all (multi-precision prepends an fp32 master copy);
+        # a store keys its updater by _key_int(name)
+        key = kv._key_int if self._update_on_kvstore else str
         self._updater.states = {
-            n: optimizer.create_state_multi_precision(
+            key(n): optimizer.create_state_multi_precision(
                 n, self._exec.arg_dict[n])
             for n in self._update_names()}
         self.optimizer_initialized = True
@@ -347,8 +366,13 @@ class Module(BaseModule):
     def save_optimizer_states(self, fname):
         """Pickle ``{name: tuple of numpy arrays}`` of the optimizer
         states, as the JAX package writes them (bf16 states, which numpy
-        lacks, are written as float32)."""
+        lacks, are written as float32); a module that updates in its
+        store writes the store's updater blob, as the JAX package does
+        (``module.py:1270-1289``)."""
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
         states = {n: tuple(None if s is None else s.asnumpy() for s in st)
                   for n, st in self._updater.states.items()}
         _prof.record_host_sync("module.save_optimizer_states")
@@ -358,9 +382,13 @@ class Module(BaseModule):
     def load_optimizer_states(self, fname):
         """Set the optimizer states from a file of
         :meth:`save_optimizer_states` of either package, each in its
-        state's dtype and on its device.  The file is unpickled: load
-        only files this program or the JAX package wrote."""
+        state's dtype and on its device (through the store when the
+        module updates there).  The file is unpickled: load only files
+        this program or the JAX package wrote."""
         assert self.optimizer_initialized
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
         with open(fname, "rb") as fin:
             states = pickle.load(fin)
         for n, st in states.items():
@@ -412,10 +440,18 @@ class Module(BaseModule):
             self.backward()
         names = self._update_names()
         _prof.record_dispatch("module.update")
-        _update_params([self._exec.arg_dict[n] for n in names],
-                       [self._exec.grad_dict[n] for n in names],
-                       updater=self._updater, num_device=1,
-                       kvstore=self._kvstore, param_names=names)
+        ex = self._exec
+        if self._update_on_kvstore:
+            # the store updates its copies, the module pulls them back
+            # (JAX package module.py:509-531)
+            _update_params_on_kvstore([[ex.arg_dict[n]] for n in names],
+                                      [[ex.grad_dict[n]] for n in names],
+                                      self._kvstore, names)
+        else:
+            _update_params([ex.arg_dict[n] for n in names],
+                           [ex.grad_dict[n] for n in names],
+                           updater=self._updater, num_device=1,
+                           kvstore=self._kvstore, param_names=names)
         self._grads_fresh = False
 
     def get_outputs(self, merge_multi_context=True):

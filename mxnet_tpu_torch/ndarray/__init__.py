@@ -14,6 +14,7 @@ contrib = _ContribNS(globals())
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
            "concatenate", "stack_arrays", "onehot_encode", "moveaxis",
-           "waitall", "take", "save", "load", "contrib"]
+           "waitall", "take", "save", "load", "contrib", "sparse"]
 
 from . import random, linalg  # noqa: E402,F401  nd.random.*, nd.linalg.*
+from . import sparse  # noqa: E402,F401  nd.sparse.*: row_sparse and CSR

@@ -14,8 +14,8 @@ with grad mode on (marked arrays become torch leaves, see
 passes ``is_train`` from ``autograd.is_training()``, the device's
 generator to ops that draw random numbers, and writes an op's trailing
 auxiliary outputs (BatchNorm's moving statistics) back into its
-auxiliary inputs, without autograd, in the inputs' dtype.  Sparse
-storage types are not ported (ROADMAP C2).
+auxiliary inputs, without autograd, in the inputs' dtype.  The sparse
+storage types are :mod:`mxnet_tpu_torch.ndarray.sparse`'s subclasses.
 """
 from __future__ import annotations
 
@@ -58,10 +58,6 @@ def dtype_name(dtype) -> str:
     if isinstance(dtype, str):
         return dtype
     return np.dtype(dtype).name
-
-
-_SPARSE = ("sparse storage types (row_sparse, csr) are not ported to "
-           "mxnet_tpu_torch yet (ROADMAP C2)")
 
 
 class NDArray:
@@ -176,9 +172,12 @@ class NDArray:
         return NDArray(self._data.detach().to(as_device(context)))
 
     def tostype(self, stype):
+        """This array in storage ``stype`` (``row_sparse`` or ``csr``:
+        :func:`mxnet_tpu_torch.ndarray.sparse.cast_storage`)."""
         if stype == "default":
             return self
-        raise MXNetError(_SPARSE)
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     def detach(self):
         return NDArray(self._data.detach())
@@ -193,11 +192,21 @@ class NDArray:
     # -- autograd --------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
         """Mark this array as a variable with a zeroed gradient buffer
-        (reference: ndarray.py attach_grad)."""
-        if stype not in (None, "default"):
-            raise MXNetError(f"attach_grad(stype={stype!r}): {_SPARSE}")
+        (reference: ndarray.py attach_grad).  ``stype='row_sparse'``
+        asks for a row-sparse gradient: the values and row ids of the
+        rows that ``Embedding`` / ``take(axis=0)`` read, never the dense
+        gradient (:func:`mxnet_tpu_torch.autograd.backward`)."""
         self._data = self._data.detach()
-        self._grad = NDArray(torch.zeros_like(self._data))
+        if stype == "row_sparse":
+            from .sparse import zeros as sp_zeros
+            self._grad = sp_zeros("row_sparse", self.shape,
+                                  ctx=self._data.device,
+                                  dtype=self._data.dtype)
+        elif stype in (None, "default"):
+            self._grad = NDArray(torch.zeros_like(self._data))
+        else:
+            raise MXNetError(f"attach_grad(stype={stype!r}): gradients "
+                             "are dense or row_sparse")
         self._grad_req = grad_req
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
@@ -493,6 +502,10 @@ def _invoke(op_name: str, inputs, attrs, out=None, ctx=None):
     generator and the aux write-back as the module docstring says)."""
     opdef = _reg.get(op_name)
     _reg.record_execution(op_name)
+    if opdef.nd_fn is not None:
+        res = opdef.nd_fn(inputs, attrs)
+        if res is not NotImplemented:
+            return res
     inputs = _as_inputs(inputs)
     kwargs = {k: v for k, v in attrs.items()
               if v is not None or k == "axis"}
@@ -505,12 +518,17 @@ def _invoke(op_name: str, inputs, attrs, out=None, ctx=None):
     if opdef.needs_rng:
         kwargs["generator"] = _random.device_generator(device)
     recording = _ag.is_recording()
-    vals = [_ag.variable_tensor(x) if recording else x._data
-            for x in inputs]
+    gather = None
+    if recording:
+        vals, gather = _ag.recorded_inputs(op_name, inputs, attrs)
+    else:
+        vals = [x._data for x in inputs]
     with torch.set_grad_enabled(recording):
         outs = opdef.fn(*vals, **kwargs)
     if not isinstance(outs, (tuple, list)):
         outs = (outs,)
+    if gather is not None:
+        outs = (_ag.sparse_gather_output(gather, outs[0]),) + tuple(outs[1:])
     if opdef.num_aux and opdef.takes_is_train and is_train:
         # trailing outputs: new aux values, into the aux inputs
         for aux, v in zip(inputs[-opdef.num_aux:], outs[-opdef.num_aux:]):

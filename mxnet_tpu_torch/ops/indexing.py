@@ -13,6 +13,17 @@ import torch
 from .registry import register
 
 
+def _row_ids(indices, n, mode="clip"):
+    """Ids of rows of an n-row array: float ids truncate to int, then
+    ``clip`` clamps them to [0, n) and ``wrap`` takes them mod n."""
+    idx = indices.to(torch.int64)
+    if mode == "clip":
+        return idx.clamp(0, n - 1)
+    if mode == "wrap":
+        return idx.remainder(n)
+    raise ValueError(f"take: mode must be clip|wrap, got {mode!r}")
+
+
 @register("Embedding", arg_names=["data", "weight"],
           attr_defaults={"input_dim": 0, "output_dim": 0, "dtype": "float32",
                          "sparse_grad": False})
@@ -23,8 +34,7 @@ def _embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
     Float ids are cast to int (truncation, as ``astype(int32)``) and
     out-of-range ids CLAMP to the edge rows, as the JAX package's
     ``jnp.take(mode="clip")`` does; ``torch.index_select`` would raise."""
-    idx = data.to(torch.int64).clamp(0, weight.shape[0] - 1)
-    return weight[idx]
+    return weight[_row_ids(data, weight.shape[0])]
 
 
 @register("take", arg_names=["a", "indices"],
@@ -34,16 +44,24 @@ def _take(a, indices, axis=0, mode="clip", **kw):
     ``mode="clip"`` clamps them to [0, n), ``"wrap"`` takes them mod n.
     The result has ``indices``' shape in place of ``axis``."""
     axis = int(axis) % a.dim()
-    n = a.shape[axis]
-    idx = indices.to(torch.int64)
-    if mode == "clip":
-        idx = idx.clamp(0, n - 1)
-    elif mode == "wrap":
-        idx = idx.remainder(n)
-    else:
-        raise ValueError(f"take: mode must be clip|wrap, got {mode!r}")
+    idx = _row_ids(indices, a.shape[axis], mode)
     out = a.index_select(axis, idx.reshape(-1))
     return out.reshape(a.shape[:axis] + idx.shape + a.shape[axis + 1:])
+
+
+def sparse_grad_rows(op_name, pos, tensors, attrs):
+    """The row ids, flat, at which op ``op_name`` gathers the rows of its
+    input ``pos`` (``tensors``: the op's inputs), normalised as its
+    forward normalises them; None when the op is no gather of that input
+    (reference: indexing_op.cc FInferStorageType, whose sparse-gradient
+    ops are ``Embedding``'s weight and ``take``'s array along axis 0).
+    Autograd credits a row-sparse gradient to these rows."""
+    if op_name == "Embedding" and pos == 1:
+        return _row_ids(tensors[0], tensors[1].shape[0]).reshape(-1)
+    if op_name == "take" and pos == 0 and int(attrs.get("axis", 0)) == 0:
+        return _row_ids(tensors[1], tensors[0].shape[0],
+                        attrs.get("mode", "clip")).reshape(-1)
+    return None
 
 
 @register("batch_take", arg_names=["a", "indices"], aliases=("pick",),

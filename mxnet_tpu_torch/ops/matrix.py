@@ -7,9 +7,10 @@ MXNet's special codes, ``Flatten``, ``transpose``, ``expand_dims``,
 ``dot``, ``batch_dot``, ``tile``, ``repeat``, ``flip``, ``SwapAxis``,
 ``Pad``, ``Crop``, ``_slice_assign`` / ``_crop_assign`` (and their
 ``_scalar`` forms), ``space_to_depth``, ``depth_to_space``, ``diag``,
-``shape_array``, ``size_array`` and ``cast_storage``.  Reshape, transpose, swapaxes and slicing return views where
-torch can; ops that need contiguous memory (the attention kernel) make
-it themselves.  ``dot`` and ``batch_dot`` are plain products
+``shape_array``, ``size_array``, ``cast_storage`` and
+``_sparse_retain``.  Reshape, transpose, swapaxes and slicing return
+views where torch can; ops that need contiguous memory (the attention
+kernel) make it themselves.  ``dot`` and ``batch_dot`` are plain products
 (``torch.tensordot`` / ``torch.matmul``, cuBLAS on the card), as the JAX
 package leaves them to XLA outside any Pallas kernel.
 """
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
-from .registry import register
+from .registry import get, register
 
 
 def reshape_target(src_shape, shape=(), reverse=False):
@@ -164,12 +165,57 @@ def _slice_assign_scalar(data, scalar=0.0, begin=(), end=(), step=(), **kw):
 @register("cast_storage", arg_names=["data"],
           attr_defaults={"stype": "default"})
 def _cast_storage(data, stype="default", **kw):
-    """reference: tensor/cast_storage-inl.h.  Every tensor of the port is
-    dense; a sparse ``stype`` raises (ROADMAP C2: sparse storage)."""
-    if stype != "default":
-        raise MXNetError(f"cast_storage: stype {stype!r} is not ported "
-                         "(ROADMAP C2: sparse storage)")
+    """reference: tensor/cast_storage-inl.h.  Tensors are dense, so in a
+    graph the op is the identity whatever ``stype`` says (as in the JAX
+    package, ``ops/matrix.py:116-123``); ``nd.cast_storage`` makes the
+    sparse container (:func:`_cast_storage_nd`)."""
+    if stype not in ("default", "row_sparse", "csr"):
+        raise MXNetError(f"cast_storage: unknown stype {stype!r}")
     return data
+
+
+def _cast_storage_nd(inputs, attrs):
+    """``nd.cast_storage``: a dense array to ``row_sparse`` or ``csr``, a
+    sparse one to ``default`` or another type
+    (:func:`mxnet_tpu_torch.ndarray.sparse.cast_storage`)."""
+    stype = attrs.get("stype", "default")
+    if stype == getattr(inputs[0], "stype", "default") == "default":
+        return NotImplemented
+    from ..ndarray import sparse
+    return sparse.cast_storage(inputs[0], stype)
+
+
+get("cast_storage").nd_fn = _cast_storage_nd
+
+
+@register("_sparse_retain", arg_names=["data", "indices"],
+          aliases=("sparse_retain",))
+def _sparse_retain(data, indices, **kw):
+    """reference: tensor/sparse_retain.cc - the rows ``indices`` lists
+    kept, every other row 0 (the dense form of the row-sparse op, JAX
+    package ``ops/matrix.py:126-135``: float ids truncate, a negative id
+    counts from the end, an id out of range keeps nothing)."""
+    n = data.shape[0]
+    idx = indices.to(torch.int64).reshape(-1)
+    idx = torch.where(idx < 0, idx + n, idx)
+    inside = (idx >= 0) & (idx < n)
+    keep = torch.zeros(n, dtype=torch.int64, device=data.device)
+    keep.scatter_reduce_(0, idx.clamp(0, n - 1), inside.to(torch.int64),
+                         "amax")
+    keep = keep.bool().reshape((-1,) + (1,) * (data.dim() - 1))
+    return torch.where(keep, data, torch.zeros((), dtype=data.dtype,
+                                               device=data.device))
+
+
+def _sparse_retain_nd(inputs, attrs):
+    """A RowSparseNDArray keeps its listed rows as one
+    (:meth:`RowSparseNDArray.retain`), O(stored rows)."""
+    if getattr(inputs[0], "stype", "default") != "row_sparse":
+        return NotImplemented
+    return inputs[0].retain(inputs[1])
+
+
+get("_sparse_retain").nd_fn = _sparse_retain_nd
 
 
 @register("reshape_like", arg_names=["lhs", "rhs"])

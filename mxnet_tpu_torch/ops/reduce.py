@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from .registry import register
+from .registry import get, register
 
 
 def _axes(data, axis, exclude):
@@ -82,8 +82,24 @@ for _n, (_f, _a) in _REDUCE.items():
 @register("_square_sum", arg_names=["data"],
           attr_defaults={"axis": None, "keepdims": False, "exclude": False})
 def _square_sum(data, axis=None, keepdims=False, exclude=False, **kw):
+    """reference: tensor/square_sum-inl.h, the dense form; a
+    RowSparseNDArray takes :func:`_square_sum_nd`."""
     return torch.sum(data.square(), dim=_axes(data, axis, exclude),
                      keepdim=bool(keepdims))
+
+
+def _square_sum_nd(inputs, attrs):
+    """``nd._square_sum`` of a RowSparseNDArray: its stored rows alone,
+    O(nnz) (:func:`mxnet_tpu_torch.ndarray.sparse.square_sum`)."""
+    if (getattr(inputs[0], "stype", "default") != "row_sparse"
+            or attrs.get("exclude")):
+        return NotImplemented
+    from ..ndarray import sparse
+    return sparse.square_sum(inputs[0], axis=attrs.get("axis"),
+                             keepdims=bool(attrs.get("keepdims", False)))
+
+
+get("_square_sum").nd_fn = _square_sum_nd
 
 
 @register("norm", arg_names=["data"],

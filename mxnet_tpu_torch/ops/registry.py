@@ -43,6 +43,10 @@ class OpDef:
     doc: str = ""
     variadic: bool = False
     aliases: tuple = ()
+    # an NDArray-level form that ``nd.<op>`` tries first: it takes the
+    # input NDArrays and the attrs and returns NotImplemented to leave
+    # them to ``fn`` (a sparse array's O(nnz) route)
+    nd_fn: Optional[Callable] = None
 
     def __call__(self, *args, **kwargs):
         return self.fn(*args, **kwargs)

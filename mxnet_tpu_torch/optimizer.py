@@ -15,6 +15,13 @@ A state slot may be None (DCASGD without momentum).  LARS's and LAMB's
 layer-wise trust ratios are ``torch.where`` on the device, so an update
 never waits for the card.  The JAX package runs no Pallas kernel here,
 so plain torch ops are the port.
+
+A row-sparse gradient (:mod:`mxnet_tpu_torch.ndarray.sparse`) takes the
+lazy route of SGD (with or without momentum) and Adam (JAX package:
+``optimizer.py:155-201,340-356,470-489``): only the rows it touches
+change, in the weight and in its states; an empty one changes nothing;
+every other optimizer densifies it (counted in ``DENSIFY_COUNT``).  The
+lazy route has static shapes and never waits for the card.
 """
 from __future__ import annotations
 
@@ -141,6 +148,15 @@ class Optimizer:
         states = self._state_tuple(state)
         ts = ((self._index_update_count[index],) if self.needs_t else None)
         use_mp = self.mp_states_active(weight, states)
+        if getattr(grad, "stype", "default") == "row_sparse":
+            impl = getattr(self, "_update_impl_rsp", None)
+            if impl is not None and grad.indices.shape[0] > 0:
+                self._update_rows(impl, index, weight, grad, states, lr, wd,
+                                  use_mp)
+                return
+            if grad.indices.shape[0] == 0:
+                return  # nothing touched
+            grad = NDArray(grad._data)  # the dense fallback (densifies)
         (new_w,), (new_st,) = self.apply_fused(
             (weight._data,), (grad._data,),
             (tuple(None if s is None else s._data for s in states),),
@@ -149,6 +165,28 @@ class Optimizer:
         for s, v in zip(states, new_st):
             if s is not None:
                 s._set_data(v)
+
+    def _update_rows(self, impl, index, weight, grad, states, lr, wd,
+                     use_mp):
+        """The lazy update of the rows ``grad`` touches; multi-precision:
+        on the fp32 master (``states[0]``), the weight recast from it."""
+        vals, rows = grad.data._data, grad.indices._data
+        with torch.no_grad():
+            if use_mp:
+                new_w32, new_sub = impl(
+                    states[0]._data, vals.float(), rows,
+                    tuple(s._data for s in states[1:]), lr, wd, index)
+                states[0]._set_data(new_w32)
+                weight._set_data(new_w32.to(weight._data.dtype))
+                for s, v in zip(states[1:], new_sub):
+                    s._set_data(v)
+                return
+            new_w, new_states = impl(weight._data, vals, rows,
+                                     tuple(s._data for s in states), lr, wd,
+                                     index)
+        weight._set_data(new_w)
+        for s, v in zip(states, new_states):
+            s._set_data(v)
 
     def update_multi_precision(self, index, weight, grad, state):
         self.update(index, weight, grad, state)
@@ -225,6 +263,38 @@ def _clip(g, clip_gradient):
     return g
 
 
+class _Rows:
+    """The rows a row-sparse gradient touches, for a lazy update without
+    a wait on the card: ``dedup_rows`` sums the values of repeated ids
+    and pads the rest of its slots with the row count n, where the JAX
+    package's ``mode="drop"`` scatters and ``mode="fill"`` gathers
+    discard them.  Clamping that id to n - 1 would overwrite a real
+    row's state, so a padded slot points at the first slot's row (always
+    real) instead: it adds -0.0 there, the identity of IEEE addition,
+    and sets the first slot's own new value again."""
+
+    def __init__(self, values, indices, n):
+        from .ndarray.sparse import dedup_rows
+        self.values, idx = dedup_rows(values, indices, n)
+        real = idx != n
+        self.ids = torch.where(real, idx, idx[0])
+        self.real = real.reshape((-1,) + (1,) * (values.dim() - 1))
+
+    def take(self, t):
+        return t.index_select(0, self.ids)
+
+    def add(self, t, upd):
+        """``t`` with ``upd`` added at the real slots' rows."""
+        upd = torch.where(self.real, upd, -0.0)
+        return t.clone().index_add_(0, self.ids, upd)
+
+    def set(self, t, new):
+        """``t`` with the real slots' rows set to ``new``."""
+        out = t.clone()
+        out[self.ids] = torch.where(self.real, new, new[:1])
+        return out
+
+
 @register
 class SGD(Optimizer):
     """SGD with momentum and weight decay (reference: optimizer.py SGD):
@@ -248,6 +318,21 @@ class SGD(Optimizer):
             return weight - lr * (g + wd * weight), ()
         new_mom = self.momentum * states[0] - lr * (g + wd * weight)
         return weight + new_mom, (new_mom,)
+
+    def _update_impl_rsp(self, weight, values, indices, states, lr, wd,
+                         index=0):
+        """Lazy SGD: momentum and weight decay apply to the touched rows
+        alone, their repeats summed first (reference: optimizer_op.cc
+        SGDMomLazyUpdate; JAX package ``optimizer.py:340-356``)."""
+        r = _Rows(values, indices, weight.shape[0])
+        g = _clip(r.values * self.rescale_grad, self.clip_gradient)
+        rows = r.take(weight)
+        if self.momentum == 0.0 or not states:
+            return r.add(weight, -lr * (g + wd * rows)), ()
+        new_mom_rows = (self.momentum * r.take(states[0])
+                        - lr * (g + wd * rows))
+        return (r.add(weight, new_mom_rows),
+                (r.set(states[0], new_mom_rows),))
 
 
 @register
@@ -281,6 +366,27 @@ class Adam(Optimizer):
         m = self.beta1 * mean + (1. - self.beta1) * g
         v = self.beta2 * var + (1. - self.beta2) * g * g
         return weight - lr * m / (v.sqrt() + self.epsilon), (m, v)
+
+    def _update_impl_rsp(self, weight, values, indices, states, lr, wd,
+                         index=0):
+        """Lazy Adam: the moments decay on the touched rows alone
+        (reference: optimizer_op.cc AdamUpdateRspRspImpl; JAX package
+        ``optimizer.py:470-489``), bias-corrected by the weight's update
+        count."""
+        mean, var = states
+        t = self._index_update_count.get(index, self.num_update) or 1
+        one = np.float32(1.0)
+        coef1 = one - np.float32(self.beta1) ** t
+        coef2 = one - np.float32(self.beta2) ** t
+        lr = float(np.float32(lr) * np.sqrt(coef2) / coef1)
+        r = _Rows(values, indices, weight.shape[0])
+        g = (_clip(r.values * self.rescale_grad, self.clip_gradient)
+             + wd * r.take(weight))
+        new_m = self.beta1 * r.take(mean) + (1. - self.beta1) * g
+        new_v = self.beta2 * r.take(var) + (1. - self.beta2) * g * g
+        upd = -lr * new_m / (new_v.sqrt() + self.epsilon)
+        return (r.add(weight, upd),
+                (r.set(mean, new_m), r.set(var, new_v)))
 
 
 def _l2norm(x):
@@ -809,7 +915,8 @@ class _StateUnpickler(pickle.Unpickler):
             return _reconstruct_array
         if module.split(".")[0] == "numpy" or (
                 module == "builtins" and name in _SAFE_BUILTINS) or (
-                module == "copyreg" and name == "_reconstructor"):
+                module == "copyreg" and name == "_reconstructor") or (
+                (module, name) == ("_codecs", "encode")):
             return super().find_class(module, name)
         raise pickle.UnpicklingError(f"optimizer states: {module}.{name} "
                                      "is not a state array")

@@ -277,8 +277,18 @@ def _same_batches(jit, tit):
     for a, b in zip(jb, tb):
         assert b.pad == a.pad
         for x, y in zip(a.data, b.data):
-            x = x.todense().asnumpy() if getattr(x, "stype", "") == "csr" \
-                else x.asnumpy()
+            assert getattr(y, "stype", "default") == \
+                getattr(x, "stype", "default")
+            if getattr(x, "stype", "") == "csr":
+                # a CSR batch: its parts exactly, then its dense value
+                for part in ("data", "indices", "indptr"):
+                    want = getattr(x, part).asnumpy()
+                    got = getattr(y, part).asnumpy()
+                    np.testing.assert_array_equal(got, want, err_msg=part)
+                    assert got.dtype == want.dtype, part
+                assert y.shape == x.shape
+                x, y = x.todense(), y.todense()
+            x = x.asnumpy()
             np.testing.assert_array_equal(y.asnumpy(), x)
             assert y.asnumpy().dtype == x.dtype
         for x, y in zip(a.label or [], b.label or []):

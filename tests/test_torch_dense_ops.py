@@ -352,9 +352,13 @@ def test_shape_and_size_array(name):
 
 
 def test_cast_storage():
-    _check("cast_storage", [_rand(3, 4)], {"stype": "default"})
-    with pytest.raises(mt.MXNetError, match="C2"):
-        treg.get("cast_storage")(torch.zeros(2, 2), stype="csr")
+    """The op is the identity on a tensor for every stype, as the JAX
+    op is; ``nd.cast_storage`` makes the sparse container (held against
+    the JAX package in test_torch_sparse.py); an unknown stype raises."""
+    for stype in ("default", "row_sparse", "csr"):
+        _check("cast_storage", [_rand(3, 4)], {"stype": stype})
+    with pytest.raises(mt.MXNetError, match="stype"):
+        treg.get("cast_storage")(torch.zeros(2, 2), stype="coo")
 
 
 def test_scatter_set_nd_last_write_wins():

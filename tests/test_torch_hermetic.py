@@ -81,7 +81,8 @@ SLICE_MODULES = ["ops.reduce", "models.generation", "models.vit",
                  "models.mlp", "models.lenet", "models.alexnet",
                  "models.vgg", "models.resnext", "models.inception_bn",
                  "models.inception_v3", "models.mobilenet",
-                 "models.squeezenet", "models.densenet"]
+                 "models.squeezenet", "models.densenet",
+                 "ndarray.sparse", "kvstore"]
 
 
 def test_slice_modules_are_loaded_and_scanned():

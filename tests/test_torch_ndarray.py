@@ -527,10 +527,18 @@ def test_properties_and_protocol():
     with pytest.raises(ValueError):
         bool(mt.nd.zeros((2, 2), ctx=CPU))
     assert a.wait_to_read() is a
-    with pytest.raises(mt.MXNetError, match="C2"):
-        a.tostype("row_sparse")
-    with pytest.raises(mt.MXNetError, match="C2"):
-        a.attach_grad(stype="row_sparse")
+    # sparse storage (C2): the containers hold a's values; a sparse
+    # gradient starts with no row stored; other stypes raise
+    rsp, csr = a.tostype("row_sparse"), a.tostype("csr")
+    assert (rsp.stype, csr.stype) == ("row_sparse", "csr")
+    np.testing.assert_array_equal(rsp.todense().asnumpy(), a.asnumpy())
+    np.testing.assert_array_equal(csr.todense().asnumpy(), a.asnumpy())
+    assert rsp.context == csr.context == CPU
+    a.attach_grad(stype="row_sparse")
+    assert a.grad.stype == "row_sparse" and a.grad.shape == a.shape
+    assert a.grad.indices.shape == (0,)
+    with pytest.raises(mt.MXNetError, match="stype"):
+        a.attach_grad(stype="csr")
     assert a.tostype("default") is a
 
 

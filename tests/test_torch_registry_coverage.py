@@ -16,11 +16,9 @@ import mxnet_tpu_torch  # noqa: F401
 from mxnet_tpu_torch.ops import registry as treg
 import torch_threads  # noqa: F401,E402  a worker's share of the cores
 
-# JAX op names the port does not register yet, with the reason
-NOT_PORTED = {
-    "_sparse_retain": "row-sparse arrays: ROADMAP C2 (sparse)",
-    "sparse_retain": "alias of _sparse_retain: ROADMAP C2 (sparse)",
-}
+# JAX op names the port does not register yet, with the reason (none
+# since C2, sparse storage, brought _sparse_retain / sparse_retain)
+NOT_PORTED = {}
 
 
 def test_every_jax_op_name_and_alias_is_registered_in_the_port():
@@ -46,10 +44,13 @@ import importlib  # noqa: E402
 import mxnet_tpu_torch as mt  # noqa: E402
 
 # names the port's front-end modules lack, with the ROADMAP item that
-# ports them (the record iterators came with C3, data IO)
-MODULE_NOT_PORTED = {}
+# ports them (the record iterators came with C3, data IO; the
+# single-process kvstore with C2)
+MODULE_NOT_PORTED = {
+    ("kvstore", "KVStoreDistAsync"): "E1 (the distributed plane)",
+}
 FRONT_END = ("optimizer", "metric", "initializer", "io", "callback",
-             "model", "module", "attribute", "lr_scheduler")
+             "model", "module", "attribute", "lr_scheduler", "kvstore")
 # top-level names of the JAX package the port lacks, with the reason
 TOP_NOT_PORTED = {
     "Monitor": "C6 (observability)",
@@ -61,8 +62,6 @@ TOP_NOT_PORTED = {
     "test_utils": "C6 (observability)",
     "notebook": "C6 (observability)",
     "contrib": "C6 (observability: contrib autograd, export, tensorboard)",
-    "kv": "E1-E2 (the distributed plane)",
-    "kvstore": "E1-E2 (the distributed plane)",
     "kvstore_server": "E1-E2 (the distributed plane)",
     "membership": "E1-E2 (the distributed plane)",
     "faultinject": "E1-E2 (the distributed plane)",

@@ -140,6 +140,13 @@ Parts (all by default; each prints JSON lines):
   GPT-2 small's token count (``part_moe_bf16``), beside the port's
   routing of the same logits.
 
+* ``c2`` (about ten seconds): the numbers behind ``chip_smoke.py``'s
+  ``sparse_linear`` and ``two_tower_fit`` phases (``part_c2``), with
+  their own data and loops on the CPU at the card's sizes: each loss
+  curve (the phases require it to fall), the CPU's seconds a step, and
+  the float32 run's distance from a float64 run of the same steps, on
+  which ``SPARSE_TOL`` and ``TOWER_TOL`` rest.
+
 * ``c3`` (about ten seconds): the numbers behind the record phases of
   ``chip_smoke.py`` (``part_c3``), with its own image generator
   (``rec_image``) on the CPU:
@@ -1064,11 +1071,61 @@ def part_c3():
             "dct_downscale": down}
 
 
+def part_c2():
+    """The numbers behind chip_smoke.py's sparse_linear and two_tower_fit
+    phases, with their own data and loops on the CPU at the card's
+    sizes: each loss curve (the phases require the mean of the last
+    losses below the first ones'), and the CPU's seconds a step."""
+    out = {}
+    cols, vals, y = cs.sparse_dataset(cs.SEED + 80)
+    B, k = cs.SPARSE_BATCH, cs.SPARSE_NNZ
+    host = [(mt.nd.sparse.csr_matrix(
+        (vals[b * B:(b + 1) * B].reshape(-1),
+         cols[b * B:(b + 1) * B].reshape(-1),
+         np.arange(0, B * k + 1, k)), shape=(B, cs.SPARSE_FEATURES),
+        ctx=mt.cpu()), mt.nd.array(y[b * B:(b + 1) * B], ctx=mt.cpu()))
+        for b in range(cs.SPARSE_BATCHES)]
+    steps = cs.SPARSE_WARMUP + cs.SPARSE_STEPS
+    for name in ("sgd", "adam"):
+        t0 = time.monotonic()
+        run = cs.LinearRun(mt, name, mt.cpu())
+        losses, row = cs.linear_steps(torch, run, host, steps)
+        secs = (time.monotonic() - t0) / steps
+        run64 = cs.LinearRun(mt, name, mt.cpu(), dtype="float64")
+        cs.linear_steps(torch, run64, host, steps)
+        out["sparse_linear_" + name] = dict(
+            losses=losses, densified=row["densified"], s_per_step=secs,
+            max_abs_vs_float64=[float((a.double() - b).abs().max()) for a, b
+                                in zip(run.tensors(), run64.tensors())])
+    u, i, yl = cs.tower_stream(torch, cs.SEED + 90, device="cpu")
+    B = cs.TOWER_BATCH
+    runs = {}
+    for dtype in ("float32", "float64"):
+        batches = [tuple(mt.nd.array(a[b * B:(b + 1) * B], ctx=mt.cpu(),
+                                     dtype=dtype) for a in (u, i, yl))
+                   for b in range(cs.TOWER_BATCHES)]
+        init = None if not runs else runs["float32"][0]
+        towers, trainer = cs.tower_pair(mt, mt.cpu(), init, dtype)
+        start = [t.weight.data().asnumpy() for t in towers]
+        t0 = time.monotonic()
+        losses, _ = cs.tower_steps(torch, mt, towers, trainer, batches,
+                                   cs.TOWER_WARMUP + cs.TOWER_STEPS)
+        runs[dtype] = (start, [t.weight.data().asnumpy() for t in towers],
+                       losses, (time.monotonic() - t0) / len(losses))
+    out["two_tower"] = dict(
+        losses=runs["float32"][2], lr=cs.TOWER_LR,
+        s_per_step=runs["float32"][3],
+        max_abs_vs_float64=[float(np.abs(a - b).max()) for a, b in zip(
+            runs["float32"][1], runs["float64"][1])])
+    return out
+
+
 PARTS = {"resnet": part_resnet, "deep_bn": part_deep_bn, "gluon": part_gluon,
          "decode_vs_lm": part_decode_vs_lm, "beam": part_beam,
          "vit": part_vit, "zoo": part_zoo, "rnn": part_rnn, "ssd": part_ssd,
          "zoo_data": part_zoo_data, "c1b2": part_c1b2,
-         "moe_bf16": part_moe_bf16, "c8": part_c8, "c3": part_c3}
+         "moe_bf16": part_moe_bf16, "c8": part_c8, "c3": part_c3,
+         "c2": part_c2}
 
 if __name__ == "__main__":
     for part in sys.argv[1:] or list(PARTS):
