@@ -46,6 +46,12 @@ io.ImageRecordIter = io.ImageRecordIter_v1 = ImageRecordIter
 io.ImageRecordUInt8Iter = io.ImageRecordUInt8Iter_v1 = ImageRecordUInt8Iter
 io.ImageDetRecordIter = ImageDetRecordIter
 from .module import Module, BaseModule
+from . import tracing, health, checkpoint, compat_serialization
+from . import monitor
+from .monitor import Monitor
+from . import visualization
+from . import visualization as viz
+from . import test_utils, contrib, notebook
 from .ndarray import NDArray
 from .convert import params_from_numpy, gluon_params_from_numpy, \
     gluon_params_to_numpy
@@ -63,4 +69,6 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "gluon", "rnn", "rtc", "operator", "op", "native", "recordio",
            "image_record_iter", "ImageRecordIter", "ImageRecordUInt8Iter",
            "image", "img", "ImageDetRecordIter", "kvstore", "kv",
-           "__version__"]
+           "tracing", "health", "checkpoint", "compat_serialization",
+           "monitor", "Monitor", "visualization", "viz", "test_utils",
+           "contrib", "notebook", "__version__"]

@@ -1,9 +1,8 @@
 """Training callbacks (PyTorch counterpart of ``mxnet_tpu/callback.py``):
-checkpoints at the end of an epoch, metric logging, ``Speedometer``,
-``ProgressBar`` and ``LogValidationMetricsCallback``.  The JAX
-package's sharded asynchronous checkpoint
-(``do_checkpoint(sharded_async=True)``) is not ported yet (ROADMAP
-C4)."""
+checkpoints at the end of an epoch (in the single-file format, or
+sharded and asynchronous through :class:`checkpoint.AsyncCheckpointer`),
+metric logging, ``Speedometer``, ``ProgressBar`` and
+``LogValidationMetricsCallback``."""
 from __future__ import annotations
 
 import logging
@@ -24,10 +23,26 @@ def module_checkpoint(mod, prefix, period=1, save_optimizer_states=False):
     return _callback
 
 
-def do_checkpoint(prefix, period=1):
+def do_checkpoint(prefix, period=1, sharded_async=False):
     """Epoch-end callback: ``model.save_checkpoint`` of the symbol and
-    parameters every ``period`` epochs (reference: callback.py:55)."""
+    parameters every ``period`` epochs (reference: callback.py:55).
+
+    ``sharded_async=True`` saves through
+    :class:`checkpoint.AsyncCheckpointer` (the sharded format, a prefix
+    an epoch): the epoch's end pays only the snapshot on the device and
+    training goes on while the file is written.  The callback carries
+    the checkpointer as ``_callback.checkpointer``; call its ``wait()``
+    after ``fit`` before reading the last checkpoint."""
     period = int(max(1, period))
+    if sharded_async:
+        from .checkpoint import AsyncCheckpointer
+        ck = AsyncCheckpointer()
+
+        def _callback(iter_no, sym, arg, aux):
+            if (iter_no + 1) % period == 0:
+                ck.save_checkpoint(prefix, iter_no + 1, sym, arg, aux)
+        _callback.checkpointer = ck
+        return _callback
 
     def _callback(iter_no, sym, arg, aux):
         if (iter_no + 1) % period == 0:

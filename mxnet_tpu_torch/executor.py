@@ -22,6 +22,10 @@ get the executor's ``torch.Generator`` as ``generator=``: one per
 executor, on its device, seeded at bind from
 :func:`mxnet_tpu_torch.random.generator`, so the same ``random.seed``
 gives the same draws.  The draws are not the JAX package's.
+``set_monitor_callback`` hands every op node's outputs of each forward
+to a callback (``Monitor``) as the interpreter makes them, named
+``<node>_output`` or ``<node>_output<i>``, before the interpreter drops
+them.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ from .base import MXNetError
 from .context import as_device, current_context
 from .ndarray.ndarray import NDArray, torch_dtype
 from .ops import registry as _reg
-from .symbol.symbol import Symbol, _topo_sort
+from .symbol.symbol import Symbol, _topo_sort, node_num_outputs
 from . import profiler as _prof
 from . import random as _random
 
@@ -68,13 +72,15 @@ def as_torch_dtype(dtype):
 
 def build_interpreter(sym: Symbol, compute_dtype=None):
     """Build ``run(arg_vals, aux_vals, is_train=False, device=None,
-    generator=None, grad=None) -> (outs, new_aux)``.
+    generator=None, grad=None, collect=None) -> (outs, new_aux)``.
 
     ``arg_vals``/``aux_vals`` follow ``list_arguments()`` /
     ``list_auxiliary_states()``.  ``device`` (default: the first argument's
     device) is handed to ops that create a tensor from no input, and
     ``generator`` to ops that draw random numbers (``run.needs_rng`` says
     whether the graph has one; it then raises without a generator).
+    ``collect(node, outputs)`` is called with each op node's visible
+    outputs as soon as the node has run.
 
     ``compute_dtype`` (e.g. ``"bfloat16"``) enables mixed precision: all
     floating-point op inputs are cast to it except ops in
@@ -112,12 +118,13 @@ def build_interpreter(sym: Symbol, compute_dtype=None):
                 else v for v in ins]
 
     def run(arg_vals, aux_vals, is_train=False, device=None,
-            generator=None, grad=None):
+            generator=None, grad=None, collect=None):
         with torch.set_grad_enabled(bool(is_train if grad is None
                                          else grad)):
-            return _run(arg_vals, aux_vals, is_train, device, generator)
+            return _run(arg_vals, aux_vals, is_train, device, generator,
+                        collect)
 
-    def _run(arg_vals, aux_vals, is_train, device, generator):
+    def _run(arg_vals, aux_vals, is_train, device, generator, collect):
         if device is None:
             if not arg_vals:
                 raise MXNetError("run: no arguments to take a device "
@@ -161,6 +168,8 @@ def build_interpreter(sym: Symbol, compute_dtype=None):
             for i, o in enumerate(outs):
                 if (id(n), i) in needed:
                     env[(id(n), i)] = o
+            if collect is not None:
+                collect(n, outs[:node_num_outputs(n)])
             for key in dead_after[k]:
                 env.pop(key, None)
         out_vals = tuple(env[(id(h), i)] for h, i in heads)
@@ -232,6 +241,8 @@ class Executor:
         # (leaf tensors by arg position, outputs) of the last training
         # forward whose graph the backward has not consumed yet
         self._graph = None
+        self._monitor_callback = None
+        self._monitor_all = False
 
     @staticmethod
     def _canon(arrays, names, what, allow_empty=False):
@@ -316,9 +327,12 @@ class Executor:
                 if self.grad_req[name] != "null":
                     vals[i] = leaves[i] = vals[i].detach().requires_grad_()
         _prof.record_dispatch("executor.forward")
-        outs, new_aux = self._run(vals, [a._data for a in self.aux_arrays],
-                                  is_train=is_train, device=self._device,
-                                  generator=self._gen)
+        collect = None if self._monitor_callback is None else self._collect
+        with _prof.scope("executor_forward" if collect is None
+                         else "executor_forward_monitored", "symbolic"):
+            outs, new_aux = self._run(
+                vals, [a._data for a in self.aux_arrays], is_train=is_train,
+                device=self._device, generator=self._gen, collect=collect)
         if is_train:
             for a, v in zip(self.aux_arrays, new_aux):
                 a._set_data(v.detach())
@@ -353,9 +367,10 @@ class Executor:
                        else out_grads[i].to(o.dtype))
         pos = sorted(leaves)
         _prof.record_dispatch("executor.backward")
-        grads = torch.autograd.grad(heads, [leaves[i] for i in pos], cts,
-                                    allow_unused=True) if heads else \
-            [None] * len(pos)
+        with _prof.scope("executor_backward", "symbolic"):
+            grads = torch.autograd.grad(
+                heads, [leaves[i] for i in pos], cts,
+                allow_unused=True) if heads else [None] * len(pos)
         for i, g in zip(pos, grads):
             if g is None:
                 g = torch.zeros_like(leaves[i])
@@ -366,6 +381,21 @@ class Executor:
                 garr._set_data(garr._data + g)
             else:
                 garr._set_data(g)
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """Call ``callback(name, NDArray)`` with every op node's outputs
+        of each forward (reference: GraphExecutor::SetMonitorCallback,
+        graph_executor.cc:120).  The arrays are detached from autograd's
+        graph; ``None`` removes the callback."""
+        self._monitor_callback = callback
+        self._monitor_all = monitor_all
+
+    def _collect(self, node, outs):
+        cb = self._monitor_callback
+        for i, o in enumerate(outs):
+            name = (node.name + "_output" if len(outs) == 1
+                    else f"{node.name}_output{i}")
+            cb(name, NDArray(o.detach()))
 
     def reshape(self, partial_shaping=False, allow_up_sizing=False,
                 **kwargs):

@@ -15,8 +15,9 @@ updater rebinds the store's own array.
 
 The distributed types (``dist_sync``, ``dist_async``, ...), gradient
 compression on them, and the server processes are the distributed plane
-(ROADMAP E1); ``server_stats`` is observability (ROADMAP C6).  Each
-raises :class:`MXNetError` naming its item.
+(ROADMAP E1); each raises :class:`MXNetError` naming it.
+``server_stats`` returns this process's profiler snapshot: a local store
+is its own server.
 """
 from __future__ import annotations
 
@@ -186,8 +187,15 @@ class KVStore:
         return 0
 
     def server_stats(self, rank: int = 0) -> dict:
-        raise MXNetError("kvstore server_stats: the profiler snapshot is "
-                         "not ported yet (ROADMAP C6)")
+        """The profiler snapshot of "server" ``rank``: a store with no
+        server processes is its own server, so the local process's
+        ``profiler.snapshot()`` comes back (reference layout of the JAX
+        package's kvstore.py:245-255)."""
+        from . import profiler as _prof
+        if rank != 0:
+            raise MXNetError(
+                f"kvstore type {self.type!r} has no server rank {rank}")
+        return _prof.snapshot()
 
     def save_optimizer_states(self, fname, dump_optimizer=False):
         if self._updater is None:

@@ -207,9 +207,6 @@ class FeedForward:
         if self.num_epoch is None:
             raise ValueError("num_epoch must be set when constructing "
                              "FeedForward for fit")
-        if monitor is not None:
-            raise MXNetError("FeedForward.fit(monitor=): the Monitor is not "
-                             "ported yet (ROADMAP C6)")
         train = self._init_iter(X, y, is_train=True)
         if eval_data is not None and not hasattr(eval_data, "provide_data"):
             ex, ey = eval_data
@@ -228,7 +225,8 @@ class FeedForward:
             initializer=self.initializer, arg_params=self.arg_params,
             aux_params=self.aux_params,
             allow_missing=self.arg_params is not None,
-            begin_epoch=self.begin_epoch, num_epoch=self.num_epoch)
+            begin_epoch=self.begin_epoch, num_epoch=self.num_epoch,
+            monitor=monitor)
         self.arg_params, self.aux_params = self._module.get_params()
         return self
 

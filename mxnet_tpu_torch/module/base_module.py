@@ -245,14 +245,18 @@ class BaseModule:
             eval_end_callback=None, eval_batch_end_callback=None,
             initializer=Uniform(0.01), arg_params=None, aux_params=None,
             allow_missing=False, force_rebind=False, force_init=False,
-            begin_epoch=0, num_epoch=None, validation_metric=None):
+            begin_epoch=0, num_epoch=None, validation_metric=None,
+            monitor=None):
         """The training loop: bind, init params and optimizer, then per
         epoch forward / backward / update over ``train_data`` with the
-        metric folded in (reference: base_module.py fit)."""
+        metric folded in (reference: base_module.py fit).  A ``monitor``
+        is installed after ``bind`` and ticks around every batch."""
         assert num_epoch is not None, "please specify number of epochs"
         self.bind(data_shapes=train_data.provide_data,
                   label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params,
                          aux_params=aux_params, allow_missing=allow_missing,
                          force_init=force_init)
@@ -267,9 +271,13 @@ class BaseModule:
             tic = time.time()
             eval_metric.reset()
             for nbatch, data_batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
                 self.update_metric(eval_metric, data_batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 if batch_end_callback is not None:
                     params = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                            eval_metric=eval_metric,
@@ -337,6 +345,9 @@ class BaseModule:
         raise NotImplementedError()
 
     def update_metric(self, eval_metric, labels):
+        raise NotImplementedError()
+
+    def install_monitor(self, mon):
         raise NotImplementedError()
 
     def get_params(self):

@@ -46,6 +46,7 @@ class BucketingModule(BaseModule):
         self._curr_module = None
         self._curr_bucket_key = None
         self._grad_req = None
+        self._monitor = None
 
     def _reset_bind(self):
         self.binded = False
@@ -160,6 +161,8 @@ class BucketingModule(BaseModule):
             module.bind(data_shapes, label_shapes, self.for_training,
                         self.inputs_need_grad, shared_module=default,
                         grad_req=self._grad_req)
+            if self._monitor is not None:
+                module.install_monitor(self._monitor)
             if self.optimizer_initialized:
                 module.borrow_optimizer(default)
             self._buckets[bucket_key] = module
@@ -173,6 +176,14 @@ class BucketingModule(BaseModule):
             if all(tuple(a.shape) == tuple(b.shape)
                    for a, b in zip(states, cur)):
                 self._curr_module.set_states(states=states)
+
+    def install_monitor(self, mon):
+        """Install ``mon`` on every bucket's module, and on those bound
+        later (reference: bucketing_module.py install_monitor)."""
+        assert self.binded
+        self._monitor = mon
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)
 
     def init_optimizer(self, kvstore="local", optimizer="sgd",
                        optimizer_params=(("learning_rate", 0.01),),

@@ -27,9 +27,10 @@ forward, as in the JAX package.  ``reshape`` rebinds to new input shapes
 (a batch-size switch for evaluation) and keeps the parameter NDArrays,
 auxiliary states, ``grad_req`` and optimizer states; ``forward`` does it
 by itself when a batch's data and label shapes differ from the bound
-ones.  The JAX package's fused jit step and its scan over K steps
-(plain PyTorch runs eagerly), meshes and ZeRO (ROADMAP D1) and
-``install_monitor`` (ROADMAP C6) are not ported.
+ones.  ``install_monitor`` hands a ``Monitor`` every node's outputs of
+each forward (``Executor.set_monitor_callback``).  The JAX package's
+fused jit step and its scan over K steps (plain PyTorch runs eagerly),
+and meshes and ZeRO (ROADMAP D1), are not ported.
 """
 from __future__ import annotations
 
@@ -276,8 +277,10 @@ class Module(BaseModule):
         self._grads_fresh = False
 
     def install_monitor(self, mon):
-        raise MXNetError("install_monitor: the Monitor is not ported yet "
-                         "(ROADMAP C6)")
+        """Hand ``mon`` every node's outputs of each forward (reference:
+        module.py install_monitor)."""
+        assert self.binded
+        mon.install(self._exec)
 
     def _share_arrays(self, shared_module):
         """Hold ``shared_module``'s parameter and auxiliary NDArrays
@@ -420,14 +423,16 @@ class Module(BaseModule):
         new = {n: tuple(v.shape) for n, v in kwargs.items()}
         if any(tuple(arg_dict[n].shape) != s for n, s in new.items()):
             self._exec = self._exec.reshape(**new)
-        self._exec.forward(is_train=is_train, **kwargs)
+        with _prof.scope("module.forward", "symbolic"):
+            self._exec.forward(is_train=is_train, **kwargs)
         self._grads_fresh = False
 
     def backward(self, out_grads=None):
         """Gradients of the last forward into ``grad_dict``."""
         assert self.binded and self.params_initialized
         _prof.record_dispatch("module.backward")
-        self._exec.backward(out_grads=out_grads)
+        with _prof.scope("module.backward", "symbolic"):
+            self._exec.backward(out_grads=out_grads)
         self._grads_fresh = True
 
     def update(self):
@@ -440,6 +445,11 @@ class Module(BaseModule):
             self.backward()
         names = self._update_names()
         _prof.record_dispatch("module.update")
+        with _prof.scope("module.update", "symbolic"):
+            self._update(names)
+        self._grads_fresh = False
+
+    def _update(self, names):
         ex = self._exec
         if self._update_on_kvstore:
             # the store updates its copies, the module pulls them back
@@ -452,7 +462,6 @@ class Module(BaseModule):
                            [ex.grad_dict[n] for n in names],
                            updater=self._updater, num_device=1,
                            kvstore=self._kvstore, param_names=names)
-        self._grads_fresh = False
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized

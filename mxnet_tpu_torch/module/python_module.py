@@ -97,8 +97,9 @@ class PythonModule(BaseModule):
         self.optimizer_initialized = True
 
     def install_monitor(self, mon):
-        raise MXNetError("install_monitor: the Monitor is not ported yet "
-                         "(ROADMAP C6)")
+        """A Python module runs no executor to observe (reference:
+        python_module.py install_monitor)."""
+        raise NotImplementedError()
 
 
 class PythonLossModule(PythonModule):

@@ -218,5 +218,6 @@ class SequentialModule(BaseModule):
                 module.update_metric(eval_metric, labels)
 
     def install_monitor(self, mon):
-        raise MXNetError("install_monitor: the Monitor is not ported yet "
-                         "(ROADMAP C6)")
+        """Install ``mon`` on every module of the chain."""
+        for m in self._modules:
+            m.install_monitor(mon)

@@ -27,6 +27,7 @@ import torch
 from ..base import MXNetError
 from ..context import Context, as_device, cpu, current_context, gpu
 from .. import autograd as _ag
+from .. import profiler as _prof
 from .. import random as _random
 from ..ops import registry as _reg
 
@@ -523,7 +524,8 @@ def _invoke(op_name: str, inputs, attrs, out=None, ctx=None):
         vals, gather = _ag.recorded_inputs(op_name, inputs, attrs)
     else:
         vals = [x._data for x in inputs]
-    with torch.set_grad_enabled(recording):
+    with torch.set_grad_enabled(recording), \
+            _prof.scope(op_name, require_mode="all"):
         outs = opdef.fn(*vals, **kwargs)
     if not isinstance(outs, (tuple, list)):
         outs = (outs,)

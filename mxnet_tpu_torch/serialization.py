@@ -8,8 +8,10 @@ raw buffers in the host's byte order (little-endian on every host either
 package runs on).  A list is saved with empty names, a dict
 with its keys.  bfloat16, which numpy lacks, is stored raw under the
 dtype name ``bfloat16``.  ``.params`` files of ``model.save_checkpoint``
-use the same container with ``arg:`` / ``aux:`` name prefixes.  Files of
-the reference MXNet's own format are not read yet (ROADMAP C4).
+use the same container with ``arg:`` / ``aux:`` name prefixes.  A file
+in the reference MXNet's own format (``NDArray::Save``'s container) is
+read by :mod:`compat_serialization`, as the JAX package's
+``serialization.py:75-76`` routes it.
 """
 from __future__ import annotations
 
@@ -80,9 +82,13 @@ def load_ndarrays(fname: str) -> Union[List[NDArray], Dict[str, NDArray]]:
     with open(fname, "rb") as f:
         magic = f.read(8)
         if magic != _MAGIC:
+            # a file the reference MXNet wrote (kMXAPINDArrayListMagic,
+            # ndarray.cc:1022): migrating users load it as it is
+            from . import compat_serialization as compat
+            if compat.is_reference_format(fname):
+                return compat.load_reference_params(fname)
             raise MXNetError(f"{fname}: not an mxnet_tpu NDArray file (bad "
-                             f"magic {magic!r}); files of the reference's "
-                             "own format are not read yet (ROADMAP C4)")
+                             f"magic {magic!r})")
         (hlen,) = struct.unpack("<Q", f.read(8))
         header = json.loads(f.read(hlen).decode())
         blob = f.read()

@@ -7,8 +7,11 @@ bucket, or when the OLDEST queued request has waited
 ``MXNET_SERVING_MAX_WAIT_MS``, whichever is first.  Requests past
 ``MXNET_SERVING_QUEUE_DEPTH`` complete at once with a typed BUSY reply.
 A predict failure fails that batch's slots; a worker crash parks the
-error, fails every queued slot and every later submit.  The tracing
-spans and health notes of the JAX batcher are not ported yet.
+error, fails every queued slot and every later submit.  Each dispatch is
+a ``serving.batch`` span (with ``MXNET_TRACE=1``) holding the rows, the
+slots and the longest queue wait, and each shed request a
+``busy_shed`` health note, which the BUSY-storm rule counts; a slot may
+carry a detached span of its caller's, which gets its queue wait.
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ from typing import Dict, List
 import numpy as np
 
 from ..base import MXNetError, env
+from .. import health as _health
 from .. import profiler as _prof
+from .. import tracing as _tr
 from .bucketed import rows_per_example
 
 
@@ -33,7 +38,7 @@ class _ReplySlot:
     """One request's reply rendezvous: ``reply`` is the
     ``("ok"|"err", payload)`` tuple, set when ``done`` fires."""
 
-    __slots__ = ("done", "reply", "data", "n", "t_enqueue", "sig")
+    __slots__ = ("done", "reply", "data", "n", "t_enqueue", "sig", "span")
 
     def __init__(self, data=None, n=0, sig=None):
         self.done = threading.Event()
@@ -41,6 +46,7 @@ class _ReplySlot:
         self.data = data
         self.n = n
         self.sig = sig
+        self.span = None     # a detached span of the caller's
         self.t_enqueue = time.monotonic()
 
     def complete(self, reply):
@@ -68,10 +74,13 @@ class DynamicBatcher:
         self._thread.start()
 
     # -- intake --------------------------------------------------------------
-    def submit(self, data) -> _ReplySlot:
+    def submit(self, data, span=None) -> _ReplySlot:
         """Admit one request; ALWAYS returns a slot (completed on the
-        spot for BUSY and validation failures)."""
+        spot for BUSY and validation failures).  ``span`` (a detached
+        tracing span) is annotated with the request's queue wait at
+        dispatch."""
         slot = _ReplySlot()
+        slot.span = span
         try:
             datas, n, sig = self._validate(data)
         except MXNetError as exc:
@@ -89,6 +98,10 @@ class DynamicBatcher:
             if len(self._q) >= self._queue_depth:
                 self.shed += 1
                 _prof.record_channel_event("serving.busy_shed")
+                # the health rules count these in a sliding window:
+                # MXNET_HEALTH_BUSY_STORM sheds within
+                # MXNET_HEALTH_BUSY_WINDOW_S make the process DEGRADED
+                _health.note("busy_shed")
                 slot.complete(("ok", ("busy", {
                     "queue_depth": len(self._q),
                     "limit": self._queue_depth})))
@@ -183,18 +196,34 @@ class DynamicBatcher:
         data = {name: np.concatenate([s.data[name] for s in slots], axis=0)
                 for name in slots[0].data}
         total = sum(s.n for s in slots)
+        t_batch = time.monotonic()
+        # the device half of a request's latency: the queue wait is
+        # t_batch - t_enqueue a slot, the span holds forward and readback
+        bsp = _tr.span_begin(
+            "serving.batch", cat="serving", detach=True,
+            args={"rows": int(total), "slots": len(slots),
+                  "queue_wait_ms_max": round(
+                      (t_batch - min(s.t_enqueue for s in slots)) * 1e3,
+                      3)})
         try:
             version, outs = self._predictor.predict(data)
             per = [rows_per_example(o.shape[0], total) for o in outs]
         except Exception as exc:  # noqa: BLE001 — fail THIS batch only
+            _tr.span_end(bsp, args={"error": type(exc).__name__})
             for slot in slots:
                 slot.complete(("err", f"{type(exc).__name__}: {exc}"))
             return
+        _tr.span_end(bsp)
         self.batches += 1
         lo = 0
         now = time.monotonic()
         for slot in slots:
             hi = lo + slot.n
+            if slot.span is not None:
+                slot.span.args = dict(
+                    slot.span.args or {},
+                    queue_wait_ms=round((t_batch - slot.t_enqueue) * 1e3,
+                                        3))
             slot.complete(("ok", ("result", version,
                                   [o[lo * k:hi * k]
                                    for o, k in zip(outs, per)])))

@@ -328,8 +328,10 @@ def test_refused_features_name_their_items():
     mod = mt.mod.Module(net, context=mt.cpu())
     mod.bind(data_shapes=[("data", (2, 2))],
              label_shapes=[("softmax_label", (2,))])
-    with pytest.raises(mt.MXNetError, match="C6"):
-        mod.install_monitor(object())
+    # the Monitor came with C6: it installs on the module's executor
+    mon = mt.monitor.Monitor(1)
+    mod.install_monitor(mon)
+    assert mon.exes == [mod._exec]
 
 
 def test_dcasgd_without_momentum_saves_and_loads_its_states(tmp_path):

@@ -306,3 +306,49 @@ def test_data_io_imports_hermetically_and_builds_at_first_use(tmp_path):
         path = os.path.join("mxnet_tpu_torch", *mod.split("."))
         assert path + ".py" in scanned or \
             os.path.join(path, "__init__.py") in scanned, mod
+
+
+# the checkpoint (C4) and observability (C6) slice's modules
+C4_C6_MODULES = ["checkpoint", "compat_serialization", "tracing", "health",
+                 "monitor", "visualization", "test_utils", "notebook",
+                 "notebook.callback", "contrib", "contrib.autograd",
+                 "contrib.tensorboard", "contrib.torch", "profiler"]
+
+
+def test_checkpoint_and_observability_import_start_nothing(tmp_path):
+    """Importing the port with every observability knob set (a trace
+    directory, a health bundle directory) loads the C4 and C6 modules,
+    no jax and no mxnet_tpu, and starts no CUDA context, no thread and
+    no hook: no ``sys.excepthook`` / ``threading.excepthook``, no SIGTERM
+    handler, no ``atexit`` callback."""
+    code = (
+        "import atexit, json, signal, sys, threading, torch\n"
+        "n0, th0 = atexit._ncallbacks(), threading.active_count()\n"
+        "import mxnet_tpu_torch as mt\n"
+        "print(json.dumps({'mods': sorted(sys.modules),\n"
+        "  'cuda_init': torch.cuda.is_initialized(),\n"
+        "  'atexit': atexit._ncallbacks() - n0,\n"
+        "  'threads': threading.active_count() - th0,\n"
+        "  'excepthook': sys.excepthook is sys.__excepthook__,\n"
+        "  'thread_hook': threading.excepthook is threading.__excepthook__,\n"
+        "  'sigterm': signal.getsignal(signal.SIGTERM) == signal.SIG_DFL,\n"
+        "  'libs': sorted(mt.cuda_lib._libs)}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT, MXNET_TRACE="1",
+               MXNET_TRACE_DIR=str(tmp_path / "trace"),
+               MXNET_HEALTH_DIR=str(tmp_path / "health"))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert [m for m in out["mods"] if _forbidden(m)] == []
+    assert out["cuda_init"] is False and out["libs"] == []
+    assert out["atexit"] == 0 and out["threads"] == 0
+    assert out["excepthook"] and out["thread_hook"] and out["sigterm"]
+    assert not os.path.exists(str(tmp_path / "trace"))
+    assert not os.path.exists(str(tmp_path / "health"))
+    scanned = {os.path.relpath(p, ROOT) for p in _sources()}
+    for mod in C4_C6_MODULES:
+        assert "mxnet_tpu_torch." + mod in out["mods"], mod
+        path = os.path.join("mxnet_tpu_torch", *mod.split("."))
+        assert path + ".py" in scanned or \
+            os.path.join(path, "__init__.py") in scanned, mod

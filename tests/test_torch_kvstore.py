@@ -240,7 +240,8 @@ def test_assign_bypasses_updater():
 def test_set_gradient_compression_validation():
     """A local store refuses compression, as in the JAX package and the
     reference; the other single-process types name E1, where the stores
-    that compress come; ``server_stats`` names C6."""
+    that compress come; ``server_stats`` of a local store is the
+    process's profiler snapshot, as in the JAX package."""
     with pytest.raises(mx.base.MXNetError, match="not supported"):
         mx.kv.create('local').set_gradient_compression({'type': '2bit'})
     with pytest.raises(mt.MXNetError, match="not supported"):
@@ -248,8 +249,8 @@ def test_set_gradient_compression_validation():
     for t in ('device', 'nccl'):
         with pytest.raises(mt.MXNetError, match="E1"):
             mt.kv.create(t).set_gradient_compression({'type': '2bit'})
-    with pytest.raises(mt.MXNetError, match="C6"):
-        mt.kv.create('local').server_stats()
+    assert set(mt.kv.create('local').server_stats()) == \
+        set(mx.kv.create('local').server_stats())
 
 
 def test_store_never_shares_a_tensor_with_its_caller():

@@ -325,9 +325,9 @@ def test_gluon_sparse_embedding_trains():
 
 
 def test_rand_sparse_ndarray():
-    """The same draws from the same RandomState give the same arrays
-    (the JAX test's ``test_utils.rand_ndarray`` half is C6's: the port
-    has no ``test_utils`` yet)."""
+    """The same draws from the same RandomState give the same arrays,
+    through ``sparse.rand_sparse_ndarray`` and through
+    ``test_utils.rand_ndarray`` (C6)."""
     for stype, shape in (('csr', (6, 3)), ('row_sparse', (8, 5))):
         got = tsp.rand_sparse_ndarray(shape, stype, density=0.4,
                                       rng=np.random.RandomState(2))
@@ -338,6 +338,12 @@ def test_rand_sparse_ndarray():
         np.testing.assert_array_equal(got[0].todense().asnumpy(), got[1])
         np.testing.assert_array_equal(got[0].indices.asnumpy(),
                                       want[0].indices.asnumpy())
+        np.random.seed(5)
+        t = mt.test_utils.rand_ndarray(shape, stype, density=0.4)
+        np.random.seed(5)
+        j = mx.test_utils.rand_ndarray(shape, stype, density=0.4)
+        np.testing.assert_array_equal(t.todense().asnumpy(),
+                                      j.todense().asnumpy())
 
 
 def test_square_sum_row_sparse():
