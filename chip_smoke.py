@@ -74,8 +74,17 @@ Last, checkpoints and observability: the GPT-2-small-width LM trains by
 ``Module.fit`` under ``do_checkpoint(sharded_async=True)`` and a
 ``Monitor``, resumes from the sharded checkpoint under the profiler,
 equal bit for bit to an uninterrupted run, and its parameters go
-through the reference MXNet's own ``.params`` format.  Every phase
-prints one JSON line;
+through the reference MXNet's own ``.params`` format.  Last, the
+distributed plane: the kernel Q1 (``csrc/grad_compress.cu``, 2-bit
+quantization with error feedback) is held against its plain version,
+the LM trains over ``dist_async`` from this process with two
+parameter-server processes (started as ``tools/launch.py -s 2`` starts
+them, their store and Adam on the host) and 2-bit pushes quantized by
+Q1, its first step equal bit for bit to the servers' arithmetic replayed
+here, and two worker processes train it cut to 2 layers over
+``dist_sync`` (a gloo group), their weights bit-identical after every
+step and close to one process on the concatenated batch (``--e1`` runs
+these three phases alone).  Every phase prints one JSON line;
 any failed phase exits non-zero.  The line before the last lists the
 kernels with their launches on each path, times and bounds; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
@@ -800,9 +809,12 @@ def phase_build(mt):
                                         or row.get("spill_loads", 1)):
                 failures.append(f"{name}: spills {row}")
     want = dict(F32_KERNELS, **{stem: 3 for stem in MMA_KERNELS},
-                image_augment_kernel=3, relu_grad_kernel=4)
+                image_augment_kernel=3, relu_grad_kernel=4,
+                quantize_2bit_kernel=2)
     for name, row in kernels.items():
-        if ("image_augment_kernel" in name or "relu_grad_kernel" in name) \
+        if any(stem in name for stem in ("image_augment_kernel",
+                                         "relu_grad_kernel",
+                                         "quantize_2bit_kernel")) \
                 and (row.get("spill_stores", 1) or row.get("spill_loads", 1)):
             failures.append(f"{name}: spills {row}")
     for stem, count in want.items():
@@ -1569,8 +1581,25 @@ def phase_r1_kernel(torch, mt):
         def call():
             return elemwise.relu_grad_cuda(g, y)
         timed(row, "kernel_ms", call)
-        row["device_ms"], _ = device_ms(torch, call,
-                                        stem="relu_grad_kernel")
+        # the kernel alone by events over launches of its C entry (a
+        # torch.profiler window lost one R1 launch of twenty in two of
+        # the script's card runs: PERF.md §7), checked bit for bit once
+        out = torch.empty_like(got)
+        alone = c_entry_launch(torch, "relu_grad.cu", "mxtt_relu_grad", (
+            g.data_ptr(), y.data_ptr(), out.data_ptr(), g.numel(),
+            elemwise._RELU_DTYPES[g.dtype], dev.index), dev)
+        alone()
+        torch.cuda.synchronize()
+        if not torch.equal(out.view(torch.int16 if out.element_size() == 2
+                                    else torch.int32),
+                           got.view(torch.int16 if got.element_size() == 2
+                                    else torch.int32)):
+            fails.append(f"{name}: R1 launched alone differs from its "
+                         "wrapper")
+        row["device_ms"] = time_ms(alone, iters=20, repeats=5)[0]
+        row["device_ms_by"] = ("CUDA events over 20 back-to-back launches "
+                               "of the kernel alone, median of 5")
+        del out
         timed(row, "plain_ms", lambda: elemwise.relu_grad_plain(g, y))
         timed(row, "torch_threshold_backward_ms",
               lambda: torch.ops.aten.threshold_backward(g, y, 0))
@@ -4857,7 +4886,7 @@ def phase_module_heads(torch, mt):
 def dense_op_cases(rng):
     """(name, inputs as numpy, attributes, indices of the inputs that take
     a gradient): each op of the slice at a shape a user gives it."""
-    act = rng.standard_normal((64, 256, 56, 56)).astype(np.float32)
+    act = rng.standard_normal((16, 256, 56, 56)).astype(np.float32)
     fc = rng.standard_normal((256, 1000)).astype(np.float32)
     lab = rng.integers(0, 1000, 256).astype(np.float32)
     sig = rng.uniform(0.05, 0.95, (256, 1024)).astype(np.float32)
@@ -4870,9 +4899,9 @@ def dense_op_cases(rng):
         ("Crop", [act, act[:, :, :48, :48]], {"num_args": 2,
                                               "center_crop": True}, (0,)),
         ("_slice_assign", [act, act[:, :64, 8:40, 8:40] * 2],
-         {"begin": (0, 0, 8, 8), "end": (64, 64, 40, 40)}, (0, 1)),
+         {"begin": (0, 0, 8, 8), "end": (16, 64, 40, 40)}, (0, 1)),
         ("_slice_assign_scalar", [act], {"scalar": 0.5, "begin": (0, 0),
-                                         "end": (64, 128)}, (0,)),
+                                         "end": (16, 128)}, (0,)),
         ("LinearRegressionOutput", [fc, fc[::-1].copy()], {}, (0,)),
         ("MAERegressionOutput", [fc, fc[::-1].copy()], {}, (0,)),
         ("LogisticRegressionOutput", [fc, (fc > 0).astype(np.float32)],
@@ -6982,26 +7011,37 @@ def i1_kernel_only(torch, ia, imgs, a, out, layout, want):
     """A call that launches I1 alone through its C entry on the current
     stream, its table (``ia._meta``) staged on the card once; checked
     once against ``want`` (the wrapper's output), bit for bit."""
-    from mxnet_tpu_torch import cuda_lib
     y0s, x0s, flips, dec_hw, out_hw, mean, std = a
     dev = want.device
     meta = torch.from_numpy(ia._meta(imgs, y0s, x0s, flips, mean,
                                      std)).to(dev)
     res = torch.empty_like(want)
-    fn = cuda_lib.library("image_augment.cu").mxtt_image_augment
     n, c = len(imgs), imgs.channels
-    args = (meta.data_ptr(), res.data_ptr(), n, c, dec_hw[0], dec_hw[1],
-            out_hw[0], out_hw[1], ia.OUT_KINDS[(out, layout)],
-            dev.index or 0)
-
-    def call():
-        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise RuntimeError(f"I1's C entry returned {err}")
+    call = c_entry_launch(torch, "image_augment.cu", "mxtt_image_augment", (
+        meta.data_ptr(), res.data_ptr(), n, c, dec_hw[0], dec_hw[1],
+        out_hw[0], out_hw[1], ia.OUT_KINDS[(out, layout)], dev.index or 0),
+        dev)
     call()
     torch.cuda.synchronize()
     if not torch.equal(res, want):
         raise RuntimeError("I1 launched alone differs from its wrapper")
+    return call
+
+
+def c_entry_launch(torch, lib, entry, args, dev):
+    """A call that launches a kernel through its C entry ``entry`` of
+    ``cuda_lib.library(lib)`` on the current stream, with ``args`` (device
+    pointers and sizes staged once) before the stream: no allocation and
+    no host work between launches, so CUDA events over back-to-back
+    calls time the kernel alone.  The wrapper must have run once (it
+    sets the entry's argument types)."""
+    from mxnet_tpu_torch import cuda_lib
+    fn = getattr(cuda_lib.library(lib), entry)
+
+    def call():
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"{entry} returned {err}")
     return call
 
 
@@ -8257,6 +8297,872 @@ def phase_ckpt_reference_params(torch, mt, mod, workdir):
         raise RuntimeError("ckpt_reference_params: " + "; ".join(fails))
 
 
+# ---------------------------------------------------------------------------
+# E1: the distributed plane (dist_async parameter servers with 2-bit
+# compression by Q1; dist_sync over gloo)
+# ---------------------------------------------------------------------------
+Q1_SOURCE = os.path.join("mxnet_tpu_torch", "csrc", "grad_compress.cu")
+Q1_DESIGN = (
+    "a grid-stride loop in which a thread takes 16 values by four 16-byte "
+    "loads of g and of r, writes four 16-byte stores of the residual and "
+    "one 32-bit store of codes (value e at bits 2e); then a loop over the "
+    "code bytes left (the tail of n % 16, or every byte when a pointer is "
+    "off its 16-byte alignment); blocks of 256, at most 8 a "
+    "multiprocessor; __fadd_rn / __fsub_rn and no fast math, so no "
+    "contraction and no flush of subnormals")
+Q1_LIBRARY = ("none: no one PyTorch call quantizes with error feedback "
+              "and packs four codes to a byte")
+# the LM's largest key (tok_embed_weight, 50304 x 768) whole and the
+# second stripe of the two-server plan (rows 25152:50304), a (1001, 3)
+# tensor's stripe from row 333 (offset 999 values: off its 16-byte
+# alignment, the byte loop alone), and lengths 16 k + r for every r
+Q1_LARGE = (50304, 768)
+Q1_STRIPE_ROW = 25152
+Q1_TAIL_BASE = 16 * 4096
+# the parameter servers of the dist phases: as tools/launch.py -s 2
+# starts them (DMLC_ROLE=server, the same command, the CPU), each with 4
+# of the machine's 8 cores for its optimizer (the worker waits while
+# they apply)
+DIST_SERVERS = 2
+DIST_SERVER_THREADS = 4
+DIST_BIGARRAY_BOUND = 1000000
+# dist_async: the LM at full width (train's recipe: bf16 over fp32
+# masters, Adam TRAIN_LR on the servers, batch TRAIN_BATCH x 1024), 3
+# steps by Module.fit, 3 by run_steps, one profiled step, all 2-bit, then
+# one uncompressed step.  The threshold is chosen on the CPU rehearsal
+# (tests/torch_numerics.py e1: full width, 2 layers, batch 8) so that a
+# few percent of the gradient's values fire a step; the loss over the 7
+# compressed steps must fall by DIST_ASYNC_MARGIN nats, fixed from that
+# rehearsal
+DIST_ASYNC_THRESHOLD = 1.0
+DIST_ASYNC_FIT_STEPS = 3
+DIST_ASYNC_RUN_STEPS = 3
+# the rehearsal at this threshold: 2.6% of the values fired the first
+# step, 6.8% the seventh; the loss fell 10.857 -> 10.561 (0.296 nats)
+# over the 7 steps; the margin is a third of that drop
+DIST_ASYNC_MARGIN = 0.1
+# a compressed push moves at most this share of the fp32 bytes (2-bit
+# codes are a sixteenth, the frames' headers on top)
+DIST_ASYNC_PUSH_SHARE = 1 / 15
+# dist_sync: two worker processes on cuda:0 over gloo, the LM at full
+# width cut to 2 layers, fp32 (TF32 off), batch 4 x 1024 a rank, Adam,
+# 4 steps of Module.fit; against one process on the concatenated batch
+# of 8.  Both sum the same gradient terms in another order (two per-rank
+# sums, then their sum, against one sum).  Two gates:
+# - the first gradient, as the update took it (Adam's first moment after
+#   step 1 is (1 - beta1) x the rescaled gradient), within
+#   DIST_SYNC_GRAD_RTOL of its norm: the summation order alone.  The CPU
+#   rehearsal (tests/torch_numerics.py e1_sync: full width, 2 layers,
+#   fp32) puts the gradients 2.6e-7 apart.  A rank that kept its own half
+#   batch is about 0.7 away, a rescale not divided by the workers exactly
+#   1.0; the phase computes both and fails if either passes.
+# - the weights after 4 steps within DIST_SYNC_UPDATE_RTOL of the update's
+#   norm.  Adam divides each value's step by the root mean square of its
+#   gradient, so where a gradient is near zero the orders' last-bit
+#   difference becomes a difference of up to the learning rate, and the
+#   next steps' gradients carry it on: the CPU rehearsal's distance grows
+#   5.3e-5, 4.1e-4, 2.4e-3, 3.4e-3 over steps 1-4, the card's (whose
+#   GEMMs split the batch's sums other ways than the CPU's) reached
+#   1.19e-2, the same to the last digit in two calls while two
+#   single-process runs there were bit-identical (PERF.md).  The phase
+#   prints the card's distance after every step; the gate is twice the
+#   card's reading
+DIST_SYNC_LAYERS = 2
+DIST_SYNC_BATCH = 4
+DIST_SYNC_STEPS = 4
+DIST_SYNC_LR = 1e-2
+DIST_SYNC_UPDATE_RTOL = 2.5e-2
+DIST_SYNC_GRAD_RTOL = 1e-5
+
+
+def q1_count():
+    from mxnet_tpu_torch import compression
+    return compression.quantize_2bit_cuda.launches
+
+
+def reset_q1():
+    from mxnet_tpu_torch import compression
+    compression.quantize_2bit_cuda.launches = 0
+
+
+def q1_special_values(torch, t, dev):
+    t32 = torch.tensor(t, dtype=torch.float32)
+    eps = torch.nextafter(t32, torch.tensor(0.0))
+    return torch.tensor([float("nan"), float("inf"), -float("inf"), 0.0,
+                         -0.0, 1e-40, -3e-39, float(t32), -float(t32),
+                         float(eps), -float(eps), 2 * float(t32)],
+                        dtype=torch.float32, device=dev)
+
+
+def q1_same(torch, a, b):
+    """Codes or residuals the same: equal bits, or both NaN (the card's
+    add returns the canonical NaN where x86's keeps the operand's
+    payload)."""
+    if a.dtype == torch.uint8:
+        return torch.equal(a.cpu(), b.cpu())
+    a, b = a.detach().cpu().reshape(-1), b.detach().cpu().reshape(-1)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+def phase_q1_kernel(torch, mt):
+    """Q1 against its plain version (``quantize_2bit_plain``) on the same
+    card tensors and on the CPU (which equals the JAX package's numpy
+    quantizer, tests/test_torch_compression.py), bit for bit in codes
+    and residual: the LM's largest key whole (first push, and with a
+    residual updated in place) and its second stripe, a stripe off its
+    16-byte alignment, every length 16 k + r, with NaN, +-inf, +-0,
+    subnormals and +-t placed in, at t 0.5 and 0.1.  Times by CUDA events
+    (median of 5 loops, min, max) and the device time (torch.profiler)
+    beside the bytes bound and the plain version's time."""
+    from mxnet_tpu_torch import compression as comp
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 150)
+    cases, fails, rows = [], [], {}
+
+    def rand(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    big = rand(Q1_LARGE, 0.6)
+    big.view(-1)[:12] = q1_special_values(torch, 0.5, dev)
+    cases.append(("largest_key_first_push", big, None, 0.5, False))
+    cases.append(("largest_key_residual_in_place", big,
+                  rand(Q1_LARGE, 0.3), 0.5, True))
+    stripe = big[Q1_STRIPE_ROW:]
+    cases.append(("largest_key_stripe1_t0.1", stripe,
+                  rand(stripe.shape, 0.05), 0.1, True))
+    small = rand((1001, 3), 0.2)
+    small.view(-1)[999:1011] = q1_special_values(torch, 0.1, dev)
+    cases.append(("misaligned_stripe_t0.1", small[333:],
+                  rand((668, 3), 0.05), 0.1, False))
+    for r in range(16):
+        g = rand((Q1_TAIL_BASE + r,), 0.5)
+        g[-12:] = q1_special_values(torch, 0.5, dev)
+        cases.append((f"tail_{r}", g, rand(g.shape, 0.2) if r % 2 else None,
+                      0.5, bool(r % 4 == 1)))
+    for name, g, r, t, in_place in cases:
+        r_kernel = None if r is None else r.clone()
+        r_plain = None if r is None else r.clone()
+        codes, res = comp.quantize_2bit_cuda(g, r_kernel, t)
+        again, _ = comp.quantize_2bit_cuda(
+            g, None if r is None else r.clone(), t)
+        pc, pr = comp.quantize_2bit_plain(g, r_plain, t)
+        cc, cr = comp.quantize_2bit_plain(
+            g.cpu(), None if r is None else r.cpu(), t)
+        torch.cuda.synchronize()
+        same = (q1_same(torch, codes, pc) and q1_same(torch, res, pr)
+                and q1_same(torch, again, pc) and q1_same(torch, codes, cc)
+                and q1_same(torch, res, cr)
+                and (not in_place or res.data_ptr() == r_kernel.data_ptr()))
+        if not same:
+            fails.append(f"{name}: Q1 differs from the plain version")
+        fin = torch.isfinite(pr)
+        err = float((res.float() - pr)[fin].abs().max()) if fin.any() \
+            else 0.0
+        fired = sum(int((((pc >> (2 * i)) & 3) != 0).sum())
+                    for i in range(4))
+        rows[name] = dict(n=g.numel(), threshold=t, residual=r is not None,
+                          in_place=in_place, bit_identical=same,
+                          max_abs_err=err, fired_share=fired / g.numel())
+    timed_rows = {}
+    for name, g, r, t, _ in cases[:2]:
+        n = g.numel()
+        buf = None if r is None else r.clone()
+        row = dict(shape=list(g.shape), threshold=t, residual=r is not None)
+
+        def call():
+            return comp.quantize_2bit_cuda(g, buf, t)
+        timed(row, "kernel_ms", call)
+        # the kernel alone, as R1's (phase_r1_kernel)
+        codes = torch.empty((n + 3) // 4, dtype=torch.uint8, device=dev)
+        out = buf if buf is not None else torch.empty_like(g)
+        alone = c_entry_launch(torch, "grad_compress.cu",
+                               "mxtt_quantize_2bit", (
+                                   g.data_ptr(), None if buf is None
+                                   else buf.data_ptr(), out.data_ptr(),
+                                   codes.data_ptr(), n, float(t),
+                                   dev.index), dev)
+        row["device_ms"] = time_ms(alone, iters=20, repeats=5)[0]
+        row["device_ms_by"] = ("CUDA events over 20 back-to-back launches "
+                               "of the kernel alone, median of 5")
+        del codes, out
+        timed(row, "plain_ms", lambda: comp.quantize_2bit_plain(g, r, t))
+        nbytes = n * (8 if r is None else 12) + (n + 3) // 4
+        row.update(bound_bytes=nbytes,
+                   bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                   bound_by="bytes", library_ms=None, library=Q1_LIBRARY,
+                   max_abs_err=rows[name]["max_abs_err"])
+        check_bound_share(row, "device_ms", fails, f"q1 {name}")
+        check_bound_share(row, "kernel_ms", fails, f"q1 {name}")
+        timed_rows[name] = row
+    del cases, big, stripe, small
+    torch.cuda.empty_cache()
+    emit("q1_kernel", source=Q1_SOURCE, design=Q1_DESIGN, cases=rows,
+         timed=timed_rows, failures=fails)
+    if fails:
+        raise RuntimeError("q1_kernel: " + "; ".join(fails))
+    return timed_rows
+
+
+def free_ports(n):
+    """``n`` free TCP ports on the loopback (bound, then released)."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+@contextlib.contextmanager
+def server_processes(workdir, num_workers):
+    """DIST_SERVERS parameter servers as ``tools/launch.py -s`` starts
+    them: the command ``python -c 'import mxnet_tpu_torch'`` with
+    DMLC_ROLE=server, DMLC_SERVER_ID, DMLC_NUM_WORKER, DMLC_NUM_SERVER,
+    MXT_SERVER_URIS and JAX_PLATFORMS=cpu; yields (uris, processes); any
+    still running at the end is killed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    uris = ",".join(f"127.0.0.1:{p}" for p in free_ports(DIST_SERVERS))
+    procs = []
+    try:
+        for sid in range(DIST_SERVERS):
+            env = dict(os.environ, DMLC_ROLE="server",
+                       DMLC_SERVER_ID=str(sid),
+                       DMLC_NUM_WORKER=str(num_workers),
+                       DMLC_NUM_SERVER=str(DIST_SERVERS),
+                       MXT_SERVER_URIS=uris, JAX_PLATFORMS="cpu",
+                       OMP_NUM_THREADS=str(DIST_SERVER_THREADS),
+                       MXNET_KVSTORE_BIGARRAY_BOUND=str(DIST_BIGARRAY_BOUND),
+                       PYTHONPATH=root)
+            log = open(os.path.join(workdir, f"server{sid}.log"), "w")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import mxnet_tpu_torch"], env=env,
+                cwd=root, stdout=log, stderr=subprocess.STDOUT))
+            log.close()
+        yield uris, procs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def worker_env(uris, rank=0, num_workers=1):
+    """The worker's DMLC variables (tools/launch.py's), set in this
+    process for the phase's duration."""
+    keys = dict(DMLC_ROLE="worker", DMLC_WORKER_ID=str(rank),
+                DMLC_NUM_WORKER=str(num_workers),
+                DMLC_NUM_SERVER=str(DIST_SERVERS), MXT_SERVER_URIS=uris,
+                MXNET_KVSTORE_BIGARRAY_BOUND=str(DIST_BIGARRAY_BOUND))
+    old = {k: os.environ.get(k) for k in keys}
+    os.environ.update(keys)
+    return old
+
+
+def restore_env(old):
+    for k, v in old.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+class PushRecorder:
+    """Every (wire key, payload) the store puts on the wire while
+    ``on``, from its own ``_wire_push_payload``."""
+
+    def __init__(self, kv):
+        self.kv, self.on, self.rows = kv, False, []
+        self._orig = kv._wire_push_payload
+
+        def record(wire_key, arr):
+            payload = self._orig(wire_key, arr)
+            if self.on:
+                self.rows.append((wire_key, payload))
+            return payload
+        kv._wire_push_payload = record
+
+    def fired(self):
+        """(values that fired, values) over the recorded 2-bit
+        payloads."""
+        fired = total = 0
+        for _wk, p in self.rows:
+            codes = np.asarray(p.data, np.uint8)
+            fired += int(sum(((codes >> (2 * i)) & 3 != 0).sum()
+                             for i in range(4)))
+            total += int(np.prod(p.shape))
+        return fired, total
+
+
+def lm_step_loss(torch, mod, label):
+    """The step's mean cross-entropy from the module's outputs (the
+    SoftmaxOutput's probabilities) at its labels."""
+    out = mod.get_outputs()[0]._data
+    lab = label._data.reshape(-1).to(out.device).long()
+    p = out.float().gather(1, lab[:, None]).clamp_min(1e-30)
+    return float(-p.log().mean())
+
+
+def dist_async_reference(mt, rows, w0, opt_blob, kv):
+    """Replay the servers' arithmetic of one step on the CPU: the port's
+    Adam, unpickled from the blob the servers got, on ``decompress`` of
+    each recorded payload, from the initial weights ``w0``, stripe by
+    stripe on the same wire keys.  Returns {param: numpy weights}."""
+    import pickle
+    from mxnet_tpu_torch import compression, membership
+    from mxnet_tpu_torch.kvstore import _key_int
+    upd = mt.optimizer.get_updater(pickle.loads(opt_blob))
+    out = {k: v.copy() for k, v in w0.items()}
+    for wk, payload in rows:
+        base = membership.base_key(wk)
+        plan = kv._stripe_plan(base, w0[base].shape)
+        if plan is None:
+            lo, hi = 0, w0[base].shape[0]
+        else:
+            i = int(wk.rsplit("@s", 1)[1])
+            lo, hi = plan[i], plan[i + 1]
+        w = mt.nd.array(w0[base][lo:hi], ctx=mt.cpu())
+        upd(_key_int(wk), mt.nd.array(compression.decompress(payload),
+                                      ctx=mt.cpu()), w)
+        out[base][lo:hi] = w.asnumpy()
+    return out
+
+
+def phase_dist_async_lm_fit(torch, mt, sym):
+    """The GPT-2-small-width LM trained over dist_async with 2-bit pushes:
+    two parameter-server processes as tools/launch.py starts them (their
+    store and Adam on the host), the worker this process on cuda:0 (bf16
+    over fp32 masters), ``Module.fit`` for DIST_ASYNC_FIT_STEPS steps and
+    ``run_steps`` for DIST_ASYNC_RUN_STEPS (the chunked driver), a
+    profiled compressed step split into its parts, then one uncompressed
+    step.  Checks: 12 launches a step of each of K1 (with lse), K2, K3;
+    one Q1 launch a compressed wire key a step; a compressed step's push
+    bytes at most DIST_ASYNC_PUSH_SHARE of the fp32 bytes and every
+    pull the full fp32 bytes; after the first step the pulled weights
+    equal, bit for bit, the port's CPU Adam replaying the servers'
+    arithmetic on the pushed payloads; the loss falls by
+    DIST_ASYNC_MARGIN; the servers answer from the host and exit on
+    ``close(stop_servers=True)``."""
+    import pickle
+    from mxnet_tpu_torch import kvstore as kvs
+    S, V, L = (GPT2_SMALL[k] for k in ("seq_len", "vocab_size",
+                                       "num_layers"))
+    B = TRAIN_BATCH
+    nsteps = DIST_ASYNC_FIT_STEPS + DIST_ASYNC_RUN_STEPS + 1
+    rng = np.random.default_rng(SEED + 130)
+    batches = [lm_batch(rng, B, S, V) for _ in range(nsteps + 1)]
+    fails = []
+    with tempfile.TemporaryDirectory() as workdir, \
+            server_processes(workdir, 1) as (uris, procs):
+        old_env = worker_env(uris)
+        try:
+            t0 = time.monotonic()
+            xs = np.concatenate([b[0] for b in batches[:3]])
+            ys = np.concatenate([b[1] for b in batches[:3]])
+            it = mt.io.NDArrayIter({"data": xs}, {"softmax_label": ys},
+                                   batch_size=B)
+            mod = mt.mod.Module(sym, context=mt.gpu(0),
+                                compute_dtype="bfloat16")
+            mod.bind(data_shapes=it.provide_data,
+                     label_shapes=it.provide_label)
+            mt.random.seed(SEED)
+            mod.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                                  magnitude=2.0))
+            w0 = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+            # the store dials the servers (started above) once they listen
+            kv = mt.kv.create("dist_async")
+            kv.set_gradient_compression({"type": "2bit",
+                                         "threshold": DIST_ASYNC_THRESHOLD})
+            rec = PushRecorder(kv)
+            mod.init_optimizer(kvstore=kv, optimizer="adam",
+                               optimizer_params={"learning_rate": TRAIN_LR})
+            opt_blob = pickle.dumps(mod._optimizer)
+            names = mod._update_names()
+            raw_bytes = 4 * sum(int(np.prod(w0[n].shape)) for n in names)
+            wire_keys = sum(1 if kv._stripe_plan(n, w0[n].shape) is None
+                            else len(kv._stripe_plan(n, w0[n].shape)) - 1
+                            for n in names)
+            torch.cuda.synchronize()
+            setup_s = time.monotonic() - t0
+
+            steps = []
+            clock = {"t": time.perf_counter()}
+
+            def wire_mark():
+                b = mt.profiler.channel_bytes()
+                return b.get("sent", 0), b.get("recv", 0)
+
+            def end_step(label, kind, fired=None, t=None):
+                if t is None:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                sent, recv = wire_mark()
+                steps.append(dict(kind=kind,
+                                  ms=(t - clock["t"]) * 1e3,
+                                  loss=lm_step_loss(torch, mod, label),
+                                  push_bytes=sent - clock["sent"],
+                                  pull_bytes=recv - clock["recv"],
+                                  fired_share=fired))
+                clock["t"] = time.perf_counter()
+                clock["sent"], clock["recv"] = wire_mark()
+
+            first = {}
+
+            def batch_end(param):
+                fired = rec.fired()
+                # the step ends here: the replay below is the check's
+                # own work
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                if param.nbatch == 0:
+                    rec.on = False
+                    want = dist_async_reference(mt, rec.rows, w0, opt_blob,
+                                                kv)
+                    got = {k: v.asnumpy() for k, v in
+                           mod.get_params()[0].items()}
+                    diff = [k for k in names if not np.array_equal(
+                        got[k].view(np.int32), want[k].view(np.int32))]
+                    first.update(keys=len(rec.rows), differ=diff,
+                                 max_abs=max(float(np.abs(
+                                     got[k] - want[k]).max())
+                                     for k in names))
+                rec.rows.clear()
+                end_step(param.locals["data_batch"].label[0], "fit",
+                         fired[0] / max(fired[1], 1), t)
+                rec.on = True
+
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(mt)
+            reset_q1()
+            rec.on = True
+            clock["sent"], clock["recv"] = wire_mark()
+            clock["t"] = time.perf_counter()
+            mod.fit(it, num_epoch=1, kvstore=kv, optimizer="adam",
+                    optimizer_params={"learning_rate": TRAIN_LR},
+                    eval_metric=mt.metric.CrossEntropy(),
+                    batch_end_callback=batch_end)
+            # the second epoch through the chunked driver: the push of a
+            # chunk and its pull go out while the next chunk computes
+            run = batches[3:3 + DIST_ASYNC_RUN_STEPS]
+            clock["t"] = time.perf_counter()
+            clock["sent"], clock["recv"] = wire_mark()
+            outs = mod.run_steps({"data": np.stack([b[0] for b in run])},
+                                 {"softmax_label": np.stack(
+                                     [b[1] for b in run])})
+            torch.cuda.synchronize()
+            rs_ms = (time.perf_counter() - clock["t"]) * 1e3
+            probs = outs[0]._data
+            for j, (_x, y) in enumerate(run):
+                lab = torch.from_numpy(y.reshape(-1)).long().to(probs.device)
+                p = probs[j].float().gather(1, lab[:, None]).clamp_min(1e-30)
+                steps.append(dict(kind="run_steps", ms=rs_ms / len(run),
+                                  loss=float(-p.log().mean())))
+            fired = rec.fired()
+            sent, recv = wire_mark()
+            for s in steps[-len(run):]:
+                s.update(fired_share=fired[0] / max(fired[1], 1),
+                         push_bytes=(sent - clock["sent"]) / len(run))
+            # one pull for the chunk, after its last step
+            steps[-1].update(pull_bytes=recv - clock["recv"])
+            del outs, probs
+            rec.on = False
+            rec.rows.clear()
+            # one profiled compressed step, split into its parts
+            x, y = batches[3 + DIST_ASYNC_RUN_STEPS]
+            batch = mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                                    [mt.nd.array(y, ctx=mt.cpu())])
+            ex = mod._exec
+            waits = []
+            orig_await = kvs._await
+
+            def timed_await(p):
+                t = time.perf_counter()
+                try:
+                    return orig_await(p)
+                finally:
+                    waits.append(time.perf_counter() - t)
+            torch.cuda.synchronize()
+            clock["sent"], clock["recv"] = wire_mark()
+            with device_window(torch) as prof:
+                t_a = time.perf_counter()
+                mod.forward(batch, is_train=True)
+                mod.backward()
+                torch.cuda.synchronize()
+                t_b = time.perf_counter()
+                kv.push(names, [[ex.grad_dict[n]] for n in names])
+                t_c = time.perf_counter()
+                kvs._await = timed_await
+                try:
+                    kv.pull(names, out=[[ex.arg_dict[n]] for n in names])
+                finally:
+                    kvs._await = orig_await
+                torch.cuda.synchronize()
+                t_d = time.perf_counter()
+            sent, recv = wire_mark()
+            kern = device_kernels(prof)
+
+            def dev(*stems):
+                return sum(ms for ms, _, k in kern
+                           if any(s in k for s in stems))
+            busy = sum(ms for ms, _, _ in kern)
+            step_ms = (t_d - t_a) * 1e3
+            split = dict(
+                step_ms=step_ms, compute_ms=(t_b - t_a) * 1e3,
+                push_ms=(t_c - t_b) * 1e3,
+                q1_device_ms=dev("quantize_2bit_kernel"),
+                packed_d2h_device_ms=dev("DtoH", "Device -> Pinned"),
+                pull_ms=(t_d - t_c) * 1e3, pull_wait_ms=sum(waits) * 1e3,
+                h2d_device_ms=dev("HtoD", "Pageable -> Device"),
+                device_busy_ms=busy,
+                device_idle_share=max(0.0, 1 - busy / step_ms),
+                push_bytes=sent - clock["sent"],
+                pull_bytes=recv - clock["recv"],
+                top_kernels=[dict(ms=ms, count=c, name=k)
+                             for ms, c, k in kern[:8]])
+            split["push_submit_ms"] = max(0.0, split["push_ms"] - split[
+                "q1_device_ms"] - split["packed_d2h_device_ms"])
+            split["h2d_ms"] = split["pull_ms"] - split["pull_wait_ms"]
+            steps.append(dict(kind="profiled", ms=step_ms,
+                              loss=lm_step_loss(torch, mod, batch.label[0]),
+                              push_bytes=split["push_bytes"],
+                              pull_bytes=split["pull_bytes"]))
+            counts, q1 = read_counts(mt), q1_count()
+            # one uncompressed step: the stripes' fp32 bytes to pinned
+            # host memory, no Q1
+            kv.set_gradient_compression({"type": "none"})
+            x, y = batches[-1]
+            batch = mt.io.DataBatch([mt.nd.array(x, ctx=mt.cpu())],
+                                    [mt.nd.array(y, ctx=mt.cpu())])
+            clock["t"] = time.perf_counter()
+            clock["sent"], clock["recv"] = wire_mark()
+            train_step(mod, batch)
+            end_step(batch.label[0], "uncompressed")
+            q1_after = q1_count()
+            peak = torch.cuda.max_memory_allocated()
+            served = [kv.server_stats(i)["server"]
+                      for i in range(DIST_SERVERS)]
+            devices = [(d["device"], d["cuda_initialized"]) for d in served]
+            kv.close(stop_servers=True)
+            exits = []
+            for p in procs:
+                try:
+                    exits.append(p.wait(timeout=60))
+                except subprocess.TimeoutExpired:
+                    exits.append(None)
+            total_s = time.monotonic() - t0
+        finally:
+            restore_env(old_env)
+    compressed = [s for s in steps if s["kind"] != "uncompressed"]
+    n_comp = len(compressed)
+    want = {"flash_fwd": L * n_comp, "flash_fwd_lse": L * n_comp,
+            "flash_bwd_dq": L * n_comp, "flash_bwd_dkv": L * n_comp,
+            "nms_suppress": 0}
+    if counts != want:
+        fails.append(f"launches {counts}, want {want}")
+    if q1 != wire_keys * n_comp or q1_after != q1:
+        fails.append(f"{q1} Q1 launches ({q1_after} after the uncompressed "
+                     f"step), want {wire_keys} a compressed step x {n_comp}")
+    if first.get("differ"):
+        fails.append(f"after the first step {first['differ']} differ from "
+                     f"the CPU Adam replay (largest {first['max_abs']})")
+    for s in steps:
+        if s["kind"] != "uncompressed" and \
+                s["push_bytes"] > DIST_ASYNC_PUSH_SHARE * raw_bytes:
+            fails.append(f"a compressed step pushed {s['push_bytes']} "
+                         f"bytes of {raw_bytes}")
+        if s.get("pull_bytes", raw_bytes) < raw_bytes:
+            fails.append(f"a pull brought {s['pull_bytes']} < {raw_bytes}")
+    if steps[-1]["push_bytes"] < raw_bytes:
+        fails.append(f"the uncompressed step pushed {steps[-1]['push_bytes']}"
+                     f" < {raw_bytes}")
+    losses = [s["loss"] for s in compressed]
+    if not all(np.isfinite(losses)) or \
+            not losses[-1] < losses[0] - DIST_ASYNC_MARGIN:
+        fails.append(f"losses {losses} do not fall by {DIST_ASYNC_MARGIN}")
+    if devices != [("cpu", False)] * DIST_SERVERS:
+        fails.append(f"servers' (device, CUDA context) {devices}")
+    if exits != [0] * DIST_SERVERS:
+        fails.append(f"servers exited {exits}")
+    emit("dist_async_lm_fit", model="gpt2-small-width", layers=L, batch=B,
+         seq=S, servers=DIST_SERVERS,
+         servers_device_and_cuda_context=devices,
+         server_exit_codes=exits, compute_dtype="bfloat16",
+         optimizer=f"adam lr {TRAIN_LR} on the servers",
+         compression=f"2bit threshold {DIST_ASYNC_THRESHOLD}",
+         wire_keys=wire_keys, raw_push_bytes=raw_bytes, setup_s=setup_s,
+         seconds=total_s, steps=steps, margin=DIST_ASYNC_MARGIN,
+         first_step_vs_cpu_adam=first, split=split, launches=counts,
+         q1_launches=q1, peak_mem_bytes=peak, failures=fails)
+    if fails:
+        raise RuntimeError("dist_async_lm_fit: " + "; ".join(fails))
+    return counts, q1
+
+
+def dist_sync_lm(mt):
+    cfg = dict(GPT2_SMALL, num_layers=DIST_SYNC_LAYERS)
+    sym = mt.models.transformer_lm(**cfg)
+    return sym, gpt2_params(sym, SEED + 140)
+
+
+def dist_sync_batches():
+    """DIST_SYNC_STEPS global batches of 2 x DIST_SYNC_BATCH rows."""
+    rng = np.random.default_rng(SEED + 141)
+    S, V = GPT2_SMALL["seq_len"], GPT2_SMALL["vocab_size"]
+    return [lm_batch(rng, 2 * DIST_SYNC_BATCH, S, V)
+            for _ in range(DIST_SYNC_STEPS)]
+
+
+def flat_params(mod):
+    """The module's weights, by sorted name, as one float32 vector."""
+    return np.concatenate([v.asnumpy().ravel() for _, v in
+                           sorted(mod.get_params()[0].items())])
+
+
+def first_moments(mod):
+    """Adam's first moment of every weight, by sorted name, as one
+    float32 vector: after the first step it is (1 - beta1) times the
+    rescaled gradient the update took, the all-reduced one on a
+    dist_sync store."""
+    upd = mod._updater
+    return np.concatenate([
+        upd.optimizer._state_tuple(upd.states[k])[0].asnumpy().ravel()
+        for k in sorted(upd.states, key=str)])
+
+
+def rel_distance(a, b, ref):
+    """||a - b|| / ||ref||, in float64."""
+    d = a.astype(np.float64) - b
+    return float(np.sqrt(d @ d) / np.linalg.norm(ref.astype(np.float64)))
+
+
+def dist_sync_fit(torch, mt, sym, params, x, y, batch, kvstore,
+                  on_step=None):
+    """Module.fit of the LM in fp32 on cuda:0 over ``x``, ``y`` in batches
+    of ``batch``, calling ``on_step(step, module, weights)`` after each
+    step (``weights`` from flat_params); (module, sha256 of the weights
+    after each step)."""
+    import hashlib
+    it = mt.io.NDArrayIter({"data": x}, {"softmax_label": y},
+                           batch_size=batch)
+    mod = mt.mod.Module(sym, context=mt.gpu(0))
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(arg_params=params)
+    hashes = []
+
+    def batch_end(_param):
+        flat = flat_params(mod)
+        hashes.append(hashlib.sha256(flat.tobytes()).hexdigest())
+        if on_step is not None:
+            on_step(len(hashes), mod, flat)
+    mod.fit(it, num_epoch=1, kvstore=kvstore, optimizer="adam",
+            optimizer_params={"learning_rate": DIST_SYNC_LR},
+            batch_end_callback=batch_end)
+    torch.cuda.synchronize()
+    return mod, hashes
+
+
+def dist_sync_worker(outdir):
+    """One rank of phase_dist_sync_fit (``chip_smoke.py --dist-sync-worker
+    OUTDIR``, started with tools/launch.py's worker environment).  Its
+    JSON has the wall clock (time.time) at each stage of its start-up."""
+    marks = {"entered": time.time()}
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import mxnet_tpu_torch as mt
+    marks["imported"] = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.zeros(1, device="cuda")
+    marks["cuda_context"] = time.time()
+    mt.distributed.initialize()
+    rank, world = mt.distributed.rank(), mt.distributed.size()
+    marks["gloo_group"] = time.time()
+    sym, params = dist_sync_lm(mt)
+    glob = dist_sync_batches()
+    lo, hi = rank * DIST_SYNC_BATCH, (rank + 1) * DIST_SYNC_BATCH
+    x = np.concatenate([b[0][lo:hi] for b in glob])
+    y = np.concatenate([b[1][lo:hi] for b in glob])
+    marks["weights_and_batches"] = time.time()
+
+    def on_step(step, mod, flat):
+        """Rank 0 keeps its weights after each step and, after the first,
+        Adam's first moment (from the all-reduced gradient) and the one
+        its own half batch alone gives, for the phase's checks."""
+        if rank != 0:
+            return
+        np.save(os.path.join(outdir, f"w{step}.npy"), flat)
+        if step == 1:
+            np.save(os.path.join(outdir, "m1.npy"), first_moments(mod))
+            opt = mod._updater.optimizer
+            g = mod._exec.grad_dict
+            np.save(os.path.join(outdir, "m1_half.npy"), np.concatenate([
+                g[k].asnumpy().ravel() for k in sorted(g)
+                if k in mod._param_names]) * np.float32(
+                    (1 - opt.beta1) * opt.rescale_grad))
+    reset_counts(mt)
+    mt.profiler.reset_channel_bytes()
+    t0 = time.monotonic()
+    mod, hashes = dist_sync_fit(torch, mt, sym, params, x, y,
+                                DIST_SYNC_BATCH, "dist_sync", on_step)
+    secs = time.monotonic() - t0
+    marks["fit_done"] = time.time()
+    out = dict(rank=rank, world=world, hashes=hashes, marks=marks,
+               launches=read_counts(mt), seconds=secs,
+               allgather_bytes=mt.profiler.channel_bytes().get(
+                   "allgather", 0),
+               kv_type=mod._kvstore.type, num_workers=mod._kvstore.num_workers,
+               rescale_grad=mod._updater.optimizer.rescale_grad,
+               peak_mem_bytes=torch.cuda.max_memory_allocated())
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    mt.distributed.shutdown()
+    return 0
+
+
+def phase_dist_sync_fit(torch, mt):
+    """Two worker processes on cuda:0 (the environment tools/launch.py -n 2
+    gives them: DMLC_PS_ROOT_URI / PORT, DMLC_NUM_WORKER, DMLC_WORKER_ID),
+    a gloo group between them, each training the LM at full width cut to
+    DIST_SYNC_LAYERS layers by ``Module.fit(kvstore='dist_sync')`` on its
+    half of each global batch.  Checks: the ranks' weights bit-identical
+    after every step; K1 (with lse), K2, K3 launched once a layer a step
+    on each rank; the allgather bytes counted; against one process
+    trained here on the concatenated batches, rank 0's first gradient (as
+    Adam's first moment) within DIST_SYNC_GRAD_RTOL of its norm, where
+    its half batch alone and a doubled rescale both fail, and its
+    weights after the last step within DIST_SYNC_UPDATE_RTOL of the
+    update's norm."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    fails = []
+    with tempfile.TemporaryDirectory() as workdir:
+        port = free_ports(1)[0]
+        procs = []
+        t0 = time.monotonic()
+        spawned = time.time()
+        try:
+            for r in range(2):
+                env = dict(os.environ, DMLC_ROLE="worker",
+                           DMLC_PS_ROOT_URI="127.0.0.1",
+                           DMLC_PS_ROOT_PORT=str(port), DMLC_NUM_WORKER="2",
+                           DMLC_NUM_SERVER="0", DMLC_WORKER_ID=str(r),
+                           PYTHONPATH=root)
+                log = open(os.path.join(workdir, f"worker{r}.log"), "w")
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--dist-sync-worker", workdir], env=env, cwd=root,
+                    stdout=log, stderr=subprocess.STDOUT))
+                log.close()
+            # one process on the concatenated batches, here, while the
+            # workers start: its weights after each step and its first
+            # gradient, for rank 0's to be held against
+            sym, params = dist_sync_lm(mt)
+            w0 = np.concatenate([params[k].ravel() for k in sorted(params)])
+            glob = dist_sync_batches()
+            x = np.concatenate([b[0] for b in glob])
+            y = np.concatenate([b[1] for b in glob])
+            single, grad = [], {}
+
+            def on_step(step, mod, flat):
+                single.append(flat)
+                if step == 1:
+                    grad.update(m1=first_moments(mod), rescale_grad=mod.
+                                _updater.optimizer.rescale_grad)
+            t1 = time.monotonic()
+            mod, _ = dist_sync_fit(torch, mt, sym, params, x, y,
+                                   2 * DIST_SYNC_BATCH, None, on_step)
+            single_s = time.monotonic() - t1
+            del mod
+            torch.cuda.empty_cache()
+            codes = []
+            for p in procs:
+                try:
+                    codes.append(p.wait(timeout=max(
+                        1, 400 - (time.monotonic() - t0))))
+                except subprocess.TimeoutExpired:
+                    codes.append(None)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        workers_s = time.monotonic() - t0
+        if codes != [0, 0]:
+            tails = []
+            for r in range(2):
+                with open(os.path.join(workdir, f"worker{r}.log")) as f:
+                    tails.append(f.read()[-1500:])
+            raise RuntimeError(f"dist_sync_fit: workers exited {codes}: "
+                               f"{tails}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        upd_rel = []
+        for step, flat in enumerate(single, 1):
+            got = np.load(os.path.join(workdir, f"w{step}.npy"))
+            upd_rel.append(rel_distance(got, flat, flat - w0))
+        grad["max_abs"] = float(np.abs(got - flat).max())
+        m1 = grad.pop("m1")
+        dist = np.load(os.path.join(workdir, "m1.npy"))
+        half = np.load(os.path.join(workdir, "m1_half.npy"))
+        grad.update(rel=rel_distance(dist, m1, m1),
+                    half_batch_rel=rel_distance(half, m1, m1),
+                    doubled_rescale_rel=rel_distance(2 * dist, m1, m1))
+        del single, m1, dist, half
+    startup = {k: [r["marks"][k] - spawned for r in ranks]
+               for k in ranks[0]["marks"]}
+    L = DIST_SYNC_LAYERS * DIST_SYNC_STEPS
+    wantc = {"flash_fwd": L, "flash_fwd_lse": L, "flash_bwd_dq": L,
+             "flash_bwd_dkv": L, "nms_suppress": 0}
+    for r in ranks:
+        if r["launches"] != wantc:
+            fails.append(f"rank {r['rank']} launches {r['launches']}, "
+                         f"want {wantc}")
+        if r["kv_type"] != "dist_sync" or r["num_workers"] != 2:
+            fails.append(f"rank {r['rank']}: {r['kv_type']} of "
+                         f"{r['num_workers']}")
+        if not r["allgather_bytes"]:
+            fails.append(f"rank {r['rank']}: no allgather bytes counted")
+        if r["rescale_grad"] != grad["rescale_grad"]:
+            fails.append(f"rank {r['rank']} rescales by {r['rescale_grad']}"
+                         f", one process by {grad['rescale_grad']}")
+    if ranks[0]["hashes"] != ranks[1]["hashes"] or \
+            len(ranks[0]["hashes"]) != DIST_SYNC_STEPS:
+        fails.append("the ranks' weights differ after a step")
+    if not grad["rel"] <= DIST_SYNC_GRAD_RTOL:
+        fails.append(f"first gradient {grad['rel']} of its norm from the "
+                     f"single process (> {DIST_SYNC_GRAD_RTOL})")
+    for wrong in ("half_batch_rel", "doubled_rescale_rel"):
+        if not grad[wrong] > DIST_SYNC_GRAD_RTOL:
+            fails.append(f"the gradient gate passes a wrong reduction "
+                         f"({wrong} {grad[wrong]})")
+    if len(upd_rel) != DIST_SYNC_STEPS or \
+            not upd_rel[-1] <= DIST_SYNC_UPDATE_RTOL:
+        fails.append(f"update {upd_rel} of its norm from the single "
+                     f"process (> {DIST_SYNC_UPDATE_RTOL})")
+    emit("dist_sync_fit", layers=DIST_SYNC_LAYERS, batch_per_rank=
+         DIST_SYNC_BATCH, ranks=2, steps=DIST_SYNC_STEPS, dtype="float32",
+         optimizer=f"adam lr {DIST_SYNC_LR}",
+         cut="full width, 2 of 12 layers (92.2M parameters)",
+         workers_s=workers_s, single_process_s=single_s,
+         worker_marks_s=startup,
+         rank_seconds=[r["seconds"] for r in ranks],
+         hashes_equal=ranks[0]["hashes"] == ranks[1]["hashes"],
+         allgather_bytes=[r["allgather_bytes"] for r in ranks],
+         launches=[r["launches"] for r in ranks],
+         peak_mem_bytes=[r["peak_mem_bytes"] for r in ranks],
+         first_gradient_vs_single=grad, grad_rtol=DIST_SYNC_GRAD_RTOL,
+         update_rel_diff_vs_single_by_step=upd_rel,
+         update_rtol=DIST_SYNC_UPDATE_RTOL, failures=fails)
+    if fails:
+        raise RuntimeError("dist_sync_fit: " + "; ".join(fails))
+    return ranks[0]["launches"]
+
+
 def main():
     try:
         import torch
@@ -8283,6 +9189,7 @@ def main():
     bwd = phase_bwd_kernels(torch, mt)
     nms_rows = phase_nms_kernel(torch, mt)
     r1_rows = phase_r1_kernel(torch, mt)
+    q1_rows = phase_q1_kernel(torch, mt)
 
     sym = mt.models.transformer_lm(**GPT2_SMALL)
     params_np = gpt2_params(sym, SEED)
@@ -8353,8 +9260,15 @@ def main():
     # trained through gluon.Trainer (the slice's main path), each
     # network's fp32 step against the CPU, the four Module examples'
     # loss heads, and the dense ops; none of them launches K1-K4 or N1
+    # with cuDNN's heuristics: autotuning every convolution of the six
+    # networks (cudnn.benchmark) took 72 s of their first steps, and the
+    # script keeps under half of its time limit; so these phases' step
+    # times (their line says cudnn_benchmark) are not comparable with
+    # autotuned ones
+    torch.backends.cudnn.benchmark = False
     phase_gluon_zoo_train(torch, mt, PEAK_FLOPS["bfloat16"])
     phase_gluon_zoo_fp32(torch, mt)
+    torch.backends.cudnn.benchmark = True
     phase_module_heads(torch, mt)
     phase_dense_ops(torch, mt)
 
@@ -8413,6 +9327,15 @@ def main():
         del ckpt_mod
     torch.cuda.empty_cache()
 
+    # E1: the distributed plane.  The LM over dist_async (two parameter
+    # servers on the host, 2-bit pushes quantized by Q1 on the card;
+    # K1-K3 twelve launches a step), then dist_sync over gloo in two
+    # worker processes on the card (K1-K3 in fp32, once a layer a step)
+    dist_async_counts, dist_q1 = phase_dist_async_lm_fit(torch, mt, sym)
+    torch.cuda.empty_cache()
+    dist_sync_counts = phase_dist_sync_fit(torch, mt)
+    torch.cuda.empty_cache()
+
     def by_path(key):
         return {"serve": serve_counts[key], "train": train_counts[key],
                 "vit_train": vit_counts[key],
@@ -8424,7 +9347,8 @@ def main():
                 "ssd_detect": ssd_detect_counts[key],
                 "moe_lm_train": moe_counts[key],
                 "ssd_rec_fit": ssd_rec_counts[key],
-                "ckpt_lm_fit": ckpt_counts[key]}
+                "ckpt_lm_fit": ckpt_counts[key],
+                "dist_async_lm_fit": dist_async_counts[key]}
 
     def ms_of(row, key):  # the median with its min and max
         return dict(ms=row[key], ms_min=row[f"{key}_min"],
@@ -8619,6 +9543,36 @@ def main():
                "kv_module_fit": kv_r1},
         max_abs_err=max(r["max_abs_err"] for r in r1_rows.values()),
         **r1_times(r1), at_fp32=r1_times(r1f)))
+    # Q1: no TPU kernel's port (the JAX package quantizes on the host with
+    # numpy after reading the reduced gradient back); launched once a
+    # compressed wire key a step on the dist_async path, timed at the
+    # LM's largest key
+    q1r, q1f = q1_rows["largest_key_residual_in_place"], \
+        q1_rows["largest_key_first_push"]
+
+    def q1_times(row):
+        """ms by CUDA events, as every row has it; device_ms: the kernel
+        alone (torch.profiler)"""
+        return dict(shape=row["shape"], threshold=row["threshold"],
+                    residual=row["residual"], **ms_of(row, "kernel_ms"),
+                    device_ms=row["device_ms"], plain_ms=row["plain_ms"],
+                    bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+                    library_ms=None)
+    rows.append(dict(
+        name="quantize_2bit", source=Q1_SOURCE, design=Q1_DESIGN,
+        replaces="none: host numpy mxnet_tpu/compression.py:191 "
+        "quantize_2bit, after the worker reads the reduced gradient back "
+        "(mxnet_tpu/kvstore.py:2871)",
+        paths={"dist_async_lm_fit": dist_q1},
+        max_abs_err=max(r["max_abs_err"] for r in q1_rows.values()),
+        **q1_times(q1r), library=Q1_LIBRARY, first_push=q1_times(q1f)))
+    # the fp32 attention kernels of the dist_sync ranks (each rank's own
+    # process; the counts are rank 0's)
+    for r in rows:
+        if r["name"] in ("flash_fwd_fp32", "flash_bwd_dq_fp32",
+                         "flash_bwd_dkv_fp32"):
+            r["paths"]["dist_sync_fit_rank0"] = dist_sync_counts[
+                r["name"][:-5]]
     kernels = []
     for r in rows:
         paths = r.pop("paths") if "paths" in r else by_path(r.pop("key"))
@@ -8659,5 +9613,38 @@ def main():
     return 0
 
 
+E1_PHASES = ("q1_kernel", "dist_async_lm_fit", "dist_sync_fit")
+
+
+def run_e1_phases(names):
+    """``python3 chip_smoke.py --e1 [PHASE ...]``: the distributed plane's
+    phases alone (all three by default), after ``device`` and ``build``,
+    with main's backend flags; each prints its line as in the whole
+    run."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import mxnet_tpu_torch as mt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_device(torch)
+    phase_build(mt)
+    for name in names or E1_PHASES:
+        if name == "dist_async_lm_fit":
+            phase_dist_async_lm_fit(
+                torch, mt, mt.models.transformer_lm(**GPT2_SMALL))
+        else:
+            globals()["phase_" + name](torch, mt)
+        torch.cuda.empty_cache()
+    emit("total", seconds=time.monotonic() - T0)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-sync-worker":
+        sys.exit(dist_sync_worker(sys.argv[2]))
+    if len(sys.argv) > 1 and sys.argv[1] == "--e1":
+        sys.exit(run_e1_phases(sys.argv[2:]))
     sys.exit(main())

@@ -8,7 +8,9 @@ for NVIDIA Hopper (``csrc/``), built at first use.
 
 Entry points run on ``gpu(0)`` (``cuda:0``) unless the caller passes a
 CPU context; without CUDA they raise.  Importing the package builds no
-kernel and creates no CUDA context.  It imports neither ``jax`` nor
+kernel and creates no CUDA context, thread or socket, except in a
+process launched as a parameter server (``DMLC_ROLE=server``), which
+serves from the import on (:mod:`.kvstore_server`).  It imports neither ``jax`` nor
 anything of ``mxnet_tpu``.
 """
 from .base import MXNetError, __version__
@@ -24,6 +26,7 @@ from . import operator
 from . import operator as op
 from . import kvstore
 from . import kvstore as kv
+from . import kvstore_server, distributed, compression, membership
 from . import symbol as sym
 from . import ndarray as nd
 from . import module as mod
@@ -71,4 +74,10 @@ __all__ = ["MXNetError", "Context", "cpu", "cpu_pinned", "gpu",
            "image", "img", "ImageDetRecordIter", "kvstore", "kv",
            "tracing", "health", "checkpoint", "compat_serialization",
            "monitor", "Monitor", "visualization", "viz", "test_utils",
-           "contrib", "notebook", "__version__"]
+           "contrib", "notebook", "kvstore_server", "distributed",
+           "compression", "membership", "__version__"]
+
+# A process launched with DMLC_ROLE=server (tools/launch.py -s S) becomes
+# a parameter server here and never returns to the importer (reference:
+# python/mxnet/kvstore_server.py:75); last, so the package is complete.
+kvstore_server._init_kvstore_server_module()

@@ -156,6 +156,141 @@ declare_env("MXNET_HEALTH_STALE_S", float, 30.0,
 declare_env("MXNET_CKPT_RENDEZVOUS_TIMEOUT", float, 600.0,
             "async checkpoint: seconds rank 0 waits for every rank's "
             "shard (and ranks wait for the index) before failing")
+# -- the distributed kvstore (kvstore.py, kvstore_server.py, wirecodec.py,
+# faultinject.py): the JAX package's knobs and defaults; the same-host
+# shm lane's and the process-kill plans' come with ROADMAP E2 ----------
+declare_env("MXNET_KVSTORE_BIGARRAY_BOUND", int, 1 << 19,
+            "dist kvstore: arrays above this many elements stripe "
+            "row-wise across all servers (per-stripe keys; parallel "
+            "serialize/apply)")
+declare_env("MXNET_KVSTORE_WINDOW", int, 8,
+            "dist_async channel: max envelopes in flight per server "
+            "connection (sliding-window pipeline; 1 = the old "
+            "stop-and-wait loop bit for bit)")
+declare_env("MXNET_KVSTORE_COMPRESSION", str, "",
+            "gradient compression for dist pushes: ''/none, 2bit or "
+            "fp16 (job-wide form of set_gradient_compression)")
+declare_env("MXNET_KVSTORE_COMPRESSION_THRESHOLD", float, 0.5,
+            "2bit quantization threshold t: gradient values quantize "
+            "to {-t, 0, +t} with worker-side error feedback")
+declare_env("MXNET_KVSTORE_COALESCE_BYTES", int, 16384,
+            "LIST pushes coalesce same-server keys at or below this "
+            "many payload bytes into one multi-key envelope")
+declare_env("MXNET_KVSTORE_CODEC", str, "auto",
+            "dist kvstore wire codec: 'auto'/'binary' negotiate the "
+            "registry-generated binary frame codec per connection at "
+            "hello time (hot push/pull/predict envelopes serialize "
+            "zero pickled bytes; old peers keep pickle), 'pickle' "
+            "pins the legacy pickle framing — the mixed-version "
+            "escape hatch")
+declare_env("MXNET_KVSTORE_SENDMSG", int, 1,
+            "dist kvstore transport: 1 sends each frame with vectored "
+            "socket.sendmsg scatter-gather (one syscall per frame, "
+            "chunked at IOV_MAX); 0 falls back to per-buffer sendall")
+declare_env("MXNET_KVSTORE_PICKLE_ALLOWLIST", str, "",
+            "extra 'module' or 'module:name' entries (comma-separated) "
+            "the wire unpickler admits — the custom-optimizer escape "
+            "hatch (kvstore_server allowlist)")
+declare_env("MXNET_KVSTORE_RETRY_MAX", int, 8,
+            "dist_async channel: reconnect attempts per failure episode "
+            "before the channel fails hard")
+declare_env("MXNET_KVSTORE_RETRY_INITIAL_MS", int, 50,
+            "dist_async channel: first reconnect backoff delay")
+declare_env("MXNET_KVSTORE_RETRY_MAX_MS", int, 2000,
+            "dist_async channel: backoff delay cap")
+declare_env("MXNET_KVSTORE_RETRY_BACKOFF", float, 2.0,
+            "dist_async channel: backoff multiplier per attempt")
+declare_env("MXNET_KVSTORE_HEARTBEAT_INTERVAL", float, 5.0,
+            "dist_async channel: seconds between liveness pings "
+            "(0 disables the heartbeat)")
+declare_env("MXNET_KVSTORE_HEARTBEAT_TIMEOUT", float, 15.0,
+            "dist_async: silence past this marks a node dead "
+            "(num_dead_nodes; server barrier failure naming the rank)")
+declare_env("MXNET_KVSTORE_DEDUP_WINDOW", int, 8,
+            "server: cached replies per client channel for idempotent "
+            "replay acks after a reconnect (keep >= 2: a zombie "
+            "connection can serve its last request late)")
+declare_env("MXNET_KVSTORE_ELASTIC", bool, False,
+            "dist_async elastic membership (servers and workers joining "
+            "or leaving mid-job): not ported yet (ROADMAP E2); set, the "
+            "store and the server raise")
+declare_env("MXNET_KVSTORE_FUSED", bool, True,
+            "dist_async: let run_steps/step_k drive update-on-kvstore "
+            "training chunk by chunk with the push/pull wire of a chunk "
+            "overlapped behind the next chunk's compute; 0 restores the "
+            "per-step dist loop")
+declare_env("MXNET_KVSTORE_FUSED_CHUNK", int, 8,
+            "chunked dist driver: steps per chunk, one push/pull wire "
+            "round per chunk; larger chunks widen the window of local "
+            "(worker-replica) weight evolution between server sync "
+            "points")
+declare_env("MXNET_KVSTORE_FUSED_STALENESS", int, 1,
+            "chunked dist driver: exactly how many chunk boundaries the "
+            "adopted server weights lag; chunk j starts from the pull "
+            "issued after chunk j-1-S's pushes.  0 is a barrier'd chunk "
+            "boundary (no overlap); 1 hides the wire behind one chunk "
+            "of compute")
+declare_env("MXNET_KVSTORE_HIERARCHY", bool, False,
+            "dist_async hierarchical reduction tier (workers of a host "
+            "reduce in-host, one leader ships): not ported yet (ROADMAP "
+            "E2); set, the store raises")
+declare_env("MXNET_KVSTORE_SPARSE", bool, True,
+            "dist_async: ship row-sparse gradients (RowSparseNDArray "
+            "pushes, e.g. embedding tables under sparse_grad) as "
+            "RowSparsePayload wire values — only the touched rows plus "
+            "8 bytes per row id travel, cutting push bytes by roughly "
+            "the touch density (docs/PERF_NOTES.md round 14); 0 "
+            "densifies at the push boundary (the pre-PR-19 wire "
+            "format, every byte dense)")
+declare_env("MXNET_KVSTORE_SPARSE_DENSITY_CUTOVER", float, 0.5,
+            "dist_async sparse wire: touch-density threshold above "
+            "which a row-sparse push goes DENSE instead — past ~50% "
+            "touched rows the 8-bytes-per-id index overhead plus the "
+            "gather outweighs the skipped rows, and the dense path's "
+            "2-bit quantization packs tighter per element; 1.0 keeps "
+            "every sparse push sparse, 0.0 densifies all")
+declare_env("MXNET_FI_KILL_POINT", str, "before_send",
+            "fault injection: where the one-shot connection kill fires "
+            "(before_send / after_send / on_recv)")
+declare_env("MXNET_FI_KILL_AFTER", int, None,
+            "fault injection: sever the client connection at exactly "
+            "this 1-based data-channel message count (unset = off)")
+declare_env("MXNET_FI_KILL_UNACKED", int, None,
+            "fault injection: sever the connection the moment this "
+            "many pipelined envelopes are unacked (unset = off)")
+declare_env("MXNET_FI_REFUSE_CONNECTS", int, 0,
+            "fault injection: refuse the next N client connect "
+            "attempts")
+declare_env("MXNET_FI_REFUSE_ACCEPTS", int, 0,
+            "fault injection: close the next N accepted server "
+            "connections immediately")
+declare_env("MXNET_FI_DELAY_ACK_MS", float, 0.0,
+            "fault injection: delay every server data-channel reply "
+            "by this many ms (heartbeats exempt)")
+declare_env("MXNET_FI_ONLY_RANK", int, None,
+            "fault injection: restrict the armed plan to this "
+            "DMLC_WORKER_ID (unset = all ranks)")
+declare_env("MXNET_FI_ONLY_SERVER", int, None,
+            "fault injection: restrict the barrier-stall and blackhole "
+            "plans to this DMLC_SERVER_ID (unset = all servers)")
+declare_env("MXNET_FI_STALL_BARRIER_MS", float, 0.0,
+            "fault injection: delay the server's handling of the NEXT "
+            "barrier arrival by this many ms before it registers — a "
+            "deterministic one-shot barrier wedge (every other rank's "
+            "park and the delayed rank's reply stretch by exactly this "
+            "long), the CPU-testable stall the mxnet_tpu.health "
+            "watchdog gates trip on (unset/0 = off)")
+declare_env("MXNET_FI_BLACKHOLE_AFTER", int, None,
+            "fault injection: serve exactly N enveloped data-channel "
+            "replies normally, then SWALLOW every later one — the "
+            "socket stays open, requests are still accepted and "
+            "heartbeats still ack, but no reply ever arrives.  The "
+            "gray-failure shape (a stalled-not-dead server) the "
+            "serving fleet's reply timeouts must route around, where "
+            "liveness alone says everything is fine (unset = off)")
+declare_env("MXT_SERVER_URIS", str, "",
+            "dist_async: comma-separated host:port of every parameter "
+            "server (set by tools/launch.py -s S for every role)")
 
 
 class ContribNamespace:

@@ -15,9 +15,11 @@ an argument whose ``grad_req`` is ``null`` is no leaf of autograd's
 graph, so the backward stops where the trainable graph starts.
 ``reshape`` rebinds to new input shapes and keeps every array whose
 shape stays, the same NDArray objects.
-The JAX package's fused forward+backward jit and the multi-step drivers
-have no counterpart here: autograd keeps the forward's graph until the
-backward.  Ops that draw random numbers (``needs_rng``, e.g. Dropout)
+The JAX package's fused forward+backward jit and its scanned multi-step
+programs have no counterpart here: autograd keeps the forward's graph
+until the backward.  The chunked dist_async driver
+(:func:`drive_chunked_dist`) is the JAX package's, over a plain step
+loop.  Ops that draw random numbers (``needs_rng``, e.g. Dropout)
 get the executor's ``torch.Generator`` as ``generator=``: one per
 executor, on its device, seeded at bind from
 :func:`mxnet_tpu_torch.random.generator`, so the same ``random.seed``
@@ -477,3 +479,60 @@ class Executor:
                                              arr._data.dtype))
                 elif not allow_extra_params:
                     raise MXNetError(f"unknown {kind} {name!r}")
+
+
+def fused_dist_knobs(k):
+    """``(chunk_size, staleness)`` of the chunked dist_async drivers
+    (``MXNET_KVSTORE_FUSED_CHUNK``, ``MXNET_KVSTORE_FUSED_STALENESS``),
+    one reader for Module and Trainer."""
+    from .base import env
+    chunk = max(1, min(k, int(env("MXNET_KVSTORE_FUSED_CHUNK", 8))))
+    staleness = max(0, int(env("MXNET_KVSTORE_FUSED_STALENESS", 1)))
+    return chunk, staleness
+
+
+def drive_chunked_dist(num_steps, chunk_size, staleness, dispatch_chunk,
+                       ship_chunk):
+    """The chunked dist_async driver (JAX package ``executor.py:223``):
+    overlap the kvstore wire behind the compute.  ``num_steps`` splits
+    into ceil(num_steps / chunk_size) chunks; per chunk ``j``:
+
+    1. if chunk ``j-1-staleness`` has a wire round in flight, block on it
+       and hand its pulled weights to ``dispatch_chunk`` for adoption
+       (staleness 0 is a barrier'd chunk boundary; with S >= 1 the round
+       has had S chunks of compute to resolve),
+    2. ``dispatch_chunk(j, lo, hi, adopted) -> grads`` runs steps [lo, hi)
+       and returns their per-step gradients,
+    3. ``ship_chunk(j, grads) -> handle`` pushes them (fire and forget)
+       and enqueues the next pull; ``handle.wait() -> {name: host
+       array}`` resolves it.
+
+    The lag is exact: chunk ``j`` adopts the round issued after chunk
+    ``j-1-staleness``'s pushes.  Returns the final round's pulled values
+    (the servers' weights at the sync point), or None for 0 steps."""
+    import math
+    from . import tracing as _tr
+    from . import health as _health
+    n_chunks = math.ceil(num_steps / chunk_size)
+    pending = {}
+    for j in range(n_chunks):
+        _health.note_progress("fused.chunk")
+        with _tr.span("fused.chunk", cat="fused", args={"chunk": j}):
+            due = j - 1 - staleness
+            if due in pending:
+                with _tr.span("fused.adopt_wait", cat="fused",
+                              args={"due": due}):
+                    adopted = pending.pop(due).wait()
+            else:
+                adopted = None
+            lo = j * chunk_size
+            hi = min(num_steps, lo + chunk_size)
+            with _tr.span("fused.chunk_compute", cat="fused",
+                          args={"lo": lo, "hi": hi}):
+                grads = dispatch_chunk(j, lo, hi, adopted)
+            pending[j] = ship_chunk(j, grads)
+    final = None
+    for j in sorted(pending):
+        with _tr.span("fused.drain_wait", cat="fused", args={"chunk": j}):
+            final = pending[j].wait()
+    return final

@@ -390,11 +390,13 @@ def _watchdog_tick(now: Optional[float] = None):
 
 
 def _dead_nodes() -> int:
-    """Nodes the heartbeat roster counts dead.  The JAX package reads
-    ``distributed.num_dead_nodes`` here (``mxnet_tpu/health.py:394-400``);
-    the port has no roster until the distributed plane (ROADMAP E1), so
-    this is 0 and the dead-node rule never fires."""
-    return 0
+    """Nodes the heartbeat roster counts dead
+    (``distributed.num_dead_nodes``; JAX package ``health.py:394-400``)."""
+    try:
+        from . import distributed as _dist
+        return int(_dist.num_dead_nodes())
+    except Exception:  # noqa: BLE001 — a broken source is not a death
+        return 0
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,9 @@ the kvstore wiring (``_create_kvstore``, ``_initialize_kvstore``,
 ``load_checkpoint``, whose files either package reads, and the legacy
 ``FeedForward`` estimator over ``Module``.  With one device a store type
 by name means no store, and a KVStore object updates inside the store
-(:mod:`mxnet_tpu_torch.kvstore`, single-process); a distributed kvstore
-raises until the port's distributed plane exists (ROADMAP E1).
+(:mod:`mxnet_tpu_torch.kvstore`); a distributed type by name makes its
+store (``dist_sync`` over the gloo group, ``dist_async`` over the
+parameter servers), which updates inside.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ def _create_kvstore(kvstore, num_device, arg_params):
     """(store, update_on_kvstore) (reference: model.py:57): a KVStore
     object updates inside the store; a type name with one device needs
     no store; a 'local' store of a parameter over 16M values updates
-    outside it.  A distributed type raises (ROADMAP E1)."""
+    outside it."""
     update_on_kvstore = True
     if kvstore is None:
         kv = None

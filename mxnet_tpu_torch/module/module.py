@@ -46,6 +46,7 @@ from ..context import current_context
 from ..executor import Executor, _as_tensor
 from ..initializer import InitDesc, Uniform
 from .. import initializer as init_mod
+from ..kvstore import _from_host as kvs_from_host
 from ..model import _create_kvstore, _initialize_kvstore, \
     _update_params, _update_params_on_kvstore, load_checkpoint
 from ..ndarray import NDArray
@@ -331,11 +332,14 @@ class Module(BaseModule):
         kv, self._update_on_kvstore = _create_kvstore(kvstore, 1,
                                                       arg_params)
         self._kvstore = kv
+        batch_size = self._data_shapes[0].shape[0]
+        if kv and "dist" in kv.type:
+            # the gradient the update sees sums every worker's batch
+            batch_size *= kv.num_workers
         if isinstance(optimizer, str):
             optimizer_params = dict(optimizer_params)
             if "rescale_grad" not in optimizer_params:
-                optimizer_params["rescale_grad"] = \
-                    1.0 / self._data_shapes[0].shape[0]
+                optimizer_params["rescale_grad"] = 1.0 / batch_size
             optimizer = opt_mod.create(
                 optimizer, sym=self._symbol,
                 param_idx2name={n: n for n in self._param_names},
@@ -350,6 +354,7 @@ class Module(BaseModule):
                                 self._update_on_kvstore)
         if self._update_on_kvstore:
             kv.set_optimizer(optimizer)
+            # None for dist_async: the optimizer runs on the servers
             self._updater = kv._updater
         else:
             self._updater = opt_mod.get_updater(optimizer)
@@ -357,10 +362,12 @@ class Module(BaseModule):
         # holds them all (multi-precision prepends an fp32 master copy);
         # a store keys its updater by _key_int(name)
         key = kv._key_int if self._update_on_kvstore else str
-        self._updater.states = {
-            key(n): optimizer.create_state_multi_precision(
-                n, self._exec.arg_dict[n])
-            for n in self._update_names()}
+        if self._updater is not None:
+            self._updater.states = {
+                key(n): optimizer.create_state_multi_precision(
+                    n, self._exec.arg_dict[n])
+                for n in self._update_names()}
+        self._dist_replica = None
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
             self.load_optimizer_states(self._preload_opt_states)
@@ -406,6 +413,84 @@ class Module(BaseModule):
     def _update_names(self):
         return [n for n in self._param_names
                 if self._grad_req.get(n, "null") != "null"]
+
+    def run_steps(self, data, label=None, k=None, eval_metric=None):
+        """K training steps over K stacked batches (see
+        :meth:`BaseModule.run_steps`).  Over a ``dist_async`` store that
+        runs the optimizer on its servers, the steps go chunk by chunk
+        (:func:`executor.drive_chunked_dist`, JAX package
+        ``module.py:964-1171``): each step updates a local replica of
+        the weights with the same optimizer, each chunk's per-step
+        gradients are pushed in step order and the next pull is enqueued
+        while the next chunk computes, and a chunk adopts the servers'
+        weights ``MXNET_KVSTORE_FUSED_STALENESS`` chunk boundaries later;
+        the last pull is adopted at the end.  The optimizer states of the
+        replica stay on this worker.  ``MXNET_KVSTORE_FUSED=0`` or K=1
+        keeps the per-step loop."""
+        from ..base import env
+        kv = self._kvstore
+        if not (self._update_on_kvstore and kv is not None
+                and kv.type == "dist_async"
+                and env("MXNET_KVSTORE_FUSED", True)):
+            return super().run_steps(data, label, k, eval_metric)
+        from .base_module import _canon_step_inputs
+        data_arrays, k = _canon_step_inputs(self._data_names, data, "data",
+                                            k)
+        label_arrays, k = _canon_step_inputs(self._label_names, label,
+                                             "label", k)
+        if k <= 1:
+            return super().run_steps(data, label, k, eval_metric)
+        return self._run_steps_dist(data_arrays, label_arrays, k,
+                                    eval_metric)
+
+    def _run_steps_dist(self, data_arrays, label_arrays, k, eval_metric):
+        from .. import io as io_mod
+        from ..executor import drive_chunked_dist, fused_dist_knobs
+        ex, kv = self._exec, self._kvstore
+        names = self._update_names()
+        if self._dist_replica is None:
+            self._dist_replica = opt_mod.get_updater(self._optimizer)
+        replica = self._dist_replica
+        shapes = [tuple(ex.arg_dict[n].shape) for n in names]
+        chunk, staleness = fused_dist_knobs(k)
+        outs_steps = []
+
+        def dispatch_chunk(j, lo, hi, adopted):
+            if adopted is not None:
+                for n in names:
+                    w = ex.arg_dict[n]
+                    w._set_data(kvs_from_host(adopted[n], w._data.device,
+                                              w._data.dtype))
+            _prof.record_dispatch("run_steps.dist_chunk")
+            grads = []
+            for s in range(lo, hi):
+                batch = io_mod.DataBatch(
+                    data=[NDArray(a[s]) for a in data_arrays],
+                    label=[NDArray(a[s]) for a in label_arrays]
+                    if label_arrays else None)
+                self.forward(batch, is_train=True)
+                self.backward()
+                grads.append([ex.grad_dict[n]._data.detach().clone()
+                              for n in names])
+                for n in names:
+                    replica(n, ex.grad_dict[n], ex.arg_dict[n])
+                self._grads_fresh = False
+                if eval_metric is not None:
+                    self.update_metric(eval_metric, batch.label)
+                outs_steps.append([o._data for o in self.get_outputs()])
+            return grads
+
+        def ship_chunk(j, grads):
+            return kv.ship_chunk_steps(names, grads, shapes)
+
+        final = drive_chunked_dist(k, chunk, staleness, dispatch_chunk,
+                                   ship_chunk)
+        for n in names:
+            w = ex.arg_dict[n]
+            w._set_data(kvs_from_host(final[n], w._data.device,
+                                      w._data.dtype))
+        return [NDArray(torch.stack([st[i] for st in outs_steps]))
+                for i in range(len(outs_steps[0]))]
 
     # -- compute ---------------------------------------------------------------
     def forward(self, data_batch, is_train=None):

@@ -77,6 +77,16 @@ class Optimizer:
         self.set_lr_mult({})
         self.set_wd_mult({})
 
+    def __getstate__(self):
+        """A pickled optimizer (``set_optimizer`` ships it to the
+        dist_async servers) drops ``param_dict``: its Gluon Parameters
+        reach the trainer and the store's sockets, and per-parameter
+        multipliers are the worker's concern (JAX package
+        ``optimizer.py:62``, the reference's ``__getstate__``)."""
+        state = self.__dict__.copy()
+        state["param_dict"] = {}
+        return state
+
     # -- registry --------------------------------------------------------------
     @staticmethod
     def register(klass):
@@ -231,9 +241,24 @@ class Optimizer:
         self.num_update = max(self._index_update_count[index],
                               self.num_update)
 
+    @staticmethod
+    def _mult_index(index):
+        """The multiplier key of ``index``: a dist_async big-array stripe
+        arrives as ``<key>@s<i>``; its state keeps the full key, its
+        lr / wd multipliers belong to the parameter (JAX package
+        ``optimizer.py:258``)."""
+        if isinstance(index, str) and "@s" in index:
+            base = index.rsplit("@s", 1)[0]
+            try:
+                return int(base)
+            except ValueError:
+                return base
+        return index
+
     def _get_lr(self, index):
         lr = (self.lr_scheduler(self.num_update)
               if self.lr_scheduler is not None else self.lr)
+        index = self._mult_index(index)
         if index in self.param_dict:
             lr *= self.param_dict[index].lr_mult
         elif index in self.lr_mult:
@@ -244,6 +269,7 @@ class Optimizer:
 
     def _get_wd(self, index):
         wd = self.wd
+        index = self._mult_index(index)
         if index in self.param_dict:
             wd *= self.param_dict[index].wd_mult
         elif index in self.wd_mult:

@@ -16,10 +16,11 @@ set_config / set_state / dump_profile).  Three layers:
   trace is written into that directory (``device_trace_files()``).
 * **counters**: dispatch, host-sync, channel, byte, serialization,
   wire, mesh fan-in and latency families, all in one ``snapshot()``
-  (``python -m mxnet_tpu_torch.profiler --dump``).  The wire, mesh
-  (``ici_*``, ``shm_*``) and fan-in families stay zero until the
-  distributed plane (ROADMAP E1) and multi-GPU (D1) feed them; their
-  keys are there already, so consumers do not drift.
+  (``python -m mxnet_tpu_torch.profiler --dump``).  The distributed
+  kvstore feeds the wire, channel, allgather and serialization
+  families; the mesh (``ici_*``, ``shm_*``) and fan-in families stay
+  zero until the hierarchical tier (ROADMAP E2) and multi-GPU (D1)
+  feed them; their keys are there already, so consumers do not drift.
 
 ``MXNET_PROFILER_AUTOSTART=1`` begins profiling at import (reference:
 src/engine/profiler.cc autostart); without it importing starts nothing.
@@ -281,10 +282,9 @@ def reset_host_syncs():
 
 
 # -- kvstore channel counters ------------------------------------------------
-# One counter a transport or serving event (serving.busy_shed, health.*;
-# the distributed kvstore's retries and roster events come with ROADMAP
-# E1), apart from the dispatch counters, which tests hold by exact
-# equality.
+# One counter a transport or serving event (the distributed kvstore's
+# retries, replays and heartbeats, serving.busy_shed, health.*), apart
+# from the dispatch counters, which tests hold by exact equality.
 _channel_counts: dict = {}
 _channel_lock = threading.Lock()
 
@@ -338,8 +338,8 @@ def fleet_route_counts() -> dict:
 
 
 # -- kvstore channel byte counters -------------------------------------------
-# Bytes moved a transport direction ("sent" / "recv"; "allgather" for
-# host collectives).  Zero until the distributed kvstore (ROADMAP E1).
+# Bytes moved a transport direction ("sent" / "recv" on the kvstore wire;
+# "allgather" for the gloo group's host collectives).
 _channel_bytes: dict = {}
 
 
@@ -356,7 +356,7 @@ def channel_bytes() -> dict:
 
 
 # The in-host mesh tier's traffic counts under "ici_*" kinds, a family of
-# its own beside the wire (ROADMAP D1 / E1 feed it).
+# its own beside the wire (ROADMAP D1 / E2 feed it).
 ICI_BYTE_PREFIX = "ici_"
 
 # Control-plane traffic (heartbeats, roster beats, codec hellos) counts
@@ -371,7 +371,7 @@ def is_control_byte_kind(kind: str) -> bool:
 
 
 # Same-host shared-memory lane traffic counts under "shm_sent" /
-# "shm_recv", a fourth family (ROADMAP E1).
+# "shm_recv", a fourth family (the hierarchical tier's lane, ROADMAP E2).
 SHM_BYTE_PREFIX = "shm_"
 
 
@@ -429,7 +429,7 @@ def reset_channel_bytes():
 
 # -- kvstore serialization counters -------------------------------------------
 # What the frame layer costs: codec_bytes, pickle_bytes, send_syscalls
-# (ROADMAP E1 feeds them); a dict of its own, apart from the channel
+# (the distributed kvstore's frames); a dict of its own, apart from the channel
 # counters that tests hold by exact equality.
 _serialization: dict = {}
 _serialization_lock = threading.Lock()
@@ -472,7 +472,7 @@ def reset_serialization():
 
 
 # -- kvstore wire-overlap counters --------------------------------------------
-# Two clocks of the distributed loop's wire (ROADMAP E1): wire_wait, the
+# Two clocks of the distributed loop's wire (pull handles): wire_wait, the
 # host time blocked on a pull, and wire_round, each round's whole
 # enqueue-to-resolved time; overlap_pct = 100 (1 - wait / round).
 _wire_lock = threading.Lock()
@@ -544,7 +544,7 @@ def reset_wire_counters():
 
 # -- mesh fan-in clock --------------------------------------------------------
 # Host time a hierarchy-tier leader spends waiting for its followers'
-# rounds (ROADMAP D1 / E1).
+# rounds (ROADMAP D1 / E2).
 _fanin_lock = threading.Lock()
 _fanin = {"wait_s": 0.0, "rounds": 0}
 

@@ -162,7 +162,7 @@ def current_span() -> Optional[Span]:
 def current_ctx() -> Optional[tuple]:
     """(trace_id, span_id) of the thread's innermost open span, or None
     — the value a request carries to another process (the distributed
-    kvstore's envelopes, ROADMAP E1)."""
+    kvstore's envelopes)."""
     sp = current_span()
     return None if sp is None else (sp.trace, sp.span)
 

@@ -352,3 +352,79 @@ def test_checkpoint_and_observability_import_start_nothing(tmp_path):
         path = os.path.join("mxnet_tpu_torch", *mod.split("."))
         assert path + ".py" in scanned or \
             os.path.join(path, "__init__.py") in scanned, mod
+
+
+# the distributed plane (E1): loaded by the import, scanned by the AST
+# test, and silent until used
+E1_MODULES = ["kvstore", "kvstore_server", "distributed", "compression",
+              "wirecodec", "faultinject", "membership", "analysis.hb"]
+
+
+def test_distributed_plane_imports_start_nothing():
+    """The port's import loads the distributed plane's modules and
+    starts no thread, opens no socket and creates no
+    CUDA context; a process launched as a parameter server
+    (``DMLC_ROLE=server``) serves from the import on, and a kStopServer
+    command ends it with exit code 0."""
+    code = (
+        "import json, os, sys, threading, torch\n"
+        "def socks():\n"
+        "    fds = os.listdir('/proc/self/fd')\n"
+        "    return sum(os.readlink('/proc/self/fd/' + f).startswith(\n"
+        "        'socket:') for f in fds if os.path.exists(\n"
+        "        '/proc/self/fd/' + f))\n"
+        "s0, th0 = socks(), threading.active_count()\n"
+        "import mxnet_tpu_torch as mt\n"
+        "print(json.dumps({'mods': sorted(sys.modules),\n"
+        "  'cuda_init': torch.cuda.is_initialized(),\n"
+        "  'sockets': socks() - s0,\n"
+        "  'threads': threading.active_count() - th0}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("DMLC_ROLE", None)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert [m for m in out["mods"] if _forbidden(m)] == []
+    assert out["cuda_init"] is False
+    assert out["sockets"] == 0 and out["threads"] == 0
+    scanned = {os.path.relpath(p, ROOT) for p in _sources()}
+    for mod in E1_MODULES:
+        assert "mxnet_tpu_torch." + mod in out["mods"], mod
+        assert os.path.join("mxnet_tpu_torch",
+                            *mod.split(".")) + ".py" in scanned, mod
+
+    import socket
+    import time
+    from mxnet_tpu_torch.kvstore_server import (K_STOP_SERVER, _recv_msg,
+                                                _send_msg)
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    env.update(DMLC_ROLE="server", DMLC_SERVER_ID="0", DMLC_NUM_WORKER="1",
+               MXT_SERVER_URIS=f"127.0.0.1:{port}")
+    proc = subprocess.Popen([sys.executable, "-c",
+                             "import mxnet_tpu_torch\nprint('returned')"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 120
+        while True:
+            try:
+                s = socket.create_connection(("127.0.0.1", port), timeout=5)
+                break
+            except OSError:
+                assert time.time() < deadline and proc.poll() is None, \
+                    proc.stderr.read() if proc.poll() is not None else ""
+                time.sleep(0.2)
+        _send_msg(s, ("command", K_STOP_SERVER, None))
+        assert _recv_msg(s) == ("ok", None)
+        s.close()
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    assert "listening on port" in out and "returned" not in out

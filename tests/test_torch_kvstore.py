@@ -1,8 +1,10 @@
 """The port's single-process KVStore against the JAX package's: the local
 cases of ``tests/test_kvstore.py`` through both packages, the store's
 independence from its callers' arrays (torch tensors are mutable, JAX
-arrays are not), and the distributed types raising, each naming the
-ROADMAP item that ports them.  The values are small integers and their
+arrays are not), and the distributed types as the JAX package makes
+them (their stores are tested in ``test_torch_dist_kvstore.py``), with
+the switches of elastic membership and the hierarchical tier raising,
+naming ROADMAP E2.  The values are small integers and their
 sums, exact in float32, so the comparisons are exact; SGD through the
 store is the same formula in float32 (1e-6)."""
 import numpy as np
@@ -209,11 +211,27 @@ def test_kvstore_type_and_rank():
 
 @pytest.mark.parametrize("name", ["dist_async", "dist_sync",
                                   "dist_device_sync", "dist"])
-def test_distributed_types_raise_naming_e1(name):
-    with pytest.raises(mt.MXNetError, match="E1"):
-        mt.kv.create(name)
-    with pytest.raises(mt.MXNetError, match="E1"):
-        mt.gluon.Trainer([], 'sgd', kvstore=name)
+def test_distributed_types_raise_naming_e1(name, monkeypatch):
+    """E1 made these types: ``create`` gives what the JAX package's
+    gives (``dist_async`` without servers raises, naming the launcher,
+    in both), a Trainer takes the type by name, and what E1 left to E2
+    (elastic membership, the hierarchical tier) raises, naming E2."""
+    monkeypatch.delenv("MXT_SERVER_URIS", raising=False)
+    if name == "dist_async":
+        for pkg in PKGS:
+            with pytest.raises(pkg.base.MXNetError, match="launch"):
+                pkg.kv.create(name)
+        for knob in ("MXNET_KVSTORE_ELASTIC", "MXNET_KVSTORE_HIERARCHY"):
+            monkeypatch.setenv(knob, "1")
+            with pytest.raises(mt.MXNetError, match="E2"):
+                mt.kv.KVStoreDistAsync(uris="127.0.0.1:1")
+            monkeypatch.delenv(knob)
+    else:
+        for pkg in PKGS:
+            kv = pkg.kv.create(name)
+            assert kv.type == name and kv.rank == 0 \
+                and kv.num_workers == 1
+    mt.gluon.Trainer([], 'sgd', kvstore=name)
 
 
 def test_init_duplicate_key_raises():
@@ -239,16 +257,22 @@ def test_assign_bypasses_updater():
 
 def test_set_gradient_compression_validation():
     """A local store refuses compression, as in the JAX package and the
-    reference; the other single-process types name E1, where the stores
-    that compress come; ``server_stats`` of a local store is the
-    process's profiler snapshot, as in the JAX package."""
+    reference; the other types record a validated setting (only
+    ``dist_async`` has a wire to compress); ``server_stats`` of a local
+    store is the process's profiler snapshot, as in the JAX package."""
     with pytest.raises(mx.base.MXNetError, match="not supported"):
         mx.kv.create('local').set_gradient_compression({'type': '2bit'})
     with pytest.raises(mt.MXNetError, match="not supported"):
         mt.kv.create('local').set_gradient_compression({'type': '2bit'})
-    for t in ('device', 'nccl'):
-        with pytest.raises(mt.MXNetError, match="E1"):
-            mt.kv.create(t).set_gradient_compression({'type': '2bit'})
+    for t in ('device', 'nccl', 'dist_sync'):
+        for pkg in PKGS:
+            kv = pkg.kv.create(t)
+            kv.set_gradient_compression({'type': '2bit', 'threshold': 0.25})
+            assert (kv._gcompress.type, kv._gcompress.threshold) == \
+                ('2bit', 0.25)
+            with pytest.raises(pkg.base.MXNetError, match="threshold"):
+                kv.set_gradient_compression({'type': '2bit',
+                                             'threshold': 0.0})
     assert set(mt.kv.create('local').server_stats()) == \
         set(mx.kv.create('local').server_stats())
 

@@ -522,7 +522,7 @@ def test_watchdog_trips_a_stalled_wait_and_recovers(monkeypatch):
         time.sleep(0.05)
     assert thealth.status() == "OK"
     assert thealth.snapshot_section()["worst"] == "DEGRADED"
-    assert thealth._dead_nodes() == 0      # no roster before ROADMAP E1
+    assert thealth._dead_nodes() == 0      # no dist_async store is open
 
 
 @pytest.mark.parametrize("pkg", ["jax", "port"])

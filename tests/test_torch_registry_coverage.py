@@ -46,9 +46,8 @@ import mxnet_tpu_torch as mt  # noqa: E402
 # names the port's front-end modules lack, with the ROADMAP item that
 # ports them (the record iterators came with C3, data IO; the
 # single-process kvstore with C2; checkpoints and observability with C4
-# and C6)
+# and C6; the distributed plane with E1)
 MODULE_NOT_PORTED = {
-    ("kvstore", "KVStoreDistAsync"): "E1 (the distributed plane)",
     # the JAX package's AOT artifact (jax.export to StableHLO), the
     # counterpart of the reference's C predict API: in PyTorch it would
     # be torch.export, which needs every hand-written kernel registered
@@ -57,18 +56,27 @@ MODULE_NOT_PORTED = {
     ("contrib.export", "export_checkpoint"): "C7 (the C ABI)",
     ("contrib.export", "ExportedModel"): "C7 (the C ABI)",
     ("contrib.export", "load"): "C7 (the C ABI)",
+    # the same-host shm lane and the fault plans that only elastic
+    # membership and the hierarchical tier reach: only E2's mesh
+    # leader serves the lane and only its beat loop and coordinator
+    # fire the process kills
+    ("shmlane", "ShmLane"): "E2 (the hierarchical tier)",
+    ("shmlane", "client_enabled"): "E2 (the hierarchical tier)",
+    ("shmlane", "mode"): "E2 (the hierarchical tier)",
+    ("shmlane", "ring_bytes"): "E2 (the hierarchical tier)",
+    ("faultinject", "shm_drain_gate"): "E2 (the hierarchical tier)",
+    ("faultinject", "shm_wedge_after_frames"): "E2 (the hierarchical tier)",
+    ("faultinject", "kill_process_after_acks"): "E2 (elastic membership)",
+    ("faultinject", "server_replied"): "E2 (elastic membership)",
+    ("faultinject", "kill_on_beat_seq"): "E2 (elastic membership)",
+    ("faultinject", "server_beat"): "E2 (elastic membership)",
+    ("faultinject", "note_coordinator"): "E2 (elastic membership)",
 }
 FRONT_END = ("optimizer", "metric", "initializer", "io", "callback",
              "model", "module", "attribute", "lr_scheduler", "kvstore")
 # top-level names of the JAX package the port lacks, with the reason
 TOP_NOT_PORTED = {
-    "kvstore_server": "E1-E2 (the distributed plane)",
-    "membership": "E1-E2 (the distributed plane)",
-    "faultinject": "E1-E2 (the distributed plane)",
-    "wirecodec": "E1-E2 (the distributed plane)",
-    "compression": "E1-E2 (the distributed plane)",
     "parallel": "D1 (multi-GPU)",
-    "analysis": "F1 (tooling)",
     "tpu": "by design: the port's devices are gpu(i)",
     "num_tpus": "by design: the port's devices are gpu(i)",
 }
@@ -175,3 +183,23 @@ def test_top_level_names_differ_only_by_the_listed_set():
     missing = {n for n in jax_dir if not n.startswith("_")} - set(port_dir)
     assert missing == set(TOP_NOT_PORTED), sorted(
         missing ^ set(TOP_NOT_PORTED))
+
+
+# the distributed plane (E1): every public name of these JAX modules is in
+# the port's module of the same name, but for the listed ones; a module
+# the port lacks (shmlane, E2) has every name listed
+E1 = ("kvstore", "kvstore_server", "distributed", "compression",
+      "wirecodec", "faultinject", "shmlane", "membership", "analysis.hb")
+
+
+@pytest.mark.parametrize("name", E1)
+def test_distributed_plane_names_cover_the_jax_package(name):
+    jmod = importlib.import_module("mxnet_tpu." + name)
+    try:
+        tmod = importlib.import_module("mxnet_tpu_torch." + name)
+    except ImportError:
+        tmod = None
+    missing = {n for n in _public(jmod)
+               if tmod is None or not hasattr(tmod, n)}
+    listed = {n for (m, n) in MODULE_NOT_PORTED if m == name}
+    assert missing == listed, sorted(missing ^ listed)

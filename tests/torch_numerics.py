@@ -166,6 +166,18 @@ Parts (all by default; each prints JSON lines):
     levels, with d; nvJPEG's own distance from libjpeg comes on top
     (``rec_write``'s ``mad_vs_pil``).
 
+* ``e1`` (a few minutes): the numbers behind ``chip_smoke.py``'s
+  ``dist_async_lm_fit`` (``part_e1``): the LM at full width, 2 layers,
+  batch 8, fp32 on the CPU, over dist_async with two in-process servers
+  and 2-bit pushes at the phase's threshold: each step's loss, the share
+  of values that fired, and the first gradient's quantiles.
+
+* ``e1_sync`` (two or three minutes): why ``dist_sync_fit`` holds the
+  update in norm (``part_e1_sync``): its 4 Adam steps on the CPU, on the
+  whole batches and on the sums of their halves' gradients (the
+  all-reduce): the first gradients' distance, the share of values whose
+  sign flips, and the two updates' distance after each step.
+
 It imports both packages, as the tests do.
 """
 import json
@@ -1120,12 +1132,139 @@ def part_c2():
     return out
 
 
+def part_e1():
+    """The numbers behind chip_smoke.py's dist_async_lm_fit phase: the LM
+    at full width cut to 2 layers, batch TRAIN_BATCH x 1024, fp32 on the
+    CPU, trained by Module.fit over dist_async (two in-process servers of
+    the port, Adam TRAIN_LR on them) with 2-bit pushes at
+    DIST_ASYNC_THRESHOLD, for the phase's 7 compressed steps: each step's
+    loss and the share of the gradient's values that fired; and the
+    quantiles of the first gradient's absolute values (the threshold's
+    choice)."""
+    import os
+    from mxnet_tpu_torch.kvstore_server import KVStoreServer
+    cfg = dict(cs.GPT2_SMALL, num_layers=2)
+    S, V, B = cfg["seq_len"], cfg["vocab_size"], cs.TRAIN_BATCH
+    steps = cs.DIST_ASYNC_FIT_STEPS + cs.DIST_ASYNC_RUN_STEPS + 1
+    sym = mt.models.transformer_lm(**cfg)
+    rng = np.random.default_rng(cs.SEED + 130)
+    xs, ys = zip(*[cs.lm_batch(rng, B, S, V) for _ in range(steps)])
+    srvs = [KVStoreServer(server_id=i, num_workers=1) for i in range(2)]
+    for srv in srvs:
+        srv.start_background()
+    os.environ["MXT_SERVER_URIS"] = ",".join(
+        f"127.0.0.1:{srv.port}" for srv in srvs)
+    os.environ["MXNET_KVSTORE_BIGARRAY_BOUND"] = str(cs.DIST_BIGARRAY_BOUND)
+    try:
+        kv = mt.kv.create("dist_async")
+        kv.set_gradient_compression({"type": "2bit",
+                                     "threshold": cs.DIST_ASYNC_THRESHOLD})
+        rec = cs.PushRecorder(kv)
+        it = mt.io.NDArrayIter({"data": np.concatenate(xs)},
+                               {"softmax_label": np.concatenate(ys)},
+                               batch_size=B)
+        mod = mt.mod.Module(sym, context=mt.cpu())
+        mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+        mt.random.seed(cs.SEED)
+        mod.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                              magnitude=2.0))
+        losses, fired, quantiles = [], [], {}
+
+        def batch_end(param):
+            if not quantiles:
+                a = np.concatenate([np.abs(mod._exec.grad_dict[n].asnumpy())
+                                    .ravel() for n in mod._update_names()])
+                quantiles.update({f"top_{q}": float(np.quantile(a, 1 - q))
+                                  for q in (0.01, 0.02, 0.05, 0.1)})
+            f, n = rec.fired()
+            fired.append(f / n)
+            rec.rows.clear()
+            losses.append(cs.lm_step_loss(
+                torch, mod, param.locals["data_batch"].label[0]))
+        rec.on = True
+        mod.fit(it, num_epoch=1, kvstore=kv, optimizer="adam",
+                optimizer_params={"learning_rate": cs.TRAIN_LR},
+                batch_end_callback=batch_end)
+        kv.close(stop_servers=True)
+    finally:
+        for srv in srvs:
+            srv.stop()
+    return dict(threshold=cs.DIST_ASYNC_THRESHOLD, layers=2, batch=B,
+                losses=losses, drop=losses[0] - losses[-1],
+                fired_share=fired, first_grad_abs_quantiles=quantiles)
+
+
+def part_e1_sync():
+    """The mechanism behind chip_smoke.py's dist_sync_fit gate: the LM of
+    that phase (full width, 2 layers, fp32, its seeded weights and global
+    batches of 8) on the CPU, trained DIST_SYNC_STEPS Adam steps two ways
+    from the same weights: on each whole batch, and on the sum of its two
+    halves' gradients (what the two ranks' all-reduce gives).  At the
+    first step: the gradients' distance in norm and the share of values
+    whose sign differs; after each step: the distance of the two
+    updates (weights minus the initial ones) relative to the update's
+    norm, the quantity the phase gates."""
+    sym, params = cs.dist_sync_lm(mt)
+    batches = cs.dist_sync_batches()
+    b = cs.DIST_SYNC_BATCH
+    S = batches[0][0].shape[1]
+    mods = {}
+
+    def grads(weights, x, y, rows):
+        n = len(rows)
+        if n not in mods:
+            mod = mt.mod.Module(sym, context=mt.cpu())
+            mod.bind([mt.io.DataDesc("data", (n, S), np.int32)],
+                     [mt.io.DataDesc("softmax_label", (n, S), np.int32)])
+            mod.init_params(arg_params=params)
+            mods[n] = mod
+        mod = mods[n]
+        for k, v in weights.items():
+            mod._exec.arg_dict[k]._set_data(v._data.clone())
+        mod.forward(mt.io.DataBatch([mt.nd.array(x[rows], ctx=mt.cpu())],
+                                    [mt.nd.array(y[rows], ctx=mt.cpu())]),
+                    is_train=True)
+        mod.backward()
+        return {k: mod._exec.grad_dict[k].asnumpy() for k in weights}
+
+    def fresh():
+        w = {k: mt.nd.array(v, ctx=mt.cpu()) for k, v in params.items()}
+        opt = mt.optimizer.Adam(learning_rate=cs.DIST_SYNC_LR,
+                                rescale_grad=1.0 / (2 * b))
+        return w, mt.optimizer.get_updater(opt)
+    (w1, u1), (w2, u2) = fresh(), fresh()
+
+    def norm(d):
+        return float(np.sqrt(sum(float((v.astype(np.float64) ** 2).sum())
+                                 for v in d.values())))
+    out = {"update_rel_distance": []}
+    for step, (x, y) in enumerate(batches):
+        g1 = grads(w1, x, y, np.arange(2 * b))
+        h = [grads(w2, x, y, np.arange(r * b, (r + 1) * b))
+             for r in range(2)]
+        g2 = {k: h[0][k] + h[1][k] for k in g1}
+        if step == 0:
+            out["grad_rel_distance"] = norm(
+                {k: g1[k] - g2[k] for k in g1}) / norm(g1)
+            out["sign_flip_share"] = sum(
+                int((np.sign(g1[k]) != np.sign(g2[k])).sum())
+                for k in g1) / sum(v.size for v in g1.values())
+        for i, k in enumerate(sorted(g1)):
+            u1(i, mt.nd.array(g1[k], ctx=mt.cpu()), w1[k])
+            u2(i, mt.nd.array(g2[k], ctx=mt.cpu()), w2[k])
+        d1 = {k: w1[k].asnumpy() - params[k] for k in w1}
+        d2 = {k: w2[k].asnumpy() - params[k] for k in w2}
+        out["update_rel_distance"].append(
+            norm({k: d1[k] - d2[k] for k in d1}) / norm(d1))
+    return out
+
+
 PARTS = {"resnet": part_resnet, "deep_bn": part_deep_bn, "gluon": part_gluon,
          "decode_vs_lm": part_decode_vs_lm, "beam": part_beam,
          "vit": part_vit, "zoo": part_zoo, "rnn": part_rnn, "ssd": part_ssd,
          "zoo_data": part_zoo_data, "c1b2": part_c1b2,
          "moe_bf16": part_moe_bf16, "c8": part_c8, "c3": part_c3,
-         "c2": part_c2}
+         "c2": part_c2, "e1": part_e1, "e1_sync": part_e1_sync}
 
 if __name__ == "__main__":
     for part in sys.argv[1:] or list(PARTS):
