@@ -84,11 +84,22 @@ Q1, its first step equal bit for bit to the servers' arithmetic replayed
 here, and two worker processes train it cut to 2 layers over
 ``dist_sync`` (a gloo group), their weights bit-identical after every
 step and close to one process on the concatenated batch (``--e1`` runs
-these three phases alone).  Every phase prints one JSON line;
-any failed phase exits non-zero.  The line before the last lists the
-kernels with their launches on each path, times and bounds; the last
-line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
-package beside it, it exits non-zero and prints no result.
+these three phases alone).  Last, the serving wire and elastic
+membership: right after ``resnet_fit_checkpoint``, its ResNet-50
+checkpoint, cut at its softmax's input, is served by two
+``ServingReplica``s on the card behind a ``FleetClient`` through a storm
+of 256 requests from 32 threads that loses one replica part-way, every
+reply's logits equal to a direct predict; and at the end the LM cut to 2
+layers trains over two elastic parameter-server processes, one of them
+SIGKILLed mid-run, its final weights equal to the servers' SGD replayed
+here bit for bit, then a replica refreshes from the repaired cluster and
+answers equal to a direct predict (``--t3`` runs these two phases
+alone; ``--e1 dist_async_lm_fit:2`` runs that phase at 2 layers).
+Every phase prints one JSON line; any failed phase exits non-zero.
+The line before the last lists the kernels with their launches on each
+path, times and bounds; the last line is ``{"ok": true, "device":
+{...}}``.  Without CUDA, or without the package beside it, it exits
+non-zero and prints no result.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -777,20 +788,25 @@ def phase_build(mt):
     must hold HMMA, the f32 K1, K2 and K3 none; each has its instances
     (``F32_KERNELS``; three, D 32, 64, 128, for the tensor-core ones),
     and none spills at D=64."""
+    from concurrent.futures import ThreadPoolExecutor
     cl = mt.cuda_lib
     t0 = time.monotonic()
     built = cl.build_all()
     secs = time.monotonic() - t0
+    # every library disassembled at once (nvJPEG's shim has no kernel)
+    srcs = [src for src in built if src not in cl.SHIMS]
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        sass = dict(zip(srcs, pool.map(
+            lambda src: cl.disassemble(built[src]["path"]), srcs)))
     kernels, failures = {}, []
-    for src, info in built.items():
-        if src in cl.SHIMS:        # no kernel of its own (nvJPEG's shim)
-            continue
+    for src in srcs:
+        info = built[src]
         log = info["log"]
         if not log and os.path.exists(info["path"] + ".log"):
             with open(info["path"] + ".log") as f:
                 log = f.read()
         report = cl.ptxas_report(log)
-        hmma = cl.hmma_counts(cl.disassemble(info["path"]))
+        hmma = cl.hmma_counts(sass[src])
         names = demangle(sorted(set(report) | set(hmma)),
                          os.path.dirname(cl.find_nvcc()))
         for mangled, name in names.items():
@@ -821,7 +837,8 @@ def phase_build(mt):
         if sum(stem in n for n in kernels) != count:
             failures.append(f"{stem}: not {count} instances in "
                             f"{sorted(kernels)}")
-    emit("build", seconds=secs, sources=sorted(built), kernels=kernels)
+    emit("build", seconds=secs, sources=sorted(built),
+         disassembly_s=time.monotonic() - t0 - secs, kernels=kernels)
     if failures:
         raise RuntimeError("build checks failed: " + "; ".join(failures))
 
@@ -1150,8 +1167,12 @@ def phase_serve(torch, mt, sym, params_np):
             raise RuntimeError(f"request {i}: reply shape {got.shape} or "
                                "non-finite values")
         _, direct = pred.predict(req)
-        diff = float(np.abs(log_probs(got) - log_probs(direct[0])).max())
-        bit_equal += int(np.array_equal(got, direct[0]))
+        # equal replies are 0 apart in log-prob (the logs of a row are
+        # 206 MB of host work)
+        same = np.array_equal(got, direct[0])
+        diff = 0.0 if same else float(np.abs(
+            log_probs(got) - log_probs(direct[0])).max())
+        bit_equal += int(same)
         if diff > REPLY_LOGP_TOL:
             raise RuntimeError(f"request {i}: reply differs from a direct "
                                f"predict by {diff} in log-prob")
@@ -3867,7 +3888,7 @@ def phase_ssd_train(torch, mt, peak_flops):
     emit("ssd_train", model="ssd_vgg16 (mxnet_tpu/models/ssd.py)", **SSD,
          anchors=A, compute_dtype="bfloat16", masters="float32",
          optimizer=SSD_OPT, initializer="xavier gaussian magnitude 2",
-         n_params=n_params,
+         n_params=n_params, cudnn_benchmark=torch.backends.cudnn.benchmark,
          setup_s=setup_s, first_step_ms=step_ms[0],
          warmup_ms=step_ms[:SSD_WARMUP], steps=len(timed_ms),
          step_ms=timed_ms, median_step_ms=med, min_step_ms=min(timed_ms),
@@ -6323,6 +6344,10 @@ def fe_optimizers(torch, mt):
     whole set's update time beside its bytes bound."""
     shapes = resnet_param_shapes(mt)
     w, grads = opt_inputs(shapes, SEED + 94, FE_STEPS)
+    # the fp32 masters from bf16 weights and gradients are an fp32 run
+    # from the bf16-rounded ones, on the CPU
+    inputs = {False: (w, grads),
+              True: (bf16_rounded(w), [bf16_rounded(g) for g in grads])}
     rows, fails = {}, []
     for name in FE_OPTIMIZERS:
         if name == "sgld":
@@ -6338,12 +6363,9 @@ def fe_optimizers(torch, mt):
             for mp in (False, True):
                 dt = "bfloat16" if mp else None
                 card, _ = opt_run(mt, name, w, grads, mt.gpu(0), dt, mp)
-                # the fp32 masters from bf16 weights and gradients are an
-                # fp32 run from the bf16-rounded ones, on the CPU
-                wc, gc = (bf16_rounded(w), [bf16_rounded(g) for g in grads]) \
-                    if mp else (w, grads)
-                cpu, _ = opt_run(mt, name, wc, gc, mt.cpu())
-                worst = max(opt_distance(torch, card, cpu, wc).values())
+                cpu, _ = opt_run(mt, name, *inputs[mp], mt.cpu())
+                worst = max(opt_distance(torch, card, cpu,
+                                         inputs[mp][0]).values())
                 budget = FE_BUDGET_FLOOR if name in FE_SIGN_UPDATES else \
                     max(FE_BUDGET_FLOOR,
                         FE_BUDGET_FACTOR * FE_REHEARSED[name][int(mp)])
@@ -7381,6 +7403,7 @@ def phase_ssd_rec_fit(torch, mt, workdir):
                      "the CPU path's")
     losses = [float(c + l) for c, l in stats[:, :2]]
     emit("ssd_rec_fit", model="ssd_vgg16", **SSD, args=kw,
+         cudnn_benchmark=torch.backends.cudnn.benchmark,
          records=SSD_REC_IMAGES, write_s=write_s, steps=n,
          step_ms=step_ms, **step_stats(step_ms, SSD_REC_WARMUP),
          losses=losses, wait_ms=waits,
@@ -8335,6 +8358,12 @@ DIST_BIGARRAY_BOUND = 1000000
 # compressed steps must fall by DIST_ASYNC_MARGIN nats, fixed from that
 # rehearsal
 DIST_ASYNC_THRESHOLD = 1.0
+# the LM's 12 layers, not cut: at the rehearsal's 2 layers the phase
+# took 34.4 and 30.7 s against 50.8 and 47.8 s at 12 on one H100 host
+# (80GB HBM3, 700 W; ``chip_smoke.py --e1 dist_async_lm_fit:12
+# dist_async_lm_fit:2 ...``), too little to bring the whole script
+# under half its time limit (622.1 s with 12 on another host)
+DIST_ASYNC_LAYERS = 12
 DIST_ASYNC_FIT_STEPS = 3
 DIST_ASYNC_RUN_STEPS = 3
 # the rehearsal at this threshold: 2.6% of the values fired the first
@@ -8518,16 +8547,25 @@ def free_ports(n):
             s.close()
 
 
+def reap(procs):
+    """Kill and wait for every process of ``procs`` still running."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
 @contextlib.contextmanager
-def server_processes(workdir, num_workers):
+def server_processes(workdir, num_workers, env=None, server_env=None):
     """DIST_SERVERS parameter servers as ``tools/launch.py -s`` starts
     them: the command ``python -c 'import mxnet_tpu_torch'`` with
     DMLC_ROLE=server, DMLC_SERVER_ID, DMLC_NUM_WORKER, DMLC_NUM_SERVER,
-    MXT_SERVER_URIS and JAX_PLATFORMS=cpu; yields (uris, processes); any
-    still running at the end is killed."""
+    MXT_SERVER_URIS and JAX_PLATFORMS=cpu, plus ``env`` (``--elastic``'s
+    MXNET_KVSTORE_ELASTIC, say) and ``server_env[sid]`` (a fault plan);
+    yields (uris, processes); any still running at the end is killed."""
     root = os.path.dirname(os.path.abspath(__file__))
     uris = ",".join(f"127.0.0.1:{p}" for p in free_ports(DIST_SERVERS))
-    procs = []
+    procs, env_all = [], env
     try:
         for sid in range(DIST_SERVERS):
             env = dict(os.environ, DMLC_ROLE="server",
@@ -8538,6 +8576,8 @@ def server_processes(workdir, num_workers):
                        OMP_NUM_THREADS=str(DIST_SERVER_THREADS),
                        MXNET_KVSTORE_BIGARRAY_BOUND=str(DIST_BIGARRAY_BOUND),
                        PYTHONPATH=root)
+            env.update(env_all or {})
+            env.update((server_env or {}).get(sid, {}))
             log = open(os.path.join(workdir, f"server{sid}.log"), "w")
             procs.append(subprocess.Popen(
                 [sys.executable, "-c", "import mxnet_tpu_torch"], env=env,
@@ -8545,10 +8585,7 @@ def server_processes(workdir, num_workers):
             log.close()
         yield uris, procs
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        reap(procs)
 
 
 def worker_env(uris, rank=0, num_workers=1):
@@ -8632,14 +8669,16 @@ def dist_async_reference(mt, rows, w0, opt_blob, kv):
     return out
 
 
-def phase_dist_async_lm_fit(torch, mt, sym):
-    """The GPT-2-small-width LM trained over dist_async with 2-bit pushes:
+def phase_dist_async_lm_fit(torch, mt, layers=DIST_ASYNC_LAYERS):
+    """The GPT-2-small-width LM (cut to ``layers`` layers) trained
+    over dist_async with 2-bit pushes:
     two parameter-server processes as tools/launch.py starts them (their
     store and Adam on the host), the worker this process on cuda:0 (bf16
     over fp32 masters), ``Module.fit`` for DIST_ASYNC_FIT_STEPS steps and
     ``run_steps`` for DIST_ASYNC_RUN_STEPS (the chunked driver), a
     profiled compressed step split into its parts, then one uncompressed
-    step.  Checks: 12 launches a step of each of K1 (with lse), K2, K3;
+    step.  Checks: one launch a layer a step of each of K1 (with lse),
+    K2, K3;
     one Q1 launch a compressed wire key a step; a compressed step's push
     bytes at most DIST_ASYNC_PUSH_SHARE of the fp32 bytes and every
     pull the full fp32 bytes; after the first step the pulled weights
@@ -8649,8 +8688,9 @@ def phase_dist_async_lm_fit(torch, mt, sym):
     ``close(stop_servers=True)``."""
     import pickle
     from mxnet_tpu_torch import kvstore as kvs
-    S, V, L = (GPT2_SMALL[k] for k in ("seq_len", "vocab_size",
-                                       "num_layers"))
+    S, V = GPT2_SMALL["seq_len"], GPT2_SMALL["vocab_size"]
+    L = layers
+    sym = mt.models.transformer_lm(**dict(GPT2_SMALL, num_layers=L))
     B = TRAIN_BATCH
     nsteps = DIST_ASYNC_FIT_STEPS + DIST_ASYNC_RUN_STEPS + 1
     rng = np.random.default_rng(SEED + 130)
@@ -8908,6 +8948,34 @@ def dist_sync_lm(mt):
     return sym, gpt2_params(sym, SEED + 140)
 
 
+DIST_SYNC_INPUTS = "inputs.npz"
+
+
+def dist_sync_handover(outdir, params, glob):
+    """The parent writes the seeded weights and global batches once for
+    both ranks; renamed into place when whole."""
+    tmp = os.path.join(outdir, "inputs.tmp.npz")
+    np.savez(tmp, **{"p:" + k: v for k, v in params.items()},
+             x=np.stack([b[0] for b in glob]),
+             y=np.stack([b[1] for b in glob]))
+    os.replace(tmp, os.path.join(outdir, DIST_SYNC_INPUTS))
+
+
+def dist_sync_inputs(outdir, timeout=600.0):
+    """A rank's side of :func:`dist_sync_handover`: waits for the file,
+    then (params, [(x, y)] global batches)."""
+    path = os.path.join(outdir, DIST_SYNC_INPUTS)
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"dist_sync: no {path} from the parent")
+        time.sleep(0.05)
+    with np.load(path) as f:
+        params = {k[2:]: f[k] for k in f.files if k.startswith("p:")}
+        x, y = f["x"], f["y"]
+    return params, list(zip(x, y))
+
+
 def dist_sync_batches():
     """DIST_SYNC_STEPS global batches of 2 x DIST_SYNC_BATCH rows."""
     rng = np.random.default_rng(SEED + 141)
@@ -8981,8 +9049,15 @@ def dist_sync_worker(outdir):
     mt.distributed.initialize()
     rank, world = mt.distributed.rank(), mt.distributed.size()
     marks["gloo_group"] = time.time()
-    sym, params = dist_sync_lm(mt)
-    glob = dist_sync_batches()
+    sym = mt.models.transformer_lm(**dict(GPT2_SMALL,
+                                          num_layers=DIST_SYNC_LAYERS))
+    # the graph's first shape inference imports torch._dynamo (meta
+    # kernels of torch's Python references), about 9 s on the card's
+    # host: paid here, while the parent prepares the handover
+    sym.infer_shape(data=(DIST_SYNC_BATCH, GPT2_SMALL["seq_len"]),
+                    softmax_label=(DIST_SYNC_BATCH, GPT2_SMALL["seq_len"]))
+    marks["first_shape_inference"] = time.time()
+    params, glob = dist_sync_inputs(outdir)
     lo, hi = rank * DIST_SYNC_BATCH, (rank + 1) * DIST_SYNC_BATCH
     x = np.concatenate([b[0][lo:hi] for b in glob])
     y = np.concatenate([b[1][lo:hi] for b in glob])
@@ -8992,6 +9067,7 @@ def dist_sync_worker(outdir):
         """Rank 0 keeps its weights after each step and, after the first,
         Adam's first moment (from the all-reduced gradient) and the one
         its own half batch alone gives, for the phase's checks."""
+        marks[f"step{step}"] = time.time()
         if rank != 0:
             return
         np.save(os.path.join(outdir, f"w{step}.npy"), flat)
@@ -9023,7 +9099,33 @@ def dist_sync_worker(outdir):
     return 0
 
 
-def phase_dist_sync_fit(torch, mt):
+def start_dist_sync_workers(workdir):
+    """Spawn phase_dist_sync_fit's two ranks (``chip_smoke.py
+    --dist-sync-worker WORKDIR`` with tools/launch.py's worker
+    environment); returns (processes, wall clock at the spawn).  main
+    starts them at the start of dist_async_lm_fit, so that their start-up
+    (the imports, the CUDA context, the gloo group and the graph's first
+    shape inference: about 20 s) runs beside that phase; they wait
+    for the parent's handover file."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_ports(1)[0]
+    procs, spawned = [], time.time()
+    for r in range(2):
+        env = dict(os.environ, DMLC_ROLE="worker",
+                   DMLC_PS_ROOT_URI="127.0.0.1",
+                   DMLC_PS_ROOT_PORT=str(port), DMLC_NUM_WORKER="2",
+                   DMLC_NUM_SERVER="0", DMLC_WORKER_ID=str(r),
+                   PYTHONPATH=root)
+        log = open(os.path.join(workdir, f"worker{r}.log"), "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--dist-sync-worker", workdir], env=env, cwd=root,
+            stdout=log, stderr=subprocess.STDOUT))
+        log.close()
+    return procs, spawned
+
+
+def phase_dist_sync_fit(torch, mt, workdir, started):
     """Two worker processes on cuda:0 (the environment tools/launch.py -n 2
     gives them: DMLC_PS_ROOT_URI / PORT, DMLC_NUM_WORKER, DMLC_WORKER_ID),
     a gloo group between them, each training the LM at full width cut to
@@ -9035,84 +9137,71 @@ def phase_dist_sync_fit(torch, mt):
     Adam's first moment) within DIST_SYNC_GRAD_RTOL of its norm, where
     its half batch alone and a doubled rescale both fail, and its
     weights after the last step within DIST_SYNC_UPDATE_RTOL of the
-    update's norm."""
-    root = os.path.dirname(os.path.abspath(__file__))
+    update's norm.  ``workdir`` and ``started`` are the ranks'
+    directory and :func:`start_dist_sync_workers`'s return: the ranks
+    are spawned a phase earlier, so that their start-up runs beside
+    it."""
     fails = []
-    with tempfile.TemporaryDirectory() as workdir:
-        port = free_ports(1)[0]
-        procs = []
-        t0 = time.monotonic()
-        spawned = time.time()
-        try:
-            for r in range(2):
-                env = dict(os.environ, DMLC_ROLE="worker",
-                           DMLC_PS_ROOT_URI="127.0.0.1",
-                           DMLC_PS_ROOT_PORT=str(port), DMLC_NUM_WORKER="2",
-                           DMLC_NUM_SERVER="0", DMLC_WORKER_ID=str(r),
-                           PYTHONPATH=root)
-                log = open(os.path.join(workdir, f"worker{r}.log"), "w")
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__),
-                     "--dist-sync-worker", workdir], env=env, cwd=root,
-                    stdout=log, stderr=subprocess.STDOUT))
-                log.close()
-            # one process on the concatenated batches, here, while the
-            # workers start: its weights after each step and its first
-            # gradient, for rank 0's to be held against
-            sym, params = dist_sync_lm(mt)
-            w0 = np.concatenate([params[k].ravel() for k in sorted(params)])
-            glob = dist_sync_batches()
-            x = np.concatenate([b[0] for b in glob])
-            y = np.concatenate([b[1] for b in glob])
-            single, grad = [], {}
+    t0 = time.monotonic()
+    procs, spawned = started
+    try:
+        # one process on the concatenated batches, here: its weights
+        # after each step and its first gradient, for rank 0's to be
+        # held against; then the seeded weights and batches are
+        # handed to the ranks through a file (after the run, so that
+        # the card is then theirs alone)
+        sym, params = dist_sync_lm(mt)
+        glob = dist_sync_batches()
+        w0 = np.concatenate([params[k].ravel() for k in sorted(params)])
+        x = np.concatenate([b[0] for b in glob])
+        y = np.concatenate([b[1] for b in glob])
+        single, grad = [], {}
 
-            def on_step(step, mod, flat):
-                single.append(flat)
-                if step == 1:
-                    grad.update(m1=first_moments(mod), rescale_grad=mod.
-                                _updater.optimizer.rescale_grad)
-            t1 = time.monotonic()
-            mod, _ = dist_sync_fit(torch, mt, sym, params, x, y,
-                                   2 * DIST_SYNC_BATCH, None, on_step)
-            single_s = time.monotonic() - t1
-            del mod
-            torch.cuda.empty_cache()
-            codes = []
-            for p in procs:
-                try:
-                    codes.append(p.wait(timeout=max(
-                        1, 400 - (time.monotonic() - t0))))
-                except subprocess.TimeoutExpired:
-                    codes.append(None)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        workers_s = time.monotonic() - t0
-        if codes != [0, 0]:
-            tails = []
-            for r in range(2):
-                with open(os.path.join(workdir, f"worker{r}.log")) as f:
-                    tails.append(f.read()[-1500:])
-            raise RuntimeError(f"dist_sync_fit: workers exited {codes}: "
-                               f"{tails}")
-        ranks = []
+        def on_step(step, mod, flat):
+            single.append(flat)
+            if step == 1:
+                grad.update(m1=first_moments(mod), rescale_grad=mod.
+                            _updater.optimizer.rescale_grad)
+        t1 = time.monotonic()
+        mod, _ = dist_sync_fit(torch, mt, sym, params, x, y,
+                               2 * DIST_SYNC_BATCH, None, on_step)
+        single_s = time.monotonic() - t1
+        del mod
+        torch.cuda.empty_cache()
+        dist_sync_handover(workdir, params, glob)
+        codes = []
+        for p in procs:
+            try:
+                codes.append(p.wait(timeout=max(
+                    1, 400 - (time.monotonic() - t0))))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+    finally:
+        reap(procs)
+    workers_s = time.monotonic() - t0
+    if codes != [0, 0]:
+        tails = []
         for r in range(2):
-            with open(os.path.join(workdir, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
-        upd_rel = []
-        for step, flat in enumerate(single, 1):
-            got = np.load(os.path.join(workdir, f"w{step}.npy"))
-            upd_rel.append(rel_distance(got, flat, flat - w0))
-        grad["max_abs"] = float(np.abs(got - flat).max())
-        m1 = grad.pop("m1")
-        dist = np.load(os.path.join(workdir, "m1.npy"))
-        half = np.load(os.path.join(workdir, "m1_half.npy"))
-        grad.update(rel=rel_distance(dist, m1, m1),
-                    half_batch_rel=rel_distance(half, m1, m1),
-                    doubled_rescale_rel=rel_distance(2 * dist, m1, m1))
-        del single, m1, dist, half
+            with open(os.path.join(workdir, f"worker{r}.log")) as f:
+                tails.append(f.read()[-1500:])
+        raise RuntimeError(f"dist_sync_fit: workers exited {codes}: "
+                           f"{tails}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    upd_rel = []
+    for step, flat in enumerate(single, 1):
+        got = np.load(os.path.join(workdir, f"w{step}.npy"))
+        upd_rel.append(rel_distance(got, flat, flat - w0))
+    grad["max_abs"] = float(np.abs(got - flat).max())
+    m1 = grad.pop("m1")
+    dist = np.load(os.path.join(workdir, "m1.npy"))
+    half = np.load(os.path.join(workdir, "m1_half.npy"))
+    grad.update(rel=rel_distance(dist, m1, m1),
+                half_batch_rel=rel_distance(half, m1, m1),
+                doubled_rescale_rel=rel_distance(2 * dist, m1, m1))
+    del single, m1, dist, half
     startup = {k: [r["marks"][k] - spawned for r in ranks]
                for k in ranks[0]["marks"]}
     L = DIST_SYNC_LAYERS * DIST_SYNC_STEPS
@@ -9161,6 +9250,591 @@ def phase_dist_sync_fit(torch, mt):
     if fails:
         raise RuntimeError("dist_sync_fit: " + "; ".join(fails))
     return ranks[0]["launches"]
+
+
+# -- T3, the serving wire, and E2's elastic half ------------------------------
+# fleet_serve: ResNet-50 from resnet_fit_checkpoint's files, served by two
+# in-process ServingReplicas on cuda:0 (bf16, every bucket of the JAX
+# package's MXNET_SERVING_BUCKETS default) behind one FleetClient; 32
+# threads send 256 requests of 1-8 seeded 224x224 images (float32 NCHW,
+# zero-copy frames), and one replica is stopped after FLEET_STOP_AFTER
+# of them have come back.
+FLEET_BUCKETS = (1, 2, 4, 8, 16, 32)
+FLEET_THREADS = 32
+FLEET_REQUESTS = 256
+FLEET_MAX_ROWS = 8
+FLEET_POOL = 64             # seeded images the requests are cut from
+FLEET_STOP_AFTER = 96
+FLEET_FOLLOWUP = 32         # requests after the storm, all to the survivor
+# the fleet's channels give a dead replica up after 3 reconnects 20-200 ms
+# apart (the defaults, 8 up to 2 s apart, hold its requests in flight for
+# about 7 s) and re-dial a quarantined one for 2 s at most (a replica
+# starting up would be given longer)
+FLEET_ENV = dict(MXNET_KVSTORE_RETRY_MAX="3",
+                 MXNET_KVSTORE_RETRY_INITIAL_MS="20",
+                 MXNET_KVSTORE_RETRY_MAX_MS="200")
+FLEET_CONNECT_S = 2.0
+# The replicas serve the checkpoint's graph cut at its SoftmaxOutput's
+# input (logits_graph), with the checkpoint's own weights: its softmax
+# saturates (its largest probability is 1.0, and all 8 images of the CPU
+# rehearsal below share one argmax), so probabilities would tell apart
+# little more than the argmax, where logits of two different images are
+# at least 43.75 apart.  A reply is held against a direct
+# BucketedPredictor.predict of the same rows on the card.  The batcher
+# fills a bucket from several requests, so a reply's rows ran at any
+# bucket that covers them, behind other rows; a batch of another size may
+# take other cuDNN and cuBLAS algorithms.  Inference rows do not
+# interact: the CPU rehearsal (tests/torch_numerics.py t3: ResNet-50 at
+# 112x112 with the checkpoint's initializer, 8 images) gives bf16 logits
+# at buckets 8 and 1, and rows placed behind five others, equal bit for
+# bit.  On the card cuDNN runs its deterministic algorithms only
+# (torch.backends.cudnn.deterministic; under the autotuner alone the
+# algorithm's partial sums landed in another order from run to run), so
+# one batch shape runs one arithmetic: a reply must equal bit for bit the
+# direct predict at one of the buckets that cover its rows.  A control
+# holds every reply against the direct predict of as many other rows at
+# the bucket it matched, and fails the phase unless the gate refuses
+# each of them
+FLEET_REPLY_TOL = 0.0
+# elastic_train_serve: the LM at full width cut to 2 layers over two
+# elastic parameter-server processes; server 1 is SIGKILLed right after
+# the last ack of step ELASTIC_KILL_STEP (the count derived from the wire
+# by elastic_kill_acks); SGD without momentum on the servers, so the
+# final weights are the servers' SGD replayed over the worker's
+# gradients, bit for bit
+ELASTIC_LAYERS = DIST_SYNC_LAYERS
+ELASTIC_STEPS = 4
+ELASTIC_KILL_STEP = 2
+ELASTIC_LR = 0.1
+ELASTIC_VICTIM = 1
+ELASTIC_ENV = dict(MXNET_KVSTORE_ELASTIC="1", MXNET_KVSTORE_RETRY_MAX="3",
+                   MXNET_KVSTORE_RETRY_INITIAL_MS="20",
+                   MXNET_KVSTORE_RETRY_MAX_MS="200")
+
+
+def fleet_requests(seed, shape):
+    """The storm's seeded images and its requests' (offset, rows)."""
+    rng = np.random.RandomState(seed)
+    pool = rng.uniform(-1, 1, (FLEET_POOL,) + shape).astype(np.float32)
+    rows = rng.randint(1, FLEET_MAX_ROWS + 1, FLEET_REQUESTS)
+    specs = [(int(rng.randint(0, FLEET_POOL - n + 1)), int(n)) for n in rows]
+    return pool, specs
+
+
+def phase_fleet_serve(torch, mt, prefix, shape=(3, 224, 224), ctx=None):
+    """T3's path on the card: ResNet-50's checkpoint (``prefix``-0001, the
+    classic files of Module.fit + do_checkpoint) loaded by
+    ``ServingReplica.from_checkpoint``, its graph cut at the softmax's
+    input (the replies are logits), into two replicas on cuda:0 (bf16,
+    buckets FLEET_BUCKETS) behind a ``FleetClient``; a storm of
+    FLEET_REQUESTS requests from FLEET_THREADS threads, with one replica
+    stopped part-way (its sockets close, its requests in flight die).
+    Checks: zero client-visible failures; every reply within
+    FLEET_REPLY_TOL of a direct ``BucketedPredictor.predict`` of the same
+    rows on the card at a bucket that covers them, and none within it of
+    the direct predict of other rows (the control); after the storm all
+    traffic on the survivor (``profiler.fleet_route_counts``); each
+    replica dispatched only bucket shapes; ``serving_stats`` answers.
+    cuDNN runs its deterministic algorithms only, chosen by its
+    heuristics (autotuning six new batch shapes took seconds of the
+    phase's setup), for the phase.
+    (``shape`` and ``ctx`` are for the CPU rehearsal of the phase's logic
+    at a small ResNet.)"""
+    ctx = ctx or mt.gpu(0)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        return _fleet_serve(torch, mt, prefix, tuple(shape), ctx)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def _fleet_serve(torch, mt, prefix, shape, ctx):
+    from mxnet_tpu_torch.checkpoint import load_serving_params
+    from mxnet_tpu_torch.serving import (BucketedPredictor, FleetClient,
+                                         ServingClient, ServingReplica)
+    pool, specs = fleet_requests(SEED + 150, shape)
+    mt.profiler.reset_latency()
+    mt.profiler.reset_channel_counts()
+    reset_counts(mt)
+    t0 = time.monotonic()
+    # the checkpoint's files, its graph cut at the softmax's input
+    served = prefix + "-logits"
+    logits_graph(mt, mt.sym.load(prefix + "-symbol.json")).save(
+        served + "-symbol.json")
+    os.link(prefix + "-0001.params", served + "-0001.params")
+    reps = [ServingReplica.from_checkpoint(
+        served, 1, {"data": shape}, buckets=list(FLEET_BUCKETS),
+        compute_dtype="bfloat16", ctx=ctx, max_wait_s=0.002,
+        queue_depth=512) for _ in range(2)]
+    for r in reps:
+        r.start_background()
+    uris = [f"127.0.0.1:{r.port}" for r in reps]
+    old_env = {k: os.environ.get(k) for k in FLEET_ENV}
+    os.environ.update(FLEET_ENV)
+    fl = FleetClient(uris, retries=4, attempt_s=30.0, deadline_s=120.0,
+                     backoff_ms=5.0, backoff_max_ms=50.0,
+                     stats_interval=0.5, connect_timeout=FLEET_CONNECT_S)
+    fails = []
+    try:
+        states0 = fl.poll_once()
+        setup_s = time.monotonic() - t0
+        replies = [None] * FLEET_REQUESTS
+        errors, lock = [], threading.Lock()
+        done, stop_at = {"n": 0}, threading.Event()
+        stopped = {}
+
+        def storm(tid):
+            for i in range(tid, FLEET_REQUESTS, FLEET_THREADS):
+                off, n = specs[i]
+                try:
+                    replies[i] = fl.predict({"data": pool[off:off + n]})[0]
+                except Exception as exc:  # noqa: BLE001 — counted
+                    errors.append(repr(exc)[:300])
+                with lock:
+                    done["n"] += 1
+                    if done["n"] == FLEET_STOP_AFTER:
+                        stop_at.set()
+
+        def stopper():
+            stop_at.wait()
+            stopped.update(t=time.perf_counter(),
+                           routes=mt.profiler.fleet_route_counts())
+            reps[1].stop()
+        st = threading.Thread(target=stopper, daemon=True)
+        st.start()
+        threads = [threading.Thread(target=storm, args=(t,))
+                   for t in range(FLEET_THREADS)]
+        t_a = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        storm_s = time.perf_counter() - t_a
+        st.join(30)
+        lat = mt.profiler.latency_stats("serving.request")
+        after_storm = mt.profiler.fleet_route_counts()
+        fl.poll_once()
+        board = {u: fl.scoreboard()[u]["state"] for u in uris}
+        for _ in range(FLEET_FOLLOWUP):
+            off, n = specs[0]
+            fl.predict({"data": pool[off:off + n]})
+        after = mt.profiler.fleet_route_counts()
+        followup = {u: after.get(u, 0) - after_storm.get(u, 0)
+                    for u in uris}
+        with ServingClient(uris[0], window=4) as cli:
+            stats = cli.stats(timeout=30)
+        counts = read_counts(mt)
+        batches = sum(r._batcher.batches for r in reps)
+        shed = sum(r._batcher.shed for r in reps)
+        compiled = [sorted(r._predictor._compiled) for r in reps]
+        compiles = mt.profiler.dispatch_counts().get(
+            "serving.predict_compile", 0)
+    finally:
+        fl.close()
+        for r in reps:
+            r.stop()
+        restore_env(old_env)
+    # the direct predicts, on the card, of every reply's rows at the
+    # buckets that cover them, the largest first (a storm fills them),
+    # until one is within the gate, and at the request's own bucket
+    sym, args, auxs = load_serving_params(served, 1)
+    preds = {b: BucketedPredictor(sym, {"data": shape}, args,
+                                  aux_params=auxs, buckets=[b],
+                                  compute_dtype="bfloat16", ctx=ctx)
+             for b in FLEET_BUCKETS}
+    worst, own_abs, over, direct, matched = 0.0, 0.0, 0, {}, {}
+
+    def direct_at(off, n, b):
+        if (off, n, b) not in direct:
+            direct[(off, n, b)] = preds[b].predict(
+                {"data": pool[off:off + n]})[1][0]
+        return direct[(off, n, b)]
+    for i, (off, n) in enumerate(specs):
+        if replies[i] is None:
+            continue
+        best = None
+        for b in sorted(FLEET_BUCKETS, reverse=True):
+            if b < n:
+                break
+            want = direct_at(off, n, b)
+            if replies[i].shape != want.shape or \
+                    not np.isfinite(replies[i]).all():
+                fails.append(f"request {i}: reply {replies[i].shape}, "
+                             f"want {want.shape}, finite")
+                break
+            d = float(np.abs(replies[i] - want).max())
+            if best is None or d < best:
+                best, best_b = d, b
+            if best <= FLEET_REPLY_TOL:
+                break
+        if best is None:
+            continue
+        worst = max(worst, best)
+        over += best > FLEET_REPLY_TOL
+        matched[i] = best_b
+        own = min(b for b in FLEET_BUCKETS if b >= n)
+        own_abs = max(own_abs, float(np.abs(
+            replies[i] - direct_at(off, n, own)).max()))
+    # the control: each reply against the direct predict of as many other
+    # rows at the bucket it matched (one made above where there is one,
+    # else its rows shifted by one image)
+    control_min, control_passed = float("inf"), 0
+    for i, b in matched.items():
+        off, n = specs[i]
+        other = next((k for k in direct if k[1:] == (n, b) and k[0] != off),
+                     (off + 1 if off + n < FLEET_POOL else off - 1, n, b))
+        d = float(np.abs(replies[i] - direct_at(*other)).max())
+        control_min = min(control_min, d)
+        control_passed += d <= FLEET_REPLY_TOL
+    argmax = np.concatenate([direct_at(o, FLEET_BUCKETS[-1],
+                                       FLEET_BUCKETS[-1])
+                             for o in range(0, FLEET_POOL,
+                                            FLEET_BUCKETS[-1])]).argmax(1)
+    rows = sum(n for _, n in specs) + FLEET_FOLLOWUP * specs[0][1]
+    if errors or any(r is None for r in replies):
+        fails.append(f"{len(errors)} client-visible failures: {errors[:3]}")
+    if not worst <= FLEET_REPLY_TOL:
+        fails.append(f"a reply {worst} from the direct predict "
+                     f"(> {FLEET_REPLY_TOL})")
+    if control_passed or not control_min > FLEET_REPLY_TOL:
+        fails.append(f"the gate passes {control_passed} replies held "
+                     f"against other rows (closest {control_min})")
+    if set(states0.values()) != {"OK"}:
+        fails.append(f"the replicas started {states0}")
+    if not stopped:
+        fails.append("the stop never happened")
+    if followup != {uris[0]: FLEET_FOLLOWUP, uris[1]: 0} or \
+            board[uris[1]] == "OK":
+        fails.append(f"after the stop: scoreboard {board}, follow-up "
+                     f"routes {followup}")
+    if any(not set(c) <= set(FLEET_BUCKETS) for c in compiled) or \
+            compiles > 2 * len(FLEET_BUCKETS):
+        fails.append(f"predict shapes {compiled} ({compiles} first "
+                     f"dispatches)")
+    if stats.get("buckets") != list(FLEET_BUCKETS):
+        fails.append(f"serving_stats {stats}")
+    if any(counts.values()):
+        fails.append(f"ResNet-50's predict launched {counts}")
+    emit("fleet_serve", model=os.path.basename(prefix), image=list(shape),
+         replicas=2, buckets=list(FLEET_BUCKETS), compute_dtype="bfloat16",
+         requests=FLEET_REQUESTS, threads=FLEET_THREADS,
+         rows_per_request=[1, FLEET_MAX_ROWS], setup_s=setup_s,
+         storm_s=storm_s, requests_per_s=FLEET_REQUESTS / storm_s,
+         images_per_s=sum(n for _, n in specs) / storm_s,
+         p50_ms=lat and lat["p50_ms"], p99_ms=lat and lat["p99_ms"],
+         qps=lat and lat["qps"], latency_samples=lat and lat["count"],
+         batches=batches, shed=shed,
+         rows_per_batch=rows / max(batches, 1),
+         stopped_after=FLEET_STOP_AFTER,
+         routes_at_stop=stopped.get("routes"), routes_after_storm=
+         after_storm, followup_routes=followup, scoreboard=board,
+         retries=mt.profiler.channel_counts().get("fleet.retry", 0),
+         conn_errors=mt.profiler.channel_counts().get("fleet.conn_error",
+                                                      0),
+         predict_shapes=compiled, first_dispatches=compiles,
+         reply="logits (the graph cut at its SoftmaxOutput's input)",
+         max_abs_diff_vs_direct=worst, tol=FLEET_REPLY_TOL,
+         replies_over_tol=over, direct_forwards=len(direct),
+         control_min_abs_diff=control_min,
+         control_passed_gate=control_passed,
+         pool_argmax_distinct=int(len(set(argmax.tolist()))),
+         max_abs_diff_vs_own_bucket=own_abs,
+         cudnn_deterministic=torch.backends.cudnn.deterministic,
+         cudnn_benchmark=torch.backends.cudnn.benchmark,
+         survivor_stats=dict(
+             version=stats.get("version"), batches=stats.get("batches"),
+             health=(stats.get("health") or {}).get("status")),
+         launches=counts, seconds=time.monotonic() - t0, failures=fails)
+    if fails:
+        raise RuntimeError("fleet_serve: " + "; ".join(fails))
+    return counts
+
+
+def elastic_kill_acks(names, shapes, nservers=2, victim=ELASTIC_VICTIM,
+                      kill_step=ELASTIC_KILL_STEP,
+                      bound=DIST_BIGARRAY_BOUND, coalesce=16384):
+    """Enveloped replies server ``victim`` serves to one worker through
+    the end of training step ``kill_step`` of Module.fit over an elastic
+    dist_async store (update on the store), from the wire's rules:
+    ``init_optimizer`` inits and pulls each parameter (one envelope a
+    wire key each: a key, or each of its stripes, on the server
+    ``membership.server_index`` / ``stripe_server_index`` names), rank 0
+    sends the optimizer to every server and ``set_optimizer``'s barrier
+    flushes every channel (its rendezvous rides the coordinator, server
+    0); each step pushes the list (a stripe or an unstriped key over
+    ``coalesce`` payload bytes alone, the smaller keys of a server in one
+    envelope) and pulls every wire key.  Heartbeats and roster beats are
+    raw messages and not counted."""
+    from mxnet_tpu_torch import membership as mem
+
+    def routes(k, shape):
+        plan = mem.stripe_plan(k, shape, nservers, bound)
+        if plan is None:
+            return [(mem.server_index(k, nservers),
+                     4 * int(np.prod(shape)))]
+        row = 4 * int(np.prod(shape[1:]))
+        return [(mem.stripe_server_index(k, i, nservers),
+                 (plan[i + 1] - plan[i]) * row)
+                for i in range(len(plan) - 1)]
+    mine = {k: [nb for srv, nb in routes(k, s) if srv == victim]
+            for k, s in zip(names, shapes)}
+    setup = 2 * sum(len(v) for v in mine.values()) + 1 + 1
+    push = small = 0
+    for k, s in zip(names, shapes):
+        striped = len(routes(k, s)) > 1
+        for nb in mine[k]:
+            if not striped and len(names) > 1 and nb <= coalesce:
+                small = 1
+            else:
+                push += 1
+    pull = sum(len(v) for v in mine.values())
+    return setup + kill_step * (push + small + pull)
+
+
+def elastic_plan(mt, cfg):
+    """The elastic phase's LM and its kill point: (symbol, parameter
+    names, {name: shape}, enveloped replies server 1 serves through step
+    ELASTIC_KILL_STEP)."""
+    S, B = cfg["seq_len"], TRAIN_BATCH
+    sym = mt.models.transformer_lm(**cfg)
+    shapes, _, _ = sym.infer_shape(data=(B, S), softmax_label=(B, S))
+    arg_shapes = {n: s for n, s in zip(sym.list_arguments(), shapes)
+                  if n not in ("data", "softmax_label")}
+    names = [n for n in sym.list_arguments() if n in arg_shapes]
+    return sym, names, arg_shapes, elastic_kill_acks(
+        names, [arg_shapes[n] for n in names], bound=DIST_BIGARRAY_BOUND)
+
+
+@contextlib.contextmanager
+def elastic_servers(workdir, acks):
+    """The phase's two elastic server processes (``tools/launch.py
+    --elastic``'s environment), server ELASTIC_VICTIM armed to SIGKILL
+    itself after ``acks`` enveloped replies; yields (uris, processes)."""
+    with server_processes(workdir, 1, env=ELASTIC_ENV, server_env={
+            ELASTIC_VICTIM: dict(MXNET_FI_KILL_PROCESS_AFTER=str(acks),
+                                 MXNET_FI_ONLY_SERVER=str(ELASTIC_VICTIM))
+    }) as started:
+        yield started
+
+
+def phase_elastic_train_serve(torch, mt, cfg=None, ctx=None, plan=None,
+                              servers=None):
+    """E2's elastic half with T3's refresh on the card: the
+    GPT-2-small-width LM cut to ELASTIC_LAYERS layers trained by
+    ``Module.fit`` (bf16 over fp32 masters, SGD without momentum on the
+    servers) from this process over two elastic parameter-server
+    processes (as ``tools/launch.py --elastic`` starts them); server 1 is
+    SIGKILLed by ``MXNET_FI_KILL_PROCESS_AFTER`` right after the last ack
+    of step ELASTIC_KILL_STEP, and the later steps ride the repair.  Then
+    ``publish_version``, and a ``ServingReplica`` on cuda:0 given the
+    original two-server roster refreshes across the repair and answers
+    one request.  Checks: the kill point (the envelopes sent to server 1
+    through that step equal ``elastic_kill_acks``); server 1 died by
+    SIGKILL and the job finished without a restart; roster_bump,
+    handoff_applied and orphan_repush each at least 1 and
+    ``distributed.roster_generation()`` at least 1; the final weights
+    equal, bit for bit, the servers' SGD replayed on the host over the
+    worker's gradients in order; the replica refreshed to version 1 at a
+    roster generation of at least 1, and its reply equals, bit for bit, a
+    ``BucketedPredictor`` on the worker's pulled weights at the same
+    bucket; K1 (with lse), K2, K3 once a layer a step, K1 once a layer in
+    the replica's predict.  (``cfg`` and ``ctx`` are for the CPU
+    rehearsal of the phase's logic at a small LM, which launches no
+    kernel; ``plan`` and ``servers``, from :func:`elastic_plan` and
+    :func:`elastic_servers`, are servers main started during the phase
+    before, whose imports then cost this phase nothing.)"""
+    import pickle
+    from mxnet_tpu_torch import kvstore as kvs
+    from mxnet_tpu_torch.kvstore import _key_int
+    from mxnet_tpu_torch.serving import (BucketedPredictor, ServingClient,
+                                         ServingReplica, publish_version)
+    cfg = cfg or dict(GPT2_SMALL, num_layers=ELASTIC_LAYERS)
+    ctx = ctx or mt.gpu(0)
+    S, V, L, B = cfg["seq_len"], cfg["vocab_size"], cfg["num_layers"], \
+        TRAIN_BATCH
+    rng = np.random.default_rng(SEED + 160)
+    batches = [lm_batch(rng, B, S, V) for _ in range(ELASTIC_STEPS)]
+    xs = np.concatenate([b[0] for b in batches])
+    ys = np.concatenate([b[1] for b in batches])
+    data_shapes = {"data": (S,), "softmax_label": (S,)}
+    sym, names, arg_shapes, acks = plan or elastic_plan(mt, cfg)
+    fails = []
+    t0 = time.monotonic()
+    with contextlib.ExitStack() as stack:
+        if servers is None:
+            servers = stack.enter_context(elastic_servers(
+                stack.enter_context(tempfile.TemporaryDirectory()), acks))
+        uris, procs = servers
+        old_env = worker_env(uris)
+        old_env.update({k: os.environ.get(k) for k in ELASTIC_ENV})
+        os.environ.update(ELASTIC_ENV)
+        victim_uri = uris.split(",")[ELASTIC_VICTIM]
+        sent = {"n": 0}
+        orig_enqueue = kvs._ServerConn._enqueue
+
+        def counting_enqueue(conn, item):
+            if conn._uri == victim_uri:
+                sent["n"] += 1
+            return orig_enqueue(conn, item)
+        kvs._ServerConn._enqueue = counting_enqueue
+        rep = None
+        try:
+            it = mt.io.NDArrayIter({"data": xs}, {"softmax_label": ys},
+                                   batch_size=B)
+            mod = mt.mod.Module(sym, context=ctx,
+                                compute_dtype="bfloat16")
+            mod.bind(data_shapes=it.provide_data,
+                     label_shapes=it.provide_label)
+            mt.random.seed(SEED)
+            mod.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                                  magnitude=2.0))
+            w0 = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+            mt.profiler.reset_channel_counts()
+            reset_counts(mt)
+            kv = mt.kv.create("dist_async")
+            # the worker's gradients as pushed (the first push of each
+            # step; the repair's re-push of a logged one is not new work)
+            grads = []
+            orig_push = kv._push_planned
+
+            def recording_push(pairs, log=True):
+                if log:
+                    grads.append({k: g.float().cpu().numpy()
+                                  for k, g in pairs})
+                return orig_push(pairs, log=log)
+            kv._push_planned = recording_push
+            at_kill = {}
+            step_s = []
+            clock = {"t": time.perf_counter()}
+
+            def batch_end(param):
+                if ctx.device_type == "gpu":
+                    torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - clock["t"])
+                clock["t"] = time.perf_counter()
+                if param.nbatch + 1 == ELASTIC_KILL_STEP:
+                    at_kill.update(sent=sent["n"],
+                                   gen=kv._roster_gen)
+            mod.fit(it, num_epoch=1, kvstore=kv, optimizer="sgd",
+                    optimizer_params={"learning_rate": ELASTIC_LR,
+                                      "momentum": 0.0, "wd": 0.0},
+                    eval_metric=mt.metric.CrossEntropy(),
+                    batch_end_callback=batch_end)
+            train_s = time.monotonic() - t0
+            got = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+            opt_blob = pickle.dumps(mod._optimizer)
+            victim_rc = procs[ELASTIC_VICTIM].poll()
+            worker_counts = mt.profiler.channel_counts()
+            gen = mt.distributed.roster_generation()
+            server0 = kv.server_stats(0)
+            served = server0.get("channel", {})
+            # serve from the repaired cluster
+            version = publish_version(kv, 1)
+            t1 = time.monotonic()
+            rep = ServingReplica(sym, data_shapes, w0, buckets=[1],
+                                 compute_dtype="bfloat16",
+                                 data_dtypes={"data": np.int32},
+                                 ctx=ctx, param_servers=uris,
+                                 refresh_interval=0.0, warmup=False)
+            rep.start_background()
+            refresh = rep._refresh_once()
+            rstats = rep._op_stats(("serving_stats",), None)
+            req = {"data": batches[0][0][:1].astype(np.int32),
+                   "softmax_label": np.zeros((1, S), np.float32)}
+            with ServingClient(f"127.0.0.1:{rep.port}", window=2) as cli:
+                fut = cli.predict_async(req)
+                reply = fut.get(timeout=300)[0]
+                reply_version = fut.version
+            counts = read_counts(mt)
+            serve_s = time.monotonic() - t1
+            kv.close(stop_servers=True)
+            exits = [p.wait(timeout=60) if p.poll() is None else p.poll()
+                     for p in procs]
+        finally:
+            kvs._ServerConn._enqueue = orig_enqueue
+            if rep is not None:
+                rep.stop()
+            restore_env(old_env)
+    # the oracle: the servers' SGD replayed on the host, step by step
+    upd = mt.optimizer.get_updater(pickle.loads(opt_blob))
+    want = {}
+    for k in names:
+        w = mt.nd.array(w0[k], ctx=mt.cpu())
+        for g in grads:
+            upd(_key_int(k), mt.nd.array(g[k], ctx=mt.cpu()), w)
+        want[k] = w.asnumpy()
+    differ = [k for k in names if not np.array_equal(
+        got[k].view(np.int32), want[k].view(np.int32))]
+    # the reply against a predictor built on the pulled weights
+    pred = BucketedPredictor(sym, data_shapes, got, buckets=[1],
+                             compute_dtype="bfloat16",
+                             data_dtypes={"data": np.int32},
+                             ctx=ctx)
+    direct = pred.predict(req)[1][0]
+    reply_equal = reply.shape == direct.shape and np.array_equal(
+        reply.view(np.int32), direct.view(np.int32))
+    if at_kill.get("sent") != acks:
+        fails.append(f"{at_kill.get('sent')} envelopes to server 1 "
+                     f"through step {ELASTIC_KILL_STEP}, the kill point "
+                     f"is {acks}")
+    if victim_rc != -9:
+        fails.append(f"server 1 exited {victim_rc}, not by SIGKILL")
+    if exits[1 - ELASTIC_VICTIM] != 0:
+        fails.append(f"the survivor exited {exits}")
+    if len(grads) != ELASTIC_STEPS:
+        fails.append(f"{len(grads)} pushes recorded")
+    for key, have in (("kvstore.roster_bump", worker_counts),
+                      ("kvstore.orphan_repush", worker_counts),
+                      ("kvstore.handoff_applied", served)):
+        if not have.get(key, 0) >= 1:
+            fails.append(f"{key} {have.get(key, 0)}")
+    if gen < 1:
+        fails.append(f"roster generation {gen}")
+    if differ:
+        fails.append(f"{len(differ)} weights differ from the SGD replay "
+                     f"({differ[:3]})")
+    if not (refresh.get("refreshed") and refresh.get("version") == 1
+            and version == 1 and reply_version == 1
+            and rstats["roster_generation"] >= 1):
+        fails.append(f"refresh {refresh}, stats roster generation "
+                     f"{rstats['roster_generation']}, reply version "
+                     f"{reply_version}")
+    if not reply_equal:
+        fails.append("the replica's reply differs from the direct predict")
+    wantc = {"flash_fwd": L * (ELASTIC_STEPS + 1),
+             "flash_fwd_lse": L * ELASTIC_STEPS,
+             "flash_bwd_dq": L * ELASTIC_STEPS,
+             "flash_bwd_dkv": L * ELASTIC_STEPS, "nms_suppress": 0}
+    if ctx.device_type != "gpu":
+        wantc = dict.fromkeys(wantc, 0)
+    if counts != wantc:
+        fails.append(f"launches {counts}, want {wantc}")
+    emit("elastic_train_serve", model="gpt2-small-width"
+         if cfg["d_model"] == GPT2_SMALL["d_model"] else cfg, layers=L,
+         batch=B, seq=S, servers=DIST_SERVERS, compute_dtype="bfloat16",
+         optimizer=f"sgd lr {ELASTIC_LR}, no momentum, on the servers",
+         cut=f"full width, {L} of 12 layers" if cfg["d_model"] ==
+         GPT2_SMALL["d_model"] else "the CPU rehearsal's size",
+         steps=ELASTIC_STEPS,
+         kill_after_acks=acks, envelopes_to_victim_at_kill=at_kill,
+         victim_exit=victim_rc, exits=exits, step_s=step_s,
+         train_s=train_s, serve_s=serve_s, roster_generation=gen,
+         worker_counters={k: worker_counts.get(k, 0) for k in (
+             "kvstore.roster_bump", "kvstore.orphan_repush",
+             "kvstore.handoff_round", "kvstore.eviction_reported")},
+         survivor_counters={k: served.get(k, 0) for k in (
+             "kvstore.handoff_applied", "kvstore.handoff_dup")},
+         weights_equal_replay=not differ, refresh=refresh,
+         replica_roster_generation=rstats["roster_generation"],
+         reply_shape=list(reply.shape), reply_bit_identical=reply_equal,
+         launches=counts, seconds=time.monotonic() - t0, failures=fails)
+    if fails:
+        raise RuntimeError("elastic_train_serve: " + "; ".join(fails))
+    return counts
 
 
 def main():
@@ -9212,6 +9886,10 @@ def main():
     phase_resnet_fp32(torch, mt)
     with tempfile.TemporaryDirectory() as workdir:
         phase_resnet_fit_checkpoint(torch, mt, workdir)
+        # T3: the checkpoint just written, served by two replicas behind
+        # a fleet through a storm that loses one of them
+        fleet_counts = phase_fleet_serve(torch, mt,
+                                         os.path.join(workdir, "resnet50"))
     torch.cuda.empty_cache()
 
     # KV-cache decode (decode_bench.py's path) and beam search, fp32
@@ -9247,7 +9925,12 @@ def main():
     # SSD-VGG16 (BASELINE config 5): training through Module at its
     # published width, detection with the trained parameters through
     # Module.predict, one fp32 step against the CPU; none of them
-    # launches K1-K4
+    # launches K1-K4.  With cuDNN's heuristics, as the Gluon zoo below:
+    # autotuning its convolutions took 17.9-19.6 s of its first step,
+    # which the script's clock (half of its time limit) cannot spare; so
+    # its step times (its lines say cudnn_benchmark) are not comparable
+    # with autotuned ones
+    torch.backends.cudnn.benchmark = False
     ssd_counts, ssd_params, ssd_x = phase_ssd_train(
         torch, mt, PEAK_FLOPS["bfloat16"])
     ssd_detect_counts, nms_path = phase_ssd_detect(torch, mt, ssd_params,
@@ -9265,7 +9948,6 @@ def main():
     # script keeps under half of its time limit; so these phases' step
     # times (their line says cudnn_benchmark) are not comparable with
     # autotuned ones
-    torch.backends.cudnn.benchmark = False
     phase_gluon_zoo_train(torch, mt, PEAK_FLOPS["bfloat16"])
     phase_gluon_zoo_fp32(torch, mt)
     torch.backends.cudnn.benchmark = True
@@ -9305,7 +9987,9 @@ def main():
         imagenet_row = phase_imagenet_rec_fit(torch, mt, rec_path, med,
                                               PEAK_FLOPS["bfloat16"])
         uint8_row = phase_uint8_rec_fit(torch, mt, rec_path, workdir)
+        torch.backends.cudnn.benchmark = False     # as ssd_train's
         ssd_rec_counts, ssd_rec_i1 = phase_ssd_rec_fit(torch, mt, workdir)
+        torch.backends.cudnn.benchmark = True
         phase_rec_dataset(torch, mt, rec_path)
 
     # C2: sparse storage and the single-process KVStore (the slice's main
@@ -9331,9 +10015,31 @@ def main():
     # servers on the host, 2-bit pushes quantized by Q1 on the card;
     # K1-K3 twelve launches a step), then dist_sync over gloo in two
     # worker processes on the card (K1-K3 in fp32, once a layer a step)
-    dist_async_counts, dist_q1 = phase_dist_async_lm_fit(torch, mt, sym)
-    torch.cuda.empty_cache()
-    dist_sync_counts = phase_dist_sync_fit(torch, mt)
+    # (the next two phases' processes start a phase early: their imports
+    # run beside it)
+    with contextlib.ExitStack() as elastic_stack:
+        with tempfile.TemporaryDirectory() as sync_dir:
+            sync_ranks = start_dist_sync_workers(sync_dir)
+            try:
+                dist_async_counts, dist_q1 = phase_dist_async_lm_fit(
+                    torch, mt)
+                torch.cuda.empty_cache()
+                elastic_plan_ = elastic_plan(mt, dict(
+                    GPT2_SMALL, num_layers=ELASTIC_LAYERS))
+                elastic_dir = elastic_stack.enter_context(
+                    tempfile.TemporaryDirectory())
+                elastic_servers_ = elastic_stack.enter_context(
+                    elastic_servers(elastic_dir, elastic_plan_[3]))
+                dist_sync_counts = phase_dist_sync_fit(torch, mt, sync_dir,
+                                                       sync_ranks)
+            finally:
+                reap(sync_ranks[0])
+        torch.cuda.empty_cache()
+        # E2's elastic half with T3's refresh: the LM trained through a
+        # parameter server's SIGKILL, then served from the repaired cluster
+        # (K1 with lse, K2, K3 once a layer a step; K1 in the replica)
+        elastic_counts = phase_elastic_train_serve(
+            torch, mt, plan=elastic_plan_, servers=elastic_servers_)
     torch.cuda.empty_cache()
 
     def by_path(key):
@@ -9348,7 +10054,9 @@ def main():
                 "moe_lm_train": moe_counts[key],
                 "ssd_rec_fit": ssd_rec_counts[key],
                 "ckpt_lm_fit": ckpt_counts[key],
-                "dist_async_lm_fit": dist_async_counts[key]}
+                "dist_async_lm_fit": dist_async_counts[key],
+                "fleet_serve": fleet_counts[key],
+                "elastic_train_serve": elastic_counts[key]}
 
     def ms_of(row, key):  # the median with its min and max
         return dict(ms=row[key], ms_min=row[f"{key}_min"],
@@ -9613,14 +10321,45 @@ def main():
     return 0
 
 
-E1_PHASES = ("q1_kernel", "dist_async_lm_fit", "dist_sync_fit")
+def e1_phases(torch, mt, stack, names):
+    """``--e1``: the distributed plane's phases.  As in main,
+    dist_sync_fit's ranks start before the first phase and wait for its
+    handover; ``dist_async_lm_fit:L`` runs the LM at L layers."""
+    sync_dir = sync = None
+    if "dist_sync_fit" in names:
+        sync_dir = stack.enter_context(tempfile.TemporaryDirectory())
+        sync = start_dist_sync_workers(sync_dir)
+        stack.callback(reap, sync[0])
+    return {"q1_kernel": lambda: phase_q1_kernel(torch, mt),
+            "dist_async_lm_fit": lambda layers=DIST_ASYNC_LAYERS:
+            phase_dist_async_lm_fit(torch, mt, int(layers)),
+            "dist_sync_fit": lambda: phase_dist_sync_fit(torch, mt,
+                                                         sync_dir, sync)}
 
 
-def run_e1_phases(names):
-    """``python3 chip_smoke.py --e1 [PHASE ...]``: the distributed plane's
-    phases alone (all three by default), after ``device`` and ``build``,
-    with main's backend flags; each prints its line as in the whole
-    run."""
+def t3_phases(torch, mt, stack, names):
+    """``--t3``: the serving wire's and elastic membership's phases;
+    ``fleet_serve`` first writes the ResNet-50 checkpoint it serves by
+    ``resnet_fit_checkpoint``'s recipe (Module.fit + do_checkpoint)."""
+    def fleet_serve():
+        workdir = stack.enter_context(tempfile.TemporaryDirectory())
+        phase_resnet_fit_checkpoint(torch, mt, workdir)
+        phase_fleet_serve(torch, mt, os.path.join(workdir, "resnet50"))
+    return {"fleet_serve": fleet_serve,
+            "elastic_train_serve": lambda: phase_elastic_train_serve(
+                torch, mt)}
+
+
+PHASE_GROUPS = {
+    "--e1": (("q1_kernel", "dist_async_lm_fit", "dist_sync_fit"), e1_phases),
+    "--t3": (("fleet_serve", "elastic_train_serve"), t3_phases)}
+
+
+def run_phases(group, specs):
+    """``python3 chip_smoke.py --e1|--t3 [PHASE[:ARG] ...]``: a group's
+    phases alone (all of them, in order, by default), after ``device``
+    and ``build``, with the backend flags main has by then; each prints
+    its line as in the whole run."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -9629,15 +10368,16 @@ def run_e1_phases(names):
     import mxnet_tpu_torch as mt
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
     phase_device(torch)
     phase_build(mt)
-    for name in names or E1_PHASES:
-        if name == "dist_async_lm_fit":
-            phase_dist_async_lm_fit(
-                torch, mt, mt.models.transformer_lm(**GPT2_SMALL))
-        else:
-            globals()["phase_" + name](torch, mt)
-        torch.cuda.empty_cache()
+    default, make = PHASE_GROUPS[group]
+    calls = [spec.split(":") for spec in specs or default]
+    with contextlib.ExitStack() as stack:
+        table = make(torch, mt, stack, [c[0] for c in calls])
+        for name, *args in calls:
+            table[name](*args)
+            torch.cuda.empty_cache()
     emit("total", seconds=time.monotonic() - T0)
     return 0
 
@@ -9645,6 +10385,6 @@ def run_e1_phases(names):
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-sync-worker":
         sys.exit(dist_sync_worker(sys.argv[2]))
-    if len(sys.argv) > 1 and sys.argv[1] == "--e1":
-        sys.exit(run_e1_phases(sys.argv[2:]))
+    if len(sys.argv) > 1 and sys.argv[1] in PHASE_GROUPS:
+        sys.exit(run_phases(sys.argv[1], sys.argv[2:]))
     sys.exit(main())

@@ -57,6 +57,66 @@ declare_env("MXNET_SERVING_MAX_WAIT_MS", float, 2.0,
 declare_env("MXNET_SERVING_QUEUE_DEPTH", int, 256,
             "serving: admission control — requests queued past this "
             "depth are shed with a typed BUSY reply")
+declare_env("MXNET_SERVING_REFRESH_S", float, 0.0,
+            "serving: seconds between weight-version polls against the "
+            "live dist_async parameter servers (0 disables polling; the "
+            "serving_refresh envelope forces a check either way)")
+declare_env("MXNET_SERVING_CLIENT_WINDOW", int, 64,
+            "serving: max in-flight predict envelopes per client "
+            "connection (the serving override of MXNET_KVSTORE_WINDOW — "
+            "the replica's pipelined loop batches across the window)")
+declare_env("MXNET_SERVING_LATENCY_WINDOW", int, 2048,
+            "serving: ring size of the profiler's per-kind latency "
+            "sample window (p50/p99/QPS are computed over this window; "
+            "count/total stay lifetime)")
+# -- serving fleet (serving/fleet.py) ----------------------------------------
+declare_env("MXNET_SERVING_FLEET_RETRIES", int, 3,
+            "serving fleet: per-request retry budget — after the first "
+            "attempt, at most this many more replicas are tried on "
+            "BusyError / connection failure / reply timeout (predict is "
+            "pure, so a cross-replica retry can never double-apply)")
+declare_env("MXNET_SERVING_FLEET_DEADLINE_S", float, 30.0,
+            "serving fleet: per-request wall deadline — routing, "
+            "backoff sleeps and retries all stop here and the LAST "
+            "error surfaces, naming every attempted replica")
+declare_env("MXNET_SERVING_FLEET_ATTEMPT_S", float, 5.0,
+            "serving fleet: per-attempt reply timeout — a replica that "
+            "accepted the request but never answers (gray failure / "
+            "blackhole) is abandoned after this many seconds and the "
+            "request retries on a different replica")
+declare_env("MXNET_SERVING_FLEET_BACKOFF_MS", float, 10.0,
+            "serving fleet: initial retry backoff; doubles per retry "
+            "up to MXNET_SERVING_FLEET_BACKOFF_MAX_MS")
+declare_env("MXNET_SERVING_FLEET_BACKOFF_MAX_MS", float, 500.0,
+            "serving fleet: retry backoff cap")
+declare_env("MXNET_SERVING_FLEET_JITTER", float, 0.5,
+            "serving fleet: jitter fraction on each backoff sleep "
+            "(delay * (1 +/- jitter*U) — decorrelates a thundering "
+            "retry herd); 0 = the pinned deterministic schedule the "
+            "backoff tests assert")
+declare_env("MXNET_SERVING_FLEET_STATS_S", float, 1.0,
+            "serving fleet: scoreboard poll interval — each tick asks "
+            "every replica for serving_stats (health verdict, queue "
+            "depth, draining flag) and re-probes quarantined replicas; "
+            "0 = no background thread, poll_once() only")
+declare_env("MXNET_SERVING_FLEET_DEGRADED_PENALTY", float, 4.0,
+            "serving fleet: load multiplier applied to a DEGRADED "
+            "replica in weighted-least-loaded routing (it still "
+            "serves, just proportionally less; CRITICAL/dead/draining "
+            "replicas are excluded outright)")
+declare_env("MXNET_SERVING_FLEET_CANARY_FRACTION", float, 0.1,
+            "serving fleet: fraction of requests routed to the canary "
+            "cohort while a canary is active")
+declare_env("MXNET_SERVING_FLEET_CANARY_MIN_N", int, 32,
+            "serving fleet: minimum completed requests in BOTH cohorts "
+            "before the canary SLO comparison may trigger a rollback")
+declare_env("MXNET_SERVING_FLEET_CANARY_P99_X", float, 2.0,
+            "serving fleet: canary p99 regression factor — canary p99 "
+            "above baseline p99 times this rolls the canary back")
+declare_env("MXNET_SERVING_FLEET_CANARY_ERR_X", float, 2.0,
+            "serving fleet: canary error-rate regression factor — "
+            "canary error rate above baseline rate times this (plus a "
+            "1% absolute floor) rolls the canary back")
 declare_env("MXNET_CPU_WORKER_NTHREADS", int, 4,
             "host worker threads for the data pipeline")
 # -- profiler (profiler.py) -------------------------------------------------
@@ -158,7 +218,7 @@ declare_env("MXNET_CKPT_RENDEZVOUS_TIMEOUT", float, 600.0,
             "shard (and ranks wait for the index) before failing")
 # -- the distributed kvstore (kvstore.py, kvstore_server.py, wirecodec.py,
 # faultinject.py): the JAX package's knobs and defaults; the same-host
-# shm lane's and the process-kill plans' come with ROADMAP E2 ----------
+# shm lane's come with the hierarchical tier (ROADMAP E2) --------------
 declare_env("MXNET_KVSTORE_BIGARRAY_BOUND", int, 1 << 19,
             "dist kvstore: arrays above this many elements stripe "
             "row-wise across all servers (per-stripe keys; parallel "
@@ -211,9 +271,23 @@ declare_env("MXNET_KVSTORE_DEDUP_WINDOW", int, 8,
             "replay acks after a reconnect (keep >= 2: a zombie "
             "connection can serve its last request late)")
 declare_env("MXNET_KVSTORE_ELASTIC", bool, False,
-            "dist_async elastic membership (servers and workers joining "
-            "or leaving mid-job): not ported yet (ROADMAP E2); set, the "
-            "store and the server raise")
+            "dist_async elastic membership: servers/workers may join or "
+            "leave mid-job — versioned roster on the slot-0 coordinator "
+            "(with deterministic successor election when the "
+            "coordinator itself dies), stripe-plan re-derivation + "
+            "striped-state handoff on a roster bump, barriers "
+            "renegotiate instead of failing (membership.py)")
+declare_env("MXNET_KVSTORE_SNAPSHOT_S", float, 0.0,
+            "elastic: seconds between each server's state-snapshot "
+            "beats, fanned out to EVERY peer so the bank outlives any "
+            "single server incl. the coordinator (the killed-server "
+            "optimizer-state recovery source; 0 disables snapshots — "
+            "weights still recover from the workers' quorum re-push)")
+declare_env("MXNET_KVSTORE_ELASTIC_PUSH_LOG", int, 256,
+            "elastic: per-worker cap on pushes remembered since each "
+            "key's last pull, re-applied under the new layout when a "
+            "server dies with them (older entries fall off: "
+            "best-effort for barrier-free async jobs)")
 declare_env("MXNET_KVSTORE_FUSED", bool, True,
             "dist_async: let run_steps/step_k drive update-on-kvstore "
             "training chunk by chunk with the push/pull wire of a chunk "
@@ -270,9 +344,24 @@ declare_env("MXNET_FI_DELAY_ACK_MS", float, 0.0,
 declare_env("MXNET_FI_ONLY_RANK", int, None,
             "fault injection: restrict the armed plan to this "
             "DMLC_WORKER_ID (unset = all ranks)")
+declare_env("MXNET_FI_KILL_PROCESS_AFTER", int, None,
+            "fault injection: SIGKILL this process after serving "
+            "exactly this many enveloped data-channel replies — real "
+            "process death for elastic-membership tests (unset = off)")
 declare_env("MXNET_FI_ONLY_SERVER", int, None,
             "fault injection: restrict the barrier-stall and blackhole "
             "plans to this DMLC_SERVER_ID (unset = all servers)")
+declare_env("MXNET_FI_ONLY_COORDINATOR", bool, False,
+            "fault injection: restrict the process-kill plans to the "
+            "process CURRENTLY holding the elastic roster coordinator "
+            "role (kvstore_server keeps the flag current across "
+            "failovers; composes with MXNET_FI_ONLY_SERVER and the "
+            "KILL_PROCESS_AFTER / KILL_ON_BEAT_SEQ kill points)")
+declare_env("MXNET_FI_KILL_ON_BEAT_SEQ", int, None,
+            "fault injection: SIGKILL this process when its elastic "
+            "beat loop sends beat number N — the deterministic beat-"
+            "boundary kill point for coordinator-failover tests, where "
+            "the enveloped-ack count is timing-dependent (unset = off)")
 declare_env("MXNET_FI_STALL_BARRIER_MS", float, 0.0,
             "fault injection: delay the server's handling of the NEXT "
             "barrier arrival by this many ms before it registers — a "

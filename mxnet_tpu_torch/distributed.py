@@ -176,15 +176,32 @@ def num_dead_nodes() -> int:
 
 
 def roster_generation() -> int:
-    """The elastic roster generation this process's stores converged on:
-    0, the static roster (elastic membership is ROADMAP E2)."""
-    return 0
+    """The highest elastic-membership roster generation any open
+    dist_async store in this process has converged onto (0 for a static
+    roster or no elastic store).  Rides the same weakref registry as
+    :func:`num_dead_nodes`: a generation that moved means the cluster
+    lost or gained members and this process has already re-derived its
+    striping against the survivors."""
+    best = 0
+    for obj in _live_sources():
+        gen = getattr(obj, "_roster_gen", None)
+        if isinstance(gen, int) and gen > best:
+            best = gen
+    return best
 
 
 def coordinator_failovers() -> int:
-    """Coordinator successions ridden through: 0 until elastic
-    membership (ROADMAP E2)."""
-    return 0
+    """Coordinator successions any open dist_async store in this process
+    has ridden through (0 = the bootstrap coordinator still leads); the
+    profiler gauges ``kvstore.coordinator_slot`` and
+    ``kvstore.failover_rebuild_s`` carry the detail.  Same weakref
+    registry as :func:`num_dead_nodes`."""
+    total = 0
+    for obj in _live_sources():
+        n = getattr(obj, "_failovers", None)
+        if isinstance(n, int):
+            total += n
+    return total
 
 
 def cluster_stats(compact: bool = False) -> dict:

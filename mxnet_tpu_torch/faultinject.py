@@ -1,10 +1,9 @@
 """Deterministic fault injection for the dist kvstore transport.
 
 The port's copy of ``mxnet_tpu/faultinject.py`` (it imports nothing of
-JAX), so the JAX package's failure tests port as they are.  The plans
-that only elastic membership and the hierarchical tier reach (the
-process kills, the coordinator filter, the shm-lane wedge) come with
-those, in ROADMAP E2.
+JAX), so the JAX package's failure tests port as they are.  The wedge of
+the same-host lane, which only the hierarchical tier reaches, comes with
+that tier (ROADMAP E2).
 
 The reference's ps-lite layer survives transient transport faults
 (kvstore_dist.h:55 server-recovery mode); proving the same property here
@@ -21,8 +20,14 @@ or an env-configured worker process — arms a plan:
 * **delay acks** server-side (widens race windows deterministically);
 * **refuse connects** client-side and/or **drop accepts** server-side
   (exercises connect/reconnect backoff);
-* **stall barriers** and **blackhole replies** server-side, optionally
-  on one server id (``MXNET_FI_ONLY_SERVER``).
+* **kill the process** after exactly N enveloped replies
+  (``kill_process_after_acks``) or at beat number N of the elastic beat
+  loop (``kill_on_beat_seq``) — REAL SIGKILL, the preemption shape the
+  elastic membership and coordinator-failover machinery must survive;
+  target one server id (``MXNET_FI_ONLY_SERVER``) and/or the process
+  currently holding the COORDINATOR role
+  (``MXNET_FI_ONLY_COORDINATOR``, kept current across failovers by
+  ``note_coordinator``).
 
 Heartbeat channels are exempt (the hooks are only called with
 ``fi_role`` set on DATA-channel traffic), so a plan severs exactly the
@@ -70,7 +75,12 @@ class _Plan:
         self.refuse_accepts = 0         # remaining accepts to drop
         self.accepts_refused = 0
         self.only_rank = None           # limit the plan to one worker rank
-        self.only_server = None         # limit server faults to one id
+        self.kill_process_after = None  # SIGKILL self after n served acks
+        self.acks_served = 0            # enveloped replies counted
+        self.only_server = None         # limit process kill to one server id
+        self.only_coordinator = False   # limit process kill to the
+        #                                 CURRENT roster coordinator
+        self.kill_on_beat_seq = None    # SIGKILL self at beat number n
         self.stall_barrier_s = 0.0      # injected barrier-arrival delay
         self.stall_barrier_times = 0    # remaining stalls to inject
         self.blackhole_after = None     # go reply-silent after n replies
@@ -80,6 +90,20 @@ class _Plan:
 
 _plan = _Plan()
 
+# Whether THIS process currently holds the elastic roster COORDINATOR
+# role.  kvstore_server keeps it current (ctor role, every beat tick,
+# and at failover promotion), so MXNET_FI_ONLY_COORDINATOR plans track
+# the role across a succession instead of a fixed server id.
+_is_coordinator = False
+
+
+def note_coordinator(flag: bool) -> None:
+    """Record whether this process is the roster coordinator right now
+    (called by kvstore_server; the ONLY_COORDINATOR filter reads it)."""
+    global _is_coordinator
+    _is_coordinator = bool(flag)
+
+
 def _rank_active():
     if _plan.only_rank is None:
         return True
@@ -87,8 +111,12 @@ def _rank_active():
 
 
 def _server_active():
-    return _plan.only_server is None or \
-        os.environ.get("DMLC_SERVER_ID", "0") == str(_plan.only_server)
+    if _plan.only_server is not None and \
+            os.environ.get("DMLC_SERVER_ID", "0") != str(_plan.only_server):
+        return False
+    if _plan.only_coordinator and not _is_coordinator:
+        return False
+    return True
 
 
 def reset():
@@ -105,12 +133,14 @@ def stats() -> dict:
                 "connects_refused": _plan.connects_refused,
                 "accepts_refused": _plan.accepts_refused,
                 "messages_seen": _plan.sent,
+                "acks_served": _plan.acks_served,
                 "replies_blackholed": _plan.blackholed}
 
 
 def configure(kill_after=None, kill_point="before_send", delay_ack_s=0.0,
               refuse_connects=0, refuse_accepts=0, only_rank=None,
-              kill_unacked=None, only_server=None,
+              kill_unacked=None, kill_process_after=None, only_server=None,
+              only_coordinator=False, kill_on_beat_seq=None,
               stall_barrier_s=0.0, stall_barrier_times=1,
               blackhole_after=None):
     """Arm a plan directly (the non-context-manager form; multi-process
@@ -130,7 +160,13 @@ def configure(kill_after=None, kill_point="before_send", delay_ack_s=0.0,
         _plan.refuse_accepts = int(refuse_accepts)
         _plan.accepts_refused = 0
         _plan.only_rank = only_rank
+        _plan.kill_process_after = (int(kill_process_after)
+                                    if kill_process_after else None)
+        _plan.acks_served = 0
         _plan.only_server = only_server
+        _plan.only_coordinator = bool(only_coordinator)
+        _plan.kill_on_beat_seq = (int(kill_on_beat_seq)
+                                  if kill_on_beat_seq else None)
         _plan.stall_barrier_s = float(stall_barrier_s)
         _plan.stall_barrier_times = (int(stall_barrier_times)
                                      if stall_barrier_s > 0 else 0)
@@ -174,6 +210,46 @@ def kill_when_unacked(k):
 
 
 @contextlib.contextmanager
+def kill_process_after_acks(n):
+    """SIGKILL THIS PROCESS the moment it has served ``n`` enveloped
+    data-channel replies — REAL process death (no atexit, no socket
+    shutdown handshake, no Python unwind), the preemption shape the
+    elastic-membership machinery must survive.  Heartbeat pings and raw
+    messages are exempt, so the count is deterministic: it advances
+    only on the exactly-once request stream.  Env form:
+    ``MXNET_FI_KILL_PROCESS_AFTER`` (+ ``MXNET_FI_ONLY_SERVER`` to
+    target one DMLC_SERVER_ID in a launcher-spawned job)."""
+    with _lock:
+        _plan.kill_process_after = int(n)
+        _plan.acks_served = 0
+    try:
+        yield
+    finally:
+        with _lock:
+            _plan.kill_process_after = None
+
+
+@contextlib.contextmanager
+def kill_on_beat_seq(n):
+    """SIGKILL THIS PROCESS when its elastic beat loop sends beat number
+    ``n`` — the deterministic BEAT-boundary kill point.  The enveloped-
+    ack count (``kill_process_after_acks``) is the right dial for a
+    data-shard server, but the COORDINATOR also serves barrier
+    rendezvous and roster ops whose ack ordering is timing-dependent;
+    the beat seq is process-monotonic and advances only in the beat
+    loop, so a coordinator death lands at an exact protocol boundary
+    every run.  Env form: ``MXNET_FI_KILL_ON_BEAT_SEQ`` (compose with
+    ``MXNET_FI_ONLY_SERVER`` / ``MXNET_FI_ONLY_COORDINATOR``)."""
+    with _lock:
+        _plan.kill_on_beat_seq = int(n)
+    try:
+        yield
+    finally:
+        with _lock:
+            _plan.kill_on_beat_seq = None
+
+
+@contextlib.contextmanager
 def delay_barrier_release(ms, times=1):
     """Deterministically WEDGE the next ``times`` barrier rendezvous:
     the server sleeps ``ms`` milliseconds before registering the next
@@ -183,7 +259,7 @@ def delay_barrier_release(ms, times=1):
     watchdogs exist for: no real wedge (dead peer, wedged lock) is
     needed to prove a trip fires within its budget.  Env form:
     ``MXNET_FI_STALL_BARRIER_MS`` (one stall; composes with
-    ``MXNET_FI_ONLY_SERVER``)."""
+    ``MXNET_FI_ONLY_SERVER`` / ``MXNET_FI_ONLY_COORDINATOR``)."""
     with _lock:
         _plan.stall_barrier_s = float(ms) / 1000.0
         _plan.stall_barrier_times = int(times)
@@ -204,7 +280,7 @@ def blackhole_after_replies(n):
     healthy; to a caller every request stalls forever.  The stall shape
     a router's reply timeout (not its heartbeat feed) must catch.  Env
     form: ``MXNET_FI_BLACKHOLE_AFTER`` (composes with
-    ``MXNET_FI_ONLY_SERVER``)."""
+    ``MXNET_FI_ONLY_SERVER`` / ``MXNET_FI_ONLY_COORDINATOR``)."""
     with _lock:
         _plan.blackhole_after = int(n)
         _plan.bh_seen = 0
@@ -380,6 +456,49 @@ def barrier_stall():
     time.sleep(d)
 
 
+def _sigkill_self():
+    """SIGKILL this process (separate function so in-process tests can
+    monkeypatch the trigger without actually dying)."""
+    import signal
+    import sys
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.kill(os.getpid(), signal.SIGKILL)
+
+
+def server_replied():
+    """Called after every ENVELOPED server reply hit the socket (raw
+    messages and heartbeat pings are exempt, keeping the count
+    deterministic).  Fires the armed process kill — SIGKILL, not an
+    exception: elastic tests need real process death, with the served
+    state genuinely lost."""
+    with _lock:
+        if _plan.kill_process_after is None or not _server_active():
+            return
+        _plan.acks_served += 1
+        if _plan.acks_served < _plan.kill_process_after:
+            return
+        _plan.kill_process_after = None     # fire once
+        _plan.kills_fired += 1
+    _sigkill_self()
+
+
+def server_beat(seq):
+    """Called by the elastic beat loop with every beat it sends (the seq
+    is process-monotonic across all peers).  Fires the armed beat-
+    boundary SIGKILL — real process death at an exact beat number, the
+    deterministic way to kill a COORDINATOR whose enveloped-ack count
+    is timing-dependent (it serves barrier rendezvous)."""
+    with _lock:
+        if _plan.kill_on_beat_seq is None or not _server_active():
+            return
+        if int(seq) < _plan.kill_on_beat_seq:
+            return
+        _plan.kill_on_beat_seq = None       # fire once
+        _plan.kills_fired += 1
+    _sigkill_self()
+
+
 def _arm_from_env():
     """One-shot env activation (multi-process tests: the launcher can't
     reach into a worker, but its environment can)."""
@@ -388,11 +507,14 @@ def _arm_from_env():
     rc = os.environ.get("MXNET_FI_REFUSE_CONNECTS")
     ra = os.environ.get("MXNET_FI_REFUSE_ACCEPTS")
     dl = os.environ.get("MXNET_FI_DELAY_ACK_MS")
+    kp = os.environ.get("MXNET_FI_KILL_PROCESS_AFTER")
+    kb = os.environ.get("MXNET_FI_KILL_ON_BEAT_SEQ")
     sb = os.environ.get("MXNET_FI_STALL_BARRIER_MS")
     bh = os.environ.get("MXNET_FI_BLACKHOLE_AFTER")
     orank = os.environ.get("MXNET_FI_ONLY_RANK")
     osrv = os.environ.get("MXNET_FI_ONLY_SERVER")
-    if not (ka or ku or rc or ra or dl or sb or bh):
+    ocoord = os.environ.get("MXNET_FI_ONLY_COORDINATOR")
+    if not (ka or ku or rc or ra or dl or kp or kb or sb or bh):
         return
     configure(
         kill_after=int(ka) if ka else None,
@@ -402,7 +524,11 @@ def _arm_from_env():
         refuse_connects=int(rc) if rc else 0,
         refuse_accepts=int(ra) if ra else 0,
         only_rank=int(orank) if orank else None,
+        kill_process_after=int(kp) if kp else None,
         only_server=int(osrv) if osrv else None,
+        only_coordinator=bool(ocoord) and
+        ocoord.lower() not in ("0", "false", "off", ""),
+        kill_on_beat_seq=int(kb) if kb else None,
         stall_barrier_s=float(sb) / 1000.0 if sb else 0.0,
         blackhole_after=int(bh) if bh else None)
 

@@ -23,9 +23,13 @@ include/mxnet/kvstore.h, src/kvstore/kvstore_local.h, kvstore_dist.h):
 torch tensors are mutable where JAX arrays are not, so the store never
 shares a tensor with its caller: ``init``, ``assign`` and a ``push``
 without an updater store a copy, ``pull`` copies into ``out``, and an
-updater rebinds the store's own array.  Elastic membership and the
-hierarchical tier of the distributed store are ROADMAP E2: their
-switches raise.
+updater rebinds the store's own array.  Under
+``MXNET_KVSTORE_ELASTIC`` the distributed store follows the live roster
+of its servers (:mod:`.membership`): a channel failure repairs the
+roster, re-derives the striping, hands off the moved keys' state and
+re-pushes the logged gradients a dead server took with it.  The
+hierarchical tier (``MXNET_KVSTORE_HIERARCHY``) is ROADMAP E2 and
+raises.
 """
 from __future__ import annotations
 
@@ -960,11 +964,23 @@ class _WireHandle:
 
 class _PullHandle(_WireHandle):
     """One in-flight batched pull (:meth:`KVStoreDistAsync.pull_async`):
-    ``wait()`` blocks for every reply, joins the stripes and returns
-    ``{key: np.ndarray}``.  Entries are ``{key, shape, parts: [[lo, hi,
-    wire_key, pending, value]]}``.  (The JAX package's handle also
-    replans a dead server's stripes under elastic membership, ROADMAP
-    E2.)"""
+    ``wait()`` blocks for every reply, reassembles stripes, syncs the
+    elastic pull cache exactly like a blocking :meth:`pull`, and
+    returns ``{key: np.ndarray}``.
+
+    **Elastic replan** (the fused×elastic composition): entries carry
+    each key's full shape and per-stripe row spans, so when a pending
+    stripe dies with its server mid-flight, ``wait()`` repairs the
+    roster (``KVStoreDistAsync._elastic_repair_impl``) and re-issues
+    ONLY the unserved tail under the new stripe layout — stripes whose
+    row span survived the bump keep their already-received values, the
+    rest re-request from the new owners — then re-awaits.  Cache and
+    clock bookkeeping stay exact: one ``_cache_value`` per key with the
+    final assembled value (its absorb mark advanced when the replan
+    re-issued against a log that had grown), one wire_wait/wire_round
+    sample per handle.  Entries are ``{key, shape, mark, parts: [[lo,
+    hi, wire_key, pending, value]]}`` with exactly one of
+    pending/value set per part."""
 
     def __init__(self, kv, entries):
         super().__init__()
@@ -975,16 +991,111 @@ class _PullHandle(_WireHandle):
         return len(self._entries)
 
     def _resolve(self):
+        """Await every part; on a channel failure under
+        MXNET_KVSTORE_ELASTIC, repair the roster and replan the
+        unserved tail against the new stripe layout (bounded retries —
+        the same budget as ``_elastic_attempt``)."""
+        kv = self._kv
+        attempts = 0
+        while True:
+            last_err = None
+            for e in self._entries:
+                for part in e["parts"]:
+                    if part[4] is not None:
+                        continue
+                    if part[3] is None:
+                        # re-issue itself failed last replan: the part
+                        # is still unserved — keep repairing
+                        last_err = last_err or MXNetError(
+                            f"pull of {part[2]!r} could not be "
+                            "re-issued after the roster repair")
+                        continue
+                    try:
+                        part[4] = np.asarray(_await(part[3]))
+                        part[3] = None
+                    except MXNetError as exc:
+                        part[3] = None
+                        last_err = exc
+            if last_err is None:
+                break
+            attempts += 1
+            if not getattr(kv, "_elastic", False) or attempts > 2:
+                raise last_err
+            # one kv.repair span covers the roster repair AND the
+            # replan instants it triggers, so the merged timeline shows
+            # "this in-flight pull rode a roster bump" in one place
+            with _tr.span("kv.repair", cat="elastic",
+                          args={"replan": True}):
+                try:
+                    kv._elastic_repair_impl()
+                except MXNetError:
+                    pass   # re-issue below may still reach survivors
+                self._replan()
         out = {}
         for e in self._entries:
-            for part in e["parts"]:
-                if part[4] is None:
-                    part[4] = np.asarray(_await(part[3]))
-                    part[3] = None
             parts = sorted(e["parts"], key=lambda p: p[0])
-            out[e["key"]] = parts[0][4] if len(parts) == 1 else \
-                np.concatenate([p[4] for p in parts], axis=0)
+            if len(parts) == 1:
+                val = parts[0][4]
+            else:
+                val = np.concatenate([p[4] for p in parts], axis=0)
+            # absorb only the pushes this pull OBSERVED (its enqueue
+            # mark): the fused driver resolves handles chunks later,
+            # with newer pushes in flight that must stay in the
+            # elastic re-push log
+            kv._cache_value(e["key"], val, mark=e.get("mark"))
+            out[e["key"]] = val
         return out
+
+    def _replan(self):
+        """Re-derive the stripe layout of every key with unserved parts
+        and re-issue exactly those — a part whose (lo, hi) row span is
+        unchanged under the new plan keeps its received value (the
+        'unserved tail' contract).
+
+        Mark discipline: a re-issued request is enqueued NOW — after
+        the repair's handoff re-pushes and any pushes logged since the
+        original enqueue (per-conn FIFO: its reply observes them all) —
+        so when the log has grown past the entry's mark, the WHOLE key
+        re-issues (mixing newly-observed rows with pre-push received
+        spans would make the cache absorb inconsistently) and the mark
+        advances to the current position.  With no interleaved pushes
+        the received spans are exact and reuse is safe."""
+        from . import profiler as _prof
+        kv = self._kv
+        for e in self._entries:
+            if all(p[4] is not None for p in e["parts"]):
+                continue
+            k, shape = e["key"], e["shape"]
+            plan = kv._stripe_plan(k, shape)
+            if plan is None:
+                spans = [(0, int(shape[0]) if shape else 0, k)]
+            else:
+                spans = [(plan[i], plan[i + 1], f"{k}@s{i}")
+                         for i in range(len(plan) - 1)]
+            cur_mark = kv._push_mark(k)
+            if cur_mark != e.get("mark"):
+                resolved = {}
+                e["mark"] = cur_mark
+            else:
+                resolved = {(p[0], p[1]): p[4] for p in e["parts"]
+                            if p[4] is not None}
+            new_parts, reissued = [], 0
+            for lo, hi, wk in spans:
+                if (lo, hi) in resolved:
+                    new_parts.append([lo, hi, wk, None, resolved[(lo, hi)]])
+                    continue
+                try:
+                    pending = kv._owner_conn(wk).request(("pull", wk))
+                except MXNetError:
+                    pending = None   # still down: next attempt retries
+                new_parts.append([lo, hi, wk, pending, None])
+                reissued += 1
+            e["parts"] = new_parts
+            _prof.record_channel_event("kvstore.pull_replan")
+            _tr.instant("kv.replan", cat="elastic",
+                        args={"key": k, "reissued": reissued,
+                              "kept": len(spans) - reissued,
+                              "generation": kv._roster_gen})
 
 
 class KVStoreDistAsync(KVStore):
@@ -1008,16 +1119,9 @@ class KVStoreDistAsync(KVStore):
 
     def __init__(self, uris=None, roster_member=None, rank=None):
         super().__init__("dist_async")
-        from .base import env as _env
-        for knob in ("MXNET_KVSTORE_ELASTIC", "MXNET_KVSTORE_HIERARCHY"):
-            if _env(knob, False):
-                raise MXNetError(
-                    f"kvstore dist_async: {knob} (elastic membership and "
-                    "the hierarchical tier) is not ported to "
-                    "mxnet_tpu_torch yet (ROADMAP E2)")
-        # explicit rank override (tests running several worker stores of
-        # different ranks in one process; the launcher path leaves it
-        # None).  ``roster_member`` belongs to elastic membership (E2).
+        # explicit rank override (tests running several worker stores —
+        # different ranks — in ONE process, where the DMLC env can only
+        # name one; the launcher path leaves it None)
         self._rank_override = None if rank is None else int(rank)
         if uris is None:
             uris = os.environ.get("MXT_SERVER_URIS", "")
@@ -1027,13 +1131,120 @@ class KVStoreDistAsync(KVStore):
             raise MXNetError(
                 "kvstore 'dist_async' needs running parameter servers: "
                 "launch with `python tools/launch.py -n W -s S cmd...` "
-                "(MXT_SERVER_URIS is set by the launcher)")
+                "(MXT_SERVER_URIS is set by the launcher; a serving "
+                "replica passes param_servers= explicitly)")
+        from .base import env as _env
+        if _env("MXNET_KVSTORE_HIERARCHY", False):
+            raise MXNetError(
+                "kvstore dist_async: MXNET_KVSTORE_HIERARCHY (the "
+                "hierarchical tier) is not ported to mxnet_tpu_torch yet "
+                "(ROADMAP E2)")
+        uri_list = uris.split(",")
+        # -- elastic membership (mxnet_tpu.membership) --------------------
+        # The env uris are only the BOOTSTRAP set: under
+        # MXNET_KVSTORE_ELASTIC the authoritative server list is the
+        # coordinator's roster (generation-numbered; server 0).  A
+        # ``roster_member`` client registers as a live worker rank
+        # (barriers count it, silence evicts it); an observer — the
+        # serving replica's refresh client — follows the roster without
+        # ever joining it.
+        self._elastic = bool(_env("MXNET_KVSTORE_ELASTIC", False))
+        self._roster_member = (self._elastic if roster_member is None
+                               else bool(roster_member)) and self._elastic
+        self._roster_gen = 0
+        self._roster_servers = list(uri_list)
+        self._bootstrap_servers = list(uri_list)
+        self._live_workers = None
+        self._failovers = 0           # coordinator successions ridden
+        self._coordinator_slot = 0    # bootstrap slot of the coordinator
         self._barrier_seq = 0         # per-worker barrier sequence
-        self._conns = [_ServerConn(u, rank=self.rank)
-                       for u in uris.split(",")]
+        # _elastic_lock guards the pull cache / push log quartet (and
+        # the order deque): _cache_value runs on whatever thread
+        # resolves a _PullHandle, concurrently with _log_push /
+        # _push_mark on the pushing thread; unsynchronized, the absorb
+        # accounting could lose or double re-push log entries across a
+        # roster bump.  All four structures are hb-tracked.  The log
+        # holds the pushed gradients as pushed (a card tensor stays on
+        # the card, copied: the caller's gradient buffer is reused).
+        self._elastic_lock = threading.Lock()
+        self._pull_cache: Dict[str, np.ndarray] = _hb.track(
+            {}, "KVStoreDistAsync._pull_cache")
+        self._push_log: Dict[str, list] = _hb.track(
+            {}, "KVStoreDistAsync._push_log")
+        # absolute per-key push positions: _push_log_seq counts every
+        # push ever logged, _push_log_absorbed how many of those the
+        # cache has absorbed.  A pull's cache sync may only absorb
+        # pushes issued BEFORE the pull was ENQUEUED (its "mark"): the
+        # chunked driver resolves pulls chunks later, with newer pushes
+        # already in flight, and absorbing those would drop them from
+        # the elastic re-push log
+        self._push_log_seq: Dict[str, int] = _hb.track(
+            {}, "KVStoreDistAsync._push_log_seq")
+        self._push_log_absorbed: Dict[str, int] = _hb.track(
+            {}, "KVStoreDistAsync._push_log_absorbed")
+        self._push_log_order = None
+        self._push_log_cap = int(_env("MXNET_KVSTORE_ELASTIC_PUSH_LOG",
+                                      256))
+        if self._elastic:
+            import collections
+            self._push_log_order = _hb.track(
+                collections.deque(), "KVStoreDistAsync._push_log_order")
+            # dial the bootstrap uris in order until one answers the
+            # roster op: slot 0 is the coordinator in the common case,
+            # but a late joiner may arrive AFTER churn — any surviving
+            # server forwards the op one hop to the live coordinator
+            # (kvstore_server "roster_fwd"), so reaching ANY of them is
+            # enough to converge onto the current roster
+            join_msg = (("roster_join", "worker", self.rank)
+                        if self._roster_member else ("roster_get",))
+            coord = reply = last_exc = None
+            for i, u in enumerate(uri_list):
+                try:
+                    c = _ServerConn(u, connect_timeout=(
+                        60.0 if i == 0 else 15.0), rank=self.rank)
+                except MXNetError as exc:
+                    last_exc = exc
+                    continue
+                try:
+                    reply = c.submit(join_msg, wait=True)
+                    coord = c
+                    break
+                except MXNetError as exc:
+                    last_exc = exc
+                    c.close(retry=False)
+            if reply is None:
+                raise MXNetError(
+                    "kvstore dist_async: no bootstrap server answered "
+                    f"the roster (tried {uri_list}): {last_exc}")
+            self._conns = [coord]
+            gen, servers, workers = reply[0], reply[1], reply[2]
+            if len(reply) > 3:
+                # worker-join replies carry the cohort's barrier floor:
+                # seeding our sequence there keeps raw barrier seqs
+                # globally aligned, so arrivals pair exactly even
+                # against a failover successor with empty barrier state
+                self._barrier_seq = int(reply[3])
+            conns = []
+            for u in servers:
+                conns.append(coord if u == coord._uri
+                             else _ServerConn(u, rank=self.rank))
+            if coord._uri not in servers:
+                coord.close(retry=False)
+            self._conns = conns
+            self._roster_gen = int(gen)
+            self._roster_servers = list(servers)
+            self._live_workers = list(workers)
+            from . import profiler as _prof
+            _prof.record_channel_gauge("kvstore.roster_generation",
+                                       self._roster_gen)
+        else:
+            self._conns = [_ServerConn(u, rank=self.rank)
+                           for u in uri_list]
         self._bigarray_bound = int(float(os.environ.get(
             "MXNET_KVSTORE_BIGARRAY_BOUND", "1000000")))
         self._stripes: Dict[str, list] = {}  # key -> row boundaries
+        self._stripes_nservers = len(self._conns)
+        self._last_moved_keys = set()
         self._closed = False
         # 2-bit residuals live worker-side, one per WIRE key (stripes
         # quantize independently), on the pushed gradient's device
@@ -1071,6 +1282,10 @@ class KVStoreDistAsync(KVStore):
 
     @property
     def num_workers(self) -> int:
+        # elastic: the LIVE roster's worker count, not the launch-time
+        # env (joins and evictions move it mid-job)
+        if self._elastic and self._live_workers is not None:
+            return max(1, len(self._live_workers))
         return int(os.environ.get("DMLC_NUM_WORKER", "1"))
 
     def _conn_of(self, k: str) -> _ServerConn:
@@ -1083,7 +1298,22 @@ class KVStoreDistAsync(KVStore):
     def _stripe_plan(self, k: str, shape):
         """Row boundaries for a striped key, or None: deterministic from
         (key, shape, num_servers) (:func:`membership.stripe_plan`), so
-        every worker derives the identical plan with no coordination."""
+        every worker derives the identical plan with no coordination.
+
+        Plans are cached per key, valid ONLY for the server count they
+        were derived against: a server-count change without
+        :meth:`_reset_stripe_plans` is a hard error (a stale plan routes
+        rows to the wrong servers; the elastic roster path clears the
+        cache on every roster bump)."""
+        if self._stripes and self._stripes_nservers != len(self._conns):
+            raise MXNetError(
+                "kvstore dist_async: the server count changed "
+                f"({self._stripes_nservers} -> {len(self._conns)}) with "
+                "stripe plans still cached — a stale plan silently "
+                "routes rows to the wrong servers.  Membership changes "
+                "must go through the elastic roster path "
+                "(MXNET_KVSTORE_ELASTIC=1), which calls "
+                "_reset_stripe_plans() on every roster bump")
         if k in self._stripes:
             return self._stripes[k]
         if _STRIPE_SEP in k:
@@ -1097,7 +1327,15 @@ class KVStoreDistAsync(KVStore):
         plan = _mem.stripe_plan(k, shape, len(self._conns),
                                 self._bigarray_bound)
         self._stripes[k] = plan
+        self._stripes_nservers = len(self._conns)
         return plan
+
+    def _reset_stripe_plans(self):
+        """Invalidate every cached stripe plan (the roster changed: row
+        boundaries and owners re-derive against the live server set).
+        The elastic path calls this inside ``_apply_roster``."""
+        self._stripes.clear()
+        self._stripes_nservers = len(self._conns)
 
     def _stripe_conn(self, k: str, i: int) -> _ServerConn:
         # consecutive stripes on consecutive servers, offset by the key
@@ -1105,24 +1343,491 @@ class KVStoreDistAsync(KVStore):
         from .membership import stripe_server_index
         return self._conns[stripe_server_index(k, i, len(self._conns))]
 
+    # -- elastic membership (worker half; .membership) ----------------------
+    def _coordinator_conn(self) -> _ServerConn:
+        """The channel to the CURRENT roster coordinator — derived via
+        membership.coordinator_uri (the worker-side twin of the
+        server's _coordinator_addr, one source of truth for both).
+        Connections are kept in roster order, so this is conns[0]
+        except transiently mid-repair."""
+        from .membership import coordinator_uri
+        curi = coordinator_uri(self._roster_servers)
+        for c in self._conns:
+            if c._uri == curi:
+                return c
+        return self._conns[0]
+
+    def _elastic_attempt(self, fn):
+        """Run one kv op; under MXNET_KVSTORE_ELASTIC a channel failure
+        triggers a roster repair (report the dead server, re-derive
+        striping against the surviving set, hand off state, re-push the
+        logged updates a dead server took with it) and ONE retry of the
+        op against the new generation.  Non-elastic behavior is
+        bit-identical to before: the failure propagates."""
+        if not self._elastic:
+            return fn()
+        attempts = 0
+        while True:
+            try:
+                return fn()
+            except MXNetError:
+                attempts += 1
+                if attempts > 2 or not self._elastic_repair():
+                    raise
+
+    def _elastic_repair(self) -> bool:
+        """Span-wrapped entry: a repair episode (and the handoff inside
+        it) shows up on the merged cluster timeline as one
+        ``kv.repair`` span — the observable form of "this worker rode a
+        roster bump"."""
+        with _tr.span("kv.repair", cat="elastic"):
+            return self._elastic_repair_impl()
+
+    def _elastic_repair_impl(self) -> bool:
+        """Converge this worker onto the live roster after a failure.
+        Returns True when anything changed (retry is worth it): a
+        generation bump was applied, or a poisoned-but-alive connection
+        was re-dialed.
+
+        The COORDINATOR going down is just another membership event:
+        this worker independently elects
+        ``membership.elect_successor(roster, dead)`` — the same pure
+        arithmetic every other observer computes, no votes — and
+        reports the death THERE.  The successor verifies the death with
+        its own probe, rebuilds the ledger at max(reported
+        generation)+1 and answers with the post-succession roster; the
+        ordinary three-phase handoff then reconstructs the dead
+        coordinator's stripes.  Only every-server-dead is
+        unrecoverable (elect_successor returns None)."""
+        from . import membership as _mem
+        from . import profiler as _prof
+        dead, poisoned = [], []
+        for c in self._conns:
+            if (c._err is not None and c._sock is None) or c.is_dead():
+                dead.append(c)
+            elif c._err is not None:
+                poisoned.append(c)
+        dead_uris = {c._uri for c in dead}
+        coord_uri = _mem.coordinator_uri(self._roster_servers)
+        succession = coord_uri in dead_uris
+        # flight-recorder evidence BEFORE any wire work: even if this
+        # worker dies mid-repair, its bundle names who it saw dead and
+        # that a repair was in flight (tools/postmortem.py correlates
+        # these across survivors)
+        for u in sorted(dead_uris):
+            _health.note("peer_dead", uri=u,
+                         coordinator=bool(u == coord_uri))
+        _health.note("repair.begin", dead=sorted(dead_uris),
+                     poisoned=[c._uri for c in poisoned])
+        reply = None
+        while True:
+            if coord_uri in dead_uris:
+                succ_uri = _mem.elect_successor(self._roster_servers,
+                                                dead_uris)
+                if succ_uri is None:
+                    return False   # every server dead: nothing to elect
+                target = next((c for c in self._conns
+                               if c._uri == succ_uri), None)
+                if target is None:
+                    return False   # conns/roster diverged: no dial
+            else:
+                target = self._coordinator_conn()
+            try:
+                # report the dead coordinator FIRST: the hint lets the
+                # successor verify + promote inside this very request
+                for uri in sorted(dead_uris, key=lambda u: u != coord_uri):
+                    reply = target.submit(
+                        ("roster_dead", "server", uri), wait=True)
+                    _prof.record_channel_event("kvstore.eviction_reported")
+                if reply is None:
+                    reply = target.submit(("roster_get",), wait=True)
+                break
+            except MXNetError:
+                if target._err is not None and target._sock is None \
+                        and target._uri not in dead_uris:
+                    # the elected target ITSELF died before answering
+                    # (simultaneous multi-server preemption): its
+                    # channel is now hard evidence — add it to the dead
+                    # set and walk the election to the next slot, the
+                    # same probe-walk the server side runs
+                    dead_uris.add(target._uri)
+                    succession = True
+                    continue
+                return False   # an app refusal / unreachable roster
+        gen, servers, workers = reply
+        if int(gen) == self._roster_gen and not dead and not poisoned:
+            return False
+        try:
+            self._apply_roster(int(gen), servers, workers)
+        except MXNetError as exc:
+            # a roster-listed server died between the coordinator's view
+            # and our dial: report it so the NEXT repair converges on the
+            # shrunken roster, and let the original failure propagate —
+            # aborting the retry here must not strand the conn list
+            # half-applied (it hasn't been: _apply_roster swaps conns
+            # only after every dial succeeded)
+            uri = next((u for u in servers if u in str(exc)), None)
+            if uri is not None:
+                try:
+                    target.submit(("roster_dead", "server", uri),
+                                  wait=True)
+                except MXNetError:
+                    pass
+            return False
+        if succession:
+            self._failovers += 1
+            _prof.record_channel_event(
+                "kvstore.coordinator_failover_observed")
+            _health.note("failover_observed",
+                         coordinator_slot=self._coordinator_slot)
+        _health.note("repair.end", generation=self._roster_gen)
+        return True
+
+    def _elastic_refresh(self):
+        """Pull the roster and converge if it moved (the cheap path a
+        barrier-reply generation bump triggers)."""
+        with _tr.span("kv.refresh", cat="elastic"):
+            reply = self._coordinator_conn().submit(("roster_get",),
+                                                    wait=True)
+            gen, servers, workers = reply
+            if int(gen) != self._roster_gen:
+                self._apply_roster(int(gen), servers, workers)
+
+    def _apply_roster(self, gen, servers, workers):
+        """Converge onto roster generation ``gen``: rebuild the
+        connection list in roster order (reusing healthy channels,
+        re-dialing poisoned ones, closing departed ones), invalidate
+        every stripe plan, ship the optimizer to newly-joined servers,
+        then hand off state for every key whose wire layout moved."""
+        from . import membership as _mem
+        from . import profiler as _prof
+        old_servers = list(self._roster_servers)
+        by_uri = {c._uri: c for c in self._conns}
+        conns, fresh = [], []
+        try:
+            for u in servers:
+                c = by_uri.pop(u, None)
+                if c is not None and (c._err is not None or c.is_dead()):
+                    c.close(retry=False)
+                    c = None
+                if c is None:
+                    # short dial budget: a roster-listed server that
+                    # cannot be reached within 10s most likely died
+                    # between the coordinator's view and ours — the
+                    # caller reports it dead and retries on the smaller
+                    # roster instead of blocking a full connect window
+                    c = _ServerConn(u, connect_timeout=10.0,
+                                    rank=self.rank)
+                    fresh.append((u, c))
+                conns.append(c)
+        except MXNetError:
+            for _u, c in fresh:
+                c.close(retry=False)
+            raise
+        for c in by_uri.values():
+            c.close(retry=False)
+        self._conns = conns
+        self._roster_gen = int(gen)
+        self._roster_servers = list(servers)
+        self._live_workers = list(workers)
+        self._reset_stripe_plans()
+        self._last_moved_keys = set()
+        _prof.record_channel_event("kvstore.roster_bump")
+        _prof.record_channel_gauge("kvstore.roster_generation",
+                                   self._roster_gen)
+        # every connection was just rebuilt against the live roster:
+        # outstanding channel poison is repaired, not outstanding
+        _health.clear_channel_poison()
+        _health.note("roster_bump", generation=self._roster_gen)
+        # which bootstrap slot leads now (-1 = a joined-later server):
+        # a failover is observable as this gauge moving off slot 0
+        curi = _mem.coordinator_uri(servers)
+        self._coordinator_slot = (
+            self._bootstrap_servers.index(curi)
+            if curi in self._bootstrap_servers else -1)
+        _prof.record_channel_gauge("kvstore.coordinator_slot",
+                                   self._coordinator_slot)
+        # a joined-mid-job server has no updater yet: every worker ships
+        # the optimizer (idempotent — same object) before any state or
+        # gradient can reach the new shard
+        if self._optimizer is not None:
+            blob = pickle.dumps(self._optimizer)
+            from .kvstore_server import K_CONTROLLER
+            for _u, c in fresh:
+                if _u not in old_servers:
+                    c.submit(("command", K_CONTROLLER, blob), wait=True)
+        with self._elastic_lock:
+            cache_shapes = {k: v.shape
+                            for k, v in self._pull_cache.items()}
+        moved = _mem.plan_handoff(
+            cache_shapes, old_servers, servers, self._bigarray_bound)
+        self._last_moved_keys = set(moved)
+        if moved and self._gc_residual:
+            # compression error-feedback residuals are keyed by WIRE key
+            # and shaped like the OLD stripe spans: under the new layout
+            # a moved key's residual would broadcast-add into the wrong
+            # rows (or crash on shape mismatch).  Dropping it loses at
+            # most one pending quantum per element — the bounded error
+            # class compression already accepts — and the buffer re-grows
+            # from zero on the next push.  Unmoved keys keep identical
+            # wire spans, so their residuals stay valid.
+            moved_set = set(moved)
+            for wk in [w for w in self._gc_residual
+                       if _mem.base_key(w) in moved_set]:
+                del self._gc_residual[wk]
+        if moved and self._sparse_residual:
+            # row-sparse residuals are keyed by GLOBAL row id, so the
+            # restripe arithmetic can be exact: drop only the rows whose
+            # owning server changed (membership.moved_row_spans) — a row
+            # that stayed with its server keeps its un-drained error,
+            # the whole point of keying residuals per row (the moved-key
+            # rule applied at row granularity)
+            moved_set = set(moved)
+            for bk in [b for b in self._sparse_residual
+                       if b in moved_set]:
+                shape = self._sparse_shapes.get(bk) \
+                    or cache_shapes.get(bk)
+                if shape is None:
+                    # no recorded geometry to compute spans against:
+                    # dropping the whole bank is the safe degradation
+                    del self._sparse_residual[bk]
+                    continue
+                spans = _mem.moved_row_spans(
+                    bk, shape, old_servers, servers,
+                    self._bigarray_bound)
+                bank = self._sparse_residual[bk]
+                for rid in [r for r in bank
+                            if any(lo <= r < hi for lo, hi in spans)]:
+                    del bank[rid]
+                if not bank:
+                    del self._sparse_residual[bk]
+        if moved:
+            self._handoff(moved, old_servers)
+
+    def _handoff(self, moved, old_servers):
+        """Striped-state handoff after a roster bump, in three ordered
+        phases:
+
+        1. **quorum re-push of values** — every worker re-pushes its
+           last-synced full value of each moved key under the NEW
+           layout; the server applies the FIRST arrival per (wire key,
+           generation) and acks the rest idempotently, so the racing
+           duplicates (and replays through connection kills) are
+           harmless.  The applied handoff purges the key's stale wire
+           forms, so in-flight old-layout pushes are absorbed into the
+           reset.
+        2. **optimizer-state restripe** — per-stripe states gathered
+           from the coordinator's snapshot of the departed servers plus
+           ``get_states`` of the survivors, merged and re-sliced along
+           the new plan (exact for elementwise state; a killed server
+           with no banked snapshot degrades to fresh state for its
+           stripes).
+        3. **re-push of logged updates** — each worker re-applies every
+           gradient it pushed since its last pull of a moved key (the
+           updates a SIGKILLed server took to its grave, or that the
+           handoff reset absorbed).  Phases 1+2 are awaited before 3 so
+           re-pushed gradients can never be wiped by a later handoff."""
+        from . import membership as _mem
+        from . import profiler as _prof
+        gen = self._roster_gen
+        servers = self._roster_servers
+        # The whole handoff — and each of its three protocol phases —
+        # is a span, so a roster bump's repair window reads off the
+        # merged cluster timeline instead of only off the
+        # failover_rebuild_s gauge.  The wire
+        # behavior is UNCHANGED: values and states all enqueue before
+        # any await (max pipelining); the shared await of phases 1+2
+        # completes inside the states span, and phase 3 still starts
+        # only after it.
+        hsp = _tr.span_begin("kv.handoff", cat="elastic",
+                             args={"moved": len(moved),
+                                   "generation": int(gen)})
+        try:
+            # gather old-layout optimizer state BEFORE any value handoff
+            # is issued: the first value handoff of a key PURGES its
+            # stale wire forms (and their states) on the survivors —
+            # collecting after would read back nothing
+            with _tr.span("handoff.collect", cat="elastic"):
+                per_wire = self._collect_handoff_states(moved, old_servers)
+            # one consistent snapshot of the moved keys' cached values
+            # and logged gradients: the wire work below must not hold
+            # the elastic lock (it blocks on replies), and reading the
+            # live structures per-key would race a concurrent
+            # _cache_value from an in-flight handle resolve
+            with self._elastic_lock:
+                cache_snap = {k: self._pull_cache.get(k) for k in moved}
+                log_snap = {k: list(self._push_log.get(k, ()))
+                            for k in moved}
+            pendings = []
+            # per-phase flight-recorder breadcrumbs: with MXNET_TRACE=0
+            # the spans vanish but the postmortem can still name the
+            # repair phase in flight from the bundles alone
+            _health.note("handoff.values", moved=len(moved),
+                         generation=int(gen))
+            with _tr.span("handoff.values", cat="elastic"):
+                for k in moved:
+                    val = cache_snap.get(k)
+                    if val is None:
+                        continue
+                    for wk, uri, part in _mem.restripe_value(
+                            k, val, servers, self._bigarray_bound):
+                        part = np.ascontiguousarray(part)
+                        _prof.record_channel_bytes("handoff",
+                                                   int(part.nbytes))
+                        pendings.append(
+                            self._conns[servers.index(uri)].request(
+                                ("handoff", gen, wk, part, k)))
+            _health.note("handoff.states", generation=int(gen))
+            with _tr.span("handoff.states", cat="elastic"):
+                if per_wire:
+                    for k in moved:
+                        shape = cache_snap[k].shape
+                        old_plan = _mem.stripe_plan(
+                            k, shape, len(old_servers),
+                            self._bigarray_bound)
+                        new_plan = _mem.stripe_plan(
+                            k, shape, len(servers), self._bigarray_bound)
+                        restriped = _mem.restripe_states(
+                            k, per_wire, old_plan, new_plan)
+                        layout = _mem.wire_layout(k, shape, servers,
+                                                  self._bigarray_bound)
+                        for wk, st in restriped.items():
+                            uri = layout[wk][0]
+                            pendings.append(
+                                self._conns[servers.index(uri)].request(
+                                    ("handoff_state", gen, wk, st, k)))
+                for p in pendings:
+                    _await(p)
+            _prof.record_channel_event("kvstore.handoff_round")
+            _health.note("handoff.repush", generation=int(gen))
+            with _tr.span("handoff.repush", cat="elastic"):
+                for k in moved:
+                    for grad in log_snap.get(k, ()):
+                        _prof.record_channel_event("kvstore.orphan_repush")
+                        self._route_push(k, grad)
+        finally:
+            _tr.span_end(hsp)
+
+    def _collect_handoff_states(self, moved, old_servers):
+        """{old wire key: np state} for the moved keys: the departed
+        servers' stripes from the coordinator's banked snapshots, the
+        survivors' from a live ``get_states``.  Returns {} when no
+        optimizer is installed (nothing to restripe)."""
+        from .kvstore_server import _restricted_loads, _state_to_np
+        departed = [u for u in old_servers
+                    if u not in self._roster_servers]
+        per_wire = {}
+        for u in departed:
+            try:
+                snap = self._coordinator_conn().submit(
+                    ("roster_snapshot", u), wait=True)
+            except MXNetError:
+                snap = None
+            if snap:
+                for wk, st in snap.get("states", {}).items():
+                    per_wire[str(wk)] = st
+        have_updater = False
+        for c in self._conns:
+            try:
+                blob = c.submit(("get_states", False), wait=True)
+            except MXNetError:
+                continue
+            if blob is None:
+                continue
+            have_updater = True
+            for wk, st in _restricted_loads(blob).items():
+                per_wire[str(wk)] = _state_to_np(st)
+        return per_wire if have_updater else {}
+
+    def _route_push(self, k: str, agg):
+        """Send one (possibly compressed) push of a full gradient under
+        the CURRENT stripe plan: the orphan re-push, through the same
+        planner as :meth:`push` (a logged row-sparse gradient re-routes
+        through the per-stripe sparse planner), without logging it
+        again."""
+        self._push_planned([(k, agg)], log=False)
+
+    def _push_mark(self, k: str) -> int:
+        """The key's current absolute push position — captured at pull
+        ENQUEUE time so the later cache sync absorbs exactly the pushes
+        that pull observed (per-conn FIFO: everything sent before the
+        pull request, nothing after)."""
+        with self._elastic_lock:
+            return self._push_log_seq.get(k, 0)
+
+    def _cache_value(self, k: str, arr, mark=None):
+        """Remember the last synced full value of ``k`` (the quorum
+        re-push source) and absorb the log entries the value reflects:
+        everything up to ``mark`` (the pull's enqueue position), or the
+        whole log when ``mark`` is None (init/assign — the value IS the
+        authoritative state)."""
+        if not self._elastic:
+            return
+        arr = np.asarray(arr)
+        with self._elastic_lock:
+            self._pull_cache[k] = arr
+            seq = self._push_log_seq.get(k, 0)
+            if mark is None or mark > seq:
+                mark = seq
+            absorbed = self._push_log_absorbed.get(k, 0)
+            n = mark - absorbed
+            if n > 0:
+                entries = self._push_log.get(k)
+                if entries:
+                    del entries[:min(n, len(entries))]
+                    if not entries:
+                        self._push_log.pop(k, None)
+            self._push_log_absorbed[k] = max(absorbed, mark)
+
+    def _log_push(self, k: str, agg: np.ndarray):
+        """Remember one pushed gradient until a pull of ``k`` that
+        observed it syncs it into the cache (bounded by
+        MXNET_KVSTORE_ELASTIC_PUSH_LOG entries; the oldest fall off —
+        best-effort for jobs that never pull)."""
+        if not self._elastic:
+            return
+        if isinstance(agg, torch.Tensor):
+            agg = agg.detach().clone()   # the caller's buffer is reused
+        elif not isinstance(agg, RowSparsePayload):
+            agg = np.array(agg, copy=True)
+        with self._elastic_lock:
+            self._push_log.setdefault(k, []).append(agg)
+            self._push_log_seq[k] = self._push_log_seq.get(k, 0) + 1
+            self._push_log_order.append(k)
+            while len(self._push_log_order) > self._push_log_cap:
+                old = self._push_log_order.popleft()
+                entries = self._push_log.get(old)
+                if entries:
+                    entries.pop(0)
+                    # a cap-dropped entry counts as absorbed so later
+                    # marks keep addressing the list front correctly
+                    self._push_log_absorbed[old] = \
+                        self._push_log_absorbed.get(old, 0) + 1
+                    if not entries:
+                        self._push_log.pop(old, None)
+
     # -- kv ops --------------------------------------------------------------
     def init(self, key, value):
         """First-arriving init wins at the server (all workers call init;
         the server keeps one authoritative value)."""
         with _tr.span("kv.init"):
-            keys, values = self._canon(key, value)
-            for k, vs in zip(keys, values):
-                arr = vs[0].asnumpy()
-                plan = self._stripe_plan(k, arr.shape)
-                if plan is None:
-                    self._conn_of(k).submit(("init", k, arr), wait=True)
-                else:
-                    pendings = [
-                        self._stripe_conn(k, i).request(
-                            ("init", f"{k}@s{i}", arr[plan[i]:plan[i + 1]]))
-                        for i in range(len(plan) - 1)]
-                    for p in pendings:
-                        _await(p)
+            self._elastic_attempt(lambda: self._init_impl(key, value))
+
+    def _init_impl(self, key, value):
+        keys, values = self._canon(key, value)
+        for k, vs in zip(keys, values):
+            arr = vs[0].asnumpy()
+            plan = self._stripe_plan(k, arr.shape)
+            if plan is None:
+                self._conn_of(k).submit(("init", k, arr), wait=True)
+            else:
+                pendings = [
+                    self._stripe_conn(k, i).request(
+                        ("init", f"{k}@s{i}", arr[plan[i]:plan[i + 1]]))
+                    for i in range(len(plan) - 1)]
+                for p in pendings:
+                    _await(p)
+            self._cache_value(k, arr)
 
     def _wire_push_payload(self, wire_key, arr):
         """One push payload for the wire: compressed when compression is
@@ -1238,7 +1943,14 @@ class KVStoreDistAsync(KVStore):
         returns at once and the server applies the update when the push
         arrives (async SGD).  Striped keys push one row slice per server;
         a LIST push coalesces small keys bound for one server into one
-        ``push_multi`` envelope (``MXNET_KVSTORE_COALESCE_BYTES``)."""
+        ``push_multi`` envelope (``MXNET_KVSTORE_COALESCE_BYTES``).
+
+        Elastic note: push is fire-and-forget, so it is never retried
+        whole (earlier keys of the call may already sit in healthy
+        server queues).  The call is planned first and submitted second:
+        a submit that meets a failed channel repairs the roster, then
+        re-routes only the REMAINING entries, skipping keys whose layout
+        moved (the repair re-pushed those from the push log)."""
         keys, values = self._canon(key, value)
         with _tr.span("kv.push", args={"keys": len(keys)}):
             pairs = []
@@ -1248,18 +1960,21 @@ class KVStoreDistAsync(KVStore):
                              else (k, self._reduce(vs).detach()))
             self._push_planned(pairs)
 
-    def _push_planned(self, pairs):
+    def _push_planned(self, pairs, log=True):
         """The wire half of a push round ``[(key, tensor or numpy or
         RowSparsePayload)]``: compression, striping, same-server
-        coalescing (the shared tail of :meth:`push` and
-        :meth:`ship_chunk_steps`)."""
+        coalescing and the elastic push log (the shared tail of
+        :meth:`push`, :meth:`ship_chunk_steps` and the orphan re-push,
+        which passes ``log=False``)."""
         small: Dict[int, list] = {}   # conn index -> [(wire_key, payload)]
-        planned = []                  # (conn, msg)
+        planned = []                  # (base_key, conn, msg)
         cuda_devs = set()
         for k, agg in pairs:
             if isinstance(agg, RowSparsePayload):
                 if np.asarray(agg.indices).size == 0:
-                    continue   # nothing touched: nothing rides
+                    continue   # nothing touched: nothing rides or is logged
+                if log:
+                    self._log_push(k, agg)
                 for wk, conn, msg in self._sparse_wire_entries(k, agg):
                     if (wk == k and len(pairs) > 1
                             and self._payload_nbytes(msg[2])
@@ -1268,8 +1983,10 @@ class KVStoreDistAsync(KVStore):
                             self._conns.index(conn), []).append(
                                 (k, msg[2]))
                     else:
-                        planned.append((conn, msg))
+                        planned.append((k, conn, msg))
                 continue
+            if log:
+                self._log_push(k, agg)
             if isinstance(agg, torch.Tensor) and agg.is_cuda:
                 cuda_devs.add(agg.device)
             plan = self._stripe_plan(k, tuple(agg.shape))
@@ -1282,66 +1999,115 @@ class KVStoreDistAsync(KVStore):
                     small.setdefault(self._conns.index(conn), []).append(
                         (k, payload))
                 else:
-                    planned.append((conn, ("push", k, payload)))
+                    planned.append((k, conn, ("push", k, payload)))
             else:
                 for i in range(len(plan) - 1):
                     wk = f"{k}@s{i}"
-                    planned.append((self._stripe_conn(k, i), (
+                    planned.append((k, self._stripe_conn(k, i), (
                         "push", wk, self._wire_push_payload(
                             wk, agg[plan[i]:plan[i + 1]]))))
         for ci, entries in small.items():
             if len(entries) == 1:
-                planned.append((self._conns[ci],
+                planned.append((entries[0][0], self._conns[ci],
                                 ("push", entries[0][0], entries[0][1])))
             else:
-                planned.append((self._conns[ci], ("push_multi", entries)))
+                planned.append((None, self._conns[ci],
+                                ("push_multi", entries)))
         # the copies to pinned host memory were queued on each device's
         # current stream: the bytes are host-visible once it drains
         for dev in cuda_devs:
             torch.cuda.current_stream(dev).synchronize()
-        for conn, msg in planned:
-            conn.submit(msg, wait=False)
+        self._submit_planned(planned)
+
+    def _submit_planned(self, planned):
+        """Submit planned push envelopes; on a channel failure in
+        elastic mode, repair once and re-route the remainder under the
+        new layout (moved keys skipped: the repair's log re-push owns
+        them)."""
+        for idx, (_k, conn, msg) in enumerate(planned):
+            try:
+                conn.submit(msg, wait=False)
+            except MXNetError:
+                if not self._elastic or not self._elastic_repair():
+                    raise
+                self._reroute_planned(planned[idx:])
+                return
+
+    def _reroute_planned(self, rest):
+        """Re-route the unsent tail of a push call after a repair.  Keys
+        the repair moved are dropped here (their full logged gradients
+        were already re-pushed under the new layout); unmoved keys keep
+        their wire keys and go to the same URI's fresh channel."""
+        moved = self._last_moved_keys
+        for k, _old_conn, msg in rest:
+            if msg[0] == "push_multi":
+                for ek, payload in msg[1]:
+                    if ek not in moved:
+                        self._conn_of(ek).submit(("push", ek, payload),
+                                                 wait=False)
+            elif k not in moved:
+                wk = msg[1]
+                if _STRIPE_SEP in wk:
+                    base, i = wk.rsplit(_STRIPE_SEP, 1)
+                    self._stripe_conn(base, int(i)).submit(msg, wait=False)
+                else:
+                    self._conn_of(wk).submit(msg, wait=False)
 
     def assign(self, key, value):
         """Store value(s) verbatim on the owning server(s), bypassing the
         installed updater.  Awaited: every later ``pull`` observes the
-        value."""
+        value (the serving version-bump publication contract).
+        Idempotent, so the elastic path may retry it whole after a
+        roster repair."""
         with _tr.span("kv.assign"):
-            keys, values = self._canon(key, value)
-            pendings = []
-            for k, vs in zip(keys, values):
-                arr = vs[0].asnumpy()
-                plan = self._stripe_plan(k, arr.shape)
-                if plan is None:
-                    pendings.append(
-                        self._conn_of(k).request(("assign", k, arr)))
-                else:
-                    pendings.extend(
-                        self._stripe_conn(k, i).request(
-                            ("assign", f"{k}@s{i}",
-                             arr[plan[i]:plan[i + 1]]))
-                        for i in range(len(plan) - 1))
-            for p in pendings:
-                _await(p)
+            self._elastic_attempt(lambda: self._assign_impl(key, value))
+
+    def _assign_impl(self, key, value):
+        keys, values = self._canon(key, value)
+        pendings = []
+        for k, vs in zip(keys, values):
+            arr = vs[0].asnumpy()
+            plan = self._stripe_plan(k, arr.shape)
+            if plan is None:
+                pendings.append(
+                    self._conn_of(k).request(("assign", k, arr)))
+            else:
+                pendings.extend(
+                    self._stripe_conn(k, i).request(
+                        ("assign", f"{k}@s{i}",
+                         arr[plan[i]:plan[i + 1]]))
+                    for i in range(len(plan) - 1))
+            self._cache_value(k, arr)
+        for p in pendings:
+            _await(p)
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         """Fetch the servers' CURRENT weights (possibly mid-stream of other
         workers' pushes: staleness is the async contract) into each out
         array, on its device and in its dtype.  Every request is enqueued
         before any reply is awaited, so an N-key pull over S servers
-        costs about one round trip."""
+        costs about one round trip.  Idempotent: the elastic path
+        retries it whole after a roster repair."""
+        with _tr.span("kv.pull"):
+            self._elastic_attempt(lambda: self._pull_impl(key, out))
+
+    def _pull_impl(self, key, out):
         assert out is not None
         keys, outs = self._canon(key, out)
-        with _tr.span("kv.pull"):
-            entries = [self._enqueue_pull(k, tuple(os_[0].shape))
-                       for k, os_ in zip(keys, outs)]
-            for e, os_ in zip(entries, outs):
-                parts = [np.asarray(_await(p[3])) for p in e["parts"]]
-                val = parts[0] if len(parts) == 1 else \
-                    np.concatenate(parts, axis=0)
-                for o in os_:
-                    o._set_data(_from_host(val, o._data.device,
-                                           o._data.dtype))
+        entries = [self._enqueue_pull(k, tuple(os_[0].shape))
+                   for k, os_ in zip(keys, outs)]
+        for e, os_ in zip(entries, outs):
+            parts = [np.asarray(_await(p[3])) for p in e["parts"]]
+            val = parts[0] if len(parts) == 1 else \
+                np.concatenate(parts, axis=0)
+            # the completed pull is this worker's sync point for the
+            # key: the cache becomes the quorum re-push value, and every
+            # logged push the pull OBSERVED (up to its enqueue mark) is
+            # absorbed into it
+            self._cache_value(e["key"], val, mark=e["mark"])
+            for o in os_:
+                o._set_data(_from_host(val, o._data.device,
+                                       o._data.dtype))
 
     def ship_chunk_steps(self, names, grads, shapes):
         """The ship leg of the chunked drivers (Module.run_steps and
@@ -1366,13 +2132,14 @@ class KVStoreDistAsync(KVStore):
         if isinstance(keys, str):
             keys, shapes = [keys], [shapes]
         keys = [_key(k) for k in keys]
-        entries = [self._enqueue_pull(k, shape)
-                   for k, shape in zip(keys, shapes)]
+        entries = [self._elastic_attempt(
+            lambda k=k, shape=shape: self._enqueue_pull(k, shape))
+            for k, shape in zip(keys, shapes)]
         return _PullHandle(self, entries)
 
     def _enqueue_pull(self, k, shape):
-        """Issue the per-stripe pull requests of one key; returns the
-        handle entry."""
+        """Issue the per-stripe pull requests of one key under the
+        CURRENT layout; returns the handle entry (the replan unit)."""
         plan = self._stripe_plan(k, tuple(shape))
         parts = []
         if plan is None:
@@ -1385,59 +2152,64 @@ class KVStoreDistAsync(KVStore):
                 parts.append([plan[i], plan[i + 1], wk,
                               self._stripe_conn(k, i).request(
                                   ("pull", wk)), None])
-        return {"key": k, "shape": tuple(shape), "parts": parts}
+        return {"key": k, "shape": tuple(shape), "parts": parts,
+                "mark": self._push_mark(k)}
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
         """Pull only the requested rows from the owning server(s): O(rows)
         on the wire (reference: DataHandleRowSparse,
         kvstore_dist_server.h:211).  Same out-array semantics as the
         local store.  Requests pipeline like pull."""
+        with _tr.span("kv.row_sparse_pull"):
+            self._elastic_attempt(
+                lambda: self._row_sparse_pull_impl(key, out, row_ids))
+
+    def _row_sparse_pull_impl(self, key, out, row_ids):
         from . import membership as _mem
         assert out is not None and row_ids is not None
         keys, outs = self._canon(key, out)
         if isinstance(row_ids, NDArray):
             row_ids = [row_ids] * len(keys)
-        with _tr.span("kv.row_sparse_pull"):
-            reqs = []
-            for k, os_, rid in zip(keys, outs, row_ids):
-                _check_stripe_sep(self.type, k)
-                idx = np.unique(np.asarray(rid.asnumpy(), dtype=np.int64))
-                # out carries the full logical shape, so a fresh client
-                # derives the stripe plan just like pull()
-                plan = self._stripe_plan(k, tuple(os_[0].shape))
-                if plan is not None and idx.size and (
-                        idx[0] < 0 or idx[-1] >= plan[-1]):
-                    raise MXNetError(
-                        f"row id out of range for key {k!r}: ids span "
-                        f"[{idx[0]}, {idx[-1]}], key has {plan[-1]} rows")
-                if plan is None:
-                    reqs.append((idx, self._conn_of(k).request(
-                        ("pull_rowsparse", k, idx))))
-                else:
-                    # each global row id to its stripe; stripes are
-                    # contiguous and idx sorted, so the replies joined in
-                    # stripe order realign with idx
-                    parts = [
-                        self._stripe_conn(k, i).request(
-                            ("pull_rowsparse", f"{k}@s{i}", local))
-                        for i, local, _pos in _mem.sparse_route(plan, idx)]
-                    if not parts:
-                        # no ids: one reply still tells the row shape
-                        parts = [self._stripe_conn(k, 0).request(
-                            ("pull_rowsparse", f"{k}@s0",
-                             np.zeros(0, np.int64)))]
-                    reqs.append((idx, (plan, parts)))
-            for (idx, pending), (k, os_) in zip(reqs, zip(keys, outs)):
-                if isinstance(pending, tuple):
-                    plan, parts = pending
-                    replies = [self._await_rows(p, k) for p in parts]
-                    rows = np.concatenate([r for r, _shape in replies],
-                                          axis=0)
-                    full_shape = (plan[-1],) + tuple(replies[0][1][1:])
-                else:
-                    rows, full_shape = self._await_rows(pending, k)
-                _write_row_sparse_out(os_, _from_host(rows, "cpu"),
-                                      torch.from_numpy(idx), full_shape)
+        reqs = []
+        for k, os_, rid in zip(keys, outs, row_ids):
+            _check_stripe_sep(self.type, k)
+            idx = np.unique(np.asarray(rid.asnumpy(), dtype=np.int64))
+            # out carries the full logical shape, so a fresh client
+            # derives the stripe plan just like pull()
+            plan = self._stripe_plan(k, tuple(os_[0].shape))
+            if plan is not None and idx.size and (
+                    idx[0] < 0 or idx[-1] >= plan[-1]):
+                raise MXNetError(
+                    f"row id out of range for key {k!r}: ids span "
+                    f"[{idx[0]}, {idx[-1]}], key has {plan[-1]} rows")
+            if plan is None:
+                reqs.append((idx, self._conn_of(k).request(
+                    ("pull_rowsparse", k, idx))))
+            else:
+                # each global row id to its stripe; stripes are
+                # contiguous and idx sorted, so the replies joined in
+                # stripe order realign with idx
+                parts = [
+                    self._stripe_conn(k, i).request(
+                        ("pull_rowsparse", f"{k}@s{i}", local))
+                    for i, local, _pos in _mem.sparse_route(plan, idx)]
+                if not parts:
+                    # no ids: one reply still tells the row shape
+                    parts = [self._stripe_conn(k, 0).request(
+                        ("pull_rowsparse", f"{k}@s0",
+                         np.zeros(0, np.int64)))]
+                reqs.append((idx, (plan, parts)))
+        for (idx, pending), (k, os_) in zip(reqs, zip(keys, outs)):
+            if isinstance(pending, tuple):
+                plan, parts = pending
+                replies = [self._await_rows(p, k) for p in parts]
+                rows = np.concatenate([r for r, _shape in replies],
+                                      axis=0)
+                full_shape = (plan[-1],) + tuple(replies[0][1][1:])
+            else:
+                rows, full_shape = self._await_rows(pending, k)
+            _write_row_sparse_out(os_, _from_host(rows, "cpu"),
+                                  torch.from_numpy(idx), full_shape)
 
     @staticmethod
     def _await_rows(pending, k):
@@ -1456,14 +2228,23 @@ class KVStoreDistAsync(KVStore):
     def set_optimizer(self, optimizer):
         """Ship the optimizer to the servers (reference kvstore.py:353:
         rank 0 pickles it; _send_command_to_servers head=0), then barrier
-        so every worker sees the installed updater before pushing."""
+        so every worker sees the installed updater before pushing.
+        Idempotent (same blob), so the elastic path retries it whole;
+        every worker KEEPS the optimizer, so a server joining later is
+        armed during the roster repair."""
         self._optimizer = optimizer
-        if self.rank == 0:
-            from .kvstore_server import K_CONTROLLER
-            blob = pickle.dumps(optimizer)
-            for c in self._conns:
-                c.submit(("command", K_CONTROLLER, blob), wait=True)
+        self._elastic_attempt(lambda: self._ship_optimizer(optimizer))
         self.barrier()
+
+    def _ship_optimizer(self, optimizer):
+        # rank 0 owns the install (reference semantics); the other ranks
+        # only re-arm JOINED servers during a repair
+        if self.rank != 0:
+            return
+        from .kvstore_server import K_CONTROLLER
+        blob = pickle.dumps(optimizer)
+        for c in self._conns:
+            c.submit(("command", K_CONTROLLER, blob), wait=True)
 
     def _send_command_to_servers(self, head, body):
         for c in self._conns:
@@ -1527,25 +2308,38 @@ class KVStoreDistAsync(KVStore):
 
     def barrier(self):
         """Flush this worker's outstanding pushes, then rendezvous on
-        server 0 (reference: Postoffice::Barrier after engine drain).  An
-        arrival carries this worker's barrier sequence number, so a retry
-        is idempotent; a participant that dies mid-wait is NAMED, with
-        its last-heartbeat age, in the failure."""
+        the roster coordinator, server 0 of a static roster (reference:
+        Postoffice::Barrier after engine drain).  An arrival carries this
+        worker's barrier sequence number, so a retry is idempotent; a
+        participant that dies mid-wait is NAMED, with its last-heartbeat
+        age, in the static roster's failure.  Under
+        MXNET_KVSTORE_ELASTIC the barrier RENEGOTIATES instead: the
+        coordinator evicts the silent rank and wakes the survivors, and
+        the reply carries the roster generation, so a bump is converged
+        onto at every sync point; a coordinator that dies mid-wait gets
+        the SAME (rank, seq) arrival re-sent to its elected successor."""
         with _tr.span("kv.barrier"):
-            self._flush_all()
+            self._elastic_attempt(self._flush_all)
             self._barrier_seq += 1
             bseq = self._barrier_seq
             wtok = _health.wait_begin("kv.barrier")
             try:
-                payload = self._conns[0].submit(("barrier", bseq),
-                                                wait=True)
+                payload = self._elastic_attempt(
+                    lambda: self._coordinator_conn().submit(
+                        ("barrier", bseq), wait=True))
             finally:
                 _health.wait_end(wtok)
             if isinstance(payload, (tuple, list)) and len(payload) == 2:
-                # the server realigned this (re-)joined rank to the
+                # the coordinator realigned this (re-)joined rank to the
                 # cohort's pending rendezvous: adopt the effective
                 # sequence
-                self._barrier_seq = bseq + int(payload[1])
+                payload, realign = payload
+                self._barrier_seq = bseq + int(realign)
+            if self._elastic and isinstance(payload, int) \
+                    and payload != self._roster_gen:
+                # the refresh rides the repair wrapper too: the
+                # coordinator can die in the reply-to-refresh window
+                self._elastic_attempt(self._elastic_refresh)
 
     def _flush_all(self):
         for c in self._conns:
@@ -1571,6 +2365,14 @@ class KVStoreDistAsync(KVStore):
     def close(self, stop_servers=False):
         from .kvstore_server import K_STOP_SERVER
         self._closed = True
+        if self._roster_member:
+            # graceful departure: deregister so the surviving workers'
+            # barriers re-target without waiting out a heartbeat timeout
+            try:
+                self._coordinator_conn().submit(
+                    ("roster_leave", "worker", self.rank), wait=True)
+            except MXNetError:
+                pass  # the coordinator will evict us on silence instead
         # deliver queued pushes while the servers are still guaranteed up
         for c in self._conns:
             try:

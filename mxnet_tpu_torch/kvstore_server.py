@@ -1,8 +1,7 @@
 """Async parameter-server process: the backend of kvstore ``dist_async``.
 
-PyTorch counterpart of ``mxnet_tpu/kvstore_server.py`` without elastic
-membership (ROADMAP E2; reference: src/kvstore/kvstore_dist_server.h,
-python/mxnet/kvstore_server.py:28-75).  A server applies each worker's
+PyTorch counterpart of ``mxnet_tpu/kvstore_server.py`` (reference:
+src/kvstore/kvstore_dist_server.h, python/mxnet/kvstore_server.py:28-75).  A server applies each worker's
 push to its stored weight the moment it arrives (the non-sync branch of
 ``DataHandleDefault``, kvstore_dist_server.h:405-430):
 
@@ -22,9 +21,12 @@ push to its stored weight the moment it arrives (the non-sync branch of
   reference gives servers no GPU context, so a server never creates a
   CUDA context and the card belongs to the workers.
 
-The roster and handoff ops answer as the JAX package's non-elastic
-server answers them (roster ops: "not the roster coordinator"); asking
-for ``elastic=True`` or ``MXNET_KVSTORE_ELASTIC`` raises, naming E2.
+Elastic membership (``elastic=True`` or ``MXNET_KVSTORE_ELASTIC``): slot
+0 of the live roster is the coordinator, which keeps the
+generation-numbered ledger (:mod:`.membership`), renegotiates barriers
+when a rank is evicted and banks the other servers' state snapshots;
+every elastic server runs the beat loop, and on the coordinator's
+silence the elected survivor verifies the death and promotes itself.
 
 Process model: ``tools/launch.py -s S`` starts S copies of the user's
 command with ``DMLC_ROLE=server``; importing :mod:`mxnet_tpu_torch` in
@@ -467,12 +469,7 @@ class KVStoreServer:
 
     def __init__(self, server_id=0, num_workers=1,
                  host="127.0.0.1", port=0, hb_timeout=None,
-                 elastic=None, uri=None):
-        if elastic or (elastic is None
-                       and _env("MXNET_KVSTORE_ELASTIC", False)):
-            raise MXNetError(
-                "kvstore server: elastic membership (MXNET_KVSTORE_ELASTIC)"
-                " is not ported to mxnet_tpu_torch yet (ROADMAP E2)")
+                 elastic=None, uri=None, roster_servers=None):
         self.server_id = server_id
         self.num_workers = num_workers
         # the hot shared containers are hb-tracked: identity in
@@ -551,14 +548,58 @@ class KVStoreServer:
         # the LAST resort in _handle, so an extension can never shadow a
         # core op.
         self._ext_ops = {}
+        # -- elastic membership (mxnet_tpu.membership) --------------------
+        # Slot 0 of the CURRENT roster is the COORDINATOR
+        # (membership.coordinator_uri — roster-derived, not a fixed
+        # server id): it owns the generation-numbered membership ledger,
+        # renegotiates barriers when a rank is evicted, and banks the
+        # other servers' periodic state snapshots.  EVERY elastic server
+        # runs the beat loop, fanning beats (and snapshots) out to every
+        # peer — so the snapshot bank outlives any single server — and
+        # on coordinator silence each survivor independently elects
+        # membership.elect_successor; the elected one verifies the death
+        # and promotes itself (_maybe_promote), rebuilding the ledger
+        # from the survivors' ledger_reports + its local peer bank.
+        self._elastic = bool(_env("MXNET_KVSTORE_ELASTIC", False)
+                             if elastic is None else elastic)
         self.uri = uri or f"{host}:{self.port}"
-        # the non-elastic server's answers to the cold ops it shares
-        # with the elastic plane: roster beats bank a peer's snapshot and
-        # counters (newest sequence wins), handoffs apply once per
-        # (wire key, generation)
+        # the coordinator ledger is created LAZILY (first roster op /
+        # first barrier): in-process tests only know every server's
+        # bound port — and can set MXT_SERVER_URIS — after construction
+        self._membership = None
+        self._membership_lock = threading.Lock()
+        self._roster_servers = list(roster_servers) if roster_servers \
+            else None
+        self._beat_thread = None
+        self._beat_seq = 0
+        self._snapshot_s = float(_env("MXNET_KVSTORE_SNAPSHOT_S", 0.0))
+        # this server's view of the live roster (updated from every
+        # coordinator beat reply) — the rebuild source on promotion
+        self._known_roster = None
+        self._known_gen = 0
+        self._known_workers = None
+        # peer snapshot bank: uri -> (beat seq, snapshot struct).  Grown
+        # from the beat fan-out on EVERY server, so the killed-server
+        # recovery source no longer dies with server 0; promoted into
+        # the rebuilt ledger on failover.
         self._peer_snapshots = _hb.track(
             {}, "KVStoreServer._peer_snapshots")
+        # peer stats bank: uri -> (beat seq, compact profiler counters).
+        # Beats piggyback profiler.snapshot(compact=True), banked on
+        # EVERY server with the same newest-seq-wins rule as snapshots —
+        # so the last-known counters of a SIGKILLed member survive its
+        # death (and the coordinator's death) and ride the "stats"
+        # envelope's stats_bank field
         self._peer_stats = _hb.track({}, "KVStoreServer._peer_stats")
+        self._promoted = False        # this server succeeded a dead coord
+        self._coord_last_ok = None    # last successful coordinator beat
+        self._coord_refused = False   # last coordinator dial was refused
+        self._peer_heard = set()      # peers that EVER acked a beat
+        self._peer_refused = set()    # heard-then-refused peers (evidence)
+        # handoff dedup: wire key -> newest applied roster generation
+        # (values), same for optimizer state; base key -> generation the
+        # stale wire forms were purged at.  Quorum re-pushes and
+        # replayed envelopes are idempotent through these.
         self._handoff_gen = _hb.track(
             {}, "KVStoreServer._handoff_gen")
         self._handoff_state_gen = _hb.track(
@@ -775,27 +816,52 @@ class KVStoreServer:
             # profiler snapshot plus server identity and the last-
             # known-stats bank of its peers (docs/OBSERVABILITY.md)
             return self._stats_payload()
-        if op in ("roster_get", "roster_join", "roster_leave",
-                  "roster_dead", "roster_fwd"):  # protocol: replay(idempotent) reply(error)
-            # the roster lives on an elastic job's coordinator (E2); a
-            # static server answers as the JAX package's does
-            raise RuntimeError(_NOT_COORDINATOR)
-        if op == "roster_beat":  # protocol: replay(idempotent) reply(none)
+        if op == "roster_get":  # protocol: replay(idempotent) reply(roster wire)
+            return self._roster_op(("roster_get",))
+        # protocol: replay(idempotent) reply(roster wire | roster wire + barrier floor)
+        if op in ("roster_join", "roster_leave", "roster_dead"):
+            _, role, ident = msg
+            return self._roster_op((op, role, ident))
+        if op == "roster_fwd":  # protocol: replay(idempotent) reply(forwarded op reply)
+            # a peer forwarded a roster op it could not serve (it is not
+            # the coordinator): dispatch locally, NEVER re-forward — one
+            # hop bounds the succession-window relay
+            return self._roster_op(tuple(msg[1]), forwarded=True)
+        if op == "roster_beat":  # protocol: replay(idempotent) reply(roster wire | none)
             # a peer server's liveness beat, optionally carrying its
-            # state snapshot and counters: banked, newest sequence wins
+            # state snapshot (raw message: beats must never be stalled
+            # by a delay-acks fault plan, like heartbeats).  EVERY
+            # elastic server banks the snapshot — the bank must outlive
+            # the coordinator — and the coordinator's reply carries the
+            # full roster so peers track the membership they may one
+            # day have to rebuild.
             _, suri, seq, snap = msg[:4]
             stats = msg[4] if len(msg) > 4 else None
             self._bank_peer_snapshot(suri, seq, snap)
             if stats is not None:
                 self._bank_peer_stats(suri, seq, stats)
-            return None
-        if op == "roster_snapshot":  # protocol: replay(pure) reply(snapshot struct)
+            m = self._get_membership()
+            if m is None:
+                return None
+            m.note_server_beat(suri, seq=seq, snapshot=snap, stats=stats)
+            return m.roster().as_wire()
+        if op == "roster_snapshot":  # protocol: replay(pure) reply(snapshot struct | none)
+            # serve from the ledger bank OR the local peer bank: the
+            # request must be answerable on whichever server is the
+            # coordinator after a failover
             _, ident = msg
-            with self._lock:
-                have = self._peer_snapshots.get(ident)
-            if have is None:
-                raise RuntimeError(_NOT_COORDINATOR)
-            return have[1]
+            m = self._get_membership()
+            snap = m.snapshot_of(ident) if m is not None else None
+            if snap is None:
+                # under self._lock: the beat handlers bank into this
+                # dict under the same lock from other connection
+                # threads (an hb-sanitizer finding)
+                with self._lock:
+                    have = self._peer_snapshots.get(ident)
+                snap = have[1] if have else None
+            if snap is None and m is None:
+                self._require_membership()   # classic not-coordinator error
+            return snap
         if op == "ledger_report":  # protocol: replay(pure) reply(report dict)
             # ("ledger_report", True) is the SLIM form the promotion
             # sweep uses (generation + beat seq only); the bare op also
@@ -916,6 +982,9 @@ class KVStoreServer:
                 if r in live and now - t > self._hb_timeout}
 
     def _live_worker_ranks(self):
+        m = self._get_membership()
+        if m is not None:
+            return set(m.workers_snapshot())
         return set(range(self.num_workers))
 
     def _heartbeat_ages(self, ranks):
@@ -930,11 +999,295 @@ class KVStoreServer:
                 else "last heartbeat %.1fs ago" % (now - t)))
         return "; ".join(parts)
 
+    # -- elastic membership (coordinator half; mxnet_tpu.membership) ---------
+    def _roster_uris(self, self_fallback=True):
+        """This server's best view of the roster server order: the live
+        roster learned from coordinator beat replies, else the bootstrap
+        roster (ctor / MXT_SERVER_URIS — in-process tests set the env
+        after binding ports), else just self (``self_fallback=False``
+        returns [] instead, for callers that must distinguish "no
+        roster source at all" — coordinator-role derivation falls back
+        to the launcher's server_id there)."""
+        uris = (self._known_roster or self._roster_servers
+                or [u for u in os.environ.get(
+                    "MXT_SERVER_URIS", "").split(",") if u])
+        if not uris and self_fallback:
+            return [self.uri]
+        return uris
+
+    def _is_coordinator(self):
+        """Whether THIS server currently holds the coordinator role —
+        roster-derived (membership.coordinator_uri over the live view),
+        never a hardcoded server id: a failover re-seats slot 0.  A
+        promoted successor stays coordinator for good (the old one is
+        dead by verified evidence).  Until ANY roster source exists
+        (ctor roster, beat replies, MXT_SERVER_URIS — in-process tests
+        set the env after binding ports), the launcher's server_id
+        decides: without this, the [self.uri] fallback would make EVERY
+        just-started elastic server consider itself coordinator, arming
+        ONLY_COORDINATOR fault plans (and minting throwaway ledgers) on
+        non-slot-0 servers."""
+        if not self._elastic:
+            return False
+        if self._promoted:
+            return True
+        from .membership import coordinator_uri
+        uris = self._roster_uris(self_fallback=False)
+        if not uris:
+            return self.server_id == 0
+        return coordinator_uri(uris) == self.uri
+
+    def _get_membership(self):
+        """The coordinator ledger — the roster's slot-0 server of an
+        elastic job only (lazily created so in-process tests can bind
+        ports and set MXT_SERVER_URIS before the first roster op
+        arrives)."""
+        if not self._is_coordinator():
+            return None
+        with self._membership_lock:
+            if self._membership is None:
+                uris = self._roster_uris()
+                from .membership import MembershipCoordinator
+                self._membership = MembershipCoordinator(
+                    uris, range(self.num_workers))
+            return self._membership
+
+    def _require_membership(self):
+        m = self._get_membership()
+        if m is None:
+            raise RuntimeError(
+                "not the roster coordinator (roster ops go to slot 0 "
+                "of the live roster of an elastic job; set "
+                "MXNET_KVSTORE_ELASTIC=1)")
+        return m
+
+    def _roster_op(self, inner, forwarded=False):
+        """Dispatch one roster op at the right server: locally when this
+        server is (or — on CONFIRMED coordinator death — just became)
+        the coordinator; otherwise forwarded ONE hop to the live
+        coordinator.  The forwarding keeps roster ops flowing through
+        the succession window: a worker or late joiner whose stale
+        roster points at any surviving server still reaches the ledger,
+        and its envelope replays dedup exactly like every other op."""
+        m = self._get_membership()
+        if m is None and self._elastic:
+            dead_hint = None
+            if inner[0] == "roster_dead" and len(inner) == 3 \
+                    and inner[1] == "server":
+                dead_hint = str(inner[2])
+            if self._maybe_promote(dead_hint=dead_hint):
+                m = self._get_membership()
+            else:
+                return self._forward_roster_op(inner, forwarded)
+        if m is None:
+            self._require_membership()   # raises the classic error
+        if inner[0] == "roster_get":
+            return self._roster_get(m)
+        _op, role, ident = inner
+        return self._roster_mutate(m, _op[len("roster_"):], role, ident)
+
+    def _forward_roster_op(self, inner, forwarded):
+        """Relay a roster op to the live coordinator over a short-lived
+        socket (one hop only).  A refused relay dial is itself death
+        evidence: re-try the succession check before giving up."""
+        from .membership import coordinator_uri, elect_successor
+        if forwarded:
+            raise RuntimeError(
+                "forwarded roster op reached a non-coordinator (roster "
+                "views diverged mid-succession); retry against the "
+                "current roster")
+        addr = self._coordinator_addr()
+        if addr is not None:
+            try:
+                status, payload = self._oneshot_request(
+                    addr, ("roster_fwd", list(inner)),
+                    self._hb_timeout or 15.0)
+                if status != "ok":
+                    raise RuntimeError(str(payload))
+                return payload
+            except (ConnectionError, OSError):
+                # the coordinator refused/died mid-relay: that IS local
+                # evidence — run the succession check before failing
+                curi = coordinator_uri(self._roster_uris())
+                if self._maybe_promote(dead_hint=curi):
+                    return self._roster_op(inner, forwarded=True)
+        curi = coordinator_uri(self._roster_uris())
+        succ = elect_successor(self._roster_uris(), {curi})
+        raise RuntimeError(
+            "not the roster coordinator (coordinator %s unreachable "
+            "from %s; deterministic successor is %s)"
+            % (curi, self.uri, succ))
+
+    # -- coordinator failover (succession + ledger rebuild) ------------------
+    def _coordinator_silent(self):
+        """LOCAL evidence of coordinator death from the beat loop: the
+        last dial was refused (decisive — the port is gone), or a
+        previously-acking coordinator has been silent past hb_timeout.
+        Never-heard-never-dead: a coordinator we never reached may still
+        be starting up."""
+        if self._coord_refused:
+            return True
+        if self._hb_timeout <= 0 or self._coord_last_ok is None:
+            return False
+        return time.monotonic() - self._coord_last_ok > self._hb_timeout
+
+    def _probe_confirmed_dead(self, curi):
+        """Probe a peer's listener before acting on its reported death
+        (the coordinator pre-promotion, and each intermediate slot the
+        succession election walks past).  ONLY a REFUSED dial confirms
+        death — the port is gone, the process with it.  A completed
+        connect means it is alive, and a TIMEOUT is inconclusive (a
+        slow or partitioned-from-us coordinator may still be serving
+        workers that can reach it): both REFUSE the promotion — the
+        no-split-brain guard.  Succession therefore never fires on
+        reachability alone; a host that vanishes without closing its
+        ports (cable pull) degrades to the pre-failover behavior
+        (the job fails loudly) rather than risking two coordinators."""
+        import socket as _socket
+        try:
+            sock = _socket.create_connection(
+                self._uri_addr(curi),
+                timeout=min(2.0, self._hb_timeout or 2.0))
+        except ConnectionRefusedError:
+            return True
+        except ValueError:
+            return True    # malformed uri can never serve again
+        except OSError:
+            return False   # timeout/unreachable: inconclusive, refuse
+        try:
+            sock.close()
+        except OSError:
+            pass
+        return False
+
+    def _maybe_promote(self, dead_hint=None):
+        """Deterministic succession: promote this server to coordinator
+        iff (a) the current coordinator is confirmed dead by LOCAL
+        evidence — beat silence / refused dials, or a probe when a peer
+        reports it dead (``dead_hint``) — and (b)
+        membership.elect_successor over the last-known roster and the
+        full locally-evidenced dead set picks this very server.  When
+        the election lands on an INTERMEDIATE slot, that slot is probed
+        too and the election walks on if it is also dead — so a
+        simultaneous multi-server preemption (coordinator AND the next
+        slots) still seats the true survivor in one call.  Pure
+        arithmetic plus local probes, no votes.  Idempotent and
+        thread-safe; True when this server IS the coordinator on
+        exit."""
+        from .membership import coordinator_uri, elect_successor
+        if not self._elastic:
+            return False
+        if self._promoted:
+            return True
+        uris = self._roster_uris()
+        curi = coordinator_uri(uris)
+        if curi is None or curi == self.uri:
+            return self._is_coordinator()
+        hinted = dead_hint is not None and str(dead_hint) == curi
+        if not hinted and not self._coordinator_silent():
+            return False
+        if not self._probe_confirmed_dead(curi):
+            return False
+        dead = {curi} | set(self._peer_refused)
+        dead.discard(self.uri)
+        while True:
+            succ = elect_successor(uris, dead)
+            if succ is None or succ == self.uri:
+                break
+            if self._probe_confirmed_dead(succ):
+                dead.add(succ)     # intermediate slot dead too: walk on
+                continue
+            return False           # a live better-ranked successor leads
+        if succ != self.uri:
+            return False
+        self._promote_to_coordinator(dead)
+        return self._promoted
+
+    def _promote_to_coordinator(self, dead_uris):
+        """Become the coordinator: sweep the surviving servers for their
+        ledger_reports, rebuild the ledger at max(reported generation)+1
+        (membership.rebuild_ledger — stale-coordinator envelopes are
+        rejected by the existing per-generation staleness checks), and
+        promote the local peer snapshot bank into it.  ``dead_uris`` is
+        the election's full probe-confirmed dead set — every member is
+        excluded from the rebuilt roster, so a multi-death succession
+        never re-seats a corpse at slot 0.  In-flight roster ops from
+        workers replay against this server through the ordinary
+        exactly-once envelope path; the workers' three-phase handoff
+        then reconstructs the dead servers' stripes."""
+        from . import membership as _mem
+        if isinstance(dead_uris, str):
+            dead_uris = {dead_uris}
+        t0 = time.monotonic()
+        if self._promoted:
+            return
+        # the failover_rebuild_s gauge, as a SPAN with its two halves as
+        # children: the peer sweep (network round trips) vs the pure
+        # ledger rebuild — on the merged timeline the rebuild window
+        # sits between the dead coordinator's last span and the first
+        # post-succession barrier release
+        # protocol: span(phase)
+        fsp = _tr.span_begin("srv.failover_rebuild", cat="elastic",
+                             args={"dead": sorted(dead_uris)})
+        try:
+            # the sweep dials peers with real socket timeouts: run it
+            # BEFORE taking the ledger lock, or every _get_membership()
+            # caller (barrier arrivals included) would stall behind the
+            # promotion's network round trips.  Racing promoters both
+            # sweep; the lock below picks one winner.
+            uris = [u for u in self._roster_uris() if u not in dead_uris]
+            with _tr.span("failover.sweep", cat="elastic"):
+                reports = [self._ledger_report(slim=True)]
+                for u in uris:
+                    if u == self.uri:
+                        continue
+                    r = self._sweep_ledger_report(u)
+                    if r is not None:
+                        reports.append(r)
+            workers = self._known_workers
+            if workers is None:
+                workers = range(self.num_workers)
+            with self._lock:
+                snapshots = dict(self._peer_snapshots)
+            with _tr.span("failover.rebuild", cat="elastic"):
+                with self._membership_lock:
+                    if self._promoted:
+                        return
+                    self._membership = _mem.rebuild_ledger(
+                        uris, workers, reports, snapshots)
+                    self._promoted = True
+                    self._known_roster = list(uris)
+                    self._known_gen = self._membership.generation
+        finally:
+            _tr.span_end(fsp)
+        faultinject.note_coordinator(True)
+        _prof.record_channel_event("kvstore.coordinator_failover")
+        _prof.record_channel_gauge("kvstore.coordinator_slot",
+                                   self.server_id)
+        _prof.record_channel_gauge("kvstore.failover_rebuild_s",
+                                   time.monotonic() - t0)
+        _prof.record_channel_gauge("kvstore.roster_generation",
+                                   self._known_gen)
+        _health.note("failover", dead=sorted(dead_uris),
+                     generation=int(self._known_gen),
+                     rebuild_s=round(time.monotonic() - t0, 3))
+        _health.dump("failover")
+        print("kvstore server %d (%s): promoted to roster coordinator "
+              "(predecessor(s) %s dead; generation resumes at %d)"
+              % (self.server_id, self.uri, sorted(dead_uris),
+                 self._known_gen), flush=True)
+
     def _ledger_report(self, slim=False):
-        """This server's generation and beat sequence (a static server:
-        the newest generation a handoff carried, 0 before any, and beat
-        0), with its live key set unless ``slim``."""
-        gen = 0
+        """This server's contribution to a successor's ledger rebuild:
+        last-known generation and beat seq (the successor resumes the
+        generation counter past every report, so any envelope the dead
+        coordinator's epoch stamped is stale).  The full form also
+        names the live key set — operator forensics (which keys a dead
+        server held), NOT a merge input; the promotion sweep asks for
+        ``slim=True`` so a real job's thousands of wire keys never ride
+        the latency-critical rebuild."""
+        m = self._membership
+        gen = m.generation if m is not None else self._known_gen
         with self._lock:
             # any generation this shard WITNESSED raises the floor: a
             # handoff applied at G proves G was issued even if no beat
@@ -949,10 +1302,42 @@ class KVStoreServer:
                     gen = max(gen, max(d.values()))
             keys = None if slim else sorted(self._store)
         out = {"uri": self.uri, "generation": int(gen),
-               "beat_seq": 0}
+               "beat_seq": int(self._beat_seq)}
         if keys is not None:
             out["keys"] = keys
         return out
+
+    def _oneshot_request(self, addr, msg, timeout):
+        """One raw request over a short-lived socket — the shared dial/
+        send/await/close shape behind roster forwarding and the ledger
+        sweep (one place to keep the nodelay/timeout treatment).
+        Returns the (status, payload) reply; transport faults raise so
+        each caller keeps its own error policy."""
+        import socket as _socket
+        sock = _socket.create_connection(addr, timeout=timeout)
+        try:
+            sock.settimeout(timeout)
+            _set_nodelay(sock)
+            _send_msg(sock, msg)
+            return _recv_msg(sock)
+        finally:
+            try:
+                sock.close()
+            except OSError:
+                pass
+
+    def _sweep_ledger_report(self, uri):
+        """Demand one peer's ledger_report over a short-lived socket
+        (promotion sweep).  An unreachable peer is skipped — it either
+        re-joins through the ordinary path or gets evicted on
+        silence."""
+        try:
+            status, payload = self._oneshot_request(
+                self._uri_addr(uri), ("ledger_report", True),
+                min(5.0, self._hb_timeout or 5.0))
+            return payload if status == "ok" else None
+        except Exception:  # noqa: BLE001 — an unreachable peer is skipped
+            return None
 
     def _bank_peer_snapshot(self, uri, seq, snap):
         """Bank one peer's beat snapshot locally — the every-server half
@@ -980,15 +1365,18 @@ class KVStoreServer:
         rather than replace (the serving replica adds its serving
         section on top)."""
         snap = _prof.snapshot()
+        m = self._membership   # peek — never force-create the ledger
         snap["server"] = {
             "server_id": self.server_id,
             "uri": self.uri,
             "num_workers": self.num_workers,
             "dedup_count": self.dedup_count,
-            "elastic": False,
-            "coordinator": False,
-            "beat_seq": 0,
-            "roster_generation": 0,
+            "elastic": self._elastic,
+            "coordinator": self._is_coordinator() if self._elastic
+            else False,
+            "beat_seq": int(self._beat_seq),
+            "roster_generation": int(
+                m.generation if m is not None else self._known_gen),
             # the store and the updater live on the host; this process
             # never makes a CUDA context (the reference's servers have
             # no GPU context)
@@ -1000,7 +1388,129 @@ class KVStoreServer:
                 u: dict(entry[1], beat_seq=int(entry[0]))
                 for u, entry in self._peer_stats.items()
                 if isinstance(entry[1], dict)}
+        if m is not None:
+            # the ledger's bank (grown from beats the coordinator saw,
+            # preloaded across failovers) backfills peers this server's
+            # local bank never heard from
+            for u, entry in m.stats_bank().items():
+                if isinstance(entry[1], dict):
+                    snap["stats_bank"].setdefault(
+                        u, dict(entry[1], beat_seq=int(entry[0])))
         return snap
+
+    def _note_roster_wire(self, payload):
+        """Digest a beat reply carrying the live roster (only
+        coordinators put one on the wire).  Generation-monotonic: a
+        stale roster — an old coordinator that has not yet learned of
+        its own replacement — can never regress this server's view."""
+        try:
+            gen, servers, workers = payload
+        except (TypeError, ValueError):
+            return
+        if not isinstance(servers, (list, tuple)) or not servers:
+            return
+        if int(gen) < self._known_gen:
+            return
+        self._known_gen = int(gen)
+        self._known_roster = [str(u) for u in servers]
+        self._known_workers = list(workers) \
+            if isinstance(workers, (list, tuple)) else None
+
+    def _evict_silent_servers(self, m):
+        """Coordinator-driven server eviction: a server whose beat went
+        silent past hb_timeout is removed from the roster (the worker-
+        report path converges to the same state; both are idempotent)."""
+        for u in m.silent_servers(self._hb_timeout):
+            try:
+                m.report_dead_server(u)
+            except RuntimeError:
+                continue   # the last server is never evicted
+            _prof.record_channel_event("kvstore.server_eviction")
+            _health.note("server_evicted", uri=u, by="beat_silence")
+            _prof.record_channel_gauge("kvstore.roster_generation",
+                                       m.generation)
+
+    def _roster_get(self, m):
+        self._evict_silent_servers(m)
+        return m.roster().as_wire()
+
+    def _roster_mutate(self, m, action, role, ident):
+        """join/leave/dead for either role; returns the FULL post-change
+        roster so the caller refreshes in the same round trip.  All
+        mutations are idempotent — racing duplicate reports of one dead
+        server collapse into a single generation bump (and a worker's
+        report of the already-replaced dead coordinator is a no-op: the
+        rebuild removed it before the report arrived)."""
+        before = m.generation
+        if role == "server":
+            uri = str(ident)
+            if action == "join":
+                m.join_server(uri)
+            elif action == "leave":
+                m.leave_server(uri)
+            else:
+                if uri == self.uri:
+                    # a false-positive report (reporter's heartbeat
+                    # blip) relayed to the very coordinator it names:
+                    # answering this request IS proof of life — refusing
+                    # keeps a live coordinator from evicting itself
+                    # (split brain via a self-removed roster)
+                    raise RuntimeError(
+                        "refusing dead-server report naming this "
+                        "coordinator — it is alive (it is answering "
+                        "the report)")
+                m.report_dead_server(uri)
+        elif role == "worker":
+            rank = int(ident)
+            if action == "join":
+                with self._barrier_cv:
+                    if rank not in m.workers_snapshot():
+                        self._barrier_joined.add(rank)
+                        # a genuinely re-joining rank (relaunch under
+                        # the same id) must not inherit its
+                        # predecessor's release marks — a stale done
+                        # would let its first barriers sail through
+                        # without a rendezvous
+                        self._barrier_high.pop(rank, None)
+                        self._barrier_done.pop(rank, None)
+                    m.join_worker(rank)
+            elif action == "leave":
+                m.leave_worker(rank)
+                with self._barrier_cv:
+                    self._forget_barrier_rank(rank)
+            else:
+                m.evict_worker(rank)
+                with self._barrier_cv:
+                    self._forget_barrier_rank(rank)
+        else:
+            raise ValueError(f"unknown roster role {role!r}")
+        after = m.generation
+        floor = None
+        if role == "worker" and action == "join":
+            with self._barrier_cv:
+                floor = self._barrier_floor_locked()
+        if after != before:
+            if action == "dead":
+                _prof.record_channel_event(
+                    "kvstore.server_eviction" if role == "server"
+                    else "kvstore.worker_eviction")
+                _health.note("%s_evicted" % role, ident=str(ident),
+                             by="report", generation=after)
+            _prof.record_channel_gauge("kvstore.roster_generation", after)
+            with self._barrier_cv:
+                # membership changed: parked barrier waiters must
+                # re-evaluate their target against the new roster
+                self._barrier_release_locked()
+                self._barrier_cv.notify_all()
+        wire = m.roster().as_wire()
+        if floor is not None:
+            # a joining WORKER also receives the cohort's barrier floor:
+            # it seeds its own barrier sequence there, so raw client
+            # sequences stay globally cohort-aligned — which is what
+            # lets a failover successor start with EMPTY barrier state
+            # and still pair every retried arrival exactly
+            wire = wire + (floor,)
+        return wire
 
     def _apply_handoff(self, gen, wire_key, arr, bkey):
         """Install a handed-off VALUE (the workers' quorum re-push, or a
@@ -1055,6 +1565,23 @@ class KVStoreServer:
         _prof.record_channel_event("kvstore.handoff_state_applied")
         return True
 
+    def _snapshot_struct(self):
+        """This shard's full state as a wire structure ({wire_key: np
+        value} + per-key optimizer state) — what the beat loop ships to
+        the coordinator so a SIGKILL does not take the shard's optimizer
+        state to its grave.  Rides the zero-copy frames (np arrays never
+        pass through pickle).  The values are copies: the store's
+        tensors are mutable."""
+        with self._lock:
+            store = {k: _host_np(v).copy() for k, v in self._store.items()}
+            states = {}
+            if self._updater is not None:
+                owned = {_key_int(k) for k in self._store}
+                for k, st in self._updater.states.items():
+                    if k in owned:
+                        states[str(k)] = _state_to_np(st)
+        return {"store": store, "states": states}
+
     def _command(self, head, body):
         """reference kvstore_dist_server.h:149-162 ``CommandHandle``."""
         if head == K_STOP_SERVER:
@@ -1075,6 +1602,9 @@ class KVStoreServer:
         """The live worker ranks a barrier must rendezvous (re-read
         every evaluation, so an eviction mid-wait shrinks the set).
         Caller holds _barrier_cv."""
+        m = self._get_membership()
+        if m is not None:
+            return set(m.workers_snapshot())
         return set(range(self.num_workers))
 
     def _barrier_release_locked(self):
@@ -1111,6 +1641,23 @@ class KVStoreServer:
         if not arrived:
             return 0
         return min(self._barrier_done.get(r, 0) for r in arrived)
+
+    def _forget_barrier_rank(self, rank):
+        """Drop a departed rank's barrier state (a relaunch under the
+        same rank id starts a fresh, join-aligned sequence).  A parked
+        arrival of the departing rank is RELEASED — it is off the
+        roster either way, and letting it go beats stranding its
+        connection thread forever.  Caller holds _barrier_cv."""
+        self._hb_seen.pop(rank, None)
+        high = self._barrier_high.pop(rank, None)
+        if high:
+            self._barrier_done[rank] = max(
+                self._barrier_done.get(rank, 0), high)
+        else:
+            self._barrier_done.pop(rank, None)
+        self._barrier_joined.discard(rank)
+        self._barrier_client.pop(rank, None)
+        self._barrier_cv.notify_all()
 
     def _barrier(self, rank=None, bseq=None, client=None):
         """Rendezvous every live worker (reference: Postoffice::Barrier).
@@ -1165,6 +1712,16 @@ class KVStoreServer:
                     # no-ops.
                     self._barrier_joined.add(rank)
                 self._barrier_client[rank] = client
+            m = self._get_membership()
+            if m is not None and rank is not None \
+                    and rank not in m.workers_snapshot():
+                m.join_worker(rank)
+                self._barrier_joined.add(rank)
+                # fresh sequence on re-admission (see _roster_mutate)
+                self._barrier_high.pop(rank, None)
+                self._barrier_done.pop(rank, None)
+                _prof.record_channel_gauge("kvstore.roster_generation",
+                                           m.generation)
             if rank is None:
                 # anonymous raw-message arrival: tracked under a
                 # synthetic rank outside every live set — it waits for
@@ -1226,6 +1783,16 @@ class KVStoreServer:
                     silent = self._silent_ranks() & waiting_for
                     if not silent:
                         continue
+                    if m is not None:
+                        for r in sorted(silent):
+                            m.evict_worker(r)
+                            self._forget_barrier_rank(r)
+                            _prof.record_channel_event(
+                                "kvstore.worker_eviction")
+                        _prof.record_channel_gauge(
+                            "kvstore.roster_generation", m.generation)
+                        self._barrier_release_locked()
+                        continue
                     arrived = sorted(
                         r for r in live
                         if self._barrier_high.get(r, 0) >= bseq)
@@ -1239,10 +1806,196 @@ class KVStoreServer:
             finally:
                 _tr.span_end(park)
                 _health.wait_end(wtok)
-            # the payload is the roster generation on an elastic
-            # coordinator (E2), None on a static server
-            return (None, realign) if realign else None
+            payload = self._barrier_payload()
+            return (payload, realign) if realign else payload
 
+    def _barrier_payload(self):
+        """Barrier replies carry the roster generation on an elastic
+        coordinator (None otherwise) — the zero-extra-RTT way workers
+        learn of roster bumps at every sync point.  Caller holds
+        _barrier_cv."""
+        m = self._get_membership()
+        return None if m is None else m.generation
+
+    # -- elastic beat loop (every elastic server) ----------------------------
+    @staticmethod
+    def _uri_addr(uri):
+        host, port = uri.rsplit(":", 1)
+        return (host, int(port))
+
+    def _coordinator_addr(self):
+        """(host, port) of the LIVE roster's coordinator, or None when
+        this server is it (or no roster is known yet).  Derived through
+        membership.coordinator_uri over the freshest roster view — the
+        single source of truth the worker-side twin
+        (KVStoreDistAsync._coordinator_conn) routes through too, so a
+        failover re-seats both sides identically."""
+        from .membership import coordinator_uri
+        curi = coordinator_uri(self._roster_uris())
+        if curi is None or curi == self.uri:
+            return None
+        return self._uri_addr(curi)
+
+    def _beat_loop(self):
+        """Every elastic server beats every OTHER roster server on its
+        own sockets: liveness toward the coordinator (whose reply
+        carries the live roster, so peers track the membership they may
+        one day rebuild) and snapshot fan-out everywhere — each peer
+        banks the beats it receives, so the snapshot bank (the
+        killed-server recovery source) OUTLIVES any single server,
+        including the coordinator.  A missed beat IS the signal — the
+        coordinator evicts silent peers — so faults are swallowed and
+        the socket re-dialed next tick.  Coordinator SILENCE is also
+        detected here: a refused dial (decisive) or hb_timeout of quiet
+        feeds _maybe_promote, where the deterministically elected
+        successor verifies the death and takes over."""
+        import socket as _socket
+        interval = float(_env("MXNET_KVSTORE_HEARTBEAT_INTERVAL", 5.0))
+        if interval <= 0:
+            interval = 5.0
+        last_snap = None
+        socks = {}
+        try:
+            while not self._stop.is_set():
+                if self.uri not in self._roster_uris():
+                    # not a roster MEMBER (a serving replica in the
+                    # train-and-serve topology sees MXT_SERVER_URIS +
+                    # MXNET_KVSTORE_ELASTIC without ever being on the
+                    # roster): observe, never beat — the server-side
+                    # twin of the worker's roster_member=False
+                    faultinject.note_coordinator(False)
+                    self._stop.wait(interval)
+                    continue
+                faultinject.note_coordinator(self._is_coordinator())
+                from .membership import coordinator_uri
+                curi = coordinator_uri(self._roster_uris())
+                snap = None
+                now = time.monotonic()
+                if self._snapshot_s > 0 and (
+                        last_snap is None
+                        or now - last_snap >= self._snapshot_s):
+                    snap = self._snapshot_struct()
+                # every beat piggybacks this server's compact counter
+                # snapshot (channel counts/gauges/bytes, wire clocks):
+                # peers bank it newest-seq-wins, so the cluster holds a
+                # last-known-stats view of every member that survives
+                # its SIGKILL
+                beat_stats = _prof.snapshot(compact=True)
+                sent_snap = False
+                for uri in list(self._roster_uris()):
+                    if uri == self.uri:
+                        continue
+                    self._beat_seq += 1
+                    faultinject.server_beat(self._beat_seq)
+                    try:
+                        sock = socks.get(uri)
+                        if sock is None:
+                            sock = _socket.create_connection(
+                                self._uri_addr(uri),
+                                timeout=self._hb_timeout or 15.0)
+                            sock.settimeout(self._hb_timeout or 15.0)
+                            socks[uri] = sock
+                        _send_msg(sock, ("roster_beat", self.uri,
+                                         self._beat_seq, snap,
+                                         beat_stats),
+                                  byte_kind="control")
+                        status, payload = _recv_msg(
+                            sock, byte_kind="control_recv")
+                        if status == "ok":
+                            if snap is not None:
+                                sent_snap = True
+                            # digest ANY roster-carrying reply (only a
+                            # coordinator puts one on the wire): after a
+                            # failover the new coordinator is NOT the uri
+                            # this server still believes leads, and its
+                            # replies are how the stale view heals
+                            self._note_roster_wire(payload)
+                            self._peer_heard.add(uri)
+                            self._peer_refused.discard(uri)
+                            if uri == curi:
+                                self._coord_last_ok = time.monotonic()
+                                self._coord_refused = False
+                    except Exception as exc:  # noqa: BLE001 — the miss IS the signal
+                        _prof.record_channel_event("kvstore.beat_miss")
+                        if isinstance(exc, ConnectionRefusedError) \
+                                and uri in self._peer_heard:
+                            # a HEARD-FROM peer's port is GONE — decisive
+                            # death evidence, banked for the succession
+                            # election's dead set.  Never-heard-never-
+                            # dead still holds: a refused dial to a peer
+                            # that never acked is just one still binding
+                            # its listener at job start, and promoting
+                            # off it would split the roster from minute
+                            # zero
+                            self._peer_refused.add(uri)
+                            if uri == curi:
+                                self._coord_refused = True
+                            # flight-recorder evidence: a survivor's
+                            # bundle names the peer whose port vanished
+                            # (the postmortem's who-died witness line)
+                            _health.note("peer_refused", uri=uri,
+                                         coordinator=bool(uri == curi))
+                        sock = socks.pop(uri, None)
+                        if sock is not None:
+                            try:
+                                sock.close()
+                            except OSError:
+                                pass
+                if sent_snap:
+                    last_snap = now
+                if not self._is_coordinator():
+                    self._maybe_promote()
+                # prune channels to servers no longer on the roster
+                for uri in list(socks):
+                    if uri not in self._roster_uris():
+                        s = socks.pop(uri)
+                        try:
+                            s.close()
+                        except OSError:
+                            pass
+                self._stop.wait(min(interval, self._snapshot_s)
+                                if self._snapshot_s > 0 else interval)
+        except Exception:  # noqa: BLE001 — park the crash as a counter:
+            # the loop's death is observable (beats stop -> the
+            # coordinator evicts this server on silence; if this WAS the
+            # coordinator, the successor takes over), never silent
+            _prof.record_channel_event("kvstore.beat_loop_crash")
+        finally:
+            for sock in socks.values():
+                try:
+                    sock.close()
+                except OSError:
+                    pass
+
+    def leave(self):
+        """GRACEFUL departure (scale-down, planned preemption): ship one
+        final state snapshot to the coordinator, deregister from the
+        roster (generation bump — workers re-stripe and hand the state
+        back out at their next sync point), then stop serving.  The
+        kill-path twin — SIGKILL, no goodbye — is what the periodic
+        snapshot exists for."""
+        import socket as _socket
+        addr = self._coordinator_addr()
+        if addr is not None:
+            try:
+                sock = _socket.create_connection(addr, timeout=15.0)
+                sock.settimeout(15.0)
+                try:
+                    self._beat_seq += 1
+                    _send_msg(sock, ("roster_beat", self.uri,
+                                     self._beat_seq,
+                                     self._snapshot_struct()),
+                              byte_kind="control")
+                    _recv_msg(sock, byte_kind="control_recv")
+                    _send_msg(sock, ("roster_leave", "server", self.uri),
+                              byte_kind="control")
+                    _recv_msg(sock, byte_kind="control_recv")
+                finally:
+                    sock.close()
+            except Exception:  # noqa: BLE001 — departing anyway; the
+                # coordinator will evict us on beat silence instead
+                _prof.record_channel_event("kvstore.beat_miss")
+        self.stop()
 
     # -- connection plumbing -------------------------------------------------
     def _serve_conn(self, conn):
@@ -1301,11 +2054,21 @@ class KVStoreServer:
                         # replay on the new connection is acked from
                         # cache — drop this connection only
                         return
+                    if role == "server":
+                        # enveloped replies only: the deterministic ack
+                        # count behind the process-level kill point
+                        faultinject.server_replied()
         except Exception:  # noqa: BLE001 — conn died mid-reply
             pass
 
     def run(self):
         """Blocking accept loop; returns after a kStopServer command."""
+        if self._elastic:
+            faultinject.note_coordinator(self._is_coordinator())
+            if self._beat_thread is None:
+                self._beat_thread = threading.Thread(
+                    target=self._beat_loop, daemon=True)
+                self._beat_thread.start()
         try:
             while not self._stop.is_set():
                 try:
@@ -1355,11 +2118,6 @@ def _key_int(k):
         return k
 
 
-_NOT_COORDINATOR = (
-    "not the roster coordinator (roster ops go to slot 0 of the live "
-    "roster of an elastic job; set MXNET_KVSTORE_ELASTIC=1)")
-
-
 def _host_tensor(arr):
     """A wire array as a CPU tensor of its own (the frame's bytes are
     read-only and shared)."""
@@ -1391,6 +2149,26 @@ def _states_blob(states, optimizer=None):
            for k, v in states.items()}
     return _wire_dumps((out, optimizer) if optimizer is not None else out,
                        pickle.DEFAULT_PROTOCOL)
+
+
+def _state_to_np(state):
+    """Optimizer state -> plain numpy for the snapshot/handoff wire
+    (rides the zero-copy frames; non-array state is not
+    row-decomposable and maps to None, see membership.restripe_states)."""
+    from .ndarray import NDArray
+    if state is None:
+        return None
+    if isinstance(state, NDArray):
+        return _host_np(state).copy()
+    if isinstance(state, _JaxNDArray):
+        # a states blob's array (get_states), read back under the JAX
+        # package's class name
+        return np.asarray(state.value)
+    if isinstance(state, np.ndarray):
+        return state
+    if isinstance(state, (tuple, list)):
+        return tuple(_state_to_np(s) for s in state)
+    return None
 
 
 def _state_to_nd(state):

@@ -3,8 +3,8 @@
 The port's copy of ``mxnet_tpu/membership.py`` (it imports nothing of
 JAX).  The distributed store uses its routing math (``stripe_plan``,
 ``server_index``, ``stripe_server_index``, ``wire_layout``,
-``base_key``, ``sparse_route``); the roster and coordinator classes
-wait for elastic membership (ROADMAP E2).
+``base_key``, ``sparse_route``), and elastic membership the roster,
+the coordinator's ledger and the handoff arithmetic.
 
 The transport already had every primitive needed to survive roster
 churn — heartbeat liveness (``num_dead_nodes()``), deterministic

@@ -38,7 +38,8 @@ class _ReplySlot:
     """One request's reply rendezvous: ``reply`` is the
     ``("ok"|"err", payload)`` tuple, set when ``done`` fires."""
 
-    __slots__ = ("done", "reply", "data", "n", "t_enqueue", "sig", "span")
+    __slots__ = ("done", "reply", "data", "n", "t_enqueue", "sig", "role",
+                 "span")
 
     def __init__(self, data=None, n=0, sig=None):
         self.done = threading.Event()
@@ -46,6 +47,7 @@ class _ReplySlot:
         self.data = data
         self.n = n
         self.sig = sig
+        self.role = None     # fault-injection tag set by the conn loop
         self.span = None     # a detached span of the caller's
         self.t_enqueue = time.monotonic()
 
@@ -138,6 +140,10 @@ class DynamicBatcher:
     def queue_depth(self) -> int:
         with self._cv:
             return len(self._q)
+
+    @property
+    def queue_limit(self) -> int:
+        return self._queue_depth
 
     # -- worker --------------------------------------------------------------
     def _loop(self):

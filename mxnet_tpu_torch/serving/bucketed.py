@@ -120,6 +120,7 @@ class BucketedPredictor:
 
     # -- weights -------------------------------------------------------------
     def _as_tensor(self, v) -> torch.Tensor:
+        v = _raw(v)
         if isinstance(v, torch.Tensor):
             return v.detach().to(self.device)
         return torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -161,6 +162,20 @@ class BucketedPredictor:
             self._aux = new_a
             self.version = int(self.version + 1 if version is None
                                else version)
+
+    def param_specs(self) -> Dict[str, tuple]:
+        """{name: (shape, dtype name)} of the served parameters: what a
+        weight-refresh pull needs to allocate its out arrays (``bfloat16``
+        by name, as the JAX package's ``str(dtype)`` gives it)."""
+        with self._lock:
+            return {n: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+                    for n, v in self._params.items()}
+
+    def current_params(self) -> Dict[str, torch.Tensor]:
+        """Snapshot of the served parameter values (for a partial
+        refresh to merge fresh pulls over)."""
+        with self._lock:
+            return dict(self._params)
 
     # -- buckets -------------------------------------------------------------
     def select_bucket(self, n: int) -> int:
@@ -283,3 +298,18 @@ class BucketedPredictor:
                 {name: np.zeros((b,) + s, self._data_dtypes[name])
                  for name, s in self._data_shapes.items()}, b)
         return len(self.buckets)
+
+
+def _raw(v):
+    """Underlying value of an NDArray (its tensor); anything else as is."""
+    data = getattr(v, "_data", None)
+    return data if data is not None else v
+
+
+def _host_array(v) -> np.ndarray:
+    """An NDArray, tensor or array-like as a host numpy array (bfloat16,
+    which numpy lacks, as float32)."""
+    v = _raw(v)
+    if isinstance(v, torch.Tensor):
+        return _to_numpy(v.detach())
+    return np.asarray(v)

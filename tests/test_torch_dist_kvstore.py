@@ -569,7 +569,8 @@ def test_server_roster_and_handoff_ops_answer_as_the_jax_package(
     roster op errs "not the roster coordinator", a beat banks and
     answers None, a handoff applies once per (key, generation), the
     ledger report names the generation; and the server's store lives on
-    the host.  ``elastic=True`` raises, naming E2."""
+    the host.  ``elastic=True`` builds an elastic server, whose roster
+    ops answer with the roster (E2's elastic half)."""
     def scenario(pkg):
         srv = scenario.srvs[0]
         got = []
@@ -596,8 +597,15 @@ def test_server_roster_and_handoff_ops_answer_as_the_jax_package(
             scenario.srvs = srvs
             got[name] = scenario(pkg)
     _assert_same(got["jax"], got["port"])
-    with pytest.raises(mt.MXNetError, match="E2"):
-        mt.kvstore_server.KVStoreServer(elastic=True)
+    monkeypatch.delenv("MXT_SERVER_URIS", raising=False)
+    esrv = mt.kvstore_server.KVStoreServer(elastic=True)
+    try:
+        assert esrv._stats_payload()["server"]["elastic"] is True
+        gen, servers, workers = esrv._handle(("roster_get",))
+        assert (gen, workers) == (0, [0]) and len(servers) >= 1
+    finally:
+        esrv._listener.close()
+        esrv.stop()
     with cluster(mt, monkeypatch) as (srv,):
         kv = mt.kv.create('dist_async')
         kv.init('w', nd(mt, np.ones(SHAPE)))

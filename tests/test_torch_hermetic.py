@@ -428,3 +428,40 @@ def test_distributed_plane_imports_start_nothing():
             proc.communicate()
     assert proc.returncode == 0, err
     assert "listening on port" in out and "returned" not in out
+
+
+def test_serving_wire_imports_start_nothing():
+    """Importing the serving wire (the replica, the client, the fleet)
+    loads no JAX and nothing of the JAX package, and starts no thread,
+    no socket and no CUDA context."""
+    code = (
+        "import json, os, sys, threading, torch\n"
+        "def socks():\n"
+        "    fds = os.listdir('/proc/self/fd')\n"
+        "    return sum(os.readlink('/proc/self/fd/' + f).startswith(\n"
+        "        'socket:') for f in fds if os.path.exists(\n"
+        "        '/proc/self/fd/' + f))\n"
+        "s0, th0 = socks(), threading.active_count()\n"
+        "import mxnet_tpu_torch.serving as srv\n"
+        "from mxnet_tpu_torch.serving import (ServingReplica,\n"
+        "    ServingClient, FleetClient, publish_version)\n"
+        "print(json.dumps({'mods': sorted(sys.modules),\n"
+        "  'all': sorted(srv.__all__),\n"
+        "  'cuda_init': torch.cuda.is_initialized(),\n"
+        "  'sockets': socks() - s0,\n"
+        "  'threads': threading.active_count() - th0}))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("DMLC_ROLE", None)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert [m for m in out["mods"] if _forbidden(m)] == []
+    assert out["cuda_init"] is False
+    assert out["sockets"] == 0 and out["threads"] == 0
+    scanned = {os.path.relpath(p, ROOT) for p in _sources()}
+    for mod in ("serving.replica", "serving.client", "serving.fleet"):
+        assert "mxnet_tpu_torch." + mod in out["mods"], mod
+        assert os.path.join("mxnet_tpu_torch",
+                            *mod.split(".")) + ".py" in scanned, mod
+    assert "publish_version" in out["all"]

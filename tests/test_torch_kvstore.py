@@ -214,18 +214,32 @@ def test_kvstore_type_and_rank():
 def test_distributed_types_raise_naming_e1(name, monkeypatch):
     """E1 made these types: ``create`` gives what the JAX package's
     gives (``dist_async`` without servers raises, naming the launcher,
-    in both), a Trainer takes the type by name, and what E1 left to E2
-    (elastic membership, the hierarchical tier) raises, naming E2."""
+    in both), a Trainer takes the type by name, and what is still left
+    to E2 (the hierarchical tier) raises, naming E2; under
+    ``MXNET_KVSTORE_ELASTIC`` the store joins an elastic server's
+    roster (E2's elastic half)."""
     monkeypatch.delenv("MXT_SERVER_URIS", raising=False)
     if name == "dist_async":
         for pkg in PKGS:
             with pytest.raises(pkg.base.MXNetError, match="launch"):
                 pkg.kv.create(name)
-        for knob in ("MXNET_KVSTORE_ELASTIC", "MXNET_KVSTORE_HIERARCHY"):
-            monkeypatch.setenv(knob, "1")
-            with pytest.raises(mt.MXNetError, match="E2"):
-                mt.kv.KVStoreDistAsync(uris="127.0.0.1:1")
-            monkeypatch.delenv(knob)
+        monkeypatch.setenv("MXNET_KVSTORE_HIERARCHY", "1")
+        with pytest.raises(mt.MXNetError, match="E2"):
+            mt.kv.KVStoreDistAsync(uris="127.0.0.1:1")
+        monkeypatch.delenv("MXNET_KVSTORE_HIERARCHY")
+        monkeypatch.setenv("MXNET_KVSTORE_ELASTIC", "1")
+        srv = mt.kvstore_server.KVStoreServer(elastic=True)
+        srv.start_background()
+        try:
+            with mt.cpu():
+                kv = mt.kv.KVStoreDistAsync(uris=f"127.0.0.1:{srv.port}")
+                assert kv._elastic and kv._roster_member
+                assert kv._roster_servers == [srv.uri]
+                assert kv.num_workers == 1
+                kv.close(stop_servers=True)
+        finally:
+            srv.stop()
+        monkeypatch.delenv("MXNET_KVSTORE_ELASTIC")
     else:
         for pkg in PKGS:
             kv = pkg.kv.create(name)

@@ -46,7 +46,8 @@ import mxnet_tpu_torch as mt  # noqa: E402
 # names the port's front-end modules lack, with the ROADMAP item that
 # ports them (the record iterators came with C3, data IO; the
 # single-process kvstore with C2; checkpoints and observability with C4
-# and C6; the distributed plane with E1)
+# and C6; the distributed plane with E1; the serving wire with T3 and
+# elastic membership with E2's first half)
 MODULE_NOT_PORTED = {
     # the JAX package's AOT artifact (jax.export to StableHLO), the
     # counterpart of the reference's C predict API: in PyTorch it would
@@ -56,21 +57,14 @@ MODULE_NOT_PORTED = {
     ("contrib.export", "export_checkpoint"): "C7 (the C ABI)",
     ("contrib.export", "ExportedModel"): "C7 (the C ABI)",
     ("contrib.export", "load"): "C7 (the C ABI)",
-    # the same-host shm lane and the fault plans that only elastic
-    # membership and the hierarchical tier reach: only E2's mesh
-    # leader serves the lane and only its beat loop and coordinator
-    # fire the process kills
+    # the same-host shm lane and its fault plan, which only the
+    # hierarchical tier reaches: only E2's mesh leader serves the lane
     ("shmlane", "ShmLane"): "E2 (the hierarchical tier)",
     ("shmlane", "client_enabled"): "E2 (the hierarchical tier)",
     ("shmlane", "mode"): "E2 (the hierarchical tier)",
     ("shmlane", "ring_bytes"): "E2 (the hierarchical tier)",
     ("faultinject", "shm_drain_gate"): "E2 (the hierarchical tier)",
     ("faultinject", "shm_wedge_after_frames"): "E2 (the hierarchical tier)",
-    ("faultinject", "kill_process_after_acks"): "E2 (elastic membership)",
-    ("faultinject", "server_replied"): "E2 (elastic membership)",
-    ("faultinject", "kill_on_beat_seq"): "E2 (elastic membership)",
-    ("faultinject", "server_beat"): "E2 (elastic membership)",
-    ("faultinject", "note_coordinator"): "E2 (elastic membership)",
 }
 FRONT_END = ("optimizer", "metric", "initializer", "io", "callback",
              "model", "module", "attribute", "lr_scheduler", "kvstore")
@@ -203,3 +197,25 @@ def test_distributed_plane_names_cover_the_jax_package(name):
                if tmod is None or not hasattr(tmod, n)}
     listed = {n for (m, n) in MODULE_NOT_PORTED if m == name}
     assert missing == listed, sorted(missing ^ listed)
+
+
+# the serving wire (T3): every public name of the JAX package's serving
+# modules is in the port's module of the same name
+SERVING = ("serving", "serving.bucketed", "serving.batcher",
+           "serving.replica", "serving.client", "serving.fleet")
+
+
+@pytest.mark.parametrize("name", SERVING)
+def test_serving_names_cover_the_jax_package(name):
+    jmod = importlib.import_module("mxnet_tpu." + name)
+    tmod = importlib.import_module("mxnet_tpu_torch." + name)
+    missing = {n for n in _public(jmod) if not hasattr(tmod, n)}
+    assert missing == set(), sorted(missing)
+
+
+def test_serving_all_equals_the_jax_package():
+    import mxnet_tpu.serving as jserving
+    assert sorted(mt.serving.__all__) == sorted(jserving.__all__)
+    for n in jserving.__all__:
+        assert hasattr(mt.serving, n), n
+    assert mt.serving.VERSION_KEY == jserving.VERSION_KEY

@@ -7,8 +7,11 @@
   (with and without momentum) and lazy Adam;
 * ``examples/recommender/two_tower.py``'s ``train`` (its
   ``make_clickstream``, two sparse Gluon Embeddings,
-  ``Trainer(kvstore='device')``) and its hit@10 (``--serve`` needs the
-  serving wire, T3, and is left out);
+  ``Trainer(kvstore='device')``) and its hit@10; then its whole
+  ``tests/test_two_tower.py`` scenario at the same toy sizes: the
+  towers train over ``dist_async`` (the row-sparse wire), a
+  ``ServingReplica`` serves top-k from the live tables and refreshes
+  from the same parameter server after more training;
 * ``Module.fit`` of a small MLP with ``kvstore=kv.create('local')``,
   which updates inside the store;
 * ``LibSVMIter``'s CSR batches of the classifier's data.
@@ -18,7 +21,8 @@ agree to 1e-5 relative and 1e-6 absolute after every step (XLA's and
 torch's float32 log and sigmoid differ by an ulp or two), but lazy
 Adam's weights to 2e-4 absolute (the test says why); the towers'
 tables to 1e-4 after each epoch (128 SGD steps an epoch at learning
-rate 0.5 carry the ulp differences of the products along); the MLP's
+rate 0.5 carry the ulp differences of the products along), and so the
+served scores (products of those tables) to 1e-4; the MLP's
 weights and states to 1e-6 (the same float32 formulas).  Rows that no
 step touched are compared bit for bit against the start."""
 import importlib.util
@@ -174,15 +178,18 @@ def _towers(pkg, users, items, dim, u0, i0):
     return towers
 
 
-def _two_tower_epochs(pkg, towers, stream, epochs, batch=64, lr=0.5):
-    """The example's ``train`` (Trainer(kvstore='device'), SGD), with the
-    tables after each epoch."""
+def _two_tower_epochs(pkg, towers, stream, epochs, batch=64, lr=0.5,
+                      kvstore='device', trainer=None):
+    """The example's ``train`` (a Trainer over ``kvstore``, SGD), with
+    the tables after each epoch; ``trainer`` continues an earlier run."""
     user_tower, item_tower = towers
     u, i, y, _ = stream
     params = (list(user_tower.collect_params().values())
               + list(item_tower.collect_params().values()))
-    trainer = pkg.gluon.Trainer(params, 'sgd', {'learning_rate': lr},
-                                kvstore='device')
+    if trainer is None:
+        trainer = pkg.gluon.Trainer(params, 'sgd', {'learning_rate': lr},
+                                    kvstore=kvstore)
+    _two_tower_epochs.trainer = trainer
     n = len(y)
     out = []
     start = SP[pkg].DENSIFY_COUNT
@@ -243,6 +250,107 @@ def test_two_tower_untouched_rows_stay_bit_identical():
         assert len(untouched) >= len(w0) // 2
         np.testing.assert_array_equal(w[untouched], w0[untouched])
         assert not np.array_equal(w, w0)
+
+
+def _serve_topk(pkg, towers, users, items, dim, uri):
+    """The example's ``serve_topk`` in ``pkg``: a replica over the
+    trained tables (user ids -> user embedding -> every item's score)
+    refreshing from the parameter server at ``uri``, and a client."""
+    user = pkg.sym.Variable('user')
+    emb = pkg.sym.Embedding(user, input_dim=users, output_dim=dim,
+                            name='user_embed')
+    net = pkg.sym.FullyConnected(emb, num_hidden=items, no_bias=True,
+                                 name='item_scores')
+    params = {'user_embed_weight': towers[0].weight.data(),
+              'item_scores_weight': towers[1].weight.data()}
+    rep = pkg.serving.ServingReplica(net, {'user': ()}, params,
+                                     buckets=[1, 4, 16], max_wait_s=0.0,
+                                     param_servers=uri)
+    rep.start_background()
+    return rep, pkg.serving.ServingClient(f"127.0.0.1:{rep.port}")
+
+
+def _two_tower_dist_serve(pkg, monkeypatch, ex):
+    """``tests/test_two_tower.py``'s scenario in ``pkg``; returns what it
+    saw."""
+    users, items, dim = 32, 64, 4
+    stream = ex.make_clickstream(users, items, events=1024, pool=8, seed=3)
+    rng = np.random.RandomState(2)
+    u0 = rng.normal(0, 0.3, (users, dim)).astype('f')
+    i0 = rng.normal(0, 0.3, (items, dim)).astype('f')
+    ps = pkg.kvstore_server.KVStoreServer(server_id=0, num_workers=1)
+    ps.start_background()
+    uri = f"127.0.0.1:{ps.port}"
+    for k, v in (("MXT_SERVER_URIS", uri), ("DMLC_NUM_WORKER", "1"),
+                 ("DMLC_WORKER_ID", "0"), ("MXNET_KVSTORE_SPARSE", "1")):
+        monkeypatch.setenv(k, v)
+    pkg.profiler.reset_dispatch_counts()
+    rows0 = pkg.profiler.channel_counts().get("kvstore.sparse_rows", 0)
+    towers = _towers(pkg, users, items, dim, u0, i0)
+    rep = cli = kv = None
+    try:
+        tables, _ = _two_tower_epochs(pkg, towers, stream, 4, batch=32,
+                                      kvstore='dist_async')
+        trainer = _two_tower_epochs.trainer
+        kv = trainer._kvstore
+        assert pkg.profiler.channel_counts()["kvstore.sparse_rows"] > rows0
+        hit = ex.hit_rate(*towers, stream[3])
+        rep, cli = _serve_topk(pkg, towers, users, items, dim, uri)
+        scores = cli.predict(np.arange(16, dtype=np.float32),
+                             name='user')[0]
+        topk = np.argsort(-scores, axis=1)[:, :10]
+        served_hits = np.mean([len(set(topk[r]) & set(stream[3][r])) > 0
+                               for r in range(16)])
+        probe = np.arange(8, dtype=np.float32)
+        before = cli.predict(probe, name='user')[0].copy()
+        compiles = pkg.profiler.dispatch_counts().get(
+            "serving.predict_compile", 0)
+        more, _ = _two_tower_epochs(pkg, towers, stream, 2, batch=32,
+                                    trainer=trainer)
+        kv.barrier()
+        assert cli.refresh()["refreshed"] is False   # nothing published
+        v = pkg.serving.publish_version(kv)
+        r = cli.refresh()
+        assert r["refreshed"] is True and r["version"] == v == 1
+        after = cli.predict(probe, name='user')[0]
+        assert not np.allclose(before, after)
+        fresh = towers[0].weight.data().asnumpy()[probe.astype(np.int64)]
+        np.testing.assert_allclose(
+            fresh @ towers[1].weight.data().asnumpy().T, after,
+            rtol=1e-5, atol=1e-6)
+        assert pkg.profiler.dispatch_counts().get(
+            "serving.predict_compile", 0) == compiles
+        return tables + more, hit, served_hits, scores, before, after
+    finally:
+        if cli is not None:
+            cli.close()
+        if rep is not None:
+            rep.stop()
+        if kv is not None:
+            kv.close(stop_servers=False)
+        ps.stop()
+        monkeypatch.undo()
+
+
+def test_two_tower_trains_over_dist_async_and_serves_topk_live(monkeypatch):
+    """The towers train over ``dist_async`` (the gradients ride the
+    row-sparse wire), a replica serves top-k from the same parameter
+    server, and after two more epochs a version bump and a refresh swap
+    the served tables with no new bucket shape: in both packages, with
+    tables, hits, served scores and the refreshed scores equal."""
+    ex = _example("examples/recommender/two_tower.py")
+    got = {pkg: _two_tower_dist_serve(pkg, monkeypatch, ex)
+           for pkg in PKGS}
+    (t_mt, hit_mt, sh_mt, *scores_mt), (t_mx, hit_mx, sh_mx, *scores_mx) \
+        = got[mt], got[mx]
+    for e, (a, b) in enumerate(zip(t_mt, t_mx)):
+        for x, y in zip(a[:2], b[:2]):
+            np.testing.assert_allclose(x, y, rtol=1e-4, atol=1e-4,
+                                       err_msg=f"epoch {e}")
+    assert hit_mt == hit_mx and hit_mt >= 0.8
+    assert sh_mt == sh_mx and sh_mt >= 0.8
+    for a, b in zip(scores_mt, scores_mx):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
 
 
 # -- Module.fit with a KVStore object -----------------------------------------

@@ -1259,12 +1259,82 @@ def part_e1_sync():
     return out
 
 
+def part_t3():
+    """The numbers behind chip_smoke.py's fleet_serve gate: ResNet-50
+    (1000 classes) with the checkpoint's initializer (Xavier gaussian,
+    fan-in, magnitude 2, seed SEED) at 112x112 (the card's 224 cut for
+    the CPU), 8 seeded images through BucketedPredictor: the bf16
+    replies against float32 (the softmax saturates: its largest
+    probability and the distance), bf16 at buckets 8 and 1 (rows do not
+    interact), and the float32 softmax of the same bf16 logits against
+    float64's rounded to float32 (``softmax_fp32_vs_float64`` and in
+    float32 ulps: the rounding of the reply's last op alone).  The
+    phase serves the logits graph (the softmax cut off): its bf16
+    logits at bucket 8 against bucket 1 and against the same rows
+    placed behind other rows of a batch of 8 (a batcher's position),
+    and the logits of two different images (what a reply sent to the
+    wrong request would be off by)."""
+    import torch as th
+    shape = (3, 112, 112)
+    sym = mt.models.get_symbol("resnet", num_layers=50, num_classes=1000,
+                               image_shape="3,112,112")
+    with mt.cpu():
+        mod = mt.mod.Module(sym, context=mt.cpu())
+        mod.bind(data_shapes=[("data", (8,) + shape)],
+                 label_shapes=[("softmax_label", (8,))])
+        mt.random.seed(cs.SEED)
+        mod.init_params(mt.initializer.Xavier(rnd_type="gaussian",
+                                              factor_type="in",
+                                              magnitude=2))
+        args, aux = mod.get_params()
+        x = np.random.RandomState(cs.SEED + 150).uniform(
+            -1, 1, (8,) + shape).astype(np.float32)
+        out = {}
+        lsym = cs.logits_graph(mt, sym)
+        for net, dt, buckets in ((sym, None, [8]), (sym, "bfloat16", [8]),
+                                 (sym, "bfloat16", [1]),
+                                 (lsym, "bfloat16", [8]),
+                                 (lsym, "bfloat16", [1])):
+            pred = mt.serving.BucketedPredictor(
+                net, {"data": shape}, args, aux_params=aux,
+                buckets=buckets, compute_dtype=dt, ctx=mt.cpu())
+            out[(net is sym, dt, buckets[0])] = \
+                pred.predict({"data": x})[1][0]
+            if net is lsym and buckets == [8]:
+                # rows 0-2 behind five other rows: rows 5-7 of the batch
+                out["shifted"] = pred.predict({"data": np.concatenate(
+                    [x[3:], x[:3]])})[1][0][5:]
+    f32, b8, b1 = out[(True, None, 8)], out[(True, "bfloat16", 8)], \
+        out[(True, "bfloat16", 1)]
+    l8, l1 = out[(False, "bfloat16", 8)], out[(False, "bfloat16", 1)]
+    logits = th.from_numpy(l8.astype(np.float32))
+    p32 = th.softmax(logits, dim=1).numpy()
+    p64 = th.softmax(logits.double(), dim=1).numpy()
+    return dict(image=list(shape), rows=8,
+                bf16_vs_fp32_max_abs=float(np.abs(b8 - f32).max()),
+                bf16_bucket8_vs_bucket1_max_abs=float(np.abs(b8 - b1).max()),
+                max_probability=float(f32.max()),
+                softmax_fp32_vs_float64=float(np.abs(p32 - p64).max()),
+                softmax_fp32_vs_float64_ulps=cs.float_ulps(
+                    p32, p64.astype(np.float32)),
+                softmax_fp32_vs_reply=float(np.abs(p32 - b8).max()),
+                logits_bucket8_vs_bucket1=float(np.abs(l8 - l1).max()),
+                logits_shifted_rows_vs_bucket8=float(np.abs(
+                    out["shifted"] - l8[:3]).max()),
+                logits_abs_max=float(np.abs(l8).max()),
+                logits_other_image_min=float(min(
+                    np.abs(l8[i] - l8[j]).max()
+                    for i in range(8) for j in range(i))),
+                argmax_distinct=int(len(set(l8.argmax(1).tolist()))))
+
+
 PARTS = {"resnet": part_resnet, "deep_bn": part_deep_bn, "gluon": part_gluon,
          "decode_vs_lm": part_decode_vs_lm, "beam": part_beam,
          "vit": part_vit, "zoo": part_zoo, "rnn": part_rnn, "ssd": part_ssd,
          "zoo_data": part_zoo_data, "c1b2": part_c1b2,
          "moe_bf16": part_moe_bf16, "c8": part_c8, "c3": part_c3,
-         "c2": part_c2, "e1": part_e1, "e1_sync": part_e1_sync}
+         "c2": part_c2, "e1": part_e1, "e1_sync": part_e1_sync,
+         "t3": part_t3}
 
 if __name__ == "__main__":
     for part in sys.argv[1:] or list(PARTS):
