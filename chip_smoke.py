@@ -83,8 +83,14 @@ them, their store and Adam on the host) and 2-bit pushes quantized by
 Q1, its first step equal bit for bit to the servers' arithmetic replayed
 here, and two worker processes train it cut to 2 layers over
 ``dist_sync`` (a gloo group), their weights bit-identical after every
-step and close to one process on the concatenated batch (``--e1`` runs
-these three phases alone).  Last, the serving wire and elastic
+step and close to one process on the concatenated batch; and E2's
+hierarchical tier: two ranks on the card of one host group (started as
+``tools/launch.py --workers-per-host 2`` starts them, with two servers)
+train it cut to 2 layers, the follower's gradient over the same-host
+shared-memory lane to the leader, which sums it with its own on the
+card, compresses the sum with Q1 and alone pushes it; the sum, the
+payload and the replayed weights bit for bit (``--e1`` runs these four
+phases alone).  Last, the serving wire and elastic
 membership: right after ``resnet_fit_checkpoint``, its ResNet-50
 checkpoint, cut at its softmax's input, is served by two
 ``ServingReplica``s on the card behind a ``FleetClient`` through a storm
@@ -95,6 +101,11 @@ SIGKILLed mid-run, its final weights equal to the servers' SGD replayed
 here bit for bit, then a replica refreshes from the repaired cluster and
 answers equal to a direct predict (``--t3`` runs these two phases
 alone; ``--e1 dist_async_lm_fit:2`` runs that phase at 2 layers).
+The kernels' build (before torch is imported), the ``torch._dynamo``
+import and the CPU references of ``zoo_predict``,
+``gluon_zoo_fp32_card_vs_cpu`` and ``front_end`` (a process of their
+own) start with the script, and the ranks of ``dist_sync_fit`` and
+``hier_lm_fit`` right after ``build``: they run beside the first phases.
 Every phase prints one JSON line; any failed phase exits non-zero.
 The line before the last lists the kernels with their launches on each
 path, times and bounds; the last line is ``{"ok": true, "device":
@@ -781,18 +792,93 @@ def demangle(names, nvcc_dir):
     return dict(zip(names, short))
 
 
-def phase_build(mt):
+def kernel_builder():
+    """The package's ``cuda_lib`` loaded from its file before torch is
+    imported: it needs nothing of the package but ``base.MXNetError``, so
+    it runs under a package name of its own, and the libraries it builds
+    are those the package's ``cuda_lib`` then finds by their hash.  None
+    where the checkout, ``nvcc`` or a card is missing."""
+    pkg_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "mxnet_tpu_torch")
+    if not (os.path.exists(os.path.join(pkg_dir, "cuda_lib.py"))
+            and os.path.exists("/dev/nvidia0")):
+        return None
+    cl = load_cuda_lib(pkg_dir)
+    try:
+        cl.find_nvcc()
+    except cl.MXNetError:
+        return None
+    return cl
+
+
+def load_cuda_lib(pkg_dir):
+    """``pkg_dir``'s ``cuda_lib.py`` as a module of its own (see
+    :func:`kernel_builder`)."""
+    import importlib.util
+    import types
+    pkg = types.ModuleType("_chip_smoke_build")
+    pkg.__path__ = [pkg_dir]
+    sys.modules[pkg.__name__] = pkg
+    spec = importlib.util.spec_from_file_location(
+        pkg.__name__ + ".cuda_lib", os.path.join(pkg_dir, "cuda_lib.py"))
+    cl = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = cl
+    spec.loader.exec_module(cl)
+    return cl
+
+
+def start_build(cuda_lib):
+    """Start every source's ``nvcc`` at once, on a thread that waits for
+    them (the main thread goes on: the imports and ``device`` run beside
+    the build); :func:`phase_build` collects it.  Returns (thread,
+    result box)."""
+    box = {}
+
+    def run():
+        t0 = time.monotonic()
+        try:
+            box["built"] = cuda_lib.build_all()
+        except BaseException as exc:  # noqa: BLE001 — raised by phase_build
+            box["error"] = exc
+        box["seconds"] = time.monotonic() - t0
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th, box
+
+
+def start_dynamo_import():
+    """Import ``torch._dynamo`` on a thread while the kernels build: a
+    fresh process's first shape inference calls torch's Python meta
+    kernels, which ``torch._dynamo.disable`` wraps, and that first call
+    imports the package (about 9 s on the card's host, PERF.md §7).
+    Shape inference itself is unchanged; only the import moves off the
+    critical path (the import lock makes a shape inference that comes
+    first wait for it)."""
+    import importlib
+    th = threading.Thread(target=importlib.import_module,
+                          args=("torch._dynamo",), daemon=True)
+    th.start()
+    return th
+
+
+def phase_build(mt, started=None):
     """Build every source at once; per kernel, the registers and spills
     that ``-Xptxas -v`` reports and the HMMA (tensor-core product) count
     of its machine code (``cuobjdump -sass``).  The tensor-core kernels
     must hold HMMA, the f32 K1, K2 and K3 none; each has its instances
     (``F32_KERNELS``; three, D 32, 64, 128, for the tensor-core ones),
-    and none spills at D=64."""
+    and none spills at D=64.  ``started`` is :func:`start_build`'s,
+    whose build ran beside the phases before."""
     from concurrent.futures import ThreadPoolExecutor
     cl = mt.cuda_lib
+    th, box = started or start_build(cl)
     t0 = time.monotonic()
-    built = cl.build_all()
-    secs = time.monotonic() - t0
+    th.join()
+    waited = time.monotonic() - t0
+    if "error" in box:
+        raise box["error"]
+    built, secs = box["built"], box["seconds"]
+    t0 = time.monotonic()
     # every library disassembled at once (nvJPEG's shim has no kernel)
     srcs = [src for src in built if src not in cl.SHIMS]
     with ThreadPoolExecutor(len(srcs)) as pool:
@@ -837,8 +923,8 @@ def phase_build(mt):
         if sum(stem in n for n in kernels) != count:
             failures.append(f"{stem}: not {count} instances in "
                             f"{sorted(kernels)}")
-    emit("build", seconds=secs, sources=sorted(built),
-         disassembly_s=time.monotonic() - t0 - secs, kernels=kernels)
+    emit("build", seconds=secs, waited_s=waited, sources=sorted(built),
+         disassembly_s=time.monotonic() - t0, kernels=kernels)
     if failures:
         raise RuntimeError("build checks failed: " + "; ".join(failures))
 
@@ -1073,10 +1159,10 @@ def phase_bwd_kernels(torch, mt):
     return results
 
 
-def gpt2_params(sym, seed):
+def gpt2_params(sym, seed, seq_len=GPT2_SMALL["seq_len"]):
     """Seeded random GPT-2-style weights (N(0, 0.02) matrices and
     biases, LayerNorm gamma near 1, beta near 0), as numpy."""
-    S = GPT2_SMALL["seq_len"]
+    S = seq_len
     shapes, _, _ = sym.infer_shape(data=(1, S), softmax_label=(1, S))
     rng = np.random.default_rng(seed)
     params = {}
@@ -1310,6 +1396,93 @@ def train_step(mod, batch):
     mod.update()
 
 
+# the device-resident metric in Module.fit (train, resnet_train): fit over
+# FIT_METRIC_BATCHES batches twice, the host path (MXNET_DEVICE_METRICS=0,
+# one readback a batch at the read) then the device path (one readback at
+# the read); a batch-end callback feeds a host CrossEntropy the same
+# outputs.  The device path's value must be within FIT_METRIC_RTOL of that
+# host metric's: both compute each batch's term with the same float32
+# code, and differ in the sum only, float32 over the batches against
+# float64 (at most one rounding a batch, 2.4e-7 of the value over 4)
+FIT_METRIC_BATCHES = 4
+FIT_METRIC_RTOL = 1e-6
+
+
+class BatchListIter:
+    """A DataIter over ``n`` of the given DataBatches, in turn."""
+
+    def __init__(self, batches, n, provide_data, provide_label):
+        self._b, self._n, self._i = batches, n, 0
+        self.provide_data, self.provide_label = provide_data, provide_label
+
+    def __iter__(self):
+        return self
+
+    def reset(self):
+        self._i = 0
+
+    def __next__(self):
+        if self._i >= self._n:
+            raise StopIteration
+        self._i += 1
+        return self._b[(self._i - 1) % len(self._b)]
+
+
+def fit_metric_check(torch, mt, mod, it, fails, label):
+    """``Module.fit`` of ``mod`` (bound, initialized, its optimizer set)
+    over ``it`` with a CrossEntropy metric, with MXNET_DEVICE_METRICS 0
+    then 1: per path the host syncs counted by the profiler over the fit
+    (the metric's readbacks), the fit's ms a batch, and the metric's
+    value against a host CrossEntropy fed the same outputs by a
+    batch-end callback.  Appends to ``fails``: a per-batch readback on
+    the device path, more than the epoch end's one read, or a value
+    outside FIT_METRIC_RTOL."""
+    out = {}
+    old = os.environ.get("MXNET_DEVICE_METRICS")
+    try:
+        for mode, path in (("0", "host"), ("1", "device")):
+            os.environ["MXNET_DEVICE_METRICS"] = mode
+            metric, host = mt.metric.CrossEntropy(), mt.metric.CrossEntropy()
+
+            def batch_end(param, host=host):
+                host.update_dict(
+                    dict(zip(mod._label_names,
+                             param.locals["data_batch"].label)),
+                    dict(zip(mod._output_names, mod.get_outputs())))
+            it.reset()
+            torch.cuda.synchronize()
+            s0 = dict(mt.profiler.host_syncs())
+            t = time.monotonic()
+            mod.fit(it, num_epoch=1, eval_metric=metric,
+                    batch_end_callback=batch_end)
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t
+            s1 = dict(mt.profiler.host_syncs())
+            syncs = {k: s1.get(k, 0) - s0.get(k, 0) for k in s1
+                     if s1.get(k, 0) != s0.get(k, 0)}
+            value, ref = metric.get()[1], host.get()[1]
+            out[path] = dict(host_syncs=syncs, value=value,
+                             host_value=ref,
+                             ms_per_batch=secs * 1e3 / FIT_METRIC_BATCHES)
+    finally:
+        if old is None:
+            os.environ.pop("MXNET_DEVICE_METRICS", None)
+        else:
+            os.environ["MXNET_DEVICE_METRICS"] = old
+    dev = out["device"]
+    if dev["host_syncs"] != {"metric.sync": 1}:
+        fails.append(f"{label}: the device path's fit read back "
+                     f"{dev['host_syncs']}, want one metric.sync")
+    if out["host"]["host_syncs"].get("metric.update") != FIT_METRIC_BATCHES:
+        fails.append(f"{label}: the host path's fit read back "
+                     f"{out['host']['host_syncs']}")
+    if not abs(dev["value"] - dev["host_value"]) <= \
+            FIT_METRIC_RTOL * abs(dev["host_value"]):
+        fails.append(f"{label}: the device metric {dev['value']} against "
+                     f"the host path's {dev['host_value']}")
+    return dict(out, batches=FIT_METRIC_BATCHES, rtol=FIT_METRIC_RTOL)
+
+
 def phase_train(torch, mt, sym):
     """GPT-2-small width, all layers, through mt.mod.Module +
     mt.io.NDArrayIter on cuda:0 in bf16 with fp32 masters: TRAIN_STEPS
@@ -1368,6 +1541,13 @@ def phase_train(torch, mt, sym):
     out = mod.get_outputs()[0]
     if out.shape != (B * S, V):
         raise RuntimeError(f"train: output shape {out.shape}")
+    # the LM through Module.fit: the metric on the card
+    fails = []
+    fit_it = mt.io.NDArrayIter(
+        {"data": np.concatenate([x] * FIT_METRIC_BATCHES)},
+        {"softmax_label": np.concatenate([y] * FIT_METRIC_BATCHES)},
+        batch_size=B)
+    fit_metric = fit_metric_check(torch, mt, mod, fit_it, fails, "train")
 
     torch.cuda.synchronize()
     with device_window(torch) as prof:
@@ -1400,7 +1580,10 @@ def phase_train(torch, mt, sym):
          median_step_ms=med, tokens_per_s=tokens / (med / 1e3),
          n_params=n_params, flops_per_step=flops,
          achieved_tflops=flops / (med / 1e3) / 1e12,
-         peak_mem_bytes=peak, launches=counts, dispatches=dispatch)
+         peak_mem_bytes=peak, launches=counts, dispatches=dispatch,
+         fit_metric=fit_metric, failures=fails)
+    if fails:
+        raise RuntimeError("train: " + "; ".join(fails))
     # the profiler slows the host, so the idle share is given against
     # the profiled step and against the unprofiled median step
     emit("train_profile", step_ms=prof_step_ms, device_busy_ms=busy,
@@ -1688,6 +1871,14 @@ def phase_resnet_train(torch, mt, peak_flops):
         raise RuntimeError(f"resnet_train: output shape {out.shape}")
     timed_ms = step_ms[RESNET_WARMUP:]
     med = float(np.median(timed_ms))
+    # ResNet-50 through Module.fit: the metric on the card
+    fails = []
+    fit_metric = fit_metric_check(
+        torch, mt, mod, BatchListIter(
+            batches, FIT_METRIC_BATCHES,
+            [mt.io.DataDesc("data", (B,) + shape)],
+            [mt.io.DataDesc("softmax_label", (B,))]),
+        fails, "resnet_train")
     flops = 2 * RESNET_FWD_MACS * 3 * B
     tflops = flops / (med / 1e3) / 1e12
     emit("resnet_train", model="resnet-50 v2", batch=B, image=list(shape),
@@ -1705,7 +1896,10 @@ def phase_resnet_train(torch, mt, peak_flops):
          mfu_peak_tflops=peak_flops / 1e12, peak_mem_bytes=peak,
          dispatches=dispatch, attention_launches=counts, losses=losses,
          loss_first5_mean=first5, loss_last5_mean=last5,
-         margin=RESNET_MARGIN, relu_grad_launches=r1)
+         margin=RESNET_MARGIN, relu_grad_launches=r1,
+         fit_metric=fit_metric, failures=fails)
+    if fails:
+        raise RuntimeError("resnet_train: " + "; ".join(fails))
     return mod, batches, med, r1
 
 
@@ -2308,13 +2502,18 @@ def zoo_predict(mt, net, args, aux, x, ctx):
     return mod.predict(it).asnumpy()
 
 
-def phase_zoo_predict(torch, mt):
+def zoo_cpu_ref_path(outdir, i):
+    return os.path.join(outdir, f"zoo_logits_{i}.npy")
+
+
+def phase_zoo_predict(torch, mt, refs):
     """Module.predict of every zoo network, fp32, on a padded iterator:
-    its logits on the card against the CPU's, relative to their range;
-    its probabilities on the card against the softmax of the card's
-    logits; the flash forward's launches (12 a batch for ViT, none
-    elsewhere); a Dropout network's card predict must equal its predict
-    with every Dropout removed (inference is the identity)."""
+    its logits on the card against the CPU's (computed by the CPU
+    references' process, ``refs``), relative to their range; its
+    probabilities on the card against the softmax of the card's logits;
+    the flash forward's launches (12 a batch for ViT, none elsewhere); a
+    Dropout network's card predict must equal its predict with every
+    Dropout removed (inference is the identity)."""
     rows, fails, vit_counts = {}, [], None
     batches = 2    # 3 images in batches of 2
     for i in range(len(ZOO)):
@@ -2333,8 +2532,8 @@ def phase_zoo_predict(torch, mt):
         lnet = logits_graph(mt, net)
         gpu = zoo_predict(mt, lnet, args, aux, x, mt.gpu(0))
         t0 = time.monotonic()
-        cpu = zoo_predict(mt, lnet, args, aux, x, mt.cpu())
-        cpu_s = time.monotonic() - t0
+        cpu = np.load(cpu_ref_wait(refs, zoo_cpu_ref_path(refs[1], i)))
+        cpu_wait_s = time.monotonic() - t0
         spread = float(cpu.max() - cpu.min())
         rel = float(np.abs(gpu - cpu).max()) / spread
         z = np.exp(gpu - gpu.max(1, keepdims=True))
@@ -2342,7 +2541,7 @@ def phase_zoo_predict(torch, mt):
         row = dict(shape=list(probs.shape), logit_spread=spread,
                    max_abs_logit_diff_rel=rel, probs_vs_softmax=soft,
                    max_prob=float(probs.max()), launches=counts,
-                   gpu_s=gpu_s, cpu_s=cpu_s)
+                   gpu_s=gpu_s, cpu_reference_wait_s=cpu_wait_s)
         if probs.shape != (3, classes) or not np.isfinite(probs).all() \
                 or not np.isfinite(gpu).all() or rel > ZOO_LOGIT_TOL \
                 or soft > ZOO_SOFTMAX_TOL:
@@ -4528,20 +4727,45 @@ def zoo_fp32_compare(card, cpu, values):
     return row
 
 
-def phase_gluon_zoo_fp32(torch, mt):
+def zoo_fp32_batch(i, side):
+    """ZOO_NETS' i-th network's seeded batch: (images, labels)."""
+    rng = np.random.default_rng(SEED + 60 + i)
+    x = rng.uniform(-1, 1, (ZOO_FP32_BATCH, 3, side, side)) \
+        .astype(np.float32)
+    y = rng.integers(0, 1000, ZOO_FP32_BATCH).astype(np.int32)
+    return x, y
+
+
+def zoo_fp32_ref_path(outdir, name):
+    return os.path.join(outdir, f"zoo_fp32_{name}")
+
+
+def zoo_fp32_ref(refs, name):
+    """gluon_zoo_fp32's weights and CPU step from :func:`cpu_refs`:
+    (values, (loss, gradients, new parameters, seconds, head names))."""
+    path = zoo_fp32_ref_path(refs[1], name)
+    cpu_ref_wait(refs, path + ".json")
+    part, meta = _flat_load(path)
+    for ext in (".npy", ".json"):
+        os.remove(path + ext)
+    return part["v"], (meta["loss"], part["g"], part["p"], meta["secs"],
+                       meta["head"])
+
+
+def phase_gluon_zoo_fp32(torch, mt, refs):
     """One fp32 step of each ZOO_NETS network at full width (batch 2 of
     its input), the card (TF32 off) against the CPU from the same
-    weights."""
+    weights; the weights and the CPU step from the CPU references'
+    process (``refs``)."""
     fails, rows = [], {}
     for i, (name, side) in enumerate(ZOO_NETS):
-        values = zoo_numpy_params(mt, name, side, SEED + 50 + i)
-        rng = np.random.default_rng(SEED + 60 + i)
-        x = rng.uniform(-1, 1, (ZOO_FP32_BATCH, 3, side, side)) \
-            .astype(np.float32)
-        y = rng.integers(0, 1000, ZOO_FP32_BATCH).astype(np.int32)
+        t0 = time.monotonic()
+        values, cpu = zoo_fp32_ref(refs, name)
+        wait_s = time.monotonic() - t0
+        x, y = zoo_fp32_batch(i, side)
         row = zoo_fp32_compare(
-            zoo_fp32_step(mt, mt.gpu(0), name, values, x, y),
-            zoo_fp32_step(mt, mt.cpu(), name, values, x, y), values)
+            zoo_fp32_step(mt, mt.gpu(0), name, values, x, y), cpu, values)
+        row["cpu_reference_wait_s"] = wait_s
         row["batch_norm"] = ("moving statistics (DEEP_BN)"
                              if name in ZOO_FP32_DEEP_BN else "batch")
         rows[name] = row
@@ -6258,7 +6482,8 @@ def opt_inputs(shapes, seed, steps):
 def opt_run(mt, name, w, grads, ctx, dtype=None, multi_precision=False):
     """``len(grads)`` updates of every array by one updater keyed by
     parameter name; returns the updated weights (their fp32 masters
-    with multi-precision) as CPU tensors, and the updater."""
+    with multi-precision) as tensors on ``ctx``'s device, and the
+    updater."""
     import torch
     params = dict(FE_OPTIMIZERS[name], multi_precision=multi_precision)
     opt = mt.optimizer.create(name, param_idx2name={n: n for n in w},
@@ -6270,8 +6495,8 @@ def opt_run(mt, name, w, grads, ctx, dtype=None, multi_precision=False):
         for n, v in g.items():
             upd(n, mt.nd.array(v, ctx=ctx, dtype=dt), weights[n])
     if multi_precision:
-        return {n: upd.states[n][0]._data.cpu() for n in w}, upd
-    return {n: a._data.cpu() for n, a in weights.items()}, upd
+        return {n: upd.states[n][0]._data for n in w}, upd
+    return {n: a._data for n, a in weights.items()}, upd
 
 
 def bf16_rounded(d):
@@ -6282,11 +6507,13 @@ def bf16_rounded(d):
 
 
 def opt_distance(torch, a, b, w0):
-    """Per array, ||a - b|| / ||b - w0|| (float64)."""
+    """Per array, ||a - b|| / ||b - w0|| (float64), computed on ``a``'s
+    device (the card's for a card run: the host's float64 passes over
+    ResNet-50's 25.5M values took seconds an optimizer)."""
     out = {}
     for n, x in a.items():
-        x, y = x.double(), b[n].double()
-        ref = (y - torch.from_numpy(w0[n]).double()).norm()
+        x, y = x.double(), b[n].to(x.device).double()
+        ref = (y - torch.from_numpy(w0[n]).to(x.device).double()).norm()
         out[n] = float((x - y).norm() / max(float(ref), 1e-30))
     return out
 
@@ -6328,7 +6555,7 @@ def sgld_noise_check(torch, mt, w, g):
     for n, x in got.items():
         wd_n = wd if n.endswith(("_weight", "_gamma")) else 0.0
         det = w[n].astype(np.float64) - lr / 2 * (g[n] + wd_n * w[n])
-        noise.append((x.double().numpy() - det).ravel())
+        noise.append((x.double().cpu().numpy() - det).ravel())
     noise = np.concatenate(noise)
     return dict(mean=float(noise.mean()), std=float(noise.std()),
                 want_std=float(np.sqrt(lr)),
@@ -6336,19 +6563,157 @@ def sgld_noise_check(torch, mt, w, g):
                 n=int(noise.size))
 
 
-def fe_optimizers(torch, mt):
+def fe_inputs(shapes):
+    """fe_optimizers' seeded inputs: {multi_precision: (weights,
+    gradients)}; the fp32 masters from bf16 weights and gradients are an
+    fp32 run from the bf16-rounded ones, on the CPU."""
+    w, grads = opt_inputs(shapes, SEED + 94, FE_STEPS)
+    return {False: (w, grads),
+            True: (bf16_rounded(w), [bf16_rounded(g) for g in grads])}
+
+
+# the CPU references of zoo_predict, gluon_zoo_fp32_card_vs_cpu and
+# front_end are computed by a process of their own from the script's
+# start (``chip_smoke.py --cpu-refs DIR``), on this many of the host's
+# threads, beside the card's phases, in the order the phases need them
+FE_CPU_REF_THREADS = 2
+
+
+def fe_cpu_ref_path(outdir, name, mp):
+    return os.path.join(outdir, f"fe_{name}_{int(mp)}.npy")
+
+
+def _save_whole(path, save):
+    """``save(tmp)`` then rename into place, so a reader sees it whole."""
+    tmp = path + ".tmp.npy"
+    save(tmp)
+    os.replace(tmp, path)
+
+
+def _flat_save(path, groups, meta):
+    """Float32 arrays ``{group: {name: array}}`` as one flat ``.npy``
+    (``np.load`` reads it at the page cache's speed, where an ``.npz``
+    checks a CRC over every byte) and a JSON index with ``meta``, the
+    index written last."""
+    index, flat, off = [], [], 0
+    for g, arrays in groups.items():
+        for k, v in arrays.items():
+            v = np.ascontiguousarray(v, np.float32)
+            index.append([g, k, list(v.shape), off])
+            flat.append(v.ravel())
+            off += v.size
+    _save_whole(path + ".npy", lambda tmp: np.save(tmp, np.concatenate(flat)))
+    with open(path + ".json.tmp", "w") as f:
+        json.dump(dict(meta, index=index), f)
+    os.replace(path + ".json.tmp", path + ".json")
+
+
+def _flat_load(path):
+    """What :func:`_flat_save` wrote: ({group: {name: array}}, meta)."""
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    flat = np.load(path + ".npy")
+    groups = {}
+    for g, k, shape, off in meta.pop("index"):
+        n = int(np.prod(shape))
+        groups.setdefault(g, {})[k] = flat[off:off + n].reshape(shape)
+    return groups, meta
+
+
+def cpu_refs(outdir):
+    """``chip_smoke.py --cpu-refs OUTDIR``: the CPU halves of three
+    phases' comparisons, each by its phase's own code on its own seeded
+    inputs, written as numpy files renamed into place when whole:
+    zoo_predict's CPU logits (``zoo_predict`` of each ``zoo_case``'s
+    logits graph on the CPU); gluon_zoo_fp32_card_vs_cpu's weights
+    (``zoo_numpy_params``) and CPU step (``zoo_fp32_step`` on the CPU);
+    front_end's optimizer runs (``opt_run`` on the CPU of
+    :func:`fe_inputs`, fp32 and from the bf16-rounded ones, each run's
+    arrays as one float32 file in ResNet-50's parameter order)."""
+    import torch
+    torch.set_num_threads(FE_CPU_REF_THREADS)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import mxnet_tpu_torch as mt
+    for i in range(len(ZOO)):
+        _name, _classes, net, args, aux, x = zoo_case(mt, i)
+        cpu = zoo_predict(mt, logits_graph(mt, net), args, aux, x, mt.cpu())
+        _save_whole(zoo_cpu_ref_path(outdir, i),
+                    lambda tmp, cpu=cpu: np.save(tmp, cpu))
+    for i, (name, side) in enumerate(ZOO_NETS):
+        values = zoo_numpy_params(mt, name, side, SEED + 50 + i)
+        x, y = zoo_fp32_batch(i, side)
+        loss, grads, params, secs, head = zoo_fp32_step(
+            mt, mt.cpu(), name, values, x, y)
+        _flat_save(zoo_fp32_ref_path(outdir, name),
+                   {"v": values, "g": grads, "p": params},
+                   dict(loss=loss, secs=secs, head=list(head)))
+    shapes = resnet_param_shapes(mt)
+    inputs = fe_inputs(shapes)
+    for name in FE_OPTIMIZERS:
+        if name == "sgld":
+            continue
+        for mp in (False, True):
+            cpu, _ = opt_run(mt, name, *inputs[mp], mt.cpu())
+            _save_whole(fe_cpu_ref_path(outdir, name, mp), lambda tmp: np.save(
+                tmp, np.concatenate([cpu[n].numpy().ravel()
+                                     for n, _ in shapes])))
+    return 0
+
+
+def cpu_ref_wait(refs, path, timeout=900.0):
+    """Wait for ``path`` of :func:`cpu_refs`; raises if the process ended
+    without it."""
+    proc, outdir = refs
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if proc.poll() is not None and not os.path.exists(path):
+            with open(os.path.join(outdir, "cpu_refs.log")) as f:
+                tail = f.read()[-2000:]
+            raise RuntimeError(f"the CPU references' process exited "
+                               f"{proc.returncode} without {path}: {tail}")
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"no {path} in {timeout} s")
+        time.sleep(0.05)
+    return path
+
+
+def start_cpu_refs(outdir):
+    """Spawn :func:`cpu_refs` over ``outdir``; (process, outdir)."""
+    log = open(os.path.join(outdir, "cpu_refs.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-refs", outdir],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=log,
+        stderr=subprocess.STDOUT)
+    log.close()
+    return proc, outdir
+
+
+def fe_cpu_ref(torch, refs, name, mp, shapes, timeout=900.0):
+    """One optimizer run of :func:`cpu_refs` as {array name: CPU
+    tensor}, waiting for its file."""
+    path = cpu_ref_wait(refs, fe_cpu_ref_path(refs[1], name, mp), timeout)
+    flat = np.load(path)
+    os.remove(path)
+    out, off = {}, 0
+    for n, s in shapes:
+        size = int(np.prod(s))
+        out[n] = torch.from_numpy(flat[off:off + size].reshape(s))
+        off += size
+    return out
+
+
+def fe_optimizers(torch, mt, refs):
     """Every optimizer on ResNet-50's parameter shapes: FE_STEPS updates
     on the card and on the CPU in fp32, again with bf16 weights under
     multi_precision (the fp32 masters compared), each array within its
     budget; SGLD by its deterministic part and its noise's moments; the
-    whole set's update time beside its bytes bound."""
+    whole set's update time beside its bytes bound.  The CPU runs are
+    those of ``refs``, :func:`start_cpu_refs`'s process."""
     shapes = resnet_param_shapes(mt)
-    w, grads = opt_inputs(shapes, SEED + 94, FE_STEPS)
-    # the fp32 masters from bf16 weights and gradients are an fp32 run
-    # from the bf16-rounded ones, on the CPU
-    inputs = {False: (w, grads),
-              True: (bf16_rounded(w), [bf16_rounded(g) for g in grads])}
+    inputs = fe_inputs(shapes)
+    w, grads = inputs[False]
     rows, fails = {}, []
+    ref_wait = 0.0
     for name in FE_OPTIMIZERS:
         if name == "sgld":
             s = sgld_noise_check(torch, mt, w, grads[0])
@@ -6363,7 +6728,9 @@ def fe_optimizers(torch, mt):
             for mp in (False, True):
                 dt = "bfloat16" if mp else None
                 card, _ = opt_run(mt, name, w, grads, mt.gpu(0), dt, mp)
-                cpu, _ = opt_run(mt, name, *inputs[mp], mt.cpu())
+                t = time.monotonic()
+                cpu = fe_cpu_ref(torch, refs, name, mp, shapes)
+                ref_wait += time.monotonic() - t
                 worst = max(opt_distance(torch, card, cpu,
                                          inputs[mp][0]).values())
                 budget = FE_BUDGET_FLOOR if name in FE_SIGN_UPDATES else \
@@ -6383,7 +6750,8 @@ def fe_optimizers(torch, mt):
         torch.cuda.empty_cache()
     return dict(arrays=len(shapes),
                 parameters=int(sum(np.prod(s) for _, s in shapes)),
-                steps=FE_STEPS, **rows), fails
+                steps=FE_STEPS, cpu_reference_wait_s=ref_wait,
+                **rows), fails
 
 
 def fe_metrics(torch, mt):
@@ -6607,15 +6975,16 @@ def fe_sequential(torch, mt):
                      / b[k]._data.abs().max()) for k in b)
 
 
-def phase_front_end(torch, mt):
+def phase_front_end(torch, mt, refs):
     """Small checks of the front end on the card: every optimizer, the
     new metrics, initializers and file iterators, FeedForward and
-    SequentialModule; no kernel launches."""
+    SequentialModule; no kernel launches.  ``refs``: the optimizers' CPU
+    references' process (:func:`start_cpu_refs`)."""
     reset_counts(mt)
     fails = []
     t0 = time.monotonic()
     rows = {}
-    rows["optimizers"], f = fe_optimizers(torch, mt)
+    rows["optimizers"], f = fe_optimizers(torch, mt, refs)
     fails += f
     rows["optimizers_s"] = time.monotonic() - t0
     rows["metrics"], f = fe_metrics(torch, mt)
@@ -8644,11 +9013,12 @@ def lm_step_loss(torch, mod, label):
     return float(-p.log().mean())
 
 
-def dist_async_reference(mt, rows, w0, opt_blob, kv):
+def dist_async_reference(mt, rows, w0, opt_blob, plan_of):
     """Replay the servers' arithmetic of one step on the CPU: the port's
     Adam, unpickled from the blob the servers got, on ``decompress`` of
     each recorded payload, from the initial weights ``w0``, stripe by
-    stripe on the same wire keys.  Returns {param: numpy weights}."""
+    stripe on the same wire keys (``plan_of(key, shape)``: the store's
+    stripe plan).  Returns {param: numpy weights}."""
     import pickle
     from mxnet_tpu_torch import compression, membership
     from mxnet_tpu_torch.kvstore import _key_int
@@ -8656,7 +9026,7 @@ def dist_async_reference(mt, rows, w0, opt_blob, kv):
     out = {k: v.copy() for k, v in w0.items()}
     for wk, payload in rows:
         base = membership.base_key(wk)
-        plan = kv._stripe_plan(base, w0[base].shape)
+        plan = plan_of(base, w0[base].shape)
         if plan is None:
             lo, hi = 0, w0[base].shape[0]
         else:
@@ -8669,7 +9039,8 @@ def dist_async_reference(mt, rows, w0, opt_blob, kv):
     return out
 
 
-def phase_dist_async_lm_fit(torch, mt, layers=DIST_ASYNC_LAYERS):
+def phase_dist_async_lm_fit(torch, mt, layers=DIST_ASYNC_LAYERS,
+                            servers=None):
     """The GPT-2-small-width LM (cut to ``layers`` layers) trained
     over dist_async with 2-bit pushes:
     two parameter-server processes as tools/launch.py starts them (their
@@ -8685,7 +9056,9 @@ def phase_dist_async_lm_fit(torch, mt, layers=DIST_ASYNC_LAYERS):
     equal, bit for bit, the port's CPU Adam replaying the servers'
     arithmetic on the pushed payloads; the loss falls by
     DIST_ASYNC_MARGIN; the servers answer from the host and exit on
-    ``close(stop_servers=True)``."""
+    ``close(stop_servers=True)``.  ``servers``: :func:`server_processes`'
+    (uris, processes), started by the caller a phase earlier so that their
+    imports run beside it; by default the phase starts its own."""
     import pickle
     from mxnet_tpu_torch import kvstore as kvs
     S, V = GPT2_SMALL["seq_len"], GPT2_SMALL["vocab_size"]
@@ -8696,8 +9069,11 @@ def phase_dist_async_lm_fit(torch, mt, layers=DIST_ASYNC_LAYERS):
     rng = np.random.default_rng(SEED + 130)
     batches = [lm_batch(rng, B, S, V) for _ in range(nsteps + 1)]
     fails = []
-    with tempfile.TemporaryDirectory() as workdir, \
-            server_processes(workdir, 1) as (uris, procs):
+    with contextlib.ExitStack() as stack:
+        if servers is None:
+            servers = stack.enter_context(server_processes(
+                stack.enter_context(tempfile.TemporaryDirectory()), 1))
+        uris, procs = servers
         old_env = worker_env(uris)
         try:
             t0 = time.monotonic()
@@ -8761,7 +9137,7 @@ def phase_dist_async_lm_fit(torch, mt, layers=DIST_ASYNC_LAYERS):
                 if param.nbatch == 0:
                     rec.on = False
                     want = dist_async_reference(mt, rec.rows, w0, opt_blob,
-                                                kv)
+                                                kv._stripe_plan)
                     got = {k: v.asnumpy() for k, v in
                            mod.get_params()[0].items()}
                     diff = [k for k in names if not np.array_equal(
@@ -8951,17 +9327,17 @@ def dist_sync_lm(mt):
 DIST_SYNC_INPUTS = "inputs.npz"
 
 
-def dist_sync_handover(outdir, params, glob):
+def dist_sync_handover(outdir, params, glob, name=DIST_SYNC_INPUTS):
     """The parent writes the seeded weights and global batches once for
     both ranks; renamed into place when whole."""
     tmp = os.path.join(outdir, "inputs.tmp.npz")
     np.savez(tmp, **{"p:" + k: v for k, v in params.items()},
              x=np.stack([b[0] for b in glob]),
              y=np.stack([b[1] for b in glob]))
-    os.replace(tmp, os.path.join(outdir, DIST_SYNC_INPUTS))
+    os.replace(tmp, os.path.join(outdir, name))
 
 
-def dist_sync_inputs(outdir, timeout=600.0):
+def dist_sync_inputs(outdir, timeout=1200.0):
     """A rank's side of :func:`dist_sync_handover`: waits for the file,
     then (params, [(x, y)] global batches)."""
     path = os.path.join(outdir, DIST_SYNC_INPUTS)
@@ -9002,9 +9378,16 @@ def first_moments(mod):
 
 
 def rel_distance(a, b, ref):
-    """||a - b|| / ||ref||, in float64."""
-    d = a.astype(np.float64) - b
-    return float(np.sqrt(d @ d) / np.linalg.norm(ref.astype(np.float64)))
+    """||a - b|| / ||ref||, in float64, on the card where there is one
+    (the host's float64 passes over 92M values took seconds each)."""
+    import torch
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+    def f64(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(
+            dev, torch.float64)
+    d = f64(a) - f64(b)
+    return float(torch.sqrt(d @ d) / torch.linalg.vector_norm(f64(ref)))
 
 
 def dist_sync_fit(torch, mt, sym, params, x, y, batch, kvstore,
@@ -9103,9 +9486,9 @@ def start_dist_sync_workers(workdir):
     """Spawn phase_dist_sync_fit's two ranks (``chip_smoke.py
     --dist-sync-worker WORKDIR`` with tools/launch.py's worker
     environment); returns (processes, wall clock at the spawn).  main
-    starts them at the start of dist_async_lm_fit, so that their start-up
-    (the imports, the CUDA context, the gloo group and the graph's first
-    shape inference: about 20 s) runs beside that phase; they wait
+    starts them right after ``build``, so that their start-up (the
+    imports, the CUDA context, the gloo group and the graph's first shape
+    inference: about 20 s) runs beside the card's first phases; they wait
     for the parent's handover file."""
     root = os.path.dirname(os.path.abspath(__file__))
     port = free_ports(1)[0]
@@ -9139,8 +9522,8 @@ def phase_dist_sync_fit(torch, mt, workdir, started):
     weights after the last step within DIST_SYNC_UPDATE_RTOL of the
     update's norm.  ``workdir`` and ``started`` are the ranks'
     directory and :func:`start_dist_sync_workers`'s return: the ranks
-    are spawned a phase earlier, so that their start-up runs beside
-    it."""
+    are spawned earlier, so that their start-up runs beside other
+    phases."""
     fails = []
     t0 = time.monotonic()
     procs, spawned = started
@@ -9250,6 +9633,574 @@ def phase_dist_sync_fit(torch, mt, workdir, started):
     if fails:
         raise RuntimeError("dist_sync_fit: " + "; ".join(fails))
     return ranks[0]["launches"]
+
+
+# -- E2's hierarchical tier ---------------------------------------------------
+# hier_lm_fit: two worker ranks on cuda:0 form one host group, started with
+# two parameter servers as ``tools/launch.py -n 2 -s 2 --workers-per-host 2``
+# starts them: rank 1 (the follower) hands its gradient to rank 0 (the
+# leader) over the same-host shm lane; the leader sums the two on the card,
+# compresses the sum with Q1 and alone pushes it; the follower's pulls are
+# served from the leader's.  The LM at full width cut to HIER_LAYERS
+# layers, bf16 over fp32 masters, batch HIER_BATCH a rank (the group's
+# batch is dist_async_lm_fit's TRAIN_BATCH), Adam TRAIN_LR on the servers,
+# 2-bit at DIST_ASYNC_THRESHOLD, HIER_STEPS steps of Module.fit.  The sum
+# and the push payload are held at step HIER_CHECK_STEP (0-based: after
+# the first, so Q1 works with a residual).
+HIER_LAYERS = DIST_SYNC_LAYERS
+HIER_BATCH = 4
+HIER_STEPS = 4
+HIER_CHECK_STEP = 1
+# the loss (the two ranks' mean) must fall by HIER_MARGIN nats over the
+# HIER_STEPS steps: under a third of the drop of the CPU rehearsal
+# (tests/torch_numerics.py hier: this phase's job at its size in fp32 on
+# the card's host CPU: 10.983 -> 10.716, 0.2667 nats)
+HIER_MARGIN = 0.08
+# the job's ring holds a round's largest frame (the follower's gradients
+# one way, the weights back) whatever its position: twice the frame and
+# this slack, per direction; /dev/shm bounds it (HIER_SHM_SHARE of its
+# free space), and a frame the ring cannot hold rides TCP for its round
+HIER_RING_SLACK = 1 << 20
+HIER_SHM_SHARE = 0.9
+HIER_TIMEOUT_S = 420.0
+HIER_GO = "go"
+
+
+def hier_spec(device="cuda", cfg=None, batch=HIER_BATCH, steps=HIER_STEPS,
+              check_step=HIER_CHECK_STEP, threshold=DIST_ASYNC_THRESHOLD,
+              lr=TRAIN_LR, margin=HIER_MARGIN, compute_dtype="bfloat16"):
+    """The job's settings, handed to every process in MXT_HIER_SPEC."""
+    return dict(device=device,
+                cfg=cfg or dict(GPT2_SMALL, num_layers=HIER_LAYERS),
+                batch=batch, steps=steps, check_step=check_step,
+                threshold=threshold, lr=lr, margin=margin,
+                compute_dtype=compute_dtype)
+
+
+def start_hier_job(workdir, spec):
+    """Start phase_hier_lm_fit's job: ``tools/launch.py -n 2 -s 2
+    --workers-per-host 2 --launcher local`` over ``chip_smoke.py
+    --hier-worker WORKDIR`` (MXNET_KVSTORE_HIERARCHY,
+    MXNET_KVSTORE_WORKERS_PER_HOST and MXT_MESH_URIS are the launcher's;
+    the lane is on, MXNET_KVSTORE_SHM=1).  main starts it with the
+    dist_sync_fit ranks, right after ``build``, so that the processes'
+    start-up runs beside the card's first phases; the ranks wait for the
+    parent's handover.  Returns (the launcher process, wall clock at the
+    spawn)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    cmd = [sys.executable, os.path.join(root, "tools", "launch.py"),
+           "-n", "2", "-s", str(DIST_SERVERS), "--workers-per-host", "2",
+           "--launcher", "local"]
+    for k, v in (("MXNET_KVSTORE_SHM", "1"),
+                 ("MXNET_KVSTORE_BIGARRAY_BOUND", str(DIST_BIGARRAY_BOUND)),
+                 ("OMP_NUM_THREADS", str(DIST_SERVER_THREADS)),
+                 ("MXT_HIER_SPEC", json.dumps(spec))):
+        cmd += ["--env", f"{k}={v}"]
+    cmd += [sys.executable, os.path.abspath(__file__), "--hier-worker",
+            workdir]
+    log = open(os.path.join(workdir, "launch.log"), "w")
+    spawned = time.time()
+    proc = subprocess.Popen(cmd, env=env, cwd=root, stdout=log,
+                            stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    log.close()
+    return proc, spawned
+
+
+def stop_hier_job(started):
+    """Kill the launcher's whole process group if it still runs."""
+    import signal
+    proc = started[0]
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except OSError:
+            proc.kill()
+        proc.wait()
+
+
+def hier_ring(frame_bytes):
+    """The ring's capacity a direction (KiB) for rounds of
+    ``frame_bytes``, and what bounded it: twice the frame plus
+    HIER_RING_SLACK, or HIER_SHM_SHARE of /dev/shm's free space over the
+    segment's two rings, whichever is smaller."""
+    want = 2 * frame_bytes + HIER_RING_SLACK
+    try:
+        st = os.statvfs("/dev/shm")
+        free = st.f_bavail * st.f_frsize
+    except OSError:
+        free = 0
+    cap = min(want, int(HIER_SHM_SHARE * free) // 2)
+    return dict(ring_kb=max(64, cap // 1024), wanted_kb=want // 1024,
+                dev_shm_free_bytes=free,
+                bound_by="frame" if cap == want else "/dev/shm")
+
+
+def hier_inputs(sym, spec):
+    """The job's seeded weights and global batches of 2 x batch rows:
+    every rank makes them at its start-up, and the parent for its replay,
+    by the same code from the same seeds."""
+    cfg = spec["cfg"]
+    S, V = cfg["seq_len"], cfg["vocab_size"]
+    params = gpt2_params(sym, SEED + 150, S)
+    rng = np.random.default_rng(SEED + 151)
+    glob = [lm_batch(rng, 2 * spec["batch"], S, V)
+            for _ in range(spec["steps"])]
+    return params, glob
+
+
+def hier_wait_go(outdir, timeout=1200.0):
+    """A rank waits for the parent's go (the card is then the job's)."""
+    path = os.path.join(outdir, HIER_GO)
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"hier_lm_fit: no {path} from the parent")
+        time.sleep(0.05)
+
+
+def _sha(a):
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def hier_worker(outdir):
+    """One process of phase_hier_lm_fit's job (``chip_smoke.py
+    --hier-worker OUTDIR``, started by tools/launch.py): a server imports
+    the package and serves until the leader stops it; rank 0 leads the
+    host group and rank 1 follows.  A rank trains the LM by Module.fit on
+    its half of each global batch and writes ``rank{r}.json``: its
+    start-up marks, each step's loss, time, byte counts and weights'
+    hash, its launches, and (leader) the first step against the servers'
+    Adam replayed here, the sum and the push payload held at the check
+    step, and (follower) the hashes of what it sent at that step."""
+    marks = {"entered": time.time()}
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if os.environ.get("DMLC_ROLE") == "server":
+        import mxnet_tpu_torch  # noqa: F401  serves until stopped
+        return 0
+    import pickle
+    import torch
+    import mxnet_tpu_torch as mt
+    from mxnet_tpu_torch import compression
+    marks["imported"] = time.time()
+    spec = json.loads(os.environ["MXT_HIER_SPEC"])
+    cuda = spec["device"] == "cuda"
+    ctx = mt.gpu(0) if cuda else mt.cpu()
+    if cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.zeros(1, device="cuda")
+        marks["cuda_context"] = time.time()
+    rank = int(os.environ["DMLC_WORKER_ID"])
+    cfg, B, check = spec["cfg"], spec["batch"], spec["check_step"]
+    S = cfg["seq_len"]
+    sym = mt.models.transformer_lm(**cfg)
+    shapes, _, _ = sym.infer_shape(data=(B, S), softmax_label=(B, S))
+    arg_shapes = {n: s for n, s in zip(sym.list_arguments(), shapes)
+                  if n not in ("data", "softmax_label")}
+    grad_bytes = 4 * sum(int(np.prod(s)) for s in arg_shapes.values())
+    marks["first_shape_inference"] = time.time()
+    # the round's largest frame is the gradient (or the weights) and the
+    # frame's header: one descriptor a key
+    ring = hier_ring(grad_bytes + 256 * len(arg_shapes) + 4096)
+    os.environ["MXNET_KVSTORE_SHM_RING_KB"] = str(ring["ring_kb"])
+    params, glob = hier_inputs(sym, spec)
+    x = np.concatenate([b[0][rank * B:(rank + 1) * B] for b in glob])
+    y = np.concatenate([b[1][rank * B:(rank + 1) * B] for b in glob])
+    marks["weights_and_batches"] = time.time()
+    hier_wait_go(outdir)
+    marks["go"] = time.time()
+    kv = mt.kv.create("dist_async")
+    marks["store"] = time.time()
+    leader = kv._mesh_leader is not None
+    lane = None if leader else kv._mesh_conn._shm is not None
+    kv.set_gradient_compression({"type": "2bit",
+                                 "threshold": spec["threshold"]})
+    it = mt.io.NDArrayIter({"data": x}, {"softmax_label": y}, batch_size=B)
+    mod = mt.mod.Module(sym, context=ctx,
+                        compute_dtype=spec["compute_dtype"])
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+    mod.init_params(arg_params=params)
+    opt_params = {"learning_rate": spec["lr"]}
+    mod.init_optimizer(kvstore=kv, optimizer="adam",
+                       optimizer_params=opt_params)
+    opt_blob = pickle.dumps(mod._optimizer)
+    names = mod._update_names()
+    w0 = {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+    wire_keys = sum(1 if kv._stripe_plan(n, w0[n].shape) is None
+                    else len(kv._stripe_plan(n, w0[n].shape)) - 1
+                    for n in names)
+    marks["optimizer"] = time.time()
+
+    state = {"step": 0, "pushed": [0] * spec["steps"],
+             "mesh_pushes": [0] * spec["steps"]}
+    checks = {}
+    rec = PushRecorder(kv)
+    # what the rank puts on the wire: one entry a wire key
+    orig_submit_planned = kv._submit_planned
+
+    def submit_planned(planned):
+        for _k, _conn, msg in planned:
+            n = len(msg[1]) if msg[0] == "push_multi" else 1
+            state["pushed"][min(state["step"], spec["steps"] - 1)] += n
+        return orig_submit_planned(planned)
+    kv._submit_planned = submit_planned
+    if leader:
+        # the sum: the leader's own gradient plus the follower's
+        # contribution as it arrived, float32, bit for bit
+        orig_reduce = kv._mesh_reduce
+
+        def mesh_reduce(pairs, contribs):
+            out = orig_reduce(pairs, contribs)
+            if state["step"] == check:
+                got = dict(contribs[0])
+                bad, dtypes = [], set()
+                hashes = {}
+                for (k, own), (_k, summed) in zip(pairs, out):
+                    own_np = own.detach().cpu().numpy()
+                    c = np.asarray(got[k])
+                    dtypes.add((str(own_np.dtype), str(c.dtype)))
+                    hashes[k] = _sha(c)
+                    want = (own_np + c).view(np.int32)
+                    if not np.array_equal(
+                            summed.detach().cpu().numpy().view(np.int32),
+                            want):
+                        bad.append(k)
+                checks["sum"] = dict(keys=len(pairs), differ=bad,
+                                     dtypes=sorted(dtypes),
+                                     contribution_sha256=hashes)
+            return out
+        kv._mesh_reduce = mesh_reduce
+        # the push payload at the check step against the plain quantizer
+        # on the same sum stripe and residual
+        orig_payload = kv._wire_push_payload
+
+        def wire_push_payload(wire_key, arr):
+            if state["step"] != check:
+                return orig_payload(wire_key, arr)
+            r0 = kv._gc_residual.get(wire_key)
+            r0 = None if r0 is None else r0.detach().cpu().clone()
+            g = arr.detach().to(torch.float32).cpu().clone()
+            payload = orig_payload(wire_key, arr)
+            if cuda:
+                torch.cuda.synchronize()
+            codes, res = compression.quantize_2bit_plain(
+                g, r0, spec["threshold"])
+            got_res = kv._gc_residual[wire_key].detach().cpu()
+            pc = checks.setdefault("payload", dict(keys=0, differ=[],
+                                                   had_residual=0))
+            pc["keys"] += 1
+            pc["had_residual"] += r0 is not None
+            if not (np.array_equal(np.asarray(payload.data, np.uint8)
+                                   .ravel(), codes.numpy())
+                    and torch.equal(got_res.view(torch.int32),
+                                    res.view(torch.int32))):
+                pc["differ"].append(wire_key)
+            return payload
+        kv._wire_push_payload = wire_push_payload
+    else:
+        orig_submit = kv._mesh_conn.submit
+
+        def submit(msg, wait=False):
+            if msg and msg[0] == "mesh_push":
+                state["mesh_pushes"][min(state["step"],
+                                         spec["steps"] - 1)] += 1
+                if state["step"] == check:
+                    checks["sent"] = dict(seq=int(msg[1]), sha256={
+                        k: _sha(a) for k, a in msg[2]})
+            return orig_submit(msg, wait=wait)
+        kv._mesh_conn.submit = submit
+
+    def byte_mark():
+        b = mt.profiler.channel_bytes()
+        return {k: b.get(k, 0) for k in ("sent", "recv", "ici_sent",
+                                          "ici_recv", "shm_sent",
+                                          "shm_recv")}
+    steps = []
+    clock = {"t": time.perf_counter(), "bytes": byte_mark()}
+    # flat_params' order: the parameters by sorted name
+    if sorted(w0) != sorted(names):
+        raise RuntimeError(f"hier_lm_fit: parameters {sorted(w0)} are not "
+                           f"the pushed keys {sorted(names)}")
+
+    def batch_end(param):
+        if cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        b = byte_mark()
+        step = state["step"]
+        loss = lm_step_loss(torch, mod, param.locals["data_batch"].label[0])
+        flat = flat_params(mod)
+        row = dict(step=step, ms=(t - clock["t"]) * 1e3, loss=loss,
+                   weights_sha256=_sha(flat),
+                   bytes={k: b[k] - clock["bytes"][k] for k in b})
+        if leader and step == 0:
+            # the parent replays the servers' Adam on these payloads while
+            # the job goes on (hier_replay)
+            rec.on = False
+            hier_handback(outdir, rec.rows, opt_blob, flat)
+            rec.rows.clear()
+        steps.append(row)
+        state["step"] += 1
+        clock["t"], clock["bytes"] = time.perf_counter(), byte_mark()
+
+    reset_counts(mt)
+    reset_q1()
+    rec.on = leader
+    t0 = time.monotonic()
+    clock["t"], clock["bytes"] = time.perf_counter(), byte_mark()
+    mod.fit(it, num_epoch=1, kvstore=kv, optimizer="adam",
+            optimizer_params=opt_params,
+            eval_metric=mt.metric.CrossEntropy(),
+            batch_end_callback=batch_end)
+    fit_s = time.monotonic() - t0
+    counts, q1 = read_counts(mt), q1_count()
+    marks["fit_done"] = time.time()
+    kv.barrier()
+    closed = os.path.join(outdir, "follower.closed")
+    mesh_closed = None
+    if leader:
+        # the follower closes first (its lane and its channel to the
+        # leader), then the leader stops the servers and its endpoint
+        deadline = time.monotonic() + 60
+        while not os.path.exists(closed) and time.monotonic() < deadline:
+            time.sleep(0.05)
+        endpoint = kv._mesh_leader
+        uri = endpoint._uri
+        kv.close(stop_servers=True)
+        # the accept loop notices the closed listener within its tick
+        endpoint._thread.join(timeout=10)
+        import socket
+        host, port = uri.rsplit(":", 1)
+        try:
+            socket.create_connection((host, int(port)), timeout=5).close()
+            mesh_closed = False
+        except OSError:
+            mesh_closed = not endpoint._thread.is_alive()
+    else:
+        kv.close()
+        open(closed, "w").close()
+    out = dict(rank=rank, leader=leader, lane=lane, ring=ring, marks=marks,
+               steps=steps, launches=counts, q1_launches=q1,
+               wire_keys=wire_keys, grad_bytes=grad_bytes,
+               pushed_wire_keys=state["pushed"],
+               mesh_pushes=state["mesh_pushes"], checks=checks,
+               fit_s=fit_s, mesh_endpoint_closed=mesh_closed,
+               grad_dtypes=sorted({str(mod._exec.grad_dict[n].dtype)
+                                   for n in names}),
+               peak_mem_bytes=(torch.cuda.max_memory_allocated()
+                               if cuda else None))
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+HIER_STEP0 = "step0.pkl"
+# the parent's replay runs beside the job's two servers (DIST_SERVERS x
+# DIST_SERVER_THREADS of the host's threads) on this many threads
+HIER_REPLAY_THREADS = 2
+
+
+def hier_handback(outdir, rows, opt_blob, flat):
+    """The leader's first step for the parent's replay: the payloads it
+    pushed (wire key, payload), the optimizer blob the servers got, and
+    the weights it pulled back (flat_params' order), renamed into place
+    when whole."""
+    import pickle
+    tmp = os.path.join(outdir, HIER_STEP0 + ".tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(dict(rows=list(rows), opt_blob=opt_blob, flat=flat), f,
+                    protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(tmp, os.path.join(outdir, HIER_STEP0))
+
+
+def hier_replay(torch, mt, workdir, proc, spec, deadline):
+    """The check of the first step, in the parent while the job trains
+    on: the servers' Adam replayed on the leader's payloads from the
+    seeded weights (dist_async_reference, the plan of DIST_SERVERS
+    servers at DIST_BIGARRAY_BOUND) against the weights the leader
+    pulled, bit for bit.  None if the job ends without the file.  It
+    runs on HIER_REPLAY_THREADS of the host's threads, beside the job's
+    servers."""
+    import pickle
+    from mxnet_tpu_torch import membership
+    threads = torch.get_num_threads()
+    torch.set_num_threads(HIER_REPLAY_THREADS)
+    try:
+        params, _ = hier_inputs(mt.models.transformer_lm(**spec["cfg"]),
+                                spec)
+        path = os.path.join(workdir, HIER_STEP0)
+        while not os.path.exists(path):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                return None
+            time.sleep(0.05)
+        with open(path, "rb") as f:
+            got = pickle.load(f)
+        want = dist_async_reference(
+            mt, got["rows"], params, got["opt_blob"],
+            lambda k, shape: membership.stripe_plan(
+                k, shape, DIST_SERVERS, DIST_BIGARRAY_BOUND))
+    finally:
+        torch.set_num_threads(threads)
+    flat, off, differ, worst = got["flat"], 0, [], 0.0
+    for k in sorted(params):
+        n = params[k].size
+        g = flat[off:off + n].reshape(params[k].shape)
+        off += n
+        if not np.array_equal(g.view(np.int32), want[k].view(np.int32)):
+            differ.append(k)
+        worst = max(worst, float(np.abs(g - want[k]).max()))
+    return dict(keys=len(got["rows"]), differ=differ, max_abs=worst)
+
+
+def phase_hier_lm_fit(torch, mt, workdir, started, spec=None):
+    """E2's hierarchical tier on the card: the job of
+    :func:`start_hier_job` (two servers, a leader and a follower on
+    cuda:0, started after ``build``) is handed its seeded weights and
+    batches, trains, and stops.  Checks, from the ranks' files: one
+    launch a layer a step of each of K1 (with lse), K2 and K3 on each
+    rank; one Q1 launch a wire key a step on the leader and none on the
+    follower; the leader pushes every wire key once a step, the follower
+    none and no wire byte, and its shm (or, for a round the ring cannot
+    hold, socket) bytes cover its fp32 gradient every step, each round's
+    route reported and a round the ring could hold on TCP a failure;
+    the leader's sum at HIER_CHECK_STEP is its own gradient plus the
+    follower's, bit for bit, and the follower's contribution arrived as
+    it was sent (hashes); the leader's push payload at that step is the
+    plain quantizer's on the sum with the residual, bit for bit; the
+    weights after the first step equal the servers' Adam replayed on the
+    host, and both ranks' weights are bit-identical after every step;
+    the ranks' mean loss falls by the spec's margin; the servers and
+    the leader's endpoint close on ``close(stop_servers=True)`` and the
+    launcher exits 0."""
+    spec = spec or hier_spec()
+    cuda = spec["device"] == "cuda"
+    fails = []
+    t0 = time.monotonic()
+    proc, spawned = started
+    try:
+        cfg = spec["cfg"]
+        open(os.path.join(workdir, HIER_GO), "w").close()
+        deadline = t0 + HIER_TIMEOUT_S
+        rp = hier_replay(torch, mt, workdir, proc, spec, deadline)
+        try:
+            code = proc.wait(timeout=max(1, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            code = None
+    finally:
+        stop_hier_job(started)
+    job_s = time.monotonic() - t0
+    if code != 0:
+        with open(os.path.join(workdir, "launch.log")) as f:
+            tail = f.read()[-3000:]
+        raise RuntimeError(f"hier_lm_fit: the launcher exited {code}: "
+                           f"{tail}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    lead, foll = ranks
+    n, L = spec["steps"], cfg["num_layers"]
+    k = L * n if cuda else 0
+    want = {"flash_fwd": k, "flash_fwd_lse": k, "flash_bwd_dq": k,
+            "flash_bwd_dkv": k, "nms_suppress": 0}
+    for r in ranks:
+        if r["launches"] != want:
+            fails.append(f"rank {r['rank']} launches {r['launches']}, "
+                         f"want {want}")
+    if not (lead["leader"] and not foll["leader"]):
+        fails.append("rank 0 must lead and rank 1 follow")
+    wk = lead["wire_keys"]
+    if lead["q1_launches"] != (wk * n if cuda else 0) or \
+            foll["q1_launches"] != 0:
+        fails.append(f"Q1 launches {lead['q1_launches']} on the leader, "
+                     f"{foll['q1_launches']} on the follower; want "
+                     f"{wk} a step x {n} and none")
+    if lead["pushed_wire_keys"] != [wk] * n or \
+            foll["pushed_wire_keys"] != [0] * n:
+        fails.append(f"wire pushes a step: leader "
+                     f"{lead['pushed_wire_keys']}, follower "
+                     f"{foll['pushed_wire_keys']} (want {wk} and 0)")
+    if foll["mesh_pushes"] != [1] * n:
+        fails.append(f"the follower's mesh pushes a step "
+                     f"{foll['mesh_pushes']}")
+    grad = foll["grad_bytes"]
+    cap = foll["ring"]["ring_kb"] * 1024
+    routes = []
+    for s in foll["steps"]:
+        b = s["bytes"]
+        if b["sent"]:
+            fails.append(f"the follower sent {b['sent']} wire bytes in "
+                         f"step {s['step']}")
+        route = ("shm" if b["shm_sent"] >= grad else
+                 "tcp" if b["ici_sent"] >= grad else None)
+        routes.append(route)
+        if route is None:
+            fails.append(f"step {s['step']}: the follower's shm "
+                         f"{b['shm_sent']} and socket {b['ici_sent']} "
+                         f"bytes do not cover its gradient {grad}")
+        # a frame of the gradient and its header fits an empty ring of
+        # twice its size wherever the ring's index stands
+        if route == "tcp" and 2 * (grad + 4) + HIER_RING_SLACK <= cap:
+            fails.append(f"step {s['step']} rode TCP though the ring "
+                         f"({cap} bytes) holds its frame")
+    if not foll["lane"]:
+        fails.append("the follower's channel has no shm lane")
+    sc, sent = lead["checks"].get("sum"), foll["checks"].get("sent")
+    arrived = bool(sc and sent and sent["seq"] == spec["check_step"]
+                   and sent["sha256"] == sc["contribution_sha256"])
+    if not sc or sc["differ"] or not arrived:
+        fails.append(f"the sum at step {spec['check_step']}: keys differing "
+                     f"{sc and sc['differ']}; the contribution arrived as "
+                     f"sent: {arrived}")
+    pc = lead["checks"].get("payload")
+    if not pc or pc["differ"] or pc["keys"] != wk or \
+            pc["had_residual"] != wk:
+        fails.append(f"the push payload at step {spec['check_step']} "
+                     f"against the plain quantizer: {pc}")
+    if not rp or rp["differ"] or rp["keys"] != wk:
+        fails.append(f"after the first step the weights differ from the "
+                     f"servers' Adam replayed: {rp}")
+    h0 = [s["weights_sha256"] for s in lead["steps"]]
+    h1 = [s["weights_sha256"] for s in foll["steps"]]
+    if h0 != h1 or len(h0) != n:
+        fails.append("the ranks' weights differ after a step")
+    losses = [(a["loss"] + b["loss"]) / 2
+              for a, b in zip(lead["steps"], foll["steps"])]
+    if len(losses) != n or not all(np.isfinite(losses)) or \
+            not losses[-1] < losses[0] - spec["margin"]:
+        fails.append(f"mean losses {losses} do not fall by "
+                     f"{spec['margin']}")
+    if lead["mesh_endpoint_closed"] is not True:
+        fails.append("the leader's endpoint still accepts after close")
+    startup = {key: [r["marks"][key] - spawned for r in ranks]
+               for key in ranks[0]["marks"]}
+    emit("hier_lm_fit", model="gpt2-small-width", layers=L,
+         batch_per_rank=spec["batch"], ranks=2, servers=DIST_SERVERS,
+         steps=n, compute_dtype=spec["compute_dtype"],
+         optimizer=f"adam lr {spec['lr']} on the servers",
+         compression=f"2bit threshold {spec['threshold']} (leader)",
+         launcher="tools/launch.py -n 2 -s 2 --workers-per-host 2",
+         ring=foll["ring"], lane=foll["lane"], routes=routes,
+         grad_bytes=grad, wire_keys=wk, job_s=job_s,
+         fit_s=[r["fit_s"] for r in ranks], worker_marks_s=startup,
+         step_ms=[[s["ms"] for s in r["steps"]] for r in ranks],
+         losses=losses, margin=spec["margin"],
+         bytes_by_step=[[s["bytes"] for s in r["steps"]] for r in ranks],
+         launches=[r["launches"] for r in ranks],
+         q1_launches=[r["q1_launches"] for r in ranks],
+         sum_check=sc and dict(sc, contribution_sha256=len(
+             sc["contribution_sha256"]), arrived_as_sent=arrived),
+         payload_check=pc, first_step_vs_cpu_adam=rp,
+         weights_equal_every_step=h0 == h1,
+         grad_dtypes=[r["grad_dtypes"] for r in ranks],
+         peak_mem_bytes=[r["peak_mem_bytes"] for r in ranks],
+         failures=fails)
+    if fails:
+        raise RuntimeError("hier_lm_fit: " + "; ".join(fails))
+    return lead["launches"], foll["launches"], lead["q1_launches"]
 
 
 # -- T3, the serving wire, and E2's elastic half ------------------------------
@@ -9630,11 +10581,11 @@ def phase_elastic_train_serve(torch, mt, cfg=None, ctx=None, plan=None,
     processes (as ``tools/launch.py --elastic`` starts them); server 1 is
     SIGKILLed by ``MXNET_FI_KILL_PROCESS_AFTER`` right after the last ack
     of step ELASTIC_KILL_STEP, and the later steps ride the repair.  Then
-    ``publish_version``, and a ``ServingReplica`` on cuda:0 given the
-    original two-server roster refreshes across the repair and answers
-    one request.  Checks: the kill point (the envelopes sent to server 1
-    through that step equal ``elastic_kill_acks``); server 1 died by
-    SIGKILL and the job finished without a restart; roster_bump,
+    ``Module.bump_serving_version``, and a ``ServingReplica`` on cuda:0
+    given the original two-server roster refreshes across the repair and
+    answers one request.  Checks: the kill point (the envelopes sent to
+    server 1 through that step equal ``elastic_kill_acks``); server 1
+    died by SIGKILL and the job finished without a restart; roster_bump,
     handoff_applied and orphan_repush each at least 1 and
     ``distributed.roster_generation()`` at least 1; the final weights
     equal, bit for bit, the servers' SGD replayed on the host over the
@@ -9651,7 +10602,7 @@ def phase_elastic_train_serve(torch, mt, cfg=None, ctx=None, plan=None,
     from mxnet_tpu_torch import kvstore as kvs
     from mxnet_tpu_torch.kvstore import _key_int
     from mxnet_tpu_torch.serving import (BucketedPredictor, ServingClient,
-                                         ServingReplica, publish_version)
+                                         ServingReplica)
     cfg = cfg or dict(GPT2_SMALL, num_layers=ELASTIC_LAYERS)
     ctx = ctx or mt.gpu(0)
     S, V, L, B = cfg["seq_len"], cfg["vocab_size"], cfg["num_layers"], \
@@ -9732,8 +10683,9 @@ def phase_elastic_train_serve(torch, mt, cfg=None, ctx=None, plan=None,
             gen = mt.distributed.roster_generation()
             server0 = kv.server_stats(0)
             served = server0.get("channel", {})
-            # serve from the repaired cluster
-            version = publish_version(kv, 1)
+            # serve from the repaired cluster: the trainer publishes
+            # through its Module (the train-and-serve call)
+            version = mod.bump_serving_version(1)
             t1 = time.monotonic()
             rep = ServingReplica(sym, data_shapes, w0, buckets=[1],
                                  compute_dtype="bfloat16",
@@ -9838,6 +10790,9 @@ def phase_elastic_train_serve(torch, mt, cfg=None, ctx=None, plan=None,
 
 
 def main():
+    # the kernels build while torch and the package import
+    builder = kernel_builder()
+    build = start_build(builder) if builder is not None else None
     try:
         import torch
     except ImportError:
@@ -9855,9 +10810,29 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # started first, collected later: the kernels' build, the torch._dynamo
+    # import, and front_end's CPU references in a process of their own
+    early = contextlib.ExitStack()
+    start_dynamo_import()
+    refs_dir = early.enter_context(tempfile.TemporaryDirectory())
+    refs = start_cpu_refs(refs_dir)
+    early.callback(reap, [refs[0]])
+    with early:
+        return _main(torch, mt, early, build, refs)
 
+
+def _main(torch, mt, early, build, refs):
     smi = phase_device(torch)
-    phase_build(mt)
+    phase_build(mt, build)
+    # the dist_sync_fit ranks and hier_lm_fit's job start here and wait
+    # for their handovers: their start-up (imports, CUDA contexts, the
+    # first shape inference) runs beside the card's first phases
+    sync_dir = early.enter_context(tempfile.TemporaryDirectory())
+    sync_ranks = start_dist_sync_workers(sync_dir)
+    early.callback(reap, sync_ranks[0])
+    hier_dir = early.enter_context(tempfile.TemporaryDirectory())
+    hier_job = start_hier_job(hier_dir, hier_spec())
+    early.callback(stop_hier_job, hier_job)
     rtc_row = phase_rtc(torch, mt)
     checks = phase_kernels(torch, mt)
     bwd = phase_bwd_kernels(torch, mt)
@@ -9898,7 +10873,7 @@ def main():
     phase_beam(torch, mt, params_np)
     # ViT-S/16 training on the flash kernels, then the zoo's predict
     vit_counts = phase_vit_train(torch, mt)
-    zoo_counts = phase_zoo_predict(torch, mt)
+    zoo_counts = phase_zoo_predict(torch, mt, refs)
 
     # Gluon: ResNet-50 v1 through gluon.Trainer (hybridized bf16, its
     # profile, imperative), its fp32 step against the CPU, and K1-K3
@@ -9949,7 +10924,7 @@ def main():
     # times (their line says cudnn_benchmark) are not comparable with
     # autotuned ones
     phase_gluon_zoo_train(torch, mt, PEAK_FLOPS["bfloat16"])
-    phase_gluon_zoo_fp32(torch, mt)
+    phase_gluon_zoo_fp32(torch, mt, refs)
     torch.backends.cudnn.benchmark = True
     phase_module_heads(torch, mt)
     phase_dense_ops(torch, mt)
@@ -9973,7 +10948,7 @@ def main():
                                          prefix)
         phase_resnet_finetune(torch, mt, prefix, lars_row)
     torch.cuda.empty_cache()
-    phase_front_end(torch, mt)
+    phase_front_end(torch, mt, refs)
 
     # C3: data IO. The JPEG record file written on the card by nvJPEG,
     # I1 against its plain version, then the slice's main path (ResNet-50
@@ -10003,37 +10978,38 @@ def main():
     # C4 and C6: the LM trained under an asynchronous sharded checkpoint,
     # a Monitor and the profiler, resumed, against an uninterrupted run
     # (K1-K3, twelve launches a step each); then the reference MXNet's own
-    # .params files from the card's tensors
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as workdir:
-        ckpt_counts, ckpt_mod = phase_ckpt_lm_fit(torch, mt, sym, workdir)
-        phase_ckpt_reference_params(torch, mt, ckpt_mod, workdir)
-        del ckpt_mod
-    torch.cuda.empty_cache()
-
-    # E1: the distributed plane.  The LM over dist_async (two parameter
-    # servers on the host, 2-bit pushes quantized by Q1 on the card;
-    # K1-K3 twelve launches a step), then dist_sync over gloo in two
-    # worker processes on the card (K1-K3 in fp32, once a layer a step)
-    # (the next two phases' processes start a phase early: their imports
-    # run beside it)
+    # .params files from the card's tensors.  dist_async_lm_fit's two
+    # servers start here, so that their imports run beside this phase
     with contextlib.ExitStack() as elastic_stack:
-        with tempfile.TemporaryDirectory() as sync_dir:
-            sync_ranks = start_dist_sync_workers(sync_dir)
-            try:
-                dist_async_counts, dist_q1 = phase_dist_async_lm_fit(
-                    torch, mt)
-                torch.cuda.empty_cache()
-                elastic_plan_ = elastic_plan(mt, dict(
-                    GPT2_SMALL, num_layers=ELASTIC_LAYERS))
-                elastic_dir = elastic_stack.enter_context(
-                    tempfile.TemporaryDirectory())
-                elastic_servers_ = elastic_stack.enter_context(
-                    elastic_servers(elastic_dir, elastic_plan_[3]))
-                dist_sync_counts = phase_dist_sync_fit(torch, mt, sync_dir,
-                                                       sync_ranks)
-            finally:
-                reap(sync_ranks[0])
+        async_servers = elastic_stack.enter_context(server_processes(
+            elastic_stack.enter_context(tempfile.TemporaryDirectory()), 1))
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as workdir:
+            ckpt_counts, ckpt_mod = phase_ckpt_lm_fit(torch, mt, sym,
+                                                      workdir)
+            phase_ckpt_reference_params(torch, mt, ckpt_mod, workdir)
+            del ckpt_mod
+        torch.cuda.empty_cache()
+        # E1: the distributed plane.  The LM over dist_async (two parameter
+        # servers on the host, 2-bit pushes quantized by Q1 on the card;
+        # K1-K3 twelve launches a step), then dist_sync over gloo in two
+        # worker processes on the card (K1-K3 in fp32, once a layer a step)
+        # (their processes started after build); then E2's hierarchical
+        # tier: two ranks on the card of one host group, the follower's
+        # gradient over the shm lane to the leader, which sums, compresses
+        # with Q1 and alone pushes
+        dist_async_counts, dist_q1 = phase_dist_async_lm_fit(
+            torch, mt, servers=async_servers)
+        torch.cuda.empty_cache()
+        elastic_plan_ = elastic_plan(mt, dict(
+            GPT2_SMALL, num_layers=ELASTIC_LAYERS))
+        elastic_dir = elastic_stack.enter_context(
+            tempfile.TemporaryDirectory())
+        elastic_servers_ = elastic_stack.enter_context(
+            elastic_servers(elastic_dir, elastic_plan_[3]))
+        dist_sync_counts = phase_dist_sync_fit(torch, mt, sync_dir,
+                                               sync_ranks)
+        hier_counts = phase_hier_lm_fit(torch, mt, hier_dir, hier_job)
         torch.cuda.empty_cache()
         # E2's elastic half with T3's refresh: the LM trained through a
         # parameter server's SIGKILL, then served from the repaired cluster
@@ -10055,6 +11031,8 @@ def main():
                 "ssd_rec_fit": ssd_rec_counts[key],
                 "ckpt_lm_fit": ckpt_counts[key],
                 "dist_async_lm_fit": dist_async_counts[key],
+                "hier_lm_fit_rank0": hier_counts[0][key],
+                "hier_lm_fit_rank1": hier_counts[1][key],
                 "fleet_serve": fleet_counts[key],
                 "elastic_train_serve": elastic_counts[key]}
 
@@ -10253,7 +11231,8 @@ def main():
         **r1_times(r1), at_fp32=r1_times(r1f)))
     # Q1: no TPU kernel's port (the JAX package quantizes on the host with
     # numpy after reading the reduced gradient back); launched once a
-    # compressed wire key a step on the dist_async path, timed at the
+    # compressed wire key a step on the dist_async path and, on the
+    # hierarchical path, on the leader over the group's sum, timed at the
     # LM's largest key
     q1r, q1f = q1_rows["largest_key_residual_in_place"], \
         q1_rows["largest_key_first_push"]
@@ -10271,7 +11250,8 @@ def main():
         replaces="none: host numpy mxnet_tpu/compression.py:191 "
         "quantize_2bit, after the worker reads the reduced gradient back "
         "(mxnet_tpu/kvstore.py:2871)",
-        paths={"dist_async_lm_fit": dist_q1},
+        paths={"dist_async_lm_fit": dist_q1,
+               "hier_lm_fit_leader": hier_counts[2]},
         max_abs_err=max(r["max_abs_err"] for r in q1_rows.values()),
         **q1_times(q1r), library=Q1_LIBRARY, first_push=q1_times(q1f)))
     # the fp32 attention kernels of the dist_sync ranks (each rank's own
@@ -10323,18 +11303,25 @@ def main():
 
 def e1_phases(torch, mt, stack, names):
     """``--e1``: the distributed plane's phases.  As in main,
-    dist_sync_fit's ranks start before the first phase and wait for its
-    handover; ``dist_async_lm_fit:L`` runs the LM at L layers."""
-    sync_dir = sync = None
+    dist_sync_fit's ranks and hier_lm_fit's job start before the first
+    phase and wait for their handovers; ``dist_async_lm_fit:L`` runs the
+    LM at L layers."""
+    sync_dir = sync = hier_dir = hier = None
     if "dist_sync_fit" in names:
         sync_dir = stack.enter_context(tempfile.TemporaryDirectory())
         sync = start_dist_sync_workers(sync_dir)
         stack.callback(reap, sync[0])
+    if "hier_lm_fit" in names:
+        hier_dir = stack.enter_context(tempfile.TemporaryDirectory())
+        hier = start_hier_job(hier_dir, hier_spec())
+        stack.callback(stop_hier_job, hier)
     return {"q1_kernel": lambda: phase_q1_kernel(torch, mt),
             "dist_async_lm_fit": lambda layers=DIST_ASYNC_LAYERS:
             phase_dist_async_lm_fit(torch, mt, int(layers)),
             "dist_sync_fit": lambda: phase_dist_sync_fit(torch, mt,
-                                                         sync_dir, sync)}
+                                                         sync_dir, sync),
+            "hier_lm_fit": lambda: phase_hier_lm_fit(torch, mt, hier_dir,
+                                                     hier)}
 
 
 def t3_phases(torch, mt, stack, names):
@@ -10351,7 +11338,8 @@ def t3_phases(torch, mt, stack, names):
 
 
 PHASE_GROUPS = {
-    "--e1": (("q1_kernel", "dist_async_lm_fit", "dist_sync_fit"), e1_phases),
+    "--e1": (("q1_kernel", "dist_async_lm_fit", "dist_sync_fit",
+              "hier_lm_fit"), e1_phases),
     "--t3": (("fleet_serve", "elastic_train_serve"), t3_phases)}
 
 
@@ -10385,6 +11373,10 @@ def run_phases(group, specs):
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--dist-sync-worker":
         sys.exit(dist_sync_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--hier-worker":
+        sys.exit(hier_worker(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--cpu-refs":
+        sys.exit(cpu_refs(sys.argv[2]))
     if len(sys.argv) > 1 and sys.argv[1] in PHASE_GROUPS:
         sys.exit(run_phases(sys.argv[1], sys.argv[2:]))
     sys.exit(main())

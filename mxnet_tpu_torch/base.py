@@ -28,6 +28,41 @@ def declare_env(name: str, typ: type, default, doc: str = "") -> None:
     _ENV_FLAGS[name] = (typ, default, doc)
 
 
+def list_env_flags() -> Dict[str, tuple]:
+    """Every declared knob: ``{name: (type, default, doc)}``."""
+    return dict(_ENV_FLAGS)
+
+
+# Attr (de)serialization for symbol JSON round trips (the reference stores
+# op hyper-parameters as strings in graph JSON), the JAX package's helpers
+def attr_to_str(v) -> str:
+    import numpy as _np
+    if isinstance(v, (list, tuple)):
+        return "(" + ", ".join(attr_to_str(x) for x in v) + \
+            ("," if len(v) == 1 else "") + ")"
+    if isinstance(v, bool):
+        return "True" if v else "False"
+    if isinstance(v, _np.dtype):
+        return v.name
+    if isinstance(v, type):
+        return _np.dtype(v).name
+    return str(v)
+
+
+def string_types():
+    return (str,)
+
+
+def str_to_attr(s: str):
+    import ast
+    if not isinstance(s, str):
+        return s
+    try:
+        return ast.literal_eval(s)
+    except (ValueError, SyntaxError):
+        return s
+
+
 def env(name: str, default=None):
     """Typed environment-variable lookup (reference: dmlc::GetEnv)."""
     if name in _ENV_FLAGS:
@@ -216,9 +251,13 @@ declare_env("MXNET_HEALTH_STALE_S", float, 30.0,
 declare_env("MXNET_CKPT_RENDEZVOUS_TIMEOUT", float, 600.0,
             "async checkpoint: seconds rank 0 waits for every rank's "
             "shard (and ranks wait for the index) before failing")
+declare_env("MXNET_DEVICE_METRICS", bool, True,
+            "device-resident metric accumulation in the training and "
+            "eval loops (EvalMetric.accumulate: a sum and a count on the "
+            "metric's device, one readback at sync); 0 restores the "
+            "host readback of every batch")
 # -- the distributed kvstore (kvstore.py, kvstore_server.py, wirecodec.py,
-# faultinject.py): the JAX package's knobs and defaults; the same-host
-# shm lane's come with the hierarchical tier (ROADMAP E2) --------------
+# faultinject.py, shmlane.py): the JAX package's knobs and defaults ---
 declare_env("MXNET_KVSTORE_BIGARRAY_BOUND", int, 1 << 19,
             "dist kvstore: arrays above this many elements stripe "
             "row-wise across all servers (per-stripe keys; parallel "
@@ -305,9 +344,49 @@ declare_env("MXNET_KVSTORE_FUSED_STALENESS", int, 1,
             "boundary (no overlap); 1 hides the wire behind one chunk "
             "of compute")
 declare_env("MXNET_KVSTORE_HIERARCHY", bool, False,
-            "dist_async hierarchical reduction tier (workers of a host "
-            "reduce in-host, one leader ships): not ported yet (ROADMAP "
-            "E2); set, the store raises")
+            "dist_async: hierarchical reduction tier - workers sharing "
+            "a host (membership.host_groups over the launch topology) "
+            "sum their gradients on the host-group leader's device and "
+            "only the leader ships the reduced gradient over the TCP "
+            "wire, fanning pulled weights back in-host; wire bytes per "
+            "step drop by about the workers-per-host factor.  Needs "
+            "MXNET_KVSTORE_WORKERS_PER_HOST and MXT_MESH_URIS (both "
+            "set by tools/launch.py --workers-per-host); static "
+            "rosters only")
+declare_env("MXNET_KVSTORE_WORKERS_PER_HOST", int, 0,
+            "hierarchical kvstore tier: worker ranks per host - "
+            "consecutive ranks group (launchers fill host slots in "
+            "order), lowest rank leads.  0 means no topology is "
+            "known: MXNET_KVSTORE_HIERARCHY=1 then refuses loudly "
+            "instead of guessing a group that crosses hosts")
+declare_env("MXNET_KVSTORE_MESH_FANIN_S", float, 120.0,
+            "hierarchical kvstore tier: seconds the host-group leader "
+            "waits for every follower's contribution to a push round "
+            "(and a follower's collect waits for the leader's wire "
+            "round) before failing loudly, naming the missing ranks "
+            "and their last-heard ages")
+declare_env("MXNET_KVSTORE_MESH_ACCEPTORS", int, 8,
+            "hierarchical kvstore tier: serve threads in the leader's "
+            "fan-in pool - follower connections spread across them so "
+            "W followers' push frames decode concurrently; 1 is the "
+            "serialized single-acceptor drain")
+declare_env("MXNET_KVSTORE_SHM", str, "auto",
+            "hierarchical kvstore tier: same-host shared-memory lane "
+            "for follower<->leader frames (shmlane.py; negotiated per "
+            "connection by the shm_hello wire op) - 'auto' tries it "
+            "when the leader's endpoint is a local address, 'on'/'1' "
+            "always tries, 'off'/'0' never; segment creation or attach "
+            "failures leave the connection on TCP.  Lane bytes land in "
+            "the shm_* counter family (profiler.shm_bytes_total)")
+declare_env("MXNET_KVSTORE_SHM_RING_KB", int, 4096,
+            "shm lane: ring capacity per direction in KiB - a frame "
+            "larger than the ring rides the TCP path for that round "
+            "(safe: the tier's channels run a one-envelope window)")
+declare_env("MXNET_KVSTORE_SHM_STALL_S", float, 5.0,
+            "shm lane: seconds a pushed request may sit unconsumed in "
+            "the ring before the follower declares the lane wedged, "
+            "marks it dead and fails over to TCP via the channel's "
+            "reconnect-and-replay (exactly-once via the leader's dedup)")
 declare_env("MXNET_KVSTORE_SPARSE", bool, True,
             "dist_async: ship row-sparse gradients (RowSparseNDArray "
             "pushes, e.g. embedding tables under sparse_grad) as "
@@ -341,6 +420,12 @@ declare_env("MXNET_FI_REFUSE_ACCEPTS", int, 0,
 declare_env("MXNET_FI_DELAY_ACK_MS", float, 0.0,
             "fault injection: delay every server data-channel reply "
             "by this many ms (heartbeats exempt)")
+declare_env("MXNET_FI_SHM_WEDGE_AFTER", int, None,
+            "fault injection: the tier's leader drains exactly N shm-"
+            "lane ring frames normally, then stops popping - the "
+            "wedged-drain shape the follower's MXNET_KVSTORE_SHM_STALL_S "
+            "watchdog turns into a TCP fallback with no lost envelope "
+            "(composes with MXNET_FI_ONLY_RANK; unset = off)")
 declare_env("MXNET_FI_ONLY_RANK", int, None,
             "fault injection: restrict the armed plan to this "
             "DMLC_WORKER_ID (unset = all ranks)")

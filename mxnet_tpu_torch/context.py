@@ -22,6 +22,10 @@ class Context:
     """A logical device (cpu/gpu) backed by a torch.device."""
 
     _DEVICE_TYPES = ("cpu", "gpu", "cpu_pinned")
+    # the reference's device type ids (base.h:137-146) of the types the
+    # port has
+    devtype2id = {"cpu": 1, "gpu": 2, "cpu_pinned": 3}
+    devid2type = {1: "cpu", 2: "gpu", 3: "cpu_pinned"}
     _default_ctx = threading.local()
 
     def __init__(self, device_type, device_id: int = 0):
@@ -34,6 +38,20 @@ class Context:
             self.device_type = device_type
             self.device_id = int(device_id)
         self._old_ctx: Optional[Context] = None
+
+    @property
+    def device_typeid(self) -> int:
+        return self.devtype2id[self.device_type]
+
+    def empty_cache(self):
+        """Release cached device memory (reference: storage pool
+        ReleaseAll): ``torch.cuda.empty_cache`` for a GPU context, after
+        dropping unreferenced Python objects; nothing else for the host."""
+        import gc
+        gc.collect()
+        if self.device_type == "gpu" and torch.cuda.is_available():
+            with torch.cuda.device(self.device_id):
+                torch.cuda.empty_cache()
 
     def torch_device(self) -> torch.device:
         """The torch.device for this context.  A GPU context raises when

@@ -210,11 +210,19 @@ class Executor:
 
     ``args``/``aux_states``: lists (in ``list_arguments()`` /
     ``list_auxiliary_states()`` order) or dicts of NDArrays on one device.
+    ``args_grad``: the arrays the backward writes the gradients into, as
+    a list or a dict (a missing one is allocated by the first backward).
     ``grad_req``: ``write``, ``add`` or ``null``, one for all or per
-    argument."""
+    argument.  ``group2ctx`` (the reference's model-parallel placement
+    of ``ctx_group`` attributes) is accepted and places every group on
+    the executor's one device, as the JAX package places it on its one
+    mesh; ``shared_exec`` (the reference's memory sharing with another
+    executor) is accepted and changes nothing, as in the JAX package:
+    the caching allocator shares the memory."""
 
-    def __init__(self, symbol: Symbol, ctx=None, args=None,
-                 grad_req="write", aux_states=None, compute_dtype=None):
+    def __init__(self, symbol: Symbol, ctx=None, args=None, args_grad=None,
+                 grad_req="write", aux_states=None, group2ctx=None,
+                 shared_exec=None, compute_dtype=None):
         self._symbol = symbol
         self._ctx = ctx if ctx is not None else current_context()
         self._device = as_device(self._ctx)
@@ -236,9 +244,9 @@ class Executor:
                      - {"write", "add", "null"})
         if bad:
             raise MXNetError(f"grad_req must be write|add|null, got {bad}")
-        # gradient arrays: simple_bind allocates them; otherwise the first
-        # backward does
-        self.grad_arrays = [None] * len(arg_names)
+        # gradient arrays: the caller's args_grad, simple_bind's, or the
+        # first backward's
+        self.grad_arrays = self._canon_grads(args_grad, arg_names)
         self._out_arrays: Optional[List[NDArray]] = None
         # (leaf tensors by arg position, outputs) of the last training
         # forward whose graph the backward has not consumed yet
@@ -265,13 +273,28 @@ class Executor:
                              f"got {len(arrays)}")
         return arrays
 
+    @staticmethod
+    def _canon_grads(args_grad, names):
+        if args_grad is None:
+            return [None] * len(names)
+        if isinstance(args_grad, dict):
+            grads = [args_grad.get(n) for n in names]
+        else:
+            grads = list(args_grad)
+            if len(grads) != len(names):
+                raise MXNetError("bind: args_grad length mismatch")
+        return [g if g is None or isinstance(g, NDArray) else NDArray(g)
+                for g in grads]
+
     @classmethod
     def simple_bind(cls, symbol: Symbol, ctx=None, grad_req="write",
-                    type_dict=None, shapes=None, compute_dtype=None):
+                    type_dict=None, shared_exec=None, shapes=None,
+                    compute_dtype=None):
         """Infer every shape from the given input shapes and allocate
         zeroed argument, gradient and auxiliary arrays on ``ctx``'s
         device (reference: MXExecutorSimpleBind).  ``type_dict`` gives
-        dtypes by name (default float32)."""
+        dtypes by name (default float32); ``shared_exec`` is accepted and
+        changes nothing, as in the JAX package."""
         ctx = ctx if ctx is not None else current_context()
         device = as_device(ctx)
         arg_shapes, _, aux_shapes = symbol.infer_shape(**(shapes or {}))
@@ -304,6 +327,14 @@ class Executor:
     @property
     def aux_dict(self) -> Dict[str, NDArray]:
         return dict(zip(self._aux_names, self.aux_arrays))
+
+    @property
+    def output_dict(self) -> Dict[str, NDArray]:
+        return dict(zip(self._symbol.list_outputs(), self.outputs))
+
+    @property
+    def symbol(self):
+        return self._symbol
 
     @property
     def outputs(self) -> List[NDArray]:
@@ -342,13 +373,14 @@ class Executor:
         self._graph = (leaves, outs) if (is_train and leaves) else None
         return self._out_arrays
 
-    def backward(self, out_grads=None):
+    def backward(self, out_grads=None, is_train=True):
         """Gradients of the outputs, seeded with ones (the JAX package's
         head cotangent; loss heads ignore it) or with ``out_grads``,
         written into ``grad_arrays`` per ``grad_req``.  The backward
         consumes the last training forward's graph; without one (after
         an inference forward, or a second backward) it runs a training
-        forward first."""
+        forward first.  ``is_train`` is the reference's signature and,
+        as in the JAX package, changes nothing."""
         if not any(r != "null" for r in self.grad_req.values()):
             raise MXNetError("backward: no gradients required "
                              "(all grad_req are null)")
@@ -383,6 +415,17 @@ class Executor:
                 garr._set_data(garr._data + g)
             else:
                 garr._set_data(g)
+
+    def debug_str(self):
+        """The graph's outputs and nodes, one a line (the JAX package's
+        format)."""
+        lines = [f"Symbol outputs: {self._symbol.list_outputs()}"]
+        for n in self._symbol.nodes():
+            if n.is_variable:
+                lines.append(f"Variable:{n.name}")
+            else:
+                lines.append(f"Op:{n.op}, Name={n.name}")
+        return "\n".join(lines)
 
     def set_monitor_callback(self, callback, monitor_all=False):
         """Call ``callback(name, NDArray)`` with every op node's outputs

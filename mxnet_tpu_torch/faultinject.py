@@ -1,10 +1,8 @@
 """Deterministic fault injection for the dist kvstore transport.
 
-The port's copy of ``mxnet_tpu/faultinject.py`` (it imports nothing of
-JAX), so the JAX package's failure tests port as they are.  The wedge of
-the same-host lane, which only the hierarchical tier reaches, comes with
-that tier (ROADMAP E2).
 
+The port's copy of ``mxnet_tpu/faultinject.py`` (it imports nothing of
+JAX), so the JAX package's failure tests port as they are.
 The reference's ps-lite layer survives transient transport faults
 (kvstore_dist.h:55 server-recovery mode); proving the same property here
 needs faults that happen ON DEMAND, at an exact message, every run.  This
@@ -86,6 +84,10 @@ class _Plan:
         self.blackhole_after = None     # go reply-silent after n replies
         self.bh_seen = 0                # server replies counted
         self.blackholed = 0             # replies swallowed
+        self.shm_wedge_after = None     # stop draining the shm ring
+        #                                 after n popped frames
+        self.shm_drained = 0            # lane frames drained so far
+        self.shm_wedged = 0             # drains swallowed by the wedge
 
 
 _plan = _Plan()
@@ -134,7 +136,8 @@ def stats() -> dict:
                 "accepts_refused": _plan.accepts_refused,
                 "messages_seen": _plan.sent,
                 "acks_served": _plan.acks_served,
-                "replies_blackholed": _plan.blackholed}
+                "replies_blackholed": _plan.blackholed,
+                "shm_frames_wedged": _plan.shm_wedged}
 
 
 def configure(kill_after=None, kill_point="before_send", delay_ack_s=0.0,
@@ -142,7 +145,7 @@ def configure(kill_after=None, kill_point="before_send", delay_ack_s=0.0,
               kill_unacked=None, kill_process_after=None, only_server=None,
               only_coordinator=False, kill_on_beat_seq=None,
               stall_barrier_s=0.0, stall_barrier_times=1,
-              blackhole_after=None):
+              blackhole_after=None, shm_wedge_after=None):
     """Arm a plan directly (the non-context-manager form; multi-process
     scripts use this after deciding per-rank what to inject)."""
     if kill_point not in KILL_POINTS:
@@ -174,6 +177,10 @@ def configure(kill_after=None, kill_point="before_send", delay_ack_s=0.0,
                                  if blackhole_after is not None else None)
         _plan.bh_seen = 0
         _plan.blackholed = 0
+        _plan.shm_wedge_after = (int(shm_wedge_after)
+                                 if shm_wedge_after is not None else None)
+        _plan.shm_drained = 0
+        _plan.shm_wedged = 0
 
 
 @contextlib.contextmanager
@@ -291,6 +298,28 @@ def blackhole_after_replies(n):
         with _lock:
             _plan.blackhole_after = None
             _plan.bh_seen = 0
+
+
+@contextlib.contextmanager
+def shm_wedge_after_frames(n):
+    """WEDGE the same-host shm lane: the leader drains ``n`` more ring
+    frames normally, then stops popping — requests pile up unconsumed,
+    exactly what a descheduled/deadlocked leader drain looks like.  The
+    follower's stall watchdog (MXNET_KVSTORE_SHM_STALL_S) must notice
+    the ring not moving and fail over to TCP via the ordinary
+    reconnect-and-replay path, with zero lost envelopes — CPU-testable
+    without a real hang.  Env form: ``MXNET_FI_SHM_WEDGE_AFTER``
+    (composes with ``MXNET_FI_ONLY_RANK`` to target one leader)."""
+    with _lock:
+        _plan.shm_wedge_after = int(n)
+        _plan.shm_drained = 0
+        _plan.shm_wedged = 0
+    try:
+        yield
+    finally:
+        with _lock:
+            _plan.shm_wedge_after = None
+            _plan.shm_drained = 0
 
 
 @contextlib.contextmanager
@@ -441,6 +470,22 @@ def server_blackhole() -> bool:
         return True
 
 
+def shm_drain_gate() -> bool:
+    """Called by the mesh leader's lane drain before each ring pop that
+    has a frame waiting; False = the armed wedge swallows the drain
+    (the ring appears stuck to the follower, whose stall watchdog then
+    drives the TCP fallback).  Counts only pops that would have
+    succeeded, so the wedge lands after exactly N delivered frames."""
+    with _lock:
+        if _plan.shm_wedge_after is None or not _rank_active():
+            return True
+        if _plan.shm_drained < _plan.shm_wedge_after:
+            _plan.shm_drained += 1
+            return True
+        _plan.shm_wedged += 1
+        return False
+
+
 def barrier_stall():
     """Called by the server at every barrier arrival, BEFORE the
     arrival registers.  Fires the armed one-shot(s) of
@@ -511,10 +556,11 @@ def _arm_from_env():
     kb = os.environ.get("MXNET_FI_KILL_ON_BEAT_SEQ")
     sb = os.environ.get("MXNET_FI_STALL_BARRIER_MS")
     bh = os.environ.get("MXNET_FI_BLACKHOLE_AFTER")
+    sw = os.environ.get("MXNET_FI_SHM_WEDGE_AFTER")
     orank = os.environ.get("MXNET_FI_ONLY_RANK")
     osrv = os.environ.get("MXNET_FI_ONLY_SERVER")
     ocoord = os.environ.get("MXNET_FI_ONLY_COORDINATOR")
-    if not (ka or ku or rc or ra or dl or kp or kb or sb or bh):
+    if not (ka or ku or rc or ra or dl or kp or kb or sb or bh or sw):
         return
     configure(
         kill_after=int(ka) if ka else None,
@@ -530,7 +576,8 @@ def _arm_from_env():
         ocoord.lower() not in ("0", "false", "off", ""),
         kill_on_beat_seq=int(kb) if kb else None,
         stall_barrier_s=float(sb) / 1000.0 if sb else 0.0,
-        blackhole_after=int(bh) if bh else None)
+        blackhole_after=int(bh) if bh else None,
+        shm_wedge_after=int(sw) if sw else None)
 
 
 _arm_from_env()

@@ -260,7 +260,8 @@ class Trainer:
             if eval_metric is not None:
                 labs = [p[j] for p in label_t] if label_t is not None \
                     else []
-                eval_metric.update(labs, [loss])
+                # on the device where the metric has a device form
+                eval_metric.accumulate(labs, [loss])
             losses.append(loss._data.detach())
 
         self._optimizer.rescale_grad = self._scale / batch_size

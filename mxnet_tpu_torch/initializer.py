@@ -59,6 +59,25 @@ class Initializer:
 
     def __init__(self, **kwargs):
         self._kwargs = kwargs
+        self._verbose = False
+        self._print_func = None
+
+    def set_verbosity(self, verbose=False, print_func=None):
+        """Log each weight, bias, gamma and beta as it is initialized,
+        with ``print_func(arr)`` (default: the mean absolute value), as
+        the JAX package's initializer does."""
+        self._verbose = verbose
+        if print_func is None:
+            def asum_stat(x):
+                return str((np.abs(x.asnumpy()).mean(),))
+            print_func = asum_stat
+        self._print_func = print_func
+        return self
+
+    def _verbose_print(self, desc, init, arr):
+        if getattr(self, "_verbose", False) and self._print_func:
+            logging.info('Initialized %s as %s: %s', desc, init,
+                         self._print_func(arr))
 
     def dumps(self):
         """``[name, kwargs]`` as JSON: the form a variable's ``__init__``
@@ -70,12 +89,16 @@ class Initializer:
             raise TypeError("desc must be a string (InitDesc)")
         if desc.endswith("weight"):
             self._init_weight(desc, arr)
+            self._verbose_print(desc, 'weight', arr)
         elif desc.endswith("bias"):
             self._init_bias(desc, arr)
+            self._verbose_print(desc, 'bias', arr)
         elif desc.endswith("gamma"):
             self._init_gamma(desc, arr)
+            self._verbose_print(desc, 'gamma', arr)
         elif desc.endswith("beta"):
             self._init_beta(desc, arr)
+            self._verbose_print(desc, 'beta', arr)
         elif desc.endswith("min"):
             self._init_zero(desc, arr)
         elif desc.endswith("max"):

@@ -41,6 +41,22 @@ class DataDesc(namedtuple("DataDesc", ["name", "shape"])):
         return (f"DataDesc[{self.name},{self.shape},{self.dtype},"
                 f"{self.layout}]")
 
+    @staticmethod
+    def get_batch_axis(layout):
+        """The batch axis of ``layout`` (0 when it is None)."""
+        if layout is None:
+            return 0
+        return layout.find("N")
+
+    @staticmethod
+    def get_list(shapes, types):
+        """DataDescs from ``[(name, shape)]`` and ``[(name, dtype)]`` (or
+        None: float32)."""
+        if types is not None:
+            type_dict = dict(types)
+            return [DataDesc(x[0], x[1], type_dict[x[0]]) for x in shapes]
+        return [DataDesc(x[0], x[1]) for x in shapes]
+
 
 class DataBatch:
     """One batch (reference: io.py DataBatch)."""
@@ -182,6 +198,10 @@ class NDArrayIter(DataIter):
     @property
     def provide_label(self):
         return self._descs(self.label)
+
+    def hard_reset(self):
+        """Back to the first batch, ignoring ``roll_over``."""
+        self.cursor = -self.batch_size
 
     def reset(self):
         if self.last_batch_handle == "roll_over" and \

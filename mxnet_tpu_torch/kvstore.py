@@ -27,9 +27,14 @@ updater rebinds the store's own array.  Under
 ``MXNET_KVSTORE_ELASTIC`` the distributed store follows the live roster
 of its servers (:mod:`.membership`): a channel failure repairs the
 roster, re-derives the striping, hands off the moved keys' state and
-re-pushes the logged gradients a dead server took with it.  The
-hierarchical tier (``MXNET_KVSTORE_HIERARCHY``) is ROADMAP E2 and
-raises.
+re-pushes the logged gradients a dead server took with it.  Under
+``MXNET_KVSTORE_HIERARCHY`` the workers of a host form a group
+(``tools/launch.py --workers-per-host N``): the followers hand their
+gradients to the group's leader (:class:`_MeshLeader`) over an in-host
+channel, the shared-memory lane of :mod:`.shmlane` where it can be set
+up, the leader sums them on its device and alone pushes the sum over
+the wire (compressed there, by Q1 on the card), and the followers'
+pulls are served from the leader's wire round.
 """
 from __future__ import annotations
 
@@ -94,6 +99,44 @@ def _from_host(val, device, dtype=None):
     if dtype is not None and t.dtype != dtype:
         return t.to(device=device, dtype=dtype)
     return t.to(device, copy=True)
+
+
+def _host_np(a):
+    """A follower's gradient as the host array its mesh_push frame
+    carries (numpy as is; a tensor read back, bf16 as float32, which
+    numpy lacks)."""
+    if not isinstance(a, torch.Tensor):
+        return np.ascontiguousarray(a)
+    if a.dtype == torch.bfloat16:
+        a = a.float()
+    return a.detach().contiguous().cpu().numpy()
+
+
+def _local_allreduce_sum(parts):
+    """Sum one key's group contributions where the leader's gradient
+    lives: the port's counterpart of the JAX package's
+    ``parallel/mesh.py`` ``local_allreduce_sum``.  ``parts[0]`` is the
+    leader's own gradient (a tensor on its device, or numpy); the
+    followers' host parts are uploaded to that device and added to it
+    in the JAX package's stack order, the leader first, then the
+    contributions in ``collect_push`` order.  For two members that is
+    one float32 add, bit for bit the JAX sum.  Returns a tensor on the
+    leader's device (numpy when the leader's part is numpy)."""
+    head = parts[0]
+    if not isinstance(head, torch.Tensor):
+        acc = np.asarray(head)
+        for p in parts[1:]:
+            acc = acc + np.asarray(p, dtype=acc.dtype)
+        return acc
+    acc = head.detach()
+    for p in parts[1:]:
+        if not isinstance(p, torch.Tensor):
+            with warnings.catch_warnings():
+                # a decoded frame's array is read-only; it is only read
+                warnings.simplefilter("ignore", UserWarning)
+                p = torch.from_numpy(np.ascontiguousarray(p))
+        acc = acc + p.to(device=acc.device, dtype=acc.dtype)
+    return acc
 
 
 class KVStore:
@@ -376,6 +419,14 @@ class _ServerConn:
         self._retry_attempts = 0
         self._closing = threading.Event()
         self._last_transport_err = None
+        # same-host shm lane (shmlane.py): set up AFTER the
+        # channel exists via setup_shm_lane() — None means plain TCP.
+        # Written on the caller's thread before any request that could
+        # ride it is enqueued (the queue put is the happens-before
+        # edge); read only by the IO thread afterwards.
+        self._shm = None
+        self._shm_stall_s = float(_env("MXNET_KVSTORE_SHM_STALL_S", 5.0))
+        self._shm_sent_at = None
         self._sock = self._dial(connect_timeout)
         self._q = queue.Queue()
         self._err = None
@@ -514,6 +565,9 @@ class _ServerConn:
                 if stopping:
                     return
                 continue
+            if self._shm is not None:
+                self._await_ack_shm(select)
+                continue
             try:
                 ready, _, _ = select.select(
                     [self._sock, self._wake_r], [], [])
@@ -582,6 +636,28 @@ class _ServerConn:
             envelope = ("req", self._client_id, self._next_seq, msg)
         self._next_seq += 1
         self._inflight.append([envelope, pending, False])
+        lane = self._shm
+        if lane is not None and lane.dead():
+            # peer marked it dead (leader teardown) — quiet drop, the
+            # socket still works
+            self._shm_drop()
+            lane = None
+        if lane is not None:
+            from . import wirecodec as _codec
+            try:
+                sent = lane.send_request(
+                    envelope, binary_ok=_codec.sock_binary(self._sock))
+            except MXNetError:
+                sent = False   # ring corrupt: fall through to TCP and
+                #                let the next wait cycle kill the lane
+            if sent:
+                # one memcpy into the ring, zero socket syscalls; the
+                # stall watchdog clock starts now.  fi kill hooks stay
+                # socket-only — the lane has its own fault point
+                # (MXNET_FI_SHM_WEDGE_AFTER).
+                import time as _time
+                self._shm_sent_at = _time.monotonic()
+                return
         try:
             if self._sock is None:
                 raise ConnectionError("channel has no connection")
@@ -590,6 +666,118 @@ class _ServerConn:
             faultinject.client_window(self._sock, len(self._inflight))
         except Exception as exc:  # noqa: BLE001 — transport fault
             self._recover_or_fail(exc)
+
+    def _await_ack_shm(self, select):
+        """The shm-lane flavor of the ack wait: poll the reply ring
+        (payload acks ride back the same lane) TOGETHER with the
+        socket (server-side fallback replies — e.g. a frame too big
+        for the ring went over TCP and so does its ack) and the wakeup
+        pair.  Adaptive poll interval: sub-millisecond while hot (the
+        in-host RTT this lane exists for), backing off to 2 ms so an
+        idle wait doesn't spin a core.  The stall watchdog rides the
+        same loop: a request sitting unconsumed in the ring past
+        MXNET_KVSTORE_SHM_STALL_S means the leader stopped draining —
+        mark the lane dead and fail over through the ordinary
+        reconnect-and-replay path (closing the old socket is what
+        makes a racing leader reply harmless: it dies with the
+        connection, and the replayed envelope is deduped)."""
+        import time
+        lane = self._shm
+        poll = 0.0002
+        while self._inflight:
+            try:
+                reply = lane.recv_reply()
+            except MXNetError as exc:
+                self._shm_fault(f"reply ring corrupt: {exc}")
+                return
+            if reply is not None:
+                self._ack_obj(reply)
+                return
+            if lane.dead():
+                self._shm_fault("peer marked the lane dead")
+                return
+            try:
+                ready, _, _ = select.select(
+                    [self._sock, self._wake_r], [], [], poll)
+            except (OSError, ValueError, TypeError):
+                ready = [self._sock]
+            if self._wake_r in ready:
+                try:
+                    while self._wake_r.recv(4096):
+                        pass
+                except (BlockingIOError, OSError):
+                    pass
+                return   # new work enqueued — go fill the window
+            if self._sock in ready:
+                self._recv_ack()
+                return
+            if (self._shm_sent_at is not None
+                    and lane.request_backlog() > 0
+                    and time.monotonic() - self._shm_sent_at
+                    > self._shm_stall_s
+                    and lane.drain_stalled(self._shm_stall_s)):
+                self._shm_fault(
+                    f"leader stopped draining the request ring for "
+                    f">{self._shm_stall_s}s (MXNET_KVSTORE_SHM_STALL_S)")
+                return
+            poll = min(poll * 2, 0.002)
+
+    def _shm_drop(self, record=False):
+        """Forget the lane (quietly or loudly) — mark dead so the peer
+        stops serving it, unlink the segment (our mapping and any
+        still-open peer mapping stay valid until their own close)."""
+        lane, self._shm = self._shm, None
+        self._shm_sent_at = None
+        if lane is None:
+            return
+        try:
+            lane.mark_dead()
+            lane.destroy()
+        except Exception:  # noqa: BLE001 — teardown best-effort
+            pass
+        if record:
+            from . import profiler as _prof
+            _prof.record_channel_event("kvstore.shm_fallback")
+
+    def _shm_fault(self, why):
+        """Lane failure → the transport-fault path the channel already
+        survives: drop the lane, then reconnect-and-replay over TCP
+        (the leader's per-client dedup keeps the replayed window
+        exactly-once; the dead old socket swallows any reply the
+        leader raced out)."""
+        self._shm_drop(record=True)
+        _health.note("shm.fallback", uri=self._uri, why=str(why))
+        self._recover_or_fail(
+            ConnectionError(f"shm lane to {self._uri}: {why}"))
+
+    def setup_shm_lane(self):
+        """Negotiate the same-host shared-memory lane for this channel
+        (hierarchical-tier followers call it right after dialing,
+        before any mesh traffic).  Window-1 channels only — strict
+        request/reply alternation is what lets oversized frames ride
+        TCP per-round with no reordering.  Returns True when the lane
+        is live; every failure (knob off, remote host, segment
+        creation failure, old/cross-host leader erring the hello)
+        quietly keeps the channel on TCP."""
+        from . import profiler as _prof
+        from . import shmlane
+        if self._window != 1 or not shmlane.client_enabled(self._addr[0]):
+            return False
+        try:
+            lane = shmlane.ShmLane.create()
+        except Exception:  # noqa: BLE001 — no /dev/shm, quota, ...
+            return False
+        try:
+            ver = _await(self.request(("shm_hello", lane.name)))
+        except MXNetError:
+            lane.destroy()
+            return False
+        if not ver:
+            lane.destroy()
+            return False
+        self._shm = lane
+        _prof.record_channel_event("kvstore.shm_lane")
+        return True
 
     def _recv_ack(self):
         """Consume ONE ack for the head of the window (acks arrive in
@@ -601,9 +789,16 @@ class _ServerConn:
         except Exception as exc:  # noqa: BLE001 — transport fault
             self._recover_or_fail(exc)
             return
+        self._ack_obj(reply)
+
+    def _ack_obj(self, reply):
+        """Complete the head-of-window slot with ``reply`` — shared by
+        the socket and shm-lane receive paths (the ring pops whole
+        decoded frames, so both land here with the same shapes)."""
         from . import profiler as _prof
         # a complete round trip proves the transport healthy again
         self._retry_attempts = 0
+        self._shm_sent_at = None
         envelope, pending, replayed = self._inflight.popleft()
         if replayed:
             _prof.record_channel_event("kvstore.replay_acked")
@@ -690,6 +885,12 @@ class _ServerConn:
         except (OSError, AttributeError):
             pass
         self._sock = None
+        # any reconnect invalidates the shm lane: the leader's per-
+        # connection attach dies with the old socket, so a fresh
+        # connection runs plain TCP (rare path — lanes only die with
+        # their transport or via the stall watchdog)
+        if self._shm is not None:
+            self._shm_drop(record=True)
         last = cause
         while True:
             if self._retry_attempts >= self._retry_max:
@@ -838,6 +1039,9 @@ class _ServerConn:
             self._sock.close()
         except (OSError, AttributeError):
             pass
+        # the IO thread is down (or leaked) — tear the lane off last so
+        # the final flush above could still ride it
+        self._shm_drop()
         for s in (self._wake_r, self._wake_w):
             try:
                 s.close()
@@ -1098,6 +1302,564 @@ class _PullHandle(_WireHandle):
                               "generation": kv._roster_gen})
 
 
+class _MeshPullHandle(_WireHandle):
+    """The follower half of a hierarchical pull round: one
+    ``mesh_collect`` request against the host-group leader, resolved
+    when the leader's own wire round for the same sequence resolves.
+    Interface-compatible with :class:`_PullHandle` (``wait() -> {key:
+    np.ndarray}``) and shares its timed-wait shell, so the fused
+    driver's overlap accounting holds on followers too — their
+    "wire" is the in-host mesh channel (spans tagged ``mesh``)."""
+
+    _span_args = {"mesh": True}
+
+    def __init__(self, kv, keys, pending):
+        super().__init__()
+        self._kv = kv
+        self._keys = list(keys)
+        self._pending = pending
+
+    def _nkeys(self):
+        return len(self._keys)
+
+    def _resolve(self):
+        reply = _await(self._pending)
+        return {k: np.asarray(reply[k]) for k in self._keys}
+
+
+class _MeshLeader:
+    """The host-group leader's in-host aggregation endpoint
+    (``MXNET_KVSTORE_HIERARCHY`` — the hierarchical kvstore tier; the
+    port's copy of the JAX package's, frame for frame).
+
+    Followers on the same host connect through ordinary
+    :class:`_ServerConn` channels (window 1: the replay window is then
+    a single envelope, so the one-slot dedup below makes reconnect
+    replays exactly-once) and speak three ops over the standard frame
+    protocol, all bytes counted under the "ici_*" families:
+
+    * ``("mesh_push", seq, [(key, grad), ...])`` — deposit one push
+      round's gradients; the leader's ``_push_aggregated`` blocks on
+      :meth:`collect_push` until every follower's round ``seq``
+      arrived, reduces in-mesh and ships ONE summed push per key over
+      the TCP wire.
+    * ``("mesh_collect", seq, keys)`` — block until the leader's wire
+      pull for sequence ``seq`` resolves (:meth:`publish_handle`
+      registers it at ``pull_async`` time) and return its values: the
+      weight fan-out leg.  Served directly off the leader's
+      :class:`_PullHandle` (thread-safe ``wait``), so followers and
+      the leader's own fused driver resolve the SAME wire round.
+    * ``("command", ...)`` / ``("ping", ...)`` — flush/liveness no-ops.
+
+    Sequences pair by SPMD lockstep: every group member executes the
+    identical sequence of push/pull calls (the data-parallel contract
+    the whole repo leans on), so counter ``seq`` on the follower names
+    the same logical round as ``seq`` on the leader.  A member that
+    falls silent trips the fan-in timeout (``MXNET_KVSTORE_MESH_FANIN_S``)
+    — a loud error naming the missing round, never a silent hang (the
+    wait is also health-registered, so the watchdog sees it age)."""
+
+    def __init__(self, uri, n_followers, follower_ranks=None):
+        import socket
+        from .base import env as _env
+        from .kvstore_server import _set_nodelay
+        host, port = uri.rsplit(":", 1)
+        self._uri = uri
+        self._n_followers = int(n_followers)
+        self._follower_ranks = (sorted(int(r) for r in follower_ranks)
+                                if follower_ranks is not None else None)
+        self._fanin_s = float(_env("MXNET_KVSTORE_MESH_FANIN_S", 120.0))
+        self._acceptors = max(1, int(_env(
+            "MXNET_KVSTORE_MESH_ACCEPTORS", 8)))
+        self._listener = socket.create_server((host, int(port)))
+        self._listener.settimeout(0.5)
+        self._stop = threading.Event()
+        self._cv = threading.Condition()
+        self._pushes: Dict[int, list] = {}    # seq -> [pairs, ...]
+        self._handles: Dict[int, list] = {}   # seq -> [handle, served]
+        # fan-in forensics (guarded by _cv): which ranks deposited each
+        # round, and when each rank was last heard from at all — the
+        # timeout error names the missing ranks with last-heard ages,
+        # mirroring the static barrier failure (kvstore_server).
+        self._push_ranks: Dict[int, set] = {}
+        self._last_heard: Dict[int, float] = {}
+        # per-CLIENT envelope dedup (survives reconnects — a replay
+        # arrives on a FRESH connection): cid -> (seq, reply), plus the
+        # in-flight rendezvous for a replay racing the original
+        self._dedup: Dict[tuple, tuple] = {}
+        self._dedup_inflight: Dict[tuple, int] = {}
+        self._conns: list = []
+        self._pool: list = []     # _MeshAcceptor workers (accept thread
+        #                           creates/assigns; each worker's conn
+        #                           set is its own thread's after that)
+        self._assigned = 0
+        self._set_nodelay = _set_nodelay
+        # analysis: allow(bare-thread): a crash closes the listener in run()'s finally — followers observe refused connects / EOF and fail their channels loudly, exactly like a dead parameter server
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    # -- leader-side API (called from the worker's main thread) ----------
+    def collect_push(self, seq):
+        """Block until every follower's round ``seq`` gradients arrived;
+        pop and return them (a list of ``[(key, grad), ...]``)."""
+        import time as _time
+        from . import profiler as _prof
+        wtok = _health.wait_begin("kv.mesh_fanin")
+        t0 = _time.monotonic()
+        try:
+            with self._cv:
+                ok = self._cv.wait_for(
+                    lambda: len(self._pushes.get(seq, ()))
+                    >= self._n_followers or self._stop.is_set(),
+                    timeout=self._fanin_s)
+                if not ok or self._stop.is_set():
+                    got = len(self._pushes.get(seq, ()))
+                    missing, detail = self._missing_followers(seq)
+                    _health.note("mesh.fanin_timeout", seq=int(seq),
+                                 got=got, want=self._n_followers,
+                                 missing=missing)
+                    raise MXNetError(
+                        f"mesh leader {self._uri}: round {seq} fan-in "
+                        f"incomplete ({got} of {self._n_followers} "
+                        f"followers) within "
+                        f"MXNET_KVSTORE_MESH_FANIN_S={self._fanin_s}s"
+                        f"{detail}")
+                self._push_ranks.pop(seq, None)
+                out = self._pushes.pop(seq)
+            _prof.record_mesh_fanin_wait(_time.monotonic() - t0)
+            return out
+        finally:
+            _health.wait_end(wtok)
+
+    def _missing_followers(self, seq):
+        """(missing rank list, human detail) for a fan-in timeout —
+        caller holds _cv.  Degrades gracefully when the roster wasn't
+        passed (direct _MeshLeader construction)."""
+        import time as _time
+        if self._follower_ranks is None:
+            return [], ""
+        present = self._push_ranks.get(seq, set())
+        missing = [r for r in self._follower_ranks if r not in present]
+        if not missing:
+            return [], ""
+        now = _time.monotonic()
+        ages = "; ".join(
+            "rank %s: %s" % (
+                r, "never heard from" if self._last_heard.get(r) is None
+                else "last heard %.1fs ago" % (now - self._last_heard[r]))
+            for r in missing)
+        return missing, f" — missing {ages}"
+
+    def publish_handle(self, seq, handle):
+        """Register the leader's wire pull for round ``seq`` so
+        mesh_collect waiters can resolve against it."""
+        with self._cv:
+            self._handles[seq] = [handle, 0]
+            self._cv.notify_all()
+
+    def close(self):
+        self._stop.set()
+        with self._cv:
+            self._cv.notify_all()
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+        for w in list(self._pool):
+            w.poke()
+        for c in list(self._conns):
+            try:
+                c.close()
+            except OSError:
+                pass
+        for w in list(self._pool):
+            w.thread.join(timeout=5.0)
+            w.close_wake()
+
+    # -- serve side -------------------------------------------------------
+    def _run(self):
+        import socket
+        try:
+            while not self._stop.is_set():
+                try:
+                    conn, _ = self._listener.accept()
+                except socket.timeout:
+                    continue
+                except OSError:
+                    break
+                self._set_nodelay(conn)
+                self._conns.append(conn)
+                self._assign(conn)
+        finally:
+            try:
+                self._listener.close()
+            except OSError:
+                pass
+            for w in list(self._pool):
+                w.poke()
+
+    def _assign(self, conn):
+        """Hand a fresh connection to a pool worker (round-robin),
+        growing the pool up to MXNET_KVSTORE_MESH_ACCEPTORS threads.
+        Only the accept thread touches pool membership; each worker's
+        connection set is thereafter its own thread's alone (adoption
+        rides the worker's inbox Queue, a happens-before edge)."""
+        if len(self._pool) < self._acceptors:
+            w = _MeshAcceptor(self)
+            self._pool.append(w)
+        else:
+            w = self._pool[self._assigned % len(self._pool)]
+        self._assigned += 1
+        w.adopt(conn)
+
+    def _serve_pool(self, w):
+        """One acceptor-pool thread: multiplex its adopted connections
+        (sockets + shm lanes) with select, serving one frame per ready
+        source per sweep.  mesh_collect frames that arrive before the
+        leader registered the round are PARKED in ``pending`` rather
+        than blocking this thread — a blocked wait here would also
+        stall every other follower this thread serves, including the
+        very mesh_push frames the round is waiting on."""
+        import queue
+        import select as _select
+        conns: list = []     # _MeshConnState — this thread's alone
+        # deferred mesh_collects: appended here, but drained by
+        # _scan_pending against rounds the LEADER thread registers —
+        # the cross-thread handoff the hb shim should see
+        pending: list = _hb.track([], "kvstore._MeshAcceptor.pending")
+        poll = 0.0002
+        try:
+            while not self._stop.is_set():
+                while True:
+                    try:
+                        conns.append(_MeshConnState(w.inbox.get_nowait()))
+                    except queue.Empty:
+                        break
+                lanes = any(st.lane is not None for st in conns)
+                timeout = poll if (lanes or pending) else None
+                try:
+                    ready, _, _ = _select.select(
+                        [st.sock for st in conns] + [w.wake_r],
+                        [], [], timeout)
+                except (OSError, ValueError):
+                    for st in [s for s in list(conns)
+                               if s.sock.fileno() < 0]:
+                        self._drop_conn(st, conns)
+                    continue
+                if w.wake_r in ready:
+                    try:
+                        w.wake_r.recv(4096)
+                    except (OSError, BlockingIOError):
+                        pass
+                busy = False
+                rset = set(ready)
+                for st in list(conns):
+                    if st.sock in rset:
+                        busy |= self._serve_sock(st, conns, pending)
+                    if st.lane is not None:
+                        busy |= self._serve_lane(st, conns, pending)
+                busy |= self._scan_pending(conns, pending)
+                poll = 0.0002 if busy else min(poll * 2, 0.002)
+        finally:
+            for st in list(conns):
+                self._drop_conn(st, conns)
+
+    def _serve_sock(self, st, conns, pending):
+        from . import wirecodec as _codec
+        from .kvstore_server import _recv_msg
+        try:
+            msg = _recv_msg(st.sock, byte_kind=st.recv_kind)
+        except (ConnectionError, OSError):
+            self._drop_conn(st, conns)
+            return True
+        reply_kind = "ici_sent"
+        if msg and msg[0] == "req":
+            _, cid, seq, inner = msg[:4]
+            self._note_heard(cid)
+            if self._defer_collect(st, pending, cid, seq, inner, False):
+                return True
+            reply = self._exactly_once(cid, seq, inner, st=st)
+        else:
+            # codec hellos + raw heartbeat pings from the follower
+            # channel (the hello check must come FIRST: the blanket
+            # ("ok", None) ack is what an OLD leader answers, which
+            # clients read as version 0)
+            hello = _codec.handle_hello(st.sock, msg)
+            reply = hello if hello is not None else ("ok", None)
+            if msg and msg[0] == "ping":
+                # pings ride the follower's dedicated liveness socket;
+                # hellos arrive on data sockets too and must not latch
+                st.recv_kind = "ici_control_recv"
+                reply_kind = "ici_control"
+        self._reply(st, conns, reply, False, reply_kind)
+        return True
+
+    def _serve_lane(self, st, conns, pending):
+        lane = st.lane
+        if lane.dead():
+            self._drop_lane(st)
+            return False
+        try:
+            msg = lane.recv_request()
+        except MXNetError:
+            # a corrupt ring record poisons the whole lane (framing is
+            # lost) — kill the lane; the follower's stall watchdog
+            # fails over to TCP and replays its window
+            self._drop_lane(st)
+            return False
+        if msg is None:
+            return False
+        if msg and msg[0] == "req":
+            _, cid, seq, inner = msg[:4]
+            self._note_heard(cid)
+            if self._defer_collect(st, pending, cid, seq, inner, True):
+                return True
+            reply = self._exactly_once(cid, seq, inner, st=st)
+        else:
+            reply = ("ok", None)
+        self._reply(st, conns, reply, True)
+        return True
+
+    def _defer_collect(self, st, pending, cid, seq, inner, via_shm):
+        """Park a mesh_collect whose wire round is not registered yet.
+        Blocking this pool thread on ``_handles`` instead would be a
+        deadlock: another follower's mesh_push — the frame the round
+        needs to complete — may be sitting unread on a connection this
+        same thread owns.  Returns True when parked."""
+        import time as _time
+        if not inner or inner[0] != "mesh_collect":
+            return False
+        with self._cv:
+            have = self._dedup.get(cid)
+            if have is not None and have[0] == seq:
+                return False   # replay with a cached reply — serve now
+            if int(inner[1]) in self._handles or self._stop.is_set():
+                return False   # resolvable (or failing fast) already
+        pending.append((st, cid, seq, inner, via_shm,
+                        _time.monotonic() + self._fanin_s))
+        return True
+
+    def _scan_pending(self, conns, pending):
+        import time as _time
+        if not pending:
+            return False
+        busy = False
+        for item in list(pending):
+            st, cid, seq, inner, via_shm, deadline = item
+            with self._cv:
+                have = self._dedup.get(cid)
+                served = (int(inner[1]) in self._handles
+                          or self._stop.is_set()
+                          or (have is not None and have[0] == seq))
+            if served:
+                pending.remove(item)
+                reply = self._exactly_once(cid, seq, inner, st=st)
+                self._reply(st, conns, reply, via_shm)
+                busy = True
+            elif _time.monotonic() > deadline:
+                pending.remove(item)
+                self._reply(st, conns, (
+                    "err", f"MXNetError: mesh leader {self._uri}: no "
+                           f"wire round registered for collect seq "
+                           f"{int(inner[1])} within {self._fanin_s}s"),
+                    via_shm)
+                busy = True
+        return busy
+
+    def _reply(self, st, conns, reply, via_shm, reply_kind="ici_sent"):
+        """Send a reply back the way the request came: shm-borne
+        requests get shm replies (falling back to the socket when the
+        reply outgrows the ring — the follower polls both)."""
+        from . import wirecodec as _codec
+        from .kvstore_server import _send_msg
+        if via_shm and st.lane is not None and not st.lane.dead():
+            try:
+                if st.lane.send_reply(
+                        reply, binary_ok=_codec.sock_binary(st.sock)):
+                    return
+            except MXNetError:
+                self._drop_lane(st)
+        try:
+            _send_msg(st.sock, reply, byte_kind=reply_kind)
+        except (ConnectionError, OSError):
+            self._drop_conn(st, conns)
+
+    def _note_heard(self, cid):
+        import time as _time
+        if not isinstance(cid, (tuple, list)) or not cid:
+            return
+        try:
+            rank = int(cid[0])
+        except (TypeError, ValueError):
+            return
+        with self._cv:
+            self._last_heard[rank] = _time.monotonic()
+
+    def _drop_lane(self, st):
+        lane, st.lane = st.lane, None
+        if lane is None:
+            return
+        try:
+            lane.mark_dead()
+        except Exception:  # noqa: BLE001 — segment may be gone
+            pass
+        lane.close()
+
+    def _drop_conn(self, st, conns):
+        self._drop_lane(st)
+        try:
+            st.sock.close()
+        except OSError:
+            pass
+        try:
+            conns.remove(st)
+        except ValueError:
+            pass
+        try:
+            self._conns.remove(st.sock)
+        except ValueError:
+            pass
+
+    def _exactly_once(self, cid, seq, inner, st=None):
+        """Per-CLIENT single-slot dedup, keyed (client_id, seq) like
+        the real server's window so a reconnect REPLAY — which arrives
+        on a FRESH connection whose thread has no local state — still
+        hits the cache instead of re-executing (a re-executed
+        mesh_push would double a follower's gradient in the round).
+        One slot per client suffices: mesh channels run window 1, so
+        at most one envelope per follower is ever unacked.  A replay
+        racing the original's in-flight execution parks until its
+        reply is stored (the zombie-duplicate shape the real server's
+        window also covers)."""
+        with self._cv:
+            while True:
+                have = self._dedup.get(cid)
+                if have is not None and have[0] == seq:
+                    return have[1]
+                if self._dedup_inflight.get(cid) != seq:
+                    self._dedup_inflight[cid] = seq
+                    break
+                if not self._cv.wait(timeout=self._fanin_s):
+                    return ("err", "mesh leader: duplicate envelope "
+                                   "parked past the fan-in budget")
+        rank = None
+        if isinstance(cid, (tuple, list)) and cid:
+            try:
+                rank = int(cid[0])
+            except (TypeError, ValueError):
+                rank = None
+        try:
+            reply = ("ok", self._handle(inner, st=st, rank=rank))
+        except Exception as exc:  # noqa: BLE001
+            reply = ("err", f"{type(exc).__name__}: {exc}")
+        with self._cv:
+            self._dedup[cid] = (seq, reply)
+            if self._dedup_inflight.get(cid) == seq:
+                del self._dedup_inflight[cid]
+            self._cv.notify_all()
+        return reply
+
+    def _handle(self, inner, st=None, rank=None):
+        from . import profiler as _prof
+        op = inner[0]
+        if op == "mesh_push":  # protocol: replay(dedup-window) reply(none) codec(binary)
+            _, seq, pairs = inner
+            with self._cv:
+                self._pushes.setdefault(int(seq), []).append(pairs)
+                if rank is not None:
+                    self._push_ranks.setdefault(int(seq), set()).add(rank)
+                self._cv.notify_all()
+            _prof.record_channel_event("kvstore.mesh_push")
+            return None
+        if op == "mesh_collect":  # protocol: replay(dedup-window) reply(key -> ndarray) codec(binary)
+            _, seq, keys = inner
+            seq = int(seq)
+            with self._cv:
+                ok = self._cv.wait_for(
+                    lambda: seq in self._handles or self._stop.is_set(),
+                    timeout=self._fanin_s)
+                if not ok or self._stop.is_set():
+                    raise MXNetError(
+                        f"mesh leader {self._uri}: no wire round "
+                        f"registered for collect seq {seq} within "
+                        f"{self._fanin_s}s")
+                entry = self._handles[seq]
+            vals = entry[0].wait()   # thread-safe, idempotent
+            with self._cv:
+                entry[1] += 1
+                if entry[1] >= self._n_followers:
+                    self._handles.pop(seq, None)
+            _prof.record_channel_event("kvstore.mesh_collect")
+            return {k: vals[k] for k in keys}
+        if op == "shm_hello":  # protocol: replay(idempotent) reply(lane version | err)
+            # follower created a shared-memory lane and names its
+            # segment; attach and serve this connection's traffic off
+            # the ring from here on.  Idempotent: re-attaching the same
+            # segment (reconnect replay) just replaces the attachment.
+            from . import shmlane
+            _, name = inner[:2]
+            if st is None:
+                raise MXNetError(
+                    "mesh leader: shm_hello outside a connection")
+            lane = shmlane.ShmLane.attach(str(name))
+            self._drop_lane(st)
+            st.lane = lane
+            _prof.record_channel_event("kvstore.shm_attach")
+            return shmlane.VERSION
+        if op == "command":  # protocol: replay(pure) reply(none)
+            return None   # follower channel flush token
+        raise MXNetError(f"mesh leader: unknown op {op!r}")
+
+
+class _MeshConnState:
+    """Per-connection state owned by exactly one acceptor-pool thread:
+    the socket, the (optional) attached shm lane serving it, and the
+    latched byte-kind for liveness pings."""
+
+    __slots__ = ("sock", "lane", "recv_kind")
+
+    def __init__(self, sock):
+        self.sock = sock
+        self.lane = None
+        self.recv_kind = "ici_recv"
+
+
+class _MeshAcceptor:
+    """One worker of the mesh leader's bounded serve pool.  The accept
+    thread hands connections over via ``inbox`` (a queue.Queue — the
+    put/get pair is the happens-before edge for the socket object);
+    ``poke()`` wakes the worker out of its select so adoption and
+    shutdown are prompt."""
+
+    def __init__(self, leader):
+        import queue
+        import socket
+        self.inbox = queue.Queue()
+        self.wake_r, self._wake_w = socket.socketpair()
+        self.wake_r.setblocking(False)
+        # analysis: allow(bare-thread): pool threads serve sockets the leader owns — close() closes those sockets and pokes the wake pipe, so a crashed worker surfaces as dropped connections and loud channel failures on every follower it served
+        self.thread = threading.Thread(target=leader._serve_pool,
+                                       args=(self,), daemon=True)
+        self.thread.start()
+
+    def adopt(self, conn):
+        self.inbox.put(conn)
+        self.poke()
+
+    def poke(self):
+        try:
+            self._wake_w.send(b"\x00")
+        except OSError:
+            pass
+
+    def close_wake(self):
+        for s in (self.wake_r, self._wake_w):
+            try:
+                s.close()
+            except OSError:
+                pass
+
+
 class KVStoreDistAsync(KVStore):
     """Worker-side kvstore ``dist_async`` (reference: kvstore_dist.h worker
     + the server's immediate-apply branch, kvstore_dist_server.h:405-430).
@@ -1134,11 +1896,6 @@ class KVStoreDistAsync(KVStore):
                 "(MXT_SERVER_URIS is set by the launcher; a serving "
                 "replica passes param_servers= explicitly)")
         from .base import env as _env
-        if _env("MXNET_KVSTORE_HIERARCHY", False):
-            raise MXNetError(
-                "kvstore dist_async: MXNET_KVSTORE_HIERARCHY (the "
-                "hierarchical tier) is not ported to mxnet_tpu_torch yet "
-                "(ROADMAP E2)")
         uri_list = uris.split(",")
         # -- elastic membership (mxnet_tpu.membership) --------------------
         # The env uris are only the BOOTSTRAP set: under
@@ -1273,6 +2030,20 @@ class KVStoreDistAsync(KVStore):
         # silence on any worker-server channel becomes visible job-wide
         from . import distributed as _dist
         _dist._register_dead_node_source(self)
+        # -- hierarchical tier (MXNET_KVSTORE_HIERARCHY) ------------------
+        # Workers sharing a host form a group: the followers hand their
+        # gradients to the group's leader over an in-host channel (the
+        # shm lane where it can), the leader sums them on its device and
+        # ONLY the leader ships the reduced gradient over the TCP wire,
+        # fanning the pulled weights back in-host
+        self._hier = False
+        self._mesh_leader = None    # leader-side endpoint
+        self._mesh_conn = None      # follower-side channel to the leader
+        self._mesh_group = None
+        self._mesh_push_seq = 0
+        self._mesh_pull_seq = 0
+        if _env("MXNET_KVSTORE_HIERARCHY", False):
+            self._init_hierarchy()
 
     @property
     def rank(self) -> int:
@@ -1295,6 +2066,112 @@ class KVStoreDistAsync(KVStore):
         return self._conns[server_index(k, len(self._conns))]
 
     # -- big-array striping --------------------------------------------------
+    # -- hierarchical tier (MXNET_KVSTORE_HIERARCHY) --------------------------
+    def _init_hierarchy(self):
+        """Resolve this worker's host group (membership.mesh_group over
+        the launch topology) and bring up its side of the tier: the
+        leader binds the group's loopback endpoint (_MeshLeader), the
+        followers dial it and negotiate the shm lane.  A one-member
+        group (or a 1-worker job) is flat: the tier stays off."""
+        from .base import env as _env
+        from . import membership as _mem
+        if self._elastic:
+            raise MXNetError(
+                "MXNET_KVSTORE_HIERARCHY does not compose with "
+                "MXNET_KVSTORE_ELASTIC yet: the mesh group is derived "
+                "from the static launch topology, and a roster bump "
+                "would strand the in-host tier.  Run elastic jobs flat")
+        per_host = int(_env("MXNET_KVSTORE_WORKERS_PER_HOST", 0))
+        if per_host <= 0:
+            raise MXNetError(
+                "MXNET_KVSTORE_HIERARCHY=1 needs the host topology: "
+                "launch with `tools/launch.py --workers-per-host N` "
+                "(which also allocates MXT_MESH_URIS), or set "
+                "MXNET_KVSTORE_WORKERS_PER_HOST and MXT_MESH_URIS "
+                "explicitly")
+        nworkers = int(os.environ.get("DMLC_NUM_WORKER", "1"))
+        leader, members, gi = _mem.mesh_group(
+            self.rank, range(nworkers), per_host)
+        if len(members) <= 1:
+            return   # a single-member group has nothing to reduce
+        mesh_uris = os.environ.get("MXT_MESH_URIS", "")
+        uris = [u for u in mesh_uris.split(",") if u]
+        if gi >= len(uris):
+            raise MXNetError(
+                f"MXNET_KVSTORE_HIERARCHY: no mesh endpoint for host "
+                f"group {gi} in MXT_MESH_URIS={mesh_uris!r} - launch "
+                "with tools/launch.py --workers-per-host, or export "
+                "one host:port per group")
+        self._hier = True
+        self._mesh_group = members
+        if self.rank == leader:
+            self._mesh_leader = _MeshLeader(
+                uris[gi], n_followers=len(members) - 1,
+                follower_ranks=[r for r in members if r != leader])
+        else:
+            # window 1: the replay window is one envelope, which the
+            # leader's one-slot dedup makes exactly-once
+            self._mesh_conn = _ServerConn(
+                uris[gi], window=1, rank=self.rank,
+                byte_kinds=("ici_sent", "ici_recv"))
+            # same-host fast path: one memcpy into a shared-memory ring
+            # instead of a socket round trip (MXNET_KVSTORE_SHM; the
+            # channel stays on TCP if the lane cannot be set up)
+            self._mesh_conn.setup_shm_lane()
+
+    def _mesh_reduce(self, pairs, contribs):
+        """The leader's sum of its own gradients with every follower's
+        round contribution (:func:`_local_allreduce_sum`, on the device
+        of the leader's gradient).  Key sets must match: the group runs
+        the same program."""
+        by_key = [dict(c) for c in contribs]
+        reduced = []
+        for k, agg in pairs:
+            parts = [agg]
+            for c in by_key:
+                if k not in c:
+                    raise MXNetError(
+                        f"hierarchical push: follower contribution is "
+                        f"missing key {k!r} - the group's push rounds "
+                        "have diverged (mesh members must run the same "
+                        "program)")
+                parts.append(c[k])
+            if any(isinstance(p, RowSparsePayload) for p in parts):
+                reduced.append((k, self._merge_sparse(
+                    [p if isinstance(p, RowSparsePayload) else _host_np(p)
+                     for p in parts])))
+                continue
+            reduced.append((k, _local_allreduce_sum(parts)))
+        return reduced
+
+    @staticmethod
+    def _merge_sparse(parts):
+        """Merge one round's contributions for a row-sparse key into ONE
+        deduplicated sparse sum: indices unioned, rows landing on the
+        same id accumulated, so the leader ships a single
+        RowSparsePayload.  A mixed round (a member crossed the density
+        cutover and densified its copy) becomes the dense sum."""
+        if not all(isinstance(p, RowSparsePayload) for p in parts):
+            dense = None
+            for p in parts:
+                if isinstance(p, RowSparsePayload):
+                    rows = np.asarray(p.data)
+                    d = np.zeros((p.nrows,) + rows.shape[1:], rows.dtype)
+                    np.add.at(d, np.asarray(p.indices, np.int64), rows)
+                else:
+                    d = np.asarray(p)
+                dense = d if dense is None else dense + d
+            return dense
+        allidx = np.concatenate(
+            [np.asarray(p.indices, np.int64) for p in parts])
+        allrows = np.concatenate(
+            [np.asarray(p.data) for p in parts], axis=0)
+        uniq, inv = np.unique(allidx, return_inverse=True)
+        summed = np.zeros((uniq.size,) + allrows.shape[1:],
+                          allrows.dtype)
+        np.add.at(summed, inv, allrows)
+        return RowSparsePayload(uniq, parts[0].nrows, summed)
+
     def _stripe_plan(self, k: str, shape):
         """Row boundaries for a striped key, or None: deterministic from
         (key, shape, num_servers) (:func:`membership.stripe_plan`), so
@@ -1958,6 +2835,39 @@ class KVStoreDistAsync(KVStore):
                 sp = self._sparse_agg(k, vs)
                 pairs.append((k, sp) if sp is not None
                              else (k, self._reduce(vs).detach()))
+            self._push_aggregated(pairs)
+
+    def _push_aggregated(self, pairs):
+        """One push round of reduced gradients ``[(key, tensor or numpy
+        or RowSparsePayload)]``, the shared tail of :meth:`push` and
+        :meth:`ship_chunk_steps`.
+
+        Under MXNET_KVSTORE_HIERARCHY this call IS one mesh round: a
+        follower reads its gradients back and deposits them with the
+        host-group leader (in-host ``ici_*`` / ``shm_*`` bytes, no
+        compression: the error-feedback residual lives where the wire
+        is) and returns; the leader blocks for the group's round, sums
+        on its device (``kv.mesh_reduce``) and ships ONE summed push a
+        key through :meth:`_push_planned` (``kv.leader_ship``:
+        compression, striping and coalescing all act on the sum)."""
+        if not self._hier:
+            self._push_planned(pairs)
+            return
+        seq = self._mesh_push_seq
+        self._mesh_push_seq += 1
+        if self._mesh_conn is not None:   # follower
+            self._mesh_conn.submit(
+                ("mesh_push", seq,
+                 [(k, a if isinstance(a, RowSparsePayload)
+                   else _host_np(a)) for k, a in pairs]),
+                wait=False)
+            return
+        with _tr.span("kv.mesh_reduce", cat="hier",
+                      args={"seq": seq, "keys": len(pairs)}):
+            contribs = self._mesh_leader.collect_push(seq)
+            pairs = self._mesh_reduce(pairs, contribs)
+        with _tr.span("kv.leader_ship", cat="hier",
+                      args={"keys": len(pairs)}):
             self._push_planned(pairs)
 
     def _push_planned(self, pairs, log=True):
@@ -2094,6 +3004,17 @@ class KVStoreDistAsync(KVStore):
     def _pull_impl(self, key, out):
         assert out is not None
         keys, outs = self._canon(key, out)
+        if self._hier:
+            # one mesh round for the whole call: the leader runs (and
+            # registers) the wire pull, followers collect in-host - the
+            # same rendezvous sequence the chunked driver uses
+            vals = self.pull_async(
+                list(keys), [tuple(os_[0].shape) for os_ in outs]).wait()
+            for k, os_ in zip(keys, outs):
+                for o in os_:
+                    o._set_data(_from_host(vals[k], o._data.device,
+                                           o._data.dtype))
+            return
         entries = [self._enqueue_pull(k, tuple(os_[0].shape))
                    for k, os_ in zip(keys, outs)]
         for e, os_ in zip(entries, outs):
@@ -2118,7 +3039,7 @@ class KVStoreDistAsync(KVStore):
         gradient (tensor or numpy) a name."""
         with _tr.span("kv.ship_chunk", args={"steps": len(grads)}):
             for step in grads:
-                self._push_planned(list(zip(names, step)))
+                self._push_aggregated(list(zip(names, step)))
             return self.pull_async(list(names), list(shapes))
 
     def pull_async(self, keys, shapes):
@@ -2132,10 +3053,20 @@ class KVStoreDistAsync(KVStore):
         if isinstance(keys, str):
             keys, shapes = [keys], [shapes]
         keys = [_key(k) for k in keys]
+        if self._hier:
+            seq = self._mesh_pull_seq
+            self._mesh_pull_seq += 1
+            if self._mesh_conn is not None:   # follower
+                pending = self._mesh_conn.request(
+                    ("mesh_collect", seq, list(keys)))
+                return _MeshPullHandle(self, keys, pending)
         entries = [self._elastic_attempt(
             lambda k=k, shape=shape: self._enqueue_pull(k, shape))
             for k, shape in zip(keys, shapes)]
-        return _PullHandle(self, entries)
+        handle = _PullHandle(self, entries)
+        if self._hier:
+            self._mesh_leader.publish_handle(seq, handle)
+        return handle
 
     def _enqueue_pull(self, k, shape):
         """Issue the per-stripe pull requests of one key under the
@@ -2342,6 +3273,13 @@ class KVStoreDistAsync(KVStore):
                 self._elastic_attempt(self._elastic_refresh)
 
     def _flush_all(self):
+        if self._mesh_conn is not None:
+            # a follower's queued mesh pushes must reach the leader
+            # before its barrier arrival: the leader (also a barrier
+            # participant) arrives only after shipping them, so "every
+            # prior push visible after the barrier" holds through the
+            # tier
+            self._mesh_conn.flush()
         for c in self._conns:
             c.flush()
 
@@ -2365,6 +3303,13 @@ class KVStoreDistAsync(KVStore):
     def close(self, stop_servers=False):
         from .kvstore_server import K_STOP_SERVER
         self._closed = True
+        if self._mesh_conn is not None:
+            self._mesh_conn.close(retry=False)
+            self._mesh_conn = None
+        if self._mesh_leader is not None:
+            self._mesh_leader.close()
+            self._mesh_leader = None
+        self._hier = False
         if self._roster_member:
             # graceful departure: deregister so the surviving workers'
             # barriers re-target without waiting out a heartbeat timeout

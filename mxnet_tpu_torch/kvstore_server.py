@@ -359,7 +359,8 @@ def _frame_parts(obj, binary_ok):
     """Encode ``obj`` into its on-wire frame as an ordered list of
     bytes-likes plus counter meta ``(parts, frame_bytes, codec_bytes,
     pickle_bytes)``.  The socket path scatter-gathers the parts through
-    ``sendmsg`` (:func:`_send_msg`); receivers self-discriminate on the
+    ``sendmsg`` (:func:`_send_msg`), the same-host shm lane copies them
+    into a ring record (shmlane.py); receivers self-discriminate on the
     first byte (0xB1 = v2 binary frame, 0x00 = the legacy pickle
     frame's ``>Q`` high byte)."""
     if binary_ok and _codec.is_hot(obj):
@@ -376,6 +377,31 @@ def _frame_parts(obj, binary_ok):
     parts = [struct.pack(">QI", total, len(skel)), skel]
     parts += bufs
     return parts, 8 + total, 0, len(skel)
+
+
+def _frame_obj(data):
+    """Decode ONE complete frame from a contiguous buffer: the shm ring
+    pops whole records, so unlike :func:`_recv_msg` there is no
+    short-read loop, but the two formats and the restricted-pickle
+    trust boundary are the same."""
+    view = memoryview(data)
+    if view[0] == _codec.FRAME_MAGIC:
+        total, desc_len = struct.unpack(">QI", view[1:13])
+        desc = bytes(view[13:13 + desc_len])
+        body = bytes(view[13 + desc_len:13 + total - 4])
+        return _codec.decode_frame(desc, body)
+    total, skel_len = struct.unpack(">QI", view[:12])
+    skel = _restricted_loads(bytes(view[12:12 + skel_len]))
+    body = bytes(view[12 + skel_len:12 + total - 4])
+    refs = []
+    _collect_bufs(skel, refs)
+    if not refs:
+        return skel
+    offsets, off = {}, 0
+    for ref in sorted(refs, key=lambda r: r.i):
+        offsets[ref.i] = off
+        off += ref.nbytes
+    return _unpack(skel, body, offsets)
 
 
 def _send_msg(sock, obj, fi_role=None, byte_kind="sent"):

@@ -193,6 +193,11 @@ def transformer_lm(vocab_size, seq_len, num_layers=2, d_model=128,
 
 
 
+def get_symbol(vocab_size=1000, seq_len=128, **kwargs):
+    """:func:`transformer_lm` under the zoo's common entry name."""
+    return transformer_lm(vocab_size, seq_len, **kwargs)
+
+
 def transformer_decode_step(vocab_size, max_len, batch_size,
                             num_layers=2, d_model=128,
                             num_heads=4, num_kv_heads=None, d_ff=None,

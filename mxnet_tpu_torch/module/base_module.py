@@ -270,12 +270,21 @@ class BaseModule:
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
-            for nbatch, data_batch in enumerate(train_data):
+            data_iter = iter(train_data)
+            next_data_batch = next(data_iter, None)
+            nbatch = 0
+            while next_data_batch is not None:
+                data_batch = next_data_batch
                 if monitor is not None:
                     monitor.tic()
                 self.forward_backward(data_batch)
                 self.update()
+                # on the device for a device-capable metric: the loop's
+                # only readbacks are the callbacks' reads of the metric
                 self.update_metric(eval_metric, data_batch.label)
+                next_data_batch = next(data_iter, None)
+                if next_data_batch is not None:
+                    self.prepare(next_data_batch)
                 if monitor is not None:
                     monitor.toc_print()
                 if batch_end_callback is not None:
@@ -284,6 +293,7 @@ class BaseModule:
                                            locals=locals())
                     for callback in _as_list(batch_end_callback):
                         callback(params)
+                nbatch += 1
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,
@@ -306,6 +316,46 @@ class BaseModule:
     @property
     def symbol(self):
         return self._symbol
+
+    @property
+    def data_names(self):
+        raise NotImplementedError()
+
+    @property
+    def output_names(self):
+        raise NotImplementedError()
+
+    @property
+    def data_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def label_shapes(self):
+        raise NotImplementedError()
+
+    @property
+    def output_shapes(self):
+        raise NotImplementedError()
+
+    def get_states(self, merge_multi_context=True):
+        """A module without state inputs has none (the JAX package's
+        default)."""
+        assert self.binded and self.params_initialized
+        return []
+
+    def set_states(self, states=None, value=None):
+        assert self.binded and self.params_initialized
+        assert not states and not value
+
+    def prepare(self, data_batch):
+        """Called by ``fit`` on the next batch before its forward (the
+        reference's hook for sparse row pulls); nothing by default."""
+
+    def get_outputs(self, merge_multi_context=True):
+        raise NotImplementedError()
+
+    def get_input_grads(self, merge_multi_context=True):
+        raise NotImplementedError()
 
     def set_params(self, arg_params, aux_params, allow_missing=False,
                    force_init=True, allow_extra=False):

@@ -26,11 +26,14 @@ from .module import Module
 class BucketingModule(BaseModule):
     """reference: bucketing_module.py:35.  ``sym_gen(bucket_key)``
     returns ``(symbol, data_names, label_names)``; ``compute_dtype``
-    goes to every bucket's Module."""
+    goes to every bucket's Module; ``work_load_list`` (the reference's
+    split of a batch over devices) changes nothing on one device, as in
+    the JAX package's Module."""
 
     def __init__(self, sym_gen, default_bucket_key=None, logger=logging,
-                 context=None, fixed_param_names=None, state_names=None,
-                 compute_dtype=None, mesh=None, sharding_rules=None):
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 state_names=None, compute_dtype=None, mesh=None,
+                 sharding_rules=None):
         super().__init__(logger=logger)
         assert default_bucket_key is not None
         if mesh is not None or sharding_rules is not None:

@@ -302,6 +302,23 @@ class Module(BaseModule):
                     arrays[i] = src
         self.params_initialized = shared_module.params_initialized
 
+    def bump_serving_version(self, version=None):
+        """Publish the CURRENT server-side weights to serving replicas
+        watching this job's parameter servers (the train-and-serve
+        topology).  Needs update-on-kvstore over a dist store: the
+        servers then hold the live weights, so publication is a version
+        bump (:func:`mxnet_tpu_torch.serving.publish_version`) and the
+        replicas pull the weights at their next refresh check."""
+        assert self.optimizer_initialized
+        if self._kvstore is None or not self._update_on_kvstore \
+                or "dist" not in self._kvstore.type:
+            raise MXNetError(
+                "bump_serving_version needs update-on-kvstore over a "
+                "dist store (the servers must HOLD the live weights a "
+                "replica can pull) - init_optimizer(kvstore='dist_async')")
+        from ..serving import publish_version
+        return publish_version(self._kvstore, version)
+
     def borrow_optimizer(self, shared_module):
         """Apply updates through ``shared_module``'s optimizer, updater
         and states (reference: module.py borrow_optimizer; every bucket
@@ -590,6 +607,10 @@ class Module(BaseModule):
             arr._set_data(src._data.to(arr._data.device))
 
     def update_metric(self, eval_metric, labels):
-        eval_metric.update_dict(
+        """Fold the outputs into ``eval_metric`` on the device where the
+        metric has a device form (:meth:`EvalMetric.accumulate_dict`):
+        the host reads the metric back only when a callback reads it, as
+        in the JAX package."""
+        eval_metric.accumulate_dict(
             dict(zip(self._label_names, labels or [])),
             dict(zip(self._output_names, self.get_outputs())))

@@ -67,7 +67,9 @@ class PythonModule(BaseModule):
 
     def update_metric(self, eval_metric, labels):
         if self._label_shapes is not None:
-            eval_metric.update_dict(
+            # on the device where the metric has a device form, as
+            # Module.update_metric does
+            eval_metric.accumulate_dict(
                 dict(zip(self._label_names, labels or [])),
                 dict(zip(self._output_names, self.get_outputs())))
 

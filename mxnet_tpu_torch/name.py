@@ -1,7 +1,8 @@
 """Automatic symbol naming (reference: python/mxnet/name.py).
 
 PyTorch counterpart of ``mxnet_tpu/name.py``: ``NameManager`` assigns
-``{op}{counter}`` names to anonymous symbols.
+``{op}{counter}`` names to anonymous symbols; ``Prefix`` prepends a scope
+prefix.  Both are context managers.
 """
 from __future__ import annotations
 
@@ -29,6 +30,18 @@ class NameManager:
 
     def __exit__(self, *args):
         NameManager._current.value = self._old_manager
+
+
+class Prefix(NameManager):
+    """Prepend a prefix to all names created inside the scope."""
+
+    def __init__(self, prefix):
+        super().__init__()
+        self._prefix = prefix
+
+    def get(self, name, hint):
+        name = super().get(name, hint)
+        return self._prefix + name
 
 
 def current():

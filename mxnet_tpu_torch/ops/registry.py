@@ -81,6 +81,11 @@ def alias(new_name: str, existing: str):
     _OP_REGISTRY[new_name] = _OP_REGISTRY[existing]
 
 
+def op_count() -> int:
+    """Distinct ops registered (aliases counted once)."""
+    return len({id(v) for v in _OP_REGISTRY.values()})
+
+
 def get(name: str) -> OpDef:
     try:
         return _OP_REGISTRY[name]

@@ -210,6 +210,14 @@ class Optimizer:
         return (state,)
 
     # -- lr / wd ---------------------------------------------------------------
+    def set_learning_rate(self, lr):
+        """Set the base learning rate; refused, as in the JAX package,
+        when an LRScheduler owns it."""
+        if self.lr_scheduler is not None:
+            raise UserWarning("LRScheduler of the optimizer has already been "
+                              "defined.")
+        self.lr = lr
+
     def set_lr_mult(self, args_lr_mult):
         self.lr_mult = {}
         if self.sym is not None:
@@ -841,13 +849,22 @@ class Updater:
             self.states[index] = \
                 self.optimizer.create_state_multi_precision(index, weight)
         elif not self.states_synced.get(index, True):
-            dev = weight._data.device
-            self.states[index] = tuple(
-                None if st is None else NDArray(st._data.to(dev))
-                for st in self.optimizer._state_tuple(self.states[index]))
+            self.states[index] = self.sync_state_context(
+                self.states[index], weight.context)
         self.states_synced[index] = True
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
+
+    def sync_state_context(self, state, context):
+        """``state`` (an NDArray, or a tuple of them and None) moved to
+        ``context``, as the JAX package's updater moves loaded states to
+        the weight's context."""
+        if isinstance(state, NDArray):
+            return state.as_in_context(context)
+        if isinstance(state, (tuple, list)):
+            return tuple(self.sync_state_context(i, context)
+                         if i is not None else None for i in state)
+        return state
 
     def get_states(self, dump_optimizer=False):
         if dump_optimizer:

@@ -60,6 +60,13 @@ class Node:
     def is_variable(self):
         return self.op is None
 
+    def opdef(self):
+        """The op's registry entry (None for a variable)."""
+        return _reg.get(self.op) if self.op else None
+
+    def num_outputs(self) -> int:
+        return node_num_outputs(self)
+
 
 def node_num_outputs(node: Node) -> int:
     if node.op is None:
@@ -378,14 +385,42 @@ class Symbol:
                 out[n.name] = attrs
         return out
 
+    def eval(self, ctx=None, **kwargs):
+        """Bind the given arrays by name and run one inference forward;
+        the outputs."""
+        ex = self.bind(ctx, kwargs)
+        return ex.forward()
+
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None, shared_exec=None):
+        """An :class:`~mxnet_tpu_torch.executor.Executor` over the given
+        arrays (reference: MXExecutorBind)."""
+        from ..executor import Executor
+        return Executor(self, ctx, args=args, args_grad=args_grad,
+                        grad_req=grad_req, aux_states=aux_states,
+                        group2ctx=group2ctx, shared_exec=shared_exec)
+
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
-                    compute_dtype=None, **shapes):
+                    group2ctx=None, shared_arg_names=None, shared_exec=None,
+                    shared_buffer=None, compute_dtype=None, **shapes):
         """Bind with arrays allocated from the given input shapes
-        (:meth:`mxnet_tpu_torch.executor.Executor.simple_bind`)."""
+        (:meth:`mxnet_tpu_torch.executor.Executor.simple_bind`).  A
+        keyword that names no input is ignored, as in the JAX package;
+        ``group2ctx``, ``shared_arg_names``, ``shared_exec`` and
+        ``shared_buffer`` are the reference's parameters, never input
+        shapes, and change nothing (one device; the caching allocator
+        shares memory)."""
         from ..executor import Executor
         return Executor.simple_bind(self, ctx, grad_req=grad_req,
-                                    type_dict=type_dict, shapes=shapes,
+                                    type_dict=type_dict,
+                                    shared_exec=shared_exec, shapes=shapes,
                                     compute_dtype=compute_dtype)
+
+    def grad(self, wrt):
+        """Refused, as in the JAX package: bind and run ``backward``
+        (autograd differentiates the whole graph)."""
+        raise MXNetError("Symbol.grad is not supported; bind and use "
+                         "backward (autograd differentiates the whole graph)")
 
     # -- shape inference ----------------------------------------------------
     def infer_shape(self, *args, **kwargs):

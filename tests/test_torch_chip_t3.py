@@ -33,6 +33,18 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def _clean_slate():
+    """Each case starts with the port's flight recorder clean and no
+    fault plan armed: a replica's self-reported verdict is its process's
+    roll-up, so channel poison left by an earlier test file in the same
+    worker would read CRITICAL to the fleet."""
+    mt.health.reset()
+    mt.faultinject.reset()
+    yield
+    mt.faultinject.reset()
+
+
 def test_fleet_serve_phase_on_a_small_resnet(tmp_path, monkeypatch):
     # a quarter of the card's storm over buckets up to 8: bf16 forwards
     # of 32 rows are slow on the CPU

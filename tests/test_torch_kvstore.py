@@ -209,23 +209,70 @@ def test_kvstore_type_and_rank():
         mt.kv.create('tpu')
 
 
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
 @pytest.mark.parametrize("name", ["dist_async", "dist_sync",
                                   "dist_device_sync", "dist"])
 def test_distributed_types_raise_naming_e1(name, monkeypatch):
     """E1 made these types: ``create`` gives what the JAX package's
     gives (``dist_async`` without servers raises, naming the launcher,
     in both), a Trainer takes the type by name, and what is still left
-    to E2 (the hierarchical tier) raises, naming E2; under
-    ``MXNET_KVSTORE_ELASTIC`` the store joins an elastic server's
-    roster (E2's elastic half)."""
+    to E2 (the hierarchical tier) comes up as a group leader, and
+    refuses without the host topology or beside elastic membership, as
+    in the JAX package; under ``MXNET_KVSTORE_ELASTIC`` the store joins
+    an elastic server's roster (E2's elastic half)."""
     monkeypatch.delenv("MXT_SERVER_URIS", raising=False)
     if name == "dist_async":
         for pkg in PKGS:
             with pytest.raises(pkg.base.MXNetError, match="launch"):
                 pkg.kv.create(name)
+        # the hierarchical tier (E2) comes up: a group leader binds its
+        # in-host endpoint, as in the JAX package; without the host
+        # topology both packages refuse, naming the launcher's flag
         monkeypatch.setenv("MXNET_KVSTORE_HIERARCHY", "1")
-        with pytest.raises(mt.MXNetError, match="E2"):
-            mt.kv.KVStoreDistAsync(uris="127.0.0.1:1")
+        srv = mt.kvstore_server.KVStoreServer(num_workers=2)
+        srv.start_background()
+        for pkg in PKGS:
+            with mt.cpu(), pytest.raises(pkg.base.MXNetError,
+                                         match="workers-per-host"):
+                pkg.kv.KVStoreDistAsync(uris=f"127.0.0.1:{srv.port}")
+        monkeypatch.setenv("MXNET_KVSTORE_WORKERS_PER_HOST", "2")
+        monkeypatch.setenv("DMLC_NUM_WORKER", "2")
+        monkeypatch.setenv("MXT_MESH_URIS", f"127.0.0.1:{_free_port()}")
+        try:
+            with mt.cpu():
+                kv = mt.kv.KVStoreDistAsync(uris=f"127.0.0.1:{srv.port}",
+                                            rank=0)
+                assert kv._hier and kv._mesh_leader is not None
+                assert kv._mesh_group == (0, 1)
+                kv.close()
+        finally:
+            srv.stop()
+        monkeypatch.delenv("MXNET_KVSTORE_WORKERS_PER_HOST")
+        monkeypatch.delenv("DMLC_NUM_WORKER")
+        monkeypatch.delenv("MXT_MESH_URIS")
+        # ... but not with elastic membership, in either package
+        monkeypatch.setenv("MXNET_KVSTORE_ELASTIC", "1")
+        for pkg in PKGS:
+            srv = pkg.kvstore_server.KVStoreServer(elastic=True)
+            srv._roster_servers = [f"127.0.0.1:{srv.port}"]
+            srv.start_background()
+            try:
+                with mt.cpu():
+                    with pytest.raises(pkg.base.MXNetError,
+                                       match="HIERARCHY"):
+                        pkg.kv.KVStoreDistAsync(
+                            uris=f"127.0.0.1:{srv.port}")
+            finally:
+                srv.stop()
+        monkeypatch.delenv("MXNET_KVSTORE_ELASTIC")
         monkeypatch.delenv("MXNET_KVSTORE_HIERARCHY")
         monkeypatch.setenv("MXNET_KVSTORE_ELASTIC", "1")
         srv = mt.kvstore_server.KVStoreServer(elastic=True)

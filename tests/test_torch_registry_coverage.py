@@ -1,12 +1,19 @@
 """The port's operator registry covers the JAX package's: every op name
 and alias that ``mxnet_tpu/ops`` registers is registered in
 ``mxnet_tpu_torch/ops``, but for the listed exceptions, each with its
-reason.
+reason.  The modules' names do too, and the public API of every module
+both packages have: every public class and function, every public
+attribute of a class and every method's parameter names, against the
+listed by-design absences (``API_ABSENT``, ``SIGNATURE_DIFFERS``,
+``PORT_EXTRA_PARAMS``).
 
 Both registries are read in this test's own process, after importing
 both packages (each import registers all of its ops), so the test does
 not depend on which other tests ran in the same worker.  The port never
 imports the JAX package; only this test does."""
+import inspect
+import os
+
 import pytest
 
 import mxnet_tpu  # noqa: F401  registers the JAX package's ops
@@ -46,8 +53,8 @@ import mxnet_tpu_torch as mt  # noqa: E402
 # names the port's front-end modules lack, with the ROADMAP item that
 # ports them (the record iterators came with C3, data IO; the
 # single-process kvstore with C2; checkpoints and observability with C4
-# and C6; the distributed plane with E1; the serving wire with T3 and
-# elastic membership with E2's first half)
+# and C6; the distributed plane with E1; the serving wire with T3;
+# elastic membership, the hierarchical tier and its shm lane with E2)
 MODULE_NOT_PORTED = {
     # the JAX package's AOT artifact (jax.export to StableHLO), the
     # counterpart of the reference's C predict API: in PyTorch it would
@@ -57,14 +64,6 @@ MODULE_NOT_PORTED = {
     ("contrib.export", "export_checkpoint"): "C7 (the C ABI)",
     ("contrib.export", "ExportedModel"): "C7 (the C ABI)",
     ("contrib.export", "load"): "C7 (the C ABI)",
-    # the same-host shm lane and its fault plan, which only the
-    # hierarchical tier reaches: only E2's mesh leader serves the lane
-    ("shmlane", "ShmLane"): "E2 (the hierarchical tier)",
-    ("shmlane", "client_enabled"): "E2 (the hierarchical tier)",
-    ("shmlane", "mode"): "E2 (the hierarchical tier)",
-    ("shmlane", "ring_bytes"): "E2 (the hierarchical tier)",
-    ("faultinject", "shm_drain_gate"): "E2 (the hierarchical tier)",
-    ("faultinject", "shm_wedge_after_frames"): "E2 (the hierarchical tier)",
 }
 FRONT_END = ("optimizer", "metric", "initializer", "io", "callback",
              "model", "module", "attribute", "lr_scheduler", "kvstore")
@@ -179,9 +178,9 @@ def test_top_level_names_differ_only_by_the_listed_set():
         missing ^ set(TOP_NOT_PORTED))
 
 
-# the distributed plane (E1): every public name of these JAX modules is in
-# the port's module of the same name, but for the listed ones; a module
-# the port lacks (shmlane, E2) has every name listed
+# the distributed plane (E1, and E2's shm lane): every public name of these
+# JAX modules is in the port's module of the same name, but for the listed
+# ones
 E1 = ("kvstore", "kvstore_server", "distributed", "compression",
       "wirecodec", "faultinject", "shmlane", "membership", "analysis.hb")
 
@@ -219,3 +218,185 @@ def test_serving_all_equals_the_jax_package():
     for n in jserving.__all__:
         assert hasattr(mt.serving, n), n
     assert mt.serving.VERSION_KEY == jserving.VERSION_KEY
+
+
+# -- the public API of every ported module ------------------------------------
+# Every public class and function a module of the JAX package defines is in
+# the port's module of the same name, and every public attribute of such a
+# class is on the port's class, with the JAX method's parameter names among
+# the port method's (the port may add its own after them: ``ctx``,
+# ``compute_dtype``, a ``timeout``), but for the listed absences, each with
+# its reason.  (module, class or None, attribute or name) -> reason; a class
+# "*" is every class of the module.
+_JAX_ONLY = "by design: it exists for XLA / jax.jit and has no meaning in " \
+            "the port, which runs eagerly on torch"
+API_ABSENT = {
+    ("context", "Context", "jax_device"):
+        "by design: the PJRT device of the JAX package; the port's is "
+        "Context.torch_device",
+    ("context", None, "tpu"): "by design: the port's devices are gpu(i)",
+    ("context", None, "num_tpus"): "by design: the port's devices are gpu(i)",
+    ("module.module", "Module", "fused_step_hlo"):
+        "by design: the HLO text of the jitted fused step",
+    ("module.module", "Module", "fused_step_flops"):
+        "by design: XLA's cost analysis of the jitted fused step",
+    ("optimizer", "*", "hyperparam_signature"):
+        "by design: the key of the JAX package's compiled-update cache",
+    ("optimizer", "*", "pure_update"):
+        "by design: the functional update traced into the JAX package's "
+        "lax.scan of K steps; the port's run_steps runs the stateful update",
+    ("rtc", None, "PallasKernel"):
+        "by design: a Pallas kernel; the port's run-time kernels are "
+        "CUDA (rtc.CudaModule), and the Pallas doubler's port is "
+        "csrc/rtc_doubler.cu",
+    ("base", None, "Registry"):
+        "by design: the JAX package's generic registry class; the port's "
+        "registries are the op registry (ops.registry) and plain dicts",
+    ("base", None, "tag_for_remat"): "by design: a jax.checkpoint name "
+        "for XLA's rematerialization policy",
+    ("base", None, "list_env_tunables"):
+        "F1 (tooling): the autotuner's search spaces (declare_env(tune=)) "
+        "come with the port of autotune/",
+    ("random", None, "next_key"): "by design: JAX PRNG keys; the port's "
+        "streams are torch generators (random.seed)",
+    ("random", None, "split_key"): "by design: JAX PRNG keys",
+    ("random", None, "key_for"): "by design: JAX PRNG keys",
+    ("executor", "Executor", "set_shardings"):
+        "D1 (multi-GPU): GSPMD shardings of the arguments",
+    ("executor", None, "maybe_mirror"): _JAX_ONLY + " (jax.checkpoint "
+        "under MXNET_BACKWARD_DO_MIRROR)",
+    ("executor", None, "build_multi_step"): _JAX_ONLY + " (the K-step "
+        "lax.scan program)",
+    ("executor", None, "scan_cache_lookup"): _JAX_ONLY + " (the compiled "
+        "scan cache)",
+    ("executor", None, "scan_cache_store"): _JAX_ONLY + " (the compiled "
+        "scan cache)",
+    ("executor", None, "precompute_step_schedules"): _JAX_ONLY + " (the "
+        "learning rates of a scan, computed before it is traced)",
+    ("executor", None, "schedule_rollback"): _JAX_ONLY + " (the schedule "
+        "of a failed donated scan)",
+    ("executor", None, "make_lazy_outputs"): _JAX_ONLY + " (outputs "
+        "materialized from a fused jitted step)",
+    ("executor", None, "poison_stale"): _JAX_ONLY + " (outputs whose "
+        "buffers a donated step consumed)",
+    ("module.base_module", None, "chunked_device_get"): _JAX_ONLY +
+        " (jax.device_get in chunks)",
+    ("ops.attention", None, "pick_attention_config"):
+        "P1 (speed): the JAX package's per-shape table was measured on a "
+        "TPU; the port needs its own, measured on the card",
+    ("ops.attention", None, "pick_attention_impl"):
+        "P1 (speed): as pick_attention_config",
+}
+# methods whose JAX parameter names the port's lack, with the reason
+SIGNATURE_DIFFERS = {
+    ("kvstore", "KVStoreDistAsync", "ship_chunk_steps"):
+        "the port's chunk holds card tensors as well as numpy arrays, so "
+        "its parameter is grads, not grads_np",
+    ("gluon.rnn.rnn_layer", "*", "forward"):
+        "the states come positionally (*states): a hybridized parent's "
+        "trace passes them one by one, a user's call as one list",
+}
+# parameters the port's methods add to the JAX package's, documented here
+PORT_EXTRA_PARAMS = {
+    ("checkpoint", "AsyncCheckpointer", "wait"): ("timeout",
+        "a bounded wait for the writer thread"),
+}
+
+
+def _module_names(root):
+    out = set()
+    base = os.path.join(REPO, root)
+    for d, _dirs, files in os.walk(base):
+        for f in files:
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(d, f), base)[:-3]
+                rel = rel.replace(os.sep, ".")
+                if rel.endswith("__init__"):
+                    rel = rel[:-len(".__init__")] if "." in rel else ""
+                if rel and not any(p.startswith("_")
+                                   for p in rel.split(".")):
+                    out.add(rel)
+    return out
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORTED_MODULES = sorted(_module_names("mxnet_tpu")
+                        & _module_names("mxnet_tpu_torch"))
+
+
+def _params(f):
+    try:
+        sig = inspect.signature(f)
+    except (TypeError, ValueError):
+        return None
+    ps = list(sig.parameters.values())
+    if any(p.kind == p.VAR_KEYWORD for p in ps):
+        return None            # takes every keyword
+    return [p.name for p in ps
+            if p.kind not in (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+
+
+def _listed(table, mod, cls, attr):
+    return (mod, cls, attr) in table or (mod, "*", attr) in table
+
+
+def _api_differences(name):
+    jmod = importlib.import_module("mxnet_tpu." + name)
+    tmod = importlib.import_module("mxnet_tpu_torch." + name)
+    absent, sigs = set(), set()
+    for n, obj in vars(jmod).items():
+        if n.startswith("_") or not callable(obj) or \
+                getattr(obj, "__module__", "") != jmod.__name__:
+            continue
+        tobj = getattr(tmod, n, None)
+        if tobj is None:
+            absent.add((name, None, n))
+            continue
+        if not (inspect.isclass(obj) and inspect.isclass(tobj)):
+            continue
+        for a in sorted(set(dir(obj)) | {"__init__"}):
+            if a.startswith("_") and a != "__init__":
+                continue
+            if not hasattr(tobj, a):
+                absent.add((name, n, a))
+                continue
+            f, g = getattr(obj, a), getattr(tobj, a)
+            if not (callable(f) and callable(g)) or inspect.isclass(f):
+                continue
+            pf, pg = _params(f), _params(g)
+            if pf is not None and pg is not None and set(pf) - set(pg):
+                sigs.add((name, n, a))
+    return absent, sigs
+
+
+@pytest.mark.parametrize("name", PORTED_MODULES)
+def test_public_api_of_ported_classes_matches_the_jax_package(name):
+    """The gate of the public API: names, class attributes and the
+    methods' parameter names, against the listed by-design absences."""
+    absent, sigs = _api_differences(name)
+    unlisted = sorted(k for k in absent if not _listed(API_ABSENT, *k))
+    assert not unlisted, unlisted
+    unlisted = sorted(k for k in sigs
+                      if not _listed(SIGNATURE_DIFFERS, *k))
+    assert not unlisted, unlisted
+
+
+def test_api_absences_listed_are_absent():
+    """Every listed absence is real (a repaired one leaves the list)."""
+    seen_absent, seen_sigs = set(), set()
+    for name in PORTED_MODULES:
+        absent, sigs = _api_differences(name)
+        seen_absent |= {(m, c, a) for m, c, a in absent}
+        seen_sigs |= sigs
+    for mod, cls, attr in API_ABSENT:
+        assert any(m == mod and a == attr and (cls in ("*", c))
+                   for m, c, a in seen_absent), (mod, cls, attr)
+    for mod, cls, attr in SIGNATURE_DIFFERS:
+        assert any(m == mod and a == attr and (cls in ("*", c))
+                   for m, c, a in seen_sigs), (mod, cls, attr)
+    for (mod, cls, attr), (param, _why) in PORT_EXTRA_PARAMS.items():
+        j = getattr(getattr(importlib.import_module("mxnet_tpu." + mod),
+                            cls), attr)
+        t = getattr(getattr(importlib.import_module(
+            "mxnet_tpu_torch." + mod), cls), attr)
+        assert param in _params(t) and param not in _params(j)

@@ -178,7 +178,17 @@ Parts (all by default; each prints JSON lines):
   all-reduce): the first gradients' distance, the share of values whose
   sign flips, and the two updates' distance after each step.
 
-It imports both packages, as the tests do.
+* ``hier`` (a few minutes; the job's two ranks each train the LM at full
+  width on the CPU): the number behind ``chip_smoke.py``'s
+  ``hier_lm_fit`` margin (``part_hier``): the phase's own job (two
+  servers and a host group of two ranks under ``tools/launch.py
+  --workers-per-host 2``, every check of the phase) at its size in fp32
+  on the CPU: each step's loss (the ranks' mean) and the drop.  It needs
+  only the port, so it runs on a machine without JAX (``python
+  tests/torch_numerics.py hier``), such as the card's host.
+
+It imports both packages, as the tests do (the JAX package where it is
+installed: ``hier`` alone runs without it).
 """
 import json
 import os
@@ -188,16 +198,18 @@ import time
 import numpy as np
 import torch
 
-import jax
-import jax.numpy as jnp
-
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import mxnet_tpu as mx  # noqa: E402
-from mxnet_tpu import models as jmodels  # noqa: E402
-from mxnet_tpu.executor import build_interpreter as jbuild  # noqa: E402
-from mxnet_tpu.models.resnet import resnet as j_resnet  # noqa: E402
+try:  # every part but hier holds the port against the JAX package
+    import jax
+    import jax.numpy as jnp
+    import mxnet_tpu as mx
+    from mxnet_tpu import models as jmodels
+    from mxnet_tpu.executor import build_interpreter as jbuild
+    from mxnet_tpu.models.resnet import resnet as j_resnet
+except ImportError:  # a machine without JAX runs hier alone
+    jax = jnp = mx = jmodels = jbuild = j_resnet = None
 
 import mxnet_tpu_torch as mt  # noqa: E402
 from mxnet_tpu_torch.executor import build_interpreter as tbuild  # noqa
@@ -1259,6 +1271,32 @@ def part_e1_sync():
     return out
 
 
+def part_hier():
+    """The number behind chip_smoke.py's hier_lm_fit margin: the phase's
+    own job and checks (chip_smoke.phase_hier_lm_fit over
+    start_hier_job) at its size, fp32, on the CPU."""
+    import contextlib
+    import io
+    import tempfile
+    spec = cs.hier_spec(device="cpu", compute_dtype="float32", margin=0.0)
+    with tempfile.TemporaryDirectory() as workdir:
+        started = cs.start_hier_job(workdir, spec)
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                cs.phase_hier_lm_fit(torch, mt, workdir, started, spec)
+        finally:
+            cs.stop_hier_job(started)
+    row = json.loads(out.getvalue().strip().splitlines()[-1])
+    return dict(layers=row["layers"], batch_per_rank=row["batch_per_rank"],
+                steps=row["steps"], threshold=spec["threshold"],
+                losses=row["losses"],
+                drop=row["losses"][0] - row["losses"][-1],
+                routes=row["routes"], step_ms=row["step_ms"],
+                sum_check=row["sum_check"],
+                payload_check=row["payload_check"])
+
+
 def part_t3():
     """The numbers behind chip_smoke.py's fleet_serve gate: ResNet-50
     (1000 classes) with the checkpoint's initializer (Xavier gaussian,
@@ -1334,7 +1372,7 @@ PARTS = {"resnet": part_resnet, "deep_bn": part_deep_bn, "gluon": part_gluon,
          "zoo_data": part_zoo_data, "c1b2": part_c1b2,
          "moe_bf16": part_moe_bf16, "c8": part_c8, "c3": part_c3,
          "c2": part_c2, "e1": part_e1, "e1_sync": part_e1_sync,
-         "t3": part_t3}
+         "t3": part_t3, "hier": part_hier}
 
 if __name__ == "__main__":
     for part in sys.argv[1:] or list(PARTS):
